@@ -1,0 +1,34 @@
+"""Architecture registry of the port.
+
+Each ported architecture lives in its own module and exposes ``CONFIG``.
+``get_config(name)`` returns the full config; ``get_smoke_config(name)``
+returns the reduced (<=2 layer, d_model<=512) variant used by the CPU tests.
+Only the dense ``attn`` architectures of the serving slice are registered.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.common.config import ModelConfig  # noqa: F401
+
+_ARCH_MODULES = {
+    "llama3.2-1b": "llama3_2_1b",
+    "tiny": "tiny",
+    "small-100m": "small_100m",
+}
+
+
+def list_archs():
+    return list(_ARCH_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown or not yet ported arch {name!r}; "
+                       f"available: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
+    return mod.CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return get_config(name).reduced()

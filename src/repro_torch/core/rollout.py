@@ -1,0 +1,544 @@
+"""Slot-pool rollout engine — Concurrency-Controlled Partial Rollout.
+
+Continuous batching with CHUNKED DEVICE-SIDE DECODE: a fixed pool of ``N'``
+slots, each slot owning a region of the batched KV cache. Every engine step
+runs one loop of ``decode_chunk`` decode+sample iterations over all N' slots
+on the device (``model.decode_scan``); EOS / max-length stops are detected on
+the device, so the host reads the device once per chunk — ``(tokens, logps,
+active)`` in a single transfer — instead of once per token. The host then
+*replays* the chunk in (step, slot) order: appending tokens to trajectories,
+trimming post-stop over-generation, and refilling freed slots through ONE
+batched multi-slot prefill over a padded bucket (padding rows carry an
+out-of-range slot id and are dropped by the insert). Early termination fires
+when B groups are complete; in-flight trajectories stay in the buffer with
+their per-stage behaviour log-probs.
+
+Sampling uses a **per-trajectory PRNG stream**: the key for response token
+``j`` of trajectory ``(group_id, sample_idx)`` is::
+
+    fold_in(fold_in(fold_in(stage_key, group_id), sample_idx), j)
+
+so the sampled stream is a pure function of the trajectory identity — not of
+slot assignment, batch composition, or chunk size — and equals the JAX
+engine's on the same logits. Keys are derived on the host (they depend only
+on host state) and shipped with each chunk's inputs.
+
+Ported for the serving slice: the dense KV backend and single-turn
+trajectories, in modes "copris" | "sync" | "naive_partial". Multi-turn
+environments and the paged backend's page-gated admission are later slices.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.config import ModelConfig, RolloutConfig
+from repro_torch.common.device import resolve_device, torch_dtype
+from repro_torch.core.buffer import TrajectoryBuffer
+from repro_torch.core.scheduler import ConcurrencyScheduler
+from repro_torch.core.trajectory import Group, Trajectory
+from repro_torch.hopper import fused_sample
+from repro_torch.models import model as M
+from repro_torch.sampling import kv_cache as kvc
+from repro_torch.sampling import prng
+
+PREFILL_BUCKET = 64
+
+
+def _round_up(n, m):
+    return -(-n // m) * m
+
+
+def prefill_pad_dims(lens, n_rows, n_pending):
+    """Padded shape of one batched prefill: (padded seq len S, padded row
+    count nr, padded insert count ns). Lengths round up to the 64-token
+    bucket and counts to a power of two, so the set of shapes stays small."""
+    S = _round_up(max(lens), PREFILL_BUCKET)
+    nr = 1 << (n_rows - 1).bit_length()
+    ns = 1 << (n_pending - 1).bit_length()
+    return S, nr, ns
+
+
+def _fold_slot_keys(stage_key, gid, sidx):
+    """(n,) group ids + sample indices -> (n, 2) per-trajectory keys,
+    computed on the host."""
+    gid = torch.as_tensor(gid)
+    k = prng.fold_in(stage_key.cpu().expand(gid.shape[0], 2), gid)
+    return prng.fold_in(k, torch.as_tensor(sidx))
+
+
+def stop_flags(tok, resp_len_after, total_len_after, *, eos_id: int,
+               max_response_len: int, max_len: int):
+    """THE stop predicate — one definition shared by the device-side sampling
+    step and the host replay (`_maybe_done`), so the two cannot drift apart.
+
+    Evaluated on *post-append* quantities: ``resp_len_after`` /
+    ``total_len_after`` count the token ``tok`` that just landed. The
+    total-length bound stops at ``max_len - 1`` so the next decode step never
+    writes K/V past cache capacity. Works elementwise on tensors (device) and
+    on python ints (host). Returns ``(eos_stop, length_stop)``."""
+    eos = tok == eos_id
+    length = ((resp_len_after >= max_response_len)
+              | (total_len_after >= max_len - 1))
+    return eos, length
+
+
+class RolloutEngine:
+    def __init__(self, model_cfg: ModelConfig, ro_cfg: RolloutConfig,
+                 prompt_source: Callable[[], Tuple[np.ndarray, object]], *,
+                 eos_id: int, max_len: Optional[int] = None,
+                 env_factory: Optional[Callable] = None, device=None):
+        if env_factory is not None:
+            raise NotImplementedError(
+                "multi-turn environments (env_factory) are a later slice of "
+                "the port")
+        self.cfg = model_cfg
+        self.ro = ro_cfg
+        self.prompt_source = prompt_source
+        self.eos_id = eos_id
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(model_cfg.dtype)
+        self.pool = ro_cfg.slot_pool
+        self.max_len = max_len or _round_up(
+            ro_cfg.max_prompt_len + ro_cfg.max_response_len, PREFILL_BUCKET)
+        self._chunk = ro_cfg.decode_chunk
+
+        self.buffer = TrajectoryBuffer()
+        self.backend = kvc.make_backend(ro_cfg.kv_backend, model_cfg,
+                                        self.pool, self.max_len,
+                                        device=self.device)
+        self.cache_len = np.zeros(self.pool, np.int32)
+        self.last_token = np.zeros(self.pool, np.int32)
+        self.slot_gid = np.zeros(self.pool, np.int32)   # key-stream identity
+        self.slot_sidx = np.zeros(self.pool, np.int32)
+        self.slots: List[Optional[Trajectory]] = [None] * self.pool
+        self._group_counter = 0
+        self.stats_total = {}
+        # guards stats_total: _end_stage accumulates on whichever thread
+        # drives the stage, while other threads read totals via
+        # stats_snapshot()
+        self._stats_lock = threading.Lock()
+        # the engine OWNS its KV cache and updates it in place, so a second
+        # concurrent stage would corrupt the first one's slots; this guard
+        # turns any accidental re-entry into a loud error
+        self._collect_guard = threading.Lock()
+
+    # ------------------------------------------------------------------
+    @property
+    def cache(self):
+        """Per-layer KV tensors, owned by the backend."""
+        return self.backend.cache
+
+    def stats_snapshot(self) -> dict:
+        """Consistent copy of the lifetime stat totals."""
+        with self._stats_lock:
+            return dict(self.stats_total)
+
+    def block_until_ready(self):
+        """Wait for all work queued on the engine's device."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def prepare_params(self, params):
+        """Parameters in the engine's compute dtype and on its device (the
+        matmul weights are cast once; already-cast params pass through)."""
+        return M.cast_params(params, self.dtype, self.device)
+
+    def _sample(self, keys, logits):
+        return fused_sample.sample_rows(
+            keys, logits, temperature=self.ro.temperature,
+            top_p=self.ro.top_p, top_k=self.ro.top_k)
+
+    # ------------------------------------------------------------------
+    def _new_group(self) -> Optional[Group]:
+        # a prompt source may return None to DECLINE (finite workloads: a
+        # serving queue that is currently empty) — the scheduler then leaves
+        # the slot idle instead of opening a group with no prompt
+        src = self.prompt_source()
+        if src is None:
+            return None
+        prompt, answer = src
+        g = Group(group_id=self._group_counter,
+                  prompt_tokens=np.asarray(prompt, np.int32), answer=answer,
+                  size=self.ro.group_size)
+        self._group_counter += 1
+        return g
+
+    def _finish(self, traj: Trajectory, reason: str,
+                sched: ConcurrencyScheduler):
+        traj.done = True
+        traj.finish_reason = reason
+        sched.release(traj)
+
+    def _maybe_done(self, traj: Trajectory) -> Optional[str]:
+        if not traj.response_tokens:
+            return None
+        eos, length = stop_flags(
+            traj.response_tokens[-1], traj.response_len, traj.total_len,
+            eos_id=self.eos_id, max_response_len=self.ro.max_response_len,
+            max_len=self.max_len)
+        if eos:
+            return "eos"
+        if length:
+            return "length"
+        return None
+
+    # -- slot refill ---------------------------------------------------
+    def _resume_snapshot(self, i: int, traj: Trajectory):
+        """resume_strategy="kv_snapshot": restore the evicted slot state
+        verbatim — no re-prefill cost, but after a policy update the
+        continuation attends to STALE K/V."""
+        self.backend.insert_snapshot(traj.kv_snapshot, i)
+        self.slots[i] = traj
+        self.cache_len[i] = traj.snap_cache_len
+        self.last_token[i] = traj.snap_last_token
+        self.slot_gid[i] = traj.group_id
+        self.slot_sidx[i] = traj.sample_idx
+        traj.kv_snapshot = None
+        self._stats["resumed"] += 1
+        self._stats["snapshot_resumes"] = \
+            self._stats.get("snapshot_resumes", 0) + 1
+
+    def _dispatch_refills(self, idxs, sched: ConcurrencyScheduler):
+        """Decide what fills freed slots, in slot order (one sequential
+        scheduler dispatch per slot, so scheduling policy is invariant to the
+        decode chunk size). kv_snapshot resumes are restored in place;
+        re-prefill trajectories are returned as (slot, traj) pairs for the
+        batched prefill."""
+        pending: List[Tuple[int, Trajectory]] = []
+        queue = list(idxs)
+        while queue and not sched.done:
+            batch = sched.next_requests(len(queue))
+            exhausted = len(batch) < len(queue)
+            redo = []
+            for i, traj in zip(queue, batch):
+                if (self.ro.resume_strategy == "kv_snapshot"
+                        and traj.kv_snapshot is not None):
+                    self._resume_snapshot(i, traj)
+                    reason = self._maybe_done(traj)
+                    if reason is not None:
+                        self._finish(traj, reason, sched)
+                        self.slots[i] = None
+                        self.backend.free_slot(i)
+                        sched.harvest()
+                        redo.append(i)
+                else:
+                    pending.append((i, traj))
+            queue = redo
+            if exhausted:
+                break
+        return pending
+
+    def _prefill_pending(self, pending, params, stage_key):
+        """ONE batched prefill over all freed slots: rows padded to a common
+        PREFILL_BUCKET length, row count padded to a power of two (padding
+        rows insert to the out-of-range slot id ``pool`` and are dropped).
+        Returns the rows that finished immediately (their very first sampled
+        token already ended the trajectory)."""
+        fulls = [t.full_tokens() for _, t in pending]
+        lens = [len(f) for f in fulls]
+        for L in lens:
+            if L >= self.max_len:
+                raise ValueError(
+                    f"trajectory length {L} >= max_len {self.max_len}")
+        S, nr, ns = prefill_pad_dims(lens, len(pending), len(pending))
+        tokens = np.zeros((nr, S), np.int32)
+        lengths = np.ones(nr, np.int32)
+        for r, (f, L) in enumerate(zip(fulls, lens)):
+            tokens[r, :L] = f
+            lengths[r] = L
+            self._stats["prefill_tokens"] += L
+        slot_ids = np.full(ns, self.pool, np.int32)   # padding -> dropped
+        row_map = np.zeros(ns, np.int32)
+        gid = np.zeros(ns, np.int32)
+        sidx = np.zeros(ns, np.int32)
+        resp_idx = np.zeros(ns, np.int32)
+        for s, (i, traj) in enumerate(pending):
+            slot_ids[s] = i
+            row_map[s] = s                  # dense: one row per slot
+            gid[s] = traj.group_id
+            sidx[s] = traj.sample_idx
+            resp_idx[s] = traj.response_len
+        tok, logp = self._prefill_batch(params, tokens, lengths, slot_ids,
+                                        row_map, gid, sidx, resp_idx,
+                                        stage_key)
+        self._stats["prefill_calls"] += 1
+        self._stats["prefill_rows"] += len(pending)
+        self._stats["host_syncs"] += 1
+        finished = []
+        for s, (i, traj) in enumerate(pending):
+            traj.append(int(tok[s]), float(logp[s]), self._stage)
+            self.slots[i] = traj
+            self.cache_len[i] = lens[s]
+            self.last_token[i] = int(tok[s])
+            self.slot_gid[i] = traj.group_id
+            self.slot_sidx[i] = traj.sample_idx
+            self._stats["prefill_count"] += 1
+            if traj.resume_count > 0 and traj.response_len > 1:
+                self._stats["resumed"] += 1
+            reason = self._maybe_done(traj)
+            if reason:
+                finished.append((i, traj, reason))
+        return finished
+
+    def _prefill_batch(self, params, tokens, lengths, slot_ids, row_map,
+                       gid, sidx, resp_idx, stage_key):
+        """Device half of one batched prefill: forward the padded prompts
+        into a scratch cache sized to the bucket S (not max_len), sample each
+        slot's first token, insert the scratch rows into the slot cache.
+        Returns host (tokens, logps) from ONE transfer."""
+        dev = self.device
+        n, S = tokens.shape
+        keys = prng.fold_in(_fold_slot_keys(stage_key, gid, sidx),
+                            torch.as_tensor(resp_idx))
+        scratch = M.init_cache(self.cfg, n, S, self.dtype, dev)
+        logits, scratch = M.prefill(
+            params, self.cfg, torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(lengths).to(dev), scratch)
+        rows = torch.from_numpy(np.clip(row_map, 0, n - 1).astype(np.int64))
+        logits = logits[rows.to(dev)]
+        tok, logp = self._sample(keys.to(dev), logits)
+        kvc.dense_insert_rows(self.cache, scratch, slot_ids, row_map)
+        out = torch.stack([tok.float(), logp]).cpu().numpy()
+        return out[0].astype(np.int32), out[1]
+
+    def _prefill_rounds(self, pending, sched: ConcurrencyScheduler, params,
+                        stage_key):
+        """Batched prefill, iterated: a prefill's very first sampled token
+        may already be EOS, freeing the slot again."""
+        while pending:
+            finished = self._prefill_pending(pending, params, stage_key)
+            freed = []
+            for i, traj, reason in finished:
+                self._finish(traj, reason, sched)
+                self.slots[i] = None
+                self.backend.free_slot(i)
+                freed.append(i)
+            pending = []
+            if freed:
+                sched.harvest()
+                pending = self._dispatch_refills(freed, sched)
+
+    def _decode_chunk(self, params, live, resp_len, stage_key):
+        """Device half of one engine step: ``decode_chunk`` fused
+        decode+sample iterations over the whole pool, then ONE transfer of
+        (tokens, logps, was_active), each (D, pool).
+
+        Step d samples slot i with key fold_in(slot_key_i, resp_len_i + d).
+        For a slot active at step d that IS its current response index; for
+        an inactive slot the draw is discarded by the host replay, so keys
+        for the whole chunk are derived up front on the host."""
+        D, dev = self._chunk, self.device
+        slot_keys = _fold_slot_keys(stage_key, self.slot_gid, self.slot_sidx)
+        idx = torch.from_numpy(resp_len).to(torch.int64)[None] \
+            + torch.arange(D)[:, None]                            # (D, pool)
+        keys = prng.fold_in(slot_keys[None].expand(D, self.pool, 2),
+                            idx).to(dev)
+        eos_id, max_resp, max_len = (self.eos_id, self.ro.max_response_len,
+                                     self.max_len)
+
+        def step_fn(logits, clen, act, aux):
+            resp, d = aux
+            tok, logp = self._sample(keys[d], logits)
+            resp_new = resp + act.to(resp.dtype)
+            eos, length = stop_flags(tok, resp_new, clen + 2, eos_id=eos_id,
+                                     max_response_len=max_resp,
+                                     max_len=max_len)
+            return tok, logp, eos | length, (resp_new, d + 1)
+
+        _, (toks, logps, acts) = M.decode_scan(
+            params, self.cfg, self.cache,
+            torch.from_numpy(self.last_token).to(dev),
+            torch.from_numpy(self.cache_len).to(dev),
+            torch.from_numpy(live).to(dev),
+            (torch.from_numpy(resp_len).to(dev), 0), steps=D,
+            step_fn=step_fn)
+        out = torch.stack([toks.float(), logps, acts.float()]).cpu().numpy()
+        return out[0].astype(np.int32), out[1], out[2].astype(bool)
+
+    # ------------------------------------------------------------------
+    def collect(self, params, stage_id: int, key, *,
+                target_concurrency: Optional[int] = None
+                ) -> Tuple[List[Group], dict]:
+        """Run rollout until B complete groups are collected (early
+        termination). Returns (groups, stats). ``key`` is the stage's raw
+        (2,) uint32 key (``prng.PRNGKey``). ``collect`` is single-owner — it
+        must only ever run on one thread at a time (see ``_collect_guard``)."""
+        self.begin_stage(params, stage_id, key,
+                         target_concurrency=target_concurrency)
+        try:
+            while not self._sched.done and self.step_stage(params, key):
+                pass
+        except BaseException:
+            self._collect_guard.release()
+            raise
+        return self.end_stage()
+
+    # -- incremental stage API -----------------------------------------
+    # collect() == begin_stage + step_stage-until-idle + end_stage. The
+    # split exists so external callers (launch/serve.py's ServeEngine) can
+    # interleave their own work between decode chunks.
+
+    def begin_stage(self, params, stage_id: int, key, *,
+                    target_concurrency: Optional[int] = None
+                    ) -> ConcurrencyScheduler:
+        """Open a stage: reset per-stage stats, build the scheduler, and run
+        the initial whole-pool fill. Takes the engine's single-owner guard
+        (released by :meth:`end_stage`)."""
+        if not self._collect_guard.acquire(blocking=False):
+            raise RuntimeError(
+                "RolloutEngine stage re-entered: the engine owns its KV "
+                "cache and must be driven from a single thread")
+        if target_concurrency is not None and not (
+                1 <= target_concurrency <= self.pool):
+            self._collect_guard.release()
+            raise ValueError(
+                f"target_concurrency {target_concurrency} outside "
+                f"[1, pool={self.pool}]")
+        try:
+            self._params = self.prepare_params(params)
+            self._stage = stage_id
+            self._stats = dict(prefill_count=0, prefill_tokens=0,
+                               prefill_calls=0, prefill_rows=0,
+                               decode_steps=0, decode_chunks=0, host_syncs=0,
+                               active_slot_steps=0, slot_steps=0, generated=0,
+                               overgen_tokens=0, resumed=0, evicted=0)
+            self._t0 = time.perf_counter()
+            self._sched = ConcurrencyScheduler(
+                self.ro, self.buffer, self._new_group,
+                target_concurrency=target_concurrency)
+            if self.ro.mode == "sync" and len(self.buffer) != 0:
+                raise RuntimeError("sync mode must start with empty buffer")
+            # initial fill: one batched prefill over the whole pool
+            self._prefill_rounds(
+                self._dispatch_refills(range(self.pool), self._sched),
+                self._sched, self._params, key)
+        except BaseException:
+            self._collect_guard.release()
+            raise
+        return self._sched
+
+    def step_stage(self, params, key, *,
+                   admit_idle: Optional[bool] = None) -> bool:
+        """Run ONE decode chunk (+ its host replay and refill prefills).
+        Returns False when the engine is idle — nothing live in the pool.
+        ``admit_idle`` re-offers idle slots to the scheduler before decoding
+        (serving callers pass True so requests submitted between steps are
+        admitted immediately). The stage's params were prepared by
+        :meth:`begin_stage`; ``params`` is accepted for API parity."""
+        sched = self._sched
+        stage_id = self._stage
+        params = self._params
+        if admit_idle and not sched.done:
+            idle = [i for i in range(self.pool) if self.slots[i] is None]
+            if idle:
+                self._prefill_rounds(
+                    self._dispatch_refills(idle, sched), sched, params, key)
+        live = np.array([t is not None for t in self.slots], bool)
+        if not live.any():
+            return False               # nothing in flight and scheduler idle
+        D = self._chunk
+        resp_len = np.array([0 if t is None else t.response_len
+                             for t in self.slots], np.int32)
+        toks, logps, was_active = self._decode_chunk(params, live, resp_len,
+                                                     key)
+        self._stats["decode_chunks"] += 1
+        self._stats["host_syncs"] += 1
+        self._stats["decode_steps"] += D
+        self._stats["slot_steps"] += D * self.pool
+
+        # host replay of the chunk, in (step, slot) order
+        pending = []
+        for d in range(D):
+            if sched.done or not live.any():
+                self._stats["overgen_tokens"] += int(was_active[d:].sum())
+                break
+            if not np.array_equal(was_active[d], live):
+                raise RuntimeError("device/host stop detection desynchronised")
+            step_live = np.nonzero(live)[0]
+            self._stats["active_slot_steps"] += len(step_live)
+            freed = []
+            for i in step_live:
+                i = int(i)
+                traj = self.slots[i]
+                self.cache_len[i] += 1
+                tok = int(toks[d, i])
+                traj.append(tok, float(logps[d, i]), stage_id)
+                self.last_token[i] = tok
+                self._stats["generated"] += 1
+                reason = self._maybe_done(traj)
+                if reason:
+                    self._finish(traj, reason, sched)
+                    self.slots[i] = None
+                    self.backend.free_slot(i)
+                    live[i] = False
+                    freed.append(i)
+            if freed:
+                sched.harvest()
+                pending.extend(self._dispatch_refills(freed, sched))
+        self._prefill_rounds(pending, sched, params, key)
+        return True
+
+    def end_stage(self) -> Tuple[List[Group], dict]:
+        """Close the stage: evict in-flight work to the buffer, finalize
+        stats, release the single-owner guard."""
+        try:
+            return self._end_stage()
+        finally:
+            self._collect_guard.release()
+
+    def _end_stage(self) -> Tuple[List[Group], dict]:
+        sched = self._sched
+        stage_id = self._stage
+        t0 = self._t0
+        # early termination: evict in-flight work back to the buffer
+        for i, traj in enumerate(self.slots):
+            if traj is not None:
+                if self.ro.resume_strategy == "kv_snapshot":
+                    traj.kv_snapshot = self.backend.extract_snapshot(i)
+                    traj.snap_cache_len = int(self.cache_len[i])
+                    traj.snap_last_token = int(self.last_token[i])
+                sched.release(traj)
+                self.slots[i] = None
+                self.backend.free_slot(i)
+                self._stats["evicted"] += 1
+        sched.harvest()
+
+        groups = sched.completed[: self.ro.batch_size]
+        # surplus complete groups stay buffered for the next step
+        for g in sched.completed[self.ro.batch_size:]:
+            self.buffer.add_group(g)
+
+        st = self._stats
+        self._params = None
+        # queued device work must finish so wall_time covers compute
+        self.block_until_ready()
+        st["wall_time"] = time.perf_counter() - t0
+        st["concurrency_target"] = sched.target_concurrency
+        st["buffer_unfinished"] = self.buffer.num_unfinished
+        st["buffer_waiting"] = self.buffer.num_finished_waiting
+        st["buffer_off_policy_frac"] = \
+            self.buffer.off_policy_token_fraction(stage_id + 1)
+        st["utilization"] = (st["active_slot_steps"] / st["slot_steps"]
+                             if st["slot_steps"] else 1.0)
+        st["tokens_per_sync"] = st["generated"] / max(1, st["host_syncs"])
+        n_traj = sum(len(g.trajectories) for g in groups)
+        all_stages = [np.asarray(t.stage_ids, np.int32)
+                      for g in groups for t in g.trajectories]
+        gaps, counts = np.unique(
+            stage_id - np.concatenate(all_stages) if all_stages
+            else np.empty(0, np.int32), return_counts=True)
+        st["stage_gap_hist"] = {int(g_): int(c) for g_, c in zip(gaps, counts)}
+        st["off_policy_tokens"] = int(counts[gaps > 0].sum())
+        st["multi_stage_trajs"] = sum(1 for g in groups for t in g.trajectories
+                                      if t.num_stages > 1)
+        st["batch_trajs"] = n_traj
+        with self._stats_lock:
+            for k_, v in st.items():
+                if isinstance(v, (int, float)):
+                    self.stats_total[k_] = self.stats_total.get(k_, 0) + v
+        return groups, st

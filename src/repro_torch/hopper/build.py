@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with :mod:`ctypes` (no
+PyTorch headers, so a build takes seconds). Libraries land in
+``build/repro_torch/`` at the root of the checkout, named by a hash of their
+sources and flags, so an edited source is rebuilt and an unchanged one is
+reused. Nothing is built when a module is imported: :func:`library` builds on
+first use, and :func:`build_all` builds every kernel at once, one ``nvcc``
+process per source, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# C entry point and its argument types, per kernel source
+KERNELS = {
+    "flash_attn": ("flash_attn_fwd",
+                   (P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P)),
+    "decode_attn": ("decode_attn_fwd",
+                    (P, P, P, P, P, I, I, I, I, I, I, F, F, I, P)),
+    "fused_sample": ("fused_sample_rows",
+                     (P, P, P, P, I, I, F, I, F, I, P)),
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                           "on a machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    # kept beside the library: -Xptxas -v reports registers, spills, smem
+    out.with_suffix(".log").write_text(log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)       # atomic: a concurrent build never sees half a file
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every kernel source in parallel; returns {name: seconds}
+    (0.0 for a library that was already built)."""
+    t0 = time.perf_counter()
+    jobs = {name: _start(name) for name in KERNELS}
+    secs = {name: 0.0 for name, job in jobs.items() if job is None}
+    running = {name: job for name, job in jobs.items() if job is not None}
+    while running:
+        for name, job in list(running.items()):
+            if job[0].poll() is not None:
+                _finish(name, job)
+                secs[name] = time.perf_counter() - t0
+                del running[name]
+        time.sleep(0.05)
+    return secs
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built on first use), with its
+    C entry point's argument and return types declared."""
+    job = _start(name)
+    if job is not None:
+        _finish(name, job)
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    fn_name, argtypes = KERNELS[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error code {err}")

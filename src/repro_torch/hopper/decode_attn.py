@@ -1,0 +1,91 @@
+"""Single-token decode attention over the dense KV cache: wrapper of the
+hand-written CUDA kernel ``csrc/decode_attn.cu`` (the port of the Pallas
+``decode_attn`` TPU kernel, wired into dense decode here).
+
+On a CPU tensor the wrapper runs the plain PyTorch version,
+:func:`decode_attention_plain` (= ``models.attention.decode_attention``); on a
+CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.hopper import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64)
+_REPS = (1, 2, 3, 4)
+
+
+def decode_attention_plain(q, k_cache, v_cache, cache_len, *, window=0,
+                           attn_softcap=0.0, scale=0.0):
+    """The plain PyTorch version (masked softmax over the whole cache)."""
+    from repro_torch.models.attention import decode_attention
+    return decode_attention(q, k_cache, v_cache, cache_len, window=window,
+                            attn_softcap=attn_softcap, scale=scale)
+
+
+def _check(q, k_cache, v_cache, cache_len):
+    if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_attention: want q (B, 1, H, hd), caches "
+                         f"(B, L, KV, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    B, _, H, hd = q.shape
+    if k_cache.shape[0] != B or k_cache.shape[3] != hd \
+            or H % k_cache.shape[2] != 0:
+        raise ValueError(f"decode_attention: incompatible q {tuple(q.shape)} "
+                         f"and cache {tuple(k_cache.shape)}")
+    if cache_len.shape != (B,):
+        raise ValueError(f"decode_attention: cache_len must be ({B},), got "
+                         f"{tuple(cache_len.shape)}")
+    if not (q.device == k_cache.device == v_cache.device == cache_len.device):
+        raise ValueError("decode_attention: tensors on different devices")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype):
+        raise TypeError("decode_attention: q and cache dtypes differ")
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
+                     attn_softcap=0.0, scale=0.0):
+    """q: (B, 1, H, hd); k_cache/v_cache: (B, L, KV, hd) in the model's cache
+    layout; cache_len: (B,) int32 valid entries per row, including the
+    current token. Returns (B, 1, H, hd) in q's dtype. The kernel reads
+    positions [max(0, cache_len - window), min(cache_len, L)); a row with
+    cache_len <= 0 (never produced by the engine) returns zeros."""
+    _check(q, k_cache, v_cache, cache_len)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, cache_len,
+                                      window=window, attn_softcap=attn_softcap,
+                                      scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    B, _, H, hd = q.shape
+    L, KV = k_cache.shape[1], k_cache.shape[2]
+    if q.dtype not in _DTYPES or hd not in _HEAD_DIMS or H // KV not in _REPS:
+        raise TypeError(f"decode_attention kernel takes float32/bfloat16, "
+                        f"head_dim in {_HEAD_DIMS}, H/KV in {_REPS}; got "
+                        f"{q.dtype}, hd={hd}, H/KV={H // KV}")
+    if cache_len.dtype != torch.int32:
+        raise TypeError(f"decode_attention: cache_len must be int32, got "
+                        f"{cache_len.dtype}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("cache_len", cache_len)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"decode_attention kernel needs a contiguous, "
+                             f"16-byte aligned {name}")
+    if scale <= 0.0:
+        scale = hd ** -0.5
+    out = torch.empty_like(q)
+    lib = build.library("decode_attn")
+    with torch.cuda.device(q.device):
+        err = lib.decode_attn_fwd(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            cache_len.data_ptr(), out.data_ptr(), B, L, H, KV, hd,
+            int(window), float(attn_softcap), float(scale), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "decode_attn_fwd")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -1,0 +1,178 @@
+"""GQA attention: chunked-causal (flash-style online softmax) for prefill,
+and single-token decode against the dense KV cache.
+
+:func:`chunked_attention` and :func:`decode_attention` are the plain PyTorch
+versions of the prefill and decode kernels (``hopper/flash_attn.py``,
+``hopper/decode_attn.py``) and the ports of the JAX functions of the same
+names. :func:`attention_block` calls the kernel wrappers, which take the
+plain versions for CPU tensors and launch the CUDA kernels for CUDA tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.hopper import decode_attn as decode_op
+from repro_torch.hopper import flash_attn as flash_op
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm, softcap
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+
+def init_attention(cfg, dtype, device, gen):
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init((d, h * hd), dtype, device, gen),
+        "wk": dense_init((d, kv * hd), dtype, device, gen),
+        "wv": dense_init((d, kv * hd), dtype, device, gen),
+        "wo": dense_init((h * hd, d), dtype, device, gen, fan_in=h * hd),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=dtype, device=device)
+        p["k_norm"] = torch.ones(hd, dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# core chunked attention (flash-style online softmax, forward only)
+# ---------------------------------------------------------------------------
+
+
+def _mask_for(q_pos, k_pos, Sk, *, causal, window):
+    mask = (k_pos < Sk)[None, :]                                 # kv padding
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window > 0:
+        mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+    return mask                                                   # (bq, bk)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      attn_softcap: float = 0.0, scale: float = 0.0,
+                      q_offset: int = 0, block_q: int = 512,
+                      block_k: int = 512):
+    """Blocked attention with an online softmax in float32.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H a multiple of KV (GQA,
+    grouped: no head repetition is materialised). ``q_offset`` is the
+    absolute position of query 0. Returns (B, Sq, H, hd) in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    R = H // G
+    if scale <= 0.0:
+        scale = hd ** -0.5
+    block_q = min(block_q, max(Sq, 8))
+    block_k = min(block_k, max(Sk, 8))
+    dev = q.device
+    qg = q.float().reshape(B, Sq, G, R, hd)
+    kf, vf = k.float(), v.float()
+    outs = []
+    for q0 in range(0, Sq, block_q):
+        q_blk = qg[:, q0:q0 + block_q]
+        bq = q_blk.shape[1]
+        q_pos = q_offset + q0 + torch.arange(bq, device=dev)
+        m_run = torch.full((B, G, R, bq), NEG_INF, device=dev)
+        l_run = torch.zeros((B, G, R, bq), device=dev)
+        acc = torch.zeros((B, bq, G, R, hd), device=dev)
+        for k0 in range(0, Sk, block_k):
+            k_blk, v_blk = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+            k_pos = k0 + torch.arange(k_blk.shape[1], device=dev)
+            mask = _mask_for(q_pos, k_pos, Sk, causal=causal, window=window)
+            s = torch.einsum("bqgrd,bkgd->bgrqk", q_blk, k_blk) * scale
+            if attn_softcap > 0.0:
+                s = softcap(s, attn_softcap)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(dim=-1))           # (B,G,R,bq)
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(dim=-1)
+            pv = torch.einsum("bgrqk,bkgd->bqgrd", p, v_blk)
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+            m_run = m_new
+        lnorm = l_run.clamp_min(1e-30).permute(0, 3, 1, 2)        # (B,bq,G,R)
+        outs.append(acc / lnorm[..., None])
+    out = torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+    return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                     attn_softcap: float = 0.0, scale: float = 0.0):
+    """Single-token decode attention against a cache.
+
+    q: (B, 1, H, hd); k_cache/v_cache: (B, L, KV, hd); cache_len: (B,) —
+    number of valid cache entries *including* the current token's K/V (the
+    cache is updated before calling). Scores and softmax in float32; the
+    probabilities are rounded to the cache dtype before the value product,
+    as in the reference."""
+    B, _, H, hd = q.shape
+    L, KV = k_cache.shape[1], k_cache.shape[2]
+    rep = H // KV
+    if scale <= 0.0:
+        scale = hd ** -0.5
+    qg = q.float().reshape(B, 1, KV, rep, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache.float()) * scale
+    if attn_softcap > 0.0:
+        s = softcap(s, attn_softcap)
+    pos = torch.arange(L, device=q.device)[None, :]              # (1, L)
+    clen = cache_len.to(torch.int64)[:, None]
+    mask = pos < clen
+    if window > 0:
+        mask = mask & (pos >= clen - window)
+    s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype).float()
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# full attention sub-block (proj + rope + attend + out-proj)
+# ---------------------------------------------------------------------------
+
+
+def attention_block(params, cfg, x, positions, *, kind: str, kv_cache=None,
+                    cache_len=None):
+    """Self-attention sub-block.
+
+    Prefill / full sequence: kv_cache is None -> returns (out, (k, v)) where
+    k/v are the full-sequence keys/values (for cache seeding).
+    Decode: kv_cache=(k_cache, v_cache) (B, L, KV, hd), cache_len (B,) int32
+    tokens already in cache; x is (B, 1, d). The new token's K/V is written
+    at cache_len IN PLACE on the cache tensors (the reference's
+    dynamic_update_slice, whose start index is clamped to L - 1), then
+    attention reads cache_len + 1 entries. Returns (out, (k_cache, v_cache)).
+    """
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).unflatten(-1, (h, hd))
+    k = (x @ params["wk"].to(dt)).unflatten(-1, (kv, hd))
+    v = (x @ params["wv"].to(dt)).unflatten(-1, (kv, hd))
+    if "q_norm" in params:
+        q = rms_norm(q, params["q_norm"], eps=cfg.rms_eps)
+        k = rms_norm(k, params["k_norm"], eps=cfg.rms_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    window = cfg.sliding_window if kind == "local" else 0
+    cap = cfg.attn_softcap
+
+    if kv_cache is None:
+        out = flash_op.flash_attention(q, k, v.contiguous(), causal=True,
+                                       window=window, attn_softcap=cap)
+        new_kv = (k, v)
+    else:
+        k_cache, v_cache = kv_cache
+        B, L = x.shape[0], k_cache.shape[1]
+        rows = torch.arange(B, device=x.device)
+        idx = cache_len.to(torch.int64).clamp(0, L - 1)
+        k_cache[rows, idx] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, idx] = v[:, 0].to(v_cache.dtype)
+        out = decode_op.decode_attention(q, k_cache, v_cache, cache_len + 1,
+                                         window=window, attn_softcap=cap)
+        new_kv = (k_cache, v_cache)
+
+    y = out.flatten(-2) @ params["wo"].to(dt)
+    return y, new_kv

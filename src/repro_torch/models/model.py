@@ -1,0 +1,180 @@
+"""LM wrapper: embeddings → block stack → final norm → logits.
+
+Public entry points (plain functions over a parameter dict):
+
+* ``init_params(cfg, seed=..., device=...)`` — the port's own seeded init
+* ``cast_params(params, dtype)`` — matmul weights to the compute dtype, once
+* ``forward_train(params, cfg, tokens)`` — full-sequence logits
+* ``prefill(params, cfg, tokens, lengths, cache)`` — seed the slot cache,
+  return last-valid-position logits
+* ``decode_step(params, cfg, token, cache, cache_len)`` — one token
+* ``decode_scan(...)`` — ``steps`` decode+sample iterations, no host sync
+
+Parameters: ``{"embed": {"tok": (V, d)}, "layers": [per-layer dict, ...],
+"final_norm": (d,)}`` plus ``"lm_head": (d, V)`` for untied embeddings.
+``convert.params_from_jax`` builds the same structure from the JAX pytree.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.device import resolve_device, torch_dtype
+from repro_torch.models import transformer
+from repro_torch.models.layers import dense_init, embed_init, rms_norm, softcap
+from repro_torch.models.transformer import _gather_last
+
+_MATMUL_KEYS = ("wq", "wk", "wv", "wo", "wi", "wg")
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
+    """Random parameters made from ``seed`` (a torch.Generator on the target
+    device), in ``cfg.param_dtype``. Runs on the GPU unless device='cpu'."""
+    if cfg.uses_media:
+        raise NotImplementedError("media (VLM) models are not ported yet")
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = {
+        "embed": {"tok": embed_init((cfg.vocab_size, cfg.d_model), dtype, dev,
+                                    gen)},
+        "layers": transformer.init_stack(cfg, dtype, dev, gen),
+        "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), dtype,
+                                       dev, gen)
+    return params
+
+
+def cast_params(params, dtype, device=None):
+    """Copy of ``params`` with the matmul weights (projections, MLP, embedding
+    and lm_head) in ``dtype`` and everything on ``device``; norm scales stay
+    in their own dtype, since rms_norm reads them in float32. Casting once
+    equals the reference's per-matmul ``.astype(dtype)``. Tensors already in
+    the wanted dtype and device are shared, not copied."""
+    def mm(t):
+        return t.to(device=device, dtype=dtype)
+
+    def keep(t):
+        return t.to(device=device)
+
+    def layer(p):
+        return {"ln1": keep(p["ln1"]), "ln2": keep(p["ln2"]),
+                "attn": {k: (mm(v) if k in _MATMUL_KEYS else keep(v))
+                         for k, v in p["attn"].items()},
+                "mlp": {k: mm(v) for k, v in p["mlp"].items()}}
+
+    out = {"embed": {"tok": mm(params["embed"]["tok"])},
+           "layers": [layer(p) for p in params["layers"]],
+           "final_norm": keep(params["final_norm"])}
+    if "lm_head" in params:
+        out["lm_head"] = mm(params["lm_head"])
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None):
+    dtype = dtype or torch_dtype(cfg.dtype)
+    return transformer.init_stack_cache(cfg, batch, max_len, dtype,
+                                        resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, cfg: ModelConfig, tokens):
+    dt = torch_dtype(cfg.dtype)
+    x = F.embedding(tokens, params["embed"]["tok"]).to(dt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    return x
+
+
+def unembed_weight(params, cfg: ModelConfig):
+    """The (d, V) unembedding matrix (tied embedding or lm_head)."""
+    return params["embed"]["tok"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _logits(params, cfg: ModelConfig, x):
+    """x @ w in the activation dtype, then float32, then the logit softcap."""
+    out = (x @ unembed_weight(params, cfg).to(x.dtype)).float()
+    if cfg.logit_softcap > 0.0:
+        out = softcap(out, cfg.logit_softcap)
+    return out
+
+
+def backbone(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
+             cache_len=None, mode="train"):
+    """Embed + stack + final norm. Returns (hidden (B, S, d), new_cache)."""
+    B, S = tokens.shape
+    if positions is None:
+        if mode == "decode":
+            positions = cache_len[:, None]
+        else:
+            positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x = _embed(params, cfg, tokens)
+    x, new_cache = transformer.apply_stack(
+        params["layers"], cfg, x, positions=positions, cache=cache,
+        cache_len=cache_len, mode=mode)
+    x = rms_norm(x, params["final_norm"], eps=cfg.rms_eps)
+    return x, new_cache
+
+
+def forward_train(params, cfg: ModelConfig, tokens):
+    """Full-sequence logits (B, S, V) float32 (causal, no cache)."""
+    x, _ = backbone(params, cfg, tokens, mode="train")
+    return _logits(params, cfg, x)
+
+
+# -- serving ----------------------------------------------------------------
+
+
+def prefill(params, cfg: ModelConfig, tokens, lengths, cache):
+    """Seed ``cache`` (written in place) with right-padded prompts.
+
+    tokens: (B, S) right-padded; lengths: (B,) true lengths; cache: a stack
+    cache with max_len >= S. Returns (next_token_logits (B, V), cache)."""
+    x, new_cache = backbone(params, cfg, tokens, cache=cache, mode="prefill")
+    last = _gather_last(x, lengths)                      # (B, d)
+    return _logits(params, cfg, last), new_cache
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, cache_len):
+    """token: (B,) int — the *input* token; cache_len: (B,) int32. Returns
+    logits (B, V) for the next token and the cache, with the token's K/V
+    written at cache_len."""
+    x, new_cache = backbone(params, cfg, token[:, None], cache=cache,
+                            cache_len=cache_len, mode="decode")
+    return _logits(params, cfg, x)[:, 0], new_cache
+
+
+def decode_scan(params, cfg: ModelConfig, cache, last_token, cache_len,
+                active, aux, *, steps: int, step_fn):
+    """Run ``steps`` decode+sample iterations on the device, with no host
+    synchronisation inside (no ``.item()``, no ``.cpu()``), so the loop can be
+    captured as a CUDA graph. The caller supplies the sampling / stop policy::
+
+        step_fn(logits, cache_len, active, aux) -> (tok, logp, stop, aux')
+
+    where ``cache_len`` is the PRE-increment per-slot length and ``stop``
+    (B,) bool marks slots that freeze after consuming ``tok``. Inactive
+    slots still flow through the batched decode with frozen state.
+
+    Returns ``((cache, last_token, cache_len, active, aux), ys)`` with
+    ``ys = (tokens (steps, B), logps (steps, B), was_active (steps, B))``;
+    ``was_active[d]`` is the active mask entering step ``d``."""
+    toks, logps, acts = [], [], []
+    clen, last_tok, act, a = cache_len, last_token, active, aux
+    for _ in range(steps):
+        logits, cache = decode_step(params, cfg, last_tok, cache, clen)
+        tok, logp, stop, a = step_fn(logits, clen, act, a)
+        clen = clen + act.to(clen.dtype)
+        last_tok = torch.where(act, tok.to(last_tok.dtype), last_tok)
+        toks.append(tok)
+        logps.append(logp)
+        acts.append(act)
+        act = act & ~stop
+    ys = (torch.stack(toks), torch.stack(logps), torch.stack(acts))
+    return (cache, last_tok, clen, act, a), ys
