@@ -1,25 +1,38 @@
 #!/usr/bin/env python3
 """On-GPU smoke run of the PyTorch port (src/repro_torch): the serving path
-at the full width of llama3.2-1b, through the port's hand-written kernels.
+and the CoPRIS training loop at the full width of llama3.2-1b, through the
+port's hand-written kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
 Phases, each printed as one JSON line:
 
 1. device  — the card's name and power limit (nvidia-smi);
-2. build   — nvcc builds every kernel of the path from csrc/, in parallel;
+2. build   — nvcc builds every kernel source from csrc/, in parallel;
 3. kernel checks — each kernel against its plain PyTorch version at the
-   main path's shapes, with its time, the plain version's, one library
-   call's where PyTorch has one, and the least time the card could take;
+   main paths' shapes (serving: prefill, decode, sampling; training: the
+   flash forward with its logsumexp, the flash backward, and the fused
+   IS+GRPO forward and backward), with its time, the plain version's, one
+   library call's where PyTorch has one, and the least time the card could
+   take;
 4. reference — the GPU engine (kernels, float32) against the same engine on
-   the CPU (plain versions) on the reduced config: equal tokens;
+   the CPU (plain versions) on the reduced config: equal tokens; then
+   "train_reference": make_loss_fn / make_train_step on the reduced config
+   with vocab 8192 (the fused loss), GPU against CPU: loss, metrics, every
+   gradient, and no attention weight with a zero gradient;
 5. serve   — make_serve_engine("llama3.2-1b") with random bf16 weights made
    from a seed serves 48 requests; every kernel's launch count must be > 0;
    then "profile": torch.profiler over two steady decode chunks (host time,
    device busy time, top device kernels);
 6. copris  — two RolloutEngine.collect stages: the first buffers partials
    (early termination), the second resumes them;
-7. kernels — one {"kernels": [...]} line for the three kernels;
+7. train   — sft_warmup, then three CoPRISTrainer.step() calls on
+   llama3.2-1b at full width (bf16 compute, f32 masters): finite reward,
+   loss, grad norm, ratio and off-policy share; rollout, reward and update
+   times, resumed partials, peak memory; every kernel launched; then
+   "train_profile": torch.profiler over one more update (device busy
+   time, top device kernels);
+8. kernels — one {"kernels": [...]} line, one row per kernel entry point;
 
 then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -180,6 +193,238 @@ def check_sample(torch, timer, fused_sample, prng):
     return res
 
 
+# the train phase's packed batch at its largest: 32 sequences (8 groups x 4)
+# of max_len 128, so 127 loss positions each
+TRAIN_B, TRAIN_S = 32, 127
+
+
+def check_flash_lse(torch, F, timer, flash_attn):
+    """The train forward: flash_attn with the logsumexp output."""
+    B, S, H, KV, hd = TRAIN_B, TRAIN_S, 32, 8, 64
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn(B, S, n, hd, device="cuda", generator=g).bfloat16()
+               for n in (H, KV, KV))
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True)
+    ref, ref_lse = flash_attn.flash_attention_plain(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    err = max((out.float() - ref.float()).abs().max().item(),
+              (lse - ref_lse).abs().max().item())
+    atol = 2e-2
+    if not err <= atol:
+        fail(f"flash_attn (lse) disagrees with its plain version: {err}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v,
+                                                         return_lse=True))
+    plain_ms = timer(lambda: flash_attn.flash_attention_plain(
+        q, k, v, return_lse=True), iters=3, warmup=1)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * S
+    flops = 4 * B * H * hd * (S * (S + 1) // 2)
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal, "
+               "with lse (B, H, S) f32",
+               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    emit("check_flash_attn_lse", **res)
+    return res
+
+
+def check_flash_bwd(torch, F, timer, flash_attn):
+    """The train backward: dq, dk, dv from the saved lse, against the plain
+    version; the library time is SDPA's backward alone."""
+    B, S, H, KV, hd = TRAIN_B, TRAIN_S, 32, 8, 64
+    g = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = (torch.randn(B, S, n, hd, device="cuda", generator=g).bfloat16()
+               for n in (H, KV, KV))
+    do = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True)
+    grads = flash_attn.flash_attention_bwd(q, k, v, out, lse, do)
+    ref = flash_attn.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(grads, ref))
+    atol = 5e-2
+    if not err <= atol:
+        fail(f"flash_attn_bwd disagrees with its plain version: {err}")
+    kernel_ms = timer(lambda: flash_attn.flash_attention_bwd(
+        q, k, v, out, lse, do))
+    plain_ms = timer(lambda: flash_attn.flash_attention_bwd_plain(
+        q, k, v, out, lse, do), iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    dot = do.transpose(1, 2)
+    library_ms = timer(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True))
+    # read q, out, dout, k, v, lse; write dq, dk, dv
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * B * H * S
+    # QK^T, dO V^T, dS K, P^T dO, dS^T Q: 5 causal products
+    flops = 10 * B * H * hd * (S * (S + 1) // 2)
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal",
+               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    emit("check_flash_attn_bwd", **res)
+    return res
+
+
+def check_fused_is_grpo(torch, timer, fio):
+    """The loss kernels at the train phase's largest packed shape: R = 32 x
+    127 rows, d = 2048, V = 128256, hidden bf16, the tied f32 embedding read
+    in its own (V, d) layout. The kernels and their plain versions compute
+    in f32, so the bound counts f32 FMA work at 67 TFLOP/s."""
+    R, d, V = TRAIN_B * TRAIN_S, 2048, 128256
+    g = torch.Generator(device="cuda").manual_seed(15)
+    h = torch.randn(R, d, device="cuda", generator=g).bfloat16()
+    emb = torch.randn(V, d, device="cuda", generator=g) * 0.02
+    w = emb.T
+    t = torch.randint(0, V, (R,), device="cuda", generator=g,
+                      dtype=torch.int32)
+    beh = torch.randn(R, device="cuda", generator=g) * 0.3 - 11.0
+    adv = torch.randn(R, device="cuda", generator=g)
+    kw = dict(logit_softcap=0.0, clip_low=0.2, clip_high=0.28, use_is=True,
+              is_ratio_cap=10.0, entropy_coef=0.0)
+    outs = fio.fused_is_grpo_fwd_rows(h, w, t, beh, adv, **kw)
+    ref = fio.fwd_plain(h, w, t, beh, adv, **kw)
+    torch.cuda.synchronize()
+    err_f = max((a - b).abs().max().item() for a, b in zip(outs, ref))
+    atol_f = 1e-3
+    if not err_f <= atol_f:
+        fail(f"fused_is_grpo fwd disagrees with its plain version: {err_f}")
+    _, _, logp, lse, ent = outs
+    ca = torch.randn(R, device="cuda", generator=g)
+    ce = torch.randn(R, device="cuda", generator=g) * 0.1
+    ebar = lse - ent
+    dl, dh = fio.fused_is_grpo_bwd_dh_rows(h, w, t, lse, ebar, ca, ce)
+    dw = fio.fused_is_grpo_bwd_dw_rows(h, dl, torch.empty_like(w))
+    rdl, rdh = fio.bwd_dh_plain(h, w, t, lse, ebar, ca, ce)
+    rdw = fio.bwd_dw_plain(h, rdl)
+    torch.cuda.synchronize()
+    # sums of 128256 (dh) or 4064 (dw) f32 products in another order:
+    # errors relative to the largest element
+    err_dh = ((dh - rdh).abs().max() / rdh.abs().max()).item()
+    err_dw = ((dw - rdw).abs().max() / rdw.abs().max()).item()
+    rtol = 1e-4
+    if not (err_dh <= rtol and err_dw <= rtol):
+        fail(f"fused_is_grpo bwd disagrees with its plain version: "
+             f"dh {err_dh}, dw {err_dw}")
+    del rdl, rdh, rdw
+    hf = h.float()
+    fwd_ms = timer(lambda: fio.fused_is_grpo_fwd_rows(h, w, t, beh, adv,
+                                                      **kw), iters=3)
+    fwd_plain_ms = timer(lambda: fio.fwd_plain(h, w, t, beh, adv, **kw),
+                         iters=3)
+    gemm_ms = timer(lambda: hf @ w, iters=3)
+    dh_ms = timer(lambda: fio.fused_is_grpo_bwd_dh_rows(
+        h, w, t, lse, ebar, ca, ce), iters=3, warmup=1)
+    dh_plain_ms = timer(lambda: fio.bwd_dh_plain(h, w, t, lse, ebar, ca, ce),
+                        iters=3, warmup=1)
+    dw_ms = timer(lambda: fio.fused_is_grpo_bwd_dw_rows(h, dl, dw),
+                  iters=3, warmup=1)
+    dw_plain_ms = timer(lambda: fio.bwd_dw_plain(h, dl), iters=3, warmup=1)
+    # library times: one f32 cuBLAS call (TF32 off) each; for bwd_dh only
+    # its dh GEMM, without the logits recompute
+    dh_gemm_ms = timer(lambda: dl @ w.T, iters=3, warmup=1)
+    dw_gemm_ms = timer(lambda: hf.T @ dl, iters=3, warmup=1)
+    rows_io = 4 * R
+    op = 2 * R * d * V
+    shape = (f"hidden [{R}, {d}] bf16, w = embed.T of [{V}, {d}] f32, "
+             "float32 products")
+    b_f = bound(2 * R * d + 4 * V * d + 3 * rows_io + 5 * rows_io, op,
+                PEAK_F32_FLOPS)
+    # bwd_dh: recompute logits + dh = dl w^T; writes dl (R, V) and dh
+    b_dh = bound(2 * R * d + 4 * V * d + 7 * rows_io + 4 * R * V + 4 * R * d,
+                 2 * op, PEAK_F32_FLOPS)
+    # bwd_dw: dw = h^T dl; reads h and dl, writes dw (V, d)
+    b_dw = bound(2 * R * d + 4 * R * V + 4 * V * d, op, PEAK_F32_FLOPS)
+    res = {
+        "fused_is_grpo_fwd": dict(
+            shape=shape, max_abs_err=err_f, atol=atol_f, ms=fwd_ms,
+            plain_ms=fwd_plain_ms, library_ms=gemm_ms,
+            library_what="logits GEMM only (f32 cuBLAS hidden @ w)",
+            bound_ms=b_f[0], bound_by=b_f[1]),
+        "fused_is_grpo_bwd_dh": dict(
+            shape=shape, max_abs_err=err_dh, rtol_of_max=rtol, ms=dh_ms,
+            plain_ms=dh_plain_ms, library_ms=dh_gemm_ms,
+            library_what="dh GEMM only (f32 cuBLAS dl @ w^T)",
+            bound_ms=b_dh[0], bound_by=b_dh[1]),
+        "fused_is_grpo_bwd_dw": dict(
+            shape=shape, max_abs_err=err_dw, rtol_of_max=rtol, ms=dw_ms,
+            plain_ms=dw_plain_ms, library_ms=dw_gemm_ms,
+            library_what="f32 cuBLAS hidden^T @ dl",
+            bound_ms=b_dw[0], bound_by=b_dw[1]),
+    }
+    for name, r in res.items():
+        emit(f"check_{name}", **r)
+    return res
+
+
+def train_reference_phase(torch, np, copris, model, tree, adam, cfg):
+    """make_loss_fn + make_train_step on the GPU (kernels) against the CPU
+    (plain versions): reduced llama3.2-1b, vocab 8192 (the fused branch),
+    float32. Loss and metrics atol 1e-4; each gradient leaf within 1e-4 of
+    its own largest element (the kernels sum in another order), a leaf whose
+    reference gradient is all zero exactly zero; grad_norm rtol 1e-5."""
+    from repro_torch.common.config import TrainConfig
+    tc = TrainConfig(lr=1e-3, entropy_coef=0.01, remat=True)
+    rng = np.random.default_rng(4)
+    N, T = 8, 64
+    mask = np.zeros((N, T), np.float32)
+    for n in range(N):
+        mask[n, rng.integers(4, 16):rng.integers(30, T)] = 1.0
+    host = dict(tokens=rng.integers(0, cfg.vocab_size, (N, T)).astype(
+                    np.int32),
+                loss_mask=mask,
+                behaviour_logp=((rng.standard_normal((N, T)) * 0.3 - 9.0)
+                                * mask).astype(np.float32),
+                advantages=rng.standard_normal(N).astype(np.float32))
+    base = model.init_params(cfg, seed=5, device="cpu")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        params = tree.tree_map(lambda x: x.to(dev).clone().requires_grad_(),
+                               base)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        loss, metrics = copris.make_loss_fn(cfg, tc)(params, batch)
+        grads = torch.autograd.grad(loss, tree.leaves(params))
+        _, _, sm = copris.make_train_step(cfg, tc)(
+            params, adam.init(params), batch, 1e-3)
+        res[dev] = dict(loss=float(loss.detach()),
+                        metrics={k: float(v) for k, v in metrics.items()},
+                        grad_norm=float(sm["grad_norm"]),
+                        grads=[g.cpu() for g in grads], params=params)
+    def leaf_err(a, b):
+        scale = float(b.abs().max())
+        diff = float((a - b).abs().max())
+        return diff / scale if scale > 0.0 else diff
+
+    g_err = max(leaf_err(a, b)
+                for a, b in zip(res["cuda"]["grads"], res["cpu"]["grads"]))
+    gn_err = (abs(res["cuda"]["grad_norm"] - res["cpu"]["grad_norm"])
+              / res["cpu"]["grad_norm"])
+    m_err = max(abs(res["cuda"]["metrics"][k] - res["cpu"]["metrics"][k])
+                for k in res["cpu"]["metrics"])
+    loss_err = abs(res["cuda"]["loss"] - res["cpu"]["loss"])
+    gpu_grads = tree.unflatten(res["cuda"]["params"], res["cuda"]["grads"])
+    zero_attn = [f"layer{i}.{n}"
+                 for i, layer in enumerate(gpu_grads["layers"])
+                 for n in ("wq", "wk", "wv", "wo")
+                 if float(layer["attn"][n].abs().max()) == 0.0]
+    emit("train_reference", config=cfg.name, vocab=cfg.vocab_size,
+         batch=f"{N} x {T}", loss_gpu=res["cuda"]["loss"],
+         loss_cpu=res["cpu"]["loss"], loss_err=loss_err,
+         max_metric_err=m_err, max_grad_err_rel=g_err, grad_rtol=1e-4,
+         grad_norm_gpu=res["cuda"]["grad_norm"],
+         grad_norm_cpu=res["cpu"]["grad_norm"], grad_norm_rel_err=gn_err,
+         grad_norm_rtol=1e-5, zero_attention_grads=zero_attn, atol=1e-4)
+    if zero_attn:
+        fail(f"attention weights got zero gradient on the GPU: {zero_attn}")
+    if not (loss_err <= 1e-4 and m_err <= 1e-4 and g_err <= 1e-4
+            and gn_err <= 1e-5):
+        fail("GPU train step disagrees with the CPU train step")
+
+
 def reference_phase(torch, np, serve_mod, model, get_smoke_config):
     """Engine on the GPU (kernels) vs the same engine on the CPU (plain
     versions), reduced llama3.2-1b in float32, same weights and keys."""
@@ -213,6 +458,13 @@ def reference_phase(torch, np, serve_mod, model, get_smoke_config):
         fail("GPU engine disagrees with the CPU engine on the reduced config")
 
 
+def device_us(e):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, name):
+            return getattr(e, name)
+    return 0.0
+
+
 def profile_phase(torch, np, serve, cfg, chunks=2):
     """Where a steady decode chunk's time goes: torch.profiler over
     ``chunks`` ServeEngine.step() calls with a full pool of 16 requests —
@@ -232,25 +484,19 @@ def profile_phase(torch, np, serve, cfg, chunks=2):
         serve.eng.block_until_ready()
         wall_ms = (time.perf_counter() - t0) * 1e3 / chunks
 
-    def dev_us(e):
-        for name in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, name):
-                return getattr(e, name)
-        return 0.0
-
     # device kernels only: host ops also carry the time of the kernels they
     # launched, which would count every kernel twice
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None)
-              == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3 / chunks
-    top = sorted(events, key=dev_us, reverse=True)[:8]
+              == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in events) / 1e3 / chunks
+    top = sorted(events, key=device_us, reverse=True)[:8]
     emit("profile", what=f"{chunks} decode chunks of "
          f"{serve.eng.ro.decode_chunk} steps, pool 16, llama3.2-1b bf16",
          wall_ms_per_chunk=wall_ms, device_busy_ms_per_chunk=busy_ms,
          device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
          top_device_ops=[{"name": e.key[:80], "count": e.count,
-                          "ms_per_chunk": dev_us(e) / 1e3 / chunks}
+                          "ms_per_chunk": device_us(e) / 1e3 / chunks}
                          for e in top])
     serve.close()                       # in-flight requests stay buffered
 
@@ -259,6 +505,112 @@ def serve_request(rng, cfg, lo=64, hi=512):
     from repro_torch.launch.serve import GenerateRequest
     n = int(rng.integers(lo, hi + 1))
     return GenerateRequest(prompt=rng.integers(0, cfg.vocab_size - 1, n))
+
+
+def profile_update(torch, tr, cfg, tc):
+    """torch.profiler over one more update (make_train_step) on the train
+    phase's last batch: wall time, device busy time and the top device
+    kernels of the training half of a step (the serve phase's profile
+    covers decoding)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import copris, grpo
+    b = tr.last_batch
+    batch = {k: torch.from_numpy(b[k]).cuda()
+             for k in ("tokens", "loss_mask", "behaviour_logp")}
+    batch["advantages"] = grpo.group_advantages(
+        torch.from_numpy(b["rewards"]).cuda(), tr.ro.group_size)
+    step = copris.make_train_step(cfg, tc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(tr.params, tr.opt_state, batch, tc.lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    top = sorted(events, key=device_us, reverse=True)[:10]
+    return dict(what=f"one make_train_step on a packed batch "
+                f"{list(batch['tokens'].shape)}, llama3.2-1b bf16 compute, "
+                "f32 masters, remat",
+                wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+                top_device_ops=[{"name": e.key[:80], "count": e.count,
+                                 "ms": device_us(e) / 1e3} for e in top])
+
+
+def train_phase(torch, np, kernels, steps=3):
+    """The main path of the training slice: sft_warmup for a few steps, then
+    ``steps`` sequential CoPRISTrainer.step() calls on llama3.2-1b at full
+    width (bf16 compute, f32 master weights, random weights from a seed).
+    Every kernel's launch count is reset just before the steps and read
+    just after."""
+    from repro_torch.common.config import RolloutConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.copris import CoPRISTrainer
+    from repro_torch.data.sft import sft_warmup
+    from repro_torch.data.tasks import EOS, AdditionTask
+    from repro_torch.models import model as M
+    cfg = get_config("llama3.2-1b")
+    task = AdditionTask(max_value=20, seed=0)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    params, sft_loss = sft_warmup(params, cfg, task, steps=4, batch_size=32,
+                                  max_len=24, lr=1e-4)
+    torch.cuda.synchronize()
+    sft_s = time.perf_counter() - t0
+    if not np.isfinite(sft_loss):
+        fail(f"sft loss not finite: {sft_loss}")
+    # max_len = 128 (the budget 4 + 124, rounded up to the 64-token bucket)
+    # is below prompt + response for the task's 5-7 token prompts: a
+    # trajectory stops at 127 - len(prompt) tokens, so groups with longer
+    # prompts finish first, early termination evicts the rest, and the next
+    # step resumes them. Packed batches are 32 x 128 tokens.
+    ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=4,
+                       max_response_len=124, concurrency=16, mode="copris",
+                       temperature=1.0)
+    tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=0)
+    tr = CoPRISTrainer(cfg, ro, tc, task, eos_id=EOS, params=params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    outs = []
+    try:
+        for _ in range(steps):
+            resumed0 = tr.engine.stats_snapshot().get("resumed", 0)
+            out = tr.step()
+            out["resumed"] = (tr.engine.stats_snapshot()["resumed"]
+                              - resumed0)
+            out["rows"] = int(tr.last_batch["tokens"].shape[0]
+                              * (tr.last_batch["tokens"].shape[1] - 1))
+            outs.append(out)
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+        prof = profile_update(torch, tr, cfg, tc)
+    finally:
+        tr.close()
+    keys = ("reward_mean", "pg_loss", "grad_norm", "ratio_mean",
+            "off_policy_frac")
+    emit("train", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, sft_steps=4, sft_loss=sft_loss,
+         sft_seconds=sft_s,
+         steps=[{k: o[k] for k in keys + (
+             "rollout_time", "reward_time", "update_time", "step_time",
+             "resumed", "multi_stage_trajs", "buffer_unfinished", "rows",
+             "mean_resp_len", "entropy", "clip_frac")} for o in outs],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches)
+    emit("train_profile", **prof)
+    for o in outs:
+        bad = [k for k in keys if not np.isfinite(o[k])]
+        if bad:
+            fail(f"train step {o['step']}: not finite: {bad}")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"a kernel of the training path never launched: {launches}")
+    return launches
 
 
 def reset_launches(kernels):
@@ -283,12 +635,18 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    import dataclasses
+
+    from repro_torch.common import tree
     from repro_torch.common.config import RolloutConfig
     from repro_torch.configs import get_smoke_config
+    from repro_torch.core import copris
     from repro_torch.core.rollout import RolloutEngine
     from repro_torch.hopper import build, decode_attn, flash_attn, fused_sample
+    from repro_torch.hopper import fused_is_grpo as fio
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import model
+    from repro_torch.optim import adam
     from repro_torch.sampling import prng
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -313,13 +671,26 @@ def main() -> int:
     timer = Timer(torch)
     checks = {"flash_attn": check_flash(torch, F, timer, flash_attn),
               "decode_attn": check_decode(torch, F, timer, decode_attn),
-              "fused_sample": check_sample(torch, timer, fused_sample, prng)}
+              "fused_sample": check_sample(torch, timer, fused_sample, prng),
+              "flash_attn_lse": check_flash_lse(torch, F, timer, flash_attn),
+              "flash_attn_bwd": check_flash_bwd(torch, F, timer, flash_attn),
+              **check_fused_is_grpo(torch, timer, fio)}
+    torch.cuda.empty_cache()
     kernels = {"flash_attn": flash_attn.flash_attention,
                "decode_attn": decode_attn.decode_attention,
                "fused_sample": fused_sample.sample_rows}
+    train_kernels = {
+        **kernels, "flash_attn_bwd": flash_attn.flash_attention_bwd,
+        "fused_is_grpo_fwd": fio.fused_is_grpo_fwd_rows,
+        "fused_is_grpo_bwd_dh": fio.fused_is_grpo_bwd_dh_rows,
+        "fused_is_grpo_bwd_dw": fio.fused_is_grpo_bwd_dw_rows}
 
-    # 4. GPU engine vs CPU engine on the reduced config
+    # 4. GPU engine vs CPU engine on the reduced config, serving and training
     reference_phase(torch, np, serve_mod, model, get_smoke_config)
+    train_reference_phase(
+        torch, np, copris, model, tree, adam,
+        dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                            vocab_size=8192, dtype="float32"))
 
     # 5. serve at full width (the main path)
     serve, cfg = serve_mod.make_serve_engine(
@@ -402,19 +773,44 @@ def main() -> int:
     if stages[1]["resumed"] == 0:
         fail("copris stage 1 resumed nothing")
 
-    # 7. kernels line
+    del params, eng
+    torch.cuda.empty_cache()
+
+    # 7. train at full width: this slice's main path
+    train_launches = train_phase(torch, np, train_kernels)
+
+    # 8. kernels line: launches from the train phase; times from the checks
+    # at the train phase's shapes (flash forward with lse, its backward, the
+    # loss kernels) and at the serve phase's (decode, sampling)
     src = {"flash_attn": ("src/repro_torch/csrc/flash_attn.cu",
-                          "src/repro/kernels/flash_attn/flash_attn.py:79"),
+                          "src/repro/kernels/flash_attn/flash_attn.py:79",
+                          "flash_attn_lse"),
+           "flash_attn_bwd": ("src/repro_torch/csrc/flash_attn_bwd.cu",
+                              "src/repro/models/attention.py:149",
+                              "flash_attn_bwd"),
            "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
-                           "src/repro/kernels/decode_attn/decode_attn.py:74"),
+                           "src/repro/kernels/decode_attn/decode_attn.py:74",
+                           "decode_attn"),
            "fused_sample": ("src/repro_torch/csrc/fused_sample.cu",
                             "src/repro/kernels/fused_sample/fused_sample.py"
-                            ":231")}
+                            ":231", "fused_sample"),
+           "fused_is_grpo_fwd": (
+               "src/repro_torch/csrc/fused_is_grpo.cu",
+               "src/repro/kernels/fused_is_grpo/fused_is_grpo.py:192",
+               "fused_is_grpo_fwd"),
+           "fused_is_grpo_bwd_dh": (
+               "src/repro_torch/csrc/fused_is_grpo.cu",
+               "src/repro/kernels/fused_is_grpo/fused_is_grpo.py:228",
+               "fused_is_grpo_bwd_dh"),
+           "fused_is_grpo_bwd_dw": (
+               "src/repro_torch/csrc/fused_is_grpo.cu",
+               "src/repro/kernels/fused_is_grpo/fused_is_grpo.py:249",
+               "fused_is_grpo_bwd_dw")}
     rows = []
-    for name, (source_path, replaces) in src.items():
-        c = checks[name]
+    for name, (source_path, replaces, check) in src.items():
+        c = checks[check]
         rows.append({"name": name, "route": "cuda", "source": source_path,
-                     "replaces": replaces, "launches": serve_launches[name],
+                     "replaces": replaces, "launches": train_launches[name],
                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"],

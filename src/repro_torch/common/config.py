@@ -1,8 +1,9 @@
 """Configuration dataclasses of the PyTorch port.
 
-A copy of the architecture and rollout configs of ``repro.common.config``
-(:class:`ModelConfig` with its sub-configs, and :class:`RolloutConfig`), kept
-here so that the port imports nothing of the JAX package. Field names and
+A copy of the architecture, rollout and training configs of
+``repro.common.config`` (:class:`ModelConfig` with its sub-configs,
+:class:`RolloutConfig` and :class:`TrainConfig`), kept here so that the port
+imports nothing of the JAX package. Field names and
 defaults are the reference's, so one config value means the same thing in
 both packages.
 """
@@ -374,3 +375,66 @@ class RolloutConfig:
                     f"resolved to min={lo} concurrency={self.concurrency} "
                     f"max={hi} — adjust concurrency_min/concurrency_max "
                     "(0 derives min=concurrency//4, max=concurrency)")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 1e-6
+    weight_decay: float = 0.01
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 10
+    total_steps: int = 1000
+    # GRPO
+    clip_low: float = 0.2              # paper: clip ratio low 0.2
+    clip_high: float = 0.28            # paper: clip ratio high 0.28 (dual clip)
+    kl_coef: float = 0.0               # paper: 0.0
+    entropy_coef: float = 0.0          # paper: 0.0
+    loss_agg: str = "token_mean"       # paper: token mean
+    use_is_correction: bool = True     # the CoPRIS cross-stage IS switch
+    is_ratio_cap: float = 10.0         # numerical safety cap on exp(logp-L)
+    # Route the big-vocab loss through the fused IS+GRPO op
+    # (hopper/fused_is_grpo): one pass over the logits computes logp,
+    # entropy and the clipped objective, and the custom VJP recomputes
+    # per-block softmax stats so the (B, S, V) tensor is never residualized.
+    # False falls back to the legacy score_logprobs path, which cannot emit
+    # entropy above FUSED_VOCAB_THRESHOLD (make_loss_fn raises if
+    # entropy_coef > 0 there rather than silently dropping the bonus).
+    fused_loss: bool = True
+    microbatches: int = 1
+    remat: bool = True
+    seed: int = 0
+    # --- overlapped (one-step async) pipeline ---
+    # overlap=True runs rollout on a background thread: while the train step
+    # for batch k executes, the engine already collects batch k+1 under an
+    # immutable snapshot of the freshest published params. Tokens carry the
+    # snapshot's stage id, so the existing cross-stage IS correction absorbs
+    # the one-step staleness. overlap=False is bit-identical to the
+    # sequential trainer (same per-trajectory PRNG streams).
+    overlap: bool = False
+    # Max optimizer updates the training step may be ahead of the params
+    # that generated the batch it consumes (pipeline depth). 1 = classic
+    # one-step async; K > 1 lets the producer run up to K collects ahead
+    # (multi-step async — stage ids carried by tokens keep the cross-stage
+    # IS correction exact at any depth). The producer blocks rather than
+    # exceed it.
+    max_staleness: int = 1
+    # Disaggregated rollout/train: route every published params version
+    # through the versioned ParamStore reshard (train FSDP layout ->
+    # rollout serve_tp_only layout, see core/weight_sync.py). Requires
+    # overlap=True — without a producer thread there is no second side to
+    # sync weights to.
+    disaggregated: bool = False
+
+    def __post_init__(self):
+        if self.max_staleness < 1:
+            raise ValueError(
+                f"max_staleness must be >= 1 (got {self.max_staleness}); "
+                "0 would deadlock the overlapped pipeline")
+        if self.disaggregated and not self.overlap:
+            raise ValueError(
+                "disaggregated=True requires overlap=True: the versioned "
+                "weight sync feeds the background rollout producer; set "
+                "TrainConfig(overlap=True, disaggregated=True) (CLI: "
+                "--overlap --disaggregated)")

@@ -1,0 +1,393 @@
+"""CoPRIS trainer: rollout → reward → cross-stage IS → GRPO update.
+
+The port of ``repro.core.copris``, with its names. ``make_train_step``
+builds the training step (GRPO with cross-stage IS correction, microbatched
+gradient accumulation, AdamW); ``CoPRISTrainer`` drives the RL loop on a
+live model: ``RolloutEngine.collect`` → async reward gather →
+``pack_groups`` → group advantages → loss and its backward → AdamW.
+
+Ported: the sequential pipeline (``overlap=False``): collect, reward
+gather and train inline, with the reference's per-trajectory PRNG streams
+and stage stamps, so a step draws the same tokens as the JAX trainer. The
+overlapped producer thread (``overlap=True``) and the disaggregated
+rollout/train layouts raise ``NotImplementedError`` until their slice; so
+do multi-turn environments (a task with ``make_env``).
+
+Parameters are float32 master tensors that the trainer owns and updates in
+place (``optim/adam.update``); every update is published to the
+:class:`~repro_torch.core.weight_sync.ParamStore` as a detached copy, which
+the rollout side acquires.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.config import ModelConfig, RolloutConfig, TrainConfig
+from repro_torch.common.device import resolve_device
+from repro_torch.common.tree import leaves, tree_map, unflatten
+from repro_torch.core import grpo
+from repro_torch.core.importance import pack_groups
+from repro_torch.core.reward_worker import AsyncRewardWorker
+from repro_torch.core.rollout import RolloutEngine
+from repro_torch.core.scheduler import AdaptiveConcurrencyController
+from repro_torch.core.weight_sync import ParamStore
+from repro_torch.hopper import fused_is_grpo as fio
+from repro_torch.models import model as M
+from repro_torch.optim import adam, schedule
+from repro_torch.sampling import prng
+
+FUSED_VOCAB_THRESHOLD = 8192     # above this, use the vocab-blocked logp path
+
+
+def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
+    """``loss_fn(params, mb) -> (loss, metrics)`` with metrics as 0-dim
+    tensors. Above FUSED_VOCAB_THRESHOLD the fused IS+GRPO op reads the
+    final hidden states and the unembedding and never materialises the
+    (B, S, V) logits; below it (``tiny``) the full logits are computed."""
+    big_vocab = cfg.vocab_size >= FUSED_VOCAB_THRESHOLD
+    if big_vocab and not tcfg.fused_loss and tcfg.entropy_coef > 0.0:
+        raise ValueError(
+            f"entropy_coef={tcfg.entropy_coef} with fused_loss=False: the "
+            f"legacy score_logprobs path cannot compute entropy above "
+            f"FUSED_VOCAB_THRESHOLD={FUSED_VOCAB_THRESHOLD} (vocab_size="
+            f"{cfg.vocab_size}) — the bonus would silently be dropped. "
+            "Enable TrainConfig.fused_loss or set entropy_coef=0.")
+    if big_vocab and not tcfg.fused_loss:
+        raise NotImplementedError(
+            "fused_loss=False above FUSED_VOCAB_THRESHOLD needs "
+            "score_logprobs and the fused_logprob kernel, which come with "
+            "a later slice of the port; use fused_loss=True")
+
+    def loss_fn(params, mb):
+        tokens = mb["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        # loss_mask = response positions of the model's own tokens
+        mask = mb["loss_mask"][:, 1:]
+        behaviour = mb["behaviour_logp"][:, 1:]
+        if big_vocab:
+            hidden = M.forward_hidden(params, cfg, inputs, remat=tcfg.remat)
+            adv_tok = mb["advantages"][:, None].expand(targets.shape)
+            loss_tok, ratio, logp_new, entropy = fio.fused_is_grpo(
+                hidden, M.unembed_weight(params, cfg), targets, behaviour,
+                adv_tok, logit_softcap=cfg.logit_softcap,
+                clip_low=tcfg.clip_low, clip_high=tcfg.clip_high,
+                use_is=tcfg.use_is_correction,
+                is_ratio_cap=tcfg.is_ratio_cap,
+                entropy_coef=tcfg.entropy_coef)
+            loss, metrics = grpo.aggregate_loss(
+                loss_tok, ratio, logp_new, behaviour, mask,
+                clip_low=tcfg.clip_low, use_is=tcfg.use_is_correction,
+                loss_agg=tcfg.loss_agg)
+        else:
+            logits = M.forward_train(params, cfg, inputs, remat=tcfg.remat)
+            logp_all = F.log_softmax(logits, dim=-1)
+            logp_new = logp_all.gather(-1, targets[..., None].long())[..., 0]
+            entropy = -(logp_all.exp() * logp_all).sum(-1)
+            loss, metrics = grpo.grpo_loss(
+                logp_new, behaviour, mb["advantages"], mask,
+                clip_low=tcfg.clip_low, clip_high=tcfg.clip_high,
+                use_is=tcfg.use_is_correction, is_ratio_cap=tcfg.is_ratio_cap,
+                loss_agg=tcfg.loss_agg, entropy=entropy,
+                entropy_coef=tcfg.entropy_coef)
+        with torch.no_grad():
+            denom = mask.sum().clamp_min(1.0)
+            metrics["entropy"] = (entropy * mask).sum() / denom
+            metrics["pg_loss"] = loss.detach()
+            # dense models only in the port: no MoE router loss
+            metrics["router_aux"] = torch.zeros((), device=loss.device)
+        return loss, metrics
+
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+    """Returns ``step(params, opt_state, batch, lr) -> (params, opt_state,
+    metrics)``. ``batch`` leaves have leading dim N = microbatches * m; the
+    gradient is the mean over microbatches. ``params`` and ``opt_state``
+    are updated in place and returned."""
+    loss_fn = make_loss_fn(cfg, tcfg)
+    k = tcfg.microbatches
+
+    def grad_fn(params, mb):
+        flat = leaves(params)
+        loss, metrics = loss_fn(params, mb)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        return metrics, [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(flat, grads)]
+
+    def train_step(params, opt_state, batch, lr):
+        n = next(iter(batch.values())).shape[0] // k
+        gsum, msum = None, None
+        for i in range(k):
+            mb = {key: v[i * n:(i + 1) * n] for key, v in batch.items()}
+            metrics, g = grad_fn(params, mb)
+            if gsum is None:
+                gsum, msum = g, metrics
+            else:
+                gsum = [a + b for a, b in zip(gsum, g)]
+                msum = {key: msum[key] + metrics[key] for key in msum}
+            del g
+        if k > 1:
+            gsum = [g / k for g in gsum]
+            msum = {key: v / k for key, v in msum.items()}
+        params, opt_state, om = adam.update(
+            unflatten(params, gsum), opt_state, params, lr=lr,
+            betas=tcfg.betas, eps=tcfg.eps, weight_decay=tcfg.weight_decay,
+            grad_clip=tcfg.grad_clip)
+        msum.update(om)
+        return params, opt_state, msum
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class _StageBatch:
+    """One collected rollout stage."""
+
+    params_version: int     # trainer.stage baked into the rollout params
+    groups: List = field(default_factory=list)
+    roll_stats: dict = field(default_factory=dict)
+
+
+class CoPRISTrainer:
+    """The sequential RL loop on one device (the card unless
+    ``device="cpu"``). The trainer takes ownership of ``params`` and updates
+    them in place."""
+
+    def __init__(self, model_cfg: ModelConfig, ro_cfg: RolloutConfig,
+                 tcfg: TrainConfig, task, *, eos_id: int, key=None,
+                 params=None, device=None):
+        if tcfg.overlap or tcfg.disaggregated:
+            raise NotImplementedError(
+                "overlap=True (the producer thread) and disaggregated=True "
+                "come with a later slice of the port; use overlap=False")
+        if hasattr(task, "make_env"):
+            raise NotImplementedError(
+                "multi-turn environments come with a later slice of the port")
+        self.cfg = model_cfg
+        self.ro = ro_cfg
+        self.tcfg = tcfg
+        self.task = task
+        self.device = resolve_device(device)
+        # the reference's key schedule: PRNGKey(seed) -> split -> one split
+        # per collect (the init half is unused: weights come from `params`
+        # or the port's own seeded init)
+        key = key if key is not None else prng.PRNGKey(tcfg.seed)
+        self.key = prng.split(key)[0]
+        if params is None:
+            params = M.init_params(model_cfg, seed=tcfg.seed,
+                                   device=self.device)
+        self.params = tree_map(
+            lambda t: t.detach().to(self.device).requires_grad_(), params)
+        self.opt_state = adam.init(self.params)
+        timeout = ro_cfg.env_step_timeout or None
+        self.reward_worker = AsyncRewardWorker(task.reward, timeout=timeout)
+        self.engine = RolloutEngine(model_cfg, ro_cfg, task.sample_prompt,
+                                    eos_id=eos_id,
+                                    on_finish=self.reward_worker.submit,
+                                    device=self.device)
+        self._train_step = make_train_step(model_cfg, tcfg)
+        self.stage = 0
+        self.history = []
+        self.last_groups: List = []
+        self.last_batch: Optional[dict] = None
+
+        self.param_store = ParamStore(max_versions=tcfg.max_staleness + 1)
+        self.param_store.publish(self.params, self.stage)
+
+        self._concurrency_ctrl = (AdaptiveConcurrencyController(ro_cfg)
+                                  if ro_cfg.adaptive_concurrency else None)
+        self._concurrency_target: Optional[int] = (
+            self._concurrency_ctrl.target if self._concurrency_ctrl else None)
+
+        self._reported_dropped = self.param_store.stats_snapshot()["dropped"]
+        self._closed = False
+
+    # ------------------------------------------------------------------
+    def _collect_stage(self, params, version: int) -> _StageBatch:
+        self.key, k_roll = prng.split(self.key)
+        groups, roll_stats = self.engine.collect(
+            params, version, k_roll,
+            target_concurrency=self._concurrency_target)
+        return _StageBatch(params_version=version, groups=groups,
+                           roll_stats=roll_stats)
+
+    # ------------------------------------------------------------------
+    def step(self) -> dict:
+        """One training step: collect inline, gather rewards, train."""
+        if self._closed:
+            raise RuntimeError("trainer is closed")
+        t0 = time.perf_counter()
+        # the freshest published version: (self.params, self.stage) here
+        params, version = self.param_store.acquire()
+        item = self._collect_stage(params, version)
+        t_collected = time.perf_counter()
+        out = self._train_on(item, t0, t_collected)
+        self.history.append(out)
+        return out
+
+    def _batch_tensors(self, batch):
+        dev = self.device
+        tb = {k: torch.from_numpy(batch[k]).to(dev)
+              for k in ("tokens", "loss_mask", "behaviour_logp")}
+        tb["advantages"] = grpo.group_advantages(
+            torch.from_numpy(batch["rewards"]).to(dev), self.ro.group_size)
+        return tb
+
+    def _train_on(self, item: _StageBatch, t0: float,
+                  t_collected: float) -> dict:
+        groups, roll_stats = item.groups, item.roll_stats
+        # rewards were computed asynchronously during rollout; gather
+        # resolves any stragglers
+        self.reward_worker.gather(groups)
+        t_reward = time.perf_counter()
+
+        train_stage = self.stage
+        batch = pack_groups(groups, max_len=self.engine.max_len)
+        lr = schedule.warmup_constant(train_stage, lr=self.tcfg.lr,
+                                      warmup_steps=self.tcfg.warmup_steps)
+        self.params, self.opt_state, metrics = self._train_step(
+            self.params, self.opt_state, self._batch_tensors(batch), lr)
+        self.stage = train_stage + 1
+        self.param_store.publish(self.params, self.stage)
+        # kernels run asynchronously: wait for the update before stamping
+        # t_end, so update_time covers the device work
+        self.engine.block_until_ready()
+        t_end = time.perf_counter()
+
+        # staleness relative to the CONSUMING training stage
+        stages_arr = batch["stage_ids"]
+        resp = stages_arr >= 0
+        n_resp = int(resp.sum())
+        gaps = (train_stage - stages_arr)[resp]
+        staleness_hist = {int(g): int(c) for g, c in
+                          zip(*np.unique(gaps, return_counts=True))}
+        off_tokens = int((gaps > 0).sum())
+
+        out = {k: float(v) for k, v in metrics.items()}
+        ps_stats = self.param_store.stats_snapshot()
+        rollout_time = roll_stats["wall_time"]
+        update_time = t_end - t_reward
+        reward_time = self.reward_worker.last_gather_time
+        step_time = t_end - t0
+        if self._concurrency_ctrl is not None:
+            self._concurrency_target = self._concurrency_ctrl.observe(
+                rollout_time=rollout_time,
+                train_time=t_end - t_collected,
+                evicted=roll_stats["evicted"])
+        # the reference's metric keys; the overlap, reshard and environment
+        # ones are 0 in the sequential, single-turn pipeline
+        out.update(
+            step=train_stage,
+            reward_mean=float(batch["rewards"].mean()),
+            reward_std=float(batch["rewards"].std()),
+            rollout_time=rollout_time,
+            reward_time=reward_time,
+            update_time=update_time,
+            host_syncs=roll_stats["host_syncs"],
+            tokens_per_sync=roll_stats["tokens_per_sync"],
+            step_time=step_time,
+            off_policy_frac=off_tokens / max(1, n_resp),
+            staleness_hist=staleness_hist,
+            param_staleness=train_stage - item.params_version,
+            batch_wait_time=0.0,
+            overlap_saved_time=0.0,
+            multi_stage_trajs=roll_stats["multi_stage_trajs"],
+            utilization=roll_stats["utilization"],
+            buffer_unfinished=roll_stats["buffer_unfinished"],
+            concurrency_target=roll_stats["concurrency_target"],
+            param_store_versions=self.param_store.num_versions,
+            dropped_versions=ps_stats["dropped"] - self._reported_dropped,
+            reshard_time=0.0,
+            mean_resp_len=float(np.mean([len(t.response_tokens)
+                                         for g in groups
+                                         for t in g.trajectories])),
+            env_steps=0, env_turns=0, env_failures=0, env_wait_time=0.0,
+            env_timeouts=0,
+        )
+        self._reported_dropped = ps_stats["dropped"]
+        self.last_groups = groups
+        self.last_batch = batch
+        return out
+
+    # ------------------------------------------------------------------
+    def restore(self, *, params=None, opt_state=None, stage=None):
+        """Resume from checkpoint state: copy the given values into the
+        trainer's tensors and republish through the ParamStore. Must be
+        called before the first ``step()``."""
+        if params is not None:
+            with torch.no_grad():
+                for dst, src in zip(leaves(self.params), leaves(params)):
+                    dst.copy_(src)
+        if opt_state is not None:
+            with torch.no_grad():
+                for name in ("m", "v", "step"):
+                    for dst, src in zip(leaves(self.opt_state[name]),
+                                        leaves(opt_state[name])):
+                        dst.copy_(src)
+        if stage is not None:
+            if stage < self.stage:
+                raise ValueError(
+                    f"restore to stage {stage} < current {self.stage}: "
+                    "ParamStore versions are strictly monotonic — build a "
+                    "fresh trainer to rewind")
+            self.stage = stage
+        self.param_store.publish(self.params, self.stage, replace=True)
+
+    # ------------------------------------------------------------------
+    def close(self):
+        """Stop the reward pool. Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        self.reward_worker.shutdown()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def evaluate(self, n_prompts: int = 32) -> float:
+        """Greedy accuracy on fresh task prompts (exact reward)."""
+        eos_id = self.engine.eos_id
+        params, _ = self.param_store.acquire()
+        params = self.engine.prepare_params(params)
+        dev = self.device
+        correct = 0.0
+        for _ in range(n_prompts):
+            cache = M.init_cache(self.cfg, 1, self.engine.max_len,
+                                 device=dev)
+            prompt, answer = self.task.sample_prompt()
+            L = len(prompt)
+            pad = np.zeros(-(-L // 16) * 16, np.int32)
+            pad[:L] = prompt
+            logits, cache = M.prefill(
+                params, self.cfg, torch.from_numpy(pad)[None].to(dev),
+                torch.tensor([L], dtype=torch.int32, device=dev), cache)
+            toks, cl = [], L
+            tok = int(logits[0].argmax())
+            for _ in range(32):
+                toks.append(tok)
+                if tok == eos_id:
+                    break
+                lg, cache = M.decode_step(
+                    params, self.cfg,
+                    torch.tensor([tok], dtype=torch.int32, device=dev),
+                    cache, torch.tensor([cl], dtype=torch.int32, device=dev))
+                cl += 1
+                tok = int(lg[0].argmax())
+            correct += self.task.reward(toks, answer)
+        return correct / n_prompts

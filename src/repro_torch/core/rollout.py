@@ -91,6 +91,7 @@ class RolloutEngine:
     def __init__(self, model_cfg: ModelConfig, ro_cfg: RolloutConfig,
                  prompt_source: Callable[[], Tuple[np.ndarray, object]], *,
                  eos_id: int, max_len: Optional[int] = None,
+                 on_finish: Optional[Callable] = None,
                  env_factory: Optional[Callable] = None, device=None):
         if env_factory is not None:
             raise NotImplementedError(
@@ -100,6 +101,8 @@ class RolloutEngine:
         self.ro = ro_cfg
         self.prompt_source = prompt_source
         self.eos_id = eos_id
+        self.on_finish = on_finish      # async-reward hook: (traj, answer)
+        self._answers = {}
         self.device = resolve_device(device)
         self.dtype = torch_dtype(model_cfg.dtype)
         self.pool = ro_cfg.slot_pool
@@ -165,6 +168,7 @@ class RolloutEngine:
         g = Group(group_id=self._group_counter,
                   prompt_tokens=np.asarray(prompt, np.int32), answer=answer,
                   size=self.ro.group_size)
+        self._answers[g.group_id] = answer
         self._group_counter += 1
         return g
 
@@ -172,6 +176,8 @@ class RolloutEngine:
                 sched: ConcurrencyScheduler):
         traj.done = True
         traj.finish_reason = reason
+        if self.on_finish is not None:      # async reward pipeline
+            self.on_finish(traj, self._answers.get(traj.group_id))
         sched.release(traj)
 
     def _maybe_done(self, traj: Trajectory) -> Optional[str]:
@@ -361,13 +367,16 @@ class RolloutEngine:
         return out[0].astype(np.int32), out[1], out[2].astype(bool)
 
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def collect(self, params, stage_id: int, key, *,
                 target_concurrency: Optional[int] = None
                 ) -> Tuple[List[Group], dict]:
         """Run rollout until B complete groups are collected (early
         termination). Returns (groups, stats). ``key`` is the stage's raw
         (2,) uint32 key (``prng.PRNGKey``). ``collect`` is single-owner — it
-        must only ever run on one thread at a time (see ``_collect_guard``)."""
+        must only ever run on one thread at a time (see ``_collect_guard``).
+        It runs without autograd: a trainer's parameters require gradients,
+        and every decode step would otherwise record a graph."""
         self.begin_stage(params, stage_id, key,
                          target_concurrency=target_concurrency)
         try:

@@ -5,7 +5,10 @@
 //   (body `_kernel`, wrapper `ops.flash_attention`).
 // Computes causal / sliding-window / softcap GQA attention with an online
 // softmax, f32 accumulation, output in q's dtype. Plain reference:
-// repro_torch.models.attention.chunked_attention.
+// repro_torch.models.attention.chunked_attention. Optionally (lse != NULL)
+// also writes each row's logsumexp m + log(l), float32 in a (B, H, Sq)
+// layout, which the backward (flash_attn_bwd.cu) reads; serving passes
+// NULL.
 //
 // Layout: the model's own (B, S, H, hd) for q/out and (B, S, KV, hd) for k/v
 // — no transpose and no jnp.repeat of KV heads: query head h reads KV head
@@ -36,9 +39,9 @@ constexpr int BK = 32;  // keys per shared-memory tile
 template <typename T, int HD>
 __global__ void __launch_bounds__(BQ)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int KV, int causal, int window, float softcap,
-                 float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                 int causal, int window, float softcap, float scale) {
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -127,39 +130,43 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = o + ((size_t)(b * Sq + qpos) * H + h) * HD;
 #pragma unroll
     for (int d = 0; d < HD; ++d) op[d] = repro::from_f<T>(acc[d] / denom);
+    if (lse != nullptr)
+      lse[((size_t)b * H + h) * Sq + qpos] = m + logf(denom);
   }
 }
 
 template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, void* o, int B,
-            int Sq, int Sk, int H, int KV, int causal, int window,
-            float softcap, float scale, cudaStream_t stream) {
+void launch(const void* q, const void* k, const void* v, void* o,
+            float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
+            int window, float softcap, float scale, cudaStream_t stream) {
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, HD><<<grid, BQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, causal,
-      window, softcap, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KV,
+      causal, window, softcap, scale);
 }
 
 }  // namespace
 
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int B, int Sq, int Sk, int H, int KV,
-                              int hd, int causal, int window, float softcap,
-                              float scale, int dtype, void* stream) {
+                              void* o, void* lse, int B, int Sq, int Sk,
+                              int H, int KV, int hd, int causal, int window,
+                              float softcap, float scale, int dtype,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == repro::kBFloat16 && hd == 64)
-    launch<__nv_bfloat16, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+    launch<__nv_bfloat16, 64>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
                               softcap, scale, s);
   else if (dtype == repro::kFloat32 && hd == 64)
-    launch<float, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, softcap,
-                      scale, s);
+    launch<float, 64>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
+                      softcap, scale, s);
   else if (dtype == repro::kBFloat16 && hd == 32)
-    launch<__nv_bfloat16, 32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+    launch<__nv_bfloat16, 32>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
                               softcap, scale, s);
   else if (dtype == repro::kFloat32 && hd == 32)
-    launch<float, 32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window, softcap,
-                      scale, s);
+    launch<float, 32>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window,
+                      softcap, scale, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -1,0 +1,411 @@
+// Fused IS+GRPO loss, forward and backward, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels
+//   src/repro/kernels/fused_is_grpo/fused_is_grpo.py::fused_is_grpo_fwd_rows
+//   (body `_fwd_kernel`) and ::fused_is_grpo_bwd_rows (`_bwd_dh_kernel`,
+//   `_bwd_dw_kernel`), wrapper `ops.fused_is_grpo`.
+// Plain reference: repro_torch.hopper.fused_is_grpo.stats_plain / bwd_plain
+// (ports of `_stats_blocked` / `_bwd_blocked`).
+//
+// Inputs: hidden h (R, d) float32 or bfloat16, row-major; the unembedding
+// w as the logical (d, V) matrix given by two strides, so the tied
+// embedding is read in its own (V, d) layout (w_stride_k 1, w_stride_v d)
+// and an untied lm_head in (d, V) (w_stride_k V, w_stride_v 1) — no
+// transposed copy of a 1 GB float32 matrix per step. w is float32 (the
+// master weights) and the logits product reads it as float32, as the
+// Pallas kernel does: h is widened to float32 and every product and sum is
+// float32 (no tensor cores in this first version).
+//
+// Entry points:
+//   fused_is_grpo_fwd     per row: loss_tok, ratio, logp, lse, entropy.
+//     Kernel 1, one block per (128-row tile, vocabulary split): 128x128
+//     logits tiles (SIMT GEMM, 8x8 outputs per thread, 8-deep k tiles in
+//     shared memory), folded into a running (max, sumexp, target logit,
+//     logit-weighted sumexp) per row; the TPU kernel's sequential vocab
+//     grid axis becomes a loop inside the block over its split. Splitting
+//     the vocabulary keeps the card full: at R = 4064 rows there are only
+//     32 row tiles for 132 SMs, so the wrapper picks ~4 blocks per SM.
+//     Kernel 2, one thread per row: merges the splits' partials, then
+//     logp = g - lse, E[logit] = u / l, entropy = lse - E[logit], and the
+//     per-token objective of core/grpo.per_token_objective.
+//   fused_is_grpo_bwd_dh  recomputes each logits tile and writes
+//     dl = a (onehot - p) - e p (logit - E[logit]) (times the softcap
+//     chain 1 - (logit/cap)^2) for a chunk of rows to a float32 (rows, V)
+//     scratch, then dh = dl w^T (tiled GEMM, float32 accumulation).
+//   fused_is_grpo_bwd_dw  dw = h^T dl for the same chunk, written in w's
+//     own layout (the tied embedding's gradient comes back as (V, d)),
+//     accumulated over row chunks.
+// So the backward does one logits recompute + dh + dw = 6 R d V operations
+// where the TPU kernels recompute the logits in each of their two kernels.
+// A row with a = e = 0 (prompt and padding positions) has dl = 0 exactly
+// and adds exactly zero to dh and dw.
+//
+// What bounds it on the H100: 2 R d V operations forward and 6 R d V
+// backward against O(V d + R d) bytes — far above the card's operations per
+// byte, so arithmetic. In float32 on the FMA pipes the bound is 67 TFLOP/s;
+// this simple tiling (no double buffering, no tensor cores) reaches a
+// fraction of it. wgmma with bf16 inputs is the later fast version.
+#include "common.cuh"
+
+namespace {
+
+using repro::kNegInf;
+
+constexpr int BM = 128;      // rows of an output tile
+constexpr int BN = 128;      // columns of an output tile
+constexpr int BK = 8;        // depth of a shared-memory k tile
+constexpr int TM = 8;        // outputs per thread, rows
+constexpr int TN = 8;        // outputs per thread, columns
+constexpr int NT = 256;      // threads per block: (BM/TM) x (BN/TN)
+
+// Strided operand: element (i, j) at p[i * si + j * sj].
+template <typename T>
+struct Mat {
+  const T* p;
+  long long si, sj;
+  __device__ __forceinline__ float at(long long i, long long j) const {
+    return repro::to_f(p[i * si + j * sj]);
+  }
+};
+
+// acc[i][j] = sum_k A(m0 + ty*TM + i, k) * B(k, n0 + tx*TN + j) over k in
+// [0, K); A is M x K, B is K x N, out-of-range elements read as 0.
+template <typename TA, typename TB>
+__device__ __forceinline__ void gemm_tile(const Mat<TA> A, const Mat<TB> B,
+                                          int M, int N, int K, int m0,
+                                          int n0, float (*As)[BM],
+                                          float (*Bs)[BN],
+                                          float (&acc)[TM][TN]) {
+  const int tid = threadIdx.x;
+  const int ty = tid / (BN / TN), tx = tid % (BN / TN);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  // consecutive threads walk the operand's contiguous dimension
+  const bool a_k_contig = A.sj == 1;
+  const bool b_n_contig = B.sj == 1;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    __syncthreads();  // previous tile fully consumed
+#pragma unroll
+    for (int e = tid; e < BM * BK; e += NT) {
+      const int mi = a_k_contig ? e / BK : e % BM;
+      const int ki = a_k_contig ? e % BK : e / BM;
+      const int m = m0 + mi, k = k0 + ki;
+      As[ki][mi] = (m < M && k < K) ? A.at(m, k) : 0.f;
+    }
+#pragma unroll
+    for (int e = tid; e < BK * BN; e += NT) {
+      const int ni = b_n_contig ? e % BN : e / BK;
+      const int ki = b_n_contig ? e / BN : e % BK;
+      const int n = n0 + ni, k = k0 + ki;
+      Bs[ki][ni] = (n < N && k < K) ? B.at(k, n) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+}
+
+__device__ __forceinline__ float capped(float x, float softcap) {
+  return softcap > 0.f ? tanhf(x / softcap) * softcap : x;
+}
+
+// The 16 threads sharing a row of the output tile are 16 consecutive lanes
+// (one half-warp), so xor shuffles of 8, 4, 2, 1 reduce over them.
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// ---- forward ------------------------------------------------------------
+
+template <typename TH>
+__global__ void __launch_bounds__(NT)
+fwd_partial_kernel(const TH* __restrict__ h, const float* __restrict__ w,
+                   long long w_sk, long long w_sv,
+                   const int* __restrict__ targets,
+                   float4* __restrict__ partial, int R, int d, int V,
+                   int tiles_per_split, float softcap) {
+  __shared__ float As[BK][BM];
+  __shared__ float Bs[BK][BN];
+  const int m0 = blockIdx.x * BM;
+  const int split = blockIdx.y;
+  const int ty = threadIdx.x / (BN / TN), tx = threadIdx.x % (BN / TN);
+  const int n_begin = split * tiles_per_split * BN;
+  const int n_end = min(V, n_begin + tiles_per_split * BN);
+  const Mat<TH> A{h, d, 1};
+  const Mat<float> B{w, w_sk, w_sv};
+
+  float rm[TM], rl[TM], rg[TM], ru[TM];
+  int tgt[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + ty * TM + i;
+    rm[i] = kNegInf;
+    rl[i] = rg[i] = ru[i] = 0.f;
+    tgt[i] = row < R ? targets[row] : -1;
+  }
+  float acc[TM][TN];
+  for (int n0 = n_begin; n0 < n_end; n0 += BN) {
+    gemm_tile(A, B, R, V, d, m0, n0, As, Bs, acc);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      float x[TN];
+      float tmax = kNegInf;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = n0 + tx * TN + j;
+        x[j] = capped(acc[i][j], softcap);
+        if (col < n_end) tmax = fmaxf(tmax, x[j]);
+      }
+      tmax = half_warp_max(tmax);
+      const float m_new = fmaxf(rm[i], tmax);
+      float ps = 0.f, pu = 0.f, pg = 0.f;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = n0 + tx * TN + j;
+        if (col < n_end) {
+          const float p = expf(x[j] - m_new);
+          ps += p;
+          pu = fmaf(p, x[j], pu);
+          if (col == tgt[i]) pg += x[j];
+        }
+      }
+      ps = half_warp_sum(ps);
+      pu = half_warp_sum(pu);
+      pg = half_warp_sum(pg);
+      const float corr = expf(rm[i] - m_new);
+      rl[i] = rl[i] * corr + ps;
+      ru[i] = ru[i] * corr + pu;
+      rg[i] += pg;
+      rm[i] = m_new;
+    }
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = m0 + ty * TM + i;
+      if (row < R)
+        partial[(size_t)split * R + row] = make_float4(rm[i], rl[i], rg[i], ru[i]);
+    }
+  }
+}
+
+__global__ void fwd_combine_kernel(const float4* __restrict__ partial,
+                                   int splits, int R,
+                                   const float* __restrict__ behaviour,
+                                   const float* __restrict__ adv,
+                                   float* __restrict__ loss,
+                                   float* __restrict__ ratio,
+                                   float* __restrict__ logp,
+                                   float* __restrict__ lse,
+                                   float* __restrict__ ent, float ratio_lo,
+                                   float ratio_hi, int use_is, float log_cap,
+                                   float entropy_coef) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  float m = kNegInf;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, partial[(size_t)s * R + r].x);
+  float l = 0.f, g = 0.f, u = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float4 p = partial[(size_t)s * R + r];
+    const float c = expf(p.x - m);
+    l = fmaf(p.y, c, l);
+    u = fmaf(p.w, c, u);
+    g += p.z;
+  }
+  const float L = m + logf(l);
+  const float lp = g - L;
+  const float en = L - u / l;
+  // core/grpo.per_token_objective, elementwise
+  float lr = 0.f;
+  if (use_is) lr = fminf(fmaxf(lp - behaviour[r], -log_cap), log_cap);
+  const float rt = expf(lr);
+  const float a = adv[r];
+  const float obj = fminf(rt * a, fminf(fmaxf(rt, ratio_lo), ratio_hi) * a);
+  float lt = -obj;
+  if (entropy_coef > 0.f) lt -= entropy_coef * en;
+  loss[r] = lt;
+  ratio[r] = rt;
+  logp[r] = lp;
+  lse[r] = L;
+  ent[r] = en;
+}
+
+// ---- backward -----------------------------------------------------------
+
+template <typename TH>
+__global__ void __launch_bounds__(NT)
+bwd_dl_kernel(const TH* __restrict__ h, const float* __restrict__ w,
+              long long w_sk, long long w_sv, const int* __restrict__ targets,
+              const float* __restrict__ lse, const float* __restrict__ ebar,
+              const float* __restrict__ ca, const float* __restrict__ ce,
+              float* __restrict__ dl, int R, int d, int V, float softcap) {
+  __shared__ float As[BK][BM];
+  __shared__ float Bs[BK][BN];
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int ty = threadIdx.x / (BN / TN), tx = threadIdx.x % (BN / TN);
+  float acc[TM][TN];
+  gemm_tile(Mat<TH>{h, d, 1}, Mat<float>{w, w_sk, w_sv}, R, V, d, m0, n0,
+            As, Bs, acc);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + ty * TM + i;
+    if (row >= R) continue;
+    const float L = lse[row], eb = ebar[row], a = ca[row], e = ce[row];
+    const int t = targets[row];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = n0 + tx * TN + j;
+      if (col >= V) continue;
+      const float x = capped(acc[i][j], softcap);
+      const float p = expf(x - L);
+      const float hit = col == t ? 1.f : 0.f;
+      float v = a * (hit - p) - e * p * (x - eb);
+      if (softcap > 0.f) {
+        const float c = x / softcap;
+        v *= 1.f - c * c;
+      }
+      dl[(size_t)row * V + col] = v;
+    }
+  }
+}
+
+// C (M x N) = A (M x K) B (K x N), or C += A B with accumulate; C(i, j) at
+// c[i * c_si + j * c_sj].
+template <typename TA, typename TB>
+__global__ void __launch_bounds__(NT)
+gemm_kernel(const TA* __restrict__ a, long long a_si, long long a_sj,
+            const TB* __restrict__ b, long long b_si, long long b_sj,
+            float* __restrict__ c, long long c_si, long long c_sj, int M,
+            int N, int K, int accumulate) {
+  __shared__ float As[BK][BM];
+  __shared__ float Bs[BK][BN];
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int ty = threadIdx.x / (BN / TN), tx = threadIdx.x % (BN / TN);
+  float acc[TM][TN];
+  gemm_tile(Mat<TA>{a, a_si, a_sj}, Mat<TB>{b, b_si, b_sj}, M, N, K, m0, n0,
+            As, Bs, acc);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty * TM + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx * TN + j;
+      if (n >= N) continue;
+      float* cp = c + m * c_si + n * c_sj;
+      *cp = accumulate ? *cp + acc[i][j] : acc[i][j];
+    }
+  }
+}
+
+inline dim3 tiles(int M, int N) {
+  return dim3((M + BM - 1) / BM, (N + BN - 1) / BN);
+}
+
+}  // namespace
+
+extern "C" int fused_is_grpo_fwd(
+    const void* h, const void* w, const void* targets, const void* behaviour,
+    const void* adv, void* partial, void* loss, void* ratio, void* logp,
+    void* lse, void* ent, int R, int d, int V, int w_sk, int w_sv,
+    int h_dtype, int splits, float softcap, float ratio_lo, float ratio_hi,
+    int use_is, float log_cap, float entropy_coef, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (V + BN - 1) / BN;
+  if (splits < 1 || splits > n_tiles) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_split = (n_tiles + splits - 1) / splits;
+  const int used = (n_tiles + per_split - 1) / per_split;  // every split non-empty
+  if (used != splits) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((R + BM - 1) / BM, splits);
+  const float* wf = static_cast<const float*>(w);
+  const int* t = static_cast<const int*>(targets);
+  float4* part = static_cast<float4*>(partial);
+  if (h_dtype == repro::kBFloat16)
+    fwd_partial_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(h), wf, w_sk, w_sv, t, part, R, d,
+        V, per_split, softcap);
+  else if (h_dtype == repro::kFloat32)
+    fwd_partial_kernel<float><<<grid, NT, 0, s>>>(
+        static_cast<const float*>(h), wf, w_sk, w_sv, t, part, R, d, V,
+        per_split, softcap);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  fwd_combine_kernel<<<(R + 255) / 256, 256, 0, s>>>(
+      part, splits, R, static_cast<const float*>(behaviour),
+      static_cast<const float*>(adv), static_cast<float*>(loss),
+      static_cast<float*>(ratio), static_cast<float*>(logp),
+      static_cast<float*>(lse), static_cast<float*>(ent), ratio_lo, ratio_hi,
+      use_is, log_cap, entropy_coef);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fused_is_grpo_bwd_dh(const void* h, const void* w,
+                                    const void* targets, const void* lse,
+                                    const void* ebar, const void* a,
+                                    const void* e, void* dl, void* dh, int R,
+                                    int d, int V, int w_sk, int w_sv,
+                                    int h_dtype, float softcap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* wf = static_cast<const float*>(w);
+  float* dlf = static_cast<float*>(dl);
+#define REPRO_DL(TH)                                                         \
+  bwd_dl_kernel<TH><<<tiles(R, V), NT, 0, s>>>(                              \
+      static_cast<const TH*>(h), wf, w_sk, w_sv,                             \
+      static_cast<const int*>(targets), static_cast<const float*>(lse),      \
+      static_cast<const float*>(ebar), static_cast<const float*>(a),         \
+      static_cast<const float*>(e), dlf, R, d, V, softcap)
+  if (h_dtype == repro::kBFloat16)
+    REPRO_DL(__nv_bfloat16);
+  else if (h_dtype == repro::kFloat32)
+    REPRO_DL(float);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef REPRO_DL
+  // dh (R x d) = dl (R x V) w^T: B(k=v, n=j) = w(j, v)
+  gemm_kernel<float, float><<<tiles(R, d), NT, 0, s>>>(
+      dlf, V, 1, wf, w_sv, w_sk, static_cast<float*>(dh), d, 1, R, d, V, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fused_is_grpo_bwd_dw(const void* h, const void* dl, void* dw,
+                                    int R, int d, int V, int dw_sk,
+                                    int dw_sv, int h_dtype, int accumulate,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // dw^T (V x d) = dl^T (V x R) h (R x d): A(v, r) = dl(r, v),
+  // B(r, j) = h(r, j), C(v, j) = dw(j, v)
+  const float* dlf = static_cast<const float*>(dl);
+  float* out = static_cast<float*>(dw);
+  if (h_dtype == repro::kBFloat16)
+    gemm_kernel<float, __nv_bfloat16><<<tiles(V, d), NT, 0, s>>>(
+        dlf, 1, V, static_cast<const __nv_bfloat16*>(h), d, 1, out, dw_sv,
+        dw_sk, V, d, R, accumulate);
+  else if (h_dtype == repro::kFloat32)
+    gemm_kernel<float, float><<<tiles(V, d), NT, 0, s>>>(
+        dlf, 1, V, static_cast<const float*>(h), d, 1, out, dw_sv, dw_sk, V,
+        d, R, accumulate);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -28,14 +28,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# C entry point and its argument types, per kernel source
+# C entry points and their argument types, per kernel source
 KERNELS = {
-    "flash_attn": ("flash_attn_fwd",
-                   (P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P)),
-    "decode_attn": ("decode_attn_fwd",
-                    (P, P, P, P, P, I, I, I, I, I, I, F, F, I, P)),
-    "fused_sample": ("fused_sample_rows",
-                     (P, P, P, P, I, I, F, I, F, I, P)),
+    "flash_attn": {"flash_attn_fwd":
+                   (P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I, P)},
+    "flash_attn_bwd": {"flash_attn_bwd":
+                       (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                        F, F, I, P)},
+    "decode_attn": {"decode_attn_fwd":
+                    (P, P, P, P, P, I, I, I, I, I, I, F, F, I, P)},
+    "fused_sample": {"fused_sample_rows":
+                     (P, P, P, P, I, I, F, I, F, I, P)},
+    "fused_is_grpo": {
+        # h, w, targets, behaviour, adv, partial, loss, ratio, logp, lse,
+        # ent, R, d, V, w_stride_k, w_stride_v, h_dtype, splits, softcap,
+        # clip_low, clip_high, use_is, log_cap, entropy_coef, stream
+        "fused_is_grpo_fwd": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                              I, I, F, F, F, I, F, F, P),
+        # h, w, targets, lse, ebar, a, e, dl, dh, R, d, V, w_stride_k,
+        # w_stride_v, h_dtype, softcap, stream
+        "fused_is_grpo_bwd_dh": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                 F, P),
+        # h, dl, dw, R, d, V, dw_stride_k, dw_stride_v, h_dtype, accumulate,
+        # stream
+        "fused_is_grpo_bwd_dw": (P, P, P, I, I, I, I, I, I, I, P),
+    },
 }
 
 
@@ -96,16 +113,16 @@ def build_all() -> Dict[str, float]:
 
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built on first use), with its
-    C entry point's argument and return types declared."""
+    """The loaded library of kernel source ``name`` (built on first use),
+    with its C entry points' argument and return types declared."""
     job = _start(name)
     if job is not None:
         _finish(name, job)
     lib = ctypes.CDLL(str(_lib_path(name)))
-    fn_name, argtypes = KERNELS[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in KERNELS[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     return lib
 
 

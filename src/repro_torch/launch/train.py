@@ -1,0 +1,155 @@
+"""RL training launcher of the port: the sequential CoPRIS loop on one GPU.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch llama3.2-1b --mode copris --steps 20 --concurrency 16 \\
+        --sft-warmup 5 --out runs/llama_copris
+
+The flags are those of ``repro.launch.train``, plus ``--device`` (the card by
+default; ``--device cpu`` runs the plain PyTorch path on the host). Writes
+metrics.jsonl per step and checkpoints every --ckpt-every steps, in the JAX
+package's checkpoint layout, so ``--resume`` takes a checkpoint of either
+package. ``--overlap``, ``--disaggregated`` and the multi-turn tasks raise
+``NotImplementedError`` until their slice of the port.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+from repro_torch import convert
+from repro_torch.checkpoint import ckpt
+from repro_torch.common.config import RolloutConfig, TrainConfig
+from repro_torch.common.device import resolve_device
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.copris import CoPRISTrainer
+from repro_torch.data.sft import sft_warmup
+from repro_torch.data.tasks import EOS, AdditionTask
+from repro_torch.models import model as M
+
+
+def make_task(name: str, seed: int):
+    """--task registry (single-turn tasks only in the port so far)."""
+    if name == "addition":
+        return AdditionTask(max_value=20, seed=seed)
+    if name in ("multiturn_math", "toolcall"):
+        raise NotImplementedError(
+            f"--task {name}: multi-turn environments come with a later "
+            "slice of the port")
+    raise ValueError(f"unknown task {name!r}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tiny")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced variant of --arch")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' runs the "
+                         "plain PyTorch versions of the kernels)")
+    ap.add_argument("--mode", default="copris",
+                    choices=["copris", "sync", "naive_partial"])
+    ap.add_argument("--task", default="addition",
+                    choices=["addition", "multiturn_math", "toolcall"])
+    ap.add_argument("--env-timeout", type=float, default=0.0)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--group-size", type=int, default=4)
+    ap.add_argument("--concurrency", type=int, default=16)
+    ap.add_argument("--max-response", type=int, default=24)
+    ap.add_argument("--lr", type=float, default=2e-4)
+    ap.add_argument("--no-is", action="store_true",
+                    help="disable cross-stage IS correction (ablation)")
+    ap.add_argument("--overlap", action="store_true")
+    ap.add_argument("--max-staleness", type=int, default=1)
+    ap.add_argument("--disaggregated", action="store_true")
+    ap.add_argument("--adaptive-concurrency", action="store_true")
+    ap.add_argument("--concurrency-min", type=int, default=0)
+    ap.add_argument("--concurrency-max", type=int, default=0)
+    ap.add_argument("--sft-warmup", type=int, default=150)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="runs/default")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", default=None)
+    ap.add_argument("--eval-every", type=int, default=25)
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    task = make_task(args.task, args.seed)
+    os.makedirs(args.out, exist_ok=True)
+
+    ro = RolloutConfig(batch_size=args.batch_size, group_size=args.group_size,
+                       max_prompt_len=16, max_response_len=args.max_response,
+                       concurrency=args.concurrency, mode=args.mode,
+                       adaptive_concurrency=args.adaptive_concurrency,
+                       concurrency_min=args.concurrency_min,
+                       concurrency_max=args.concurrency_max,
+                       env_step_timeout=args.env_timeout)
+    tc = TrainConfig(lr=args.lr, warmup_steps=5, total_steps=args.steps,
+                     use_is_correction=not args.no_is, seed=args.seed,
+                     overlap=args.overlap, max_staleness=args.max_staleness,
+                     disaggregated=args.disaggregated)
+
+    state = None
+    if args.resume:
+        state = ckpt.load(args.resume)
+        params = convert.params_from_jax(state["params"], cfg, dev)
+        print(f"resumed from {args.resume}")
+    else:
+        params = M.init_params(cfg, seed=args.seed, device=dev)
+        if args.sft_warmup > 0:
+            print(f"SFT warmup {args.sft_warmup} steps…")
+            params, loss = sft_warmup(params, cfg, task,
+                                      steps=args.sft_warmup, log_every=50)
+            print(f"  warmup done (loss {loss:.3f})")
+
+    tr = CoPRISTrainer(cfg, ro, tc, task, eos_id=EOS, params=params,
+                       device=dev)
+    if state is not None:
+        tr.restore(opt_state=convert.opt_state_from_jax(
+            state["opt_state"], cfg, dev), stage=state["stage"])
+
+    mpath = os.path.join(args.out, "metrics.jsonl")
+    try:
+        with open(mpath, "a") as mf:
+            for i in range(args.steps):
+                out = tr.step()
+                mf.write(json.dumps(out) + "\n")
+                mf.flush()
+                if i % 5 == 0:
+                    extra = (f" N'={out['concurrency_target']}"
+                             if args.adaptive_concurrency else "")
+                    print(f"step {out['step']:4d} "
+                          f"reward={out['reward_mean']:.3f} "
+                          f"loss={out['pg_loss']:+.4f} "
+                          f"ratio={out['ratio_mean']:.3f} "
+                          f"off={out['off_policy_frac']:.2f} "
+                          f"t={out['step_time']:.1f}s{extra}")
+                if args.eval_every and (i + 1) % args.eval_every == 0:
+                    from repro_torch.eval.passk import evaluate as eval_passk
+                    acc = tr.evaluate(n_prompts=16)
+                    params_now, _ = tr.param_store.acquire()
+                    pk = eval_passk(params_now, cfg, task,
+                                    eos_id=EOS, n_prompts=8,
+                                    samples_per_prompt=8,
+                                    max_response=args.max_response,
+                                    ks=(1, 8), device=dev)
+                    print(f"  eval@{out['step']}: greedy {acc:.3f} "
+                          f"pass@1 {pk['pass@1']:.3f} "
+                          f"pass@8 {pk['pass@8']:.3f}")
+                if (i + 1) % args.ckpt_every == 0:
+                    p = os.path.join(args.out, f"ckpt_{tr.stage}.zpkl")
+                    ckpt.save(p, {
+                        "params": convert.params_to_jax(tr.params, cfg),
+                        "opt_state": convert.opt_state_to_jax(tr.opt_state,
+                                                              cfg),
+                        "stage": tr.stage})
+                    print(f"  saved {p}")
+        print("final eval:", tr.evaluate(n_prompts=32))
+    finally:
+        tr.close()
+
+
+if __name__ == "__main__":
+    main()

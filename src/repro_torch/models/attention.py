@@ -38,7 +38,7 @@ def init_attention(cfg, dtype, device, gen):
 
 
 # ---------------------------------------------------------------------------
-# core chunked attention (flash-style online softmax, forward only)
+# core chunked attention (flash-style online softmax) and its backward
 # ---------------------------------------------------------------------------
 
 
@@ -54,12 +54,15 @@ def _mask_for(q_pos, k_pos, Sk, *, causal, window):
 def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       attn_softcap: float = 0.0, scale: float = 0.0,
                       q_offset: int = 0, block_q: int = 512,
-                      block_k: int = 512):
+                      block_k: int = 512, return_lse: bool = False):
     """Blocked attention with an online softmax in float32.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H a multiple of KV (GQA,
     grouped: no head repetition is materialised). ``q_offset`` is the
-    absolute position of query 0. Returns (B, Sq, H, hd) in q's dtype."""
+    absolute position of query 0. Returns (B, Sq, H, hd) in q's dtype and,
+    with ``return_lse``, also the logsumexp of each row's scores, float32
+    (B, H, Sq) — the reference's ``L`` (B, G, R, Sq) with (G, R) flattened,
+    which the backward reads."""
     B, Sq, H, hd = q.shape
     Sk, G = k.shape[1], k.shape[2]
     R = H // G
@@ -70,7 +73,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     dev = q.device
     qg = q.float().reshape(B, Sq, G, R, hd)
     kf, vf = k.float(), v.float()
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, Sq, block_q):
         q_blk = qg[:, q0:q0 + block_q]
         bq = q_blk.shape[1]
@@ -95,8 +98,66 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
             m_run = m_new
         lnorm = l_run.clamp_min(1e-30).permute(0, 3, 1, 2)        # (B,bq,G,R)
         outs.append(acc / lnorm[..., None])
-    out = torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
-    return out.to(q.dtype)
+        lses.append(m_run + torch.log(l_run.clamp_min(1e-30)))
+    out = torch.cat(outs, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
+    if return_lse:
+        return out, torch.cat(lses, dim=-1).reshape(B, H, Sq)
+    return out
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
+                              window=0, attn_softcap=0.0, scale=0.0,
+                              block_q=512, block_k=512):
+    """Flash-attention backward in plain PyTorch: the port of the
+    reference's ``_flash_bwd``. Recomputes each probability block from the
+    saved logsumexp ``lse`` (B, H, Sq) instead of storing the (Sq, Sk)
+    probabilities. One loop over (q block, kv block) pairs accumulates dq,
+    dk and dv (the reference and the kernel split it into a q-major pass
+    for dq and a kv-major pass for dk and dv). Grouped GQA: dk/dv of KV
+    head g sum over its H/KV query heads. Returns (dq, dk, dv) in the
+    dtypes of q, k, v."""
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    R = H // G
+    if scale <= 0.0:
+        scale = hd ** -0.5
+    block_q = min(block_q, max(Sq, 8))
+    block_k = min(block_k, max(Sk, 8))
+    dev = q.device
+    qg = q.float().reshape(B, Sq, G, R, hd)
+    dog = dout.float().reshape(B, Sq, G, R, hd)
+    kf, vf = k.float(), v.float()
+    Lg = lse.float().reshape(B, G, R, Sq)
+    # D_i = rowsum(dout * out), grouped (B, G, R, Sq)
+    Dg = (dout.float() * out.float()).sum(-1).reshape(
+        B, Sq, G, R).permute(0, 2, 3, 1)
+
+    dq = torch.zeros(B, Sq, G, R, hd, device=dev)
+    dk = torch.zeros(B, Sk, G, hd, device=dev)
+    dv = torch.zeros(B, Sk, G, hd, device=dev)
+    for q0 in range(0, Sq, block_q):
+        qs = slice(q0, q0 + block_q)
+        q_blk, do_blk = qg[:, qs], dog[:, qs]
+        L_blk, D_blk = Lg[..., qs, None], Dg[..., qs, None]
+        q_pos = q0 + torch.arange(q_blk.shape[1], device=dev)
+        for k0 in range(0, Sk, block_k):
+            ks = slice(k0, k0 + block_k)
+            k_blk, v_blk = kf[:, ks], vf[:, ks]
+            k_pos = k0 + torch.arange(k_blk.shape[1], device=dev)
+            mask = _mask_for(q_pos, k_pos, Sk, causal=causal, window=window)
+            s_raw = torch.einsum("bqgrd,bkgd->bgrqk", q_blk, k_blk) * scale
+            s = softcap(s_raw, attn_softcap) if attn_softcap > 0.0 else s_raw
+            p = torch.where(mask, torch.exp(s - L_blk), 0.0)
+            dp = torch.einsum("bqgrd,bkgd->bgrqk", do_blk, v_blk)
+            ds = p * (dp - D_blk)
+            if attn_softcap > 0.0:
+                th = torch.tanh(s_raw / attn_softcap)
+                ds = ds * (1.0 - th * th)
+            dq[:, qs] += torch.einsum("bgrqk,bkgd->bqgrd", ds, k_blk) * scale
+            dv[:, ks] += torch.einsum("bgrqk,bqgrd->bkgd", p, do_blk)
+            dk[:, ks] += torch.einsum("bgrqk,bqgrd->bkgd", ds, q_blk) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,

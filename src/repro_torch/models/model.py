@@ -5,6 +5,8 @@ Public entry points (plain functions over a parameter dict):
 * ``init_params(cfg, seed=..., device=...)`` — the port's own seeded init
 * ``cast_params(params, dtype)`` — matmul weights to the compute dtype, once
 * ``forward_train(params, cfg, tokens)`` — full-sequence logits
+* ``forward_hidden(params, cfg, tokens)`` — final-norm hidden states, for
+  the fused loss
 * ``prefill(params, cfg, tokens, lengths, cache)`` — seed the slot cache,
   return last-valid-position logits
 * ``decode_step(params, cfg, token, cache, cache_len)`` — one token
@@ -93,7 +95,9 @@ def _embed(params, cfg: ModelConfig, tokens):
 
 
 def unembed_weight(params, cfg: ModelConfig):
-    """The (d, V) unembedding matrix (tied embedding or lm_head)."""
+    """The (d, V) unembedding matrix: the tied (V, d) embedding as a
+    transposed view (so its gradient reaches ``embed.tok`` in its own
+    layout), or ``lm_head``."""
     return params["embed"]["tok"].T if cfg.tie_embeddings else params["lm_head"]
 
 
@@ -106,7 +110,7 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def backbone(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
-             cache_len=None, mode="train"):
+             cache_len=None, mode="train", remat=False):
     """Embed + stack + final norm. Returns (hidden (B, S, d), new_cache)."""
     B, S = tokens.shape
     if positions is None:
@@ -117,15 +121,25 @@ def backbone(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
     x = _embed(params, cfg, tokens)
     x, new_cache = transformer.apply_stack(
         params["layers"], cfg, x, positions=positions, cache=cache,
-        cache_len=cache_len, mode=mode)
+        cache_len=cache_len, mode=mode, remat=remat)
     x = rms_norm(x, params["final_norm"], eps=cfg.rms_eps)
     return x, new_cache
 
 
-def forward_train(params, cfg: ModelConfig, tokens):
-    """Full-sequence logits (B, S, V) float32 (causal, no cache)."""
-    x, _ = backbone(params, cfg, tokens, mode="train")
+def forward_train(params, cfg: ModelConfig, tokens, *, remat=False):
+    """Full-sequence logits (B, S, V) float32 (causal, no cache).
+    Differentiable in ``params``; ``remat`` checkpoints each layer."""
+    x, _ = backbone(params, cfg, tokens, mode="train", remat=remat)
     return _logits(params, cfg, x)
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens, *, remat=True):
+    """Backbone only: final-norm hidden states (B, S, d) in the compute
+    dtype. The pre-unembedding entry point of the fused loss
+    (``hopper/fused_is_grpo``), which reads (hidden, unembed_weight) and
+    never materialises the (B, S, V) logits."""
+    x, _ = backbone(params, cfg, tokens, mode="train", remat=remat)
+    return x
 
 
 # -- serving ----------------------------------------------------------------

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -102,13 +103,28 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
 
 
 def apply_stack(params, cfg: ModelConfig, x, *, positions, cache=None,
-                cache_len=None, mode: str = "train"):
-    """Run all layers. Returns (x, new_cache)."""
+                cache_len=None, mode: str = "train", remat: bool = False):
+    """Run all layers. Returns (x, new_cache).
+
+    ``remat`` (train mode, with autograd on): each layer runs under
+    ``torch.utils.checkpoint``, keeping only its input and recomputing its
+    activations in the backward — the reference's ``jax.checkpoint`` of the
+    scanned layer body."""
     new_cache = None if cache is None else []
+    ckpt = remat and mode == "train" and torch.is_grad_enabled()
     for i, kind in enumerate(layer_kinds(cfg)):
         c = cache[i] if cache is not None else None
-        x, nc = apply_block(params[i], cfg, kind, x, positions=positions,
-                            cache=c, cache_len=cache_len, mode=mode)
+        if ckpt:
+            x = checkpoint(_train_block, params[i], cfg, kind, x, positions,
+                           use_reentrant=False)
+            nc = None
+        else:
+            x, nc = apply_block(params[i], cfg, kind, x, positions=positions,
+                                cache=c, cache_len=cache_len, mode=mode)
         if new_cache is not None:
             new_cache.append(nc)
     return x, new_cache
+
+
+def _train_block(params, cfg, kind, x, positions):
+    return apply_block(params, cfg, kind, x, positions=positions)[0]

@@ -83,6 +83,8 @@ def test_no_kernels_path_in_port():
     """Kernel wrappers live under hopper/ and sources under csrc/: the
     analysis self-scan applies the Pallas rules to any path with kernels/."""
     assert not [p for p in PORT.rglob("*") if "kernels" in p.parts]
-    for name in ("flash_attn", "decode_attn", "fused_sample"):
+    for name in ("flash_attn", "decode_attn", "fused_sample",
+                 "fused_is_grpo"):
         assert (PORT / "csrc" / f"{name}.cu").exists()
         assert (PORT / "hopper" / f"{name}.py").exists()
+    assert (PORT / "csrc" / "flash_attn_bwd.cu").exists()

@@ -9,13 +9,19 @@ which has no JAX for tests/conftest.py:
 Tolerances: float32 inputs, atol 1e-4 (the kernels sum in another order);
 bfloat16 attention, atol 2e-2 (one bf16 ulp of outputs of order 1, and the
 plain decode rounds its probabilities to bf16 where the kernel keeps f32).
-Sampled tokens must be equal; logps within atol 1e-4.
+Sampled tokens must be equal; logps within atol 1e-4. The attention
+backward: float32 atol 1e-4, bfloat16 atol 5e-2 (gradients of order 1 that
+go through bf16 rounding of each output). The fused IS+GRPO kernels compute
+in float32 like their plain versions: per-row outputs atol 1e-4, dh/dw
+atol 1e-4 relative to their largest element (sums over V or over rows in
+another order), 1e-2 for a bf16 dh (one bf16 ulp).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.hopper import decode_attn, flash_attn, fused_sample  # noqa: E402
+from repro_torch.hopper import fused_is_grpo as fio  # noqa: E402
 from repro_torch.sampling import prng  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -116,3 +122,150 @@ def test_fused_sample_kernel_ties(dev):
         rt, rl = fused_sample.sample_rows_plain(keys, logits, **kw)
         assert torch.equal(tok, rt) and (tok < 6).all()
         torch.testing.assert_close(logp, rl, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_lse(dev, dtype):
+    g = _gen(3)
+    B, S, H, KV, hd = 2, 150, 8, 2, 64
+    q, k, v = (torch.randn(B, S, n, hd, device=dev, generator=g).to(dtype)
+               for n in (H, KV, KV))
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True)
+    ref, ref_lse = flash_attn.flash_attention_plain(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=1e-4 if dtype == torch.float32 else 2e-2,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("B,S,H,KV,hd,window,cap", [
+    (2, 127, 8, 2, 64, 0, 0.0),
+    (1, 100, 4, 4, 64, 40, 0.0),
+    (2, 70, 4, 1, 32, 0, 20.0),
+])
+def test_flash_attention_bwd_kernel(dev, dtype, atol, B, S, H, KV, hd,
+                                    window, cap):
+    g = _gen(4)
+    q, k, v = (torch.randn(B, S, n, hd, device=dev, generator=g).to(dtype)
+               for n in (H, KV, KV))
+    do = torch.randn(B, S, H, hd, device=dev, generator=g).to(dtype)
+    kw = dict(causal=True, window=window, attn_softcap=cap)
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    n0 = flash_attn.flash_attention_bwd.launches
+    dq, dk, dv = flash_attn.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attn.flash_attention_bwd.launches == n0 + 1
+    ref = flash_attn.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=0,
+                                   msg=name)
+
+
+def test_attention_weights_get_gradients_on_card(dev):
+    """The train forward on the card: every attention projection of every
+    layer gets a nonzero gradient through the flash kernels."""
+    from repro_torch.common.tree import leaves
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    cfg = get_smoke_config("llama3.2-1b")
+    params = M.init_params(cfg, seed=0, device=dev)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=dev,
+                         generator=_gen(5))
+    n0 = flash_attn.flash_attention_bwd.launches
+    loss = M.forward_train(params, cfg, toks, remat=True).logsumexp(-1).mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert flash_attn.flash_attention_bwd.launches == n0 + cfg.num_layers
+    for layer in params["layers"]:
+        for name in ("wq", "wk", "wv", "wo"):
+            grad = layer["attn"][name].grad
+            assert grad is not None and float(grad.abs().max()) > 0.0, name
+
+
+def _loss_inputs(dev, R, d, V, h_dtype, tied, seed=6):
+    g = _gen(seed)
+    h = torch.randn(R, d, device=dev, generator=g).to(h_dtype)
+    if tied:
+        w = (torch.randn(V, d, device=dev, generator=g) * 0.05).T
+    else:
+        w = torch.randn(d, V, device=dev, generator=g) * 0.05
+    t = torch.randint(0, V, (R,), device=dev, generator=g, dtype=torch.int32)
+    b = torch.randn(R, device=dev, generator=g) * 0.3 - 9.0
+    a = torch.randn(R, device=dev, generator=g)
+    return h, w, t, b, a
+
+
+LOSS_KW = dict(clip_low=0.2, clip_high=0.28, use_is=True, is_ratio_cap=10.0)
+
+
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "lm_head"])
+@pytest.mark.parametrize("cap,ent", [(0.0, 0.0), (30.0, 0.01)])
+def test_fused_is_grpo_fwd_kernel(dev, h_dtype, tied, cap, ent):
+    h, w, t, b, a = _loss_inputs(dev, 300, 256, 5000, h_dtype, tied)
+    kw = dict(LOSS_KW, logit_softcap=cap, entropy_coef=ent)
+    n0 = fio.fused_is_grpo_fwd_rows.launches
+    outs = fio.fused_is_grpo_fwd_rows(h, w, t, b, a, **kw)
+    torch.cuda.synchronize()
+    assert fio.fused_is_grpo_fwd_rows.launches == n0 + 1
+    ref = fio.fwd_plain(h, w, t, b, a, **kw)
+    for name, x, y in zip(("loss", "ratio", "logp", "lse", "ent"), outs, ref):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "lm_head"])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_fused_is_grpo_bwd_kernels(dev, h_dtype, tied, cap):
+    R, d, V = 300, 256, 5000
+    h, w, t, b, _ = _loss_inputs(dev, R, d, V, h_dtype, tied)
+    _, _, logp, lse, ent = fio.fwd_plain(h, w, t, b, b, logit_softcap=cap)
+    g = _gen(7)
+    ca = torch.randn(R, device=dev, generator=g)
+    ce = torch.randn(R, device=dev, generator=g) * 0.1
+    ca[:50] = 0.0                       # zero rows contribute exactly zero
+    ce[:50] = 0.0
+    ebar = lse - ent
+    n_dh = fio.fused_is_grpo_bwd_dh_rows.launches
+    n_dw = fio.fused_is_grpo_bwd_dw_rows.launches
+    dh, dw = fio.fused_is_grpo_bwd_rows(h, w, t, lse, ebar, ca, ce,
+                                        logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert fio.fused_is_grpo_bwd_dh_rows.launches == n_dh + 1
+    assert fio.fused_is_grpo_bwd_dw_rows.launches == n_dw + 1
+    rdh, rdw = fio.bwd_plain(h, w, t, lse, ebar, ca, ce, logit_softcap=cap)
+    assert dh.dtype == h_dtype and dw.shape == w.shape
+    assert dw.stride() == w.stride()           # the weight's own layout
+    assert torch.count_nonzero(dh[:50]) == 0
+    for name, x, y in (("dh", dh, rdh), ("dw", dw, rdw)):
+        # dh comes back in hidden's dtype: one bf16 ulp (2^-8 relative)
+        rel = 1e-2 if name == "dh" and h_dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(x.float(), y.float(), rtol=0,
+                                   atol=rel * float(y.abs().max()), msg=name)
+
+
+def test_fused_is_grpo_bwd_row_chunks(dev, monkeypatch):
+    """Rows in several chunks of the dl scratch: dw accumulates over them."""
+    R, d, V = 300, 128, 3000
+    h, w, t, b, _ = _loss_inputs(dev, R, d, V, torch.float32, True, seed=8)
+    _, _, _, lse, ent = fio.fwd_plain(h, w, t, b, b)
+    ca = torch.randn(R, device=dev, generator=_gen(9))
+    ce = torch.zeros(R, device=dev)
+    monkeypatch.setattr(fio, "DL_SCRATCH_ELEMS", 128 * V)   # 3 chunks
+    n0 = fio.fused_is_grpo_bwd_dw_rows.launches
+    dh, dw = fio.fused_is_grpo_bwd_rows(h, w, t, lse, lse - ent, ca, ce)
+    torch.cuda.synchronize()
+    assert fio.fused_is_grpo_bwd_dw_rows.launches == n0 + 3
+    rdh, rdw = fio.bwd_plain(h, w, t, lse, lse - ent, ca, ce)
+    torch.testing.assert_close(dw, rdw, atol=1e-4 * float(rdw.abs().max()),
+                               rtol=0)
+    torch.testing.assert_close(dh, rdh, atol=1e-4 * float(rdh.abs().max()),
+                               rtol=0)
+
