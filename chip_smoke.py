@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-GPU smoke run of the PyTorch port (src/repro_torch): the serving path
-and the CoPRIS training loop at the full width of llama3.2-1b, through the
-port's hand-written kernels.
+and the CoPRIS training loop at the full width of llama3.2-1b, over the dense
+and the paged KV cache, through the port's hand-written kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
@@ -10,20 +10,26 @@ Phases, each printed as one JSON line:
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds every kernel source from csrc/, in parallel;
 3. kernel checks — each kernel against its plain PyTorch version at the
-   main paths' shapes (serving: prefill, decode, sampling; training: the
-   flash forward with its logsumexp, the flash backward, and the fused
-   IS+GRPO forward and backward), with its time, the plain version's, one
-   library call's where PyTorch has one, and the least time the card could
-   take;
+   main paths' shapes (serving: prefill, dense and paged decode, sampling;
+   training: the flash forward with its logsumexp, the flash backward, the
+   fused IS+GRPO forward and backward, and the fused log-prob of the legacy
+   loss), with its time, the plain version's, one library call's where
+   PyTorch has one, and the least time the card could take;
 4. reference — the GPU engine (kernels, float32) against the same engine on
-   the CPU (plain versions) on the reduced config: equal tokens; then
+   the CPU (plain versions) on the reduced config, dense and paged, and the
+   CPU paged engine against the CPU dense one: equal tokens; then
    "train_reference": make_loss_fn / make_train_step on the reduced config
-   with vocab 8192 (the fused loss), GPU against CPU: loss, metrics, every
-   gradient, and no attention weight with a zero gradient;
+   with vocab 8192, the fused loss and the legacy fused_loss=False one, GPU
+   against CPU: loss, metrics, every gradient, and no attention weight with
+   a zero gradient;
 5. serve   — make_serve_engine("llama3.2-1b") with random bf16 weights made
    from a seed serves 48 requests; every kernel's launch count must be > 0;
    then "profile": torch.profiler over two steady decode chunks (host time,
    device busy time, top device kernels);
+   then "serve_paged": the same 48 requests over the paged KV cache with
+   40% of the dense-equivalent pages: page pressure (blocked admissions or
+   preemptions) and every request returned; then "profile_paged": the
+   profile phase's two chunks over the paged cache;
 6. copris  — two RolloutEngine.collect stages: the first buffers partials
    (early termination), the second resumes them;
 7. train   — sft_warmup, then three CoPRISTrainer.step() calls on
@@ -31,14 +37,21 @@ Phases, each printed as one JSON line:
    loss, grad norm, ratio and off-policy share; rollout, reward and update
    times, resumed partials, peak memory; every kernel launched; then
    "train_profile": torch.profiler over one more update (device busy
-   time, top device kernels);
-8. kernels — one {"kernels": [...]} line, one row per kernel entry point;
+   time, top device kernels); then "train_paged": two CoPRISTrainer.step()
+   calls at full width over the paged KV cache with half the
+   dense-equivalent pages and the legacy fused_loss=False loss: prefix
+   sharing, copy-on-write, finite metrics, every kernel of that path
+   launched;
+8. kernels — one {"kernels": [...]} line, one row per kernel entry point,
+   each with the launches of the path it runs on (train, or train_paged for
+   the paged decode and the fused log-prob);
 
 then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check raises, so the run exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -154,6 +167,108 @@ def check_decode(torch, F, timer, decode_attn):
                max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
     emit("check_decode_attn", **res)
+    return res
+
+
+# the JAX kernel tests' paged cases (tests/test_kernels.py PDA_CASES):
+# B, NP, max_pages, ps, H, KV, hd, window, softcap, dtype
+PDA_CASES = [(2, 12, 4, 16, 4, 2, 64, 0, 0.0, "float32"),
+             (3, 20, 6, 8, 8, 8, 32, 0, 30.0, "float32"),
+             (2, 16, 8, 16, 4, 1, 64, 48, 0.0, "float32"),
+             (1, 9, 3, 32, 5, 5, 64, 0, 0.0, "bfloat16")]
+
+
+def scatter_pages(torch, kc, vc, lens, ps, g):
+    """The dense caches (B, L, KV, hd) laid out as page pools of one page per
+    (row, logical page) at random physical pages, with a block table whose
+    pages past each row's length are the sentinel NP = B * L / ps."""
+    B, L, KV, hd = kc.shape
+    mp = L // ps
+    NP = B * mp
+    perm = torch.randperm(NP, device="cuda", generator=g)
+    kp = torch.empty(NP, ps, KV, hd, dtype=kc.dtype, device="cuda")
+    vp = torch.empty_like(kp)
+    kp[perm] = kc.reshape(NP, ps, KV, hd)
+    vp[perm] = vc.reshape(NP, ps, KV, hd)
+    bt = perm.reshape(B, mp).to(torch.int32)
+    unmapped = (torch.arange(mp, device="cuda")[None, :] * ps
+                >= lens[:, None])
+    return kp, vp, torch.where(unmapped, NP, bt).contiguous()
+
+
+def check_paged_decode(torch, timer, paged_decode_attn, decode_attn):
+    """The paged decode kernel against its plain version at the JAX kernel
+    tests' cases and at the serve shape (pool 16, max_len 640, ps 16, the
+    llama3.2-1b heads, bf16), where the dense kernel's time on the same live
+    lengths and the same bytes is the comparison: no single PyTorch call
+    computes a paged decode."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (B, NP, mp, ps, H, KV, hd, win, cap, dt) in enumerate(PDA_CASES):
+        g = torch.Generator(device="cuda").manual_seed(20 + i)
+        dtype = getattr(torch, dt)
+        q = torch.randn(B, 1, H, hd, device="cuda", generator=g).to(dtype)
+        kp = torch.randn(NP, ps, KV, hd, device="cuda", generator=g).to(dtype)
+        vp = torch.randn(NP, ps, KV, hd, device="cuda", generator=g).to(dtype)
+        lens = (torch.arange(B, device="cuda") * 29) % (mp * ps - 2) + 2
+        lens = lens.to(torch.int32)
+        bt = torch.full((B, mp), NP, dtype=torch.int32, device="cuda")
+        perm = torch.randperm(NP, device="cuda", generator=g)
+        used = 0
+        for b in range(B):
+            npg = -(-int(lens[b]) // ps)
+            bt[b, :npg] = perm[used:used + npg].to(torch.int32)
+            used += npg
+        kw = dict(window=win, attn_softcap=cap)
+        out = paged_decode_attn.paged_decode_attention(q, kp, vp, bt, ps,
+                                                       lens, **kw)
+        ref = paged_decode_attn.paged_decode_attention_plain(
+            q, kp, vp, bt, ps, lens, **kw)
+        torch.cuda.synchronize()
+        worst[dt] = max(worst[dt],
+                        (out.float() - ref.float()).abs().max().item())
+    atols = {"float32": 1e-4, "bfloat16": 2e-2}
+    if not all(worst[k] <= atols[k] for k in worst):
+        fail(f"paged_decode_attn disagrees with its plain version at the "
+             f"kernel tests' cases: {worst}")
+
+    B, L, H, KV, hd, ps = 16, 640, 32, 8, 64, 16
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(B, 1, H, hd, device="cuda", generator=g).bfloat16()
+    kc = torch.randn(B, L, KV, hd, device="cuda", generator=g).bfloat16()
+    vc = torch.randn(B, L, KV, hd, device="cuda", generator=g).bfloat16()
+    lens = torch.randint(65, L + 1, (B,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    kp, vp, bt = scatter_pages(torch, kc, vc, lens, ps, g)
+    out = paged_decode_attn.paged_decode_attention(q, kp, vp, bt, ps, lens)
+    ref = paged_decode_attn.paged_decode_attention_plain(q, kp, vp, bt, ps,
+                                                         lens)
+    dense = decode_attn.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    dense_diff = (out.float() - dense.float()).abs().max().item()
+    atol = 2e-2
+    if not (err <= atol and dense_diff == 0.0):
+        fail(f"paged_decode_attn at the serve shape: {err} from the plain "
+             f"version (atol {atol}), {dense_diff} from the dense kernel")
+    kernel_ms = timer(lambda: paged_decode_attn.paged_decode_attention(
+        q, kp, vp, bt, ps, lens))
+    plain_ms = timer(lambda: paged_decode_attn.paged_decode_attention_plain(
+        q, kp, vp, bt, ps, lens))
+    dense_ms = timer(lambda: decode_attn.decode_attention(q, kc, vc, lens))
+    live = int(lens.sum().item())
+    # live K/V (no window on llama), q, out, the block table and lengths
+    nbytes = 2 * (2 * q.numel() + 2 * live * KV * hd) + 4 * bt.numel() + 4 * B
+    flops = 4 * H * hd * live
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    res = dict(shape=f"q {list(q.shape)} pools {list(kp.shape)} bf16, "
+               f"block table {list(bt.shape)}, sum(cache_len)={live}; and "
+               f"the {len(PDA_CASES)} kernel-test cases",
+               max_abs_err=max(err, *worst.values()),
+               max_abs_err_cases=worst, atol=atol,
+               diff_from_dense_kernel=dense_diff, ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=None, dense_kernel_ms=dense_ms,
+               bound_ms=b_ms, bound_by=b_by)
+    emit("check_paged_decode_attn", **res)
     return res
 
 
@@ -361,14 +476,61 @@ def check_fused_is_grpo(torch, timer, fio):
     return res
 
 
+def check_fused_logprob(torch, timer, flp):
+    """The legacy loss's log-prob kernel at the train phase's largest packed
+    shape (R = 32 x 127 rows, d = 2048, V = 128256, hidden bf16, the tied
+    f32 embedding in its own layout). Like the IS-GRPO forward it computes in
+    f32, so the bound counts 2 R d V f32 FMA work at 67 TFLOP/s; the library
+    time is the f32 cuBLAS logits GEMM alone."""
+    R, d, V = TRAIN_B * TRAIN_S, 2048, 128256
+    g = torch.Generator(device="cuda").manual_seed(16)
+    h = torch.randn(R, d, device="cuda", generator=g).bfloat16()
+    w = (torch.randn(V, d, device="cuda", generator=g) * 0.02).T
+    t = torch.randint(0, V, (R,), device="cuda", generator=g,
+                      dtype=torch.int32)
+    logp, lse = flp.fused_logprob_rows(h, w, t)
+    rlogp, rlse = flp.fused_logprob_plain(h, w, t)
+    torch.cuda.synchronize()
+    err = max((logp - rlogp).abs().max().item(),
+              (lse - rlse).abs().max().item())
+    atol = 1e-3
+    if not err <= atol:
+        fail(f"fused_logprob disagrees with its plain version: {err}")
+    hf = h.float()
+    kernel_ms = timer(lambda: flp.fused_logprob_rows(h, w, t), iters=3)
+    plain_ms = timer(lambda: flp.fused_logprob_plain(h, w, t), iters=3)
+    gemm_ms = timer(lambda: hf @ w, iters=3)
+    b_ms, b_by = bound(2 * R * d + 4 * V * d + 4 * R + 8 * R,
+                       2 * R * d * V, PEAK_F32_FLOPS)
+    res = dict(shape=f"hidden [{R}, {d}] bf16, w = embed.T of [{V}, {d}] "
+               "f32, float32 products; logp and lse",
+               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=gemm_ms,
+               library_what="logits GEMM only (f32 cuBLAS hidden @ w)",
+               bound_ms=b_ms, bound_by=b_by)
+    emit("check_fused_logprob", **res)
+    return res
+
+
 def train_reference_phase(torch, np, copris, model, tree, adam, cfg):
     """make_loss_fn + make_train_step on the GPU (kernels) against the CPU
-    (plain versions): reduced llama3.2-1b, vocab 8192 (the fused branch),
-    float32. Loss and metrics atol 1e-4; each gradient leaf within 1e-4 of
-    its own largest element (the kernels sum in another order), a leaf whose
-    reference gradient is all zero exactly zero; grad_norm rtol 1e-5."""
+    (plain versions): reduced llama3.2-1b, vocab 8192, float32, for the
+    fused branch and the legacy fused_loss=False one. Loss and metrics atol
+    1e-4; each gradient leaf within 1e-4 of its own largest element (the
+    kernels sum in another order), a leaf whose reference gradient is all
+    zero exactly zero; grad_norm rtol 1e-5."""
     from repro_torch.common.config import TrainConfig
-    tc = TrainConfig(lr=1e-3, entropy_coef=0.01, remat=True)
+    for phase, tc in (
+            ("train_reference", TrainConfig(lr=1e-3, entropy_coef=0.01,
+                                            remat=True)),
+            ("train_reference_legacy", TrainConfig(lr=1e-3, remat=True,
+                                                   fused_loss=False))):
+        train_reference_case(torch, np, copris, model, tree, adam, cfg, tc,
+                             phase)
+
+
+def train_reference_case(torch, np, copris, model, tree, adam, cfg, tc,
+                         phase):
     rng = np.random.default_rng(4)
     N, T = 8, 64
     mask = np.zeros((N, T), np.float32)
@@ -411,7 +573,8 @@ def train_reference_phase(torch, np, copris, model, tree, adam, cfg):
                  for i, layer in enumerate(gpu_grads["layers"])
                  for n in ("wq", "wk", "wv", "wo")
                  if float(layer["attn"][n].abs().max()) == 0.0]
-    emit("train_reference", config=cfg.name, vocab=cfg.vocab_size,
+    emit(phase, config=cfg.name, vocab=cfg.vocab_size,
+         fused_loss=tc.fused_loss, metrics=sorted(res["cpu"]["metrics"]),
          batch=f"{N} x {T}", loss_gpu=res["cuda"]["loss"],
          loss_cpu=res["cpu"]["loss"], loss_err=loss_err,
          max_metric_err=m_err, max_grad_err_rel=g_err, grad_rtol=1e-4,
@@ -422,40 +585,61 @@ def train_reference_phase(torch, np, copris, model, tree, adam, cfg):
         fail(f"attention weights got zero gradient on the GPU: {zero_attn}")
     if not (loss_err <= 1e-4 and m_err <= 1e-4 and g_err <= 1e-4
             and gn_err <= 1e-5):
-        fail("GPU train step disagrees with the CPU train step")
+        fail(f"{phase}: GPU train step disagrees with the CPU train step")
 
 
 def reference_phase(torch, np, serve_mod, model, get_smoke_config):
     """Engine on the GPU (kernels) vs the same engine on the CPU (plain
-    versions), reduced llama3.2-1b in float32, same weights and keys."""
+    versions), reduced llama3.2-1b in float32, same weights and keys, over
+    the dense and the paged KV cache; and the CPU paged engine against the
+    CPU dense one (the same plain arithmetic: logps within 1e-6)."""
     cfg = get_smoke_config("llama3.2-1b")
     params = model.init_params(cfg, seed=3, device="cpu")
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size - 1, int(n))
                for n in rng.integers(8, 60, 6)]
     outs = {}
-    for dev in ("cuda", "cpu"):
+    for dev, kv in (("cuda", "dense"), ("cpu", "dense"), ("cuda", "paged"),
+                    ("cpu", "paged")):
         ro = serve_mod.RolloutConfig(
             batch_size=1, group_size=1, max_prompt_len=64,
             max_response_len=24, concurrency=4, mode="copris",
-            temperature=0.8, top_k=50, top_p=0.95)
+            temperature=0.8, top_k=50, top_p=0.95, kv_backend=kv,
+            kv_page_size=16)
         eng = serve_mod.ServeEngine(cfg, ro, eos_id=cfg.vocab_size - 1,
                                     params=params,
                                     key=serve_mod.prng.PRNGKey(9),
                                     device=dev)
         for p in prompts:
             eng.submit(serve_mod.GenerateRequest(prompt=p))
-        outs[dev] = {r.request_id: r for r in eng.drain()}
+        outs[dev, kv] = {r.request_id: r for r in eng.drain()}
         eng.close()
-    same = sum(outs["cuda"][i].tokens == outs["cpu"][i].tokens
-               for i in outs["cpu"])
-    lp_err = max(max(abs(a - b) for a, b in zip(outs["cuda"][i].logprobs,
-                                                outs["cpu"][i].logprobs))
-                 for i in outs["cpu"])
-    emit("reference", config=cfg.name, requests=len(prompts),
-         equal_token_streams=same, max_logp_err=lp_err, atol=1e-3)
-    if same != len(prompts) or not lp_err <= 1e-3:
-        fail("GPU engine disagrees with the CPU engine on the reduced config")
+
+    def compare(a, b):
+        same = sum(outs[a][i].tokens == outs[b][i].tokens for i in outs[b])
+        err = max(max(abs(x - y) for x, y in zip(outs[a][i].logprobs,
+                                                 outs[b][i].logprobs))
+                  for i in outs[b])
+        return same, err
+
+    pairs = {"gpu_dense_vs_cpu_dense": (("cuda", "dense"), ("cpu", "dense"),
+                                        1e-3),
+             "gpu_paged_vs_cpu_paged": (("cuda", "paged"), ("cpu", "paged"),
+                                        1e-3),
+             "gpu_paged_vs_cpu_dense": (("cuda", "paged"), ("cpu", "dense"),
+                                        1e-3),
+             "cpu_paged_vs_cpu_dense": (("cpu", "paged"), ("cpu", "dense"),
+                                        1e-6)}
+    res = {}
+    for name, (a, b, atol) in pairs.items():
+        same, err = compare(a, b)
+        res[name] = dict(equal_token_streams=same, max_logp_err=err,
+                         atol=atol)
+    emit("reference", config=cfg.name, requests=len(prompts), **res)
+    for name, r in res.items():
+        if r["equal_token_streams"] != len(prompts) \
+                or not r["max_logp_err"] <= r["atol"]:
+            fail(f"reference {name}: engines disagree on the reduced config")
 
 
 def device_us(e):
@@ -465,10 +649,11 @@ def device_us(e):
     return 0.0
 
 
-def profile_phase(torch, np, serve, cfg, chunks=2):
+def profile_phase(torch, np, serve, cfg, chunks=2, phase="profile"):
     """Where a steady decode chunk's time goes: torch.profiler over
-    ``chunks`` ServeEngine.step() calls with a full pool of 16 requests —
-    host wall time per chunk, device busy time, top device kernels."""
+    ``chunks`` ServeEngine.step() calls after 16 requests were submitted
+    (a full pool on the dense cache) — host wall time per chunk, device
+    busy time, top device kernels."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(7)
     for _ in range(16):
@@ -491,8 +676,10 @@ def profile_phase(torch, np, serve, cfg, chunks=2):
               == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
     busy_ms = sum(device_us(e) for e in events) / 1e3 / chunks
     top = sorted(events, key=device_us, reverse=True)[:8]
-    emit("profile", what=f"{chunks} decode chunks of "
-         f"{serve.eng.ro.decode_chunk} steps, pool 16, llama3.2-1b bf16",
+    emit(phase, what=f"{chunks} decode chunks of "
+         f"{serve.eng.ro.decode_chunk} steps, pool 16, llama3.2-1b bf16, "
+         f"kv_backend {serve.eng.ro.kv_backend}",
+         live_slots=sum(t is not None for t in serve.eng.slots),
          wall_ms_per_chunk=wall_ms, device_busy_ms_per_chunk=busy_ms,
          device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
          top_device_ops=[{"name": e.key[:80], "count": e.count,
@@ -613,6 +800,148 @@ def train_phase(torch, np, kernels, steps=3):
     return launches
 
 
+def serve_paged_phase(torch, np, serve_mod, kernels, dense):
+    """The serve phase's 48 requests again, over the paged KV cache with
+    kv_page_size 16 and 256 pages: 40% of the dense-equivalent 16 x 640 / 16
+    = 640, so admission blocks on pages or slots are preempted. Every kernel
+    of the paged serving path must launch, every request must return."""
+    serve, cfg = serve_mod.make_serve_engine(
+        "llama3.2-1b", max_prompt_len=512, max_tokens=128, concurrency=16,
+        temperature=0.8, top_k=50, top_p=0.95, kv_backend="paged",
+        kv_page_size=16, kv_num_pages=256, seed=0)
+    for p in serve_prompts(np, cfg):
+        serve.submit(serve_mod.GenerateRequest(prompt=p))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    results = serve.drain()
+    serve.eng.block_until_ready()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    stats = serve.close()
+    backend = serve.eng.backend
+    ntok = check_results(np, results, cfg, dense["requests"])
+    pressure = stats["admission_blocked"] + stats["page_preemptions"]
+    emit("serve_paged", arch=cfg.name, requests=len(results), tokens=ntok,
+         seconds=wall, tokens_per_s=ntok / wall,
+         dense_tokens_per_s=dense["tokens_per_s"],
+         kv_page_size=backend.page_size, kv_num_pages=backend.num_pages,
+         dense_equivalent_pages=backend.pool * backend.max_pages,
+         admission_blocked=stats["admission_blocked"],
+         page_preemptions=stats["page_preemptions"],
+         pages_allocated=backend.pages_allocated,
+         cow_copies=backend.cow_copies, decode_chunks=stats["decode_chunks"],
+         prefill_calls=stats["prefill_calls"],
+         utilization=stats["utilization"], launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if pressure == 0:
+        fail("serve_paged: no admission was blocked and no slot preempted")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"a kernel of the paged serving path never launched: "
+             f"{launches}")
+    profile_phase(torch, np, serve, cfg, phase="profile_paged")
+
+
+def train_paged_phase(torch, np, kernels, steps=2):
+    """This slice's main path: ``steps`` CoPRISTrainer.step() calls on
+    llama3.2-1b at full width over the paged KV cache (page size 16, half
+    the dense-equivalent pages: 64 for 16 slots of max_len 128) with the
+    legacy fused_loss=False loss, after the train phase's short SFT warmup
+    from random weights made from a seed. GRPO groups of 4 share their
+    prompt's pages (one prefill per group), and each member's first write
+    into the shared partial page copies it. Every kernel's launch count is
+    reset just before the steps and read just after."""
+    from repro_torch.common.config import RolloutConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.copris import CoPRISTrainer
+    from repro_torch.data.sft import sft_warmup
+    from repro_torch.data.tasks import EOS, AdditionTask
+    from repro_torch.models import model as M
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    task = AdditionTask(max_value=20, seed=1)
+    params, _ = sft_warmup(M.init_params(cfg, seed=1, device="cuda"), cfg,
+                           task, steps=4, batch_size=32, max_len=24, lr=1e-4)
+    ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=4,
+                       max_response_len=124, concurrency=16, mode="copris",
+                       temperature=1.0, kv_backend="paged", kv_page_size=16,
+                       kv_num_pages=64)
+    tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=1, fused_loss=False,
+                     entropy_coef=0.0)
+    tr = CoPRISTrainer(cfg, ro, tc, task, eos_id=EOS, params=params)
+    del params
+    backend = tr.engine.backend
+    if backend.num_pages * 2 != backend.pool * backend.max_pages:
+        fail(f"train_paged: {backend.num_pages} pages is not half the "
+             f"dense-equivalent {backend.pool * backend.max_pages}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    outs = []
+    try:
+        for _ in range(steps):
+            outs.append(tr.step())
+        torch.cuda.synchronize()
+        launches = read_launches(kernels)
+        totals = tr.engine.stats_snapshot()
+    finally:
+        tr.close()
+    keys = ("reward_mean", "pg_loss", "grad_norm", "ratio_mean",
+            "off_policy_frac")
+    emit("train_paged", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, fused_loss=False,
+         kv_page_size=backend.page_size, kv_num_pages=backend.num_pages,
+         dense_equivalent_pages=backend.pool * backend.max_pages,
+         steps=[{k: o[k] for k in keys + (
+             "rollout_time", "reward_time", "update_time", "step_time",
+             "multi_stage_trajs", "buffer_unfinished", "mean_resp_len",
+             "clip_frac")} for o in outs],
+         shared_prefill_rows=totals["shared_prefill_rows"],
+         prefill_rows=totals["prefill_rows"],
+         admission_blocked=totals["admission_blocked"],
+         page_preemptions=totals["page_preemptions"],
+         pages_allocated=backend.pages_allocated,
+         cow_copies=backend.cow_copies,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches)
+    for o in outs:
+        bad = [k for k in keys if not np.isfinite(o[k])]
+        if bad:
+            fail(f"train_paged step {o['step']}: not finite: {bad}")
+    if not (totals["shared_prefill_rows"] > 0 and backend.cow_copies > 0):
+        fail("train_paged: no prefix sharing or no copy-on-write")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"a kernel of the paged training path never launched: "
+             f"{launches}")
+    return launches
+
+
+def serve_prompts(np, cfg):
+    """The serve phases' 48 requests: prompts of 64-512 tokens."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size - 1, int(n))
+            for n in rng.integers(64, 513, 48)]
+
+
+def check_results(np, results, cfg, n_requests):
+    """Every request returned, with 1-128 in-vocab tokens and finite logps
+    <= 0; returns the number of generated tokens."""
+    if sorted(r.request_id for r in results) != list(range(n_requests)):
+        fail("serve did not return every request")
+    ntok = 0
+    for r in results:
+        ntok += len(r.tokens)
+        if not (1 <= len(r.tokens) <= 128 and len(r.logprobs) == len(r.tokens)):
+            fail(f"request {r.request_id}: bad length {len(r.tokens)}")
+        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            fail(f"request {r.request_id}: token out of vocab")
+        if not all(np.isfinite(lp) and lp <= 0.0 for lp in r.logprobs):
+            fail(f"request {r.request_id}: logp not finite or > 0")
+    return ntok
+
+
 def reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -644,6 +973,8 @@ def main() -> int:
     from repro_torch.core.rollout import RolloutEngine
     from repro_torch.hopper import build, decode_attn, flash_attn, fused_sample
     from repro_torch.hopper import fused_is_grpo as fio
+    from repro_torch.hopper import fused_logprob as flp
+    from repro_torch.hopper import paged_decode_attn
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import model
     from repro_torch.optim import adam
@@ -672,9 +1003,12 @@ def main() -> int:
     checks = {"flash_attn": check_flash(torch, F, timer, flash_attn),
               "decode_attn": check_decode(torch, F, timer, decode_attn),
               "fused_sample": check_sample(torch, timer, fused_sample, prng),
+              "paged_decode_attn": check_paged_decode(
+                  torch, timer, paged_decode_attn, decode_attn),
               "flash_attn_lse": check_flash_lse(torch, F, timer, flash_attn),
               "flash_attn_bwd": check_flash_bwd(torch, F, timer, flash_attn),
-              **check_fused_is_grpo(torch, timer, fio)}
+              **check_fused_is_grpo(torch, timer, fio),
+              "fused_logprob": check_fused_logprob(torch, timer, flp)}
     torch.cuda.empty_cache()
     kernels = {"flash_attn": flash_attn.flash_attention,
                "decode_attn": decode_attn.decode_attention,
@@ -682,6 +1016,16 @@ def main() -> int:
     train_kernels = {
         **kernels, "flash_attn_bwd": flash_attn.flash_attention_bwd,
         "fused_is_grpo_fwd": fio.fused_is_grpo_fwd_rows,
+        "fused_is_grpo_bwd_dh": fio.fused_is_grpo_bwd_dh_rows,
+        "fused_is_grpo_bwd_dw": fio.fused_is_grpo_bwd_dw_rows}
+    serve_paged_kernels = {
+        "flash_attn": flash_attn.flash_attention,
+        "paged_decode_attn": paged_decode_attn.paged_decode_attention,
+        "fused_sample": fused_sample.sample_rows}
+    train_paged_kernels = {
+        **serve_paged_kernels,
+        "flash_attn_bwd": flash_attn.flash_attention_bwd,
+        "fused_logprob": flp.fused_logprob_rows,
         "fused_is_grpo_bwd_dh": fio.fused_is_grpo_bwd_dh_rows,
         "fused_is_grpo_bwd_dw": fio.fused_is_grpo_bwd_dw_rows}
 
@@ -698,9 +1042,7 @@ def main() -> int:
         temperature=0.8, top_k=50, top_p=0.95, seed=0)
     if (cfg.num_layers, cfg.d_model, cfg.vocab_size) != (16, 2048, 128256):
         fail(f"not the full llama3.2-1b width: {cfg}")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size - 1, int(n))
-               for n in rng.integers(64, 513, 48)]
+    prompts = serve_prompts(np, cfg)
     for p in prompts:
         serve.submit(serve_mod.GenerateRequest(prompt=p))
     torch.cuda.synchronize()
@@ -711,17 +1053,8 @@ def main() -> int:
     wall = time.perf_counter() - t0
     serve_launches = read_launches(kernels)
     stats = serve.close()
-    if sorted(r.request_id for r in results) != list(range(len(prompts))):
-        fail("serve did not return every request")
-    ntok = 0
-    for r in results:
-        ntok += len(r.tokens)
-        if not (1 <= len(r.tokens) <= 128 and len(r.logprobs) == len(r.tokens)):
-            fail(f"request {r.request_id}: bad length {len(r.tokens)}")
-        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
-            fail(f"request {r.request_id}: token out of vocab")
-        if not all(np.isfinite(lp) and lp <= 0.0 for lp in r.logprobs):
-            fail(f"request {r.request_id}: logp not finite or > 0")
+    ntok = check_results(np, results, cfg, len(prompts))
+    dense_serve = dict(requests=len(prompts), tokens_per_s=ntok / wall)
     emit("serve", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          vocab=cfg.vocab_size, requests=len(results), tokens=ntok,
          seconds=wall, tokens_per_s=ntok / wall,
@@ -733,6 +1066,7 @@ def main() -> int:
         fail(f"a kernel of the serving path never launched: {serve_launches}")
 
     profile_phase(torch, np, serve, cfg)
+    serve_paged_phase(torch, np, serve_mod, serve_paged_kernels, dense_serve)
 
     # 6. CoPRIS collect: early termination buffers partials, then resumes
     params = serve.params
@@ -774,26 +1108,38 @@ def main() -> int:
         fail("copris stage 1 resumed nothing")
 
     del params, eng
+    # a serve engine and its RolloutEngine form a reference cycle (the
+    # engine's prompt source is a bound method of the serve engine): collect
+    # them, so the train phases' peak memory counts their own tensors only
+    gc.collect()
     torch.cuda.empty_cache()
 
-    # 7. train at full width: this slice's main path
+    # 7. train at full width, over the dense cache with the fused loss, then
+    # over the paged cache with the legacy loss (this slice's main path)
     train_launches = train_phase(torch, np, train_kernels)
+    train_paged_launches = train_paged_phase(torch, np, train_paged_kernels)
 
-    # 8. kernels line: launches from the train phase; times from the checks
-    # at the train phase's shapes (flash forward with lse, its backward, the
-    # loss kernels) and at the serve phase's (decode, sampling)
+    # 8. kernels line: launches from the train phase, or from train_paged
+    # for the paged decode and the fused log-prob; times from the checks at
+    # the train phase's shapes (flash forward with lse, its backward, the
+    # loss kernels) and at the serve phase's (decode, paged decode,
+    # sampling)
     src = {"flash_attn": ("src/repro_torch/csrc/flash_attn.cu",
-                          "src/repro/kernels/flash_attn/flash_attn.py:79",
+                          "src/repro/kernels/flash_attn/flash_attn.py:103",
                           "flash_attn_lse"),
            "flash_attn_bwd": ("src/repro_torch/csrc/flash_attn_bwd.cu",
                               "src/repro/models/attention.py:149",
                               "flash_attn_bwd"),
            "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
-                           "src/repro/kernels/decode_attn/decode_attn.py:74",
+                           "src/repro/kernels/decode_attn/decode_attn.py:100",
                            "decode_attn"),
+           "paged_decode_attn": (
+               "src/repro_torch/csrc/paged_decode_attn.cu",
+               "src/repro/kernels/paged_decode_attn/paged_decode_attn.py:136",
+               "paged_decode_attn"),
            "fused_sample": ("src/repro_torch/csrc/fused_sample.cu",
                             "src/repro/kernels/fused_sample/fused_sample.py"
-                            ":231", "fused_sample"),
+                            ":265", "fused_sample"),
            "fused_is_grpo_fwd": (
                "src/repro_torch/csrc/fused_is_grpo.cu",
                "src/repro/kernels/fused_is_grpo/fused_is_grpo.py:192",
@@ -805,12 +1151,19 @@ def main() -> int:
            "fused_is_grpo_bwd_dw": (
                "src/repro_torch/csrc/fused_is_grpo.cu",
                "src/repro/kernels/fused_is_grpo/fused_is_grpo.py:249",
-               "fused_is_grpo_bwd_dw")}
+               "fused_is_grpo_bwd_dw"),
+           "fused_logprob": (
+               "src/repro_torch/csrc/fused_is_grpo.cu",
+               "src/repro/kernels/fused_logprob/fused_logprob.py:73",
+               "fused_logprob")}
+    launches = {**train_launches,
+                "paged_decode_attn": train_paged_launches["paged_decode_attn"],
+                "fused_logprob": train_paged_launches["fused_logprob"]}
     rows = []
     for name, (source_path, replaces, check) in src.items():
         c = checks[check]
         rows.append({"name": name, "route": "cuda", "source": source_path,
-                     "replaces": replaces, "launches": train_launches[name],
+                     "replaces": replaces, "launches": launches[name],
                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"],

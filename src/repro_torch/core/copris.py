@@ -49,7 +49,10 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
     """``loss_fn(params, mb) -> (loss, metrics)`` with metrics as 0-dim
     tensors. Above FUSED_VOCAB_THRESHOLD the fused IS+GRPO op reads the
     final hidden states and the unembedding and never materialises the
-    (B, S, V) logits; below it (``tiny``) the full logits are computed."""
+    (B, S, V) logits; with ``fused_loss=False`` the legacy branch scores the
+    log-probs with the fused vocab-blocked kernel (``score_logprobs``) and
+    applies the unfused GRPO loss, without entropy; below the threshold
+    (``tiny``) the full logits are computed."""
     big_vocab = cfg.vocab_size >= FUSED_VOCAB_THRESHOLD
     if big_vocab and not tcfg.fused_loss and tcfg.entropy_coef > 0.0:
         raise ValueError(
@@ -58,11 +61,6 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
             f"FUSED_VOCAB_THRESHOLD={FUSED_VOCAB_THRESHOLD} (vocab_size="
             f"{cfg.vocab_size}) — the bonus would silently be dropped. "
             "Enable TrainConfig.fused_loss or set entropy_coef=0.")
-    if big_vocab and not tcfg.fused_loss:
-        raise NotImplementedError(
-            "fused_loss=False above FUSED_VOCAB_THRESHOLD needs "
-            "score_logprobs and the fused_logprob kernel, which come with "
-            "a later slice of the port; use fused_loss=True")
 
     def loss_fn(params, mb):
         tokens = mb["tokens"]
@@ -70,7 +68,7 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
         # loss_mask = response positions of the model's own tokens
         mask = mb["loss_mask"][:, 1:]
         behaviour = mb["behaviour_logp"][:, 1:]
-        if big_vocab:
+        if big_vocab and tcfg.fused_loss:
             hidden = M.forward_hidden(params, cfg, inputs, remat=tcfg.remat)
             adv_tok = mb["advantages"][:, None].expand(targets.shape)
             loss_tok, ratio, logp_new, entropy = fio.fused_is_grpo(
@@ -84,6 +82,18 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
                 loss_tok, ratio, logp_new, behaviour, mask,
                 clip_low=tcfg.clip_low, use_is=tcfg.use_is_correction,
                 loss_agg=tcfg.loss_agg)
+        elif big_vocab:
+            # legacy fused-logprob recompute (no entropy available —
+            # entropy_coef > 0 is rejected at build time above)
+            entropy = None
+            logp_new = M.score_logprobs(params, cfg, inputs, targets,
+                                        remat=tcfg.remat)
+            loss, metrics = grpo.grpo_loss(
+                logp_new, behaviour, mb["advantages"], mask,
+                clip_low=tcfg.clip_low, clip_high=tcfg.clip_high,
+                use_is=tcfg.use_is_correction, is_ratio_cap=tcfg.is_ratio_cap,
+                loss_agg=tcfg.loss_agg, entropy=None,
+                entropy_coef=tcfg.entropy_coef)
         else:
             logits = M.forward_train(params, cfg, inputs, remat=tcfg.remat)
             logp_all = F.log_softmax(logits, dim=-1)
@@ -96,8 +106,9 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
                 loss_agg=tcfg.loss_agg, entropy=entropy,
                 entropy_coef=tcfg.entropy_coef)
         with torch.no_grad():
-            denom = mask.sum().clamp_min(1.0)
-            metrics["entropy"] = (entropy * mask).sum() / denom
+            if entropy is not None:
+                denom = mask.sum().clamp_min(1.0)
+                metrics["entropy"] = (entropy * mask).sum() / denom
             metrics["pg_loss"] = loss.detach()
             # dense models only in the port: no MoE router loss
             metrics["router_aux"] = torch.zeros((), device=loss.device)

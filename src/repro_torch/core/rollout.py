@@ -23,9 +23,10 @@ slot assignment, batch composition, or chunk size — and equals the JAX
 engine's on the same logits. Keys are derived on the host (they depend only
 on host state) and shipped with each chunk's inputs.
 
-Ported for the serving slice: the dense KV backend and single-turn
-trajectories, in modes "copris" | "sync" | "naive_partial". Multi-turn
-environments and the paged backend's page-gated admission are later slices.
+Modes: "copris" | "sync" | "naive_partial", over the dense or the paged KV
+backend (page-gated admission, preemption under page pressure, prefix
+sharing with copy-on-write). Multi-turn environments are a later slice of
+the port.
 """
 from __future__ import annotations
 
@@ -111,9 +112,17 @@ class RolloutEngine:
         self._chunk = ro_cfg.decode_chunk
 
         self.buffer = TrajectoryBuffer()
-        self.backend = kvc.make_backend(ro_cfg.kv_backend, model_cfg,
-                                        self.pool, self.max_len,
-                                        device=self.device)
+        # the cache lives behind a CacheBackend: "dense" is one region per
+        # slot, "paged" shares physical page pools across slots with
+        # block-table indirection (admission then gates on free PAGES, not
+        # free slots — continuous batching)
+        self.backend = kvc.make_backend(
+            ro_cfg.kv_backend, model_cfg, self.pool, self.max_len,
+            page_size=ro_cfg.kv_page_size, num_pages=ro_cfg.kv_num_pages,
+            device=self.device)
+        # pages promised to dispatched-but-not-yet-prefilled work
+        self._reserved_pages = 0
+        self._reservations = {}        # traj_id -> reserved page count
         self.cache_len = np.zeros(self.pool, np.int32)
         self.last_token = np.zeros(self.pool, np.int32)
         self.slot_gid = np.zeros(self.pool, np.int32)   # key-stream identity
@@ -209,22 +218,60 @@ class RolloutEngine:
         self._stats["snapshot_resumes"] = \
             self._stats.get("snapshot_resumes", 0) + 1
 
+    def _admission_cost(self, traj: Trajectory, fresh_gids: set) -> int:
+        """Worst-case free pages this admission needs (paged backend):
+        snapshot restores bill their exact page count; prefills bill pages
+        through the first decode chunk; a fresh spawn whose group primary is
+        already admitted only bills pages past the shared full prompt
+        pages."""
+        if (self.ro.resume_strategy == "kv_snapshot"
+                and traj.kv_snapshot is not None):
+            return self.backend.snapshot_pages(traj.kv_snapshot)
+        shared = (self.ro.kv_prefix_sharing and traj.response_len == 0
+                  and traj.group_id in fresh_gids)
+        return self.backend.admission_pages(traj.total_len,
+                                            lookahead=self._chunk,
+                                            shared=shared)
+
     def _dispatch_refills(self, idxs, sched: ConcurrencyScheduler):
         """Decide what fills freed slots, in slot order (one sequential
         scheduler dispatch per slot, so scheduling policy is invariant to the
         decode chunk size). kv_snapshot resumes are restored in place;
         re-prefill trajectories are returned as (slot, traj) pairs for the
-        batched prefill."""
+        batched prefill.
+
+        Paged backend: admission is additionally gated on free PAGES —
+        continuous batching. A dispatch the page budget cannot cover is
+        handed back to the scheduler (requeue, redispatched with priority)
+        and the remaining freed slots stay idle this round; they are
+        re-offered at the next chunk boundary, when decode/finishes may have
+        freed pages."""
         pending: List[Tuple[int, Trajectory]] = []
         queue = list(idxs)
+        paged = self.backend.is_paged
+        if paged:
+            budget = self.backend.free_page_count() - self._reserved_pages
+            fresh_gids = set()         # groups with an admitted fresh spawn
         while queue and not sched.done:
             batch = sched.next_requests(len(queue))
             exhausted = len(batch) < len(queue)
             redo = []
-            for i, traj in zip(queue, batch):
+            blocked = False
+            for bi, (i, traj) in enumerate(zip(queue, batch)):
+                if paged:
+                    cost = self._admission_cost(traj, fresh_gids)
+                    if cost > budget:
+                        # hand this and every later dispatch of the batch
+                        # back — scheduler order is priority order
+                        for t2 in batch[bi:]:
+                            sched.requeue(t2)
+                        self._stats["admission_blocked"] += len(batch) - bi
+                        blocked = True
+                        break
+                    budget -= cost
                 if (self.ro.resume_strategy == "kv_snapshot"
                         and traj.kv_snapshot is not None):
-                    self._resume_snapshot(i, traj)
+                    self._resume_snapshot(i, traj)   # allocates pages now
                     reason = self._maybe_done(traj)
                     if reason is not None:
                         self._finish(traj, reason, sched)
@@ -233,9 +280,14 @@ class RolloutEngine:
                         sched.harvest()
                         redo.append(i)
                 else:
+                    if paged:
+                        self._reserved_pages += cost
+                        self._reservations[traj.traj_id] = cost
+                        if traj.response_len == 0:
+                            fresh_gids.add(traj.group_id)
                     pending.append((i, traj))
             queue = redo
-            if exhausted:
+            if exhausted or blocked:
                 break
         return pending
 
@@ -244,36 +296,76 @@ class RolloutEngine:
         PREFILL_BUCKET length, row count padded to a power of two (padding
         rows insert to the out-of-range slot id ``pool`` and are dropped).
         Returns the rows that finished immediately (their very first sampled
-        token already ended the trajectory)."""
+        token already ended the trajectory).
+
+        Prefix sharing (paged backend): fresh same-group spawns collapse onto
+        ONE prefill row — the first ("primary") slot allocates and fills the
+        prompt pages, the other G-1 members point their block tables at them
+        (refcounted; copy-on-write restores exclusivity on the first
+        divergent write). Each member still samples its own first token from
+        the shared row's logits under its own PRNG stream, so trajectory
+        content is unchanged."""
         fulls = [t.full_tokens() for _, t in pending]
         lens = [len(f) for f in fulls]
         for L in lens:
             if L >= self.max_len:
                 raise ValueError(
                     f"trajectory length {L} >= max_len {self.max_len}")
-        S, nr, ns = prefill_pad_dims(lens, len(pending), len(pending))
+        paged = self.backend.is_paged
+        if paged:
+            for _, traj in pending:
+                self._reserved_pages -= self._reservations.pop(
+                    traj.traj_id, 0)
+        share = self.backend.supports_sharing and self.ro.kv_prefix_sharing
+        # row assignment: one row per unique prefill
+        rows = []                      # (full_tokens, L, primary_slot)
+        row_of_gid = {}
+        row_map, primary = [], []
+        for (i, traj), f, L in zip(pending, fulls, lens):
+            fresh = traj.response_len == 0
+            if share and fresh and traj.group_id in row_of_gid:
+                row_map.append(row_of_gid[traj.group_id])
+                primary.append(False)
+            else:
+                r = len(rows)
+                rows.append((f, L, i))
+                if share and fresh:
+                    row_of_gid[traj.group_id] = r
+                row_map.append(r)
+                primary.append(True)
+        S, nr, ns = prefill_pad_dims(lens, len(rows), len(pending))
         tokens = np.zeros((nr, S), np.int32)
         lengths = np.ones(nr, np.int32)
-        for r, (f, L) in enumerate(zip(fulls, lens)):
+        flat_pos = None
+        if paged:
+            oob = self.backend.num_pages * self.backend.page_size
+            flat_pos = np.full((nr, S), oob, np.int32)   # sentinel: dropped
+        for r, (f, L, islot) in enumerate(rows):
             tokens[r, :L] = f
             lengths[r] = L
+            if paged:
+                flat_pos[r, :L] = self.backend.alloc_slot_prefix(islot, L)
             self._stats["prefill_tokens"] += L
         slot_ids = np.full(ns, self.pool, np.int32)   # padding -> dropped
-        row_map = np.zeros(ns, np.int32)
+        rmap = np.zeros(ns, np.int32)
         gid = np.zeros(ns, np.int32)
         sidx = np.zeros(ns, np.int32)
         resp_idx = np.zeros(ns, np.int32)
-        for s, (i, traj) in enumerate(pending):
+        for s, ((i, traj), r, prim) in enumerate(
+                zip(pending, row_map, primary)):
             slot_ids[s] = i
-            row_map[s] = s                  # dense: one row per slot
+            rmap[s] = r
             gid[s] = traj.group_id
             sidx[s] = traj.sample_idx
             resp_idx[s] = traj.response_len
+            if paged and not prim:
+                self.backend.share_slots(rows[r][2], i, rows[r][1])
+                self._stats["shared_prefill_rows"] += 1
         tok, logp = self._prefill_batch(params, tokens, lengths, slot_ids,
-                                        row_map, gid, sidx, resp_idx,
+                                        rmap, flat_pos, gid, sidx, resp_idx,
                                         stage_key)
         self._stats["prefill_calls"] += 1
-        self._stats["prefill_rows"] += len(pending)
+        self._stats["prefill_rows"] += len(rows)
         self._stats["host_syncs"] += 1
         finished = []
         for s, (i, traj) in enumerate(pending):
@@ -292,11 +384,12 @@ class RolloutEngine:
         return finished
 
     def _prefill_batch(self, params, tokens, lengths, slot_ids, row_map,
-                       gid, sidx, resp_idx, stage_key):
+                       flat_pos, gid, sidx, resp_idx, stage_key):
         """Device half of one batched prefill: forward the padded prompts
         into a scratch cache sized to the bucket S (not max_len), sample each
-        slot's first token, insert the scratch rows into the slot cache.
-        Returns host (tokens, logps) from ONE transfer."""
+        slot's first token, insert the scratch rows into the slot cache (the
+        dense insert by slot, or the paged insert by ``flat_pos``). Returns
+        host (tokens, logps) from ONE transfer."""
         dev = self.device
         n, S = tokens.shape
         keys = prng.fold_in(_fold_slot_keys(stage_key, gid, sidx),
@@ -308,7 +401,10 @@ class RolloutEngine:
         rows = torch.from_numpy(np.clip(row_map, 0, n - 1).astype(np.int64))
         logits = logits[rows.to(dev)]
         tok, logp = self._sample(keys.to(dev), logits)
-        kvc.dense_insert_rows(self.cache, scratch, slot_ids, row_map)
+        if self.backend.is_paged:
+            kvc.paged_insert_rows(self.cache, scratch, flat_pos)
+        else:
+            kvc.dense_insert_rows(self.cache, scratch, slot_ids, row_map)
         out = torch.stack([tok.float(), logp]).cpu().numpy()
         return out[0].astype(np.int32), out[1]
 
@@ -328,6 +424,68 @@ class RolloutEngine:
             if freed:
                 sched.harvest()
                 pending = self._dispatch_refills(freed, sched)
+
+    def _preempt_slot(self, i: int, sched: ConcurrencyScheduler,
+                      copies: Optional[List[Tuple[int, int]]] = None):
+        """Evict a live slot mid-stage to free its pages. The trajectory
+        keeps everything generated so far and goes back to the scheduler
+        with redispatch priority (requeue) — under kv_snapshot resume it also
+        carries its page-list snapshot, so preemption costs one re-prefill at
+        worst and nothing at best.
+
+        ``copies`` is the current round's pending COW batch: if the victim
+        COW'd earlier in this round, its block table already points at copy
+        DESTINATION pages whose copy has not run yet, so the batch must be
+        flushed before a snapshot is extracted (sources are still intact —
+        no decode write happens until after the round)."""
+        traj = self.slots[i]
+        if self.ro.resume_strategy == "kv_snapshot":
+            if copies:
+                self.backend.apply_copies(copies)
+                copies.clear()
+            traj.kv_snapshot = self.backend.extract_snapshot(i)
+            traj.snap_cache_len = int(self.cache_len[i])
+            traj.snap_last_token = int(self.last_token[i])
+        sched.requeue(traj)
+        self.slots[i] = None
+        self.backend.free_slot(i)
+        self._stats["page_preemptions"] += 1
+
+    def _prepare_decode_pages(self, live, sched: ConcurrencyScheduler):
+        """Before each decode chunk (paged backend only): ensure every live
+        slot has pages mapped for the chunk's write range [cache_len,
+        cache_len + chunk) and owns them EXCLUSIVELY (copy-on-write detaches
+        prefix-shared pages on their first divergent write). On page
+        exhaustion, preempt the youngest live slot (fewest response tokens —
+        least redone work) until growth fits. Page copies run as one batch."""
+        copies = []
+        for i in range(self.pool):
+            if not live[i]:
+                continue
+            clen = int(self.cache_len[i])
+            upto = min(clen + self._chunk, self.max_len)
+            while not self.backend.grow(i, upto, clen, copies):
+                victim = None
+                for j in range(self.pool):
+                    if live[j] and j != i and (
+                            victim is None or self.slots[j].response_len
+                            < self.slots[victim].response_len):
+                        victim = j
+                if victim is None:
+                    raise kvc.PageExhausted(
+                        f"slot {i} cannot map its decode range [{clen}, "
+                        f"{upto}) and no other live slot is preemptible — "
+                        "kv_num_pages is too small for a single trajectory")
+                self._preempt_slot(victim, sched, copies)
+                live[victim] = False
+                # drop pending COW copies targeting pages the preemption just
+                # freed (their dst could be recycled to a new owner before
+                # the batched copy runs); under kv_snapshot the batch was
+                # already flushed and cleared before snapshotting
+                copies[:] = [(s, d) for s, d in copies
+                             if self.backend.refcount[d] > 0]
+        self.backend.apply_copies(copies)
+        return live
 
     def _decode_chunk(self, params, live, resp_len, stage_key):
         """Device half of one engine step: ``decode_chunk`` fused
@@ -356,13 +514,16 @@ class RolloutEngine:
                                      max_len=max_len)
             return tok, logp, eos | length, (resp_new, d + 1)
 
+        # a fresh device block table for every chunk (None for dense)
+        bt = self.backend.block_table_device()
         _, (toks, logps, acts) = M.decode_scan(
             params, self.cfg, self.cache,
             torch.from_numpy(self.last_token).to(dev),
             torch.from_numpy(self.cache_len).to(dev),
             torch.from_numpy(live).to(dev),
             (torch.from_numpy(resp_len).to(dev), 0), steps=D,
-            step_fn=step_fn)
+            step_fn=step_fn,
+            paged=None if bt is None else (bt, self.backend.page_size))
         out = torch.stack([toks.float(), logps, acts.float()]).cpu().numpy()
         return out[0].astype(np.int32), out[1], out[2].astype(bool)
 
@@ -413,9 +574,13 @@ class RolloutEngine:
             self._stage = stage_id
             self._stats = dict(prefill_count=0, prefill_tokens=0,
                                prefill_calls=0, prefill_rows=0,
-                               decode_steps=0, decode_chunks=0, host_syncs=0,
+                               shared_prefill_rows=0, decode_steps=0,
+                               decode_chunks=0, host_syncs=0,
                                active_slot_steps=0, slot_steps=0, generated=0,
-                               overgen_tokens=0, resumed=0, evicted=0)
+                               overgen_tokens=0, resumed=0, evicted=0,
+                               admission_blocked=0, page_preemptions=0)
+            self._reserved_pages = 0
+            self._reservations.clear()
             self._t0 = time.perf_counter()
             self._sched = ConcurrencyScheduler(
                 self.ro, self.buffer, self._new_group,
@@ -436,13 +601,18 @@ class RolloutEngine:
         """Run ONE decode chunk (+ its host replay and refill prefills).
         Returns False when the engine is idle — nothing live in the pool.
         ``admit_idle`` re-offers idle slots to the scheduler before decoding
-        (serving callers pass True so requests submitted between steps are
-        admitted immediately). The stage's params were prepared by
-        :meth:`begin_stage`; ``params`` is accepted for API parity."""
+        (default: on for the paged backend, whose admission gate and
+        preemption can idle slots mid-stage; serving callers pass True so
+        requests submitted between steps are admitted immediately). The
+        stage's params were prepared by :meth:`begin_stage`; ``params`` is
+        accepted for API parity."""
         sched = self._sched
         stage_id = self._stage
         params = self._params
-        if admit_idle and not sched.done:
+        # the reference's default is `is_paged or has_env`; environments
+        # are a later slice of the port
+        admit = self.backend.is_paged if admit_idle is None else admit_idle
+        if admit and not sched.done:
             idle = [i for i in range(self.pool) if self.slots[i] is None]
             if idle:
                 self._prefill_rounds(
@@ -450,6 +620,10 @@ class RolloutEngine:
         live = np.array([t is not None for t in self.slots], bool)
         if not live.any():
             return False               # nothing in flight and scheduler idle
+        if self.backend.is_paged:
+            live = self._prepare_decode_pages(live, sched)
+            if not live.any():
+                return True            # all preempted; retry next step
         D = self._chunk
         resp_len = np.array([0 if t is None else t.response_len
                              for t in self.slots], np.int32)

@@ -16,6 +16,11 @@
 // Pallas kernel does: h is widened to float32 and every product and sum is
 // float32 (no tensor cores in this first version).
 //
+// Also replaces the forward-only Pallas TPU kernel
+//   src/repro/kernels/fused_logprob/fused_logprob.py::fused_logprob_rows
+//   (body `_kernel`): the entry point fused_logprob_fwd below, plain
+//   reference repro_torch.hopper.fused_logprob.fused_logprob_plain.
+//
 // Entry points:
 //   fused_is_grpo_fwd     per row: loss_tok, ratio, logp, lse, entropy.
 //     Kernel 1, one block per (128-row tile, vocabulary split): 128x128
@@ -35,6 +40,12 @@
 //   fused_is_grpo_bwd_dw  dw = h^T dl for the same chunk, written in w's
 //     own layout (the tied embedding's gradient comes back as (V, d)),
 //     accumulated over row chunks.
+//   fused_logprob_fwd     per row: logp = log p(target) and lse, for the
+//     legacy fused_loss=False loss. The IS-GRPO forward without its
+//     epilogue: the same kernel 1 (its logit-weighted sumexp goes unused),
+//     then a combine kernel that writes logp and lse only. Its gradient is
+//     dl = g (onehot - p), which is fused_is_grpo_bwd_dh/_dw with a = g,
+//     e = 0: no third GEMM.
 // So the backward does one logits recompute + dh + dw = 6 R d V operations
 // where the TPU kernels recompute the logits in each of their two kernels.
 // A row with a = e = 0 (prompt and padding positions) has dl = 0 exactly
@@ -208,6 +219,23 @@ fwd_partial_kernel(const TH* __restrict__ h, const float* __restrict__ w,
   }
 }
 
+// Merges the splits' (max, sumexp, target logit, logit-weighted sumexp)
+// of row r into (m, l, g, u) over the whole vocabulary.
+__device__ __forceinline__ float4 merge_splits(const float4* __restrict__ partial,
+                                               int splits, int R, int r) {
+  float m = kNegInf;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, partial[(size_t)s * R + r].x);
+  float l = 0.f, g = 0.f, u = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float4 p = partial[(size_t)s * R + r];
+    const float c = expf(p.x - m);
+    l = fmaf(p.y, c, l);
+    u = fmaf(p.w, c, u);
+    g += p.z;
+  }
+  return make_float4(m, l, g, u);
+}
+
 __global__ void fwd_combine_kernel(const float4* __restrict__ partial,
                                    int splits, int R,
                                    const float* __restrict__ behaviour,
@@ -221,16 +249,8 @@ __global__ void fwd_combine_kernel(const float4* __restrict__ partial,
                                    float entropy_coef) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  float m = kNegInf;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, partial[(size_t)s * R + r].x);
-  float l = 0.f, g = 0.f, u = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float4 p = partial[(size_t)s * R + r];
-    const float c = expf(p.x - m);
-    l = fmaf(p.y, c, l);
-    u = fmaf(p.w, c, u);
-    g += p.z;
-  }
+  const float4 t = merge_splits(partial, splits, R, r);
+  const float m = t.x, l = t.y, g = t.z, u = t.w;
   const float L = m + logf(l);
   const float lp = g - L;
   const float en = L - u / l;
@@ -247,6 +267,45 @@ __global__ void fwd_combine_kernel(const float4* __restrict__ partial,
   logp[r] = lp;
   lse[r] = L;
   ent[r] = en;
+}
+
+__global__ void logprob_combine_kernel(const float4* __restrict__ partial,
+                                       int splits, int R,
+                                       float* __restrict__ logp,
+                                       float* __restrict__ lse) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const float4 t = merge_splits(partial, splits, R, r);
+  const float L = t.x + logf(t.y);
+  logp[r] = t.z - L;
+  lse[r] = L;
+}
+
+// Kernel 1 of both forwards: the splits' partial statistics.
+cudaError_t launch_partial(const void* h, const void* w, const void* targets,
+                           void* partial, int R, int d, int V, int w_sk,
+                           int w_sv, int h_dtype, int splits, float softcap,
+                           cudaStream_t s) {
+  const int n_tiles = (V + BN - 1) / BN;
+  if (splits < 1 || splits > n_tiles) return cudaErrorInvalidValue;
+  const int per_split = (n_tiles + splits - 1) / splits;
+  const int used = (n_tiles + per_split - 1) / per_split;  // every split non-empty
+  if (used != splits) return cudaErrorInvalidValue;
+  dim3 grid((R + BM - 1) / BM, splits);
+  const float* wf = static_cast<const float*>(w);
+  const int* t = static_cast<const int*>(targets);
+  float4* part = static_cast<float4*>(partial);
+  if (h_dtype == repro::kBFloat16)
+    fwd_partial_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(h), wf, w_sk, w_sv, t, part, R, d,
+        V, per_split, softcap);
+  else if (h_dtype == repro::kFloat32)
+    fwd_partial_kernel<float><<<grid, NT, 0, s>>>(
+        static_cast<const float*>(h), wf, w_sk, w_sv, t, part, R, d, V,
+        per_split, softcap);
+  else
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 // ---- backward -----------------------------------------------------------
@@ -332,27 +391,12 @@ extern "C" int fused_is_grpo_fwd(
     int h_dtype, int splits, float softcap, float ratio_lo, float ratio_hi,
     int use_is, float log_cap, float entropy_coef, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (V + BN - 1) / BN;
-  if (splits < 1 || splits > n_tiles) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_split = (n_tiles + splits - 1) / splits;
-  const int used = (n_tiles + per_split - 1) / per_split;  // every split non-empty
-  if (used != splits) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((R + BM - 1) / BM, splits);
-  const float* wf = static_cast<const float*>(w);
-  const int* t = static_cast<const int*>(targets);
-  float4* part = static_cast<float4*>(partial);
-  if (h_dtype == repro::kBFloat16)
-    fwd_partial_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(h), wf, w_sk, w_sv, t, part, R, d,
-        V, per_split, softcap);
-  else if (h_dtype == repro::kFloat32)
-    fwd_partial_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(h), wf, w_sk, w_sv, t, part, R, d, V,
-        per_split, softcap);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = launch_partial(h, w, targets, partial, R, d, V,
+                                         w_sk, w_sv, h_dtype, splits,
+                                         softcap, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   fwd_combine_kernel<<<(R + 255) / 256, 256, 0, s>>>(
-      part, splits, R, static_cast<const float*>(behaviour),
+      static_cast<const float4*>(partial), splits, R, static_cast<const float*>(behaviour),
       static_cast<const float*>(adv), static_cast<float*>(loss),
       static_cast<float*>(ratio), static_cast<float*>(logp),
       static_cast<float*>(lse), static_cast<float*>(ent), ratio_lo, ratio_hi,
@@ -407,5 +451,21 @@ extern "C" int fused_is_grpo_bwd_dw(const void* h, const void* dl, void* dw,
         d, R, accumulate);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fused_logprob_fwd(const void* h, const void* w,
+                                 const void* targets, void* partial,
+                                 void* logp, void* lse, int R, int d, int V,
+                                 int w_sk, int w_sv, int h_dtype, int splits,
+                                 float softcap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_partial(h, w, targets, partial, R, d, V,
+                                         w_sk, w_sv, h_dtype, splits,
+                                         softcap, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  logprob_combine_kernel<<<(R + 255) / 256, 256, 0, s>>>(
+      static_cast<const float4*>(partial), splits, R,
+      static_cast<float*>(logp), static_cast<float*>(lse));
   return static_cast<int>(cudaGetLastError());
 }

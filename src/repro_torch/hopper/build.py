@@ -37,6 +37,11 @@ KERNELS = {
                         F, F, I, P)},
     "decode_attn": {"decode_attn_fwd":
                     (P, P, P, P, P, I, I, I, I, I, I, F, F, I, P)},
+    # q, k_pool, v_pool, block_table, cache_len, out, B, NP, page_size,
+    # max_pages, H, KV, hd, window, softcap, scale, dtype, stream
+    "paged_decode_attn": {"paged_decode_attn_fwd":
+                          (P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I,
+                           P)},
     "fused_sample": {"fused_sample_rows":
                      (P, P, P, P, I, I, F, I, F, I, P)},
     "fused_is_grpo": {
@@ -52,6 +57,9 @@ KERNELS = {
         # h, dl, dw, R, d, V, dw_stride_k, dw_stride_v, h_dtype, accumulate,
         # stream
         "fused_is_grpo_bwd_dw": (P, P, P, I, I, I, I, I, I, I, P),
+        # h, w, targets, partial, logp, lse, R, d, V, w_stride_k,
+        # w_stride_v, h_dtype, splits, softcap, stream
+        "fused_logprob_fwd": (P, P, P, P, P, P, I, I, I, I, I, I, I, F, P),
     },
 }
 

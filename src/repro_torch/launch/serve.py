@@ -12,7 +12,9 @@ owning the loop.
         --requests 12 --concurrency 4 --max-tokens 32
 
 Weights are random, made from ``--seed``. ``--smoke`` selects the reduced
-config; ``--device cpu`` runs the plain PyTorch path on the host.
+config; ``--device cpu`` runs the plain PyTorch path on the host;
+``--kv-backend paged`` serves over the paged KV cache (``--kv-page-size``
+tokens a page, ``--kv-num-pages`` pages; 0 = the dense-equivalent count).
 """
 from __future__ import annotations
 
@@ -189,8 +191,9 @@ class ServeEngine:
 def make_serve_engine(arch: str = "tiny", *, smoke: bool = False,
                       max_prompt_len: int = 8, max_tokens: int = 32,
                       concurrency: int = 4, temperature: float = 0.8,
-                      top_p: float = 1.0, top_k: int = -1, seed: int = 0,
-                      device=None):
+                      top_p: float = 1.0, top_k: int = -1,
+                      kv_backend: str = "dense", kv_page_size: int = 16,
+                      kv_num_pages: int = 0, seed: int = 0, device=None):
     """Build a ready ServeEngine with random weights made from ``seed``.
     Runs on the GPU unless ``device='cpu'``."""
     dev = resolve_device(device)
@@ -199,7 +202,8 @@ def make_serve_engine(arch: str = "tiny", *, smoke: bool = False,
                        max_prompt_len=max_prompt_len,
                        max_response_len=max_tokens, concurrency=concurrency,
                        mode="copris", temperature=temperature, top_p=top_p,
-                       top_k=top_k)
+                       top_k=top_k, kv_backend=kv_backend,
+                       kv_page_size=kv_page_size, kv_num_pages=kv_num_pages)
     params = M.init_params(cfg, seed=seed, device=dev)
     return ServeEngine(cfg, ro, eos_id=cfg.vocab_size - 1, params=params,
                        key=prng.PRNGKey(seed + 1), device=dev), cfg
@@ -214,6 +218,10 @@ def main(argv=None):
     ap.add_argument("--max-tokens", type=int, default=32)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--kv-backend", default="dense",
+                    choices=("dense", "paged"))
+    ap.add_argument("--kv-page-size", type=int, default=16)
+    ap.add_argument("--kv-num-pages", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
@@ -222,7 +230,9 @@ def main(argv=None):
     serve, cfg = make_serve_engine(
         args.arch, smoke=args.smoke, max_prompt_len=args.prompt_len,
         max_tokens=args.max_tokens, concurrency=args.concurrency,
-        temperature=args.temperature, seed=args.seed, device=args.device)
+        temperature=args.temperature, kv_backend=args.kv_backend,
+        kv_page_size=args.kv_page_size, kv_num_pages=args.kv_num_pages,
+        seed=args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         serve.submit(GenerateRequest(
@@ -239,10 +249,18 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     stats = serve.close()
     tok = sum(len(r.tokens) for r in served)
+    extra = ""
+    if args.kv_backend == "paged":
+        b = serve.eng.backend
+        extra = (f", prefill rows {stats['prefill_rows']}"
+                 f" blocked {stats['admission_blocked']}"
+                 f" preempted {stats['page_preemptions']}"
+                 f" pages allocated {b.pages_allocated}"
+                 f" cow copies {b.cow_copies}")
     print(f"\nserved {len(served)} requests, {tok} tokens in {dt:.2f}s "
           f"({tok/dt:.1f} tok/s, slot utilization "
           f"{stats['utilization']:.2f}, pool={serve.eng.pool}, "
-          f"device={serve.eng.device})")
+          f"kv={args.kv_backend}{extra}, device={serve.eng.device})")
 
 
 if __name__ == "__main__":

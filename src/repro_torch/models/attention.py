@@ -1,11 +1,13 @@
 """GQA attention: chunked-causal (flash-style online softmax) for prefill,
-and single-token decode against the dense KV cache.
+and single-token decode against the dense or the paged KV cache.
 
 :func:`chunked_attention` and :func:`decode_attention` are the plain PyTorch
 versions of the prefill and decode kernels (``hopper/flash_attn.py``,
 ``hopper/decode_attn.py``) and the ports of the JAX functions of the same
-names. :func:`attention_block` calls the kernel wrappers, which take the
-plain versions for CPU tensors and launch the CUDA kernels for CUDA tensors.
+names; :func:`paged_gather_kv` followed by :func:`decode_attention` is the
+plain version of the paged decode kernel (``hopper/paged_decode_attn.py``).
+:func:`attention_block` calls the kernel wrappers, which take the plain
+versions for CPU tensors and launch the CUDA kernels for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.hopper import decode_attn as decode_op
 from repro_torch.hopper import flash_attn as flash_op
+from repro_torch.hopper import paged_decode_attn as paged_op
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm, softcap
 
 NEG_INF = -1e30
@@ -190,12 +193,83 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
 
 
 # ---------------------------------------------------------------------------
+# paged KV decode (block-table indirection; plain version = gather-to-dense)
+# ---------------------------------------------------------------------------
+
+
+def paged_pool(num_pages: int, page_size: int, kv: int, hd: int, dtype,
+               device):
+    """A zeroed physical page pool (NP, ps, KV, hd): a view of the first NP
+    pages of a buffer that holds one more page, the *sink*. The sink takes
+    the writes :func:`paged_write_kv` drops and is never read unmasked."""
+    buf = torch.zeros(num_pages + 1, page_size, kv, hd, dtype=dtype,
+                      device=device)
+    return buf[:num_pages]
+
+
+def _with_sink(pool):
+    """Flat (NP*ps + ps, KV, hd) view of a :func:`paged_pool` pool and its
+    sink page (raises for a pool made without one)."""
+    NP, ps, kv, hd = pool.shape
+    need = (pool.storage_offset() + (NP + 1) * ps * kv * hd) \
+        * pool.element_size()
+    if not pool.is_contiguous() or pool.untyped_storage().nbytes() < need:
+        raise ValueError("paged_write_kv: the pool has no sink page (make "
+                         "it with paged_pool)")
+    return pool.as_strided(((NP + 1) * ps, kv, hd), (kv * hd, hd, 1))
+
+
+def paged_write_kv(pool, new, block_table, page_size: int, cache_len):
+    """Write one decode token's K (or V) into a paged pool, in place.
+
+    pool: (NP, ps, KV, hd) physical pages made by :func:`paged_pool`; new:
+    (B, 1, KV, hd); block_table: (B, max_pages) int32 with sentinel NP for
+    unmapped pages; cache_len: (B,) logical write position. The reference
+    scatters with ``mode="drop"``: a row on a sentinel page (a dead or
+    padding slot, whose recycled pages may already belong to a new
+    trajectory) or at ``cache_len >= max_pages * ps`` (a full slot) writes
+    nowhere. Here such a row writes into the sink page, so the write needs
+    no host synchronisation and no row is clamped onto a live position."""
+    NP, ps = pool.shape[0], pool.shape[1]
+    B, max_pages = block_table.shape
+    pos = cache_len.to(torch.int64)
+    rows = torch.arange(B, device=pool.device)
+    pg = block_table[rows, (pos // page_size).clamp(0, max_pages - 1)]
+    pg = pg.to(torch.int64)
+    live = (pos >= 0) & (pos < max_pages * page_size) & (pg >= 0) & (pg < NP)
+    pg = torch.where(live, pg, NP)                        # NP = the sink
+    flat = pg * ps + pos % page_size
+    _with_sink(pool)[flat] = new[:, 0].to(pool.dtype)
+    return pool
+
+
+def paged_gather_kv(pool, block_table, page_size: int):
+    """Gather a paged pool back to the dense per-slot layout
+    (B, max_pages * ps, KV, hd). Sentinel pages read as zeros (the
+    reference's ``mode="fill"``), by masking: page NP is never read. Every
+    such position lies past cache_len and is masked by
+    :func:`decode_attention`, so paged decode equals dense decode bit for
+    bit on the CPU."""
+    NP = pool.shape[0]
+    B, max_pages = block_table.shape
+    if page_size != pool.shape[1]:
+        raise ValueError(f"paged_gather_kv: page_size {page_size} != the "
+                         f"pool's {pool.shape[1]}")
+    bt = block_table.to(torch.int64)
+    mapped = (bt >= 0) & (bt < NP)
+    pages = pool[torch.where(mapped, bt, 0)]             # (B, mp, ps, KV, hd)
+    pages = torch.where(mapped[:, :, None, None, None], pages,
+                        torch.zeros((), dtype=pool.dtype, device=pool.device))
+    return pages.reshape(B, max_pages * page_size, *pool.shape[2:])
+
+
+# ---------------------------------------------------------------------------
 # full attention sub-block (proj + rope + attend + out-proj)
 # ---------------------------------------------------------------------------
 
 
 def attention_block(params, cfg, x, positions, *, kind: str, kv_cache=None,
-                    cache_len=None):
+                    cache_len=None, paged=None):
     """Self-attention sub-block.
 
     Prefill / full sequence: kv_cache is None -> returns (out, (k, v)) where
@@ -205,6 +279,9 @@ def attention_block(params, cfg, x, positions, *, kind: str, kv_cache=None,
     at cache_len IN PLACE on the cache tensors (the reference's
     dynamic_update_slice, whose start index is clamped to L - 1), then
     attention reads cache_len + 1 entries. Returns (out, (k_cache, v_cache)).
+    Paged decode: ``paged=(block_table (B, max_pages) int32, page_size)``
+    and kv_cache holds the physical page pools (NP, ps, KV, hd) shared by
+    all slots (:func:`paged_write_kv`, then the paged decode kernel).
     """
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -224,6 +301,15 @@ def attention_block(params, cfg, x, positions, *, kind: str, kv_cache=None,
         out = flash_op.flash_attention(q, k, v.contiguous(), causal=True,
                                        window=window, attn_softcap=cap)
         new_kv = (k, v)
+    elif paged is not None:
+        k_cache, v_cache = kv_cache
+        bt, psz = paged
+        paged_write_kv(k_cache, k, bt, psz, cache_len)
+        paged_write_kv(v_cache, v, bt, psz, cache_len)
+        out = paged_op.paged_decode_attention(
+            q, k_cache, v_cache, bt, psz, cache_len + 1, window=window,
+            attn_softcap=cap)
+        new_kv = (k_cache, v_cache)
     else:
         k_cache, v_cache = kv_cache
         B, L = x.shape[0], k_cache.shape[1]

@@ -9,7 +9,10 @@ Public entry points (plain functions over a parameter dict):
   the fused loss
 * ``prefill(params, cfg, tokens, lengths, cache)`` — seed the slot cache,
   return last-valid-position logits
-* ``decode_step(params, cfg, token, cache, cache_len)`` — one token
+* ``score_logprobs(params, cfg, tokens, targets)`` — per-token log-probs
+  through the fused vocab-blocked kernel, for the legacy loss
+* ``decode_step(params, cfg, token, cache, cache_len, paged=None)`` — one
+  token, against a dense cache or (``paged``) an ``init_paged_cache`` one
 * ``decode_scan(...)`` — ``steps`` decode+sample iterations, no host sync
 
 Parameters: ``{"embed": {"tok": (V, d)}, "layers": [per-layer dict, ...],
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device, torch_dtype
+from repro_torch.hopper import fused_logprob as flp
 from repro_torch.models import transformer
 from repro_torch.models.layers import dense_init, embed_init, rms_norm, softcap
 from repro_torch.models.transformer import _gather_last
@@ -83,6 +87,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                                         resolve_device(device))
 
 
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                     page_size: int, num_pages: int, dtype=None,
+                     device=None):
+    """Paged-KV slot cache: every layer's K/V become physical page pools
+    (num_pages, page_size, KV, hd) shared by all ``batch`` slots. Decode
+    with ``decode_step(..., paged=(block_table, page_size))``."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    return transformer.init_stack_cache(cfg, batch, max_len, dtype,
+                                        resolve_device(device),
+                                        kv_pages=(num_pages, page_size))
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -110,7 +126,7 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def backbone(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
-             cache_len=None, mode="train", remat=False):
+             cache_len=None, mode="train", remat=False, paged=None):
     """Embed + stack + final norm. Returns (hidden (B, S, d), new_cache)."""
     B, S = tokens.shape
     if positions is None:
@@ -121,7 +137,7 @@ def backbone(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
     x = _embed(params, cfg, tokens)
     x, new_cache = transformer.apply_stack(
         params["layers"], cfg, x, positions=positions, cache=cache,
-        cache_len=cache_len, mode=mode, remat=remat)
+        cache_len=cache_len, mode=mode, remat=remat, paged=paged)
     x = rms_norm(x, params["final_norm"], eps=cfg.rms_eps)
     return x, new_cache
 
@@ -142,6 +158,24 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, remat=True):
     return x
 
 
+def token_logprobs_from_logits(logits, targets):
+    """logits: (B, S, V) float32; targets: (B, S) — log p(targets)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    return tgt - lse
+
+
+def score_logprobs(params, cfg: ModelConfig, tokens, targets, *, remat=True):
+    """Per-token log-prob of ``targets`` given ``tokens`` (same length;
+    targets[t] is the next-token label of position t), float32 (B, S),
+    differentiable in ``params``. The fused vocab-blocked op
+    (``hopper/fused_logprob``) reads the final hidden states and the
+    unembedding and never materialises the (B, S, V) logits."""
+    x = forward_hidden(params, cfg, tokens, remat=remat)
+    return flp.fused_logprob(x, unembed_weight(params, cfg), targets,
+                             logit_softcap=cfg.logit_softcap)
+
+
 # -- serving ----------------------------------------------------------------
 
 
@@ -155,17 +189,19 @@ def prefill(params, cfg: ModelConfig, tokens, lengths, cache):
     return _logits(params, cfg, last), new_cache
 
 
-def decode_step(params, cfg: ModelConfig, token, cache, cache_len):
+def decode_step(params, cfg: ModelConfig, token, cache, cache_len, *,
+                paged=None):
     """token: (B,) int — the *input* token; cache_len: (B,) int32. Returns
     logits (B, V) for the next token and the cache, with the token's K/V
-    written at cache_len."""
+    written at cache_len. ``paged=(block_table (B, max_pages) int32,
+    page_size)`` decodes against an :func:`init_paged_cache` cache."""
     x, new_cache = backbone(params, cfg, token[:, None], cache=cache,
-                            cache_len=cache_len, mode="decode")
+                            cache_len=cache_len, mode="decode", paged=paged)
     return _logits(params, cfg, x)[:, 0], new_cache
 
 
 def decode_scan(params, cfg: ModelConfig, cache, last_token, cache_len,
-                active, aux, *, steps: int, step_fn):
+                active, aux, *, steps: int, step_fn, paged=None):
     """Run ``steps`` decode+sample iterations on the device, with no host
     synchronisation inside (no ``.item()``, no ``.cpu()``), so the loop can be
     captured as a CUDA graph. The caller supplies the sampling / stop policy::
@@ -178,11 +214,13 @@ def decode_scan(params, cfg: ModelConfig, cache, last_token, cache_len,
 
     Returns ``((cache, last_token, cache_len, active, aux), ys)`` with
     ``ys = (tokens (steps, B), logps (steps, B), was_active (steps, B))``;
-    ``was_active[d]`` is the active mask entering step ``d``."""
+    ``was_active[d]`` is the active mask entering step ``d``. ``paged``
+    (the block table and page size) stays fixed over the loop."""
     toks, logps, acts = [], [], []
     clen, last_tok, act, a = cache_len, last_token, active, aux
     for _ in range(steps):
-        logits, cache = decode_step(params, cfg, last_tok, cache, clen)
+        logits, cache = decode_step(params, cfg, last_tok, cache, clen,
+                                    paged=paged)
         tok, logp, stop, a = step_fn(logits, clen, act, a)
         clen = clen + act.to(clen.dtype)
         last_tok = torch.where(act, tok.to(last_tok.dtype), last_tok)

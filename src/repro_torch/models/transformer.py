@@ -51,16 +51,25 @@ def init_stack(cfg: ModelConfig, dtype, device, gen):
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, device):
+                     dtype, device, *, kv_pages=None):
+    """``kv_pages=(num_pages, page_size)`` makes the K/V leaves physical page
+    pools (num_pages, page_size, KV, hd) shared by all slots
+    (``attention.paged_pool``) instead of (batch, max_len, KV, hd)."""
     _check_kind(kind)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    if kv_pages is not None:
+        np_, ps = kv_pages
+        return {name: attn_mod.paged_pool(np_, ps, kv, hd, dtype, device)
+                for name in ("k", "v")}
+    shape = (batch, max_len, kv, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                     device):
-    return [init_block_cache(cfg, kind, batch, max_len, dtype, device)
+                     device, *, kv_pages=None):
+    return [init_block_cache(cfg, kind, batch, max_len, dtype, device,
+                             kv_pages=kv_pages)
             for kind in layer_kinds(cfg)]
 
 
@@ -76,19 +85,22 @@ def _gather_last(x, lengths):
 
 
 def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
-                cache=None, cache_len=None, mode: str = "train"):
+                cache=None, cache_len=None, mode: str = "train", paged=None):
     """Returns (x_out, new_cache).
 
     mode: "train" (no cache), "prefill" (writes the full-sequence K/V into
     ``cache`` at positions [0, S)), "decode" (x is (B, 1, d), ``cache_len``
-    (B,) tokens already in cache; K/V written in place at cache_len)."""
+    (B,) tokens already in cache; K/V written in place at cache_len).
+    ``paged=(block_table, page_size)`` selects the paged-KV decode path
+    (decode mode only)."""
     _check_kind(kind)
     h = rms_norm(x, params["ln1"], eps=cfg.rms_eps)
     new_cache = cache
     if mode == "decode":
         a, (kc, vc) = attn_mod.attention_block(
             params["attn"], cfg, h, positions, kind=kind,
-            kv_cache=(cache["k"], cache["v"]), cache_len=cache_len)
+            kv_cache=(cache["k"], cache["v"]), cache_len=cache_len,
+            paged=paged)
         new_cache = dict(cache, k=kc, v=vc)
     else:
         a, (k, v) = attn_mod.attention_block(params["attn"], cfg, h,
@@ -103,13 +115,15 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
 
 
 def apply_stack(params, cfg: ModelConfig, x, *, positions, cache=None,
-                cache_len=None, mode: str = "train", remat: bool = False):
+                cache_len=None, mode: str = "train", remat: bool = False,
+                paged=None):
     """Run all layers. Returns (x, new_cache).
 
     ``remat`` (train mode, with autograd on): each layer runs under
     ``torch.utils.checkpoint``, keeping only its input and recomputing its
     activations in the backward — the reference's ``jax.checkpoint`` of the
-    scanned layer body."""
+    scanned layer body. ``paged`` (the block table and page size) is shared
+    by every layer; each layer has its own page pools."""
     new_cache = None if cache is None else []
     ckpt = remat and mode == "train" and torch.is_grad_enabled()
     for i, kind in enumerate(layer_kinds(cfg)):
@@ -120,7 +134,8 @@ def apply_stack(params, cfg: ModelConfig, x, *, positions, cache=None,
             nc = None
         else:
             x, nc = apply_block(params[i], cfg, kind, x, positions=positions,
-                                cache=c, cache_len=cache_len, mode=mode)
+                                cache=c, cache_len=cache_len, mode=mode,
+                                paged=paged)
         if new_cache is not None:
             new_cache.append(nc)
     return x, new_cache

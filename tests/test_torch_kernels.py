@@ -14,7 +14,12 @@ backward: float32 atol 1e-4, bfloat16 atol 5e-2 (gradients of order 1 that
 go through bf16 rounding of each output). The fused IS+GRPO kernels compute
 in float32 like their plain versions: per-row outputs atol 1e-4, dh/dw
 atol 1e-4 relative to their largest element (sums over V or over rows in
-another order), 1e-2 for a bf16 dh (one bf16 ulp).
+another order), 1e-2 for a bf16 dh (one bf16 ulp). The paged decode
+kernel: as the dense one (float32 1e-4, bfloat16 2e-2), and on an identity
+block table bit-equal to the dense kernel, whose loop it shares. The fused
+log-prob: logp and lse atol 1e-4; its gradient (the IS-GRPO backward
+kernels with e = 0) within 1e-4 of the largest element of autograd's
+through the plain version.
 """
 import pytest
 
@@ -22,6 +27,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.hopper import decode_attn, flash_attn, fused_sample  # noqa: E402
 from repro_torch.hopper import fused_is_grpo as fio  # noqa: E402
+from repro_torch.hopper import fused_logprob as flp  # noqa: E402
+from repro_torch.hopper import paged_decode_attn as pda  # noqa: E402
 from repro_torch.sampling import prng  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -269,3 +276,142 @@ def test_fused_is_grpo_bwd_row_chunks(dev, monkeypatch):
     torch.testing.assert_close(dh, rdh, atol=1e-4 * float(rdh.abs().max()),
                                rtol=0)
 
+
+
+# -- paged decode attention ------------------------------------------------------
+
+PDA_CASES = [
+    # B, NP, max_pages, ps, H, KV, hd, win, cap, dtype: the CPU tests' cases,
+    # then the serve shape of llama3.2-1b (pool 16, max_len 640, ps 16)
+    (2, 12, 4, 16, 4, 2, 64, 0, 0.0, torch.float32),
+    (3, 20, 6, 8, 8, 8, 32, 0, 30.0, torch.float32),
+    (2, 16, 8, 16, 4, 1, 64, 48, 0.0, torch.float32),
+    (1, 9, 3, 32, 5, 5, 64, 0, 0.0, torch.bfloat16),
+    (16, 640, 40, 16, 32, 8, 64, 0, 0.0, torch.bfloat16),
+]
+
+
+def _paged_inputs(dev, case, seed=11):
+    B, NP, mp, ps, H, KV, hd, win, cap, dt = case
+    g = _gen(seed)
+    q = torch.randn(B, 1, H, hd, device=dev, generator=g).to(dt)
+    kp = torch.randn(NP, ps, KV, hd, device=dev, generator=g).to(dt)
+    vp = torch.randn(NP, ps, KV, hd, device=dev, generator=g).to(dt)
+    lens = torch.randint(2, mp * ps + 1, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    bt = torch.full((B, mp), NP, dtype=torch.int32)
+    perm = torch.randperm(NP, generator=torch.Generator().manual_seed(seed))
+    used = 0
+    for b in range(B):
+        npg = -(-int(lens[b]) // ps)
+        if used + npg > NP:                  # pool smaller than B full rows
+            npg = NP - used
+            lens[b] = npg * ps
+        bt[b, :npg] = perm[used:used + npg]
+        used += npg
+    return q, kp, vp, bt.to(dev), lens
+
+
+@pytest.mark.parametrize("case", PDA_CASES, ids=lambda c: str(c[:9]))
+def test_paged_decode_attention_kernel(dev, case):
+    B, NP, mp, ps, H, KV, hd, win, cap, dt = case
+    q, kp, vp, bt, lens = _paged_inputs(dev, case)
+    kw = dict(window=win, attn_softcap=cap)
+    n0 = pda.paged_decode_attention.launches
+    out = pda.paged_decode_attention(q, kp, vp, bt, ps, lens, **kw)
+    torch.cuda.synchronize()
+    assert pda.paged_decode_attention.launches == n0 + 1
+    ref = pda.paged_decode_attention_plain(q, kp, vp, bt, ps, lens, **kw)
+    atol = 1e-4 if dt == torch.float32 else 2e-2
+    assert out.dtype == dt
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_matches_dense_kernel_on_identity_table(dev, dtype):
+    """Pages laid out in order (slot b owns pages b*mp .. b*mp + mp - 1):
+    the pool is the dense cache's bytes, and the two kernels agree bit for
+    bit — they run the same loop over the same values."""
+    B, mp, ps, H, KV, hd = 4, 8, 16, 8, 2, 64
+    L = mp * ps
+    g = _gen(12)
+    q = torch.randn(B, 1, H, hd, device=dev, generator=g).to(dtype)
+    kc = torch.randn(B, L, KV, hd, device=dev, generator=g).to(dtype)
+    vc = torch.randn(B, L, KV, hd, device=dev, generator=g).to(dtype)
+    lens = torch.tensor([L, 7, 65, 1], dtype=torch.int32, device=dev)
+    bt = torch.arange(B * mp, dtype=torch.int32, device=dev).reshape(B, mp)
+    out = pda.paged_decode_attention(q, kc.reshape(B * mp, ps, KV, hd),
+                                     vc.reshape(B * mp, ps, KV, hd), bt, ps,
+                                     lens)
+    dense = decode_attn.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dense)
+
+
+def test_paged_decode_kernel_reads_sentinel_as_zeros(dev):
+    """A sentinel entry inside the live range (which the allocator never
+    makes) is not dereferenced: it reads as the zeros the plain gather
+    fills in."""
+    NP, ps, H, KV, hd = 6, 8, 4, 2, 32
+    g = _gen(13)
+    q = torch.randn(2, 1, H, hd, device=dev, generator=g)
+    kp = torch.randn(NP, ps, KV, hd, device=dev, generator=g)
+    vp = torch.randn(NP, ps, KV, hd, device=dev, generator=g)
+    bt = torch.tensor([[3, NP, 1], [NP + 7, 0, -1]], dtype=torch.int32,
+                      device=dev)
+    lens = torch.tensor([20, 24], dtype=torch.int32, device=dev)
+    out = pda.paged_decode_attention(q, kp, vp, bt, ps, lens)
+    ref = pda.paged_decode_attention_plain(q, kp, vp, bt, ps, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+# -- fused log-prob ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "lm_head"])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_fused_logprob_kernel(dev, h_dtype, tied, cap):
+    h, w, t, _, _ = _loss_inputs(dev, 300, 256, 5000, h_dtype, tied)
+    n0 = flp.fused_logprob_rows.launches
+    logp, lse = flp.fused_logprob_rows(h, w, t, logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert flp.fused_logprob_rows.launches == n0 + 1
+    rlogp, rlse = flp.fused_logprob_plain(h, w, t, logit_softcap=cap)
+    torch.testing.assert_close(logp, rlogp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "lm_head"])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+def test_fused_logprob_grad_matches_autograd_through_plain(dev, tied, cap):
+    B, S, d, V = 3, 100, 256, 5000
+    h, w, t, _, _ = _loss_inputs(dev, B * S, d, V, torch.float32, tied,
+                                 seed=14)
+    gout = torch.randn(B, S, device=dev, generator=_gen(15))
+
+    def grads(op):
+        hh = h.reshape(B, S, d).clone().requires_grad_()
+        base = (w.T if tied else w).detach().clone().requires_grad_()
+        out = op(hh, base.T if tied else base, t.reshape(B, S))
+        hg, wg = torch.autograd.grad(out, (hh, base), gout)
+        return out.detach(), hg, wg
+
+    counts = (flp.fused_logprob_rows.launches,
+              fio.fused_is_grpo_bwd_dh_rows.launches,
+              fio.fused_is_grpo_bwd_dw_rows.launches)
+    got = grads(lambda a, b, c: flp.fused_logprob(a, b, c, logit_softcap=cap))
+    torch.cuda.synchronize()
+    assert (flp.fused_logprob_rows.launches,
+            fio.fused_is_grpo_bwd_dh_rows.launches,
+            fio.fused_is_grpo_bwd_dw_rows.launches) == tuple(
+                n + 1 for n in counts)
+    want = grads(lambda a, b, c: flp.fused_logprob_plain(
+        a.reshape(B * S, d), b, c.reshape(-1),
+        logit_softcap=cap)[0].reshape(B, S))
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    for x, y in zip(got[1:], want[1:]):
+        assert x.shape == y.shape
+        torch.testing.assert_close(x, y, rtol=0,
+                                   atol=1e-4 * float(y.abs().max()))

@@ -215,9 +215,10 @@ def test_microbatches_match_jax():
 
 
 def test_legacy_branch_and_entropy_raise():
+    # the legacy branch is ported (tests/test_torch_fused_logprob.py): it
+    # builds; an entropy bonus, which it cannot compute, still raises
     _, cfg = _configs("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match="fused_logprob"):
-        copris.make_loss_fn(cfg, TrainConfig(fused_loss=False))
+    assert callable(copris.make_loss_fn(cfg, TrainConfig(fused_loss=False)))
     with pytest.raises(ValueError, match="entropy_coef"):
         copris.make_loss_fn(cfg, TrainConfig(fused_loss=False,
                                              entropy_coef=0.1))
