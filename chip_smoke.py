@@ -1,37 +1,49 @@
 #!/usr/bin/env python3
 """On-GPU smoke run of the PyTorch port (src/repro_torch): the serving path
 and the CoPRIS training loop at the full width of llama3.2-1b, over the dense
-and the paged KV cache, through the port's hand-written kernels.
+and the paged KV cache, and serving and rollouts of the hybrid hymba-1.5b and
+the attention-free rwkv6-1.6b at full width, through the port's hand-written
+kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
-Phases, each printed as one JSON line:
+Phases, each printed as one JSON line (with ``t_s``, the seconds since the
+start):
 
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds every kernel source from csrc/, in parallel;
 3. kernel checks — each kernel against its plain PyTorch version at the
-   main paths' shapes (serving: prefill, dense and paged decode, sampling;
-   training: the flash forward with its logsumexp, the flash backward, the
-   fused IS+GRPO forward and backward, and the fused log-prob of the legacy
-   loss), with its time, the plain version's, one library call's where
-   PyTorch has one, and the least time the card could take;
+   main paths' shapes (serving: prefill, dense and paged decode and
+   sampling, each also at the hybrid paths' shapes, hymba's H/KV = 5 and
+   window and the vocabularies of 32001 and 65536; the selective scan and
+   WKV6 at their decode and prefill shapes, plus the JAX kernel tests'
+   cases; training: the
+   flash forward with its logsumexp, the flash backward, the fused IS+GRPO
+   forward and backward, and the fused log-prob of the legacy loss), with
+   its time, the plain version's, one library call's where PyTorch has one,
+   and the least time the card could take;
 4. reference — the GPU engine (kernels, float32) against the same engine on
    the CPU (plain versions) on the reduced config, dense and paged, and the
-   CPU paged engine against the CPU dense one: equal tokens; then
-   "train_reference": make_loss_fn / make_train_step on the reduced config
-   with vocab 8192, the fused loss and the legacy fused_loss=False one, GPU
-   against CPU: loss, metrics, every gradient, and no attention weight with
-   a zero gradient;
+   CPU paged engine against the CPU dense one: equal tokens; the same as
+   "reference_hybrid" on a reduced hymba (5 heads of 64) and the reduced
+   rwkv6; then "train_reference": make_loss_fn / make_train_step on the
+   reduced config with vocab 8192, the fused loss and the legacy
+   fused_loss=False one, GPU against CPU: loss, metrics, every gradient,
+   and no attention weight with a zero gradient;
 5. serve   — make_serve_engine("llama3.2-1b") with random bf16 weights made
-   from a seed serves 48 requests; every kernel's launch count must be > 0;
+   from a seed serves 24 requests; every kernel's launch count must be > 0;
    then "profile": torch.profiler over two steady decode chunks (host time,
    device busy time, top device kernels);
-   then "serve_paged": the same 48 requests over the paged KV cache with
+   then "serve_paged": the same 24 requests over the paged KV cache with
    40% of the dense-equivalent pages: page pressure (blocked admissions or
    preemptions) and every request returned; then "profile_paged": the
    profile phase's two chunks over the paged cache;
 6. copris  — two RolloutEngine.collect stages: the first buffers partials
    (early termination), the second resumes them;
+   then "serve_hymba", "serve_hymba_paged" (40% of the pages) and
+   "serve_rwkv6": 24 requests each at full width, each with its profile;
+   then "copris_hybrid": two stages on each family (hymba resuming from
+   kv_snapshot, rwkv6 by re-prefill), evicting and resuming;
 7. train   — sft_warmup, then three CoPRISTrainer.step() calls on
    llama3.2-1b at full width (bf16 compute, f32 masters): finite reward,
    loss, grad norm, ratio and off-policy share; rollout, reward and update
@@ -43,8 +55,9 @@ Phases, each printed as one JSON line:
    sharing, copy-on-write, finite metrics, every kernel of that path
    launched;
 8. kernels — one {"kernels": [...]} line, one row per kernel entry point,
-   each with the launches of the path it runs on (train, or train_paged for
-   the paged decode and the fused log-prob);
+   each with the launches of the path it runs on (train; train_paged for
+   the paged decode and the fused log-prob; serve_hymba and serve_rwkv6
+   for the two scans);
 
 then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -65,8 +78,13 @@ PEAK_BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12              # H100 SXM float32 outside tensor cores
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T0, **kw}),
+          flush=True)
 
 
 def fail(msg):
@@ -82,7 +100,13 @@ def bound(nbytes, flops, peak_flops):
 class Timer:
     """Median device time of a callable, one CUDA-event pair per call, with
     the L2 cache flushed (a 64 MB write) before every call, so inputs come
-    from device memory as they do on the main path."""
+    from device memory as they do on the main path. After the flush the
+    device spins for ~1 ms (``torch.cuda._sleep``), so the host has
+    enqueued the first event and the call before the first event fires:
+    the pair brackets the device's work, not the Python wrapper's (the
+    profile phases report the host time of the decode path)."""
+
+    BUSY_CYCLES = 2_000_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -96,6 +120,7 @@ class Timer:
         ts = []
         for _ in range(iters):
             self.flush_buf.zero_()
+            torch.cuda._sleep(self.BUSY_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -272,8 +297,11 @@ def check_paged_decode(torch, timer, paged_decode_attn, decode_attn):
     return res
 
 
-def check_sample(torch, timer, fused_sample, prng):
-    R, V = 16, 128256                          # serve pool x llama vocab
+def check_sample(torch, timer, fused_sample, prng, V=128256,
+                 phase="check_fused_sample"):
+    """Sampling at the serve pool of 16 rows over a vocabulary of ``V``
+    (llama3.2-1b's 128256; hymba-1.5b's odd 32001; rwkv6-1.6b's 65536)."""
+    R = 16
     g = torch.Generator(device="cuda").manual_seed(12)
     logits = torch.randn(R, V, device="cuda", generator=g) * 2.0
     keys = prng.split(prng.PRNGKey(5), R).to("cuda")
@@ -304,7 +332,271 @@ def check_sample(torch, timer, fused_sample, prng):
                "T=0.8 top_k=50 top_p=0.95; also none/top-k/top-p/greedy",
                max_abs_err=worst, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
                library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    emit("check_fused_sample", **res)
+    emit(phase, **res)
+    return res
+
+
+def bf16_excess(torch, got, want, ulps=2.0, atol=1e-4):
+    """Largest excess of |got - want| over ``ulps`` bf16 ulps of each element
+    of ``want`` plus the float32 ``atol`` (<= 0: within tolerance). Kernel
+    and plain version sum in float32 in another order, then round once:
+    near zero that order alone exceeds an ulp."""
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    return float(((got.float() - want).abs() - ulps * ulp - atol).max())
+
+
+def check_decode_rep5(torch, F, timer, decode_attn):
+    """Dense decode at hymba-1.5b's GQA ratio: 25 query heads over 5 KV
+    heads, the serve pool of 16, max_len 640, window 1024."""
+    B, L, H, KV, hd, win = 16, 640, 25, 5, 64, 1024
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q = torch.randn(B, 1, H, hd, device="cuda", generator=g).bfloat16()
+    kc = torch.randn(B, L, KV, hd, device="cuda", generator=g).bfloat16()
+    vc = torch.randn(B, L, KV, hd, device="cuda", generator=g).bfloat16()
+    lens = torch.randint(65, L + 1, (B,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    out = decode_attn.decode_attention(q, kc, vc, lens, window=win)
+    ref = decode_attn.decode_attention_plain(q, kc, vc, lens, window=win)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    atol = 2e-2
+    if not err <= atol:
+        fail(f"decode_attn at H/KV = 5 disagrees with its plain version: "
+             f"{err} > {atol}")
+    mask = (torch.arange(L, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
+    kernel_ms = timer(lambda: decode_attn.decode_attention(q, kc, vc, lens,
+                                                           window=win))
+    plain_ms = timer(lambda: decode_attn.decode_attention_plain(
+        q, kc, vc, lens, window=win))
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    live = int(lens.sum().item())
+    nbytes = 2 * (2 * q.numel() + 2 * live * KV * hd) + 4 * B
+    b_ms, b_by = bound(nbytes, 4 * H * hd * live, PEAK_BF16_FLOPS)
+    res = dict(shape=f"q {list(q.shape)} cache {list(kc.shape)} bf16, "
+               f"window {win}, sum(cache_len)={live}",
+               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    emit("check_decode_attn_rep5", **res)
+    return res
+
+
+def check_flash_rep5(torch, F, timer, flash_attn):
+    """Prefill at hymba-1.5b's shape: 16 rows of the largest prompt bucket
+    (512), 25 query heads over 5 KV heads, the sliding window of 1024 (the
+    whole prompt: SDPA's causal mask is the same function)."""
+    B, S, H, KV, hd, win = 16, 512, 25, 5, 64, 1024
+    g = torch.Generator(device="cuda").manual_seed(18)
+    q = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
+    k = torch.randn(B, S, KV, hd, device="cuda", generator=g).bfloat16()
+    v = torch.randn(B, S, KV, hd, device="cuda", generator=g).bfloat16()
+    out = flash_attn.flash_attention(q, k, v, causal=True, window=win)
+    ref = flash_attn.flash_attention_plain(q, k, v, causal=True, window=win)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    atol = 2e-2
+    if not err <= atol:
+        fail(f"flash_attn at H/KV = 5, window {win}, disagrees with its plain "
+             f"version: {err} > {atol}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v, causal=True,
+                                                         window=win))
+    plain_ms = timer(lambda: flash_attn.flash_attention_plain(
+        q, k, v, causal=True, window=win), iters=3, warmup=1)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    flops = 4 * B * H * hd * (S * (S + 1) // 2)
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal, "
+               f"window {win}", max_abs_err=err, atol=atol, ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    emit("check_flash_attn_rep5", **res)
+    return res
+
+
+def check_paged_decode_rep5(torch, timer, paged_decode_attn):
+    """Paged decode at serve_hymba_paged's layout: 16 rows, pools of 256
+    pages of 16, a block table of 40 pages (max_len 640), 25 query heads over
+    5 KV heads, window 1024. Live lengths of 65-256 tokens keep every row's
+    pages inside the pool, as admission does; the pages lie at random."""
+    B, NP, mp, ps, H, KV, hd, win = 16, 256, 40, 16, 25, 5, 64, 1024
+    g = torch.Generator(device="cuda").manual_seed(19)
+    q = torch.randn(B, 1, H, hd, device="cuda", generator=g).bfloat16()
+    kp = torch.randn(NP, ps, KV, hd, device="cuda", generator=g).bfloat16()
+    vp = torch.randn(NP, ps, KV, hd, device="cuda", generator=g).bfloat16()
+    lens = torch.randint(65, NP // B * ps + 1, (B,), device="cuda",
+                         generator=g, dtype=torch.int32)
+    perm = torch.randperm(NP, device="cuda", generator=g).to(torch.int32)
+    bt = torch.full((B, mp), NP, dtype=torch.int32, device="cuda")
+    used = 0
+    for b in range(B):
+        npg = -(-int(lens[b]) // ps)
+        bt[b, :npg] = perm[used:used + npg]
+        used += npg
+    out = paged_decode_attn.paged_decode_attention(q, kp, vp, bt, ps, lens,
+                                                   window=win)
+    ref = paged_decode_attn.paged_decode_attention_plain(q, kp, vp, bt, ps,
+                                                         lens, window=win)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    atol = 2e-2
+    if not err <= atol:
+        fail(f"paged_decode_attn at H/KV = 5 disagrees with its plain "
+             f"version: {err} > {atol}")
+    kernel_ms = timer(lambda: paged_decode_attn.paged_decode_attention(
+        q, kp, vp, bt, ps, lens, window=win))
+    plain_ms = timer(lambda: paged_decode_attn.paged_decode_attention_plain(
+        q, kp, vp, bt, ps, lens, window=win))
+    live = int(lens.sum().item())
+    nbytes = 2 * (2 * q.numel() + 2 * live * KV * hd) + 4 * bt.numel() + 4 * B
+    b_ms, b_by = bound(nbytes, 4 * H * hd * live, PEAK_BF16_FLOPS)
+    res = dict(shape=f"q {list(q.shape)} pools {list(kp.shape)} bf16, "
+               f"block table {list(bt.shape)}, window {win}, "
+               f"sum(cache_len)={live}",
+               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    emit("check_paged_decode_attn_rep5", **res)
+    return res
+
+
+# the serve phases' largest prompt bucket (prompts of 64-512 tokens)
+PREFILL_T = 512
+# the JAX kernel tests' cases (tests/test_kernels.py), float32
+SSM_CASES = [(2, 64, 128, 16), (1, 50, 64, 8), (2, 33, 256, 16)]
+WKV_CASES = [(2, 64, 4, 32), (1, 100, 2, 64), (2, 33, 3, 16)]
+
+
+def ssm_inputs(torch, B, T, di, N, dtype, g, *, model_A=False):
+    """Scan inputs shaped as apply_ssm hands them over: B and C as views
+    into one projection; with ``model_A`` the init's A_log = log(1..N)."""
+    x = torch.randn(B, T, di, device="cuda", generator=g) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, di, device="cuda", generator=g)) * 0.1
+    if model_A:
+        A_log = torch.log(torch.arange(1, N + 1, device="cuda",
+                                       dtype=torch.float32)).repeat(di, 1)
+    else:
+        A_log = torch.log(torch.randn(di, N, device="cuda", generator=g).abs()
+                          + 0.5)
+    proj = torch.randn(B, T, 100 + 2 * N, device="cuda", generator=g) * 0.5
+    Bc, Cc = proj[..., 100:100 + N], proj[..., 100 + N:]
+    D = torch.randn(di, device="cuda", generator=g) * 0.2
+    s0 = torch.randn(B, di, N, device="cuda", generator=g) * 0.2
+    return (x.to(dtype), dt.to(dtype), A_log, Bc.to(dtype), Cc.to(dtype), D,
+            s0)
+
+
+def scan_check(torch, timer, name, kernel, plain, args, state, label, shape,
+               nbytes, flops, **extra):
+    """One scan kernel at a serve shape, bf16: against its plain version
+    (output within 2 bf16 ulps of each element plus 1e-4, final state
+    within 1e-4 of its largest element), timed beside the plain version.
+    The kernel updates the state in place, so each call gets a fresh
+    copy."""
+    y, sf = kernel(*args, state.clone())
+    yp, sp = plain(*args, state)
+    torch.cuda.synchronize()
+    excess = bf16_excess(torch, y, yp)
+    s_err = float((sf - sp).abs().max() / sp.abs().max())
+    err = float((y.float() - yp.float()).abs().max())
+    if not (excess <= 0.0 and s_err <= 1e-4):
+        fail(f"{name} at the {label} shape: {excess} beyond 2 bf16 ulps + "
+             f"1e-4, state {s_err} of its largest element")
+    work = state.clone()
+    kernel_ms = timer(lambda: kernel(*args, work))
+    plain_ms = timer(lambda: plain(*args, state), iters=3, warmup=1)
+    b_ms, b_by = bound(nbytes, flops, PEAK_F32_FLOPS)
+    res = dict(shape=shape, max_abs_err=err, tol="2 bf16 ulps + 1e-4",
+               excess_over_tol=excess, state_err_of_max=s_err, ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, flops=flops, **extra)
+    emit(f"check_{name}_{label}", **res)
+    return res
+
+
+def check_ssm_scan(torch, timer, ssm_scan):
+    """The selective scan at the JAX kernel tests' f32 cases (atol 1e-4),
+    then at hymba-1.5b's serve shapes in bf16: decode (B = 16, T = 1) and
+    prefill (16 rows x the largest prompt bucket), di = 3200, N = 16. Bound:
+    bytes (x, dt, B, C, y once, A_log and D, the state read and written)
+    against 8 f32 operations per (row, step, channel, state), the
+    exponential counted as one."""
+    worst = 0.0
+    for i, (B, T, di, N) in enumerate(SSM_CASES):
+        g = torch.Generator(device="cuda").manual_seed(30 + i)
+        args = ssm_inputs(torch, B, T, di, N, torch.float32, g)
+        y, sf = ssm_scan.selective_scan(*args[:6], args[6].clone())
+        yp, sp = ssm_scan.selective_scan_plain(*args)
+        torch.cuda.synchronize()
+        worst = max(worst, float((y - yp).abs().max()),
+                    float((sf - sp).abs().max()))
+    if not worst <= 1e-4:
+        fail(f"ssm_scan disagrees with its plain version at the kernel "
+             f"tests' cases: {worst}")
+    res = {}
+    di, N = 3200, 16
+    for label, (B, T) in (("decode", (16, 1)), ("prefill", (16, PREFILL_T))):
+        g = torch.Generator(device="cuda").manual_seed(33)
+        args = ssm_inputs(torch, B, T, di, N, torch.bfloat16, g, model_A=True)
+        x, dt, A_log, Bc, Cc, D, s0 = args
+        nbytes = (2 * (3 * x.numel() + Bc.numel() + Cc.numel())
+                  + 4 * (A_log.numel() + D.numel()) + 8 * s0.numel())
+        exps = B * T * di * N
+        res[label] = scan_check(
+            torch, timer, "ssm_scan", ssm_scan.selective_scan,
+            ssm_scan.selective_scan_plain, args[:6], s0, label,
+            f"x, dt [{B}, {T}, {di}] bf16, B, C [{B}, {T}, {N}] views, "
+            f"state [{B}, {di}, {N}] f32", nbytes, 8 * exps, exp_count=exps)
+    res["decode"]["max_abs_err_cases"] = worst
+    return res
+
+
+def check_wkv6(torch, timer, rwkv6_scan):
+    """WKV6 at the JAX kernel tests' f32 cases (atol 1e-4), then at
+    rwkv6-1.6b's serve shapes in bf16: decode (B = 16, T = 1) and prefill
+    (16 rows x the largest prompt bucket), H = 32, hd = 64. Bound: bytes
+    (r, k, v, w, y once, u, the state read and written) against 6 f32
+    operations per (row, step, head, i, j)."""
+    def inputs(B, T, H, hd, dtype, g):
+        r, k, v = (torch.randn(B, T, H, hd, device="cuda", generator=g)
+                   * 0.5 for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn(B, T, H, hd, device="cuda",
+                                             generator=g) * 0.5 - 1.0))
+        u = torch.randn(H, hd, device="cuda", generator=g) * 0.3
+        s0 = torch.randn(B, H, hd, hd, device="cuda", generator=g) * 0.2
+        return [t.to(dtype) for t in (r, k, v, w)] + [u, s0]
+
+    worst = 0.0
+    for i, (B, T, H, hd) in enumerate(WKV_CASES):
+        g = torch.Generator(device="cuda").manual_seed(40 + i)
+        args = inputs(B, T, H, hd, torch.float32, g)
+        y, sf = rwkv6_scan.wkv6(*args[:5], args[5].clone())
+        yp, sp = rwkv6_scan.wkv6_plain(*args)
+        torch.cuda.synchronize()
+        worst = max(worst, float((y - yp).abs().max()),
+                    float((sf - sp).abs().max()))
+    if not worst <= 1e-4:
+        fail(f"wkv6 disagrees with its plain version at the kernel tests' "
+             f"cases: {worst}")
+    res = {}
+    H, hd = 32, 64
+    for label, (B, T) in (("decode", (16, 1)), ("prefill", (16, PREFILL_T))):
+        g = torch.Generator(device="cuda").manual_seed(43)
+        args = inputs(B, T, H, hd, torch.bfloat16, g)
+        r, s0 = args[0], args[5]
+        nbytes = 2 * 5 * r.numel() + 4 * args[4].numel() + 8 * s0.numel()
+        res[label] = scan_check(
+            torch, timer, "wkv6", rwkv6_scan.wkv6, rwkv6_scan.wkv6_plain,
+            args[:5], s0, label,
+            f"r, k, v, w [{B}, {T}, {H}, {hd}] bf16, state [{B}, {H}, {hd}, "
+            f"{hd}] f32", nbytes, 6 * B * T * H * hd * hd)
+    res["decode"]["max_abs_err_cases"] = worst
     return res
 
 
@@ -588,12 +880,12 @@ def train_reference_case(torch, np, copris, model, tree, adam, cfg, tc,
         fail(f"{phase}: GPU train step disagrees with the CPU train step")
 
 
-def reference_phase(torch, np, serve_mod, model, get_smoke_config):
+def reference_phase(torch, np, serve_mod, model, cfg, phase="reference"):
     """Engine on the GPU (kernels) vs the same engine on the CPU (plain
-    versions), reduced llama3.2-1b in float32, same weights and keys, over
+    versions) on a reduced config in float32, same weights and keys, over
     the dense and the paged KV cache; and the CPU paged engine against the
-    CPU dense one (the same plain arithmetic: logps within 1e-6)."""
-    cfg = get_smoke_config("llama3.2-1b")
+    CPU dense one (the same plain arithmetic: logps within 1e-6, or 1e-5
+    where a recurrent state carries the paged prefill's rounding)."""
     params = model.init_params(cfg, seed=3, device="cpu")
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size - 1, int(n))
@@ -622,6 +914,7 @@ def reference_phase(torch, np, serve_mod, model, get_smoke_config):
                   for i in outs[b])
         return same, err
 
+    cpu_atol = 1e-6 if cfg.block_pattern == ("attn",) else 1e-5
     pairs = {"gpu_dense_vs_cpu_dense": (("cuda", "dense"), ("cpu", "dense"),
                                         1e-3),
              "gpu_paged_vs_cpu_paged": (("cuda", "paged"), ("cpu", "paged"),
@@ -629,17 +922,19 @@ def reference_phase(torch, np, serve_mod, model, get_smoke_config):
              "gpu_paged_vs_cpu_dense": (("cuda", "paged"), ("cpu", "dense"),
                                         1e-3),
              "cpu_paged_vs_cpu_dense": (("cpu", "paged"), ("cpu", "dense"),
-                                        1e-6)}
+                                        cpu_atol)}
     res = {}
     for name, (a, b, atol) in pairs.items():
         same, err = compare(a, b)
         res[name] = dict(equal_token_streams=same, max_logp_err=err,
                          atol=atol)
-    emit("reference", config=cfg.name, requests=len(prompts), **res)
+    emit(phase, config=cfg.name, requests=len(prompts),
+         d_model=cfg.d_model, heads=cfg.num_heads, head_dim=cfg.head_dim,
+         **res)
     for name, r in res.items():
         if r["equal_token_streams"] != len(prompts) \
                 or not r["max_logp_err"] <= r["atol"]:
-            fail(f"reference {name}: engines disagree on the reduced config")
+            fail(f"{phase} {name}: engines disagree on {cfg.name}")
 
 
 def device_us(e):
@@ -649,35 +944,48 @@ def device_us(e):
     return 0.0
 
 
+def device_profile(torch, run):
+    """Run ``run()`` under torch.profiler, recording device activity only
+    (kernels, copies, memsets): recording every host op as well would slow
+    the host being measured, and processing its events took longer than the
+    run itself. Returns (host wall ms to the final device sync, device busy
+    ms, the device events grouped by name)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+    if not events:
+        fail("the profiler recorded no device activity")
+    return wall_ms, sum(device_us(e) for e in events) / 1e3, events
+
+
 def profile_phase(torch, np, serve, cfg, chunks=2, phase="profile"):
-    """Where a steady decode chunk's time goes: torch.profiler over
+    """Where a steady decode chunk's time goes: the device profile of
     ``chunks`` ServeEngine.step() calls after 16 requests were submitted
     (a full pool on the dense cache) — host wall time per chunk, device
     busy time, top device kernels."""
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(7)
     for _ in range(16):
         serve.submit(serve_request(rng, cfg))
     serve.step()                        # opens the stage: the prefill
     serve.step()                        # one warm decode chunk
     serve.eng.block_until_ready()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(chunks):
             serve.step()
-        serve.eng.block_until_ready()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / chunks
 
-    # device kernels only: host ops also carry the time of the kernels they
-    # launched, which would count every kernel twice
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None)
-              == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
-    busy_ms = sum(device_us(e) for e in events) / 1e3 / chunks
+    wall_ms, busy_ms, events = device_profile(torch, run)
+    wall_ms /= chunks
+    busy_ms /= chunks
     top = sorted(events, key=device_us, reverse=True)[:8]
     emit(phase, what=f"{chunks} decode chunks of "
-         f"{serve.eng.ro.decode_chunk} steps, pool 16, llama3.2-1b bf16, "
+         f"{serve.eng.ro.decode_chunk} steps, pool 16, {cfg.name} bf16, "
          f"kv_backend {serve.eng.ro.kv_backend}",
          live_slots=sum(t is not None for t in serve.eng.slots),
          wall_ms_per_chunk=wall_ms, device_busy_ms_per_chunk=busy_ms,
@@ -695,11 +1003,10 @@ def serve_request(rng, cfg, lo=64, hi=512):
 
 
 def profile_update(torch, tr, cfg, tc):
-    """torch.profiler over one more update (make_train_step) on the train
+    """The device profile of one more update (make_train_step) on the train
     phase's last batch: wall time, device busy time and the top device
     kernels of the training half of a step (the serve phase's profile
     covers decoding)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import copris, grpo
     b = tr.last_batch
     batch = {k: torch.from_numpy(b[k]).cuda()
@@ -708,16 +1015,8 @@ def profile_update(torch, tr, cfg, tc):
         torch.from_numpy(b["rewards"]).cuda(), tr.ro.group_size)
     step = copris.make_train_step(cfg, tc)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(tr.params, tr.opt_state, batch, tc.lr)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None)
-              == torch.autograd.DeviceType.CUDA and device_us(e) > 0]
-    busy_ms = sum(device_us(e) for e in events) / 1e3
+    wall_ms, busy_ms, events = device_profile(
+        torch, lambda: step(tr.params, tr.opt_state, batch, tc.lr))
     top = sorted(events, key=device_us, reverse=True)[:10]
     return dict(what=f"one make_train_step on a packed batch "
                 f"{list(batch['tokens'].shape)}, llama3.2-1b bf16 compute, "
@@ -801,7 +1100,7 @@ def train_phase(torch, np, kernels, steps=3):
 
 
 def serve_paged_phase(torch, np, serve_mod, kernels, dense):
-    """The serve phase's 48 requests again, over the paged KV cache with
+    """The serve phase's 24 requests again, over the paged KV cache with
     kv_page_size 16 and 256 pages: 40% of the dense-equivalent 16 x 640 / 16
     = 640, so admission blocks on pages or slots are preempted. Every kernel
     of the paged serving path must launch, every request must return."""
@@ -918,11 +1217,128 @@ def train_paged_phase(torch, np, kernels, steps=2):
     return launches
 
 
-def serve_prompts(np, cfg):
-    """The serve phases' 48 requests: prompts of 64-512 tokens."""
+def serve_hybrid_phase(torch, np, serve_mod, arch, kernels, phase, *,
+                       kv_backend="dense", kv_num_pages=0):
+    """``arch`` served at full width with random bf16 weights made from a
+    seed: pool 16, decode_chunk 8, 24 requests of 64-512 prompt tokens and
+    128 new tokens each, over the dense cache or the paged one with
+    ``kv_num_pages`` pages of 16. Every kernel of the path must launch and
+    every request return; a paged run must show page pressure. Then the
+    profile phase's two steady decode chunks. Returns the launch counts."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve, cfg = serve_mod.make_serve_engine(
+        arch, max_prompt_len=512, max_tokens=128, concurrency=16,
+        temperature=0.8, top_k=50, top_p=0.95, kv_backend=kv_backend,
+        kv_page_size=16, kv_num_pages=kv_num_pages, seed=0)
+    full = serve_mod.get_config(arch)
+    if (cfg.num_layers, cfg.d_model, cfg.vocab_size) != (
+            full.num_layers, full.d_model, full.vocab_size):
+        fail(f"{phase}: not the full {arch} width: {cfg}")
+    prompts = serve_prompts(np, cfg, n=24)
+    for p in prompts:
+        serve.submit(serve_mod.GenerateRequest(prompt=p))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    results = serve.drain()
+    serve.eng.block_until_ready()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    stats = serve.close()
+    backend = serve.eng.backend
+    ntok = check_results(np, results, cfg, len(prompts))
+    extra = {}
+    if backend.is_paged:
+        extra = dict(kv_page_size=backend.page_size,
+                     kv_num_pages=backend.num_pages,
+                     dense_equivalent_pages=backend.pool * backend.max_pages,
+                     admission_blocked=stats["admission_blocked"],
+                     page_preemptions=stats["page_preemptions"],
+                     pages_allocated=backend.pages_allocated)
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, kv_backend=kv_backend,
+         requests=len(results), tokens=ntok, seconds=wall,
+         tokens_per_s=ntok / wall, decode_chunks=stats["decode_chunks"],
+         prefill_calls=stats["prefill_calls"],
+         utilization=stats["utilization"], launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
+    if backend.is_paged and \
+            stats["admission_blocked"] + stats["page_preemptions"] == 0:
+        fail(f"{phase}: no admission was blocked and no slot preempted")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"a kernel of the {phase} path never launched: {launches}")
+    profile_phase(torch, np, serve, cfg, phase=f"profile_{phase}")
+    return launches
+
+
+def copris_hybrid_phase(torch, np, model, kernels_of):
+    """Two RolloutEngine.collect stages on each family at full width with
+    random bf16 weights: hymba-1.5b resumes with kv_snapshot (the snapshot
+    carries the ssm / conv state beside the K/V), rwkv6-1.6b re-prefills.
+    max_len 256 < the 192 + 128 budget, so a group's stop length depends on
+    its prompt: groups finish at different times, early termination
+    evicts, the next stage resumes."""
+    from repro_torch.common.config import RolloutConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.sampling import prng
+    for arch, strategy in (("hymba-1.5b", "kv_snapshot"),
+                           ("rwkv6-1.6b", "reprefill")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        params = model.init_params(cfg, seed=2, device="cuda")
+        ro = RolloutConfig(batch_size=4, group_size=4, max_prompt_len=192,
+                           max_response_len=128, concurrency=16,
+                           mode="copris", temperature=0.8, top_k=50,
+                           top_p=0.95, resume_strategy=strategy)
+        rng = np.random.default_rng(5)
+
+        def source():
+            n = int(rng.integers(64, 193))
+            return rng.integers(0, cfg.vocab_size - 1, n), None
+
+        eng = RolloutEngine(cfg, ro, source, eos_id=cfg.vocab_size - 1,
+                            max_len=256)
+        kernels = kernels_of[arch]
+        stages = []
+        for stage in range(2):
+            reset_launches(kernels)
+            groups, st = eng.collect(params, stage,
+                                     prng.PRNGKey(200 + stage))
+            stages.append(dict(stage=stage, groups=len(groups),
+                               generated=st["generated"],
+                               evicted=st["evicted"], resumed=st["resumed"],
+                               snapshot_resumes=st.get("snapshot_resumes",
+                                                       0),
+                               buffered_partials=eng.buffer.num_unfinished,
+                               wall_time=st["wall_time"],
+                               launches=read_launches(kernels)))
+            for g in groups:
+                for t in g.trajectories:
+                    t.check_invariants()
+                    if not all(np.isfinite(lp) and lp <= 0.0
+                               for lp in t.behaviour_logps):
+                        fail(f"copris_hybrid {arch}: logp not finite or > 0")
+        emit("copris_hybrid", arch=arch, resume_strategy=strategy,
+             stages=stages)
+        if stages[0]["evicted"] == 0 or stages[1]["resumed"] == 0:
+            fail(f"copris_hybrid {arch}: evicted {stages[0]['evicted']}, "
+                 f"resumed {stages[1]['resumed']}")
+        if strategy == "kv_snapshot" and stages[1]["snapshot_resumes"] == 0:
+            fail(f"copris_hybrid {arch}: no kv_snapshot resume")
+        if not all(n > 0 for n in stages[0]["launches"].values()):
+            fail(f"copris_hybrid {arch}: a kernel never launched")
+        del params, eng
+
+
+def serve_prompts(np, cfg, n=24):
+    """The serve phases' ``n`` requests: prompts of 64-512 tokens."""
     rng = np.random.default_rng(0)
-    return [rng.integers(0, cfg.vocab_size - 1, int(n))
-            for n in rng.integers(64, 513, 48)]
+    return [rng.integers(0, cfg.vocab_size - 1, int(k))
+            for k in rng.integers(64, 513, n)]
 
 
 def check_results(np, results, cfg, n_requests):
@@ -974,7 +1390,7 @@ def main() -> int:
     from repro_torch.hopper import build, decode_attn, flash_attn, fused_sample
     from repro_torch.hopper import fused_is_grpo as fio
     from repro_torch.hopper import fused_logprob as flp
-    from repro_torch.hopper import paged_decode_attn
+    from repro_torch.hopper import paged_decode_attn, rwkv6_scan, ssm_scan
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import model
     from repro_torch.optim import adam
@@ -1008,7 +1424,20 @@ def main() -> int:
               "flash_attn_lse": check_flash_lse(torch, F, timer, flash_attn),
               "flash_attn_bwd": check_flash_bwd(torch, F, timer, flash_attn),
               **check_fused_is_grpo(torch, timer, fio),
-              "fused_logprob": check_fused_logprob(torch, timer, flp)}
+              "fused_logprob": check_fused_logprob(torch, timer, flp),
+              "decode_attn_rep5": check_decode_rep5(torch, F, timer,
+                                                    decode_attn),
+              # the hybrid serve phases' shapes: hymba's heads, both vocabs
+              "flash_attn_rep5": check_flash_rep5(torch, F, timer,
+                                                  flash_attn),
+              "paged_decode_attn_rep5": check_paged_decode_rep5(
+                  torch, timer, paged_decode_attn),
+              **{f"fused_sample_{V}": check_sample(
+                  torch, timer, fused_sample, prng, V=V,
+                  phase=f"check_fused_sample_{V}") for V in (32001, 65536)}}
+    scans = {"ssm_scan": check_ssm_scan(torch, timer, ssm_scan),
+             "wkv6": check_wkv6(torch, timer, rwkv6_scan)}
+    checks.update({name: r["decode"] for name, r in scans.items()})
     torch.cuda.empty_cache()
     kernels = {"flash_attn": flash_attn.flash_attention,
                "decode_attn": decode_attn.decode_attention,
@@ -1028,9 +1457,22 @@ def main() -> int:
         "fused_logprob": flp.fused_logprob_rows,
         "fused_is_grpo_bwd_dh": fio.fused_is_grpo_bwd_dh_rows,
         "fused_is_grpo_bwd_dw": fio.fused_is_grpo_bwd_dw_rows}
+    hymba_kernels = {**kernels, "ssm_scan": ssm_scan.selective_scan}
+    hymba_paged_kernels = {**serve_paged_kernels,
+                           "ssm_scan": ssm_scan.selective_scan}
+    rwkv_kernels = {"fused_sample": fused_sample.sample_rows,
+                    "wkv6": rwkv6_scan.wkv6}
 
     # 4. GPU engine vs CPU engine on the reduced config, serving and training
-    reference_phase(torch, np, serve_mod, model, get_smoke_config)
+    reference_phase(torch, np, serve_mod, model,
+                    get_smoke_config("llama3.2-1b"))
+    # hymba reduced to 5 heads of 64 (the attention kernels' head sizes)
+    # over 1 KV head, window 64; rwkv6 reduced to 16 heads of 32
+    for cfg_r in (dataclasses.replace(get_smoke_config("hymba-1.5b"),
+                                      d_model=320, head_dim=64),
+                  get_smoke_config("rwkv6-1.6b")):
+        reference_phase(torch, np, serve_mod, model, cfg_r,
+                        phase="reference_hybrid")
     train_reference_phase(
         torch, np, copris, model, tree, adam,
         dataclasses.replace(get_smoke_config("llama3.2-1b"),
@@ -1108,6 +1550,19 @@ def main() -> int:
         fail("copris stage 1 resumed nothing")
 
     del params, eng
+
+    # 6b. the hybrid families served at full width, then two CoPRIS stages
+    hymba_launches = serve_hybrid_phase(torch, np, serve_mod, "hymba-1.5b",
+                                        hymba_kernels, "serve_hymba")
+    # 40% of the dense-equivalent 16 x 640 / 16 = 640 pages
+    serve_hybrid_phase(torch, np, serve_mod, "hymba-1.5b",
+                       hymba_paged_kernels, "serve_hymba_paged",
+                       kv_backend="paged", kv_num_pages=256)
+    rwkv_launches = serve_hybrid_phase(torch, np, serve_mod, "rwkv6-1.6b",
+                                       rwkv_kernels, "serve_rwkv6")
+    copris_hybrid_phase(torch, np, model, {"hymba-1.5b": hymba_kernels,
+                                           "rwkv6-1.6b": rwkv_kernels})
+
     # a serve engine and its RolloutEngine form a reference cycle (the
     # engine's prompt source is a bound method of the serve engine): collect
     # them, so the train phases' peak memory counts their own tensors only
@@ -1119,11 +1574,12 @@ def main() -> int:
     train_launches = train_phase(torch, np, train_kernels)
     train_paged_launches = train_paged_phase(torch, np, train_paged_kernels)
 
-    # 8. kernels line: launches from the train phase, or from train_paged
-    # for the paged decode and the fused log-prob; times from the checks at
-    # the train phase's shapes (flash forward with lse, its backward, the
-    # loss kernels) and at the serve phase's (decode, paged decode,
-    # sampling)
+    # 8. kernels line: launches from the train phase, from train_paged for
+    # the paged decode and the fused log-prob, from serve_hymba and
+    # serve_rwkv6 for the two scans; times from the checks at the train
+    # phase's shapes (flash forward with lse, its backward, the loss
+    # kernels) and at the serve phases' (decode, paged decode, sampling,
+    # and the scans' decode shape)
     src = {"flash_attn": ("src/repro_torch/csrc/flash_attn.cu",
                           "src/repro/kernels/flash_attn/flash_attn.py:103",
                           "flash_attn_lse"),
@@ -1155,10 +1611,17 @@ def main() -> int:
            "fused_logprob": (
                "src/repro_torch/csrc/fused_is_grpo.cu",
                "src/repro/kernels/fused_logprob/fused_logprob.py:73",
-               "fused_logprob")}
+               "fused_logprob"),
+           "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                        "src/repro/kernels/ssm_scan/ssm_scan.py:72",
+                        "ssm_scan"),
+           "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+                    "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:68", "wkv6")}
     launches = {**train_launches,
                 "paged_decode_attn": train_paged_launches["paged_decode_attn"],
-                "fused_logprob": train_paged_launches["fused_logprob"]}
+                "fused_logprob": train_paged_launches["fused_logprob"],
+                "ssm_scan": hymba_launches["ssm_scan"],
+                "wkv6": rwkv_launches["wkv6"]}
     rows = []
     for name, (source_path, replaces, check) in src.items():
         c = checks[check]

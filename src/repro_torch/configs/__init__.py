@@ -3,7 +3,8 @@
 Each ported architecture lives in its own module and exposes ``CONFIG``.
 ``get_config(name)`` returns the full config; ``get_smoke_config(name)``
 returns the reduced (<=2 layer, d_model<=512) variant used by the CPU tests.
-Only the dense ``attn`` architectures of the serving slice are registered.
+Registered: the dense ``attn`` architectures, the hybrid hymba-1.5b and the
+attention-free rwkv6-1.6b.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ _ARCH_MODULES = {
     "llama3.2-1b": "llama3_2_1b",
     "tiny": "tiny",
     "small-100m": "small_100m",
+    "hymba-1.5b": "hymba_1_5b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
 }
 
 

@@ -4,7 +4,8 @@ port's parameter dict, both ways, and the same for the AdamW state.
 The caller hands over the tree as numpy arrays — ``jax.device_get(params)``
 of ``repro.models.model.init_params``, or ``repro.checkpoint.ckpt.load(path,
 to_device=False)`` — so this module needs no JAX. The tree holds
-``embed.tok`` (V, d), ``stack.prefix`` (a list of per-layer dicts),
+``embed.tok`` (V, d), ``stack.prefix`` (a list of per-layer dicts, nested
+for the recurrent kinds: hymba's ``ssm``, rwkv's ``tm`` and ``cm``),
 ``stack.body`` (one dict per ``block_pattern`` entry, every leaf stacked on a
 leading repeats axis: the ``lax.scan`` layout), ``final_norm`` and, for
 untied embeddings, ``lm_head``. The port's stack is the flat per-layer list
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
-from repro_torch.models.transformer import ATTN_KINDS
+from repro_torch.models.transformer import PORTED_KINDS
 
 
 def _tensor(a, device):
@@ -40,7 +41,7 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
     the tree's own dtype (float32 master weights), on ``device``."""
     dev = resolve_device(device)
     for kind in tuple(cfg.prefix_pattern) + tuple(cfg.block_pattern):
-        if kind not in ATTN_KINDS:
+        if kind not in PORTED_KINDS:
             raise NotImplementedError(
                 f"block kind {kind!r} is not ported yet")
     stack = tree["stack"]

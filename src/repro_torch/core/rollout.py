@@ -388,7 +388,8 @@ class RolloutEngine:
         """Device half of one batched prefill: forward the padded prompts
         into a scratch cache sized to the bucket S (not max_len), sample each
         slot's first token, insert the scratch rows into the slot cache (the
-        dense insert by slot, or the paged insert by ``flat_pos``). Returns
+        dense insert by slot, or the paged insert: K/V by ``flat_pos``,
+        per-slot state by slot). Returns
         host (tokens, logps) from ONE transfer."""
         dev = self.device
         n, S = tokens.shape
@@ -402,7 +403,8 @@ class RolloutEngine:
         logits = logits[rows.to(dev)]
         tok, logp = self._sample(keys.to(dev), logits)
         if self.backend.is_paged:
-            kvc.paged_insert_rows(self.cache, scratch, flat_pos)
+            kvc.paged_insert_rows(self.cache, scratch, slot_ids, row_map,
+                                  flat_pos)
         else:
             kvc.dense_insert_rows(self.cache, scratch, slot_ids, row_map)
         out = torch.stack([tok.float(), logp]).cpu().numpy()

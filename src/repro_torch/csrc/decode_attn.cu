@@ -71,6 +71,7 @@ bool dispatch_rep(int rep, const void* q, const void* k, const void* v,
     case 2: launch<T, HD, 2>(q, k, v, lens, o, B, L, KV, window, softcap, scale, s); return true;
     case 3: launch<T, HD, 3>(q, k, v, lens, o, B, L, KV, window, softcap, scale, s); return true;
     case 4: launch<T, HD, 4>(q, k, v, lens, o, B, L, KV, window, softcap, scale, s); return true;
+    case 5: launch<T, HD, 5>(q, k, v, lens, o, B, L, KV, window, softcap, scale, s); return true;
     default: return false;
   }
 }

@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,6 +63,12 @@ KERNELS = {
         # w_stride_v, h_dtype, splits, softcap, stream
         "fused_logprob_fwd": (P, P, P, P, P, P, I, I, I, I, I, I, I, F, P),
     },
+    # x, dt, A_log, B, C, D, state, y, B, T, di, N, B's batch and time
+    # strides, C's, dtype, stream
+    "ssm_scan": {"ssm_scan_fwd":
+                 (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P)},
+    # r, k, v, w, u, state, y, B, T, H, hd, dtype, stream
+    "wkv6": {"wkv6_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, P)},
 }
 
 
@@ -138,3 +146,16 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error code {err}")
+
+
+def forward_only(what: str, *tensors) -> None:
+    """Raise where autograd would need the gradient of a forward-only kernel
+    (grad enabled and an input that requires it): its result would carry no
+    ``grad_fn``, and training would silently see a zero gradient. The scan
+    kernels of the hymba and rwkv6 blocks are forward only, as the Pallas
+    kernels they replace are."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what}: the CUDA kernel is forward only; training the hymba "
+            "and rwkv6 families on the GPU needs the backward scan kernels "
+            "(selective scan and WKV6), which are not ported yet")

@@ -14,7 +14,7 @@ from repro_torch.hopper import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
-_REPS = (1, 2, 3, 4)
+_REPS = (1, 2, 3, 4, 5)         # the GQA ratios csrc/decode_attn.cu dispatches
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len, *, window=0,

@@ -11,6 +11,10 @@ owning the loop.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --requests 12 --concurrency 4 --max-tokens 32
 
+``--arch`` takes every registered architecture: the dense ones, the hybrid
+hymba-1.5b and the attention-free rwkv6-1.6b (no K/V: over
+``--kv-backend paged`` it keeps the page accounting and per-slot state).
+
 Weights are random, made from ``--seed``. ``--smoke`` selects the reduced
 config; ``--device cpu`` runs the plain PyTorch path on the host;
 ``--kv-backend paged`` serves over the paged KV cache (``--kv-page-size``
@@ -211,7 +215,9 @@ def make_serve_engine(arch: str = "tiny", *, smoke: bool = False,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="tiny")
+    ap.add_argument("--arch", default="tiny",
+                    help="a registered architecture (repro_torch.configs), "
+                         "e.g. llama3.2-1b, hymba-1.5b, rwkv6-1.6b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--concurrency", type=int, default=4)

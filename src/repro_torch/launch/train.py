@@ -9,7 +9,9 @@ default; ``--device cpu`` runs the plain PyTorch path on the host). Writes
 metrics.jsonl per step and checkpoints every --ckpt-every steps, in the JAX
 package's checkpoint layout, so ``--resume`` takes a checkpoint of either
 package. ``--overlap``, ``--disaggregated`` and the multi-turn tasks raise
-``NotImplementedError`` until their slice of the port.
+``NotImplementedError`` until their slice of the port, and so does training
+hymba-1.5b or rwkv6-1.6b on the GPU: their scan kernels have no backward
+yet (on the CPU the plain versions train).
 """
 from __future__ import annotations
 

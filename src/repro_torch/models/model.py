@@ -3,7 +3,9 @@
 Public entry points (plain functions over a parameter dict):
 
 * ``init_params(cfg, seed=..., device=...)`` — the port's own seeded init
-* ``cast_params(params, dtype)`` — matmul weights to the compute dtype, once
+* ``cast_params(params, dtype)`` — weights to the compute dtype, once
+* ``check_trainable(cfg, device)`` — refuses GPU training of the families
+  whose scan kernels have no backward yet (hymba, rwkv)
 * ``forward_train(params, cfg, tokens)`` — full-sequence logits
 * ``forward_hidden(params, cfg, tokens)`` — final-norm hidden states, for
   the fused loss
@@ -36,7 +38,10 @@ _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "wi", "wg")
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
     """Random parameters made from ``seed`` (a torch.Generator on the target
-    device), in ``cfg.param_dtype``. Runs on the GPU unless device='cpu'."""
+    device), in ``cfg.param_dtype``, with the reference's structured values
+    where it has them (the SSM's A_log, dt_bias and D; rwkv's mixes, decay
+    base and norm scale; hymba's fusion weights). Runs on the GPU unless
+    device='cpu'."""
     if cfg.uses_media:
         raise NotImplementedError("media (VLM) models are not ported yet")
     dev = resolve_device(device)
@@ -54,12 +59,22 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
     return params
 
 
+# per-kind leaves that stay float32 at every use in the reference (the SSM's
+# dt projection and recurrence constants, rwkv's decay and bonus); every
+# other weight is cast to the compute dtype, norm scales keep their own
+_F32_KEYS = {"ssm": ("dt_proj", "dt_bias", "A_log", "D"),
+             "tm": ("w_base", "dec_b", "u"), "cm": ()}
+_NORM_KEYS = ("ln1", "ln2", "fuse_norm_a", "fuse_norm_s")
+
+
 def cast_params(params, dtype, device=None):
-    """Copy of ``params`` with the matmul weights (projections, MLP, embedding
-    and lm_head) in ``dtype`` and everything on ``device``; norm scales stay
-    in their own dtype, since rms_norm reads them in float32. Casting once
-    equals the reference's per-matmul ``.astype(dtype)``. Tensors already in
-    the wanted dtype and device are shared, not copied."""
+    """Copy of ``params`` with the weights in ``dtype`` and everything on
+    ``device``, each leaf in the dtype the reference reads it in: the
+    projections, MLP, embedding, lm_head and hymba's ``beta`` in ``dtype``;
+    the norm scales in their own dtype, since rms_norm reads them in
+    float32; the float32 leaves of ``_F32_KEYS`` as they are. Casting once
+    equals the reference's per-use ``.astype``. Tensors already in the
+    wanted dtype and device are shared, not copied."""
     def mm(t):
         return t.to(device=device, dtype=dtype)
 
@@ -67,10 +82,21 @@ def cast_params(params, dtype, device=None):
         return t.to(device=device)
 
     def layer(p):
-        return {"ln1": keep(p["ln1"]), "ln2": keep(p["ln2"]),
-                "attn": {k: (mm(v) if k in _MATMUL_KEYS else keep(v))
-                         for k, v in p["attn"].items()},
-                "mlp": {k: mm(v) for k, v in p["mlp"].items()}}
+        out = {}
+        for name, v in p.items():
+            if name in _NORM_KEYS:
+                out[name] = keep(v)
+            elif name == "attn":
+                out[name] = {k: (mm(t) if k in _MATMUL_KEYS else keep(t))
+                             for k, t in v.items()}
+            elif name in _F32_KEYS:
+                out[name] = {k: (keep(t) if k in _F32_KEYS[name] else mm(t))
+                             for k, t in v.items()}
+            elif name == "mlp":
+                out[name] = {k: mm(t) for k, t in v.items()}
+            else:                                       # hymba's beta
+                out[name] = mm(v)
+        return out
 
     out = {"embed": {"tok": mm(params["embed"]["tok"])},
            "layers": [layer(p) for p in params["layers"]],
@@ -78,6 +104,20 @@ def cast_params(params, dtype, device=None):
     if "lm_head" in params:
         out["lm_head"] = mm(params["lm_head"])
     return out
+
+
+def check_trainable(cfg: ModelConfig, device) -> None:
+    """Refuse, in words, to train a model on the GPU whose blocks run a
+    forward-only scan kernel (hymba's selective scan, rwkv's WKV6): the
+    port has no backward kernels for them yet. On the CPU the plain
+    versions are differentiable."""
+    kinds = sorted(set(transformer.layer_kinds(cfg))
+                   & set(transformer.RECURRENT_KINDS))
+    if kinds and torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            f"training {cfg.name} ({'/'.join(kinds)} blocks) on the GPU "
+            "needs the backward scan kernels (selective scan and WKV6), "
+            "which are not ported yet; serving and rollouts run")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
@@ -126,7 +166,8 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def backbone(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
-             cache_len=None, mode="train", remat=False, paged=None):
+             cache_len=None, seq_mask=None, lengths=None, mode="train",
+             remat=False, paged=None):
     """Embed + stack + final norm. Returns (hidden (B, S, d), new_cache)."""
     B, S = tokens.shape
     if positions is None:
@@ -137,7 +178,8 @@ def backbone(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
     x = _embed(params, cfg, tokens)
     x, new_cache = transformer.apply_stack(
         params["layers"], cfg, x, positions=positions, cache=cache,
-        cache_len=cache_len, mode=mode, remat=remat, paged=paged)
+        cache_len=cache_len, seq_mask=seq_mask, lengths=lengths, mode=mode,
+        remat=remat, paged=paged)
     x = rms_norm(x, params["final_norm"], eps=cfg.rms_eps)
     return x, new_cache
 
@@ -183,8 +225,15 @@ def prefill(params, cfg: ModelConfig, tokens, lengths, cache):
     """Seed ``cache`` (written in place) with right-padded prompts.
 
     tokens: (B, S) right-padded; lengths: (B,) true lengths; cache: a stack
-    cache with max_len >= S. Returns (next_token_logits (B, V), cache)."""
-    x, new_cache = backbone(params, cfg, tokens, cache=cache, mode="prefill")
+    cache with max_len >= S. The recurrent blocks freeze their state over
+    the pads (``seq_mask``) and take their carries at each row's last real
+    token (``lengths``). Returns (next_token_logits (B, V), cache)."""
+    S = tokens.shape[1]
+    seq_mask = torch.arange(S, device=tokens.device)[None, :] \
+        < lengths[:, None]
+    x, new_cache = backbone(params, cfg, tokens, cache=cache,
+                            seq_mask=seq_mask, lengths=lengths,
+                            mode="prefill")
     last = _gather_last(x, lengths)                      # (B, d)
     return _logits(params, cfg, last), new_cache
 
@@ -210,7 +259,9 @@ def decode_scan(params, cfg: ModelConfig, cache, last_token, cache_len,
 
     where ``cache_len`` is the PRE-increment per-slot length and ``stop``
     (B,) bool marks slots that freeze after consuming ``tok``. Inactive
-    slots still flow through the batched decode with frozen state.
+    slots still flow through the batched decode with their cache_len and
+    last token held (their recurrent state advances, as in the
+    reference).
 
     Returns ``((cache, last_token, cache_len, active, aux), ys)`` with
     ``ys = (tokens (steps, B), logps (steps, B), was_active (steps, B))``;

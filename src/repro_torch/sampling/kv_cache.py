@@ -1,8 +1,11 @@
 """Cache backends for the slot-pool inference engine.
 
 The engine keeps a *fixed pool* of ``N'`` slots; every slot owns a region of
-the batched KV cache, a list of per-layer ``{"k", "v"}`` tensors. The engine
-never touches the layout directly: it goes through a :class:`CacheBackend`.
+the batched cache, a list of per-layer dicts of tensors: attention K/V
+(``"k"``, ``"v"``) and, for the recurrent block kinds, per-slot state
+(hymba's ``ssm``/``conv``, rwkv's ``wkv``/``tm_prev``/``cm_prev``). The
+engine never touches the layout directly: it goes through a
+:class:`CacheBackend`.
 Two implementations, as in the reference:
 
 * :class:`DenseCache` — one dense ``max_len`` region per slot: per-layer
@@ -11,7 +14,7 @@ Two implementations, as in the reference:
 * :class:`PagedCache` — vLLM-style paged KV: per-layer physical page pools
   ``(num_pages, page_size, KV, hd)`` shared by all slots, with a host-side
   block table ``(pool, max_pages)`` mapping each slot's logical pages to
-  physical pages. Pages carry refcounts, so a GRPO group's G samples can
+  physical pages; per-slot state keeps its slot axis. Pages carry refcounts, so a GRPO group's G samples can
   *share* their common prompt prefix (one prefill, copy-on-write on the
   first divergent write), and admission can be gated on free **pages**
   instead of free slots.
@@ -29,24 +32,57 @@ import numpy as np
 import torch
 
 
+KV_KEYS = ("k", "v")
+
+
+def _is_kv(name: str) -> bool:
+    """Attention K/V leaves are exactly the keys "k" and "v" of a layer's
+    cache dict (paged where the backend pages); every other leaf (hymba's
+    ``ssm``/``conv``, rwkv's ``wkv``/``tm_prev``/``cm_prev``) has no length
+    axis and stays per slot in both backends."""
+    return name in KV_KEYS
+
+
+def _leaves(cache, kv: bool):
+    """(layer index, name, tensor) of every K/V leaf (``kv``) or every
+    per-slot leaf."""
+    return [(i, name, t) for i, layer in enumerate(cache)
+            for name, t in layer.items() if _is_kv(name) == kv]
+
+
+def _device(cache):
+    return next(t for layer in cache for t in layer.values()).device
+
+
+def _slot_rows(slot_ids, row_map, pool, n_rows, device):
+    """Device (dst slot, src row) index pairs of the in-range slot ids (the
+    padding rows carry slot id ``pool`` and are dropped), or None."""
+    slot_ids = np.asarray(slot_ids, np.int64)
+    row_map = np.asarray(row_map, np.int64)
+    keep = (slot_ids >= 0) & (slot_ids < pool)
+    if not keep.any():
+        return None
+    dst = torch.from_numpy(slot_ids[keep]).to(device)
+    src = torch.from_numpy(np.clip(row_map[keep], 0, n_rows - 1)).to(device)
+    return dst, src
+
+
 def dense_insert_rows(cache, scratch, slot_ids, row_map):
     """Prefill insert: ``scratch`` (a stack cache with batch = prefill rows,
     length S) holds one row per *unique* prefill; ``row_map`` maps each output
-    slot to its scratch row (clipped into range). Only the first S positions
-    of each slot are written; positions beyond S keep stale data from the
-    slot's previous occupant, which is safe because decode writes position c
-    before any step attends it (write-before-read along the length axis,
-    masked by cache_len). Slot ids outside ``[0, pool)`` — the padding rows —
-    are dropped. ``slot_ids`` / ``row_map`` are host integer arrays."""
-    slot_ids = np.asarray(slot_ids, np.int64)
-    row_map = np.asarray(row_map, np.int64)
-    pool, n_rows = cache[0]["k"].shape[0], scratch[0]["k"].shape[0]
-    keep = (slot_ids >= 0) & (slot_ids < pool)
-    if not keep.any():
+    slot to its scratch row (clipped into range). Of each K/V leaf only the
+    first S positions of each slot are written; positions beyond S keep
+    stale data from the slot's previous occupant, which is safe because
+    decode writes position c before any step attends it (write-before-read
+    along the length axis, masked by cache_len). Per-slot state leaves are
+    written whole. Slot ids outside ``[0, pool)`` — the padding rows — are
+    dropped. ``slot_ids`` / ``row_map`` are host integer arrays."""
+    pool = next(iter(cache[0].values())).shape[0]     # every leaf's axis 0
+    n_rows = next(iter(scratch[0].values())).shape[0]
+    idx = _slot_rows(slot_ids, row_map, pool, n_rows, _device(cache))
+    if idx is None:
         return cache
-    dev = cache[0]["k"].device
-    dst = torch.from_numpy(slot_ids[keep]).to(dev)
-    src = torch.from_numpy(np.clip(row_map[keep], 0, n_rows - 1)).to(dev)
+    dst, src = idx
     for big_layer, small_layer in zip(cache, scratch):
         for name, big in big_layer.items():
             small = small_layer[name]
@@ -54,63 +90,80 @@ def dense_insert_rows(cache, scratch, slot_ids, row_map):
     return cache
 
 
-def paged_insert_rows(cache, scratch, flat_pos):
-    """Paged prefill insert. ``flat_pos`` (host, (rows, S)) holds, per
-    scratch row, the physical flat position (page * page_size + offset) of
-    each prompt token, which the host computed from the block table;
-    padding and unmapped positions carry an out-of-range sentinel and are
-    dropped. (The reference also scatters per-slot non-K/V state by slot id;
-    the port's block kinds have none.)"""
-    flat_pos = np.asarray(flat_pos, np.int64)
-    NP, ps = cache[0]["k"].shape[:2]
-    rows, cols = np.nonzero((flat_pos >= 0) & (flat_pos < NP * ps))
-    if rows.size == 0:
-        return cache
-    dev = cache[0]["k"].device
-    dst = torch.from_numpy(flat_pos[rows, cols]).to(dev)
-    r = torch.from_numpy(rows).to(dev)
-    c = torch.from_numpy(cols).to(dev)
-    for big_layer, small_layer in zip(cache, scratch):
-        for name, big in big_layer.items():
-            flat = big.view(NP * ps, *big.shape[2:])
-            flat[dst] = small_layer[name][r, c].to(big.dtype)
+def paged_insert_rows(cache, scratch, slot_ids, row_map, flat_pos):
+    """Paged prefill insert. K/V leaves: ``flat_pos`` (host, (rows, S))
+    holds, per scratch row, the physical flat position (page * page_size +
+    offset) of each prompt token, which the host computed from the block
+    table; padding and unmapped positions carry an out-of-range sentinel
+    and are dropped. Per-slot state leaves scatter by ``slot_ids`` after
+    gathering ``row_map``, as in :func:`dense_insert_rows`, so each
+    prefix-shared sample gets its own copy of the state."""
+    dev = _device(cache)
+    kv = _leaves(cache, kv=True)
+    if kv:
+        flat_pos = np.asarray(flat_pos, np.int64)
+        NP, ps = kv[0][2].shape[:2]
+        rows, cols = np.nonzero((flat_pos >= 0) & (flat_pos < NP * ps))
+        if rows.size:
+            dst = torch.from_numpy(flat_pos[rows, cols]).to(dev)
+            r = torch.from_numpy(rows).to(dev)
+            c = torch.from_numpy(cols).to(dev)
+            for i, name, big in kv:
+                flat = big.view(NP * ps, *big.shape[2:])
+                flat[dst] = scratch[i][name][r, c].to(big.dtype)
+    state = _leaves(cache, kv=False)
+    if state:
+        n_rows = scratch[state[0][0]][state[0][1]].shape[0]
+        idx = _slot_rows(slot_ids, row_map, state[0][2].shape[0], n_rows,
+                         dev)
+        if idx is not None:
+            dst, src = idx
+            for i, name, big in state:
+                big[dst] = scratch[i][name][src].to(big.dtype)
     return cache
 
 
 def _paged_copy_pages(cache, src_ids, dst_ids):
-    """Copy physical pages src -> dst in every K/V pool (copy-on-write).
-    Pairs whose dst is out of range are dropped."""
+    """Copy physical pages src -> dst in every K/V pool (copy-on-write);
+    per-slot state is untouched. Pairs whose dst is out of range are
+    dropped."""
+    kv = _leaves(cache, kv=True)
+    if not kv:
+        return cache
     src_ids = np.asarray(src_ids, np.int64)
     dst_ids = np.asarray(dst_ids, np.int64)
-    NP = cache[0]["k"].shape[0]
+    NP = kv[0][2].shape[0]
     keep = (dst_ids >= 0) & (dst_ids < NP)
     if not keep.any():
         return cache
-    dev = cache[0]["k"].device
+    dev = _device(cache)
     src = torch.from_numpy(np.clip(src_ids[keep], 0, NP - 1)).to(dev)
     dst = torch.from_numpy(dst_ids[keep]).to(dev)
-    for layer in cache:
-        for big in layer.values():
-            big[dst] = big[src]        # the gather copies before the write
+    for _, _, big in kv:
+        big[dst] = big[src]        # the gather copies before the write
     return cache
 
 
-def _paged_extract(cache, page_ids):
-    """Page-list snapshot: a copy of the given pages of every K/V pool."""
-    dev = cache[0]["k"].device
-    ids = torch.from_numpy(np.asarray(page_ids, np.int64)).to(dev)
-    return [{name: big[ids] for name, big in layer.items()}
+def _paged_extract(cache, slot, page_ids):
+    """Page-list snapshot: a copy of the given pages of every K/V pool and
+    of the slot's row of every per-slot state leaf."""
+    ids = torch.from_numpy(np.asarray(page_ids, np.int64)).to(_device(cache))
+    return [{name: (big[ids] if _is_kv(name) else big[slot:slot + 1].clone())
+             for name, big in layer.items()}
             for layer in cache]
 
 
-def _paged_insert_snapshot(cache, snap, page_ids):
+def _paged_insert_snapshot(cache, snap, slot, page_ids):
     """Inverse of :func:`_paged_extract`: write the snapshot's pages into
-    the (freshly allocated) physical pages ``page_ids``."""
-    dev = cache[0]["k"].device
-    ids = torch.from_numpy(np.asarray(page_ids, np.int64)).to(dev)
+    the (freshly allocated) physical pages ``page_ids`` and its state into
+    the slot's row."""
+    ids = torch.from_numpy(np.asarray(page_ids, np.int64)).to(_device(cache))
     for layer, small in zip(cache, snap):
         for name, big in layer.items():
-            big[ids] = small[name].to(big.dtype)
+            if _is_kv(name):
+                big[ids] = small[name].to(big.dtype)
+            else:
+                big[slot:slot + 1] = small[name]
     return cache
 
 
@@ -211,6 +264,10 @@ class PageExhausted(RuntimeError):
 class PagedCache(CacheBackend):
     """Paged KV cache: physical page pools + per-slot block tables.
 
+    A model with no attention (rwkv) has no pools: the page accounting
+    still runs, as in the reference, and only the per-slot state is
+    stored.
+
     * K/V pools: ``(num_pages, page_size, KV, hd)`` per layer. One *logical*
       page index maps to the same physical page in every layer's pool, so
       the allocator is layer-agnostic.
@@ -249,7 +306,7 @@ class PagedCache(CacheBackend):
                                         page_size=page_size,
                                         num_pages=self.num_pages, dtype=dtype,
                                         device=device)
-        self.device = self.cache[0]["k"].device
+        self.device = _device(self.cache)
         self.block_table = np.full((pool, self.max_pages), self.num_pages,
                                    np.int32)
         self.refcount = np.zeros(self.num_pages, np.int32)
@@ -381,9 +438,9 @@ class PagedCache(CacheBackend):
     # --- snapshots ----------------------------------------------------
     def extract_snapshot(self, slot: int):
         """A page-list snapshot: copies of the slot's mapped pages, never a
-        dense slice."""
+        dense slice, and of its per-slot state."""
         npg = self._mapped_pages(slot)
-        pages = _paged_extract(self.cache, self.block_table[slot, :npg])
+        pages = _paged_extract(self.cache, slot, self.block_table[slot, :npg])
         return {"pages": pages, "page_count": npg}
 
     def insert_snapshot(self, snap, slot: int):
@@ -396,7 +453,7 @@ class PagedCache(CacheBackend):
             "insert_snapshot target must be empty"
         for pg in range(npg):
             row[pg] = self._alloc()
-        _paged_insert_snapshot(self.cache, snap["pages"], row[:npg])
+        _paged_insert_snapshot(self.cache, snap["pages"], slot, row[:npg])
         return True
 
     # --- decode-time view --------------------------------------------

@@ -19,7 +19,11 @@ kernel: as the dense one (float32 1e-4, bfloat16 2e-2), and on an identity
 block table bit-equal to the dense kernel, whose loop it shares. The fused
 log-prob: logp and lse atol 1e-4; its gradient (the IS-GRPO backward
 kernels with e = 0) within 1e-4 of the largest element of autograd's
-through the plain version.
+through the plain version. The scan kernels (selective scan, WKV6):
+float32 outputs and states atol 1e-4; bfloat16 outputs within two bf16
+ulps of each element plus that float32 atol (both sides compute in
+float32, in another summation order, and round once), their float32
+states within 1e-4 of the largest element.
 """
 import pytest
 
@@ -29,6 +33,7 @@ from repro_torch.hopper import decode_attn, flash_attn, fused_sample  # noqa: E4
 from repro_torch.hopper import fused_is_grpo as fio  # noqa: E402
 from repro_torch.hopper import fused_logprob as flp  # noqa: E402
 from repro_torch.hopper import paged_decode_attn as pda  # noqa: E402
+from repro_torch.hopper import rwkv6_scan, ssm_scan  # noqa: E402
 from repro_torch.sampling import prng  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -54,6 +59,7 @@ def _gen(seed):
     (1, 100, 4, 4, 64, 0, 0.0),
     (2, 192, 8, 2, 64, 48, 0.0),
     (1, 64, 4, 2, 32, 0, 30.0),
+    (16, 512, 25, 5, 64, 1024, 0.0),          # hymba-1.5b prefill: H/KV = 5
 ])
 def test_flash_attention_kernel(dev, dtype, atol, B, S, H, KV, hd, window,
                                 cap):
@@ -79,6 +85,7 @@ def test_flash_attention_kernel(dev, dtype, atol, B, S, H, KV, hd, window,
     (5, 300, 12, 4, 64, 0, 0.0),
     (4, 256, 8, 2, 32, 64, 0.0),
     (3, 128, 8, 8, 64, 0, 20.0),
+    (16, 640, 25, 5, 64, 1024, 0.0),          # hymba-1.5b: H/KV = 5
 ])
 def test_decode_attention_kernel(dev, dtype, atol, B, L, H, KV, hd, window,
                                  cap):
@@ -105,7 +112,7 @@ def test_decode_attention_kernel(dev, dtype, atol, B, L, H, KV, hd, window,
     dict(temperature=0.8, top_k=50, top_p=0.95),
     dict(temperature=1.0, top_k=1), dict(temperature=0.0),
 ], ids=["plain", "topk", "topp", "both", "k1", "greedy"])
-@pytest.mark.parametrize("V", [1000, 128256])
+@pytest.mark.parametrize("V", [1000, 32001, 65536, 128256])
 def test_fused_sample_kernel(dev, kw, V):
     g = _gen(2)
     R = 16
@@ -282,12 +289,14 @@ def test_fused_is_grpo_bwd_row_chunks(dev, monkeypatch):
 
 PDA_CASES = [
     # B, NP, max_pages, ps, H, KV, hd, win, cap, dtype: the CPU tests' cases,
-    # then the serve shape of llama3.2-1b (pool 16, max_len 640, ps 16)
+    # then the serve shapes (pool 16, max_len 640, ps 16)
     (2, 12, 4, 16, 4, 2, 64, 0, 0.0, torch.float32),
     (3, 20, 6, 8, 8, 8, 32, 0, 30.0, torch.float32),
     (2, 16, 8, 16, 4, 1, 64, 48, 0.0, torch.float32),
     (1, 9, 3, 32, 5, 5, 64, 0, 0.0, torch.bfloat16),
     (16, 640, 40, 16, 32, 8, 64, 0, 0.0, torch.bfloat16),
+    # hymba-1.5b's paged serve layout: 256 pages of 16, H/KV = 5, window
+    (16, 256, 40, 16, 25, 5, 64, 1024, 0.0, torch.bfloat16),
 ]
 
 
@@ -297,16 +306,14 @@ def _paged_inputs(dev, case, seed=11):
     q = torch.randn(B, 1, H, hd, device=dev, generator=g).to(dt)
     kp = torch.randn(NP, ps, KV, hd, device=dev, generator=g).to(dt)
     vp = torch.randn(NP, ps, KV, hd, device=dev, generator=g).to(dt)
-    lens = torch.randint(2, mp * ps + 1, (B,), generator=g, device=dev,
-                         dtype=torch.int32)
+    # a pool smaller than B full rows caps each row at its share of pages
+    lens = torch.randint(2, min(mp, NP // B) * ps + 1, (B,), generator=g,
+                         device=dev, dtype=torch.int32)
     bt = torch.full((B, mp), NP, dtype=torch.int32)
     perm = torch.randperm(NP, generator=torch.Generator().manual_seed(seed))
     used = 0
     for b in range(B):
         npg = -(-int(lens[b]) // ps)
-        if used + npg > NP:                  # pool smaller than B full rows
-            npg = NP - used
-            lens[b] = npg * ps
         bt[b, :npg] = perm[used:used + npg]
         used += npg
     return q, kp, vp, bt.to(dev), lens
@@ -415,3 +422,109 @@ def test_fused_logprob_grad_matches_autograd_through_plain(dev, tied, cap):
         assert x.shape == y.shape
         torch.testing.assert_close(x, y, rtol=0,
                                    atol=1e-4 * float(y.abs().max()))
+
+
+def _within_bf16_ulps(got, want, n=2, atol=1e-4):
+    """|got - want| <= n bf16 ulps of each element of ``want``, plus the
+    float32 atol: the float32 sums before the rounding differ by up to that
+    (another summation order), which is more than an ulp of an output that
+    is nearly zero."""
+    want = want.float()
+    mag = want.abs().clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert bool(((got.float() - want).abs() <= n * ulp + atol).all())
+
+
+def _ssm_inputs(B, T, di, N, dtype, g, dev, s0_scale=0.2):
+    x = torch.randn(B, T, di, device=dev, generator=g) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, di, device=dev, generator=g)) * 0.1
+    A_log = torch.log(torch.randn(di, N, device=dev, generator=g).abs()
+                      + 0.5)
+    # B and C as the model hands them: views into one projection
+    proj = torch.randn(B, T, 3 + 2 * N, device=dev, generator=g) * 0.5
+    Bc, Cc = proj[..., 3:3 + N].to(dtype), proj[..., 3 + N:].to(dtype)
+    D = torch.randn(di, device=dev, generator=g) * 0.2
+    s0 = torch.randn(B, di, N, device=dev, generator=g) * s0_scale
+    return x.to(dtype), dt.to(dtype), A_log, Bc, Cc, D, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,di,N,masked", [
+    (2, 64, 128, 16, False), (1, 50, 64, 8, False), (2, 33, 256, 16, False),
+    (16, 1, 3200, 16, False),                 # hymba-1.5b decode
+    (3, 70, 3200, 16, True),                  # padded prefill, channel tail
+])
+def test_ssm_scan_kernel(dev, dtype, B, T, di, N, masked):
+    g = _gen(5)
+    x, dt, A_log, Bc, Cc, D, s0 = _ssm_inputs(B, T, di, N, dtype, g, dev)
+    mask = None
+    if masked:
+        lens = torch.tensor([T, T // 2, 1], device=dev)
+        mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    want_y, want_s = ssm_scan.selective_scan_plain(x, dt, A_log, Bc, Cc, D,
+                                                   s0, seq_mask=mask)
+    state = s0.clone()
+    n0 = ssm_scan.selective_scan.launches
+    y, sf = ssm_scan.selective_scan(x, dt, A_log, Bc, Cc, D, state,
+                                    seq_mask=mask)
+    torch.cuda.synchronize()
+    assert ssm_scan.selective_scan.launches == n0 + 1
+    assert sf is state and y.dtype == dtype          # state updated in place
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=0)
+        torch.testing.assert_close(sf, want_s, atol=1e-4, rtol=0)
+    else:
+        _within_bf16_ulps(y, want_y)
+        torch.testing.assert_close(sf, want_s, rtol=0,
+                                   atol=1e-4 * float(want_s.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,hd,masked", [
+    (2, 64, 4, 32, False), (1, 100, 2, 64, False), (2, 33, 3, 16, False),
+    (16, 1, 32, 64, False),                   # rwkv6-1.6b decode
+    (3, 45, 4, 64, True),                     # padded prefill
+])
+def test_wkv6_kernel(dev, dtype, B, T, H, hd, masked):
+    g = _gen(6)
+    r, k, v = (torch.randn(B, T, H, hd, device=dev, generator=g) * 0.5
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn(B, T, H, hd, device=dev, generator=g)) \
+        * 0.5 + 0.45
+    r, k, v, w = (t.to(dtype) for t in (r, k, v, w))
+    u = torch.randn(H, hd, device=dev, generator=g) * 0.3
+    s0 = torch.randn(B, H, hd, hd, device=dev, generator=g) * 0.2
+    mask = None
+    if masked:
+        lens = torch.tensor([T, T // 3, 1], device=dev)
+        mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    want_y, want_s = rwkv6_scan.wkv6_plain(r, k, v, w, u, s0, seq_mask=mask)
+    state = s0.clone()
+    n0 = rwkv6_scan.wkv6.launches
+    y, sf = rwkv6_scan.wkv6(r, k, v, w, u, state, seq_mask=mask)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.wkv6.launches == n0 + 1
+    assert sf is state and y.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=0)
+        torch.testing.assert_close(sf, want_s, atol=1e-4, rtol=0)
+    else:
+        _within_bf16_ulps(y, want_y)
+        torch.testing.assert_close(sf, want_s, rtol=0,
+                                   atol=1e-4 * float(want_s.abs().max()))
+
+
+def test_scan_kernels_refuse_grad(dev):
+    g = _gen(7)
+    x, dt, A_log, Bc, Cc, D, s0 = _ssm_inputs(2, 4, 64, 16, torch.float32, g,
+                                              dev)
+    with pytest.raises(NotImplementedError, match="backward scan kernels"):
+        ssm_scan.selective_scan(x.requires_grad_(), dt, A_log, Bc, Cc, D, s0)
+    r = torch.randn(2, 4, 2, 32, device=dev, generator=g)
+    u = torch.zeros(2, 32, device=dev, requires_grad=True)
+    s = torch.zeros(2, 2, 32, 32, device=dev)
+    with pytest.raises(NotImplementedError, match="backward scan kernels"):
+        rwkv6_scan.wkv6(r, r, r, torch.sigmoid(r), u, s)
+    with torch.no_grad():
+        rwkv6_scan.wkv6(r, r, r, torch.sigmoid(r), u, s)

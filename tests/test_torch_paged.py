@@ -142,7 +142,8 @@ def _prefill_paged(params, b, toks, lengths):
     for i in range(B):
         fp = b.alloc_slot_prefix(i, int(lengths[i]))
         flat_pos[i, :len(fp)] = fp
-    kvc.paged_insert_rows(b.cache, scratch, flat_pos)
+    kvc.paged_insert_rows(b.cache, scratch, np.arange(B), np.arange(B),
+                          flat_pos)
     return logits
 
 

@@ -1,0 +1,213 @@
+"""The port's selective scan and SSM head (hymba) on the CPU, against the
+JAX package:
+
+* ``selective_scan_plain`` (the plain version of ``csrc/ssm_scan.cu``)
+  against ``repro.models.ssm.selective_scan`` and against the Pallas kernel
+  ``repro.kernels.ssm_scan.ops.selective_scan`` in interpret mode, on
+  ``tests/test_kernels.py``'s three cases, plus T = 1 (decode), bfloat16
+  inputs, a ``seq_mask`` case and a carried state;
+* ``causal_conv1d`` with and without ``lengths``;
+* ``apply_ssm`` on weights converted from the JAX init.
+
+Tolerances: float32 atol 1e-4 (the sum over N runs in another order);
+bfloat16 outputs within two bf16 ulps of each element (both sides compute
+in float32 and round once).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
+from repro.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.hopper import ssm_scan  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+
+torch.set_num_threads(1)
+ARCH = "hymba-1.5b"
+
+
+def assert_within_bf16_ulps(got, want, n=2):
+    """|got - want| <= n bf16 ulps of each element of ``want`` (float32
+    arrays holding bf16 values)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    mag = np.maximum(np.abs(want), np.float32(2.0 ** -126))
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    bad = np.abs(got - want) > n * ulp
+    assert not bad.any(), (np.abs(got - want)[bad].max(), bad.sum())
+
+
+def _inputs(B, T, di, N, seed, *, s0_scale=0.0):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    x = (rng.standard_normal((B, T, di)) * 0.5).astype(f)
+    dt = (np.log1p(np.exp(rng.standard_normal((B, T, di)))) * 0.1).astype(f)
+    A_log = np.log(np.abs(rng.standard_normal((di, N))) + 0.5).astype(f)
+    Bc = (rng.standard_normal((B, T, N)) * 0.5).astype(f)
+    Cc = (rng.standard_normal((B, T, N)) * 0.5).astype(f)
+    D = (rng.standard_normal(di) * 0.2).astype(f)
+    s0 = (rng.standard_normal((B, di, N)) * s0_scale).astype(f)
+    return x, dt, A_log, Bc, Cc, D, s0
+
+
+def _torch(arrs, dtype=torch.float32):
+    x, dt, A_log, Bc, Cc, D, s0 = (torch.from_numpy(a) for a in arrs)
+    return (x.to(dtype), dt.to(dtype), A_log, Bc.to(dtype), Cc.to(dtype), D,
+            s0)
+
+
+# tests/test_kernels.py's cases (B, T, di, N, chunk), then decode (T = 1)
+CASES = [(2, 64, 128, 16, 32), (1, 50, 64, 8, 16), (2, 33, 256, 16, 128),
+         (3, 1, 128, 16, 8)]
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_plain_scan_matches_reference_and_pallas(case):
+    B, T, di, N, chunk = case
+    arrs = _inputs(B, T, di, N, seed=T)
+    y, sf = ssm_scan.selective_scan_plain(*_torch(arrs))
+    jin = [jnp.asarray(a) for a in arrs]
+    y_ref, sf_ref = jssm.selective_scan(*jin)
+    y_pl, sf_pl = ssm_ops.selective_scan(*jin, block_d=64, chunk=chunk,
+                                         interpret=True)
+    for want, got in ((y_ref, y), (sf_ref, sf), (y_pl, y), (sf_pl, sf)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=0)
+
+
+def test_plain_scan_carried_state_streams():
+    """A carried (non-zero) state, and two halves with the state carried
+    between them, equal one run over the whole sequence."""
+    arrs = _inputs(2, 40, 64, 16, seed=3, s0_scale=0.3)
+    x, dt, A_log, Bc, Cc, D, s0 = _torch(arrs)
+    y, sf = ssm_scan.selective_scan_plain(x, dt, A_log, Bc, Cc, D, s0)
+    y_ref, sf_ref = jssm.selective_scan(*[jnp.asarray(a) for a in arrs])
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-4)
+    np.testing.assert_allclose(sf.numpy(), np.asarray(sf_ref), atol=1e-4)
+    y1, s1 = ssm_scan.selective_scan_plain(x[:, :17], dt[:, :17], A_log,
+                                           Bc[:, :17], Cc[:, :17], D, s0)
+    y2, s2 = ssm_scan.selective_scan_plain(x[:, 17:], dt[:, 17:], A_log,
+                                           Bc[:, 17:], Cc[:, 17:], D, s1)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(), y.numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(s2.numpy(), sf.numpy(), atol=1e-5)
+
+
+def test_plain_scan_seq_mask_freezes_state():
+    """Right-padded rows: the state after the pads equals the state at each
+    row's last real token, and the reference agrees on every output."""
+    arrs = _inputs(3, 24, 64, 16, seed=5, s0_scale=0.2)
+    lens = np.array([24, 9, 1])
+    mask = np.arange(24)[None, :] < lens[:, None]
+    tin = _torch(arrs)
+    y, sf = ssm_scan.selective_scan_plain(*tin,
+                                          seq_mask=torch.from_numpy(mask))
+    y_ref, sf_ref = jssm.selective_scan(*[jnp.asarray(a) for a in arrs],
+                                        seq_mask=jnp.asarray(mask))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-4)
+    np.testing.assert_allclose(sf.numpy(), np.asarray(sf_ref), atol=1e-4)
+    x, dt, A_log, Bc, Cc, D, s0 = tin
+    for b, n in enumerate(lens):
+        _, s_b = ssm_scan.selective_scan_plain(
+            x[b:b + 1, :n], dt[b:b + 1, :n], A_log, Bc[b:b + 1, :n],
+            Cc[b:b + 1, :n], D, s0[b:b + 1])
+        np.testing.assert_allclose(sf[b:b + 1].numpy(), s_b.numpy(),
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("T", [1, 37])
+def test_plain_scan_bf16_inputs(T):
+    """bfloat16 x, dt, B, C (the model's compute dtype): the output is
+    bfloat16 within two ulps of the reference's, the state float32."""
+    arrs = _inputs(2, T, 128, 16, seed=11, s0_scale=0.1)
+    tin = _torch(arrs, torch.bfloat16)
+    y, sf = ssm_scan.selective_scan_plain(*tin)
+    assert y.dtype == torch.bfloat16 and sf.dtype == torch.float32
+    jin = [jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+        for t in tin]
+    y_ref, sf_ref = jssm.selective_scan(*jin)
+    assert_within_bf16_ulps(y.float().numpy(),
+                            np.asarray(y_ref.astype(jnp.float32)))
+    np.testing.assert_allclose(sf.numpy(), np.asarray(sf_ref), atol=1e-4)
+
+
+def test_wrapper_takes_the_plain_version_on_cpu():
+    tin = _torch(_inputs(2, 5, 64, 8, seed=2, s0_scale=0.2))
+    n0 = ssm_scan.selective_scan.launches
+    y, sf = ssm_scan.selective_scan(*tin)
+    yp, sp = ssm_scan.selective_scan_plain(*tin)
+    assert torch.equal(y, yp) and torch.equal(sf, sp)
+    assert ssm_scan.selective_scan.launches == n0
+    with pytest.raises(ValueError):
+        ssm_scan.selective_scan(*tin[:6], tin[6][:, :, :4])
+
+
+@pytest.mark.parametrize("with_lengths", [False, True])
+def test_causal_conv1d_matches_reference(with_lengths):
+    rng = np.random.default_rng(7)
+    B, S, di, K = 3, 10, 32, 4
+    x = rng.standard_normal((B, S, di)).astype(np.float32)
+    w = rng.standard_normal((K, di)).astype(np.float32)
+    b = rng.standard_normal(di).astype(np.float32)
+    st = rng.standard_normal((B, K - 1, di)).astype(np.float32)
+    lens = np.array([10, 4, 1], np.int32) if with_lengths else None
+    y, ns = ssm.causal_conv1d(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+        torch.from_numpy(st),
+        lengths=None if lens is None else torch.from_numpy(lens))
+    y_ref, ns_ref = jssm.causal_conv1d(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jnp.asarray(st),
+        lengths=None if lens is None else jnp.asarray(lens))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-5)
+    np.testing.assert_array_equal(ns.numpy(), np.asarray(ns_ref))
+    if with_lengths:           # the tail ends at row 1's 4th input
+        np.testing.assert_array_equal(ns[1].numpy(), x[1, 1:4])
+
+
+@pytest.fixture(scope="module")
+def ssm_params():
+    jcfg = jget_smoke(ARCH)
+    tree = jax.device_get(JM.init_params(jax.random.PRNGKey(1), jcfg))
+    layer = jax.tree.map(lambda a: a[0], tree["stack"]["body"][0])
+    jp = layer["ssm"]
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    return jp, tp
+
+
+@pytest.mark.parametrize("mode", ["full", "padded", "decode"])
+def test_apply_ssm_matches_reference(ssm_params, mode):
+    """The SSM head on converted weights: a plain sequence, right-padded
+    rows (seq_mask and lengths, as prefill passes them), and one decode
+    step from a carried state and conv tail."""
+    cfg, jcfg = get_smoke_config(ARCH), jget_smoke(ARCH)
+    jp, tp = ssm_params
+    rng = np.random.default_rng(8)
+    B, S = 3, 1 if mode == "decode" else 14
+    di, N, K = ssm.d_inner_of(cfg), cfg.ssm.state_dim, cfg.ssm.conv_dim
+    x = (rng.standard_normal((B, S, cfg.d_model)) * 0.5).astype(np.float32)
+    kw, jkw = {}, {}
+    st = cs = jst = jcs = None
+    if mode == "padded":
+        lens = np.array([14, 6, 1], np.int32)
+        mask = np.arange(S)[None, :] < lens[:, None]
+        kw = dict(lengths=torch.from_numpy(lens),
+                  seq_mask=torch.from_numpy(mask))
+        jkw = dict(lengths=jnp.asarray(lens), seq_mask=jnp.asarray(mask))
+    if mode == "decode":
+        s0 = (rng.standard_normal((B, di, N)) * 0.2).astype(np.float32)
+        c0 = (rng.standard_normal((B, K - 1, di)) * 0.5).astype(np.float32)
+        st, cs = torch.from_numpy(s0), torch.from_numpy(c0)
+        jst, jcs = jnp.asarray(s0), jnp.asarray(c0)
+    y, s, c = ssm.apply_ssm(tp, cfg, torch.from_numpy(x), st, cs, **kw)
+    y_ref, s_ref, c_ref = jssm.apply_ssm(jp, jcfg, jnp.asarray(x), jst, jcs,
+                                         **jkw)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-4)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), atol=1e-4)
+    np.testing.assert_allclose(c.numpy(), np.asarray(c_ref), atol=1e-5)
