@@ -12,6 +12,8 @@ start):
 
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds every kernel source from csrc/, in parallel;
+   cuobjdump counts the HGMMA (wgmma) instructions of the two flash
+   libraries, which must have some;
 3. kernel checks — each kernel against its plain PyTorch version at the
    main paths' shapes (serving: prefill, dense and paged decode and
    sampling, each also at the hybrid paths' shapes, hymba's H/KV = 5 and
@@ -21,7 +23,10 @@ start):
    flash forward with its logsumexp, the flash backward, the fused IS+GRPO
    forward and backward, and the fused log-prob of the legacy loss), with
    its time, the plain version's, one library call's where PyTorch has one,
-   and the least time the card could take;
+   and the least time the card could take; the four flash checks also give
+   SDPA's error against the same plain version (``library_err``, a
+   yardstick of bf16 tensor-core attention) and ``vs_library``, their time
+   over SDPA's;
 4. reference — the GPU engine (kernels, float32) against the same engine on
    the CPU (plain versions) on the reduced config, dense and paged, and the
    CPU paged engine against the CPU dense one: equal tokens; the same as
@@ -57,7 +62,9 @@ start):
 8. kernels — one {"kernels": [...]} line, one row per kernel entry point,
    each with the launches of the path it runs on (train; train_paged for
    the paged decode and the fused log-prob; serve_hymba and serve_rwkv6
-   for the two scans);
+   for the two scans); the flash rows count the bf16 tensor-core kernels'
+   launches and, apart, the f32 SIMT kernels' (``simt_launches``: every
+   phase that counts launches runs in bf16 and fails on a SIMT launch);
 
 then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -95,6 +102,15 @@ def bound(nbytes, flops, peak_flops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_err(F, qt, kt, vt, ref):
+    """Largest error of SDPA's causal output, (B, H, S, hd) views, against
+    the plain version's (B, S, H, hd): what bf16 tensor-core attention from
+    a library gives on the same inputs. A yardstick, never a limit."""
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    return (out.transpose(1, 2).float() - ref.float()).abs().max().item()
 
 
 class Timer:
@@ -145,6 +161,7 @@ def check_flash(torch, F, timer, flash_attn):
     if not err <= atol:
         fail(f"flash_attn disagrees with its plain version: {err} > {atol}")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_err = sdpa_err(F, qt, kt, vt, ref)
     kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v, causal=True))
     plain_ms = timer(lambda: flash_attn.flash_attention_plain(
         q, k, v, causal=True), iters=3, warmup=1)
@@ -154,8 +171,9 @@ def check_flash(torch, F, timer, flash_attn):
     flops = 4 * B * H * hd * (S * (S + 1) // 2)
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
     res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal",
-               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+               max_abs_err=err, library_err=lib_err, atol=atol, ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               vs_library=kernel_ms / library_ms, bound_ms=b_ms, bound_by=b_by)
     emit("check_flash_attn", **res)
     return res
 
@@ -403,6 +421,7 @@ def check_flash_rep5(torch, F, timer, flash_attn):
         fail(f"flash_attn at H/KV = 5, window {win}, disagrees with its plain "
              f"version: {err} > {atol}")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_err = sdpa_err(F, qt, kt, vt, ref)
     kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v, causal=True,
                                                          window=win))
     plain_ms = timer(lambda: flash_attn.flash_attention_plain(
@@ -413,9 +432,10 @@ def check_flash_rep5(torch, F, timer, flash_attn):
     flops = 4 * B * H * hd * (S * (S + 1) // 2)
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
     res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal, "
-               f"window {win}", max_abs_err=err, atol=atol, ms=kernel_ms,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-               bound_by=b_by)
+               f"window {win}", max_abs_err=err, library_err=lib_err,
+               atol=atol, ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=library_ms, vs_library=kernel_ms / library_ms,
+               bound_ms=b_ms, bound_by=b_by)
     emit("check_flash_attn_rep5", **res)
     return res
 
@@ -620,6 +640,7 @@ def check_flash_lse(torch, F, timer, flash_attn):
     if not err <= atol:
         fail(f"flash_attn (lse) disagrees with its plain version: {err}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_err = sdpa_err(F, qt, kt, vt, ref)
     kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v,
                                                          return_lse=True))
     plain_ms = timer(lambda: flash_attn.flash_attention_plain(
@@ -631,8 +652,9 @@ def check_flash_lse(torch, F, timer, flash_attn):
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
     res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal, "
                "with lse (B, H, S) f32",
-               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+               max_abs_err=err, library_err=lib_err, atol=atol, ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               vs_library=kernel_ms / library_ms, bound_ms=b_ms, bound_by=b_by)
     emit("check_flash_attn_lse", **res)
     return res
 
@@ -663,6 +685,11 @@ def check_flash_bwd(torch, F, timer, flash_attn):
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                              enable_gqa=True)
     dot = do.transpose(1, 2)
+    lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                    retain_graph=True)
+    lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
+                  for a, b in zip(lib_grads, ref))
+    del lib_grads
     library_ms = timer(lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), dot, retain_graph=True))
     # read q, out, dout, k, v, lse; write dq, dk, dv
@@ -671,8 +698,9 @@ def check_flash_bwd(torch, F, timer, flash_attn):
     flops = 10 * B * H * hd * (S * (S + 1) // 2)
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
     res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal",
-               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+               max_abs_err=err, library_err=lib_err, atol=atol, ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               vs_library=kernel_ms / library_ms, bound_ms=b_ms, bound_by=b_by)
     emit("check_flash_attn_bwd", **res)
     return res
 
@@ -1361,9 +1389,18 @@ def check_results(np, results, cfg, n_requests):
 def reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "simt_launches"):
+            fn.simt_launches = 0
 
 
 def read_launches(kernels):
+    """Launches of each kernel since reset_launches. Every phase that reads
+    them runs in bf16, so none may have gone to an f32 SIMT flash kernel:
+    the flash wrappers' launches are then all tensor-core launches."""
+    simt = {name: fn.simt_launches for name, fn in kernels.items()
+            if getattr(fn, "simt_launches", 0)}
+    if simt:
+        fail(f"an f32 SIMT flash kernel ran on a bf16 path: {simt}")
     return {name: fn.launches for name, fn in kernels.items()}
 
 
@@ -1409,10 +1446,15 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. build
+    # 2. build; the flash libraries' bf16 kernels issue wgmma (HGMMA)
     t0 = time.perf_counter()
     secs = build.build_all()
-    emit("build", seconds=time.perf_counter() - t0, per_source=secs)
+    hgmma = {name: sum("HGMMA" in x for x in build.sass(name).splitlines())
+             for name in ("flash_attn", "flash_attn_bwd")}
+    emit("build", seconds=time.perf_counter() - t0, per_source=secs,
+         hgmma_instructions=hgmma)
+    if not all(hgmma.values()):
+        fail(f"a flash library has no HGMMA (wgmma) instruction: {hgmma}")
 
     # 3. kernel checks at the main path's shapes
     timer = Timer(torch)
@@ -1572,6 +1614,10 @@ def main() -> int:
     # 7. train at full width, over the dense cache with the fused loss, then
     # over the paged cache with the legacy loss (this slice's main path)
     train_launches = train_phase(torch, np, train_kernels)
+    # the f32 SIMT flash kernels' launches in the train phase (0: bf16)
+    train_simt = {
+        "flash_attn": flash_attn.flash_attention.simt_launches,
+        "flash_attn_bwd": flash_attn.flash_attention_bwd.simt_launches}
     train_paged_launches = train_paged_phase(torch, np, train_paged_kernels)
 
     # 8. kernels line: launches from the train phase, from train_paged for
@@ -1625,12 +1671,17 @@ def main() -> int:
     rows = []
     for name, (source_path, replaces, check) in src.items():
         c = checks[check]
-        rows.append({"name": name, "route": "cuda", "source": source_path,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                     "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                     "bound_by": c["bound_by"],
-                     "library_ms": c["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": source_path,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+               "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+               "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
+        if name in train_simt:
+            # launches: the bf16 tensor-core kernel; the f32 SIMT apart
+            row.update(simt_launches=train_simt[name],
+                       library_err=c["library_err"],
+                       vs_library=c["vs_library"])
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -142,6 +142,14 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library of kernel source ``name``
+    (what the card runs: ``HGMMA`` lines are wgmma)."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:

@@ -10,6 +10,13 @@ the probabilities from it. Without a gradient (serving) the forward runs
 without the logsumexp. On CPU tensors the wrappers run the plain PyTorch
 versions (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`);
 on CUDA tensors they launch the kernels or raise.
+
+On CUDA the kernel is chosen by dtype, never as a fallback: bfloat16 runs
+the tensor-core (``wgmma``) kernels, float32 the SIMT kernels on the f32
+FMA pipes (the f32 GPU-against-CPU references need atol 1e-4, which TF32
+tensor cores would not meet). Both take head_dim 32 or 64; anything else
+raises. Each wrapper counts its launches in ``launches``, and those of the
+f32 SIMT kernels also in ``simt_launches``.
 """
 from __future__ import annotations
 
@@ -63,6 +70,14 @@ def _check_kernel(name, q, *tensors):
                         f"head_dim in {_HEAD_DIMS}; got {q.dtype}, hd={hd}")
     if not all(t.is_contiguous() for t in (q,) + tensors):
         raise ValueError(f"{name} kernel needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in (q,) + tensors):
+        raise ValueError(f"{name} kernel needs 16-byte aligned inputs")
+
+
+def _count(fn, dtype):
+    fn.launches += 1
+    if dtype == torch.float32:
+        fn.simt_launches += 1
 
 
 def _forward(q, k, v, causal, window, attn_softcap, scale, want_lse):
@@ -90,7 +105,7 @@ def _forward(q, k, v, causal, window, attn_softcap, scale, want_lse):
             _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attn_fwd")
-    flash_attention.launches += 1
+    _count(flash_attention, q.dtype)
     return out, lse
 
 
@@ -172,9 +187,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
             _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attn_bwd")
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, q.dtype)
     return dq, dk, dv
 
 
-flash_attention.launches = 0
-flash_attention_bwd.launches = 0
+flash_attention.launches = flash_attention.simt_launches = 0
+flash_attention_bwd.launches = flash_attention_bwd.simt_launches = 0

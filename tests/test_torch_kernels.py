@@ -11,7 +11,9 @@ bfloat16 attention, atol 2e-2 (one bf16 ulp of outputs of order 1, and the
 plain decode rounds its probabilities to bf16 where the kernel keeps f32).
 Sampled tokens must be equal; logps within atol 1e-4. The attention
 backward: float32 atol 1e-4, bfloat16 atol 5e-2 (gradients of order 1 that
-go through bf16 rounding of each output). The fused IS+GRPO kernels compute
+go through bf16 rounding of each output); bfloat16 runs the tensor-core
+kernels, float32 the SIMT ones, and the bf16 backward is bit-equal from
+call to call. The fused IS+GRPO kernels compute
 in float32 like their plain versions: per-row outputs atol 1e-4, dh/dw
 atol 1e-4 relative to their largest element (sums over V or over rows in
 another order), 1e-2 for a bf16 dh (one bf16 ulp). The paged decode
@@ -160,6 +162,8 @@ def test_flash_attention_kernel_lse(dev, dtype):
     (2, 127, 8, 2, 64, 0, 0.0),
     (1, 100, 4, 4, 64, 40, 0.0),
     (2, 70, 4, 1, 32, 0, 20.0),
+    (2, 150, 8, 2, 32, 0, 30.0),              # hd 32, softcap, ragged tiles
+    (2, 150, 8, 2, 32, 48, 30.0),             # and a window
 ])
 def test_flash_attention_bwd_kernel(dev, dtype, atol, B, S, H, KV, hd,
                                     window, cap):
@@ -178,6 +182,66 @@ def test_flash_attention_bwd_kernel(dev, dtype, atol, B, S, H, KV, hd,
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=0,
                                    msg=name)
+
+
+# the main paths' bf16 shapes: train (with lse), serve prefill, hymba prefill
+TC_SHAPES = [
+    (32, 127, 32, 8, 64, 0),
+    (16, 512, 32, 8, 64, 0),
+    (16, 512, 25, 5, 64, 1024),
+]
+
+
+def _flash_inputs(B, S, H, KV, hd, seed):
+    g = _gen(seed)
+    return [torch.randn(B, S, n, hd, device="cuda", generator=g).bfloat16()
+            for n in (H, KV, KV, H)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", TC_SHAPES,
+                         ids=["train", "serve", "hymba"])
+def test_flash_attention_tc_main_path_shapes(dev, B, S, H, KV, hd, window):
+    """The tensor-core kernels at the main paths' shapes, forward with lse
+    and backward; no f32 SIMT kernel runs for bf16."""
+    q, k, v, do = _flash_inputs(B, S, H, KV, hd, 8)
+    kw = dict(causal=True, window=window)
+    fa = flash_attn.flash_attention
+    fb = flash_attn.flash_attention_bwd
+    n0 = (fa.launches, fa.simt_launches, fb.launches, fb.simt_launches)
+    out, lse = fa(q, k, v, return_lse=True, **kw)
+    grads = fb(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.simt_launches, fb.launches, fb.simt_launches) \
+        == (n0[0] + 1, n0[1], n0[2] + 1, n0[3])
+    ref, ref_lse = flash_attn.flash_attention_plain(q, k, v, return_lse=True,
+                                                    **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    rgrads = flash_attn.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, rgrads):
+        torch.testing.assert_close(a.float(), b.float(), atol=5e-2, rtol=0,
+                                   msg=name)
+
+
+def test_flash_attention_bwd_tc_is_deterministic(dev):
+    """No atomics: two backward calls give the same bits."""
+    q, k, v, do = _flash_inputs(*TC_SHAPES[0][:5], 10)
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True)
+    first = flash_attn.flash_attention_bwd(q, k, v, out, lse, do)
+    second = flash_attn.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_tc_refuses_head_dim_128(dev):
+    q, k, v, do = _flash_inputs(1, 64, 4, 2, 128, 11)
+    with pytest.raises(TypeError, match="head_dim"):
+        flash_attn.flash_attention(q, k, v)
+    out = torch.zeros_like(q)
+    lse = torch.zeros(1, 4, 64, device=dev)
+    with pytest.raises(TypeError, match="head_dim"):
+        flash_attn.flash_attention_bwd(q, k, v, out, lse, do)
 
 
 def test_attention_weights_get_gradients_on_card(dev):
