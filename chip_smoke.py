@@ -13,7 +13,8 @@ start):
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds every kernel source from csrc/, in parallel;
    cuobjdump counts the HGMMA (wgmma) instructions of the two flash
-   libraries, which must have some;
+   libraries and of the loss library (its bf16 bwd_dh kernels), which must
+   have some; ptxas's registers and spills of the tensor-core kernels;
 3. kernel checks — each kernel against its plain PyTorch version at the
    main paths' shapes (serving: prefill, dense and paged decode and
    sampling, each also at the hybrid paths' shapes, hymba's H/KV = 5 and
@@ -26,7 +27,9 @@ start):
    and the least time the card could take; the four flash checks also give
    SDPA's error against the same plain version (``library_err``, a
    yardstick of bf16 tensor-core attention) and ``vs_library``, their time
-   over SDPA's;
+   over SDPA's, as the two dense decode checks give theirs over SDPA's
+   masked call; bwd_dh's bound is its tensor cores' (5 bf16 passes), with
+   the f32 FMA bound it had kept beside it;
 4. reference — the GPU engine (kernels, float32) against the same engine on
    the CPU (plain versions) on the reduced config, dense and paged, and the
    CPU paged engine against the CPU dense one: equal tokens; the same as
@@ -38,7 +41,8 @@ start):
 5. serve   — make_serve_engine("llama3.2-1b") with random bf16 weights made
    from a seed serves 24 requests; every kernel's launch count must be > 0;
    then "profile": torch.profiler over two steady decode chunks (host time,
-   device busy time, top device kernels);
+   device busy time, the decode attention kernels' time, top device
+   kernels);
    then "serve_paged": the same 24 requests over the paged KV cache with
    40% of the dense-equivalent pages: page pressure (blocked admissions or
    preemptions) and every request returned; then "profile_paged": the
@@ -62,9 +66,10 @@ start):
 8. kernels — one {"kernels": [...]} line, one row per kernel entry point,
    each with the launches of the path it runs on (train; train_paged for
    the paged decode and the fused log-prob; serve_hymba and serve_rwkv6
-   for the two scans); the flash rows count the bf16 tensor-core kernels'
-   launches and, apart, the f32 SIMT kernels' (``simt_launches``: every
-   phase that counts launches runs in bf16 and fails on a SIMT launch);
+   for the two scans); the flash and bwd_dh rows count the bf16
+   tensor-core kernels' launches and, apart, the f32 SIMT kernels'
+   (``simt_launches``: every phase that counts launches runs in bf16 and
+   fails on a SIMT launch);
 
 then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -73,6 +78,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -128,6 +134,10 @@ class Timer:
         self.torch = torch
         self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8,
                                      device="cuda")
+        # the timer's floor: one launch that does next to nothing (a
+        # one-element fill), timed as every kernel is
+        one = torch.empty(1, device="cuda")
+        self.floor_ms = self(one.zero_)
 
     def __call__(self, fn, iters=10, warmup=2):
         torch = self.torch
@@ -208,7 +218,8 @@ def check_decode(torch, F, timer, decode_attn):
     res = dict(shape=f"q {list(q.shape)} cache {list(kc.shape)} bf16, "
                f"sum(cache_len)={live}",
                max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+               library_ms=library_ms, vs_library=kernel_ms / library_ms,
+               bound_ms=b_ms, bound_by=b_by, timer_floor_ms=timer.floor_ms)
     emit("check_decode_attn", **res)
     return res
 
@@ -398,7 +409,8 @@ def check_decode_rep5(torch, F, timer, decode_attn):
     res = dict(shape=f"q {list(q.shape)} cache {list(kc.shape)} bf16, "
                f"window {win}, sum(cache_len)={live}",
                max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+               library_ms=library_ms, vs_library=kernel_ms / library_ms,
+               bound_ms=b_ms, bound_by=b_by)
     emit("check_decode_attn_rep5", **res)
     return res
 
@@ -705,11 +717,18 @@ def check_flash_bwd(torch, F, timer, flash_attn):
     return res
 
 
+# bf16 passes of 2 R d V in the tensor-core bwd_dh: h w_hi + h w_mid for the
+# logits, dl_hi w_hi + dl_hi w_mid + dl_mid w_hi for dh (split_gemm.cuh)
+BWD_DH_TC_PASSES = 5
+
+
 def check_fused_is_grpo(torch, timer, fio):
     """The loss kernels at the train phase's largest packed shape: R = 32 x
     127 rows, d = 2048, V = 128256, hidden bf16, the tied f32 embedding read
-    in its own (V, d) layout. The kernels and their plain versions compute
-    in f32, so the bound counts f32 FMA work at 67 TFLOP/s."""
+    in its own (V, d) layout. The forward, dw and their plain versions
+    compute in f32, so their bound counts f32 FMA work at 67 TFLOP/s;
+    bwd_dh runs 5 bf16 passes on the tensor cores, bound at 989 TFLOP/s,
+    with its f32 FMA bound kept beside it."""
     R, d, V = TRAIN_B * TRAIN_S, 2048, 128256
     g = torch.Generator(device="cuda").manual_seed(15)
     h = torch.randn(R, d, device="cuda", generator=g).bfloat16()
@@ -770,8 +789,9 @@ def check_fused_is_grpo(torch, timer, fio):
     b_f = bound(2 * R * d + 4 * V * d + 3 * rows_io + 5 * rows_io, op,
                 PEAK_F32_FLOPS)
     # bwd_dh: recompute logits + dh = dl w^T; writes dl (R, V) and dh
-    b_dh = bound(2 * R * d + 4 * V * d + 7 * rows_io + 4 * R * V + 4 * R * d,
-                 2 * op, PEAK_F32_FLOPS)
+    dh_bytes = 2 * R * d + 4 * V * d + 7 * rows_io + 4 * R * V + 4 * R * d
+    b_dh = bound(dh_bytes, BWD_DH_TC_PASSES * op, PEAK_BF16_FLOPS)
+    b_dh_f32 = bound(dh_bytes, 2 * op, PEAK_F32_FLOPS)
     # bwd_dw: dw = h^T dl; reads h and dl, writes dw (V, d)
     b_dw = bound(2 * R * d + 4 * R * V + 4 * V * d, op, PEAK_F32_FLOPS)
     res = {
@@ -781,10 +801,13 @@ def check_fused_is_grpo(torch, timer, fio):
             library_what="logits GEMM only (f32 cuBLAS hidden @ w)",
             bound_ms=b_f[0], bound_by=b_f[1]),
         "fused_is_grpo_bwd_dh": dict(
-            shape=shape, max_abs_err=err_dh, rtol_of_max=rtol, ms=dh_ms,
+            shape=shape.replace("float32 products", "tensor cores, 5 bf16 "
+                                "passes of split f32 terms"),
+            max_abs_err=err_dh, rtol_of_max=rtol, ms=dh_ms,
             plain_ms=dh_plain_ms, library_ms=dh_gemm_ms,
             library_what="dh GEMM only (f32 cuBLAS dl @ w^T)",
-            bound_ms=b_dh[0], bound_by=b_dh[1]),
+            bound_ms=b_dh[0], bound_by=b_dh[1],
+            bound_f32_fma_ms=b_dh_f32[0], bound_f32_fma_by=b_dh_f32[1]),
         "fused_is_grpo_bwd_dw": dict(
             shape=shape, max_abs_err=err_dw, rtol_of_max=rtol, ms=dw_ms,
             plain_ms=dw_plain_ms, library_ms=dw_gemm_ms,
@@ -1011,12 +1034,15 @@ def profile_phase(torch, np, serve, cfg, chunks=2, phase="profile"):
     wall_ms, busy_ms, events = device_profile(torch, run)
     wall_ms /= chunks
     busy_ms /= chunks
+    decode_ms = sum(device_us(e) for e in events
+                    if "decode_kernel" in e.key) / 1e3 / chunks
     top = sorted(events, key=device_us, reverse=True)[:8]
     emit(phase, what=f"{chunks} decode chunks of "
          f"{serve.eng.ro.decode_chunk} steps, pool 16, {cfg.name} bf16, "
          f"kv_backend {serve.eng.ro.kv_backend}",
          live_slots=sum(t is not None for t in serve.eng.slots),
          wall_ms_per_chunk=wall_ms, device_busy_ms_per_chunk=busy_ms,
+         decode_attn_ms_per_chunk=decode_ms,
          device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
          top_device_ops=[{"name": e.key[:80], "count": e.count,
                           "ms_per_chunk": device_us(e) / 1e3 / chunks}
@@ -1386,6 +1412,29 @@ def check_results(np, results, cfg, n_requests):
     return ntok
 
 
+def tc_registers(build, libraries):
+    """ptxas's registers and spill bytes (stores, loads) of each tensor-core
+    kernel (a name ending in _tc) of ``libraries``, from the log kept beside
+    each built library."""
+    import re
+    out = {}
+    for name in libraries:
+        log = build.library_log(name)
+        for entry, body in re.findall(
+                r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
+                log, re.S):
+            short = re.search(r"(?:[a-z]+_)+tc(?=I)", entry)
+            regs = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", body)
+            if short and regs and spill:
+                key = f"{name}:{short.group(0)}"
+                out.setdefault(key, []).append(
+                    [int(regs.group(1)), int(spill.group(1)),
+                     int(spill.group(2))])
+    return out
+
+
 def reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -1395,12 +1444,12 @@ def reset_launches(kernels):
 
 def read_launches(kernels):
     """Launches of each kernel since reset_launches. Every phase that reads
-    them runs in bf16, so none may have gone to an f32 SIMT flash kernel:
-    the flash wrappers' launches are then all tensor-core launches."""
+    them runs in bf16, so none may have gone to an f32 SIMT flash or bwd_dh
+    kernel: those wrappers' launches are then all tensor-core launches."""
     simt = {name: fn.simt_launches for name, fn in kernels.items()
             if getattr(fn, "simt_launches", 0)}
     if simt:
-        fail(f"an f32 SIMT flash kernel ran on a bf16 path: {simt}")
+        fail(f"an f32 SIMT kernel ran on a bf16 path: {simt}")
     return {name: fn.launches for name, fn in kernels.items()}
 
 
@@ -1446,15 +1495,18 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 2. build; the flash libraries' bf16 kernels issue wgmma (HGMMA)
+    # 2. build; the flash libraries' bf16 kernels and the loss library's
+    # bf16 bwd_dh kernels issue wgmma (HGMMA)
     t0 = time.perf_counter()
     secs = build.build_all()
     hgmma = {name: sum("HGMMA" in x for x in build.sass(name).splitlines())
-             for name in ("flash_attn", "flash_attn_bwd")}
+             for name in ("flash_attn", "flash_attn_bwd", "fused_is_grpo")}
     emit("build", seconds=time.perf_counter() - t0, per_source=secs,
-         hgmma_instructions=hgmma)
+         hgmma_instructions=hgmma,
+         tensor_core_registers=tc_registers(build, hgmma))
     if not all(hgmma.values()):
-        fail(f"a flash library has no HGMMA (wgmma) instruction: {hgmma}")
+        fail(f"a tensor-core library has no HGMMA (wgmma) instruction: "
+             f"{hgmma}")
 
     # 3. kernel checks at the main path's shapes
     timer = Timer(torch)
@@ -1614,10 +1666,11 @@ def main() -> int:
     # 7. train at full width, over the dense cache with the fused loss, then
     # over the paged cache with the legacy loss (this slice's main path)
     train_launches = train_phase(torch, np, train_kernels)
-    # the f32 SIMT flash kernels' launches in the train phase (0: bf16)
+    # the f32 SIMT kernels' launches in the train phase (0: bf16)
     train_simt = {
         "flash_attn": flash_attn.flash_attention.simt_launches,
-        "flash_attn_bwd": flash_attn.flash_attention_bwd.simt_launches}
+        "flash_attn_bwd": flash_attn.flash_attention_bwd.simt_launches,
+        "fused_is_grpo_bwd_dh": fio.fused_is_grpo_bwd_dh_rows.simt_launches}
     train_paged_launches = train_paged_phase(torch, np, train_paged_kernels)
 
     # 8. kernels line: launches from the train phase, from train_paged for
@@ -1677,10 +1730,11 @@ def main() -> int:
                "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
         if name in train_simt:
-            # launches: the bf16 tensor-core kernel; the f32 SIMT apart
-            row.update(simt_launches=train_simt[name],
-                       library_err=c["library_err"],
-                       vs_library=c["vs_library"])
+            # launches: the bf16 tensor-core kernels; the f32 SIMT apart
+            row["simt_launches"] = train_simt[name]
+        for key in ("library_err", "vs_library", "bound_f32_fma_ms"):
+            if key in c:
+                row[key] = c[key]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -30,15 +30,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// Widens 16 loaded bytes (VEC = 16 / sizeof(T) elements) to float.
+template <typename T, int VEC>
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&out)[VEC]) {
+  static_assert(VEC * sizeof(T) == 16, "one 16-byte load");
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) out[i] = to_f(e[i]);
+}
+
 // Loads 16 bytes (VEC = 16 / sizeof(T) elements) and widens them to float.
 // The address must be 16-byte aligned; the wrappers check the base pointers.
 template <typename T, int VEC>
 __device__ __forceinline__ void load_vec16(const T* p, float (&out)[VEC]) {
-  static_assert(VEC * sizeof(T) == 16, "one 16-byte load");
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) out[i] = to_f(e[i]);
+  unpack16<T, VEC>(*reinterpret_cast<const uint4*>(p), out);
 }
 
 }  // namespace repro

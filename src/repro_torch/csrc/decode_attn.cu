@@ -14,14 +14,19 @@
 //
 // What bounds it on the H100: memory. Each live cache byte is used for ~REP
 // multiply-adds, far below the ~295 operations per byte at which the card
-// stops being memory-bound. The design therefore reads each live cache byte
-// exactly once: one block per (kv head, row), looping only up to cache_len, so
-// the bytes moved scale with sum(cache_len), not pool * max_len. The loop
-// itself (16-byte loads, two positions in flight per thread, online softmax,
-// warp and block combines) is decode_common.cuh's, shared with the paged
-// kernel. At the main path's pool of 16 and KV = 8 heads this is 128 blocks on
-// 132 SMs; no split over the length axis is used in this version (a split with
-// a second combine pass is the next step when the pool is smaller).
+// stops being memory-bound, so the kernel reads each live cache byte once
+// and the bytes moved scale with sum(cache_len), not pool * max_len. At the
+// serve pool of 16 rows a grid of one block per (kv head, row) is only 80
+// (hymba, KV = 5) to 128 (llama, KV = 8) blocks on 132 SMs, each walking up
+// to 640 positions in dependent steps: latency, not bytes, set the time. So
+// the grid is split over the cache length as well (flash-decoding): one block
+// of 8 warps per (chunk of 128 positions, kv head, row), 400-640 blocks at
+// max_len 640, of which those over the live range each wait for one round
+// trip of loads; the merge of a row's chunk partials rides in the same
+// launch (decode_common.cuh, shared with the paged kernel). Chunks of 32 to
+// 256 positions under 2 to 16 warps timed within a few percent of one
+// another at the serve shapes (NVIDIA H100 80GB HBM3, 700 W): the time is a
+// fixed dependent chain, not the grid's shape.
 #include "decode_common.cuh"
 
 namespace {
@@ -39,62 +44,79 @@ __global__ void __launch_bounds__(repro::kDecodeWarps * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, const int* __restrict__ lens,
               T* __restrict__ o, int L, int KV, int window, float softcap,
-              float scale) {
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
+              float scale, repro::DecodeSplit ws) {
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
   const int len = min(lens[b], L);
   const int lo = window > 0 ? max(0, len - window) : 0;
   const long long stride = (long long)KV * HD;
   const DenseRows rows{(long long)b * L * stride + (long long)g * HD, stride};
   const size_t head = ((size_t)b * KV * REP + g * REP) * HD;
   repro::decode_attend<T, HD, REP>(q + head, kc, vc, rows, lo, len, softcap,
-                                   scale, o + head);
+                                   scale, o + head, ws, b * KV + g);
 }
 
+struct Args {
+  const void *q, *k, *v;
+  const int* lens;
+  void* o;
+  int B, L, KV, window;
+  float softcap, scale;
+  repro::DecodeSplit ws;
+  cudaStream_t stream;
+};
+
 template <typename T, int HD, int REP>
-void launch(const void* q, const void* k, const void* v, const int* lens,
-            void* o, int B, int L, int KV, int window, float softcap,
-            float scale, cudaStream_t stream) {
-  dim3 grid(KV, B);
-  decode_kernel<T, HD, REP><<<grid, repro::kDecodeWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lens, static_cast<T*>(o), L, KV, window,
-      softcap, scale);
+void launch(const Args& a) {
+  dim3 grid(a.ws.chunks, a.KV, a.B);
+  decode_kernel<T, HD, REP><<<grid, repro::kDecodeWarps * 32, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.lens, static_cast<T*>(a.o), a.L, a.KV,
+      a.window, a.softcap, a.scale, a.ws);
 }
 
 template <typename T, int HD>
-bool dispatch_rep(int rep, const void* q, const void* k, const void* v,
-                  const int* lens, void* o, int B, int L, int KV, int window,
-                  float softcap, float scale, cudaStream_t s) {
+bool dispatch_rep(int rep, const Args& a) {
   switch (rep) {
-    case 1: launch<T, HD, 1>(q, k, v, lens, o, B, L, KV, window, softcap, scale, s); return true;
-    case 2: launch<T, HD, 2>(q, k, v, lens, o, B, L, KV, window, softcap, scale, s); return true;
-    case 3: launch<T, HD, 3>(q, k, v, lens, o, B, L, KV, window, softcap, scale, s); return true;
-    case 4: launch<T, HD, 4>(q, k, v, lens, o, B, L, KV, window, softcap, scale, s); return true;
-    case 5: launch<T, HD, 5>(q, k, v, lens, o, B, L, KV, window, softcap, scale, s); return true;
+    case 1: launch<T, HD, 1>(a); return true;
+    case 2: launch<T, HD, 2>(a); return true;
+    case 3: launch<T, HD, 3>(a); return true;
+    case 4: launch<T, HD, 4>(a); return true;
+    case 5: launch<T, HD, 5>(a); return true;
     default: return false;
   }
 }
 
 }  // namespace
 
+// ws: the split workspace, ws_floats float32 (acc, then (max, sum) pairs);
+// tickets: B * KV int32 counters, zero between calls (decode_common.cuh)
 extern "C" int decode_attn_fwd(const void* q, const void* k_cache,
                                const void* v_cache, const void* cache_len,
-                               void* o, int B, int L, int H, int KV, int hd,
-                               int window, float softcap, float scale,
+                               void* o, void* ws, long long ws_floats,
+                               void* tickets, int B, int L, int H, int KV,
+                               int hd, int window, float softcap, float scale,
                                int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(cache_len);
+  if (KV < 1 || H % KV != 0 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (L + repro::kDecodeChunk - 1) / repro::kDecodeChunk;
+  const long long slots = (long long)B * H * chunks;
+  if (ws_floats < slots * (hd + 2)) return static_cast<int>(cudaErrorInvalidValue);
+  float* acc = static_cast<float*>(ws);
+  const repro::DecodeSplit split{acc, reinterpret_cast<float2*>(acc + slots * hd),
+                                 static_cast<int*>(tickets), chunks};
+  const Args a{q, k_cache, v_cache, static_cast<const int*>(cache_len), o, B,
+               L, KV, window, softcap, scale, split,
+               static_cast<cudaStream_t>(stream)};
   const int rep = H / KV;
   bool ok = false;
   if (dtype == repro::kBFloat16 && hd == 64)
-    ok = dispatch_rep<__nv_bfloat16, 64>(rep, q, k_cache, v_cache, lens, o, B, L, KV, window, softcap, scale, s);
+    ok = dispatch_rep<__nv_bfloat16, 64>(rep, a);
   else if (dtype == repro::kFloat32 && hd == 64)
-    ok = dispatch_rep<float, 64>(rep, q, k_cache, v_cache, lens, o, B, L, KV, window, softcap, scale, s);
+    ok = dispatch_rep<float, 64>(rep, a);
   else if (dtype == repro::kBFloat16 && hd == 32)
-    ok = dispatch_rep<__nv_bfloat16, 32>(rep, q, k_cache, v_cache, lens, o, B, L, KV, window, softcap, scale, s);
+    ok = dispatch_rep<__nv_bfloat16, 32>(rep, a);
   else if (dtype == repro::kFloat32 && hd == 32)
-    ok = dispatch_rep<float, 32>(rep, q, k_cache, v_cache, lens, o, B, L, KV, window, softcap, scale, s);
+    ok = dispatch_rep<float, 32>(rep, a);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

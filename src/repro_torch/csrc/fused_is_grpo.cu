@@ -12,9 +12,8 @@
 // embedding is read in its own (V, d) layout (w_stride_k 1, w_stride_v d)
 // and an untied lm_head in (d, V) (w_stride_k V, w_stride_v 1) — no
 // transposed copy of a 1 GB float32 matrix per step. w is float32 (the
-// master weights) and the logits product reads it as float32, as the
-// Pallas kernel does: h is widened to float32 and every product and sum is
-// float32 (no tensor cores in this first version).
+// master weights), and every product keeps float32 accuracy, as the Pallas
+// kernel's (h widened to float32, w float32).
 //
 // Also replaces the forward-only Pallas TPU kernel
 //   src/repro/kernels/fused_logprob/fused_logprob.py::fused_logprob_rows
@@ -33,10 +32,19 @@
 //     Kernel 2, one thread per row: merges the splits' partials, then
 //     logp = g - lse, E[logit] = u / l, entropy = lse - E[logit], and the
 //     per-token objective of core/grpo.per_token_objective.
-//   fused_is_grpo_bwd_dh  recomputes each logits tile and writes
-//     dl = a (onehot - p) - e p (logit - E[logit]) (times the softcap
-//     chain 1 - (logit/cap)^2) for a chunk of rows to a float32 (rows, V)
-//     scratch, then dh = dl w^T (tiled GEMM, float32 accumulation).
+//   fused_is_grpo_bwd_dh_tc  (bfloat16 h, the main path) two tensor-core
+//     kernels on split_gemm.cuh's core: bwd_dl_tc recomputes each 128x128
+//     logits tile as h w_hi + h w_mid (wgmma, f32 sums) and applies the dl
+//     epilogue to the accumulator in registers,
+//     dl = a (onehot - p) - e p (logit - E[logit]) (times the softcap chain
+//     1 - (logit/cap)^2), written float32 to the (rows, V) scratch that
+//     bwd_dw reads; bwd_dh_tc computes dh = dl w^T as dl_hi w_hi + dl_hi
+//     w_mid + dl_mid w_hi. The epilogue stays apart from dh: dh's rows are
+//     d = 2048 wide, too wide for a row tile's accumulator in registers, and
+//     bwd_dw needs dl anyway. Error model: split_gemm.cuh.
+//   fused_is_grpo_bwd_dh  (float32 h) the same two steps on the f32 FMA
+//     pipes: the logits recompute and dl, then dh = dl w^T (tiled SIMT GEMM,
+//     float32 accumulation).
 //   fused_is_grpo_bwd_dw  dw = h^T dl for the same chunk, written in w's
 //     own layout (the tied embedding's gradient comes back as (V, d)),
 //     accumulated over row chunks.
@@ -44,19 +52,22 @@
 //     legacy fused_loss=False loss. The IS-GRPO forward without its
 //     epilogue: the same kernel 1 (its logit-weighted sumexp goes unused),
 //     then a combine kernel that writes logp and lse only. Its gradient is
-//     dl = g (onehot - p), which is fused_is_grpo_bwd_dh/_dw with a = g,
-//     e = 0: no third GEMM.
+//     dl = g (onehot - p): the bwd_dh and bwd_dw entry points with a = g,
+//     e = 0, and no third GEMM.
 // So the backward does one logits recompute + dh + dw = 6 R d V operations
 // where the TPU kernels recompute the logits in each of their two kernels.
 // A row with a = e = 0 (prompt and padding positions) has dl = 0 exactly
 // and adds exactly zero to dh and dw.
 //
-// What bounds it on the H100: 2 R d V operations forward and 6 R d V
-// backward against O(V d + R d) bytes — far above the card's operations per
-// byte, so arithmetic. In float32 on the FMA pipes the bound is 67 TFLOP/s;
-// this simple tiling (no double buffering, no tensor cores) reaches a
-// fraction of it. wgmma with bf16 inputs is the later fast version.
+// What bounds it on the H100: 2 R d V operations per product against
+// O(V d + R d) bytes (plus the R V dl scratch) — far above the card's
+// operations per byte, so arithmetic. bwd_dh_tc does 5 bf16 passes of
+// 2 R d V on the tensor cores (989 TFLOP/s dense); the SIMT kernels
+// (forward, dw, log-prob, the f32-h dh) run on the 67 TFLOP/s f32 FMA pipes
+// with a simple tiling (no double buffering) that reaches a fraction of it;
+// they are next to move onto the split GEMM core.
 #include "common.cuh"
+#include "split_gemm.cuh"
 
 namespace {
 
@@ -130,6 +141,21 @@ __device__ __forceinline__ void gemm_tile(const Mat<TA> A, const Mat<TB> B,
 
 __device__ __forceinline__ float capped(float x, float softcap) {
   return softcap > 0.f ? tanhf(x / softcap) * softcap : x;
+}
+
+// dl of one logit from its raw product: a (onehot - p) - e p (x - ebar),
+// times the softcap chain 1 - (x / cap)^2
+__device__ __forceinline__ float dlogit(float raw, bool hit, float L,
+                                        float eb, float a, float e,
+                                        float softcap) {
+  const float x = capped(raw, softcap);
+  const float p = expf(x - L);
+  float v = a * ((hit ? 1.f : 0.f) - p) - e * p * (x - eb);
+  if (softcap > 0.f) {
+    const float c = x / softcap;
+    v *= 1.f - c * c;
+  }
+  return v;
 }
 
 // The 16 threads sharing a row of the output tile are 16 consecutive lanes
@@ -335,15 +361,8 @@ bwd_dl_kernel(const TH* __restrict__ h, const float* __restrict__ w,
     for (int j = 0; j < TN; ++j) {
       const int col = n0 + tx * TN + j;
       if (col >= V) continue;
-      const float x = capped(acc[i][j], softcap);
-      const float p = expf(x - L);
-      const float hit = col == t ? 1.f : 0.f;
-      float v = a * (hit - p) - e * p * (x - eb);
-      if (softcap > 0.f) {
-        const float c = x / softcap;
-        v *= 1.f - c * c;
-      }
-      dl[(size_t)row * V + col] = v;
+      dl[(size_t)row * V + col] =
+          dlogit(acc[i][j], col == t, L, eb, a, e, softcap);
     }
   }
 }
@@ -380,6 +399,135 @@ gemm_kernel(const TA* __restrict__ a, long long a_si, long long a_sj,
 
 inline dim3 tiles(int M, int N) {
   return dim3((M + BM - 1) / BM, (N + BN - 1) / BN);
+}
+
+// ---- backward on the tensor cores (bfloat16 h) ---------------------------
+
+namespace sg = repro::sg;
+
+// this thread's accumulator rows and columns (wgmma m64n64 f32 layout):
+// register i of half h is row row0 + 8 ((i / 2) % 2), column col0 + 64 h +
+// 8 (i / 4) + i % 2
+struct Frag {
+  int row0, col0;
+  __device__ Frag(int m0, int n0) {
+    const int g = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    row0 = m0 + 64 * g + 16 * warp + lane / 4;
+    col0 = n0 + 2 * (lane % 4);
+  }
+};
+
+__device__ __forceinline__ uint32_t dyn_smem() {
+  extern __shared__ uint8_t smem_raw[];
+  return (repro::tc::smem_addr(smem_raw) + 1023) & ~1023u;
+}
+
+// logits tile = h w (B_KMAJOR: w's rows are the vocabulary, the tied (V, d)
+// embedding), then dl in registers, written to dl (R, V). Two blocks per SM
+// (128 registers, a few spilled) hide each other's loads: the whole bwd_dh
+// ran ~7% faster than with one block of ~170 registers.
+template <bool B_KMAJOR>
+__global__ void __launch_bounds__(sg::NT, 2)
+bwd_dl_tc(const sg::View<__nv_bfloat16> H, const sg::View<float> W,
+          const int* __restrict__ targets, const float* __restrict__ lse,
+          const float* __restrict__ ebar, const float* __restrict__ ca,
+          const float* __restrict__ ce, float* __restrict__ dl, int R, int V,
+          float softcap) {
+  const int m0 = blockIdx.x * sg::BM, n0 = blockIdx.y * sg::BN;
+  float acc[2][32];
+  sg::gemm_tile<__nv_bfloat16, B_KMAJOR, false>(H, W, m0, n0, H.cols, dyn_smem(),
+                                         acc);
+  const Frag f(m0, n0);
+  const bool pairs = V % 2 == 0;  // two columns in one 8-byte store
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = f.row0 + 8 * r;
+    if (row >= R) continue;
+    const float L = lse[row], eb = ebar[row], a = ca[row], e = ce[row];
+    const int t = targets[row];
+    float* out = dl + (size_t)row * V;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * r;
+        const int col = f.col0 + 64 * h + 8 * j;
+        if (col >= V) continue;
+        const float v0 = dlogit(acc[h][i], col == t, L, eb, a, e, softcap);
+        const float v1 = dlogit(acc[h][i + 1], col + 1 == t, L, eb, a, e,
+                                softcap);
+        if (pairs) {
+          *reinterpret_cast<float2*>(out + col) = make_float2(v0, v1);
+        } else {
+          out[col] = v0;
+          if (col + 1 < V) out[col + 1] = v1;
+        }
+      }
+  }
+}
+
+// dh tile = dl w^T (B_KMAJOR: w's rows are d, the untied (d, V) lm_head)
+template <bool B_KMAJOR>
+__global__ void __launch_bounds__(sg::NT, 1)
+bwd_dh_tc(const sg::View<float> DL, const sg::View<float> W,
+          float* __restrict__ dh, int R, int d) {
+  const int m0 = blockIdx.x * sg::BM, n0 = blockIdx.y * sg::BN;
+  float acc[2][32];
+  sg::gemm_tile<float, B_KMAJOR, true>(DL, W, m0, n0, DL.cols, dyn_smem(), acc);
+  const Frag f(m0, n0);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = f.row0 + 8 * r;
+    if (row >= R) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * r;
+        const int col = f.col0 + 64 * h + 8 * j;
+        if (col < d)  // d is a multiple of 8
+          *reinterpret_cast<float2*>(dh + (size_t)row * d + col) =
+              make_float2(acc[h][i], acc[h][i + 1]);
+      }
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// 16-byte loads of a row-major f32 matrix: stride, row length and pointer
+// all multiples of 4 elements
+inline int vec4(const void* p, long long stride, int cols) {
+  return stride % 4 == 0 && cols % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <bool TIED>
+cudaError_t launch_dh_tc(const __nv_bfloat16* h, const sg::View<float> W,
+                         const int* targets, const float* lse,
+                         const float* ebar, const float* a, const float* e,
+                         float* dl, float* dh, int R, int d, int V,
+                         float softcap, cudaStream_t s) {
+  constexpr int dl_bytes = sg::Layout<__nv_bfloat16>::kBytes;
+  constexpr int dh_bytes = sg::Layout<float>::kBytes;
+  static const cudaError_t attr =
+      allow_smem(bwd_dl_tc<TIED>, dl_bytes) != cudaSuccess
+          ? cudaErrorInvalidValue
+          : allow_smem(bwd_dh_tc<!TIED>, dh_bytes);
+  if (attr != cudaSuccess) return attr;
+  const sg::View<__nv_bfloat16> H{h, d, R, d, 1};
+  // the logits read w with the vocabulary as n: K-major when tied
+  bwd_dl_tc<TIED><<<tiles(R, V), sg::NT, dl_bytes, s>>>(
+      H, W, targets, lse, ebar, a, e, dl, R, V, softcap);
+  const sg::View<float> DL{dl, V, R, V, vec4(dl, V, V)};
+  // dh reads w with d as n: MN-major when tied
+  bwd_dh_tc<!TIED><<<tiles(R, d), sg::NT, dh_bytes, s>>>(DL, W, dh, R, d);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -429,6 +577,39 @@ extern "C" int fused_is_grpo_bwd_dh(const void* h, const void* w,
   // dh (R x d) = dl (R x V) w^T: B(k=v, n=j) = w(j, v)
   gemm_kernel<float, float><<<tiles(R, d), NT, 0, s>>>(
       dlf, V, 1, wf, w_sv, w_sk, static_cast<float*>(dh), d, 1, R, d, V, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bfloat16-h backward on the tensor cores (two launches): writes dl
+// (R, V) and dh (R, d), both float32. d must be a multiple of 8.
+extern "C" int fused_is_grpo_bwd_dh_tc(const void* h, const void* w,
+                                       const void* targets, const void* lse,
+                                       const void* ebar, const void* a,
+                                       const void* e, void* dl, void* dh,
+                                       int R, int d, int V, int w_sk,
+                                       int w_sv, float softcap,
+                                       void* stream) {
+  if (d % 8 != 0 || (w_sk != 1 && w_sv != 1) || R < 1 || V < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* wf = static_cast<const float*>(w);
+  const bool tied = w_sk == 1;  // the (V, d) embedding: row v at v * w_sv
+  const sg::View<float> W =
+      tied ? sg::View<float>{wf, w_sv, V, d, vec4(wf, w_sv, d)}
+           : sg::View<float>{wf, w_sk, d, V, vec4(wf, w_sk, V)};
+  const auto* hb = static_cast<const __nv_bfloat16*>(h);
+  const auto* t = static_cast<const int*>(targets);
+  const auto *L = static_cast<const float*>(lse),
+             *eb = static_cast<const float*>(ebar),
+             *ca = static_cast<const float*>(a),
+             *ce = static_cast<const float*>(e);
+  float *dlf = static_cast<float*>(dl), *dhf = static_cast<float*>(dh);
+  const cudaError_t err =
+      tied ? launch_dh_tc<true>(hb, W, t, L, eb, ca, ce, dlf, dhf, R, d, V,
+                                softcap, s)
+           : launch_dh_tc<false>(hb, W, t, L, eb, ca, ce, dlf, dhf, R, d, V,
+                                 softcap, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,10 +15,12 @@
 // The block table is (B, max_pages) int32; an entry outside [0, NP) is the
 // sentinel of an unmapped page. q and out are (B, 1, H, hd).
 //
-// One block per (kv head, row); the loop over positions is decode_common.cuh's,
-// shared with the dense kernel. The TPU kernel's sequential page grid axis
-// becomes that loop: it walks only [max(0, cache_len - window), cache_len),
-// looking each position's page up in the row's block table, so the bytes read
+// One block per (chunk of 128 positions, kv head, row), with the merge of a
+// row's chunk partials in the same launch: decode_common.cuh's loop, shared
+// with the dense kernel, so on the same live K/V the two give the same bits.
+// The TPU kernel's sequential page grid axis becomes the chunk grid axis:
+// only the chunks over [max(0, cache_len - window), cache_len) do work, each
+// looking its positions' pages up in the row's block table, so the bytes read
 // grow with sum(min(cache_len, window)), never with NP or max_pages. A sentinel
 // entry is never dereferenced: inside the live range it reads as zeros, as
 // paged_gather_kv fills it (the allocator never produces one there); the Pallas
@@ -48,9 +50,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ bt,
                     const int* __restrict__ lens, T* __restrict__ o, int NP,
                     int shift, int max_pages, int KV, int window,
-                    float softcap, float scale) {
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
+                    float softcap, float scale, repro::DecodeSplit ws) {
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
   const int len = min(lens[b], max_pages << shift);
   const int lo = window > 0 ? max(0, len - window) : 0;
   const PagedRows rows{bt + (size_t)b * max_pages, NP, shift,
@@ -58,7 +60,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        (long long)g * HD};
   const size_t head = ((size_t)b * KV * REP + g * REP) * HD;
   repro::decode_attend<T, HD, REP>(q + head, kp, vp, rows, lo, len, softcap,
-                                   scale, o + head);
+                                   scale, o + head, ws, b * KV + g);
 }
 
 struct Args {
@@ -67,17 +69,18 @@ struct Args {
   void* o;
   int B, NP, shift, max_pages, KV, window;
   float softcap, scale;
+  repro::DecodeSplit ws;
   cudaStream_t stream;
 };
 
 template <typename T, int HD, int REP>
 void launch(const Args& a) {
-  dim3 grid(a.KV, a.B);
+  dim3 grid(a.ws.chunks, a.KV, a.B);
   paged_decode_kernel<T, HD, REP><<<grid, repro::kDecodeWarps * 32, 0,
                                     a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.bt, a.lens, static_cast<T*>(a.o), a.NP,
-      a.shift, a.max_pages, a.KV, a.window, a.softcap, a.scale);
+      a.shift, a.max_pages, a.KV, a.window, a.softcap, a.scale, a.ws);
 }
 
 template <typename T, int HD>
@@ -94,23 +97,32 @@ bool dispatch_rep(int rep, const Args& a) {
 
 }  // namespace
 
+// ws, ws_floats, tickets: the split workspace, as decode_attn_fwd's
 extern "C" int paged_decode_attn_fwd(const void* q, const void* k_pool,
                                      const void* v_pool,
                                      const void* block_table,
-                                     const void* cache_len, void* o, int B,
-                                     int NP, int page_size, int max_pages,
-                                     int H, int KV, int hd, int window,
-                                     float softcap, float scale, int dtype,
-                                     void* stream) {
+                                     const void* cache_len, void* o, void* ws,
+                                     long long ws_floats, void* tickets,
+                                     int B, int NP, int page_size,
+                                     int max_pages, int H, int KV, int hd,
+                                     int window, float softcap, float scale,
+                                     int dtype, void* stream) {
   int shift = -1;
   if (page_size == 8) shift = 3;
   else if (page_size == 16) shift = 4;
   else if (page_size == 32) shift = 5;
-  if (shift < 0 || KV < 1 || H % KV != 0)
+  if (shift < 0 || KV < 1 || H % KV != 0 || max_pages < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = ((max_pages << shift) + repro::kDecodeChunk - 1) /
+                     repro::kDecodeChunk;
+  const long long slots = (long long)B * H * chunks;
+  if (ws_floats < slots * (hd + 2)) return static_cast<int>(cudaErrorInvalidValue);
+  float* acc = static_cast<float*>(ws);
+  const repro::DecodeSplit split{acc, reinterpret_cast<float2*>(acc + slots * hd),
+                                 static_cast<int*>(tickets), chunks};
   const Args a{q, k_pool, v_pool, static_cast<const int*>(block_table),
                static_cast<const int*>(cache_len), o, B, NP, shift,
-               max_pages, KV, window, softcap, scale,
+               max_pages, KV, window, softcap, scale, split,
                static_cast<cudaStream_t>(stream)};
   const int rep = H / KV;
   bool ok = false;

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LL = ctypes.c_longlong
 
 # C entry points and their argument types, per kernel source
 KERNELS = {
@@ -37,13 +38,16 @@ KERNELS = {
     "flash_attn_bwd": {"flash_attn_bwd":
                        (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                         F, F, I, P)},
+    # q, k_cache, v_cache, cache_len, out, workspace, its float32 count,
+    # tickets, B, L, H, KV, hd, window, softcap, scale, dtype, stream
     "decode_attn": {"decode_attn_fwd":
-                    (P, P, P, P, P, I, I, I, I, I, I, F, F, I, P)},
-    # q, k_pool, v_pool, block_table, cache_len, out, B, NP, page_size,
-    # max_pages, H, KV, hd, window, softcap, scale, dtype, stream
+                    (P, P, P, P, P, P, LL, P, I, I, I, I, I, I, F, F, I, P)},
+    # q, k_pool, v_pool, block_table, cache_len, out, workspace, its float32
+    # count, tickets, B, NP, page_size, max_pages, H, KV, hd, window,
+    # softcap, scale, dtype, stream
     "paged_decode_attn": {"paged_decode_attn_fwd":
-                          (P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, I,
-                           P)},
+                          (P, P, P, P, P, P, P, LL, P, I, I, I, I, I, I, I,
+                           I, F, F, I, P)},
     "fused_sample": {"fused_sample_rows":
                      (P, P, P, P, I, I, F, I, F, I, P)},
     "fused_is_grpo": {
@@ -56,6 +60,9 @@ KERNELS = {
         # w_stride_v, h_dtype, softcap, stream
         "fused_is_grpo_bwd_dh": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                  F, P),
+        # the same without h_dtype: bf16 h, on the tensor cores
+        "fused_is_grpo_bwd_dh_tc": (P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                    F, P),
         # h, dl, dw, R, d, V, dw_stride_k, dw_stride_v, h_dtype, accumulate,
         # stream
         "fused_is_grpo_bwd_dw": (P, P, P, I, I, I, I, I, I, I, P),
@@ -140,6 +147,12 @@ def library(name: str) -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def library_log(name: str) -> str:
+    """nvcc's output for the built library of kernel source ``name``: with
+    ``-Xptxas -v``, each kernel's registers, spills and shared memory."""
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def sass(name: str) -> str:

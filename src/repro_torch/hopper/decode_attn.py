@@ -5,6 +5,12 @@ hand-written CUDA kernel ``csrc/decode_attn.cu`` (the port of the Pallas
 On a CPU tensor the wrapper runs the plain PyTorch version,
 :func:`decode_attention_plain` (= ``models.attention.decode_attention``); on a
 CUDA tensor it launches the kernel or raises.
+
+The kernel splits each row over chunks of :data:`DECODE_CHUNK` positions and
+merges the chunks' partials in the same launch; :func:`split_workspace`
+holds the float32 partials and the per-(row, kv head) ticket counters it
+needs, one set per device and stream, grown when a call needs more and never
+synchronised with the host. The paged kernel shares it.
 """
 from __future__ import annotations
 
@@ -15,6 +21,26 @@ from repro_torch.hopper import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 _REPS = (1, 2, 3, 4, 5)         # the GQA ratios csrc/decode_attn.cu dispatches
+DECODE_CHUNK = 128              # kDecodeChunk of csrc/decode_common.cuh
+_WORKSPACES = {}
+
+
+def split_workspace(device, B, H, KV, hd, length):
+    """(partials, tickets) for a split decode of B rows of H query heads
+    over KV heads and ``length`` cache positions: float32 room for
+    B * H * ceil(length / DECODE_CHUNK) partials of hd + 2 values, and B *
+    KV int32 counters, zero between calls (the kernel resets them). Kept per
+    (device, stream): calls on one stream are ordered, so they can share
+    it."""
+    floats = B * H * -(-length // DECODE_CHUNK) * (hd + 2)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    acc, tickets = _WORKSPACES.get(key, (None, None))
+    if acc is None or acc.numel() < floats:
+        acc = torch.empty(floats, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < B * KV:
+        tickets = torch.zeros(B * KV, dtype=torch.int32, device=device)
+    _WORKSPACES[key] = (acc, tickets)
+    return acc, tickets
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len, *, window=0,
@@ -78,9 +104,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
     out = torch.empty_like(q)
     lib = build.library("decode_attn")
     with torch.cuda.device(q.device):
+        ws, tickets = split_workspace(q.device, B, H, KV, hd, L)
         err = lib.decode_attn_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cache_len.data_ptr(), out.data_ptr(), B, L, H, KV, hd,
+            cache_len.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(),
+            tickets.data_ptr(), B, L, H, KV, hd,
             int(window), float(attn_softcap), float(scale), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "decode_attn_fwd")

@@ -232,25 +232,40 @@ def fused_is_grpo_bwd_dh_rows(hidden, w, targets, lse, ebar, a, e, *,
     """The ``bwd_dh`` entry point on one chunk of rows: recompute the
     logits, write dl, then dh = dl w^T. Returns (dl (R, V), dh (R, d)),
     both float32. CUDA tensors only: on the CPU the backward runs
-    :func:`bwd_plain` through :func:`fused_is_grpo_bwd_rows`."""
+    :func:`bwd_plain` through :func:`fused_is_grpo_bwd_rows`.
+
+    bfloat16 hidden (the main path) runs the tensor-core kernels, which
+    take d a multiple of 8; float32 hidden the SIMT kernels on the f32 FMA
+    pipes, counted also in ``simt_launches``."""
     _check_rows("fused_is_grpo_bwd_dh", hidden, w, targets, lse, ebar, a, e)
     w_sk, w_sv = _check_kernel("fused_is_grpo_bwd_dh", hidden, w)
     R, d = hidden.shape
     V = w.shape[1]
+    tc = hidden.dtype == torch.bfloat16
+    if tc and (d % 8 or hidden.data_ptr() % 16):
+        raise ValueError(f"fused_is_grpo_bwd_dh tensor-core kernels take a "
+                         f"16-byte aligned bf16 hidden with d a multiple of "
+                         f"8; got d={d}")
     tgt = targets.to(torch.int32).contiguous()
     lse, ebar, a, e = _rows32(lse, ebar, a, e)
     dl = torch.empty(R, V, dtype=torch.float32, device=hidden.device)
     dh = torch.empty(R, d, dtype=torch.float32, device=hidden.device)
     lib = build.library("fused_is_grpo")
-    with torch.cuda.device(hidden.device):
-        err = lib.fused_is_grpo_bwd_dh(
-            hidden.data_ptr(), w.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
+    args = [hidden.data_ptr(), w.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
             ebar.data_ptr(), a.data_ptr(), e.data_ptr(), dl.data_ptr(),
-            dh.data_ptr(), R, d, V, w_sk, w_sv, _H_DTYPES[hidden.dtype],
-            float(logit_softcap),
-            torch.cuda.current_stream(hidden.device).cuda_stream)
+            dh.data_ptr(), R, d, V, w_sk, w_sv]
+    with torch.cuda.device(hidden.device):
+        stream = torch.cuda.current_stream(hidden.device).cuda_stream
+        if tc:
+            err = lib.fused_is_grpo_bwd_dh_tc(*args, float(logit_softcap),
+                                              stream)
+        else:
+            err = lib.fused_is_grpo_bwd_dh(*args, _H_DTYPES[hidden.dtype],
+                                           float(logit_softcap), stream)
     build.check(err, "fused_is_grpo_bwd_dh")
     fused_is_grpo_bwd_dh_rows.launches += 1
+    if not tc:
+        fused_is_grpo_bwd_dh_rows.simt_launches += 1
     return dl, dh
 
 
@@ -370,4 +385,5 @@ def fused_is_grpo(hidden, w, targets, behaviour, adv, *,
 
 fused_is_grpo_fwd_rows.launches = 0
 fused_is_grpo_bwd_dh_rows.launches = 0
+fused_is_grpo_bwd_dh_rows.simt_launches = 0
 fused_is_grpo_bwd_dw_rows.launches = 0

@@ -12,13 +12,16 @@ kernel reads the model layout instead. The block table is
 On a CPU tensor the wrapper runs the plain PyTorch version,
 :func:`paged_decode_attention_plain` (``paged_gather_kv`` then
 ``decode_attention``, the oracle of ``kernels/paged_decode_attn/ref.py``);
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel or raises. The kernel runs the
+dense kernel's loop, split over chunks of positions, with the same
+workspace (``decode_attn.split_workspace``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.hopper import build
+from repro_torch.hopper.decode_attn import split_workspace
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
@@ -102,12 +105,15 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, page_size,
     if scale <= 0.0:
         scale = hd ** -0.5
     out = torch.empty_like(q)
+    max_pages = block_table.shape[1]
     lib = build.library("paged_decode_attn")
     with torch.cuda.device(q.device):
+        ws, tickets = split_workspace(q.device, B, H, KV, hd, max_pages * ps)
         err = lib.paged_decode_attn_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), cache_len.data_ptr(), out.data_ptr(), B,
-            NP, ps, block_table.shape[1], H, KV, hd, int(window),
+            block_table.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), ws.numel(), tickets.data_ptr(), B, NP, ps,
+            max_pages, H, KV, hd, int(window),
             float(attn_softcap), float(scale), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode_attn_fwd")

@@ -17,8 +17,14 @@ call to call. The fused IS+GRPO kernels compute
 in float32 like their plain versions: per-row outputs atol 1e-4, dh/dw
 atol 1e-4 relative to their largest element (sums over V or over rows in
 another order), 1e-2 for a bf16 dh (one bf16 ulp). The paged decode
-kernel: as the dense one (float32 1e-4, bfloat16 2e-2), and on an identity
-block table bit-equal to the dense kernel, whose loop it shares. The fused
+kernel: as the dense one (float32 1e-4, bfloat16 2e-2), and bit-equal to the
+dense kernel, whose loop it shares: both split each row into chunks of 128
+positions at fixed positions and merge them in chunk order, so lengths and
+windows on both sides of chunk boundaries give the same bits from either
+cache, for pages of 8, 16 and 32, and from call to call. The tensor-core
+bwd_dh (bf16 hidden; f32 hidden runs the SIMT kernels): dl and dh within
+1e-4 of their largest element of the plain version's, zero rows exactly
+zero, repeats bit-equal. The fused
 log-prob: logp and lse atol 1e-4; its gradient (the IS-GRPO backward
 kernels with e = 0) within 1e-4 of the largest element of autograd's
 through the plain version. The scan kernels (selective scan, WKV6):
@@ -52,6 +58,9 @@ def dev():
 
 def _gen(seed):
     return torch.Generator(device="cuda").manual_seed(seed)
+
+
+ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
@@ -349,6 +358,57 @@ def test_fused_is_grpo_bwd_row_chunks(dev, monkeypatch):
 
 
 
+BWD_DH_R = [1, 100, 4064]
+BWD_DH_V = [5000, 32001, 65536, 128256]
+
+
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "lm_head"])
+@pytest.mark.parametrize("V", BWD_DH_V)
+@pytest.mark.parametrize("R", BWD_DH_R)
+def test_fused_is_grpo_bwd_dh_entry(dev, R, V, tied, cap, h_dtype):
+    """The bwd_dh entry point against its plain version at ragged row and
+    vocabulary tails (R = 4064 = 31.75 x 128; V = 32001): dl and dh within
+    1e-4 of their largest element; rows with a = e = 0 give exactly zero
+    dh; a second call gives the same bits. bf16 hidden runs the tensor-core
+    kernels, f32 hidden the SIMT ones (``simt_launches``)."""
+    d = 256
+    h, w, t, b, _ = _loss_inputs(dev, R, d, V, h_dtype, tied, seed=R + V)
+    _, _, _, lse, ent = fio.fwd_plain(h, w, t, b, b, logit_softcap=cap)
+    g = _gen(10)
+    ca = torch.randn(R, device=dev, generator=g)
+    ce = torch.randn(R, device=dev, generator=g) * 0.1
+    zero = R // 4
+    ca[:zero] = 0.0
+    ce[:zero] = 0.0
+    ebar = lse - ent
+    fn = fio.fused_is_grpo_bwd_dh_rows
+    n0, s0 = fn.launches, fn.simt_launches
+    dl, dh = fn(h, w, t, lse, ebar, ca, ce, logit_softcap=cap)
+    dl2, dh2 = fn(h, w, t, lse, ebar, ca, ce, logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 2
+    assert fn.simt_launches == s0 + (2 if h_dtype == torch.float32 else 0)
+    assert torch.equal(dl, dl2) and torch.equal(dh, dh2)
+    assert torch.count_nonzero(dh[:zero]) == 0
+    rdl, rdh = fio.bwd_dh_plain(h, w, t, lse, ebar, ca, ce,
+                                logit_softcap=cap)
+    for name, x, y in (("dl", dl, rdl), ("dh", dh, rdh)):
+        torch.testing.assert_close(x, y, rtol=0,
+                                   atol=1e-4 * float(y.abs().max()), msg=name)
+
+
+def test_fused_is_grpo_bwd_dh_tc_refuses_ragged_width(dev):
+    """The tensor-core kernels take d a multiple of 8: anything else raises,
+    with no fallback to the SIMT kernels."""
+    h, w, t, b, _ = _loss_inputs(dev, 10, 100, 500, torch.bfloat16, True)
+    _, _, _, lse, ent = fio.fwd_plain(h, w, t, b, b)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fio.fused_is_grpo_bwd_dh_rows(h, w, t, lse, lse - ent, b, b)
+
+
 # -- paged decode attention ------------------------------------------------------
 
 PDA_CASES = [
@@ -416,6 +476,71 @@ def test_paged_matches_dense_kernel_on_identity_table(dev, dtype):
                                      lens)
     dense = decode_attn.decode_attention(q, kc, vc, lens)
     torch.cuda.synchronize()
+    assert torch.equal(out, dense)
+
+
+# lengths on both sides of the chunk boundaries (128 positions; 64 too), and
+# the whole cache
+SPLIT_LENS = [1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 640]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,KV,window,cap", [
+    (32, 8, 0, 0.0), (25, 5, 0, 30.0), (25, 5, 100, 0.0), (8, 2, 138, 0.0),
+    (8, 2, 128, 30.0)])
+def test_decode_split_chunk_boundaries(dev, dtype, H, KV, window, cap):
+    """Rows whose live range ends or starts on either side of a chunk
+    boundary (windows of 100, 128 and 138 cross them): within atol of the
+    plain version, one launch per call, the same bits from call to call."""
+    B, L, hd = len(SPLIT_LENS), 640, 64
+    g = _gen(14)
+    q = torch.randn(B, 1, H, hd, device=dev, generator=g).to(dtype)
+    kc = torch.randn(B, L, KV, hd, device=dev, generator=g).to(dtype)
+    vc = torch.randn(B, L, KV, hd, device=dev, generator=g).to(dtype)
+    lens = torch.tensor(SPLIT_LENS, dtype=torch.int32, device=dev)
+    kw = dict(window=window, attn_softcap=cap)
+    n0 = decode_attn.decode_attention.launches
+    out = decode_attn.decode_attention(q, kc, vc, lens, **kw)
+    again = decode_attn.decode_attention(q, kc, vc, lens, **kw)
+    torch.cuda.synchronize()
+    assert decode_attn.decode_attention.launches == n0 + 2
+    assert torch.equal(out, again)
+    ref = decode_attn.decode_attention_plain(q, kc, vc, lens, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("window", [0, 100])
+def test_paged_equals_dense_at_chunk_boundaries(dev, ps, window):
+    """The paged kernel on pages at random physical places gives the dense
+    kernel's bits at lengths on both sides of chunk boundaries; one launch
+    per call; repeats bit-equal."""
+    B, L, H, KV, hd = len(SPLIT_LENS), 640, 25, 5, 64
+    g = _gen(15)
+    q = torch.randn(B, 1, H, hd, device=dev, generator=g).bfloat16()
+    kc = torch.randn(B, L, KV, hd, device=dev, generator=g).bfloat16()
+    vc = torch.randn(B, L, KV, hd, device=dev, generator=g).bfloat16()
+    lens = torch.tensor(SPLIT_LENS, dtype=torch.int32, device=dev)
+    mp = L // ps
+    NP = B * mp
+    perm = torch.randperm(NP, device=dev, generator=g)
+    kp = torch.empty(NP, ps, KV, hd, dtype=kc.dtype, device=dev)
+    vp = torch.empty_like(kp)
+    kp[perm] = kc.reshape(NP, ps, KV, hd)
+    vp[perm] = vc.reshape(NP, ps, KV, hd)
+    bt = perm.reshape(B, mp).to(torch.int32)
+    unmapped = torch.arange(mp, device=dev)[None, :] * ps >= lens[:, None]
+    bt = torch.where(unmapped, NP, bt).contiguous()
+    n0 = pda.paged_decode_attention.launches
+    out = pda.paged_decode_attention(q, kp, vp, bt, ps, lens, window=window)
+    again = pda.paged_decode_attention(q, kp, vp, bt, ps, lens,
+                                       window=window)
+    dense = decode_attn.decode_attention(q, kc, vc, lens, window=window)
+    torch.cuda.synchronize()
+    assert pda.paged_decode_attention.launches == n0 + 2
+    assert torch.equal(out, again)
     assert torch.equal(out, dense)
 
 
