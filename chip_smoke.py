@@ -13,8 +13,9 @@ start):
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds every kernel source from csrc/, in parallel;
    cuobjdump counts the HGMMA (wgmma) instructions of the two flash
-   libraries and of the loss library (its bf16 bwd_dh kernels), which must
-   have some; ptxas's registers and spills of the tensor-core kernels;
+   libraries and of the loss library (its bf16 forward, dl, dh and dw
+   kernels), which must have some; ptxas's registers and spills of the
+   tensor-core kernels (every kernel named ``*_tc``);
 3. kernel checks — each kernel against its plain PyTorch version at the
    main paths' shapes (serving: prefill, dense and paged decode and
    sampling, each also at the hybrid paths' shapes, hymba's H/KV = 5 and
@@ -28,8 +29,9 @@ start):
    SDPA's error against the same plain version (``library_err``, a
    yardstick of bf16 tensor-core attention) and ``vs_library``, their time
    over SDPA's, as the two dense decode checks give theirs over SDPA's
-   masked call; bwd_dh's bound is its tensor cores' (5 bf16 passes), with
-   the f32 FMA bound it had kept beside it;
+   masked call; the loss kernels' bounds are their tensor cores' (the
+   forwards and dw 2 bf16 passes of 2 R d V, bwd_dh 5), each with the f32
+   FMA bound of the same product kept beside it;
 4. reference — the GPU engine (kernels, float32) against the same engine on
    the CPU (plain versions) on the reduced config, dense and paged, and the
    CPU paged engine against the CPU dense one: equal tokens; the same as
@@ -66,7 +68,7 @@ start):
 8. kernels — one {"kernels": [...]} line, one row per kernel entry point,
    each with the launches of the path it runs on (train; train_paged for
    the paged decode and the fused log-prob; serve_hymba and serve_rwkv6
-   for the two scans); the flash and bwd_dh rows count the bf16
+   for the two scans); the flash and loss rows count the bf16
    tensor-core kernels' launches and, apart, the f32 SIMT kernels'
    (``simt_launches``: every phase that counts launches runs in bf16 and
    fails on a SIMT launch);
@@ -717,18 +719,20 @@ def check_flash_bwd(torch, F, timer, flash_attn):
     return res
 
 
-# bf16 passes of 2 R d V in the tensor-core bwd_dh: h w_hi + h w_mid for the
-# logits, dl_hi w_hi + dl_hi w_mid + dl_mid w_hi for dh (split_gemm.cuh)
+# bf16 passes of 2 R d V in the tensor-core loss kernels (split_gemm.cuh):
+# the forwards' logits h w_hi + h w_mid and dw's dl_hi^T h + dl_mid^T h take
+# 2; bwd_dh 5, the logits and dl_hi w_hi + dl_hi w_mid + dl_mid w_hi for dh
+SPLIT_TC_PASSES = 2
 BWD_DH_TC_PASSES = 5
 
 
 def check_fused_is_grpo(torch, timer, fio):
     """The loss kernels at the train phase's largest packed shape: R = 32 x
     127 rows, d = 2048, V = 128256, hidden bf16, the tied f32 embedding read
-    in its own (V, d) layout. The forward, dw and their plain versions
-    compute in f32, so their bound counts f32 FMA work at 67 TFLOP/s;
-    bwd_dh runs 5 bf16 passes on the tensor cores, bound at 989 TFLOP/s,
-    with its f32 FMA bound kept beside it."""
+    in its own (V, d) layout. Every one runs on the tensor cores from split
+    bf16 terms and is bound at 989 TFLOP/s: the forward and dw 2 passes of
+    2 R d V, bwd_dh 5; each keeps beside it the f32 FMA bound (one pass at
+    67 TFLOP/s) of the f32 product its plain version computes."""
     R, d, V = TRAIN_B * TRAIN_S, 2048, 128256
     g = torch.Generator(device="cuda").manual_seed(15)
     h = torch.randn(R, d, device="cuda", generator=g).bfloat16()
@@ -785,34 +789,40 @@ def check_fused_is_grpo(torch, timer, fio):
     rows_io = 4 * R
     op = 2 * R * d * V
     shape = (f"hidden [{R}, {d}] bf16, w = embed.T of [{V}, {d}] f32, "
-             "float32 products")
-    b_f = bound(2 * R * d + 4 * V * d + 3 * rows_io + 5 * rows_io, op,
-                PEAK_F32_FLOPS)
+             "tensor cores, ")
+    f_bytes = 2 * R * d + 4 * V * d + 3 * rows_io + 5 * rows_io
+    b_f = bound(f_bytes, SPLIT_TC_PASSES * op, PEAK_BF16_FLOPS)
+    b_f_f32 = bound(f_bytes, op, PEAK_F32_FLOPS)
     # bwd_dh: recompute logits + dh = dl w^T; writes dl (R, V) and dh
     dh_bytes = 2 * R * d + 4 * V * d + 7 * rows_io + 4 * R * V + 4 * R * d
     b_dh = bound(dh_bytes, BWD_DH_TC_PASSES * op, PEAK_BF16_FLOPS)
     b_dh_f32 = bound(dh_bytes, 2 * op, PEAK_F32_FLOPS)
     # bwd_dw: dw = h^T dl; reads h and dl, writes dw (V, d)
-    b_dw = bound(2 * R * d + 4 * R * V + 4 * V * d, op, PEAK_F32_FLOPS)
+    dw_bytes = 2 * R * d + 4 * R * V + 4 * V * d
+    b_dw = bound(dw_bytes, SPLIT_TC_PASSES * op, PEAK_BF16_FLOPS)
+    b_dw_f32 = bound(dw_bytes, op, PEAK_F32_FLOPS)
     res = {
         "fused_is_grpo_fwd": dict(
-            shape=shape, max_abs_err=err_f, atol=atol_f, ms=fwd_ms,
+            shape=shape + "2 bf16 passes of split f32 w",
+            max_abs_err=err_f, atol=atol_f, ms=fwd_ms,
             plain_ms=fwd_plain_ms, library_ms=gemm_ms,
             library_what="logits GEMM only (f32 cuBLAS hidden @ w)",
-            bound_ms=b_f[0], bound_by=b_f[1]),
+            bound_ms=b_f[0], bound_by=b_f[1],
+            bound_f32_fma_ms=b_f_f32[0], bound_f32_fma_by=b_f_f32[1]),
         "fused_is_grpo_bwd_dh": dict(
-            shape=shape.replace("float32 products", "tensor cores, 5 bf16 "
-                                "passes of split f32 terms"),
+            shape=shape + "5 bf16 passes of split f32 terms",
             max_abs_err=err_dh, rtol_of_max=rtol, ms=dh_ms,
             plain_ms=dh_plain_ms, library_ms=dh_gemm_ms,
             library_what="dh GEMM only (f32 cuBLAS dl @ w^T)",
             bound_ms=b_dh[0], bound_by=b_dh[1],
             bound_f32_fma_ms=b_dh_f32[0], bound_f32_fma_by=b_dh_f32[1]),
         "fused_is_grpo_bwd_dw": dict(
-            shape=shape, max_abs_err=err_dw, rtol_of_max=rtol, ms=dw_ms,
+            shape=shape + "2 bf16 passes of split f32 dl",
+            max_abs_err=err_dw, rtol_of_max=rtol, ms=dw_ms,
             plain_ms=dw_plain_ms, library_ms=dw_gemm_ms,
             library_what="f32 cuBLAS hidden^T @ dl",
-            bound_ms=b_dw[0], bound_by=b_dw[1]),
+            bound_ms=b_dw[0], bound_by=b_dw[1],
+            bound_f32_fma_ms=b_dw_f32[0], bound_f32_fma_by=b_dw_f32[1]),
     }
     for name, r in res.items():
         emit(f"check_{name}", **r)
@@ -822,9 +832,10 @@ def check_fused_is_grpo(torch, timer, fio):
 def check_fused_logprob(torch, timer, flp):
     """The legacy loss's log-prob kernel at the train phase's largest packed
     shape (R = 32 x 127 rows, d = 2048, V = 128256, hidden bf16, the tied
-    f32 embedding in its own layout). Like the IS-GRPO forward it computes in
-    f32, so the bound counts 2 R d V f32 FMA work at 67 TFLOP/s; the library
-    time is the f32 cuBLAS logits GEMM alone."""
+    f32 embedding in its own layout). The IS-GRPO forward's kernel 1 on the
+    tensor cores: bound by 2 bf16 passes of 2 R d V at 989 TFLOP/s, the f32
+    FMA bound (one pass at 67 TFLOP/s) beside it; the library time is the
+    f32 cuBLAS logits GEMM alone."""
     R, d, V = TRAIN_B * TRAIN_S, 2048, 128256
     g = torch.Generator(device="cuda").manual_seed(16)
     h = torch.randn(R, d, device="cuda", generator=g).bfloat16()
@@ -843,14 +854,18 @@ def check_fused_logprob(torch, timer, flp):
     kernel_ms = timer(lambda: flp.fused_logprob_rows(h, w, t), iters=3)
     plain_ms = timer(lambda: flp.fused_logprob_plain(h, w, t), iters=3)
     gemm_ms = timer(lambda: hf @ w, iters=3)
-    b_ms, b_by = bound(2 * R * d + 4 * V * d + 4 * R + 8 * R,
-                       2 * R * d * V, PEAK_F32_FLOPS)
+    nbytes = 2 * R * d + 4 * V * d + 4 * R + 8 * R
+    b_ms, b_by = bound(nbytes, SPLIT_TC_PASSES * 2 * R * d * V,
+                       PEAK_BF16_FLOPS)
+    b_f32 = bound(nbytes, 2 * R * d * V, PEAK_F32_FLOPS)
     res = dict(shape=f"hidden [{R}, {d}] bf16, w = embed.T of [{V}, {d}] "
-               "f32, float32 products; logp and lse",
+               "f32, tensor cores, 2 bf16 passes of split f32 w; logp and "
+               "lse",
                max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
                library_ms=gemm_ms,
                library_what="logits GEMM only (f32 cuBLAS hidden @ w)",
-               bound_ms=b_ms, bound_by=b_by)
+               bound_ms=b_ms, bound_by=b_by, bound_f32_fma_ms=b_f32[0],
+               bound_f32_fma_by=b_f32[1])
     emit("check_fused_logprob", **res)
     return res
 
@@ -1444,7 +1459,7 @@ def reset_launches(kernels):
 
 def read_launches(kernels):
     """Launches of each kernel since reset_launches. Every phase that reads
-    them runs in bf16, so none may have gone to an f32 SIMT flash or bwd_dh
+    them runs in bf16, so none may have gone to an f32 SIMT flash or loss
     kernel: those wrappers' launches are then all tensor-core launches."""
     simt = {name: fn.simt_launches for name, fn in kernels.items()
             if getattr(fn, "simt_launches", 0)}
@@ -1667,11 +1682,11 @@ def main() -> int:
     # over the paged cache with the legacy loss (this slice's main path)
     train_launches = train_phase(torch, np, train_kernels)
     # the f32 SIMT kernels' launches in the train phase (0: bf16)
-    train_simt = {
-        "flash_attn": flash_attn.flash_attention.simt_launches,
-        "flash_attn_bwd": flash_attn.flash_attention_bwd.simt_launches,
-        "fused_is_grpo_bwd_dh": fio.fused_is_grpo_bwd_dh_rows.simt_launches}
+    train_simt = {name: fn.simt_launches
+                  for name, fn in train_kernels.items()
+                  if hasattr(fn, "simt_launches")}
     train_paged_launches = train_paged_phase(torch, np, train_paged_kernels)
+    train_simt["fused_logprob"] = flp.fused_logprob_rows.simt_launches
 
     # 8. kernels line: launches from the train phase, from train_paged for
     # the paged decode and the fused log-prob, from serve_hymba and

@@ -22,20 +22,23 @@
 //
 // Entry points:
 //   fused_is_grpo_fwd     per row: loss_tok, ratio, logp, lse, entropy.
-//     Kernel 1, one block per (128-row tile, vocabulary split): 128x128
-//     logits tiles (SIMT GEMM, 8x8 outputs per thread, 8-deep k tiles in
-//     shared memory), folded into a running (max, sumexp, target logit,
-//     logit-weighted sumexp) per row; the TPU kernel's sequential vocab
-//     grid axis becomes a loop inside the block over its split. Splitting
-//     the vocabulary keeps the card full: at R = 4064 rows there are only
-//     32 row tiles for 132 SMs, so the wrapper picks ~4 blocks per SM.
+//     Kernel 1, one block per (128-row tile, vocabulary split), loops over
+//     its split's 128x128 logits tiles (the TPU kernel's sequential vocab
+//     grid axis) and folds each into a running (max, sumexp, target logit,
+//     logit-weighted sumexp) per row. bfloat16 h (the main path):
+//     fwd_partial_tc, each tile h w_hi + h w_mid on the tensor cores
+//     through logits_tile, the same function bwd_dl_tc recomputes the
+//     logits with, so the backward's p = exp(logit - L) sees the logits of
+//     the L the forward saved; the statistics are folded in registers in
+//     the wgmma fragment layout. float32 h: fwd_partial_kernel on the f32
+//     FMA pipes (SIMT GEMM, 8x8 outputs per thread, 8-deep k tiles).
 //     Kernel 2, one thread per row: merges the splits' partials, then
 //     logp = g - lse, E[logit] = u / l, entropy = lse - E[logit], and the
 //     per-token objective of core/grpo.per_token_objective.
 //   fused_is_grpo_bwd_dh_tc  (bfloat16 h, the main path) two tensor-core
 //     kernels on split_gemm.cuh's core: bwd_dl_tc recomputes each 128x128
-//     logits tile as h w_hi + h w_mid (wgmma, f32 sums) and applies the dl
-//     epilogue to the accumulator in registers,
+//     logits tile (logits_tile) and applies the dl epilogue to the
+//     accumulator in registers,
 //     dl = a (onehot - p) - e p (logit - E[logit]) (times the softcap chain
 //     1 - (logit/cap)^2), written float32 to the (rows, V) scratch that
 //     bwd_dw reads; bwd_dh_tc computes dh = dl w^T as dl_hi w_hi + dl_hi
@@ -47,7 +50,13 @@
 //     float32 accumulation).
 //   fused_is_grpo_bwd_dw  dw = h^T dl for the same chunk, written in w's
 //     own layout (the tied embedding's gradient comes back as (V, d)),
-//     accumulated over row chunks.
+//     accumulated over row chunks. bfloat16 h: bwd_dw_tc on the tensor
+//     cores, dl_hi^T h + dl_mid^T h (h exact), each 64-deep k tile promoted
+//     into f32 sums (K = R = 4064 rows, 254 k steps a pass); both operands
+//     are read along m or n (the transpose bits), and the orientation is
+//     chosen so that the stores are row-major: C (V x d) = dl^T h for the
+//     tied (V, d) gradient, C (d x V) = h^T dl for an untied (d, V) one.
+//     float32 h: the SIMT GEMM.
 //   fused_logprob_fwd     per row: logp = log p(target) and lse, for the
 //     legacy fused_loss=False loss. The IS-GRPO forward without its
 //     epilogue: the same kernel 1 (its logit-weighted sumexp goes unused),
@@ -61,11 +70,14 @@
 //
 // What bounds it on the H100: 2 R d V operations per product against
 // O(V d + R d) bytes (plus the R V dl scratch) — far above the card's
-// operations per byte, so arithmetic. bwd_dh_tc does 5 bf16 passes of
-// 2 R d V on the tensor cores (989 TFLOP/s dense); the SIMT kernels
-// (forward, dw, log-prob, the f32-h dh) run on the 67 TFLOP/s f32 FMA pipes
-// with a simple tiling (no double buffering) that reaches a fraction of it;
-// they are next to move onto the split GEMM core.
+// operations per byte, so arithmetic. On the tensor cores (989 TFLOP/s
+// dense bf16) the forward and dw take 2 bf16 passes of 2 R d V (4.317 ms at
+// R 4064, d 2048, V 128256), bwd_dh 5; on the 67 TFLOP/s f32 FMA pipes one
+// pass of the same product bounds the f32-h kernels (31.87 ms). The
+// tensor-core kernels stage each k tile into a double buffer
+// (split_gemm.cuh: h by cp.async, f32 operands split in registers): no
+// TMA, producer warp or persistent schedule yet, so the epilogues, the
+// splits and each tile's first loads do not overlap the products.
 #include "common.cuh"
 #include "split_gemm.cuh"
 
@@ -173,9 +185,8 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 
 // ---- forward ------------------------------------------------------------
 
-template <typename TH>
 __global__ void __launch_bounds__(NT)
-fwd_partial_kernel(const TH* __restrict__ h, const float* __restrict__ w,
+fwd_partial_kernel(const float* __restrict__ h, const float* __restrict__ w,
                    long long w_sk, long long w_sv,
                    const int* __restrict__ targets,
                    float4* __restrict__ partial, int R, int d, int V,
@@ -187,7 +198,7 @@ fwd_partial_kernel(const TH* __restrict__ h, const float* __restrict__ w,
   const int ty = threadIdx.x / (BN / TN), tx = threadIdx.x % (BN / TN);
   const int n_begin = split * tiles_per_split * BN;
   const int n_end = min(V, n_begin + tiles_per_split * BN);
-  const Mat<TH> A{h, d, 1};
+  const Mat<float> A{h, d, 1};
   const Mat<float> B{w, w_sk, w_sv};
 
   float rm[TM], rl[TM], rg[TM], ru[TM];
@@ -307,7 +318,169 @@ __global__ void logprob_combine_kernel(const float4* __restrict__ partial,
   lse[r] = L;
 }
 
-// Kernel 1 of both forwards: the splits' partial statistics.
+// ---- tensor-core kernels (bfloat16 h) -------------------------------------
+
+namespace sg = repro::sg;
+
+// this thread's accumulator rows and columns (wgmma m64n64 f32 layout):
+// register i of half h is row row0 + 8 ((i / 2) % 2), column col0 + 64 h +
+// 8 (i / 4) + i % 2
+struct Frag {
+  int row0, col0;
+  __device__ Frag(int m0, int n0) {
+    const int g = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    row0 = m0 + 64 * g + 16 * warp + lane / 4;
+    col0 = n0 + 2 * (lane % 4);
+  }
+};
+
+__device__ __forceinline__ uint32_t dyn_smem() {
+  extern __shared__ uint8_t smem_raw[];
+  return (repro::tc::smem_addr(smem_raw) + 1023) & ~1023u;
+}
+
+template <bool K>
+using HOp = sg::Operand<__nv_bfloat16, K>;  // bf16 h, exact
+template <bool K>
+using FOp = sg::Operand<float, K>;          // f32 w or dl, two bf16 terms
+
+// One 128 x 128 tile of raw logits h w (before the softcap) from h and w's
+// two bf16 terms, 2 passes (B_KMAJOR: w's rows are the vocabulary, the
+// tied (V, d) embedding). The forward and the backward both take their
+// logits from here, with the same order of products and sums.
+template <bool B_KMAJOR>
+__device__ __forceinline__ void logits_tile(const sg::View<__nv_bfloat16>& H,
+                                            const sg::View<float>& W, int m0,
+                                            int n0, float (&acc)[2][32]) {
+  sg::gemm_tile<HOp<true>, FOp<B_KMAJOR>, false>(H, W, m0, n0, H.cols,
+                                                 dyn_smem(), acc);
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Kernel 1 of both forwards on the tensor cores. A thread holds 2 rows x
+// 32 columns of each logits tile (Frag) and keeps its own running (max,
+// sumexp, target logit, logit-weighted sumexp) over its columns, in
+// registers; the 4 lanes of a quad hold a row's 128 columns and merge
+// theirs once, after the split's last tile. Two blocks per SM, as
+// bwd_dl_tc, whose main loop this is: at 128 registers, with some bytes
+// spilled, the train-shape forward ran faster on an H100 than at one block
+// per SM without spills.
+template <bool B_KMAJOR>
+__global__ void __launch_bounds__(sg::NT, 2)
+fwd_partial_tc(const sg::View<__nv_bfloat16> H, const sg::View<float> W,
+               const int* __restrict__ targets, float4* __restrict__ partial,
+               int R, int V, int tiles_per_split, float softcap) {
+  const int m0 = blockIdx.x * sg::BM, split = blockIdx.y;
+  const int n_begin = split * tiles_per_split * sg::BN;
+  const int n_end = min(V, n_begin + tiles_per_split * sg::BN);
+  const Frag f(m0, 0);
+  float rm[2], rl[2], rg[2], ru[2];
+  int tgt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = f.row0 + 8 * r;
+    rm[r] = kNegInf;
+    rl[r] = rg[r] = ru[r] = 0.f;
+    tgt[r] = row < R ? targets[row] : -1;
+  }
+  float acc[2][32];
+  for (int n0 = n_begin; n0 < n_end; n0 += sg::BN) {
+    logits_tile<B_KMAJOR>(H, W, m0, n0, acc);
+    // register 4 j + 2 r + e of half h: row r, column c0 + 64 h + 8 j + e
+    const int c0 = n0 + f.col0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tmax = kNegInf;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = acc[h][4 * j + 2 * r + e];
+            x = capped(x, softcap);
+            if (c0 + 64 * h + 8 * j + e < n_end) tmax = fmaxf(tmax, x);
+          }
+      const float m_new = fmaxf(rm[r], tmax);
+      float ps = 0.f, pu = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = c0 + 64 * h + 8 * j + e;
+            const float x = acc[h][4 * j + 2 * r + e];
+            if (col < n_end) {
+              const float p = expf(x - m_new);
+              ps += p;
+              pu = fmaf(p, x, pu);
+              if (col == tgt[r]) rg[r] += x;
+            }
+          }
+      const float corr = expf(rm[r] - m_new);
+      rl[r] = rl[r] * corr + ps;
+      ru[r] = ru[r] * corr + pu;
+      rm[r] = m_new;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = fmaxf(rm[r], __shfl_xor_sync(0xffffffffu, rm[r], 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float c = expf(rm[r] - m);
+    const float l = quad_sum(rl[r] * c), u = quad_sum(ru[r] * c);
+    const float g = quad_sum(rg[r]);
+    const int row = f.row0 + 8 * r;
+    if (threadIdx.x % 4 == 0 && row < R)
+      partial[(size_t)split * R + row] = make_float4(m, l, g, u);
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// 16-byte loads of a row-major f32 matrix: stride, row length and pointer
+// all multiples of 4 elements
+inline int vec4(const void* p, long long stride, int cols) {
+  return stride % 4 == 0 && cols % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// w as the matrix the tensor-core kernels read: the tied (V, d) embedding
+// (w_sk 1: rows are the vocabulary, K-major for the logits) or an untied
+// (d, V) lm_head (w_sv 1: rows are d)
+inline sg::View<float> w_view(const float* w, int w_sk, int w_sv, int d,
+                              int V) {
+  return w_sk == 1 ? sg::View<float>{w, w_sv, V, d, vec4(w, w_sv, d)}
+                   : sg::View<float>{w, w_sk, d, V, vec4(w, w_sk, V)};
+}
+
+template <bool TIED>
+cudaError_t launch_fwd_tc(const sg::View<__nv_bfloat16> H,
+                          const sg::View<float> W, const int* targets,
+                          float4* partial, int R, int V, dim3 grid,
+                          int per_split, float softcap, cudaStream_t s) {
+  constexpr int bytes = sg::Layout<HOp<true>, FOp<TIED>>::kBytes;
+  static const cudaError_t attr = allow_smem(fwd_partial_tc<TIED>, bytes);
+  if (attr != cudaSuccess) return attr;
+  fwd_partial_tc<TIED><<<grid, sg::NT, bytes, s>>>(H, W, targets, partial, R,
+                                                   V, per_split, softcap);
+  return cudaSuccess;
+}
+
+// Kernel 1 of both forwards: the splits' partial statistics. bfloat16 h
+// takes the tensor cores (d a multiple of 8, w in one of its two layouts),
+// float32 h the f32 FMA pipes.
 cudaError_t launch_partial(const void* h, const void* w, const void* targets,
                            void* partial, int R, int d, int V, int w_sk,
                            int w_sv, int h_dtype, int splits, float softcap,
@@ -321,16 +494,20 @@ cudaError_t launch_partial(const void* h, const void* w, const void* targets,
   const float* wf = static_cast<const float*>(w);
   const int* t = static_cast<const int*>(targets);
   float4* part = static_cast<float4*>(partial);
-  if (h_dtype == repro::kBFloat16)
-    fwd_partial_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(h), wf, w_sk, w_sv, t, part, R, d,
-        V, per_split, softcap);
-  else if (h_dtype == repro::kFloat32)
-    fwd_partial_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(h), wf, w_sk, w_sv, t, part, R, d, V,
-        per_split, softcap);
-  else
-    return cudaErrorInvalidValue;
+  if (h_dtype == repro::kBFloat16) {
+    if (d % 8 != 0 || (w_sk != 1 && w_sv != 1)) return cudaErrorInvalidValue;
+    const sg::View<__nv_bfloat16> H{static_cast<const __nv_bfloat16*>(h), d,
+                                    R, d, 1};
+    const sg::View<float> W = w_view(wf, w_sk, w_sv, d, V);
+    return w_sk == 1 ? launch_fwd_tc<true>(H, W, t, part, R, V, grid,
+                                           per_split, softcap, s)
+                     : launch_fwd_tc<false>(H, W, t, part, R, V, grid,
+                                            per_split, softcap, s);
+  }
+  if (h_dtype != repro::kFloat32) return cudaErrorInvalidValue;
+  fwd_partial_kernel<<<grid, NT, 0, s>>>(
+      static_cast<const float*>(h), wf, w_sk, w_sv, t, part, R, d, V,
+      per_split, softcap);
   return cudaSuccess;
 }
 
@@ -368,11 +545,10 @@ bwd_dl_kernel(const TH* __restrict__ h, const float* __restrict__ w,
 }
 
 // C (M x N) = A (M x K) B (K x N), or C += A B with accumulate; C(i, j) at
-// c[i * c_si + j * c_sj].
-template <typename TA, typename TB>
+// c[i * c_si + j * c_sj]; float32 (the f32-h dh and dw).
 __global__ void __launch_bounds__(NT)
-gemm_kernel(const TA* __restrict__ a, long long a_si, long long a_sj,
-            const TB* __restrict__ b, long long b_si, long long b_sj,
+gemm_kernel(const float* __restrict__ a, long long a_si, long long a_sj,
+            const float* __restrict__ b, long long b_si, long long b_sj,
             float* __restrict__ c, long long c_si, long long c_sj, int M,
             int N, int K, int accumulate) {
   __shared__ float As[BK][BM];
@@ -381,8 +557,8 @@ gemm_kernel(const TA* __restrict__ a, long long a_si, long long a_sj,
   const int n0 = blockIdx.y * BN;
   const int ty = threadIdx.x / (BN / TN), tx = threadIdx.x % (BN / TN);
   float acc[TM][TN];
-  gemm_tile(Mat<TA>{a, a_si, a_sj}, Mat<TB>{b, b_si, b_sj}, M, N, K, m0, n0,
-            As, Bs, acc);
+  gemm_tile(Mat<float>{a, a_si, a_sj}, Mat<float>{b, b_si, b_sj}, M, N, K, m0,
+            n0, As, Bs, acc);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int m = m0 + ty * TM + i;
@@ -401,32 +577,9 @@ inline dim3 tiles(int M, int N) {
   return dim3((M + BM - 1) / BM, (N + BN - 1) / BN);
 }
 
-// ---- backward on the tensor cores (bfloat16 h) ---------------------------
-
-namespace sg = repro::sg;
-
-// this thread's accumulator rows and columns (wgmma m64n64 f32 layout):
-// register i of half h is row row0 + 8 ((i / 2) % 2), column col0 + 64 h +
-// 8 (i / 4) + i % 2
-struct Frag {
-  int row0, col0;
-  __device__ Frag(int m0, int n0) {
-    const int g = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32;
-    const int lane = threadIdx.x % 32;
-    row0 = m0 + 64 * g + 16 * warp + lane / 4;
-    col0 = n0 + 2 * (lane % 4);
-  }
-};
-
-__device__ __forceinline__ uint32_t dyn_smem() {
-  extern __shared__ uint8_t smem_raw[];
-  return (repro::tc::smem_addr(smem_raw) + 1023) & ~1023u;
-}
-
-// logits tile = h w (B_KMAJOR: w's rows are the vocabulary, the tied (V, d)
-// embedding), then dl in registers, written to dl (R, V). Two blocks per SM
-// (128 registers, a few spilled) hide each other's loads: the whole bwd_dh
-// ran ~7% faster than with one block of ~170 registers.
+// logits tile (logits_tile), then dl in registers, written to dl (R, V).
+// Two blocks per SM (128 registers, a few spilled) hide each other's loads:
+// the whole bwd_dh ran ~7% faster than with one block of ~170 registers.
 template <bool B_KMAJOR>
 __global__ void __launch_bounds__(sg::NT, 2)
 bwd_dl_tc(const sg::View<__nv_bfloat16> H, const sg::View<float> W,
@@ -436,8 +589,7 @@ bwd_dl_tc(const sg::View<__nv_bfloat16> H, const sg::View<float> W,
           float softcap) {
   const int m0 = blockIdx.x * sg::BM, n0 = blockIdx.y * sg::BN;
   float acc[2][32];
-  sg::gemm_tile<__nv_bfloat16, B_KMAJOR, false>(H, W, m0, n0, H.cols, dyn_smem(),
-                                         acc);
+  logits_tile<B_KMAJOR>(H, W, m0, n0, acc);
   const Frag f(m0, n0);
   const bool pairs = V % 2 == 0;  // two columns in one 8-byte store
 #pragma unroll
@@ -474,7 +626,8 @@ bwd_dh_tc(const sg::View<float> DL, const sg::View<float> W,
           float* __restrict__ dh, int R, int d) {
   const int m0 = blockIdx.x * sg::BM, n0 = blockIdx.y * sg::BN;
   float acc[2][32];
-  sg::gemm_tile<float, B_KMAJOR, true>(DL, W, m0, n0, DL.cols, dyn_smem(), acc);
+  sg::gemm_tile<FOp<true>, FOp<B_KMAJOR>, true>(DL, W, m0, n0, DL.cols,
+                                                dyn_smem(), acc);
   const Frag f(m0, n0);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -493,18 +646,60 @@ bwd_dh_tc(const sg::View<float> DL, const sg::View<float> W,
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
-// 16-byte loads of a row-major f32 matrix: stride, row length and pointer
-// all multiples of 4 elements
-inline int vec4(const void* p, long long stride, int cols) {
-  return stride % 4 == 0 && cols % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// dw = h^T dl on the tensor cores, row-major C tiles of the gradient in w's
+// layout: TIED, C (V x d) = dl^T h, the (V, d) embedding's rows (A = dl^T
+// read along the vocabulary, B = h along d: both MN-major); untied, C (d x
+// V) = h^T dl, the (d, V) lm_head's rows (A = h^T, B = dl, both MN-major).
+// dl enters as two bf16 terms, h as it is: 2 passes over K = R rows, each
+// 64-deep k tile's products promoted into f32 sums. blockIdx.x walks the
+// d tiles, so the blocks that read one 128-column slice of dl run together
+// and dl (R x V f32, 2 GB on the main path) comes from device memory about
+// once while h stays in L2. One block per SM: the promotion's second
+// accumulator takes the registers of a second block.
+template <bool TIED>
+__global__ void __launch_bounds__(sg::NT, 1)
+bwd_dw_tc(const sg::View<__nv_bfloat16> H, const sg::View<float> DL,
+          float* __restrict__ dw, int d, int V, int accumulate) {
+  const int j0 = blockIdx.x * sg::BN, v0 = blockIdx.y * sg::BM;
+  const int m0 = TIED ? v0 : j0, n0 = TIED ? j0 : v0;
+  const int M = TIED ? V : d, N = TIED ? d : V;
+  float acc[2][32];
+  if constexpr (TIED)
+    sg::gemm_tile<FOp<false>, HOp<false>, true>(DL, H, m0, n0, H.rows,
+                                                dyn_smem(), acc);
+  else
+    sg::gemm_tile<HOp<false>, FOp<false>, true>(H, DL, m0, n0, H.rows,
+                                                dyn_smem(), acc);
+  const Frag f(m0, n0);
+  // two columns in one 8-byte access
+  const bool pairs = N % 2 == 0 && reinterpret_cast<uintptr_t>(dw) % 8 == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = f.row0 + 8 * r;
+    if (row >= M) continue;
+    float* out = dw + (size_t)row * N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * r;
+        const int col = f.col0 + 64 * h + 8 * j;
+        if (col >= N) continue;
+        float x0 = acc[h][i], x1 = acc[h][i + 1];
+        if (pairs) {
+          float2* p = reinterpret_cast<float2*>(out + col);
+          if (accumulate) {
+            const float2 o = *p;
+            x0 += o.x;
+            x1 += o.y;
+          }
+          *p = make_float2(x0, x1);
+        } else {
+          out[col] = accumulate ? out[col] + x0 : x0;
+          if (col + 1 < N) out[col + 1] = accumulate ? out[col + 1] + x1 : x1;
+        }
+      }
+  }
 }
 
 template <bool TIED>
@@ -513,8 +708,8 @@ cudaError_t launch_dh_tc(const __nv_bfloat16* h, const sg::View<float> W,
                          const float* ebar, const float* a, const float* e,
                          float* dl, float* dh, int R, int d, int V,
                          float softcap, cudaStream_t s) {
-  constexpr int dl_bytes = sg::Layout<__nv_bfloat16>::kBytes;
-  constexpr int dh_bytes = sg::Layout<float>::kBytes;
+  constexpr int dl_bytes = sg::Layout<HOp<true>, FOp<TIED>>::kBytes;
+  constexpr int dh_bytes = sg::Layout<FOp<true>, FOp<!TIED>>::kBytes;
   static const cudaError_t attr =
       allow_smem(bwd_dl_tc<TIED>, dl_bytes) != cudaSuccess
           ? cudaErrorInvalidValue
@@ -527,6 +722,19 @@ cudaError_t launch_dh_tc(const __nv_bfloat16* h, const sg::View<float> W,
   const sg::View<float> DL{dl, V, R, V, vec4(dl, V, V)};
   // dh reads w with d as n: MN-major when tied
   bwd_dh_tc<!TIED><<<tiles(R, d), sg::NT, dh_bytes, s>>>(DL, W, dh, R, d);
+  return cudaSuccess;
+}
+
+template <bool TIED>
+cudaError_t launch_dw_tc(const sg::View<__nv_bfloat16> H,
+                         const sg::View<float> DL, float* dw, int d, int V,
+                         int accumulate, cudaStream_t s) {
+  // either orientation: three subtile pairs a stage (dl's two terms, h)
+  constexpr int bytes = sg::Layout<FOp<false>, HOp<false>>::kBytes;
+  static const cudaError_t attr = allow_smem(bwd_dw_tc<TIED>, bytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((d + sg::BN - 1) / sg::BN, (V + sg::BM - 1) / sg::BM);
+  bwd_dw_tc<TIED><<<grid, sg::NT, bytes, s>>>(H, DL, dw, d, V, accumulate);
   return cudaSuccess;
 }
 
@@ -575,7 +783,7 @@ extern "C" int fused_is_grpo_bwd_dh(const void* h, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
 #undef REPRO_DL
   // dh (R x d) = dl (R x V) w^T: B(k=v, n=j) = w(j, v)
-  gemm_kernel<float, float><<<tiles(R, d), NT, 0, s>>>(
+  gemm_kernel<<<tiles(R, d), NT, 0, s>>>(
       dlf, V, 1, wf, w_sv, w_sk, static_cast<float*>(dh), d, 1, R, d, V, 0);
   return static_cast<int>(cudaGetLastError());
 }
@@ -594,9 +802,7 @@ extern "C" int fused_is_grpo_bwd_dh_tc(const void* h, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
   const bool tied = w_sk == 1;  // the (V, d) embedding: row v at v * w_sv
-  const sg::View<float> W =
-      tied ? sg::View<float>{wf, w_sv, V, d, vec4(wf, w_sv, d)}
-           : sg::View<float>{wf, w_sk, d, V, vec4(wf, w_sk, V)};
+  const sg::View<float> W = w_view(wf, w_sk, w_sv, d, V);
   const auto* hb = static_cast<const __nv_bfloat16*>(h);
   const auto* t = static_cast<const int*>(targets);
   const auto *L = static_cast<const float*>(lse),
@@ -618,20 +824,28 @@ extern "C" int fused_is_grpo_bwd_dw(const void* h, const void* dl, void* dw,
                                     int dw_sv, int h_dtype, int accumulate,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // dw^T (V x d) = dl^T (V x R) h (R x d): A(v, r) = dl(r, v),
-  // B(r, j) = h(r, j), C(v, j) = dw(j, v)
   const float* dlf = static_cast<const float*>(dl);
   float* out = static_cast<float*>(dw);
-  if (h_dtype == repro::kBFloat16)
-    gemm_kernel<float, __nv_bfloat16><<<tiles(V, d), NT, 0, s>>>(
-        dlf, 1, V, static_cast<const __nv_bfloat16*>(h), d, 1, out, dw_sv,
-        dw_sk, V, d, R, accumulate);
-  else if (h_dtype == repro::kFloat32)
-    gemm_kernel<float, float><<<tiles(V, d), NT, 0, s>>>(
+  if (h_dtype == repro::kBFloat16) {
+    // dw in w's layout: (V, d) when dw_sk is 1, else (d, V)
+    if (d % 8 != 0 || (dw_sk != 1 && dw_sv != 1) || R < 1 || V < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const sg::View<__nv_bfloat16> H{static_cast<const __nv_bfloat16*>(h), d,
+                                    R, d, 1};
+    const sg::View<float> DL{dlf, V, R, V, vec4(dlf, V, V)};
+    const cudaError_t err =
+        dw_sk == 1 ? launch_dw_tc<true>(H, DL, out, d, V, accumulate, s)
+                   : launch_dw_tc<false>(H, DL, out, d, V, accumulate, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else if (h_dtype == repro::kFloat32) {
+    // dw^T (V x d) = dl^T (V x R) h (R x d): A(v, r) = dl(r, v),
+    // B(r, j) = h(r, j), C(v, j) = dw(j, v)
+    gemm_kernel<<<tiles(V, d), NT, 0, s>>>(
         dlf, 1, V, static_cast<const float*>(h), d, 1, out, dw_sv, dw_sk, V,
         d, R, accumulate);
-  else
+  } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

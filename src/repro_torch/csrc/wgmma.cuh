@@ -177,23 +177,23 @@ __device__ __forceinline__ void to_a_frags2(const float (&s)[32],
     }
 }
 
-// The warpgroup products. ss: A and B from shared memory, A K-major, B
-// K-major (TB = 0) or MN-major (TB = 1, the transpose bit), the sum
-// overwritten (accumulate == 0) or added to. rs: A from registers, B
-// MN-major (the transpose bit), always added to.
-template <int TB = 0>
+// The warpgroup products. ss: A and B from shared memory, each K-major
+// (T = 0) or MN-major (T = 1, its transpose bit: A's for dw = dl^T h, whose
+// A is read along M), the sum overwritten (accumulate == 0) or added to.
+// rs: A from registers, B MN-major (the transpose bit), always added to.
+template <int TB = 0, int TA = 0>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  static_assert(TB == 0 || TB == 1, "transpose bit");
+  static_assert((TB == 0 || TB == 1) && (TA == 0 || TA == 1), "transpose bits");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n"
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},\n"
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 __device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {

@@ -20,7 +20,10 @@ gradient in the same layout. On CPU tensors the row wrappers
 :func:`fused_is_grpo_fwd_rows` and :func:`fused_is_grpo_bwd_rows` run the
 plain versions (:func:`stats_plain`/:func:`fwd_plain`, the port of
 ``_stats_blocked``; :func:`bwd_plain`, the port of ``_bwd_blocked``); on
-CUDA tensors they launch the kernels or raise.
+CUDA tensors they launch the kernels or raise. bfloat16 hidden (the main
+path) runs every loss kernel on the tensor cores, from w and dl as two
+bf16 terms each; float32 hidden runs the f32 SIMT kernels, which each
+wrapper also counts in ``simt_launches``.
 """
 from __future__ import annotations
 
@@ -177,17 +180,38 @@ def _check_kernel(name, hidden, w):
     return _w_strides(w)
 
 
+def _check_tc(name, hidden):
+    """The tensor-core kernels read bf16 hidden rows with 16-byte loads:
+    d a multiple of 8 and a 16-byte aligned start. Returns whether hidden
+    takes them (bf16); float32 hidden takes the SIMT kernels."""
+    if hidden.dtype != torch.bfloat16:
+        return False
+    d = hidden.shape[1]
+    if d % 8 or hidden.data_ptr() % 16:
+        raise ValueError(f"{name} tensor-core kernels take a 16-byte aligned "
+                         f"bf16 hidden with d a multiple of 8; got d={d}, "
+                         f"address {hidden.data_ptr():#x}")
+    return True
+
+
 def _rows32(*ts):
     return [t.float().contiguous() for t in ts]
 
 
+_FWD_TILES_PER_BLOCK = 4
+
+
 def _fwd_splits(R: int, V: int, device) -> int:
-    """Vocabulary splits of the forward: about four blocks per SM."""
+    """Vocabulary splits of the forward's kernel 1: each block loops over at
+    most four 128-column vocabulary tiles (at R = 4064, V = 128256: 251
+    splits, 8032 blocks, ~30 waves of two blocks per SM, the tensor-core
+    kernel's occupancy; partials of 16 MB), fewer where the grid would not
+    give every SM two blocks four times over."""
     n_tiles = -(-V // _BN)
     row_tiles = -(-R // _BM)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(n_tiles, -(-4 * sms // row_tiles)))
-    per_split = -(-n_tiles // want)
+    per_split = max(1, min(_FWD_TILES_PER_BLOCK,
+                           n_tiles * row_tiles // (8 * sms)))
     return -(-n_tiles // per_split)
 
 
@@ -203,6 +227,7 @@ def fused_is_grpo_fwd_rows(hidden, w, targets, behaviour, adv, *,
     if hidden.device.type == "cpu":
         return fwd_plain(hidden, w, targets, behaviour, adv, **cfg)
     w_sk, w_sv = _check_kernel("fused_is_grpo_fwd", hidden, w)
+    tc = _check_tc("fused_is_grpo_fwd", hidden)
     R, d = hidden.shape
     V = w.shape[1]
     splits = _fwd_splits(R, V, hidden.device)
@@ -224,6 +249,8 @@ def fused_is_grpo_fwd_rows(hidden, w, targets, behaviour, adv, *,
             torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check(err, "fused_is_grpo_fwd")
     fused_is_grpo_fwd_rows.launches += 1
+    if not tc:
+        fused_is_grpo_fwd_rows.simt_launches += 1
     return tuple(outs)
 
 
@@ -239,13 +266,9 @@ def fused_is_grpo_bwd_dh_rows(hidden, w, targets, lse, ebar, a, e, *,
     pipes, counted also in ``simt_launches``."""
     _check_rows("fused_is_grpo_bwd_dh", hidden, w, targets, lse, ebar, a, e)
     w_sk, w_sv = _check_kernel("fused_is_grpo_bwd_dh", hidden, w)
+    tc = _check_tc("fused_is_grpo_bwd_dh", hidden)
     R, d = hidden.shape
     V = w.shape[1]
-    tc = hidden.dtype == torch.bfloat16
-    if tc and (d % 8 or hidden.data_ptr() % 16):
-        raise ValueError(f"fused_is_grpo_bwd_dh tensor-core kernels take a "
-                         f"16-byte aligned bf16 hidden with d a multiple of "
-                         f"8; got d={d}")
     tgt = targets.to(torch.int32).contiguous()
     lse, ebar, a, e = _rows32(lse, ebar, a, e)
     dl = torch.empty(R, V, dtype=torch.float32, device=hidden.device)
@@ -273,7 +296,9 @@ def fused_is_grpo_bwd_dw_rows(hidden, dl, dw, *, accumulate=False):
     """The ``bwd_dw`` entry point: dw = h^T dl, or dw += h^T dl with
     ``accumulate``. ``dw`` is the (d, V) float32 output in either layout
     (``torch.empty_like(w)`` of the transposed (V, d) embedding keeps the
-    embedding's). Returns dw. CUDA tensors only, as ``bwd_dh``."""
+    embedding's). Returns dw. CUDA tensors only, as ``bwd_dh``: bfloat16
+    hidden on the tensor cores (d a multiple of 8), float32 hidden on the
+    SIMT kernel, counted also in ``simt_launches``."""
     R, d = hidden.shape
     V = dl.shape[1]
     if dl.shape != (R, V) or dl.dtype != torch.float32 \
@@ -282,6 +307,7 @@ def fused_is_grpo_bwd_dw_rows(hidden, dl, dw, *, accumulate=False):
                          f"({d}, V) float32; got {tuple(dl.shape)} "
                          f"{dl.dtype}, {tuple(dw.shape)} {dw.dtype}")
     _check_kernel("fused_is_grpo_bwd_dw", hidden, dw)
+    tc = _check_tc("fused_is_grpo_bwd_dw", hidden)
     dw_sk, dw_sv = _w_strides(dw)
     dl = dl.contiguous()
     lib = build.library("fused_is_grpo")
@@ -292,6 +318,8 @@ def fused_is_grpo_bwd_dw_rows(hidden, dl, dw, *, accumulate=False):
             torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check(err, "fused_is_grpo_bwd_dw")
     fused_is_grpo_bwd_dw_rows.launches += 1
+    if not tc:
+        fused_is_grpo_bwd_dw_rows.simt_launches += 1
     return dw
 
 
@@ -384,6 +412,8 @@ def fused_is_grpo(hidden, w, targets, behaviour, adv, *,
 
 
 fused_is_grpo_fwd_rows.launches = 0
+fused_is_grpo_fwd_rows.simt_launches = 0
 fused_is_grpo_bwd_dh_rows.launches = 0
 fused_is_grpo_bwd_dh_rows.simt_launches = 0
 fused_is_grpo_bwd_dw_rows.launches = 0
+fused_is_grpo_bwd_dw_rows.simt_launches = 0

@@ -54,13 +54,17 @@ def fused_logprob_plain(hidden, w, targets, *, logit_softcap=0.0,
 
 def fused_logprob_rows(hidden, w, targets, *, logit_softcap=0.0):
     """hidden (R, d) float32/bfloat16; w (d, V) float32; targets (R,) int.
-    Returns (logp, lse), each float32 (R,)."""
+    Returns (logp, lse), each float32 (R,). On the card bfloat16 hidden
+    runs the IS-GRPO forward's kernel 1 on the tensor cores (d a multiple
+    of 8), float32 hidden its SIMT version, counted also in
+    ``simt_launches``."""
     fio._check_rows("fused_logprob", hidden, w, targets)
     if hidden.device.type == "cpu":
         with torch.no_grad():
             return fused_logprob_plain(hidden, w, targets,
                                        logit_softcap=logit_softcap)
     w_sk, w_sv = fio._check_kernel("fused_logprob", hidden, w)
+    tc = fio._check_tc("fused_logprob", hidden)
     R, d = hidden.shape
     V = w.shape[1]
     splits = fio._fwd_splits(R, V, hidden.device)
@@ -79,6 +83,8 @@ def fused_logprob_rows(hidden, w, targets, *, logit_softcap=0.0):
             torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check(err, "fused_logprob_fwd")
     fused_logprob_rows.launches += 1
+    if not tc:
+        fused_logprob_rows.simt_launches += 1
     return logp, lse
 
 
@@ -116,3 +122,4 @@ def fused_logprob(hidden, w, targets, *, logit_softcap: float = 0.0):
 
 
 fused_logprob_rows.launches = 0
+fused_logprob_rows.simt_launches = 0

@@ -13,10 +13,11 @@ Sampled tokens must be equal; logps within atol 1e-4. The attention
 backward: float32 atol 1e-4, bfloat16 atol 5e-2 (gradients of order 1 that
 go through bf16 rounding of each output); bfloat16 runs the tensor-core
 kernels, float32 the SIMT ones, and the bf16 backward is bit-equal from
-call to call. The fused IS+GRPO kernels compute
-in float32 like their plain versions: per-row outputs atol 1e-4, dh/dw
-atol 1e-4 relative to their largest element (sums over V or over rows in
-another order), 1e-2 for a bf16 dh (one bf16 ulp). The paged decode
+call to call. The fused IS+GRPO kernels keep float32 accuracy like their
+plain versions (bf16 hidden on the tensor cores, from w and dl as two bf16
+terms; f32 hidden on the SIMT kernels): per-row outputs of both forwards
+atol 1e-4, dh/dw atol 1e-4 relative to their largest element (sums over V
+or over rows in another order), 1e-2 for a bf16 dh (one bf16 ulp). The paged decode
 kernel: as the dense one (float32 1e-4, bfloat16 2e-2), and bit-equal to the
 dense kernel, whose loop it shares: both split each row into chunks of 128
 positions at fixed positions and merge them in chunk order, so lengths and
@@ -338,23 +339,33 @@ def test_fused_is_grpo_bwd_kernels(dev, h_dtype, tied, cap):
                                    atol=rel * float(y.abs().max()), msg=name)
 
 
-def test_fused_is_grpo_bwd_row_chunks(dev, monkeypatch):
-    """Rows in several chunks of the dl scratch: dw accumulates over them."""
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "lm_head"])
+def test_fused_is_grpo_bwd_row_chunks(dev, monkeypatch, tied, h_dtype):
+    """Rows in several chunks of the dl scratch: dw accumulates over them,
+    on the tensor cores for bf16 hidden (chunks of 128 rows start 16-byte
+    aligned) and on the SIMT kernel for f32 (``simt_launches``)."""
     R, d, V = 300, 128, 3000
-    h, w, t, b, _ = _loss_inputs(dev, R, d, V, torch.float32, True, seed=8)
+    h, w, t, b, _ = _loss_inputs(dev, R, d, V, h_dtype, tied, seed=8)
     _, _, _, lse, ent = fio.fwd_plain(h, w, t, b, b)
     ca = torch.randn(R, device=dev, generator=_gen(9))
     ce = torch.zeros(R, device=dev)
     monkeypatch.setattr(fio, "DL_SCRATCH_ELEMS", 128 * V)   # 3 chunks
-    n0 = fio.fused_is_grpo_bwd_dw_rows.launches
+    fn = fio.fused_is_grpo_bwd_dw_rows
+    n0, s0 = fn.launches, fn.simt_launches
     dh, dw = fio.fused_is_grpo_bwd_rows(h, w, t, lse, lse - ent, ca, ce)
     torch.cuda.synchronize()
-    assert fio.fused_is_grpo_bwd_dw_rows.launches == n0 + 3
+    assert fn.launches == n0 + 3
+    assert fn.simt_launches == s0 + (3 if h_dtype == torch.float32 else 0)
     rdh, rdw = fio.bwd_plain(h, w, t, lse, lse - ent, ca, ce)
+    assert dw.stride() == w.stride()
     torch.testing.assert_close(dw, rdw, atol=1e-4 * float(rdw.abs().max()),
                                rtol=0)
-    torch.testing.assert_close(dh, rdh, atol=1e-4 * float(rdh.abs().max()),
-                               rtol=0)
+    # dh comes back in hidden's dtype: one bf16 ulp (2^-8 relative)
+    rel = 1e-2 if h_dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(dh.float(), rdh.float(), rtol=0,
+                               atol=rel * float(rdh.abs().max()))
 
 
 
@@ -407,6 +418,97 @@ def test_fused_is_grpo_bwd_dh_tc_refuses_ragged_width(dev):
     _, _, _, lse, ent = fio.fwd_plain(h, w, t, b, b)
     with pytest.raises(ValueError, match="multiple of 8"):
         fio.fused_is_grpo_bwd_dh_rows(h, w, t, lse, lse - ent, b, b)
+
+
+# R ragged (1, 100 rows; 4064 = 31.75 x 128), d a multiple of 8 but not of
+# 64 (200: a ragged k tile in the forwards, a ragged d tile in dw), and the
+# hybrid families' vocabularies (32001 ragged)
+TC_RD = [(1, 256), (100, 200), (4064, 256)]
+TC_V = [8192, 32001, 65536]
+
+
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "lm_head"])
+@pytest.mark.parametrize("V", TC_V)
+@pytest.mark.parametrize("R,d", TC_RD)
+def test_fused_forwards_tc_entry(dev, R, d, V, tied, cap, h_dtype):
+    """Kernel 1 of both forwards (IS-GRPO and the fused log-prob) against
+    the plain versions: per-row outputs atol 1e-4; bf16 hidden on the
+    tensor cores, f32 hidden on the SIMT kernel (``simt_launches``)."""
+    h, w, t, b, adv = _loss_inputs(dev, R, d, V, h_dtype, tied, seed=R + V)
+    kw = dict(LOSS_KW, logit_softcap=cap, entropy_coef=0.01)
+    simt = 1 if h_dtype == torch.float32 else 0
+    for fn, call, plain in (
+            (fio.fused_is_grpo_fwd_rows,
+             lambda: fio.fused_is_grpo_fwd_rows(h, w, t, b, adv, **kw),
+             lambda: fio.fwd_plain(h, w, t, b, adv, **kw)),
+            (flp.fused_logprob_rows,
+             lambda: flp.fused_logprob_rows(h, w, t, logit_softcap=cap),
+             lambda: flp.fused_logprob_plain(h, w, t, logit_softcap=cap))):
+        n0, s0 = fn.launches, fn.simt_launches
+        outs = call()
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.simt_launches) == (n0 + 1, s0 + simt)
+        for x, y in zip(outs, plain()):
+            torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("h_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "lm_head"])
+@pytest.mark.parametrize("V", TC_V)
+@pytest.mark.parametrize("R,d", TC_RD)
+def test_fused_is_grpo_bwd_dw_entry(dev, R, d, V, tied, h_dtype):
+    """The bwd_dw entry point against its plain version on the dl of
+    bwd_dh's plain version, written and then accumulated into w's own
+    layout: within 1e-4 of the largest element; a second call gives the
+    same bits. bf16 hidden on the tensor cores, f32 on the SIMT kernel."""
+    h, w, t, b, _ = _loss_inputs(dev, R, d, V, h_dtype, tied, seed=R + d)
+    _, _, _, lse, ent = fio.fwd_plain(h, w, t, b, b)
+    g = _gen(16)
+    ca = torch.randn(R, device=dev, generator=g)
+    ce = torch.randn(R, device=dev, generator=g) * 0.1
+    dl, _ = fio.bwd_dh_plain(h, w, t, lse, lse - ent, ca, ce)
+    fn = fio.fused_is_grpo_bwd_dw_rows
+    n0, s0 = fn.launches, fn.simt_launches
+    dw = fn(h, dl, torch.empty_like(w))
+    dw2 = fn(h, dl, torch.empty_like(w))
+    base = torch.empty_like(w)                  # w's layout
+    base.copy_(torch.randn(w.shape, device=dev, generator=g)
+               * float(dw.abs().max()))
+    acc = fn(h, dl, base.clone(), accumulate=True)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 3
+    assert fn.simt_launches == s0 + (3 if h_dtype == torch.float32 else 0)
+    assert dw.stride() == acc.stride() == w.stride()
+    assert torch.equal(dw, dw2)
+    ref = fio.bwd_dw_plain(h, dl)
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(dw, ref, rtol=0, atol=1e-4 * scale)
+    torch.testing.assert_close(acc, base + ref, rtol=0,
+                               atol=1e-4 * float((base + ref).abs().max()))
+
+
+def test_fused_loss_tc_kernels_refuse_what_they_cannot_read(dev):
+    """The forwards and dw on the tensor cores read bf16 hidden rows with
+    16-byte loads: d not a multiple of 8, or a hidden that does not start
+    16-byte aligned, raises in words, with no fallback to the SIMT kernels."""
+    h, w, t, b, a = _loss_inputs(dev, 10, 100, 500, torch.bfloat16, True)
+    dl = torch.zeros(10, 500, device=dev)
+    calls = (lambda h, w: fio.fused_is_grpo_fwd_rows(h, w, t, b, a),
+             lambda h, w: flp.fused_logprob_rows(h, w, t),
+             lambda h, w: fio.fused_is_grpo_bwd_dw_rows(
+                 h, dl, torch.empty_like(w)))
+    buf = torch.zeros(10 * 128 + 1, device=dev, dtype=torch.bfloat16)
+    shifted = buf[1:].view(10, 128)             # 2 bytes past the start
+    w128 = torch.randn(128, 500, device=dev)
+    for call in calls:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            call(h, w)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call(shifted, w128)
 
 
 # -- paged decode attention ------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The numerics of two kernels redesigned for the H100, emulated in plain
+"""The numerics of the kernels redesigned for the H100, emulated in plain
 PyTorch on the CPU and held against the JAX package.
 
 * Decode attention split over the cache length (csrc/decode_common.cuh,
@@ -26,6 +26,20 @@ PyTorch on the CPU and held against the JAX package.
   and carried over V / 16 = 8016 steps they drift past that tolerance; the
   kernel therefore adds each 64-deep k tile's products to its sums with an
   f32 add, which this emulation's float32 sums stand for.
+* The forwards' kernel 1 on the tensor cores (IS-GRPO and the fused
+  log-prob): the logits are h w_hi + h w_mid, the same two terms as the
+  backward's (one device function computes both, so the backward's
+  p = exp(logit - lse) sees the logits of the lse the forward saved). On the
+  same four rows, logp, lse and entropy against ``is_grpo_reference`` (lse
+  from the logsumexp of its float32 logits): 3.8e-6 at softcap 0 and 30,
+  inside the card's atol of 1e-4; one bf16 rounding of w gives 3.2e-3 and
+  misses it.
+* dw = h^T dl on the tensor cores: dl (the float32 scratch) as two bf16
+  terms, h exact, over K = R = 4064 rows, against float64 on a 1024-column
+  slice of the vocabulary (dw's columns are independent): 5.8e-6 (softcap
+  0) and 4.6e-6 (30) of the largest element, inside 1e-4; one rounding of
+  dl gives 2.0e-3 and 1.7e-3. The kernel promotes each 64-deep k tile into
+  float32 sums, as bwd_dh does.
 """
 import pytest
 
@@ -44,6 +58,7 @@ torch.set_num_threads(1)
 C = tda.DECODE_CHUNK
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 RTOL_OF_MAX = 1e-4
+FWD_ATOL = 1e-4
 
 
 # -- decode attention split over the cache length ------------------------------
@@ -210,13 +225,20 @@ def train_shape_loss():
     return dict(emb=emb, h=h, t=t, a=a, e=e, refs={})
 
 
+def _jax_w(case):
+    """The embedding as JAX's (d, V) w, made once for the module."""
+    if "wj" not in case:
+        case["wj"] = jnp.asarray(case["emb"].T)
+    return case["wj"]
+
+
 def _jax_dh(case, cap):
     """jax.grad of sum(a logp + e entropy) through the unfused reference:
     the dh that dl = a (onehot - p) - e p (logit - E[logit]) gives."""
     if cap not in case["refs"]:
         h, t, a, e = case["h"], case["t"], case["a"], case["e"]
         R = h.shape[0]
-        wj = jnp.asarray(case["emb"].T)
+        wj = _jax_w(case)
         zeros = jnp.zeros((1, R))
 
         def f(hh):
@@ -250,3 +272,127 @@ def test_split_dh_at_the_train_shape(train_shape_loss, cap, terms, meets):
     if not meets:
         assert err >= 20 * RTOL_OF_MAX, err
     assert torch.count_nonzero(got[0]) == 0
+
+
+# -- the forwards' logits from split bf16 terms -------------------------------
+
+
+def split_logits(h, w, *, terms, vocab_block=8192):
+    """The raw logits (before the softcap) of the forward's kernel 1 and of
+    bwd_dl_tc: h (bf16 values) times w as ``terms`` bf16 terms (2: hi +
+    mid, as the kernels; 1: one rounding), float32 sums."""
+    out = []
+    for v0 in range(0, w.shape[1], vocab_block):
+        blk = w[:, v0:v0 + vocab_block]
+        hi = _bf16(blk)
+        x = h @ hi
+        if terms == 2:
+            x = x + h @ _bf16(blk - hi)
+        out.append(x)
+    return torch.cat(out, 1)
+
+
+def _stats(x, targets):
+    """(logp, lse, entropy) of rows of logits x: what the forward's running
+    statistics and their merge compute."""
+    lse = torch.logsumexp(x, -1)
+    p = torch.exp(x - lse[:, None])
+    logp = x.gather(1, targets[:, None].long())[:, 0] - lse
+    return logp, lse, lse - (p * x).sum(-1)
+
+
+def _jax_stats(case, cap):
+    """(logp, lse, entropy) of the unfused reference: logp and entropy from
+    ``is_grpo_reference``, lse from the logsumexp of the same float32
+    logits."""
+    key = ("stats", cap)
+    if key not in case["refs"]:
+        h, t = case["h"], case["t"]
+        R = h.shape[0]
+        wj = _jax_w(case)
+        hj = jnp.asarray(h.numpy())[None]
+        zeros = jnp.zeros((1, R))
+        _, _, lp, en = is_grpo_reference(hj, wj, jnp.asarray(t.numpy())[None],
+                                         zeros, zeros, logit_softcap=cap)
+        x = jnp.einsum("bsd,dv->bsv", hj, wj,
+                       preferred_element_type=jnp.float32)
+        if cap > 0:
+            x = jnp.tanh(x / cap) * cap
+        lse = jax.nn.logsumexp(x, axis=-1)
+        case["refs"][key] = [torch.from_numpy(np.array(v[0]))
+                             for v in (lp, lse, en)]
+    return case["refs"][key]
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("terms,meets", [(2, True), (1, False)],
+                         ids=["two_bf16_terms", "one_bf16_pass"])
+def test_split_forward_at_the_train_shape(train_shape_loss, cap, terms,
+                                          meets):
+    """The forwards' two-term logits give logp, lse and entropy within atol
+    1e-4 of JAX at d = 2048, V = 128256; one rounding of w misses it."""
+    case = train_shape_loss
+    key = ("logits", terms)
+    if key not in case:
+        case[key] = split_logits(case["h"], torch.from_numpy(case["emb"]).T,
+                                 terms=terms)
+    got = _stats(tfio._softcap(case[key], cap), case["t"])
+    ref = _jax_stats(case, cap)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    assert (err <= FWD_ATOL) == meets, err
+    if not meets:
+        assert err >= 5 * FWD_ATOL, err
+
+
+# -- dw from split bf16 terms ---------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def train_shape_dl(train_shape_loss):
+    """dw's inputs at the train shape's K = R = 4064 rows: hidden (4064,
+    2048) bf16 values and dl from ``_dlogits`` on a 1024-column slice of the
+    vocabulary (dw's columns are independent of one another). lse and
+    E[logit] of each row are the slice's, shifted by log(V / 1024) for lse,
+    so p has its full-vocabulary size; targets are drawn over the whole
+    vocabulary, so a few rows hit the slice; a quarter of the rows have a
+    = e = 0."""
+    R, V, n = 4064, 128256, 1024
+    rng = np.random.default_rng(4)
+    emb = train_shape_loss["emb"]
+    h = _bf16(torch.from_numpy(rng.standard_normal((R, emb.shape[1]),
+                                                   dtype=np.float32)))
+    w = torch.from_numpy(emb[:n]).T
+    t = torch.from_numpy(rng.integers(0, V, R))
+    a = torch.from_numpy(rng.standard_normal(R).astype(np.float32))
+    e = torch.from_numpy(rng.standard_normal(R).astype(np.float32) * 0.1)
+    a[:R // 4] = e[:R // 4] = 0.0
+    raw = h @ w
+    dls = {}
+    for cap in (0.0, 30.0):
+        x = tfio._softcap(raw, cap)
+        lse = torch.logsumexp(x, -1)
+        ebar = (torch.softmax(x, -1) * x).sum(-1)
+        dls[cap] = tfio._dlogits(x, torch.arange(n), t,
+                                 lse + float(np.log(V / n)), ebar, a, e, cap)
+    return dict(h=h, dl=dls, zero_rows=R // 4)
+
+
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("terms,meets", [(2, True), (1, False)],
+                         ids=["two_bf16_terms", "one_bf16_pass"])
+def test_split_dw_at_the_train_shape(train_shape_dl, cap, terms, meets):
+    """bwd_dw_tc's dw = dl_hi^T h + dl_mid^T h (h exact in bf16), float32
+    sums, within 1e-4 of the largest element of the float64 h^T dl over K =
+    4064 rows; one rounding of dl misses it."""
+    h, dl = train_shape_dl["h"], train_shape_dl["dl"][cap]
+    hi = _bf16(dl)
+    got = h.T @ hi
+    if terms == 2:
+        got = got + h.T @ _bf16(dl - hi)
+    ref = h.double().T @ dl.double()
+    err = float((got.double() - ref).abs().max() / ref.abs().max())
+    assert (err <= RTOL_OF_MAX) == meets, err
+    if not meets:
+        assert err >= 5 * RTOL_OF_MAX, err
+    # rows with a = e = 0 have dl = 0 exactly
+    assert torch.count_nonzero(dl[:train_shape_dl["zero_rows"]]) == 0
