@@ -6,6 +6,9 @@ the attention-free rwkv6-1.6b at full width, through the port's hand-written
 kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
+    python3 chip_smoke.py --ab DIR # sampling and the scan's decode against
+                                   # the checkout at DIR, and the sweep of
+                                   # the sampling kernel's cluster sizes
 
 Phases, each printed as one JSON line (with ``t_s``, the seconds since the
 start):
@@ -21,7 +24,10 @@ start):
    sampling, each also at the hybrid paths' shapes, hymba's H/KV = 5 and
    window and the vocabularies of 32001 and 65536; the selective scan and
    WKV6 at their decode and prefill shapes, plus the JAX kernel tests'
-   cases; training: the
+   cases, the scan's decode kernel beside its prefill kernel at T = 1;
+   sampling also as the train phase runs it, T = 1 untruncated, bounded by
+   the larger of its bytes and the threefry draws' integer instructions,
+   counted from the SASS of the draw probes; training: the
    flash forward with its logsumexp, the flash backward, the fused IS+GRPO
    forward and backward, and the fused log-prob of the legacy loss), with
    its time, the plain version's, one library call's where PyTorch has one,
@@ -31,7 +37,8 @@ start):
    over SDPA's, as the two dense decode checks give theirs over SDPA's
    masked call; the loss kernels' bounds are their tensor cores' (the
    forwards and dw 2 bf16 passes of 2 R d V, bwd_dh 5), each with the f32
-   FMA bound of the same product kept beside it;
+   FMA bound of the same product kept beside it; every decode-shaped check
+   prints the timer's floor, a near-empty launch timed the same way;
 4. reference — the GPU engine (kernels, float32) against the same engine on
    the CPU (plain versions) on the reduced config, dense and paged, and the
    CPU paged engine against the CPU dense one: equal tokens; the same as
@@ -68,7 +75,9 @@ start):
 8. kernels — one {"kernels": [...]} line, one row per kernel entry point,
    each with the launches of the path it runs on (train; train_paged for
    the paged decode and the fused log-prob; serve_hymba and serve_rwkv6
-   for the two scans); the flash and loss rows count the bf16
+   for the two scans, split by T = 1 and T > 1); the sampling row has the
+   train configuration's time and bound, as its launches are train's; the
+   flash and loss rows count the bf16
    tensor-core kernels' launches and, apart, the f32 SIMT kernels'
    (``simt_launches``: every phase that counts launches runs in bf16 and
    fails on a SIMT launch);
@@ -323,7 +332,7 @@ def check_paged_decode(torch, timer, paged_decode_attn, decode_attn):
                max_abs_err_cases=worst, atol=atol,
                diff_from_dense_kernel=dense_diff, ms=kernel_ms,
                plain_ms=plain_ms, library_ms=None, dense_kernel_ms=dense_ms,
-               bound_ms=b_ms, bound_by=b_by)
+               bound_ms=b_ms, bound_by=b_by, timer_floor_ms=timer.floor_ms)
     emit("check_paged_decode_attn", **res)
     return res
 
@@ -362,8 +371,92 @@ def check_sample(torch, timer, fused_sample, prng, V=128256,
     res = dict(shape=f"keys [{R}, 2] u32, logits [{R}, {V}] f32, "
                "T=0.8 top_k=50 top_p=0.95; also none/top-k/top-p/greedy",
                max_abs_err=worst, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               timer_floor_ms=timer.floor_ms)
     emit(phase, **res)
+    return res
+
+
+# SASS opcodes on the 32-bit integer pipe (64 results per clock per SM on
+# Hopper) and on the float pipes; uniform-datapath (U*) instructions run
+# once per warp and IMAD on the FMA pipe, so neither is counted as integer
+INT_OPS = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "PRMT", "LEA",
+           "ISETP", "SEL", "IMNMX", "IABS", "POPC", "FLO", "BREV", "BMSK",
+           "SGXT", "VIADD", "VIMNMX"}
+FLOAT_OPS = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "MUFU",
+             "FCHK", "FRND", "F2I", "I2F", "F2F", "FSWZADD"}
+INT_RESULTS_PER_CLOCK_PER_SM = 64
+
+
+def sass_opcodes(text, marker):
+    """Opcode counts (without modifiers) of the functions of a
+    ``cuobjdump -sass`` listing whose mangled name contains ``marker``."""
+    counts = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        if marker not in block.split(None, 1)[0]:
+            continue
+        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_]*)", block):
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def draw_ops(build):
+    """SASS instructions of one Gumbel draw as csrc/fused_sample.cu runs it:
+    its probe with two draws per thread less the probe with one (the key
+    schedule and the addressing cancel), by pipe and by opcode."""
+    text = build.sass("fused_sample")
+    one = sass_opcodes(text, "gumbel_draw_probeILi1E")
+    two = sass_opcodes(text, "gumbel_draw_probeILi2E")
+    if not one or not two:
+        fail("fused_sample: no SASS of the Gumbel draw probes")
+    diff = {op: two.get(op, 0) - one.get(op, 0) for op in set(one) | set(two)}
+    diff = {op: n for op, n in sorted(diff.items()) if n}
+    return dict(int_ops=sum(n for op, n in diff.items() if op in INT_OPS),
+                float_ops=sum(n for op, n in diff.items() if op in FLOAT_OPS),
+                imad=diff.get("IMAD", 0), by_opcode=diff)
+
+
+def check_sample_train(torch, timer, fused_sample, prng, build, sm_mhz):
+    """Sampling as the train phase runs it (rollouts at temperature 1, no
+    truncation: a threefry draw for every element) at 16 rows x llama's
+    128256. Bound: the larger of the bytes and the draws' 32-bit integer
+    instructions (counted from the SASS, ``draw_ops``) at 64 results per
+    clock per SM on every SM at the card's maximum SM clock."""
+    R, V = 16, 128256
+    g = torch.Generator(device="cuda").manual_seed(12)
+    logits = torch.randn(R, V, device="cuda", generator=g) * 2.0
+    keys = prng.split(prng.PRNGKey(5), R).to("cuda")
+    kw = dict(temperature=1.0)
+    tok, logp = fused_sample.sample_rows(keys, logits, **kw)
+    rt, rl = fused_sample.sample_rows_plain(keys, logits, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(tok, rt):
+        fail("fused_sample tokens differ from the plain version (train)")
+    err = (logp - rl).abs().max().item()
+    atol = 1e-4
+    if not err <= atol:
+        fail(f"fused_sample logps differ (train): {err} > {atol}")
+    kernel_ms = timer(lambda: fused_sample.sample_rows(keys, logits, **kw))
+    plain_ms = timer(lambda: fused_sample.sample_rows_plain(keys, logits,
+                                                            **kw))
+    ops = draw_ops(build)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_rate = INT_RESULTS_PER_CLOCK_PER_SM * sms * sm_mhz * 1e6
+    draws = R * V                                  # every element is kept
+    nbytes = logits.numel() * 4 + keys.numel() * 4 + R * 8
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = draws * ops["int_ops"] / int_rate * 1e3
+    b_ms, b_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    res = dict(shape=f"keys [{R}, 2] u32, logits [{R}, {V}] f32, T=1.0, "
+               "no top-k or top-p (the train phase's sampling)",
+               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               bytes_bound_ms=bytes_ms, int_ops_bound_ms=ops_ms,
+               int_ops_per_draw=ops["int_ops"], draw_sass=ops, draws=draws,
+               sms=sms, max_sm_clock_mhz=sm_mhz,
+               timer_floor_ms=timer.floor_ms)
+    emit("check_fused_sample_train", **res)
     return res
 
 
@@ -412,7 +505,7 @@ def check_decode_rep5(torch, F, timer, decode_attn):
                f"window {win}, sum(cache_len)={live}",
                max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
                library_ms=library_ms, vs_library=kernel_ms / library_ms,
-               bound_ms=b_ms, bound_by=b_by)
+               bound_ms=b_ms, bound_by=b_by, timer_floor_ms=timer.floor_ms)
     emit("check_decode_attn_rep5", **res)
     return res
 
@@ -494,7 +587,8 @@ def check_paged_decode_rep5(torch, timer, paged_decode_attn):
                f"block table {list(bt.shape)}, window {win}, "
                f"sum(cache_len)={live}",
                max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               timer_floor_ms=timer.floor_ms)
     emit("check_paged_decode_attn_rep5", **res)
     return res
 
@@ -549,7 +643,8 @@ def scan_check(torch, timer, name, kernel, plain, args, state, label, shape,
     res = dict(shape=shape, max_abs_err=err, tol="2 bf16 ulps + 1e-4",
                excess_over_tol=excess, state_err_of_max=s_err, ms=kernel_ms,
                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, bytes=nbytes, flops=flops, **extra)
+               bound_by=b_by, bytes=nbytes, flops=flops,
+               timer_floor_ms=timer.floor_ms, **extra)
     emit(f"check_{name}_{label}", **res)
     return res
 
@@ -575,6 +670,7 @@ def check_ssm_scan(torch, timer, ssm_scan):
              f"tests' cases: {worst}")
     res = {}
     di, N = 3200, 16
+    fn = ssm_scan.selective_scan
     for label, (B, T) in (("decode", (16, 1)), ("prefill", (16, PREFILL_T))):
         g = torch.Generator(device="cuda").manual_seed(33)
         args = ssm_inputs(torch, B, T, di, N, torch.bfloat16, g, model_A=True)
@@ -582,11 +678,29 @@ def check_ssm_scan(torch, timer, ssm_scan):
         nbytes = (2 * (3 * x.numel() + Bc.numel() + Cc.numel())
                   + 4 * (A_log.numel() + D.numel()) + 8 * s0.numel())
         exps = B * T * di * N
+        extra = {}
+        if T == 1:
+            # the prefill kernel at T = 1 (the decode path before the
+            # decode kernel), beside the decode kernel on the same inputs
+            y_dec = ssm_scan.launch(*args[:6], s0.clone())
+            y_pre = ssm_scan.launch(*args[:6], s0.clone(), prefill_only=True)
+            torch.cuda.synchronize()
+            work = s0.clone()
+            extra = dict(
+                diff_from_prefill_kernel=float(
+                    (y_dec.float() - y_pre.float()).abs().max()),
+                prefill_kernel_ms=timer(lambda: ssm_scan.launch(
+                    *args[:6], work, prefill_only=True)))
+        n0 = (fn.decode_launches, fn.prefill_launches)
         res[label] = scan_check(
-            torch, timer, "ssm_scan", ssm_scan.selective_scan,
-            ssm_scan.selective_scan_plain, args[:6], s0, label,
+            torch, timer, "ssm_scan", fn, ssm_scan.selective_scan_plain,
+            args[:6], s0, label,
             f"x, dt [{B}, {T}, {di}] bf16, B, C [{B}, {T}, {N}] views, "
-            f"state [{B}, {di}, {N}] f32", nbytes, 8 * exps, exp_count=exps)
+            f"state [{B}, {di}, {N}] f32", nbytes, 8 * exps, exp_count=exps,
+            **extra)
+        ran = (fn.decode_launches - n0[0], fn.prefill_launches - n0[1])
+        if (ran[0] > 0) != (T == 1) or (ran[1] > 0) != (T > 1):
+            fail(f"ssm_scan at T = {T} ran (decode, prefill) kernels {ran}")
     res["decode"]["max_abs_err_cases"] = worst
     return res
 
@@ -1187,6 +1301,7 @@ def serve_paged_phase(torch, np, serve_mod, kernels, dense):
     serve.eng.block_until_ready()
     wall = time.perf_counter() - t0
     launches = read_launches(kernels)
+    by_length = read_by_length(kernels)
     stats = serve.close()
     backend = serve.eng.backend
     ntok = check_results(np, results, cfg, dense["requests"])
@@ -1315,6 +1430,7 @@ def serve_hybrid_phase(torch, np, serve_mod, arch, kernels, phase, *,
     serve.eng.block_until_ready()
     wall = time.perf_counter() - t0
     launches = read_launches(kernels)
+    by_length = read_by_length(kernels)
     stats = serve.close()
     backend = serve.eng.backend
     ntok = check_results(np, results, cfg, len(prompts))
@@ -1332,6 +1448,7 @@ def serve_hybrid_phase(torch, np, serve_mod, arch, kernels, phase, *,
          tokens_per_s=ntok / wall, decode_chunks=stats["decode_chunks"],
          prefill_calls=stats["prefill_calls"],
          utilization=stats["utilization"], launches=launches,
+         launches_by_length=by_length,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
     if backend.is_paged and \
             stats["admission_blocked"] + stats["page_preemptions"] == 0:
@@ -1339,7 +1456,7 @@ def serve_hybrid_phase(torch, np, serve_mod, arch, kernels, phase, *,
     if not all(n > 0 for n in launches.values()):
         fail(f"a kernel of the {phase} path never launched: {launches}")
     profile_phase(torch, np, serve, cfg, phase=f"profile_{phase}")
-    return launches
+    return launches, by_length
 
 
 def copris_hybrid_phase(torch, np, model, kernels_of):
@@ -1450,11 +1567,30 @@ def tc_registers(build, libraries):
     return out
 
 
+SPLIT_COUNTS = ("simt_launches", "decode_launches", "prefill_launches")
+
+
+def max_sm_clock_mhz():
+    """The card's maximum SM clock (nvidia-smi), in MHz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
 def reset_launches(kernels):
     for fn in kernels.values():
         fn.launches = 0
-        if hasattr(fn, "simt_launches"):
-            fn.simt_launches = 0
+        for key in SPLIT_COUNTS:
+            if hasattr(fn, key):
+                setattr(fn, key, 0)
+
+
+def read_by_length(kernels):
+    """The scans' launches since reset_launches, split by sequence length:
+    {name: {"T=1": decode launches, "T>1": prefill launches}}."""
+    return {name: {"T=1": fn.decode_launches, "T>1": fn.prefill_launches}
+            for name, fn in kernels.items() if hasattr(fn, "decode_launches")}
 
 
 def read_launches(kernels):
@@ -1506,9 +1642,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    sm_mhz = max_sm_clock_mhz()
     emit("device", nvidia_smi=smi, kind=kind,
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda, max_sm_clock_mhz=sm_mhz)
 
     # 2. build; the flash libraries' bf16 kernels and the loss library's
     # bf16 bwd_dh kernels issue wgmma (HGMMA)
@@ -1528,6 +1665,8 @@ def main() -> int:
     checks = {"flash_attn": check_flash(torch, F, timer, flash_attn),
               "decode_attn": check_decode(torch, F, timer, decode_attn),
               "fused_sample": check_sample(torch, timer, fused_sample, prng),
+              "fused_sample_train": check_sample_train(
+                  torch, timer, fused_sample, prng, build, sm_mhz),
               "paged_decode_attn": check_paged_decode(
                   torch, timer, paged_decode_attn, decode_attn),
               "flash_attn_lse": check_flash_lse(torch, F, timer, flash_attn),
@@ -1661,14 +1800,14 @@ def main() -> int:
     del params, eng
 
     # 6b. the hybrid families served at full width, then two CoPRIS stages
-    hymba_launches = serve_hybrid_phase(torch, np, serve_mod, "hymba-1.5b",
-                                        hymba_kernels, "serve_hymba")
+    hymba_launches, hymba_by_length = serve_hybrid_phase(
+        torch, np, serve_mod, "hymba-1.5b", hymba_kernels, "serve_hymba")
     # 40% of the dense-equivalent 16 x 640 / 16 = 640 pages
     serve_hybrid_phase(torch, np, serve_mod, "hymba-1.5b",
                        hymba_paged_kernels, "serve_hymba_paged",
                        kv_backend="paged", kv_num_pages=256)
-    rwkv_launches = serve_hybrid_phase(torch, np, serve_mod, "rwkv6-1.6b",
-                                       rwkv_kernels, "serve_rwkv6")
+    rwkv_launches, rwkv_by_length = serve_hybrid_phase(
+        torch, np, serve_mod, "rwkv6-1.6b", rwkv_kernels, "serve_rwkv6")
     copris_hybrid_phase(torch, np, model, {"hymba-1.5b": hymba_kernels,
                                            "rwkv6-1.6b": rwkv_kernels})
 
@@ -1709,7 +1848,7 @@ def main() -> int:
                "paged_decode_attn"),
            "fused_sample": ("src/repro_torch/csrc/fused_sample.cu",
                             "src/repro/kernels/fused_sample/fused_sample.py"
-                            ":265", "fused_sample"),
+                            ":265", "fused_sample_train"),
            "fused_is_grpo_fwd": (
                "src/repro_torch/csrc/fused_is_grpo.cu",
                "src/repro/kernels/fused_is_grpo/fused_is_grpo.py:192",
@@ -1736,6 +1875,8 @@ def main() -> int:
                 "fused_logprob": train_paged_launches["fused_logprob"],
                 "ssm_scan": hymba_launches["ssm_scan"],
                 "wkv6": rwkv_launches["wkv6"]}
+    by_length = {"ssm_scan": hymba_by_length["ssm_scan"],
+                 "wkv6": rwkv_by_length["wkv6"]}
     rows = []
     for name, (source_path, replaces, check) in src.items():
         c = checks[check]
@@ -1747,9 +1888,12 @@ def main() -> int:
         if name in train_simt:
             # launches: the bf16 tensor-core kernels; the f32 SIMT apart
             row["simt_launches"] = train_simt[name]
-        for key in ("library_err", "vs_library", "bound_f32_fma_ms"):
+        for key in ("library_err", "vs_library", "bound_f32_fma_ms",
+                    "int_ops_per_draw", "bytes_bound_ms"):
             if key in c:
                 row[key] = c[key]
+        if name in by_length:
+            row["launches_by_length"] = by_length[name]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
@@ -1759,5 +1903,133 @@ def main() -> int:
     return 0
 
 
+SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+TRAIN_SAMPLING = dict(temperature=1.0)
+
+
+def parent_library(build, parent, name, argtypes):
+    """Kernel source ``name`` of the checkout at ``parent`` built with this
+    tree's nvcc flags into ``parent``/build/ab and loaded with ctypes."""
+    import ctypes
+    csrc = Path(parent) / "src" / "repro_torch" / "csrc"
+    out = Path(parent) / "build" / "ab" / f"{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
+                    str(out), str(csrc / f"{name}.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    for fn_name, args in argtypes.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ab_main(parent) -> int:
+    """``python3 chip_smoke.py --ab PARENT``: this tree's sampling kernel
+    and selective-scan decode against those of the checkout at PARENT (both
+    built here), timed in turns (parent, change, change, parent) at the
+    main paths' shapes; then this tree's sampling kernel over cluster sizes
+    {4, 6, 7, 8, 16} (with the clusters the card holds at once) and through
+    the wrapper's own choice, at 1, 3 and 16 rows of the three served
+    vocabularies, in both sampling configurations."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.hopper import build, fused_sample, ssm_scan
+    from repro_torch.sampling import prng
+    P, I, F = build.P, build.I, build.F
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0))
+    build.build_all()
+    old_sample = parent_library(build, parent, "fused_sample", {
+        "fused_sample_rows": (P, P, P, P, I, I, F, I, F, I, P)})
+    old_scan = parent_library(build, parent, "ssm_scan", {
+        "ssm_scan_fwd": (P,) * 8 + (I,) * 9 + (P,)})
+    timer = Timer(torch)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def old_sample_rows(keys, logits, temperature=1.0, top_k=-1, top_p=1.0):
+        R, V = logits.shape
+        tok = torch.empty(R, dtype=torch.int32, device="cuda")
+        logp = torch.empty(R, device="cuda")
+        build.check(old_sample.fused_sample_rows(
+            keys.data_ptr(), logits.data_ptr(), tok.data_ptr(),
+            logp.data_ptr(), R, V, temperature, top_k, top_p,
+            int(temperature <= 0), stream), "parent fused_sample_rows")
+        return tok, logp
+
+    def in_turns(old, new):
+        ts = [timer(f) for f in (old, new, new, old)]
+        return dict(parent_ms=(ts[0] + ts[3]) / 2, ms=(ts[1] + ts[2]) / 2,
+                    turns_ms=ts)
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for label, V, kw in (("serve", 128256, SERVE_SAMPLING),
+                         ("serve", 32001, SERVE_SAMPLING),
+                         ("serve", 65536, SERVE_SAMPLING),
+                         ("train", 128256, TRAIN_SAMPLING)):
+        logits = torch.randn(16, V, device="cuda", generator=g) * 2.0
+        keys = prng.split(prng.PRNGKey(5), 16).to("cuda")
+        same = torch.equal(old_sample_rows(keys, logits, **kw)[0],
+                           fused_sample.sample_rows(keys, logits, **kw)[0])
+        emit("ab_fused_sample", config=label, rows=16, vocab=V,
+             same_tokens=same, **in_turns(
+                 lambda: old_sample_rows(keys, logits, **kw),
+                 lambda: fused_sample.sample_rows(keys, logits, **kw)))
+
+    B, di, N = 16, 3200, 16
+    x, dt, A_log, Bc, Cc, D, s0 = ssm_inputs(
+        torch, B, 1, di, N, torch.bfloat16, g, model_A=True)
+    work = s0.clone()
+
+    def old_scan_step():
+        y = torch.empty_like(x)
+        build.check(old_scan.ssm_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
+            Cc.data_ptr(), D.data_ptr(), work.data_ptr(), y.data_ptr(), B, 1,
+            di, N, Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1), 1,
+            stream), "parent ssm_scan_fwd")
+        return y
+
+    emit("ab_ssm_scan_decode", shape=f"x, dt [{B}, 1, {di}] bf16, state "
+         f"[{B}, {di}, {N}] f32", **in_turns(
+             old_scan_step,
+             lambda: ssm_scan.selective_scan(x, dt, A_log, Bc, Cc, D, work)))
+
+    totals = {}
+    for label, kw in (("serve", SERVE_SAMPLING), ("train", TRAIN_SAMPLING)):
+        for V in (128256, 32001, 65536):
+            for R in (1, 3, 16):
+                logits = torch.randn(R, V, device="cuda", generator=g) * 2.0
+                keys = prng.split(prng.PRNGKey(R), R).to("cuda")
+                ms, resident = {}, {}
+                for C in (4, 6, 7, 8, 16):
+                    key = f"C{C}"
+                    resident[key] = fused_sample.max_clusters("cuda", V, C)
+                    ms[key] = timer(lambda: fused_sample.launch(
+                        keys, logits, cluster=C,
+                        **{"top_k": -1, "top_p": 1.0, **kw}))
+                    if R == 16:
+                        totals[key] = totals.get(key, 0) + ms[key]
+                ms["wrapper"] = timer(
+                    lambda: fused_sample.sample_rows(keys, logits, **kw))
+                emit("sweep_fused_sample", config=label, rows=R, vocab=V,
+                     ms=ms, fastest=min(ms, key=ms.get),
+                     wrapper_takes=f"C{fused_sample.cluster_size('cuda', R, V)}",
+                     clusters_resident=resident)
+    emit("sweep_fused_sample_total", what="sum over both configurations "
+         "and the three vocabularies at 16 rows", ms=totals,
+         fastest=min(totals, key=totals.get))
+    print(smi, flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        sys.exit(ab_main(sys.argv[2]))
     sys.exit(main())

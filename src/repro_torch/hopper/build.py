@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LL = ctypes.c_longlong
+U = ctypes.c_uint
 
 # C entry points and their argument types, per kernel source
 KERNELS = {
@@ -48,8 +49,15 @@ KERNELS = {
     "paged_decode_attn": {"paged_decode_attn_fwd":
                           (P, P, P, P, P, P, P, LL, P, I, I, I, I, I, I, I,
                            I, F, F, I, P)},
-    "fused_sample": {"fused_sample_rows":
-                     (P, P, P, P, I, I, F, I, F, I, P)},
+    # keys, logits, tok, logp, R, V, temperature, top_k, top_p, greedy,
+    # blocks per row (cluster), stream; the largest slice (int* out); the
+    # clusters resident at once (V, cluster, int* out); the Gumbel draw
+    # probe (k0, k1, out, n, K, stream)
+    "fused_sample": {
+        "fused_sample_rows": (P, P, P, P, I, I, F, I, F, I, I, P),
+        "fused_sample_max_slice": (P,),
+        "fused_sample_max_clusters": (I, I, P),
+        "fused_sample_draw_probe": (U, U, P, I, I, P)},
     "fused_is_grpo": {
         # h, w, targets, behaviour, adv, partial, loss, ratio, logp, lse,
         # ent, R, d, V, w_stride_k, w_stride_v, h_dtype, splits, softcap,
@@ -71,9 +79,9 @@ KERNELS = {
         "fused_logprob_fwd": (P, P, P, P, P, P, I, I, I, I, I, I, I, F, P),
     },
     # x, dt, A_log, B, C, D, state, y, B, T, di, N, B's batch and time
-    # strides, C's, dtype, stream
+    # strides, C's, dtype, prefill_only, stream
     "ssm_scan": {"ssm_scan_fwd":
-                 (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P)},
+                 (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P)},
     # r, k, v, w, u, state, y, B, T, H, hd, dtype, stream
     "wkv6": {"wkv6_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, P)},
 }

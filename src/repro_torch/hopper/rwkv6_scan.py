@@ -3,9 +3,10 @@ kernel ``csrc/wkv6.cu`` (the port of the Pallas ``rwkv6_scan`` TPU kernel).
 
 On CPU tensors the wrapper runs the plain PyTorch version,
 :func:`wkv6_plain` (a copy of the reference's ``models/rwkv6.wkv6_scan``);
-on CUDA tensors it launches the kernel or raises. The kernel is forward
-only, as the Pallas kernel is: on CUDA, an input that requires a gradient
-while grad is enabled raises.
+on CUDA tensors it launches the kernel or raises; ``launches`` counts its
+launches, ``decode_launches`` those at T = 1 and ``prefill_launches`` the
+rest. The kernel is forward only, as the Pallas kernel is: on CUDA, an
+input that requires a gradient while grad is enabled raises.
 """
 from __future__ import annotations
 
@@ -95,7 +96,13 @@ def wkv6(r, k, v, w, u, state, *, seq_mask=None):
             _DTYPES[r.dtype], torch.cuda.current_stream(r.device).cuda_stream)
     build.check(err, "wkv6_fwd")
     wkv6.launches += 1
+    if T == 1:
+        wkv6.decode_launches += 1
+    else:
+        wkv6.prefill_launches += 1
     return y, state
 
 
 wkv6.launches = 0
+wkv6.decode_launches = 0                # T = 1
+wkv6.prefill_launches = 0               # T > 1

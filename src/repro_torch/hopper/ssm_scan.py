@@ -5,8 +5,11 @@ hand-written CUDA kernel ``csrc/ssm_scan.cu`` (the port of the Pallas
 On CPU tensors the wrapper runs the plain PyTorch version,
 :func:`selective_scan_plain` (a copy of the reference's
 ``models/ssm.selective_scan``); on CUDA tensors it launches the kernel or
-raises. The kernel is forward only, as the Pallas kernel is: on CUDA, an
-input that requires a gradient while grad is enabled raises.
+raises. T = 1 (a decode step) runs the decode kernel, T > 1 the prefill
+kernel; ``launches`` counts both, ``decode_launches`` and
+``prefill_launches`` each. The kernels are forward only, as the Pallas
+kernel is: on CUDA, an input that requires a gradient while grad is enabled
+raises.
 """
 from __future__ import annotations
 
@@ -93,6 +96,25 @@ def selective_scan(x, dt, A_log, Bc, Cc, D, state, *, seq_mask=None):
                          "A_log, D, state and a contiguous last axis of B, C")
     if seq_mask is not None:
         dt = dt * seq_mask[..., None].to(dt.dtype)     # exact: mask is 0 / 1
+    y = launch(x, dt, A_log, Bc, Cc, D, state)
+    selective_scan.launches += 1
+    if T == 1:
+        selective_scan.decode_launches += 1
+    else:
+        selective_scan.prefill_launches += 1
+    return y, state
+
+
+def launch(x, dt, A_log, Bc, Cc, D, state, *, prefill_only=False):
+    """One launch on CUDA tensors that :func:`selective_scan` has checked:
+    the decode kernel at T = 1 (unless ``prefill_only``), else the prefill
+    kernel. Updates ``state`` in place, counts nothing, returns y."""
+    B, T, di = x.shape
+    N = A_log.shape[-1]
+    decode = T == 1 and not prefill_only
+    if decode and (state.data_ptr() % 16 or A_log.data_ptr() % 16):
+        raise ValueError("selective_scan decode kernel: the state and A_log "
+                         "must be 16-byte aligned")
     y = torch.empty_like(x)
     lib = build.library("ssm_scan")
     with torch.cuda.device(x.device):
@@ -100,11 +122,12 @@ def selective_scan(x, dt, A_log, Bc, Cc, D, state, *, seq_mask=None):
             x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
             Cc.data_ptr(), D.data_ptr(), state.data_ptr(), y.data_ptr(),
             B, T, di, N, Bc.stride(0), Bc.stride(1), Cc.stride(0),
-            Cc.stride(1), _DTYPES[x.dtype],
+            Cc.stride(1), _DTYPES[x.dtype], int(prefill_only),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ssm_scan_fwd")
-    selective_scan.launches += 1
-    return y, state
+    return y
 
 
 selective_scan.launches = 0
+selective_scan.decode_launches = 0      # T = 1: the decode kernel
+selective_scan.prefill_launches = 0     # T > 1: the prefill kernel

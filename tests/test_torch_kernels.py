@@ -150,6 +150,139 @@ def test_fused_sample_kernel_ties(dev):
         torch.testing.assert_close(logp, rl, atol=1e-5, rtol=0)
 
 
+SAMPLE_KWS = [dict(temperature=1.0), dict(temperature=0.8, top_k=50),
+              dict(temperature=0.9, top_p=0.95),
+              dict(temperature=0.8, top_k=50, top_p=0.95),
+              dict(temperature=1.0, top_k=1), dict(temperature=0.0)]
+
+
+def _sample_agrees(keys, logits, kw, **launch):
+    """The kernel (through the wrapper, or one ``launch`` with the given
+    cluster size) against the plain version: equal tokens, logp within
+    1e-4."""
+    if launch:
+        tok, logp = fused_sample.launch(keys, logits, **{
+            "temperature": 1.0, "top_p": 1.0, "top_k": -1, **kw, **launch})
+    else:
+        tok, logp = fused_sample.sample_rows(keys, logits, **kw)
+    torch.cuda.synchronize()
+    rt, rl = fused_sample.sample_rows_plain(keys, logits, **kw)
+    assert torch.equal(tok, rt), kw
+    torch.testing.assert_close(logp, rl, atol=1e-4, rtol=0)
+    return tok, logp
+
+
+@pytest.mark.parametrize("V", [5, 1000, 32001, 65536, 128256])
+@pytest.mark.parametrize("R", [1, 3, 16])
+def test_fused_sample_cluster_rows_and_vocabs(dev, R, V):
+    """One cluster per row at 1, 3 and 16 rows (prefill samples few rows),
+    vocabularies below the cluster size, odd, and the served ones; all six
+    configurations of test_fused_sample_kernel."""
+    logits = torch.randn(R, V, device=dev, generator=_gen(R + V)) * 3
+    keys = prng.split(prng.PRNGKey(R), R).to(dev)
+    for kw in SAMPLE_KWS:
+        n0 = fused_sample.sample_rows.launches
+        _sample_agrees(keys, logits, kw)
+        assert fused_sample.sample_rows.launches == n0 + 1
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 6, 7, 8, 16])
+def test_fused_sample_cluster_sizes(dev, cluster):
+    """Every cluster size the wrapper may take gives the plain version's
+    tokens."""
+    logits = torch.randn(3, 32001, device=dev, generator=_gen(8)) * 3
+    keys = prng.split(prng.PRNGKey(8), 3).to(dev)
+    for kw in SAMPLE_KWS:
+        _sample_agrees(keys, logits, kw, cluster=cluster)
+
+
+def test_fused_sample_ties_across_slices(dev):
+    """Tied maxima in different slices of a row (slices of 125 at V = 1000
+    and 8 blocks; 7 and 8 straddle a boundary): greedy takes the lowest
+    index, the thresholds keep every tie, sampling agrees with the plain
+    version."""
+    V = 1000
+    logits = torch.randn(4, V, device=dev, generator=_gen(9))
+    spots = [[124, 125], [3, 999], [250, 500, 750], [7, 8]]
+    for r, idx in enumerate(spots):
+        logits[r, idx] = 9.0
+    keys = prng.split(prng.PRNGKey(9), 4).to(dev)
+    tok, _ = _sample_agrees(keys, logits, dict(temperature=0.0))
+    assert tok.tolist() == [s[0] for s in spots]
+    for kw in (dict(top_k=1), dict(top_k=2), dict(top_p=0.5),
+               dict(temperature=0.1)):
+        tok, _ = _sample_agrees(keys, logits, kw)
+        assert all(t in s for t, s in zip(tok.tolist(), spots)), kw
+
+
+@pytest.mark.parametrize("kw", [dict(top_k=1), dict(top_k=32001),
+                                dict(top_k=40000), dict(top_p=1e-6),
+                                dict(temperature=0.7, top_k=1, top_p=1e-6),
+                                dict(top_k=200, top_p=0.9),
+                                dict(temperature=0.7, top_k=100),
+                                dict(top_k=64, top_p=0.99)],
+                         ids=["k1", "k=V", "k>V", "p1e-6", "k1p1e-6",
+                              "radix-k200p", "radix-k100", "k64p"])
+def test_fused_sample_extreme_truncation(dev, kw):
+    """Truncation at its extremes, and top-k over more candidates than the
+    gather sorts (every radix level of both thresholds runs)."""
+    logits = torch.randn(16, 32001, device=dev, generator=_gen(10)) * 2
+    keys = prng.split(prng.PRNGKey(10), 16).to(dev)
+    _sample_agrees(keys, logits, kw)
+
+
+def test_fused_sample_cluster_choice(dev):
+    """The wrapper takes the largest cluster whose rows the card holds at
+    once: 16 blocks per row for one row, fewer for 16 rows."""
+    for R, V in ((1, 128256), (3, 32001), (16, 128256), (16, 65536)):
+        C = fused_sample.cluster_size(dev, R, V)
+        assert fused_sample.max_clusters(dev, V, C) >= R
+        bigger = [c for c in fused_sample.CLUSTERS if c > C]
+        assert all(fused_sample.max_clusters(dev, V, c) < R for c in bigger)
+    assert fused_sample.cluster_size(dev, 1, 128256) == 16
+
+
+def test_fused_sample_is_deterministic(dev):
+    """The same keys and logits give the same tokens and logps, bit for bit
+    (integer histograms, rank-order merges)."""
+    logits = torch.randn(16, 128256, device=dev, generator=_gen(11)) * 2
+    keys = prng.split(prng.PRNGKey(11), 16).to(dev)
+    for kw in SAMPLE_KWS:
+        a = fused_sample.sample_rows(keys, logits, **kw)
+        b = fused_sample.sample_rows(keys, logits, **kw)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), kw
+
+
+def test_fused_sample_refuses_a_vocabulary_beyond_shared_memory(dev):
+    limit = fused_sample.max_vocab(dev)
+    assert fused_sample.max_vocab(dev, 8) >= 256000   # gemma2's fits in 8
+    logits = torch.zeros(1, limit + 1, device=dev)
+    keys = prng.split(prng.PRNGKey(0), 1).to(dev)
+    with pytest.raises(ValueError, match="does not fit in the shared memory"):
+        fused_sample.sample_rows(keys, logits)
+    tok, _ = fused_sample.sample_rows(keys, logits, temperature=0.0)
+    assert tok.item() == 0                     # greedy keeps no slice
+
+
+def test_fused_sample_draw_probe_bits(dev):
+    """The probe kernels (one and two Gumbel draws per output, whose SASS
+    chip_smoke.py counts) draw jax's Gumbel noise."""
+    import ctypes
+    from repro_torch.hopper import build
+    key = prng.PRNGKey(3)
+    want = prng.gumbel(key, 512).float().to(dev)
+    lib = build.library("fused_sample")
+    stream = torch.cuda.current_stream().cuda_stream
+    k0, k1 = (ctypes.c_uint(int(k)) for k in key.tolist())
+    for K in (1, 2):
+        out = torch.empty(512 // K, device=dev)
+        build.check(lib.fused_sample_draw_probe(k0, k1, out.data_ptr(),
+                                                512 // K, K, stream), "probe")
+        torch.cuda.synchronize()
+        ref = want.view(-1, K).sum(1) if K == 2 else want
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_lse(dev, dtype):
     g = _gen(3)
@@ -769,6 +902,79 @@ def test_ssm_scan_kernel(dev, dtype, B, T, di, N, masked):
         _within_bf16_ulps(y, want_y)
         torch.testing.assert_close(sf, want_s, rtol=0,
                                    atol=1e-4 * float(want_s.abs().max()))
+
+
+def _scan_agrees(y, sf, want_y, want_s, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=0)
+        torch.testing.assert_close(sf, want_s, atol=1e-4, rtol=0)
+    else:
+        _within_bf16_ulps(y, want_y)
+        torch.testing.assert_close(sf, want_s, rtol=0,
+                                   atol=1e-4 * float(want_s.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,di,N", [(3, 200, 16), (3, 200, 8),
+                                    (16, 3200, 16), (5, 77, 8)])
+def test_ssm_scan_decode_kernel(dev, dtype, B, di, N):
+    """T = 1 takes the decode kernel (B and C strided views, channel tails
+    of a warp and of a block), against the plain version."""
+    x, dt, A_log, _, _, D, s0 = _ssm_inputs(B, 1, di, N, dtype, _gen(12),
+                                            dev)
+    proj = torch.randn(B, 1, 3 + 2 * N, device=dev,
+                       generator=_gen(16)).to(dtype)
+    Bc, Cc = proj[..., 3:3 + N], proj[..., 3 + N:]   # views, offset 3
+    want_y, want_s = ssm_scan.selective_scan_plain(x, dt, A_log, Bc, Cc, D,
+                                                   s0)
+    state = s0.clone()
+    n0 = (ssm_scan.selective_scan.decode_launches,
+          ssm_scan.selective_scan.prefill_launches)
+    y, sf = ssm_scan.selective_scan(x, dt, A_log, Bc, Cc, D, state)
+    torch.cuda.synchronize()
+    assert (ssm_scan.selective_scan.decode_launches,
+            ssm_scan.selective_scan.prefill_launches) == (n0[0] + 1, n0[1])
+    assert sf is state and y.dtype == dtype
+    _scan_agrees(y, sf, want_y, want_s, dtype)
+
+
+def test_ssm_scan_dispatch_by_length(dev):
+    """T = 1 counts a decode launch, T > 1 a prefill launch; launches counts
+    both."""
+    fn = ssm_scan.selective_scan
+    for T, want in ((1, (1, 1, 0)), (2, (1, 0, 1)), (33, (1, 0, 1))):
+        args = _ssm_inputs(2, T, 64, 16, torch.float32, _gen(13), dev)
+        n0 = (fn.launches, fn.decode_launches, fn.prefill_launches)
+        fn(*args)
+        got = (fn.launches, fn.decode_launches, fn.prefill_launches)
+        assert tuple(g - n for g, n in zip(got, n0)) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [8, 16])
+def test_ssm_scan_decode_matches_prefill_kernel(dev, dtype, N):
+    """At T = 1 the decode kernel agrees with the prefill kernel: the same
+    state update, y summed in another order."""
+    x, dt, A_log, Bc, Cc, D, s0 = _ssm_inputs(16, 1, 3200, N, dtype,
+                                              _gen(14), dev)
+    s_dec, s_pre = s0.clone(), s0.clone()
+    y_dec = ssm_scan.launch(x, dt, A_log, Bc, Cc, D, s_dec)
+    y_pre = ssm_scan.launch(x, dt, A_log, Bc, Cc, D, s_pre,
+                            prefill_only=True)
+    torch.cuda.synchronize()
+    _scan_agrees(y_dec, s_dec, y_pre, s_pre, dtype)
+
+
+def test_wkv6_counts_decode_and_prefill(dev):
+    fn = rwkv6_scan.wkv6
+    u = torch.zeros(2, 32, device=dev)
+    for T, want in ((1, (1, 1, 0)), (4, (1, 0, 1))):
+        r = torch.randn(2, T, 2, 32, device=dev, generator=_gen(15))
+        s = torch.zeros(2, 2, 32, 32, device=dev)
+        n0 = (fn.launches, fn.decode_launches, fn.prefill_launches)
+        fn(r, r, r, torch.sigmoid(r), u, s)
+        got = (fn.launches, fn.decode_launches, fn.prefill_launches)
+        assert tuple(g - n for g, n in zip(got, n0)) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -6,6 +6,9 @@ JAX package:
   ``repro.kernels.ssm_scan.ops.selective_scan`` in interpret mode, on
   ``tests/test_kernels.py``'s three cases, plus T = 1 (decode), bfloat16
   inputs, a ``seq_mask`` case and a carried state;
+* the decode kernel's split of a T = 1 step over lanes of 4 states, with
+  its partial sums merged in xor-shuffle order, against the reference at
+  hymba-1.5b's width;
 * ``causal_conv1d`` with and without ``lengths``;
 * ``apply_ssm`` on weights converted from the JAX init.
 
@@ -136,6 +139,54 @@ def test_plain_scan_bf16_inputs(T):
     assert_within_bf16_ulps(y.float().numpy(),
                             np.asarray(y_ref.astype(jnp.float32)))
     np.testing.assert_allclose(sf.numpy(), np.asarray(sf_ref), atol=1e-4)
+
+
+def step_lanes(x, dt, A_log, Bc, Cc, D, s0, lanes):
+    """The decode kernel's T = 1 step (csrc/ssm_scan.cu, ssm_step_kernel)
+    in torch: lane q of a channel owns states 4q .. 4q + 3 and sums h * C
+    over them in order; the lanes' partial sums merge by xor shuffles 1,
+    then 2 (the second with 4 lanes only). Returns y (B, 1, di) in x's dtype
+    and the new state."""
+    B, _, di = x.shape
+    xf, dtf = x[:, 0].float(), dt[:, 0].float()               # (B, di)
+    bf, cf = Bc[:, 0].float(), Cc[:, 0].float()               # (B, N)
+    negA = -torch.exp(A_log)
+    h = torch.exp(negA[None] * dtf[..., None]) * s0 \
+        + (dtf * xf)[..., None] * bf[:, None, :]
+    t = (h * cf[:, None, :]).view(B, di, lanes, 4)
+    part = ((t[..., 0] + t[..., 1]) + t[..., 2]) + t[..., 3]
+    y = part[..., 0] + part[..., 1]                           # xor 1
+    if lanes == 4:
+        y = y + (part[..., 2] + part[..., 3])                 # xor 2
+    return (y + xf * D)[:, None].to(x.dtype), h
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [16, 8])
+def test_decode_lane_split_matches_reference(N, dtype):
+    """The 4-state lane split of the T = 1 step at hymba-1.5b's width (16
+    rows, d_inner 3200), against repro.models.ssm.selective_scan: float32
+    atol 1e-4; bfloat16 inputs within two bf16 ulps plus 1e-4, the state
+    within 1e-4 of its largest element."""
+    arrs = _inputs(16, 1, 3200, N, seed=N, s0_scale=0.2)
+    dt_t = getattr(torch, dtype)
+    tin = _torch(arrs, dt_t)
+    y, sf = step_lanes(*tin, lanes=N // 4)
+    jin = [jnp.asarray(t.float().numpy()) for t in tin]
+    y_ref, sf_ref = jssm.selective_scan(*jin)
+    y_ref = np.asarray(y_ref)
+    if dtype == "float32":
+        np.testing.assert_allclose(y.numpy(), y_ref, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(sf.numpy(), np.asarray(sf_ref), atol=1e-4,
+                                   rtol=0)
+    else:
+        want = y_ref.astype(jnp.bfloat16).astype(np.float32)
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want),
+                                                  2.0 ** -126))) - 7)
+        assert (np.abs(y.float().numpy() - want) <= 2 * ulp + 1e-4).all()
+        np.testing.assert_allclose(
+            sf.numpy(), np.asarray(sf_ref), rtol=0,
+            atol=1e-4 * float(np.abs(np.asarray(sf_ref)).max()))
 
 
 def test_wrapper_takes_the_plain_version_on_cpu():
