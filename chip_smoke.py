@@ -6,9 +6,10 @@ the attention-free rwkv6-1.6b at full width, through the port's hand-written
 kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
-    python3 chip_smoke.py --ab DIR # sampling and the scan's decode against
-                                   # the checkout at DIR, and the sweep of
-                                   # the sampling kernel's cluster sizes
+    python3 chip_smoke.py --ab DIR # sampling, the selective scan and WKV6
+                                   # (decode and prefill) against the
+                                   # checkout at DIR, and the sweep of the
+                                   # sampling kernel's cluster sizes
 
 Phases, each printed as one JSON line (with ``t_s``, the seconds since the
 start):
@@ -18,13 +19,16 @@ start):
    cuobjdump counts the HGMMA (wgmma) instructions of the two flash
    libraries and of the loss library (its bf16 forward, dl, dh and dw
    kernels), which must have some; ptxas's registers and spills of the
-   tensor-core kernels (every kernel named ``*_tc``);
+   tensor-core kernels (every kernel named ``*_tc``) and of the scan
+   kernels (with their shared memory);
 3. kernel checks — each kernel against its plain PyTorch version at the
    main paths' shapes (serving: prefill, dense and paged decode and
    sampling, each also at the hybrid paths' shapes, hymba's H/KV = 5 and
    window and the vocabularies of 32001 and 65536; the selective scan and
    WKV6 at their decode and prefill shapes, plus the JAX kernel tests'
-   cases, the scan's decode kernel beside its prefill kernel at T = 1;
+   cases, each scan's decode kernel beside its prefill kernel at T = 1,
+   the selective scan bounded by the largest of its bytes, its FMA-pipe
+   operations and its exponentials on the MUFU pipe;
    sampling also as the train phase runs it, T = 1 untruncated, bounded by
    the larger of its bytes and the threefry draws' integer instructions,
    counted from the SASS of the draw probes; training: the
@@ -386,6 +390,9 @@ INT_OPS = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "PRMT", "LEA",
 FLOAT_OPS = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "MUFU",
              "FCHK", "FRND", "F2I", "I2F", "F2F", "FSWZADD"}
 INT_RESULTS_PER_CLOCK_PER_SM = 64
+# MUFU (ex2, rcp, ...) results per clock per SM on Hopper: an exponential
+# issues there, beside its float32 range reduction on the FMA pipe
+MUFU_RESULTS_PER_CLOCK_PER_SM = 16
 
 
 def sass_opcodes(text, marker):
@@ -621,12 +628,14 @@ def ssm_inputs(torch, B, T, di, N, dtype, g, *, model_A=False):
 
 
 def scan_check(torch, timer, name, kernel, plain, args, state, label, shape,
-               nbytes, flops, **extra):
+               nbytes, flops, *, exps=0, mufu_rate=None, **extra):
     """One scan kernel at a serve shape, bf16: against its plain version
     (output within 2 bf16 ulps of each element plus 1e-4, final state
     within 1e-4 of its largest element), timed beside the plain version.
     The kernel updates the state in place, so each call gets a fresh
-    copy."""
+    copy. Bound: the largest of the bytes, the float32 operations on the
+    FMA pipe at 67 TFLOP/s and ``exps`` exponentials on the MUFU pipe at
+    ``mufu_rate`` a second; ``bound_pipe`` names the operations' pipe."""
     y, sf = kernel(*args, state.clone())
     yp, sp = plain(*args, state)
     torch.cuda.synchronize()
@@ -639,23 +648,35 @@ def scan_check(torch, timer, name, kernel, plain, args, state, label, shape,
     work = state.clone()
     kernel_ms = timer(lambda: kernel(*args, work))
     plain_ms = timer(lambda: plain(*args, state), iters=3, warmup=1)
-    b_ms, b_by = bound(nbytes, flops, PEAK_F32_FLOPS)
+    bounds = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+              "fma": flops / PEAK_F32_FLOPS * 1e3}
+    if exps:
+        bounds["mufu"] = exps / mufu_rate * 1e3
+    pipe = max(bounds, key=bounds.get)
     res = dict(shape=shape, max_abs_err=err, tol="2 bf16 ulps + 1e-4",
                excess_over_tol=excess, state_err_of_max=s_err, ms=kernel_ms,
-               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, bytes=nbytes, flops=flops,
+               plain_ms=plain_ms, library_ms=None, bound_ms=bounds[pipe],
+               bound_by="bytes" if pipe == "bytes" else "operations",
+               bound_pipe=None if pipe == "bytes" else pipe,
+               bounds_ms=bounds, bytes=nbytes, flops=flops,
                timer_floor_ms=timer.floor_ms, **extra)
     emit(f"check_{name}_{label}", **res)
     return res
 
 
-def check_ssm_scan(torch, timer, ssm_scan):
+def check_ssm_scan(torch, timer, ssm_scan, sm_mhz):
     """The selective scan at the JAX kernel tests' f32 cases (atol 1e-4),
     then at hymba-1.5b's serve shapes in bf16: decode (B = 16, T = 1) and
-    prefill (16 rows x the largest prompt bucket), di = 3200, N = 16. Bound:
-    bytes (x, dt, B, C, y once, A_log and D, the state read and written)
-    against 8 f32 operations per (row, step, channel, state), the
-    exponential counted as one."""
+    prefill (16 rows x the largest prompt bucket), di = 3200, N = 16. At
+    T = 1 the prefill kernel runs beside the decode kernel on the same
+    inputs. Bound: the largest of the bytes (x, dt, B, C, y once, A_log and
+    D, the state read and written), 7 float32 operations per (row, step,
+    channel, state) on the FMA pipe, and the exponentials (one per (row,
+    step, channel, state), one per (channel, state) for -exp(A_log)) on the
+    MUFU pipe at 16 a clock per SM on every SM at the card's maximum SM
+    clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mufu_rate = MUFU_RESULTS_PER_CLOCK_PER_SM * sms * sm_mhz * 1e6
     worst = 0.0
     for i, (B, T, di, N) in enumerate(SSM_CASES):
         g = torch.Generator(device="cuda").manual_seed(30 + i)
@@ -677,7 +698,7 @@ def check_ssm_scan(torch, timer, ssm_scan):
         x, dt, A_log, Bc, Cc, D, s0 = args
         nbytes = (2 * (3 * x.numel() + Bc.numel() + Cc.numel())
                   + 4 * (A_log.numel() + D.numel()) + 8 * s0.numel())
-        exps = B * T * di * N
+        exps = B * T * di * N + di * N
         extra = {}
         if T == 1:
             # the prefill kernel at T = 1 (the decode path before the
@@ -696,8 +717,9 @@ def check_ssm_scan(torch, timer, ssm_scan):
             torch, timer, "ssm_scan", fn, ssm_scan.selective_scan_plain,
             args[:6], s0, label,
             f"x, dt [{B}, {T}, {di}] bf16, B, C [{B}, {T}, {N}] views, "
-            f"state [{B}, {di}, {N}] f32", nbytes, 8 * exps, exp_count=exps,
-            **extra)
+            f"state [{B}, {di}, {N}] f32", nbytes, 7 * B * T * di * N,
+            exps=exps, mufu_rate=mufu_rate, exp_count=exps, sms=sms,
+            max_sm_clock_mhz=sm_mhz, **extra)
         ran = (fn.decode_launches - n0[0], fn.prefill_launches - n0[1])
         if (ran[0] > 0) != (T == 1) or (ran[1] > 0) != (T > 1):
             fail(f"ssm_scan at T = {T} ran (decode, prefill) kernels {ran}")
@@ -706,24 +728,27 @@ def check_ssm_scan(torch, timer, ssm_scan):
 
 
 def check_wkv6(torch, timer, rwkv6_scan):
-    """WKV6 at the JAX kernel tests' f32 cases (atol 1e-4), then at
-    rwkv6-1.6b's serve shapes in bf16: decode (B = 16, T = 1) and prefill
-    (16 rows x the largest prompt bucket), H = 32, hd = 64. Bound: bytes
-    (r, k, v, w, y once, u, the state read and written) against 6 f32
-    operations per (row, step, head, i, j)."""
-    def inputs(B, T, H, hd, dtype, g):
+    """WKV6 at the JAX kernel tests' f32 cases and one case with decays down
+    to ~1e-8 (atol 1e-4), then at rwkv6-1.6b's serve shapes in bf16: decode
+    (B = 16, T = 1, with the prefill kernel beside the decode kernel on the
+    same inputs, and a copy of the state timed beside it) and prefill (16
+    rows x the largest prompt bucket), H = 32, hd = 64. Bound: bytes (r, k,
+    v, w, y once, u, the state read and written) against 6 f32 operations
+    per (row, step, head, i, j)."""
+    def inputs(B, T, H, hd, dtype, g, strong=False):
         r, k, v = (torch.randn(B, T, H, hd, device="cuda", generator=g)
                    * 0.5 for _ in range(3))
-        w = torch.exp(-torch.exp(torch.randn(B, T, H, hd, device="cuda",
-                                             generator=g) * 0.5 - 1.0))
+        x = torch.randn(B, T, H, hd, device="cuda", generator=g)
+        w = torch.exp(-torch.exp(x * 1.2 + 0.9 if strong else x * 0.5 - 1.0))
         u = torch.randn(H, hd, device="cuda", generator=g) * 0.3
         s0 = torch.randn(B, H, hd, hd, device="cuda", generator=g) * 0.2
         return [t.to(dtype) for t in (r, k, v, w)] + [u, s0]
 
     worst = 0.0
-    for i, (B, T, H, hd) in enumerate(WKV_CASES):
+    for i, (B, T, H, hd) in enumerate(WKV_CASES + [(2, 70, 4, 64)]):
         g = torch.Generator(device="cuda").manual_seed(40 + i)
-        args = inputs(B, T, H, hd, torch.float32, g)
+        args = inputs(B, T, H, hd, torch.float32, g,
+                      strong=i == len(WKV_CASES))
         y, sf = rwkv6_scan.wkv6(*args[:5], args[5].clone())
         yp, sp = rwkv6_scan.wkv6_plain(*args)
         torch.cuda.synchronize()
@@ -734,16 +759,38 @@ def check_wkv6(torch, timer, rwkv6_scan):
              f"cases: {worst}")
     res = {}
     H, hd = 32, 64
+    fn = rwkv6_scan.wkv6
     for label, (B, T) in (("decode", (16, 1)), ("prefill", (16, PREFILL_T))):
         g = torch.Generator(device="cuda").manual_seed(43)
         args = inputs(B, T, H, hd, torch.bfloat16, g)
         r, s0 = args[0], args[5]
         nbytes = 2 * 5 * r.numel() + 4 * args[4].numel() + 8 * s0.numel()
+        extra = {}
+        if T == 1:
+            # the prefill kernel at T = 1 (the decode path before the
+            # decode kernel), beside the decode kernel on the same inputs
+            y_dec = rwkv6_scan.launch(*args[:5], s0.clone())
+            y_pre = rwkv6_scan.launch(*args[:5], s0.clone(),
+                                      prefill_only=True)
+            torch.cuda.synchronize()
+            work, dst = s0.clone(), torch.empty_like(s0)
+            extra = dict(
+                diff_from_prefill_kernel=float(
+                    (y_dec.float() - y_pre.float()).abs().max()),
+                prefill_kernel_ms=timer(lambda: rwkv6_scan.launch(
+                    *args[:5], work, prefill_only=True)),
+                # a yardstick, never a limit: PyTorch's copy of the state
+                # moves the bytes the decode step must move
+                state_copy_ms=timer(lambda: dst.copy_(s0)))
+        n0 = (fn.decode_launches, fn.prefill_launches)
         res[label] = scan_check(
-            torch, timer, "wkv6", rwkv6_scan.wkv6, rwkv6_scan.wkv6_plain,
+            torch, timer, "wkv6", fn, rwkv6_scan.wkv6_plain,
             args[:5], s0, label,
             f"r, k, v, w [{B}, {T}, {H}, {hd}] bf16, state [{B}, {H}, {hd}, "
-            f"{hd}] f32", nbytes, 6 * B * T * H * hd * hd)
+            f"{hd}] f32", nbytes, 6 * B * T * H * hd * hd, **extra)
+        ran = (fn.decode_launches - n0[0], fn.prefill_launches - n0[1])
+        if (ran[0] > 0) != (T == 1) or (ran[1] > 0) != (T > 1):
+            fail(f"wkv6 at T = {T} ran (decode, prefill) kernels {ran}")
     res["decode"]["max_abs_err_cases"] = worst
     return res
 
@@ -1567,6 +1614,31 @@ def tc_registers(build, libraries):
     return out
 
 
+def scan_registers(build):
+    """ptxas's registers, spill bytes (stores, loads) and static shared
+    memory of each scan kernel (csrc/ssm_scan.cu, csrc/wkv6.cu), by
+    instantiation: {"wkv6_scan_kernel<bf16,64>": [regs, st, ld, smem]}."""
+    import re
+    out = {}
+    for name in ("ssm_scan", "wkv6"):
+        log = build.library_log(name)
+        for entry, body in re.findall(
+                r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
+                log, re.S):
+            m = re.search(r"((?:ssm|wkv6)_(?:step|scan)_kernel)I"
+                          r"(f|13__nv_bfloat16)Li(\d+)E", entry)
+            regs = re.search(r"Used (\d+) registers", body)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", body)
+            smem = re.search(r"(\d+) bytes smem", body)
+            if m and regs and spill:
+                dtype = "f32" if m.group(2) == "f" else "bf16"
+                out[f"{m.group(1)}<{dtype},{m.group(3)}>"] = [
+                    int(regs.group(1)), int(spill.group(1)),
+                    int(spill.group(2)), int(smem.group(1)) if smem else 0]
+    return out
+
+
 SPLIT_COUNTS = ("simt_launches", "decode_launches", "prefill_launches")
 
 
@@ -1655,7 +1727,8 @@ def main() -> int:
              for name in ("flash_attn", "flash_attn_bwd", "fused_is_grpo")}
     emit("build", seconds=time.perf_counter() - t0, per_source=secs,
          hgmma_instructions=hgmma,
-         tensor_core_registers=tc_registers(build, hgmma))
+         tensor_core_registers=tc_registers(build, hgmma),
+         scan_registers=scan_registers(build))
     if not all(hgmma.values()):
         fail(f"a tensor-core library has no HGMMA (wgmma) instruction: "
              f"{hgmma}")
@@ -1683,7 +1756,7 @@ def main() -> int:
               **{f"fused_sample_{V}": check_sample(
                   torch, timer, fused_sample, prng, V=V,
                   phase=f"check_fused_sample_{V}") for V in (32001, 65536)}}
-    scans = {"ssm_scan": check_ssm_scan(torch, timer, ssm_scan),
+    scans = {"ssm_scan": check_ssm_scan(torch, timer, ssm_scan, sm_mhz),
              "wkv6": check_wkv6(torch, timer, rwkv6_scan)}
     checks.update({name: r["decode"] for name, r in scans.items()})
     torch.cuda.empty_cache()
@@ -1894,6 +1967,10 @@ def main() -> int:
                 row[key] = c[key]
         if name in by_length:
             row["launches_by_length"] = by_length[name]
+            pre = scans[name]["prefill"]
+            row["prefill"] = {key: pre[key] for key in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_pipe", "bounds_ms")}
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
@@ -1925,19 +2002,28 @@ def parent_library(build, parent, name, argtypes):
     return lib
 
 
+def sass_of(build, lib_path):
+    """``cuobjdump -sass`` of the shared library at ``lib_path``."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def ab_main(parent) -> int:
-    """``python3 chip_smoke.py --ab PARENT``: this tree's sampling kernel
-    and selective-scan decode against those of the checkout at PARENT (both
-    built here), timed in turns (parent, change, change, parent) at the
-    main paths' shapes; then this tree's sampling kernel over cluster sizes
-    {4, 6, 7, 8, 16} (with the clusters the card holds at once) and through
-    the wrapper's own choice, at 1, 3 and 16 rows of the three served
-    vocabularies, in both sampling configurations."""
+    """``python3 chip_smoke.py --ab PARENT``: this tree's sampling kernel,
+    selective scan (decode and prefill) and WKV6 (decode and prefill)
+    against those of the checkout at PARENT (both built here), timed in
+    turns (parent, change, change, parent) at the main paths' shapes, with
+    the SASS opcode counts of both trees' scan kernels; then this tree's
+    sampling kernel over cluster sizes {4, 6, 7, 8, 16} (with the clusters
+    the card holds at once) and through the wrapper's own choice, at 1, 3
+    and 16 rows of the three served vocabularies, in both sampling
+    configurations."""
     import torch
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.hopper import build, fused_sample, ssm_scan
+    from repro_torch.hopper import build, fused_sample, rwkv6_scan, ssm_scan
     from repro_torch.sampling import prng
     P, I, F = build.P, build.I, build.F
     smi = subprocess.run(
@@ -1947,20 +2033,38 @@ def ab_main(parent) -> int:
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0))
     build.build_all()
     old_sample = parent_library(build, parent, "fused_sample", {
-        "fused_sample_rows": (P, P, P, P, I, I, F, I, F, I, P)})
+        "fused_sample_rows": (P, P, P, P, I, I, F, I, F, I, I, P)})
     old_scan = parent_library(build, parent, "ssm_scan", {
-        "ssm_scan_fwd": (P,) * 8 + (I,) * 9 + (P,)})
+        "ssm_scan_fwd": (P,) * 8 + (I,) * 10 + (P,)})
+    old_wkv = parent_library(build, parent, "wkv6", {
+        "wkv6_fwd": (P,) * 7 + (I,) * 5 + (P,)})
     timer = Timer(torch)
     stream = torch.cuda.current_stream().cuda_stream
+
+    # what each tree's scan kernels issue (static SASS opcode counts; the
+    # parent's WKV6 step loop is unrolled over its hd rows)
+    ab_dir = Path(parent) / "build" / "ab"
+    sass = {"parent": (sass_of(build, ab_dir / "wkv6.so")
+                       + sass_of(build, ab_dir / "ssm_scan.so")),
+            "change": build.sass("wkv6") + build.sass("ssm_scan")}
+    for tree, marker in (("parent", "wkv6_kernelI13__nv_bfloat16Li64E"),
+                         ("parent", "ssm_scan_kernelI13__nv_bfloat16Li16E"),
+                         ("change", "wkv6_step_kernelI13__nv_bfloat16Li64E"),
+                         ("change", "wkv6_scan_kernelI13__nv_bfloat16Li64E"),
+                         ("change", "ssm_scan_kernelI13__nv_bfloat16Li16E")):
+        emit("ab_sass", tree=tree, kernel=marker,
+             opcodes=dict(sorted(sass_opcodes(sass[tree], marker).items())))
 
     def old_sample_rows(keys, logits, temperature=1.0, top_k=-1, top_p=1.0):
         R, V = logits.shape
         tok = torch.empty(R, dtype=torch.int32, device="cuda")
         logp = torch.empty(R, device="cuda")
+        greedy = temperature <= 0
         build.check(old_sample.fused_sample_rows(
             keys.data_ptr(), logits.data_ptr(), tok.data_ptr(),
-            logp.data_ptr(), R, V, temperature, top_k, top_p,
-            int(temperature <= 0), stream), "parent fused_sample_rows")
+            logp.data_ptr(), R, V, temperature, top_k, top_p, int(greedy),
+            fused_sample.cluster_size("cuda", R, V, greedy), stream),
+            "parent fused_sample_rows")
         return tok, logp
 
     def in_turns(old, new):
@@ -1983,23 +2087,57 @@ def ab_main(parent) -> int:
                  lambda: fused_sample.sample_rows(keys, logits, **kw)))
 
     B, di, N = 16, 3200, 16
-    x, dt, A_log, Bc, Cc, D, s0 = ssm_inputs(
-        torch, B, 1, di, N, torch.bfloat16, g, model_A=True)
-    work = s0.clone()
+    for label, T in (("decode", 1), ("prefill", PREFILL_T)):
+        x, dt, A_log, Bc, Cc, D, s0 = ssm_inputs(
+            torch, B, T, di, N, torch.bfloat16, g, model_A=True)
+        work = s0.clone()
 
-    def old_scan_step():
-        y = torch.empty_like(x)
-        build.check(old_scan.ssm_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
-            Cc.data_ptr(), D.data_ptr(), work.data_ptr(), y.data_ptr(), B, 1,
-            di, N, Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1), 1,
-            stream), "parent ssm_scan_fwd")
-        return y
+        def old_scan_call(state):
+            y = torch.empty_like(x)
+            build.check(old_scan.ssm_scan_fwd(
+                x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
+                Cc.data_ptr(), D.data_ptr(), state.data_ptr(), y.data_ptr(),
+                B, T, di, N, Bc.stride(0), Bc.stride(1), Cc.stride(0),
+                Cc.stride(1), 1, 0, stream), "parent ssm_scan_fwd")
+            return y
 
-    emit("ab_ssm_scan_decode", shape=f"x, dt [{B}, 1, {di}] bf16, state "
-         f"[{B}, {di}, {N}] f32", **in_turns(
-             old_scan_step,
-             lambda: ssm_scan.selective_scan(x, dt, A_log, Bc, Cc, D, work)))
+        y_old = old_scan_call(s0.clone())
+        y_new, _ = ssm_scan.selective_scan(x, dt, A_log, Bc, Cc, D,
+                                           s0.clone())
+        emit(f"ab_ssm_scan_{label}", shape=f"x, dt [{B}, {T}, {di}] bf16, "
+             f"state [{B}, {di}, {N}] f32",
+             max_diff_from_parent=float((y_old.float() - y_new.float())
+                                        .abs().max()),
+             **in_turns(lambda: old_scan_call(work),
+                        lambda: ssm_scan.selective_scan(
+                            x, dt, A_log, Bc, Cc, D, work)))
+
+    H, hd = 32, 64
+    for label, T in (("decode", 1), ("prefill", PREFILL_T)):
+        r, k, v = (torch.randn(B, T, H, hd, device="cuda", generator=g)
+                   .mul(0.5).bfloat16() for _ in range(3))
+        w = torch.exp(-torch.exp(torch.randn(
+            B, T, H, hd, device="cuda", generator=g) * 0.5 - 1.0)).bfloat16()
+        u = torch.randn(H, hd, device="cuda", generator=g) * 0.3
+        s0 = torch.randn(B, H, hd, hd, device="cuda", generator=g) * 0.2
+        work = s0.clone()
+
+        def old_wkv_call(state):
+            y = torch.empty_like(r)
+            build.check(old_wkv.wkv6_fwd(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), state.data_ptr(), y.data_ptr(), B, T, H, hd,
+                1, stream), "parent wkv6_fwd")
+            return y
+
+        y_old = old_wkv_call(s0.clone())
+        y_new, _ = rwkv6_scan.wkv6(r, k, v, w, u, s0.clone())
+        emit(f"ab_wkv6_{label}", shape=f"r, k, v, w [{B}, {T}, {H}, {hd}] "
+             f"bf16, state [{B}, {H}, {hd}, {hd}] f32",
+             max_diff_from_parent=float((y_old.float() - y_new.float())
+                                        .abs().max()),
+             **in_turns(lambda: old_wkv_call(work),
+                        lambda: rwkv6_scan.wkv6(r, k, v, w, u, work)))
 
     totals = {}
     for label, kw in (("serve", SERVE_SAMPLING), ("train", TRAIN_SAMPLING)):

@@ -22,92 +22,191 @@
 // and written once per step (B * di * N * 8 bytes) against ~8 operations per
 // state element. At prefill the state stays in registers for the whole
 // sequence and the bytes are x, dt, y; the B * T * di * N exponentials then
-// weigh about as much as those bytes, so the two bounds are close.
+// bound it: each issues on the MUFU pipe (16 a clock per SM), twice the
+// time of the bytes at hymba-1.5b's prefill.
 //
-// Two kernels; the C entry point takes the decode kernel when T = 1.
+// Two kernels; the C entry point takes the decode kernel when T = 1. Both
+// split a channel's N states over N / 4 neighbouring lanes, 4 states a lane,
+// and merge y's partial sums by xor shuffles 1 and 2 in fixed order, plus
+// D x (tests/test_torch_ssm.py emulates the order).
 //
-// Prefill (T > 1): one thread per (batch row, channel) holds its N states and
-// its N values of -exp(A_log) in registers; a block of 128 threads covers 128
-// channels of one row, so x, dt and y accesses are coalesced across the warp.
-// B_t and C_t (N values shared by every channel of the row) are staged in
-// shared memory for kSteps steps at a time, so a block synchronises twice per
-// kSteps steps and not per step. The TPU kernel's sequential time-chunk grid
-// axis becomes this loop; nothing is carried between blocks.
+// Prefill (T > 1), `ssm_scan_kernel`: a block of 320 threads covers 80
+// channels (N 16; 160 of N 8) of one batch row, each lane holding its 4
+// states and 4 values of -exp(A_log) log2(e) in registers: 4x the threads
+// of the first version (one thread a channel). The first version loaded x
+// and dt from device memory inside its step loop, a global-load latency on
+// each of the T sequential steps; here the block stages N steps (a chunk)
+// of x and dt (its channels) and of B_t, C_t with cp.async, 16- and 4-byte
+// copies (plain loads where an address is not aligned for them, never on
+// the model path), so no step waits on device memory. One barrier a
+// chunk: after it, chunk c + 2 loads (three buffers), chunk c + 1's B_t and
+// C_t are widened to float32 once for every channel (two buffers), and
+// chunk c computes. The exponential is one MUFU ex2 of a log2(e)-scaled
+// argument: the accurate expf spends 8 instructions on it, and took the
+// kernel from 0.27 to 0.40 ms on the H100 (PERF.md); both hold the f32
+// cases at 1e-4. At <= 32 registers, at least five blocks fit an SM, so
+// hymba-1.5b's 16 rows x 40 blocks run in one wave. The TPU kernel's
+// sequential time-chunk grid axis becomes the chunk loop; nothing is
+// carried between blocks.
 //
-// Decode (T = 1): the step is bound by the state's bytes, so every state
-// access is coalesced. One thread per (batch row, channel, group of 4
-// states): the N / 4 lanes of a channel are neighbours in a warp, each reads
-// its 4 states and its 4 A_log values as one 16-byte load (a warp covers 512
-// contiguous bytes of each) and stores its states back the same way; B_t and
-// C_t are read by scalar loads through their strides (views of the x_proj
-// output, with no alignment to count on). y is the lanes' partial sums over
-// their 4 states merged by xor shuffles 1 and 2 in fixed order, plus D x.
-// No shared memory and no barrier; 4x the threads of the prefill kernel.
+// Decode (T = 1), `ssm_step_kernel`: the step is bound by the state's bytes,
+// so every state access is coalesced. One thread per (batch row, channel,
+// group of 4 states): each lane reads its 4 states and its 4 A_log values as
+// one 16-byte load (a warp covers 512 contiguous bytes of each) and stores
+// its states back the same way; B_t and C_t are read by scalar loads
+// through their strides (views of the x_proj output, with no alignment to
+// count on). No shared memory and no barrier.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // channels per block
-constexpr int kSteps = 32;     // time steps of B_t, C_t staged per sync
+using repro::tc::cp_async16;
+using repro::tc::cp_async4;
+using repro::tc::cp_async_commit;
+using repro::tc::cp_async_wait;
+using repro::tc::smem_addr;
+
+constexpr int kScanThreads = 320;  // (row, channel, 4 states) per thread
+
+// 2^x on the MUFU pipe (ex2.approx, flushing subnormal results to zero):
+// exp(a dt) = 2^((a log2 e) dt), with a log2 e formed once per state
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
+struct ScanSmem {
+  static constexpr int L = N / 4;                 // lanes a channel
+  static constexpr int CB = kScanThreads / L;     // channels a block
+  static constexpr int STEPS = N;                 // steps a chunk
+  alignas(16) T xd[3][2][STEPS][CB];     // x, dt as loaded, 3 buffers
+  alignas(16) T bc_raw[3][2][STEPS][N];  // B_t, C_t as loaded, 3 buffers
+  alignas(16) float bc[2][2][STEPS][N];  // B_t, C_t widened, 2 buffers
+};
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kScanThreads, 5)
 ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 const float* __restrict__ A_log, const T* __restrict__ Bc,
                 const T* __restrict__ Cc, const float* __restrict__ D,
                 float* __restrict__ state, T* __restrict__ y, int len,
-                int di, int b_sb, int b_st, int c_sb, int c_st) {
-  const int b = blockIdx.y;
-  const int c = blockIdx.x * kThreads + threadIdx.x;
+                int di, int b_sb, int b_st, int c_sb, int c_st, int xvec,
+                int bcvec) {
+  using Sm = ScanSmem<T, N>;
+  constexpr int L = Sm::L, CB = Sm::CB, STEPS = Sm::STEPS;
+  static_assert(N % 4 == 0 && (L == 2 || L == 4), "N = 8 or 16");
+  constexpr int E16 = 16 / sizeof(T), E4 = 4 / sizeof(T);
+  __shared__ Sm sm;
+
+  const int b = blockIdx.y, c0 = blockIdx.x * CB;
+  const int tid = threadIdx.x, cl = tid / L, q = tid % L;
+  const int c = c0 + cl;
   const bool live = c < di;
+  const int nch = min(CB, di - c0);      // channels of this block
 
-  __shared__ float bs[kSteps][N];
-  __shared__ float cs[kSteps][N];
-
-  float h[N];
-  float negA[N];
+  float h[4] = {0.f, 0.f, 0.f, 0.f}, a2[4] = {0.f, 0.f, 0.f, 0.f};
   float Dc = 0.f;
-  float* st = state + ((size_t)b * di + (live ? c : 0)) * N;
+  float4* st = reinterpret_cast<float4*>(state) +
+                ((size_t)b * di + (live ? c : 0)) * L + q;
   if (live) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      negA[n] = -expf(A_log[(size_t)c * N + n]);
-      h[n] = st[n];
-    }
+    const float4 h4 = *st;
+    const float4 a4 = reinterpret_cast<const float4*>(A_log)[(size_t)c * L + q];
+    h[0] = h4.x; h[1] = h4.y; h[2] = h4.z; h[3] = h4.w;
+    a2[0] = -expf(a4.x) * repro::tc::kLog2e;
+    a2[1] = -expf(a4.y) * repro::tc::kLog2e;
+    a2[2] = -expf(a4.z) * repro::tc::kLog2e;
+    a2[3] = -expf(a4.w) * repro::tc::kLog2e;
     Dc = D[c];
   }
-  const size_t row = (size_t)b * len * di;
-  const T* bb = Bc + (size_t)b * b_sb;
-  const T* cb = Cc + (size_t)b * c_sb;
 
-  for (int t0 = 0; t0 < len; t0 += kSteps) {
-    const int nt = min(kSteps, len - t0);
-    __syncthreads();  // the previous chunk's reads of bs / cs are done
-    for (int i = threadIdx.x; i < nt * N; i += kThreads) {
-      const int s = i / N, n = i % N;
-      bs[s][n] = repro::to_f(bb[(size_t)(t0 + s) * b_st + n]);
-      cs[s][n] = repro::to_f(cb[(size_t)(t0 + s) * c_st + n]);
+  // chunk ch's x, dt, B_t, C_t into buffer buf. The loops run over a whole
+  // chunk's index space (compile-time divisors), skipping the steps past
+  // the end and the channels past di; the pointers are recomputed from the
+  // kernel's parameters, so the step loop keeps its registers.
+  auto stage = [&](int ch, int buf) {
+    const int t0 = ch * STEPS, nt = min(STEPS, len - t0);
+    const size_t xrow = ((size_t)b * len + t0) * di + c0;
+    if (xvec) {                 // nch * sizeof(T) is a multiple of 16
+      constexpr int PM = CB / E16;
+      for (int i = tid; i < 2 * STEPS * PM; i += kScanThreads) {
+        const int a = i / (STEPS * PM), s = i / PM % STEPS, pc = i % PM;
+        if (s >= nt || pc * E16 >= nch) continue;
+        cp_async16(smem_addr(&sm.xd[buf][a][s][pc * E16]),
+                   (a ? dt : x) + xrow + (size_t)s * di + pc * E16, true);
+      }
+    } else {
+      for (int i = tid; i < 2 * STEPS * CB; i += kScanThreads) {
+        const int a = i / (STEPS * CB), s = i / CB % STEPS, e = i % CB;
+        if (s >= nt || e >= nch) continue;
+        sm.xd[buf][a][s][e] = (a ? dt : x)[xrow + (size_t)s * di + e];
+      }
     }
-    __syncthreads();
-    if (!live) continue;
-    for (int s = 0; s < nt; ++s) {
-      const size_t off = row + (size_t)(t0 + s) * di + c;
-      const float xv = repro::to_f(x[off]);
-      const float dv = repro::to_f(dt[off]);
+    constexpr int PB = N / E4;
+    for (int i = tid; i < 2 * STEPS * PB; i += kScanThreads) {
+      const int a = i / (STEPS * PB), s = i / PB % STEPS, pc = i % PB;
+      if (s >= nt) continue;
+      const T* g = a ? Cc + (size_t)b * c_sb + (size_t)(t0 + s) * c_st
+                     : Bc + (size_t)b * b_sb + (size_t)(t0 + s) * b_st;
+      T* d = &sm.bc_raw[buf][a][s][pc * E4];
+      if (bcvec) {              // 4-byte aligned views
+        cp_async4(smem_addr(d), g + pc * E4, true);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E4; ++e) d[e] = g[pc * E4 + e];
+      }
+    }
+  };
+  // chunk ch's B_t, C_t widened once (they are read by every channel)
+  auto widen = [&](int ch) {
+    const int nt = min(STEPS, len - ch * STEPS);
+    for (int i = tid; i < 2 * STEPS * N; i += kScanThreads) {
+      const int a = i / (STEPS * N), s = i / N % STEPS, n = i % N;
+      if (s < nt)
+        sm.bc[ch & 1][a][s][n] = repro::to_f(sm.bc_raw[ch % 3][a][s][n]);
+    }
+  };
+
+  // one barrier a chunk: after it, chunk ch + 2 loads, chunk ch + 1 is
+  // widened and chunk ch computes, each from its own buffer
+  const int nchunks = (len + STEPS - 1) / STEPS;
+  T* yp = y + (size_t)b * len * di + c;   // y at (b, t, c), t advancing
+  stage(0, 0);
+  cp_async_commit();
+  if (nchunks > 1) stage(1, 1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  widen(0);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ch widened, ch + 1 landed, ch - 1 computed
+    if (ch + 2 < nchunks) stage(ch + 2, (ch + 2) % 3);
+    cp_async_commit();
+    if (ch + 1 < nchunks) widen(ch + 1);
+    const int nt = min(STEPS, len - ch * STEPS), xb = ch % 3, bb = ch & 1;
+    for (int s = 0; s < nt; ++s, yp += di) {
+      const float xv = repro::to_f(sm.xd[xb][0][s][cl]);
+      const float dv = repro::to_f(sm.xd[xb][1][s][cl]);
+      const float4 b4 = reinterpret_cast<const float4*>(sm.bc[bb][0][s])[q];
+      const float4 c4 = reinterpret_cast<const float4*>(sm.bc[bb][1][s])[q];
+      const float bn[4] = {b4.x, b4.y, b4.z, b4.w};
+      const float cn[4] = {c4.x, c4.y, c4.z, c4.w};
       const float dx = dv * xv;
       float acc = 0.f;
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = expf(negA[n] * dv) * h[n] + dx * bs[s][n];
-        acc += h[n] * cs[s][n];
+      for (int k = 0; k < 4; ++k) {
+        h[k] = ex2(a2[k] * dv) * h[k] + dx * bn[k];
+        acc += h[k] * cn[k];
       }
-      y[off] = repro::from_f<T>(acc + xv * Dc);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (L == 4) acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (live && q == 0) *yp = repro::from_f<T>(acc + xv * Dc);
     }
   }
-  if (live) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) st[n] = h[n];
-  }
+  if (live) *st = make_float4(h[0], h[1], h[2], h[3]);
 }
 
 constexpr int kStepThreads = 256;  // (row, channel, 4 states) per thread
@@ -177,13 +276,24 @@ void launch(const void* x, const void* dt, const void* A_log, const void* Bc,
         static_cast<float*>(state), static_cast<T*>(y), B, di, b_sb, c_sb);
     return;
   }
-  dim3 grid((di + kThreads - 1) / kThreads, B);
-  ssm_scan_kernel<T, N><<<grid, kThreads, 0, s>>>(
+  // x, dt: 16-byte copies when every row and block of channels is
+  // 16-byte aligned; B, C: 4-byte copies when the views are 4-byte aligned
+  constexpr int CB = ScanSmem<T, N>::CB;
+  const uintptr_t xa =
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dt);
+  const bool xvec = (xa % 16) == 0 && (di * sizeof(T)) % 16 == 0;
+  const uintptr_t ba =
+      reinterpret_cast<uintptr_t>(Bc) | reinterpret_cast<uintptr_t>(Cc);
+  const bool bcvec = (ba % 4) == 0 &&
+                     ((size_t)(b_sb | b_st | c_sb | c_st) * sizeof(T)) % 4 == 0;
+  static_assert((CB * sizeof(T)) % 16 == 0, "blocks of whole 16-byte pieces");
+  dim3 grid((di + CB - 1) / CB, B);
+  ssm_scan_kernel<T, N><<<grid, kScanThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const float*>(A_log), static_cast<const T*>(Bc),
       static_cast<const T*>(Cc), static_cast<const float*>(D),
       static_cast<float*>(state), static_cast<T*>(y), len, di, b_sb, b_st,
-      c_sb, c_st);
+      c_sb, c_st, xvec, bcvec);
 }
 
 template <typename T>
@@ -200,9 +310,10 @@ bool dispatch_n(int N, const void* x, const void* dt, const void* A_log,
 
 }  // namespace
 
-// prefill_only: run the prefill kernel at T = 1 too (a test compares the
-// two kernels); otherwise T = 1 takes the decode kernel. The decode kernel
-// reads the state and A_log 16 bytes at a time: both 16-byte aligned.
+// prefill_only: run the prefill kernel at T = 1 too (tests and
+// chip_smoke.py compare the two kernels); otherwise T = 1 takes the decode
+// kernel. Both kernels read the state and A_log 16 bytes at a time: both
+// 16-byte aligned.
 extern "C" int ssm_scan_fwd(const void* x, const void* dt, const void* A_log,
                             const void* Bc, const void* Cc, const void* D,
                             void* state, void* y, int B, int len, int di,

@@ -82,8 +82,8 @@ KERNELS = {
     # strides, C's, dtype, prefill_only, stream
     "ssm_scan": {"ssm_scan_fwd":
                  (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P)},
-    # r, k, v, w, u, state, y, B, T, H, hd, dtype, stream
-    "wkv6": {"wkv6_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, P)},
+    # r, k, v, w, u, state, y, B, T, H, hd, dtype, prefill_only, stream
+    "wkv6": {"wkv6_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, I, P)},
 }
 
 

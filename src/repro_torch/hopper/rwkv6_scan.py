@@ -3,10 +3,11 @@ kernel ``csrc/wkv6.cu`` (the port of the Pallas ``rwkv6_scan`` TPU kernel).
 
 On CPU tensors the wrapper runs the plain PyTorch version,
 :func:`wkv6_plain` (a copy of the reference's ``models/rwkv6.wkv6_scan``);
-on CUDA tensors it launches the kernel or raises; ``launches`` counts its
-launches, ``decode_launches`` those at T = 1 and ``prefill_launches`` the
-rest. The kernel is forward only, as the Pallas kernel is: on CUDA, an
-input that requires a gradient while grad is enabled raises.
+on CUDA tensors it launches the kernel or raises. T = 1 (a decode step)
+runs the decode kernel, T > 1 the prefill kernel; ``launches`` counts both,
+``decode_launches`` and ``prefill_launches`` each. The kernels are
+forward only, as the Pallas kernel is: on CUDA, an input that requires a
+gradient while grad is enabled raises.
 """
 from __future__ import annotations
 
@@ -87,14 +88,7 @@ def wkv6(r, k, v, w, u, state, *, seq_mask=None):
         w = w * m + (1 - m)
     if not all(t.is_contiguous() for t in (r, k, v, w, u, state)):
         raise ValueError("wkv6 kernel needs contiguous r, k, v, w, u, state")
-    y = torch.empty_like(r)
-    lib = build.library("wkv6")
-    with torch.cuda.device(r.device):
-        err = lib.wkv6_fwd(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), state.data_ptr(), y.data_ptr(), B, T, H, hd,
-            _DTYPES[r.dtype], torch.cuda.current_stream(r.device).cuda_stream)
-    build.check(err, "wkv6_fwd")
+    y = launch(r, k, v, w, u, state)
     wkv6.launches += 1
     if T == 1:
         wkv6.decode_launches += 1
@@ -103,6 +97,25 @@ def wkv6(r, k, v, w, u, state, *, seq_mask=None):
     return y, state
 
 
+def launch(r, k, v, w, u, state, *, prefill_only=False):
+    """One launch on CUDA tensors that :func:`wkv6` has checked: the decode
+    kernel at T = 1 (unless ``prefill_only``), else the prefill kernel.
+    Updates ``state`` in place, counts nothing, returns y."""
+    B, T, H, hd = r.shape
+    if state.data_ptr() % 16:
+        raise ValueError("wkv6 kernel: the state must be 16-byte aligned")
+    y = torch.empty_like(r)
+    lib = build.library("wkv6")
+    with torch.cuda.device(r.device):
+        err = lib.wkv6_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), state.data_ptr(), y.data_ptr(), B, T, H, hd,
+            _DTYPES[r.dtype], int(prefill_only),
+            torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(err, "wkv6_fwd")
+    return y
+
+
 wkv6.launches = 0
-wkv6.decode_launches = 0                # T = 1
-wkv6.prefill_launches = 0               # T > 1
+wkv6.decode_launches = 0                # T = 1: the decode kernel
+wkv6.prefill_launches = 0               # T > 1: the prefill kernel

@@ -111,10 +111,9 @@ def launch(x, dt, A_log, Bc, Cc, D, state, *, prefill_only=False):
     kernel. Updates ``state`` in place, counts nothing, returns y."""
     B, T, di = x.shape
     N = A_log.shape[-1]
-    decode = T == 1 and not prefill_only
-    if decode and (state.data_ptr() % 16 or A_log.data_ptr() % 16):
-        raise ValueError("selective_scan decode kernel: the state and A_log "
-                         "must be 16-byte aligned")
+    if state.data_ptr() % 16 or A_log.data_ptr() % 16:
+        raise ValueError("selective_scan kernel: the state and A_log must be "
+                         "16-byte aligned")
     y = torch.empty_like(x)
     lib = build.library("ssm_scan")
     with torch.cuda.device(x.device):

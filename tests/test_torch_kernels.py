@@ -878,6 +878,10 @@ def _ssm_inputs(B, T, di, N, dtype, g, dev, s0_scale=0.2):
     (2, 64, 128, 16, False), (1, 50, 64, 8, False), (2, 33, 256, 16, False),
     (16, 1, 3200, 16, False),                 # hymba-1.5b decode
     (3, 70, 3200, 16, True),                  # padded prefill, channel tail
+    (2, 2, 3200, 16, False), (2, 2, 200, 8, False),           # T = 2
+    (3, 21, 200, 8, True),                    # T not a multiple of 8 steps
+    (2, 17, 77, 16, False),                   # x, dt rows not 16-byte aligned
+    (3, 1, 200, 8, True),                     # masked decode
 ])
 def test_ssm_scan_kernel(dev, dtype, B, T, di, N, masked):
     g = _gen(5)
@@ -942,8 +946,10 @@ def test_ssm_scan_dispatch_by_length(dev):
     """T = 1 counts a decode launch, T > 1 a prefill launch; launches counts
     both."""
     fn = ssm_scan.selective_scan
-    for T, want in ((1, (1, 1, 0)), (2, (1, 0, 1)), (33, (1, 0, 1))):
-        args = _ssm_inputs(2, T, 64, 16, torch.float32, _gen(13), dev)
+    for T, N, want in ((1, 16, (1, 1, 0)), (2, 16, (1, 0, 1)),
+                       (33, 16, (1, 0, 1)), (1, 8, (1, 1, 0)),
+                       (9, 8, (1, 0, 1))):
+        args = _ssm_inputs(2, T, 64, N, torch.float32, _gen(13), dev)
         n0 = (fn.launches, fn.decode_launches, fn.prefill_launches)
         fn(*args)
         got = (fn.launches, fn.decode_launches, fn.prefill_launches)
@@ -965,12 +971,27 @@ def test_ssm_scan_decode_matches_prefill_kernel(dev, dtype, N):
     _scan_agrees(y_dec, s_dec, y_pre, s_pre, dtype)
 
 
+def _wkv6_inputs(B, T, H, hd, dtype, g, dev, *, strong=False):
+    r, k, v = (torch.randn(B, T, H, hd, device=dev, generator=g) * 0.5
+               for _ in range(3))
+    x = torch.randn(B, T, H, hd, device=dev, generator=g)
+    # strong: decays down to ~1e-8, as exp(-exp(.)) gives
+    w = (torch.exp(-torch.exp(x * 1.2 + 0.9)) if strong
+         else torch.sigmoid(x) * 0.5 + 0.45)
+    u = torch.randn(H, hd, device=dev, generator=g) * 0.3
+    s0 = torch.randn(B, H, hd, hd, device=dev, generator=g) * 0.2
+    return [t.to(dtype) for t in (r, k, v, w)] + [u, s0]
+
+
 def test_wkv6_counts_decode_and_prefill(dev):
+    """T = 1 counts a decode launch, T > 1 a prefill launch, at every hd."""
     fn = rwkv6_scan.wkv6
-    u = torch.zeros(2, 32, device=dev)
-    for T, want in ((1, (1, 1, 0)), (4, (1, 0, 1))):
-        r = torch.randn(2, T, 2, 32, device=dev, generator=_gen(15))
-        s = torch.zeros(2, 2, 32, 32, device=dev)
+    for T, hd, want in ((1, 32, (1, 1, 0)), (4, 32, (1, 0, 1)),
+                        (1, 64, (1, 1, 0)), (2, 64, (1, 0, 1)),
+                        (1, 16, (1, 1, 0)), (9, 16, (1, 0, 1))):
+        u = torch.zeros(2, hd, device=dev)
+        r = torch.randn(2, T, 2, hd, device=dev, generator=_gen(15))
+        s = torch.zeros(2, 2, hd, hd, device=dev)
         n0 = (fn.launches, fn.decode_launches, fn.prefill_launches)
         fn(r, r, r, torch.sigmoid(r), u, s)
         got = (fn.launches, fn.decode_launches, fn.prefill_launches)
@@ -982,16 +1003,13 @@ def test_wkv6_counts_decode_and_prefill(dev):
     (2, 64, 4, 32, False), (1, 100, 2, 64, False), (2, 33, 3, 16, False),
     (16, 1, 32, 64, False),                   # rwkv6-1.6b decode
     (3, 45, 4, 64, True),                     # padded prefill
+    (3, 1, 2, 32, False), (3, 1, 5, 16, False),               # decode, hd
+    (2, 2, 3, 64, False), (2, 2, 2, 16, False),               # T = 2
+    (3, 19, 2, 32, True),                     # T not a multiple of 8 steps
+    (3, 1, 4, 64, True),                      # masked decode
 ])
 def test_wkv6_kernel(dev, dtype, B, T, H, hd, masked):
-    g = _gen(6)
-    r, k, v = (torch.randn(B, T, H, hd, device=dev, generator=g) * 0.5
-               for _ in range(3))
-    w = torch.sigmoid(torch.randn(B, T, H, hd, device=dev, generator=g)) \
-        * 0.5 + 0.45
-    r, k, v, w = (t.to(dtype) for t in (r, k, v, w))
-    u = torch.randn(H, hd, device=dev, generator=g) * 0.3
-    s0 = torch.randn(B, H, hd, hd, device=dev, generator=g) * 0.2
+    r, k, v, w, u, s0 = _wkv6_inputs(B, T, H, hd, dtype, _gen(6), dev)
     mask = None
     if masked:
         lens = torch.tensor([T, T // 3, 1], device=dev)
@@ -1010,6 +1028,52 @@ def test_wkv6_kernel(dev, dtype, B, T, H, hd, masked):
         _within_bf16_ulps(y, want_y)
         torch.testing.assert_close(sf, want_s, rtol=0,
                                    atol=1e-4 * float(want_s.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,hd", [(16, 32, 64), (3, 5, 32), (5, 3, 16)])
+def test_wkv6_decode_matches_prefill_kernel(dev, dtype, B, H, hd):
+    """At T = 1 the decode kernel agrees with the prefill kernel: the same
+    state update, y summed over other row slices."""
+    r, k, v, w, u, s0 = _wkv6_inputs(B, 1, H, hd, dtype, _gen(17), dev)
+    s_dec, s_pre = s0.clone(), s0.clone()
+    y_dec = rwkv6_scan.launch(r, k, v, w, u, s_dec)
+    y_pre = rwkv6_scan.launch(r, k, v, w, u, s_pre, prefill_only=True)
+    torch.cuda.synchronize()
+    _scan_agrees(y_dec, s_dec, y_pre, s_pre, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_unaligned_inputs(dev, dtype):
+    """r, k, v, w that are contiguous but not 16-byte aligned (views one
+    element into a buffer): the prefill kernel stages them with plain
+    loads instead of cp.async."""
+    B, T, H, hd = 2, 19, 3, 32
+    args = _wkv6_inputs(B, T, H, hd, dtype, _gen(19), dev)
+    n = B * T * H * hd
+    views = []
+    for t in args[:4]:
+        buf = torch.empty(n + 1, device=dev, dtype=dtype)
+        buf[1:] = t.reshape(-1)
+        views.append(buf[1:].view(B, T, H, hd))
+    assert all(t.data_ptr() % 16 for t in views)
+    want_y, want_s = rwkv6_scan.wkv6_plain(*args)
+    y, sf = rwkv6_scan.wkv6(*views, args[4], args[5].clone())
+    torch.cuda.synchronize()
+    _scan_agrees(y, sf, want_y, want_s, dtype)
+
+
+@pytest.mark.parametrize("T", [1, 40])
+def test_wkv6_kernel_strong_decay(dev, T):
+    """Decays down to ~1e-8: float32 outputs and states within atol 1e-4 of
+    the plain version."""
+    args = _wkv6_inputs(3, T, 4, 64, torch.float32, _gen(18), dev,
+                        strong=True)
+    assert float(args[3].min()) < 1e-6
+    want_y, want_s = rwkv6_scan.wkv6_plain(*args)
+    y, sf = rwkv6_scan.wkv6(*args[:5], args[5].clone())
+    torch.cuda.synchronize()
+    _scan_agrees(y, sf, want_y, want_s, torch.float32)
 
 
 def test_scan_kernels_refuse_grad(dev):

@@ -6,6 +6,10 @@ against the JAX package:
   ``repro.kernels.rwkv6_scan.ops.wkv6`` in interpret mode, on
   ``tests/test_kernels.py``'s ``test_wkv6`` cases, plus T = 1 (decode),
   streaming in two halves, ``seq_mask`` and bfloat16 inputs;
+* the CUDA kernels' summation order (``csrc/wkv6.cu``: the state cut into
+  row slices, y merged by xor shuffles and then in warp order, Q by one
+  warp), emulated for the decode kernel's tiles and the prefill kernel's,
+  against the reference and the Pallas kernel, with strong decay too;
 * ``apply_time_mix`` and ``apply_channel_mix`` on weights converted from
   the JAX init.
 
@@ -123,6 +127,127 @@ def test_plain_wkv6_bf16_inputs(S):
     assert_within_bf16_ulps(y.float().numpy(),
                             np.asarray(y_ref.astype(jnp.float32)))
     np.testing.assert_allclose(sf.numpy(), np.asarray(sf_ref), atol=1e-4)
+
+
+def wkv6_split(r, k, v, w, u, state, *, rows, per_warp, seq_mask=None):
+    """The CUDA kernels' order (csrc/wkv6.cu) in torch. A lane owns
+    ``rows`` consecutive rows of S (and some columns); a warp holds
+    ``per_warp`` consecutive row slices, the warps of a head follow down
+    the rows. Per step, y's row sum: each slice sums its rows in order, the
+    slices of a warp merge by xor shuffles (lowest slice bit first), the
+    warps add up in order; Q = sum_i r u k is summed by one warp, lane l
+    over rows l and l + 32, merged by xor shuffles 16, 8, 4, 2, 1;
+    y = P + v Q. Both kernels give a lane 4 columns, so a slice spans hd / 4
+    lanes and a warp holds 32 / (hd / 4) slices; the decode kernel's lane
+    owns rows hd / 16, the prefill kernel's hd / 8. Returns y in r's dtype
+    and the final state."""
+    out_dt = r.dtype
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    if seq_mask is not None:                   # as the wrapper masks
+        m = seq_mask[:, :, None, None].float()
+        k = k * m
+        w = w * m + (1.0 - m)
+    B, T, H, hd = r.shape
+    warps = hd // rows // per_warp
+    lanes = torch.arange(32)
+    s = state.float()
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]   # (B, H, hd)
+        prod = (rt[..., :, None] * s).view(B, H, hd // rows, rows, hd)
+        p = prod[:, :, :, 0]
+        for m in range(1, rows):
+            p = p + prod[:, :, :, m]
+        p = p.view(B, H, warps, per_warp, hd)
+        off = 1
+        while off < per_warp:
+            p = p + p[:, :, :, torch.arange(per_warp) ^ off]
+            off *= 2
+        acc = p[:, :, 0, 0]
+        for x in range(1, warps):
+            acc = acc + p[:, :, x, 0]
+        ruk = rt * kt * u.float()
+        q = torch.zeros(B, H, 32)
+        q[..., :min(hd, 32)] = ruk[..., :32]
+        if hd > 32:
+            q = q + ruk[..., 32:]
+        for off in (16, 8, 4, 2, 1):
+            q = q + q[..., lanes ^ off]
+        ys.append(acc + vt * q[..., :1])
+        s = wt[..., :, None] * s + kt[..., :, None] * vt[..., None, :]
+    return torch.stack(ys, dim=1).to(out_dt), s
+
+
+def _tiles(kernel, hd):
+    return dict(rows=hd // 16 if kernel == "decode" else hd // 8,
+                per_warp=32 // (hd // 4))
+
+
+# the decode kernel runs at T = 1 only; the prefill kernel at any T
+SPLIT_CASES = [("decode", (4, 1, 2, 64, 8)), ("decode", (3, 1, 2, 32, 8)),
+               ("decode", (2, 1, 3, 16, 8)), ("prefill", (4, 1, 2, 64, 8))] \
+    + [("prefill", c) for c in CASES[:3]]
+
+
+@pytest.mark.parametrize("kernel,case", SPLIT_CASES, ids=str)
+def test_kernel_order_matches_reference_and_pallas(kernel, case):
+    """float32 at the JAX kernel tests' cases (and T = 1 at every hd):
+    within atol 1e-4 of repro.models.rwkv6.wkv6_scan and of the Pallas
+    kernel in interpret mode."""
+    B, S, H, hd, chunk = case
+    arrs = _inputs(B, S, H, hd, seed=S + hd)
+    y, sf = wkv6_split(*_torch(arrs), **_tiles(kernel, hd))
+    jin = [jnp.asarray(a) for a in arrs]
+    y_ref, sf_ref = jrwkv.wkv6_scan(*jin)
+    y_pl, sf_pl = wkv_ops.wkv6(*jin, chunk=chunk, interpret=True)
+    for want, got in ((y_ref, y), (sf_ref, sf), (y_pl, y), (sf_pl, sf)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("kernel,S", [("decode", 1), ("prefill", 1),
+                                      ("prefill", 37)])
+def test_kernel_order_bf16_inputs(kernel, S):
+    """bfloat16 r, k, v, w at rwkv6-1.6b's head_dim: y within two bf16
+    ulps of the reference's, the float32 state within 1e-4."""
+    tin = _torch(_inputs(2, S, 4, 64, seed=13), torch.bfloat16)
+    y, sf = wkv6_split(*tin, **_tiles(kernel, 64))
+    jin = [jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+        for t in tin]
+    y_ref, sf_ref = jrwkv.wkv6_scan(*jin)
+    assert_within_bf16_ulps(y.float().numpy(),
+                            np.asarray(y_ref.astype(jnp.float32)))
+    np.testing.assert_allclose(sf.numpy(), np.asarray(sf_ref), atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel,S", [("decode", 1), ("prefill", 45)])
+def test_kernel_order_strong_decay(kernel, S):
+    """Decays down to 1e-8 (exp(-exp(x)) at x = 2.9), as the model's decay
+    can give: float32 within atol 1e-4 of the reference and of the Pallas
+    kernel, and masked rows (the state frozen across the pads)."""
+    B, H, hd = 3, 2, 64
+    arrs = list(_inputs(B, S, H, hd, seed=21))
+    rng = np.random.default_rng(22)
+    arrs[3] = np.exp(-np.exp(rng.uniform(-1.0, 2.9, arrs[3].shape))
+                     ).astype(np.float32)
+    assert arrs[3].min() < 1e-7
+    lens = np.array([S, max(1, S // 3), 1])
+    mask = np.arange(S)[None, :] < lens[:, None]
+    y, sf = wkv6_split(*_torch(arrs), **_tiles(kernel, hd),
+                       seq_mask=torch.from_numpy(mask))
+    jin = [jnp.asarray(a) for a in arrs]
+    y_ref, sf_ref = jrwkv.wkv6_scan(*jin, seq_mask=jnp.asarray(mask))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(sf.numpy(), np.asarray(sf_ref), atol=1e-4,
+                               rtol=0)
+    y_pl, sf_pl = wkv_ops.wkv6(*jin, chunk=16, interpret=True)
+    y0, s0 = wkv6_split(*_torch(arrs), **_tiles(kernel, hd))
+    np.testing.assert_allclose(y0.numpy(), np.asarray(y_pl), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(s0.numpy(), np.asarray(sf_pl), atol=1e-4,
+                               rtol=0)
 
 
 def test_wrapper_takes_the_plain_version_on_cpu():

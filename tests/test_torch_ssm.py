@@ -6,9 +6,11 @@ JAX package:
   ``repro.kernels.ssm_scan.ops.selective_scan`` in interpret mode, on
   ``tests/test_kernels.py``'s three cases, plus T = 1 (decode), bfloat16
   inputs, a ``seq_mask`` case and a carried state;
-* the decode kernel's split of a T = 1 step over lanes of 4 states, with
-  its partial sums merged in xor-shuffle order, against the reference at
-  hymba-1.5b's width;
+* the kernels' split of a channel's states over lanes of 4 states, with
+  their partial sums merged in xor-shuffle order, against the reference:
+  the decode kernel's T = 1 step at hymba-1.5b's width, and the prefill
+  kernel's T > 1 scan at the JAX kernel tests' cases (also against the
+  Pallas kernel), with bfloat16 inputs and masked rows;
 * ``causal_conv1d`` with and without ``lengths``;
 * ``apply_ssm`` on weights converted from the JAX init.
 
@@ -141,24 +143,32 @@ def test_plain_scan_bf16_inputs(T):
     np.testing.assert_allclose(sf.numpy(), np.asarray(sf_ref), atol=1e-4)
 
 
-def step_lanes(x, dt, A_log, Bc, Cc, D, s0, lanes):
-    """The decode kernel's T = 1 step (csrc/ssm_scan.cu, ssm_step_kernel)
-    in torch: lane q of a channel owns states 4q .. 4q + 3 and sums h * C
-    over them in order; the lanes' partial sums merge by xor shuffles 1,
-    then 2 (the second with 4 lanes only). Returns y (B, 1, di) in x's dtype
-    and the new state."""
-    B, _, di = x.shape
-    xf, dtf = x[:, 0].float(), dt[:, 0].float()               # (B, di)
-    bf, cf = Bc[:, 0].float(), Cc[:, 0].float()               # (B, N)
+def scan_lanes(x, dt, A_log, Bc, Cc, D, s0, lanes, seq_mask=None):
+    """The CUDA kernels' order (csrc/ssm_scan.cu: ssm_step_kernel at T = 1,
+    ssm_scan_kernel above) in torch: lane q of a channel owns states
+    4q .. 4q + 3 and sums h * C over them in order; the lanes' partial sums
+    merge by xor shuffles 1, then 2 (the second with 4 lanes only), plus
+    D x. (The prefill kernel's exponential is one MUFU ex2 of a
+    log2(e)-scaled argument, relative error ~2^-22; here torch.exp.)
+    Returns y (B, T, di) in x's dtype and the final state."""
+    B, T, di = x.shape
+    xf, dtf = x.float(), dt.float()
+    if seq_mask is not None:                   # as the wrapper masks
+        dtf = dtf * seq_mask[..., None].float()
     negA = -torch.exp(A_log)
-    h = torch.exp(negA[None] * dtf[..., None]) * s0 \
-        + (dtf * xf)[..., None] * bf[:, None, :]
-    t = (h * cf[:, None, :]).view(B, di, lanes, 4)
-    part = ((t[..., 0] + t[..., 1]) + t[..., 2]) + t[..., 3]
-    y = part[..., 0] + part[..., 1]                           # xor 1
-    if lanes == 4:
-        y = y + (part[..., 2] + part[..., 3])                 # xor 2
-    return (y + xf * D)[:, None].to(x.dtype), h
+    h = s0.float()
+    ys = []
+    for t in range(T):
+        xt, dtt = xf[:, t], dtf[:, t]                             # (B, di)
+        h = torch.exp(negA[None] * dtt[..., None]) * h \
+            + (dtt * xt)[..., None] * Bc[:, t].float()[:, None, :]
+        p = (h * Cc[:, t].float()[:, None, :]).view(B, di, lanes, 4)
+        part = ((p[..., 0] + p[..., 1]) + p[..., 2]) + p[..., 3]
+        y = part[..., 0] + part[..., 1]                           # xor 1
+        if lanes == 4:
+            y = y + (part[..., 2] + part[..., 3])                 # xor 2
+        ys.append(y + xt * D)
+    return torch.stack(ys, dim=1).to(x.dtype), h
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -171,7 +181,7 @@ def test_decode_lane_split_matches_reference(N, dtype):
     arrs = _inputs(16, 1, 3200, N, seed=N, s0_scale=0.2)
     dt_t = getattr(torch, dtype)
     tin = _torch(arrs, dt_t)
-    y, sf = step_lanes(*tin, lanes=N // 4)
+    y, sf = scan_lanes(*tin, lanes=N // 4)
     jin = [jnp.asarray(t.float().numpy()) for t in tin]
     y_ref, sf_ref = jssm.selective_scan(*jin)
     y_ref = np.asarray(y_ref)
@@ -187,6 +197,49 @@ def test_decode_lane_split_matches_reference(N, dtype):
         np.testing.assert_allclose(
             sf.numpy(), np.asarray(sf_ref), rtol=0,
             atol=1e-4 * float(np.abs(np.asarray(sf_ref)).max()))
+
+
+@pytest.mark.parametrize("case", CASES[:3], ids=str)
+def test_prefill_lane_split_matches_reference_and_pallas(case):
+    """The prefill kernel's lane split over T > 1 steps, float32 at the JAX
+    kernel tests' cases: within atol 1e-4 of
+    repro.models.ssm.selective_scan and of the Pallas kernel in interpret
+    mode."""
+    B, T, di, N, chunk = case
+    arrs = _inputs(B, T, di, N, seed=T + 1, s0_scale=0.2)
+    y, sf = scan_lanes(*_torch(arrs), lanes=N // 4)
+    jin = [jnp.asarray(a) for a in arrs]
+    y_ref, sf_ref = jssm.selective_scan(*jin)
+    y_pl, sf_pl = ssm_ops.selective_scan(*jin, block_d=64, chunk=chunk,
+                                         interpret=True)
+    for want, got in ((y_ref, y), (sf_ref, sf), (y_pl, y), (sf_pl, sf)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("N,masked", [(16, False), (8, False), (16, True)])
+def test_prefill_lane_split_bf16_and_masked(N, masked):
+    """bfloat16 x, dt, B, C over 37 steps: y within two bf16 ulps of the
+    reference's, the float32 state within 1e-4; masked rows (dt = 0 over
+    the pads) against the reference's seq_mask."""
+    T = 37
+    arrs = _inputs(3, T, 128, N, seed=40 + N, s0_scale=0.2)
+    tin = _torch(arrs, torch.bfloat16)
+    jin = [jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+        for t in tin]
+    kw, jkw = {}, {}
+    if masked:
+        mask = np.arange(T)[None, :] < np.array([T, 12, 1])[:, None]
+        kw = dict(seq_mask=torch.from_numpy(mask))
+        jkw = dict(seq_mask=jnp.asarray(mask))
+    y, sf = scan_lanes(*tin, lanes=N // 4, **kw)
+    y_ref, sf_ref = jssm.selective_scan(*jin, **jkw)
+    assert y.dtype == torch.bfloat16
+    assert_within_bf16_ulps(y.float().numpy(),
+                            np.asarray(y_ref.astype(jnp.float32)))
+    np.testing.assert_allclose(sf.numpy(), np.asarray(sf_ref), atol=1e-4,
+                               rtol=0)
 
 
 def test_wrapper_takes_the_plain_version_on_cpu():
