@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """On-GPU smoke run of the PyTorch port (src/repro_torch): the serving path
 and the CoPRIS training loop at the full width of llama3.2-1b, over the dense
-and the paged KV cache, and serving and rollouts of the hybrid hymba-1.5b and
-the attention-free rwkv6-1.6b at full width, through the port's hand-written
-kernels.
+and the paged KV cache, and serving, rollouts and training of the hybrid
+hymba-1.5b and the attention-free rwkv6-1.6b at full width, through the
+port's hand-written kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
     python3 chip_smoke.py --ab DIR # sampling, the selective scan and WKV6
@@ -20,7 +20,7 @@ start):
    libraries and of the loss library (its bf16 forward, dl, dh and dw
    kernels), which must have some; ptxas's registers and spills of the
    tensor-core kernels (every kernel named ``*_tc``) and of the scan
-   kernels (with their shared memory);
+   kernels, forward and backward (with their shared memory);
 3. kernel checks — each kernel against its plain PyTorch version at the
    main paths' shapes (serving: prefill, dense and paged decode and
    sampling, each also at the hybrid paths' shapes, hymba's H/KV = 5 and
@@ -28,12 +28,18 @@ start):
    WKV6 at their decode and prefill shapes, plus the JAX kernel tests'
    cases, each scan's decode kernel beside its prefill kernel at T = 1,
    the selective scan bounded by the largest of its bytes, its FMA-pipe
-   operations and its exponentials on the MUFU pipe;
+   operations and its exponentials on the MUFU pipe; the scans' backward
+   kernels at the JAX kernel tests' f32 cases and at the hybrid updates'
+   shape, bf16 (32 rows of 127 steps), bit-equal across two launches and
+   bounded the same way;
    sampling also as the train phase runs it, T = 1 untruncated, bounded by
    the larger of its bytes and the threefry draws' integer instructions,
    counted from the SASS of the draw probes; training: the
    flash forward with its logsumexp, the flash backward, the fused IS+GRPO
-   forward and backward, and the fused log-prob of the legacy loss), with
+   forward and backward, and the fused log-prob of the legacy loss; the
+   first four also at the hybrid updates' shapes: flash at hymba's 25/5
+   heads with its window of 1024, the loss at hymba's d 1600 against the
+   tied V 32001 and at rwkv6's d 2048 against the untied V 65536), with
    its time, the plain version's, one library call's where PyTorch has one,
    and the least time the card could take; the four flash checks also give
    SDPA's error against the same plain version (``library_err``, a
@@ -50,7 +56,10 @@ start):
    rwkv6; then "train_reference": make_loss_fn / make_train_step on the
    reduced config with vocab 8192, the fused loss and the legacy
    fused_loss=False one, GPU against CPU: loss, metrics, every gradient,
-   and no attention weight with a zero gradient;
+   and no attention weight with a zero gradient; the same as
+   "train_reference_hybrid" with the fused loss on the reduced hymba and
+   rwkv6 (scans forward and backward), no scan parameter (A_log, D, u,
+   w_base) with a zero gradient;
 5. serve   — make_serve_engine("llama3.2-1b") with random bf16 weights made
    from a seed serves 24 requests; every kernel's launch count must be > 0;
    then "profile": torch.profiler over two steady decode chunks (host time,
@@ -75,16 +84,23 @@ start):
    calls at full width over the paged KV cache with half the
    dense-equivalent pages and the legacy fused_loss=False loss: prefix
    sharing, copy-on-write, finite metrics, every kernel of that path
-   launched;
+   launched; then "train_hymba" and "train_rwkv6": sft_warmup, then two
+   CoPRISTrainer.step() calls on each family at full width, as "train"
+   runs llama: finite metrics, step times, peak memory, every kernel of the
+   path launched (the scans' backward kernels and, for hymba, the flash
+   backward among them), each with the profile of one more update;
 8. kernels — one {"kernels": [...]} line, one row per kernel entry point,
    each with the launches of the path it runs on (train; train_paged for
    the paged decode and the fused log-prob; serve_hymba and serve_rwkv6
-   for the two scans, split by T = 1 and T > 1); the sampling row has the
+   for the two scans, split by T = 1 and T > 1; train_hymba and
+   train_rwkv6 for the scans' backward kernels); the sampling row has the
    train configuration's time and bound, as its launches are train's; the
    flash and loss rows count the bf16
    tensor-core kernels' launches and, apart, the f32 SIMT kernels'
    (``simt_launches``: every phase that counts launches runs in bf16 and
-   fails on a SIMT launch);
+   fails on a SIMT launch); those rows also carry the hybrid shapes'
+   checks under "train_hybrid", with train_hymba's and train_rwkv6's
+   launches;
 
 then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check raises, so the run exits non-zero and prints no result.
@@ -800,61 +816,214 @@ def check_wkv6(torch, timer, rwkv6_scan):
 TRAIN_B, TRAIN_S = 32, 127
 
 
-def check_flash_lse(torch, F, timer, flash_attn):
-    """The train forward: flash_attn with the logsumexp output."""
-    B, S, H, KV, hd = TRAIN_B, TRAIN_S, 32, 8, 64
+def bwd_excess(torch, got, want):
+    """How far the backward kernel's gradients lie outside their tolerance
+    against the plain backward's (<= 0: inside): float32 within 1e-4 of
+    each gradient's largest element; bfloat16 within 2 bf16 ulps of each
+    element plus that (both sides sum in float32 and round once). Also
+    returns the largest absolute error."""
+    excess, err = -1.0, 0.0
+    for x, y in zip(got, want):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            fail(f"a backward scan gradient is {x.dtype} {tuple(x.shape)}, "
+                 f"its plain version's {y.dtype} {tuple(y.shape)}")
+        scale = float(y.float().abs().max())
+        diff = (x.float() - y.float()).abs()
+        err = max(err, float(diff.max()))
+        tol = torch.full_like(diff, 1e-4 * scale)
+        if x.dtype == torch.bfloat16:
+            mag = y.float().abs().clamp_min(2.0 ** -126)
+            tol = tol + 2.0 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        excess = max(excess, float((diff - tol).max()))
+    return excess, err
+
+
+def bwd_check(torch, timer, name, kernel, plain, cases, train_args,
+              train_shape, nbytes, flops, exps, mufu_rate):
+    """One backward scan kernel (``kernel(*args, dy, dstate)``, the launch
+    that autograd makes) against its plain version: at the JAX kernel
+    tests' float32 cases with a nonzero final-state gradient, then at the
+    update's shape in bf16 (a zero final-state gradient, as training
+    gives), where it is timed beside the plain version and launched a
+    second time to show the same bits. Bound: the largest of the bytes (every
+    input read once, every gradient written once), the float32 operations
+    on the FMA pipe at 67 TFLOP/s (an FMA counted as two) and ``exps``
+    exponentials on the MUFU pipe; no single PyTorch call computes it."""
+    worst = -1.0
+    for args in cases:
+        excess, _ = bwd_excess(torch, kernel(*args), plain(*args))
+        worst = max(worst, excess)
+    if worst > 0.0:
+        fail(f"{name} disagrees with its plain version at the kernel tests' "
+             f"cases by {worst} beyond the tolerance")
+    got = kernel(*train_args)
+    want = plain(*train_args)
+    again = kernel(*train_args)
+    torch.cuda.synchronize()
+    excess, err = bwd_excess(torch, got, want)
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    if excess > 0.0 or not same_bits:
+        fail(f"{name} at the update's shape: {excess} beyond the tolerance, "
+             f"bit-equal across launches: {same_bits}")
+    del got, want, again
+    kernel_ms = timer(lambda: kernel(*train_args))
+    plain_ms = timer(lambda: plain(*train_args), iters=3, warmup=1)
+    bounds = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+              "fma": flops / PEAK_F32_FLOPS * 1e3,
+              "mufu": exps / mufu_rate * 1e3}
+    pipe = max(bounds, key=bounds.get)
+    res = dict(shape=train_shape, max_abs_err=err,
+               tol="f32 1e-4 of each gradient's largest element; bf16 2 "
+                   "ulps + that", excess_over_tol=excess,
+               excess_over_tol_cases=worst, bit_equal_launches=same_bits,
+               ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+               library="none: no single PyTorch call computes it",
+               bound_ms=bounds[pipe],
+               bound_by="bytes" if pipe == "bytes" else "operations",
+               bound_pipe=None if pipe == "bytes" else pipe,
+               bounds_ms=bounds, bytes=nbytes, flops=flops, exp_count=exps,
+               timer_floor_ms=timer.floor_ms)
+    emit(f"check_{name}", **res)
+    return res
+
+
+def check_ssm_scan_bwd(torch, timer, ssm_scan, sm_mhz):
+    """The selective scan's backward kernel (ssm_scan_bwd) at the JAX
+    kernel tests' f32 cases, then at hymba-1.5b's update shape: the packed
+    batch (32 rows of 127 steps), di 3200, N 16, bf16. Per (row, step,
+    channel, state) the gradients need 20 float32 operations (the state
+    recomputed: 4; G, dC, dB, G.B, gA, dA_log and a_t G: 14; the sums of
+    dB and dC over channels: 2) and one exponential (a_t)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mufu_rate = MUFU_RESULTS_PER_CLOCK_PER_SM * sms * sm_mhz * 1e6
+
+    def case(B, T, di, N, dtype, seed, dstate):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        args = ssm_inputs(torch, B, T, di, N, dtype, g, model_A=dtype
+                          == torch.bfloat16)
+        dy = torch.randn(B, T, di, device="cuda", generator=g).to(dtype)
+        ds = (torch.randn(B, di, N, device="cuda", generator=g) if dstate
+              else None)
+        return (*args, dy, ds)
+
+    cases = [case(*c, torch.float32, 50 + i, True)
+             for i, c in enumerate(SSM_CASES)]
+    B, T, di, N = TRAIN_B, TRAIN_S, 3200, 16
+    train = case(B, T, di, N, torch.bfloat16, 55, False)
+    nbytes = (2 * (5 * B * T * di + 4 * B * T * N) + 4 * 2 * (di * N + di)
+              + 4 * 2 * B * di * N)
+    return bwd_check(
+        torch, timer, "ssm_scan_bwd", ssm_scan.launch_bwd,
+        ssm_scan.selective_scan_bwd_plain, cases, train,
+        f"x, dt, dy [{B}, {T}, {di}] bf16, B, C [{B}, {T}, {N}] views, "
+        f"state [{B}, {di}, {N}] f32", nbytes, 20 * B * T * di * N,
+        B * T * di * N, mufu_rate)
+
+
+def check_wkv6_bwd(torch, timer, rwkv6_scan, sm_mhz):
+    """WKV6's backward kernel (wkv6_bwd) at the JAX kernel tests' f32 cases
+    and one with decays down to ~1e-8, then at rwkv6-1.6b's update shape:
+    the packed batch (32 rows of 127 steps), H 32, hd 64, bf16. Per (row,
+    step, head, i, j) the gradients need 14 float32 operations (the state
+    recomputed: 3; dr, dk, dw and dv's sums: 8; G: 3); no exponential, so
+    the MUFU bound is 0."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mufu_rate = MUFU_RESULTS_PER_CLOCK_PER_SM * sms * sm_mhz * 1e6
+
+    def case(B, T, H, hd, dtype, seed, dstate, strong=False):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        r, k, v = (torch.randn(B, T, H, hd, device="cuda", generator=g)
+                   * 0.5 for _ in range(3))
+        x = torch.randn(B, T, H, hd, device="cuda", generator=g)
+        w = torch.exp(-torch.exp(x * 1.2 + 0.9 if strong else x * 0.5 - 1.0))
+        u = torch.randn(H, hd, device="cuda", generator=g) * 0.3
+        s0 = torch.randn(B, H, hd, hd, device="cuda", generator=g) * 0.2
+        dy = torch.randn(B, T, H, hd, device="cuda", generator=g)
+        ds = (torch.randn(B, H, hd, hd, device="cuda", generator=g)
+              if dstate else None)
+        return (*(t.to(dtype) for t in (r, k, v, w)), u, s0, dy.to(dtype),
+                ds)
+
+    cases = [case(*c, torch.float32, 60 + i, True, strong=i == len(WKV_CASES))
+             for i, c in enumerate(WKV_CASES + [(2, 70, 4, 64)])]
+    B, T, H, hd = TRAIN_B, TRAIN_S, 32, 64
+    train = case(B, T, H, hd, torch.bfloat16, 65, False)
+    nbytes = 2 * 9 * B * T * H * hd + 4 * 2 * H * hd + 4 * 2 * B * H * hd * hd
+    return bwd_check(
+        torch, timer, "wkv6_bwd", rwkv6_scan.launch_bwd,
+        rwkv6_scan.wkv6_bwd_plain, cases, train,
+        f"r, k, v, w, dy [{B}, {T}, {H}, {hd}] bf16, state [{B}, {H}, {hd}, "
+        f"{hd}] f32", nbytes, 14 * B * T * H * hd * hd, 0, mufu_rate)
+
+
+def check_flash_lse(torch, F, timer, flash_attn, H=32, KV=8, win=0,
+                    phase="check_flash_attn_lse"):
+    """The train forward: flash_attn with the logsumexp output, at the
+    update's packed shape (32 rows of 127) with H query heads over KV, and a
+    sliding window ``win`` (0: none; hymba's 1024 spans the whole row, so
+    SDPA's causal mask is the same function)."""
+    B, S, hd = TRAIN_B, TRAIN_S, 64
     g = torch.Generator(device="cuda").manual_seed(13)
     q, k, v = (torch.randn(B, S, n, hd, device="cuda", generator=g).bfloat16()
                for n in (H, KV, KV))
-    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True)
-    ref, ref_lse = flash_attn.flash_attention_plain(q, k, v, return_lse=True)
+    out, lse = flash_attn.flash_attention(q, k, v, window=win,
+                                          return_lse=True)
+    ref, ref_lse = flash_attn.flash_attention_plain(q, k, v, window=win,
+                                                    return_lse=True)
     torch.cuda.synchronize()
     err = max((out.float() - ref.float()).abs().max().item(),
               (lse - ref_lse).abs().max().item())
     atol = 2e-2
     if not err <= atol:
-        fail(f"flash_attn (lse) disagrees with its plain version: {err}")
+        fail(f"flash_attn (lse) at H/KV {H}/{KV}, window {win}, disagrees "
+             f"with its plain version: {err}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_err = sdpa_err(F, qt, kt, vt, ref)
-    kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v,
-                                                         return_lse=True))
+    kernel_ms = timer(lambda: flash_attn.flash_attention(
+        q, k, v, window=win, return_lse=True))
     plain_ms = timer(lambda: flash_attn.flash_attention_plain(
-        q, k, v, return_lse=True), iters=3, warmup=1)
+        q, k, v, window=win, return_lse=True), iters=3, warmup=1)
     library_ms = timer(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True))
     nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * S
     flops = 4 * B * H * hd * (S * (S + 1) // 2)
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-    res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal, "
-               "with lse (B, H, S) f32",
+    res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal"
+               + (f", window {win}" if win else "")
+               + ", with lse (B, H, S) f32",
                max_abs_err=err, library_err=lib_err, atol=atol, ms=kernel_ms,
                plain_ms=plain_ms, library_ms=library_ms,
                vs_library=kernel_ms / library_ms, bound_ms=b_ms, bound_by=b_by)
-    emit("check_flash_attn_lse", **res)
+    emit(phase, **res)
     return res
 
 
-def check_flash_bwd(torch, F, timer, flash_attn):
+def check_flash_bwd(torch, F, timer, flash_attn, H=32, KV=8, win=0,
+                    phase="check_flash_attn_bwd"):
     """The train backward: dq, dk, dv from the saved lse, against the plain
-    version; the library time is SDPA's backward alone."""
-    B, S, H, KV, hd = TRAIN_B, TRAIN_S, 32, 8, 64
+    version, at check_flash_lse's shapes; the library time is SDPA's
+    backward alone."""
+    B, S, hd = TRAIN_B, TRAIN_S, 64
     g = torch.Generator(device="cuda").manual_seed(14)
     q, k, v = (torch.randn(B, S, n, hd, device="cuda", generator=g).bfloat16()
                for n in (H, KV, KV))
     do = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
-    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True)
-    grads = flash_attn.flash_attention_bwd(q, k, v, out, lse, do)
-    ref = flash_attn.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    out, lse = flash_attn.flash_attention(q, k, v, window=win,
+                                          return_lse=True)
+    grads = flash_attn.flash_attention_bwd(q, k, v, out, lse, do, window=win)
+    ref = flash_attn.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                               window=win)
     torch.cuda.synchronize()
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(grads, ref))
     atol = 5e-2
     if not err <= atol:
-        fail(f"flash_attn_bwd disagrees with its plain version: {err}")
+        fail(f"flash_attn_bwd at H/KV {H}/{KV}, window {win}, disagrees "
+             f"with its plain version: {err}")
     kernel_ms = timer(lambda: flash_attn.flash_attention_bwd(
-        q, k, v, out, lse, do))
+        q, k, v, out, lse, do, window=win))
     plain_ms = timer(lambda: flash_attn.flash_attention_bwd_plain(
-        q, k, v, out, lse, do), iters=3, warmup=1)
+        q, k, v, out, lse, do, window=win), iters=3, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -872,11 +1041,12 @@ def check_flash_bwd(torch, F, timer, flash_attn):
     # QK^T, dO V^T, dS K, P^T dO, dS^T Q: 5 causal products
     flops = 10 * B * H * hd * (S * (S + 1) // 2)
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-    res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal",
+    res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal"
+               + (f", window {win}" if win else ""),
                max_abs_err=err, library_err=lib_err, atol=atol, ms=kernel_ms,
                plain_ms=plain_ms, library_ms=library_ms,
                vs_library=kernel_ms / library_ms, bound_ms=b_ms, bound_by=b_by)
-    emit("check_flash_attn_bwd", **res)
+    emit(phase, **res)
     return res
 
 
@@ -887,18 +1057,24 @@ SPLIT_TC_PASSES = 2
 BWD_DH_TC_PASSES = 5
 
 
-def check_fused_is_grpo(torch, timer, fio):
-    """The loss kernels at the train phase's largest packed shape: R = 32 x
-    127 rows, d = 2048, V = 128256, hidden bf16, the tied f32 embedding read
-    in its own (V, d) layout. Every one runs on the tensor cores from split
-    bf16 terms and is bound at 989 TFLOP/s: the forward and dw 2 passes of
-    2 R d V, bwd_dh 5; each keeps beside it the f32 FMA bound (one pass at
-    67 TFLOP/s) of the f32 product its plain version computes."""
-    R, d, V = TRAIN_B * TRAIN_S, 2048, 128256
+def check_fused_is_grpo(torch, timer, fio, d=2048, V=128256, tied=True,
+                        suffix=""):
+    """The loss kernels at a train phase's largest packed shape: R = 32 x
+    127 rows, hidden (R, d) bf16, against the f32 unembedding: with
+    ``tied`` the embedding (V, d) read in its own layout (llama3.2-1b's
+    d 2048 / V 128256, hymba-1.5b's 1600 / 32001), else a row-major
+    lm_head (d, V) (rwkv6-1.6b's 2048 / 65536). Every one runs on the
+    tensor cores from split bf16 terms and is bound at 989 TFLOP/s: the
+    forward and dw 2 passes of 2 R d V, bwd_dh 5; each keeps beside it the
+    f32 FMA bound (one pass at 67 TFLOP/s) of the f32 product its plain
+    version computes. Rows are emitted as check_<kernel><suffix>."""
+    R = TRAIN_B * TRAIN_S
     g = torch.Generator(device="cuda").manual_seed(15)
     h = torch.randn(R, d, device="cuda", generator=g).bfloat16()
-    emb = torch.randn(V, d, device="cuda", generator=g) * 0.02
-    w = emb.T
+    if tied:
+        w = (torch.randn(V, d, device="cuda", generator=g) * 0.02).T
+    else:
+        w = torch.randn(d, V, device="cuda", generator=g) * 0.02
     t = torch.randint(0, V, (R,), device="cuda", generator=g,
                       dtype=torch.int32)
     beh = torch.randn(R, device="cuda", generator=g) * 0.3 - 11.0
@@ -911,7 +1087,8 @@ def check_fused_is_grpo(torch, timer, fio):
     err_f = max((a - b).abs().max().item() for a, b in zip(outs, ref))
     atol_f = 1e-3
     if not err_f <= atol_f:
-        fail(f"fused_is_grpo fwd disagrees with its plain version: {err_f}")
+        fail(f"fused_is_grpo fwd (d {d}, V {V}) disagrees with its plain "
+             f"version: {err_f}")
     _, _, logp, lse, ent = outs
     ca = torch.randn(R, device="cuda", generator=g)
     ce = torch.randn(R, device="cuda", generator=g) * 0.1
@@ -927,8 +1104,8 @@ def check_fused_is_grpo(torch, timer, fio):
     err_dw = ((dw - rdw).abs().max() / rdw.abs().max()).item()
     rtol = 1e-4
     if not (err_dh <= rtol and err_dw <= rtol):
-        fail(f"fused_is_grpo bwd disagrees with its plain version: "
-             f"dh {err_dh}, dw {err_dw}")
+        fail(f"fused_is_grpo bwd (d {d}, V {V}) disagrees with its plain "
+             f"version: dh {err_dh}, dw {err_dw}")
     del rdl, rdh, rdw
     hf = h.float()
     fwd_ms = timer(lambda: fio.fused_is_grpo_fwd_rows(h, w, t, beh, adv,
@@ -949,8 +1126,9 @@ def check_fused_is_grpo(torch, timer, fio):
     dw_gemm_ms = timer(lambda: hf.T @ dl, iters=3, warmup=1)
     rows_io = 4 * R
     op = 2 * R * d * V
-    shape = (f"hidden [{R}, {d}] bf16, w = embed.T of [{V}, {d}] f32, "
-             "tensor cores, ")
+    shape = (f"hidden [{R}, {d}] bf16, "
+             + (f"w = embed.T of [{V}, {d}] f32, " if tied
+                else f"w = lm_head [{d}, {V}] f32, ") + "tensor cores, ")
     f_bytes = 2 * R * d + 4 * V * d + 3 * rows_io + 5 * rows_io
     b_f = bound(f_bytes, SPLIT_TC_PASSES * op, PEAK_BF16_FLOPS)
     b_f_f32 = bound(f_bytes, op, PEAK_F32_FLOPS)
@@ -986,7 +1164,7 @@ def check_fused_is_grpo(torch, timer, fio):
             bound_f32_fma_ms=b_dw_f32[0], bound_f32_fma_by=b_dw_f32[1]),
     }
     for name, r in res.items():
-        emit(f"check_{name}", **r)
+        emit(f"check_{name}{suffix}", **r)
     return res
 
 
@@ -1037,7 +1215,9 @@ def train_reference_phase(torch, np, copris, model, tree, adam, cfg):
     fused branch and the legacy fused_loss=False one. Loss and metrics atol
     1e-4; each gradient leaf within 1e-4 of its own largest element (the
     kernels sum in another order), a leaf whose reference gradient is all
-    zero exactly zero; grad_norm rtol 1e-5."""
+    zero exactly zero; grad_norm rtol 1e-5; no attention projection (nor,
+    for the hybrid families' "train_reference_hybrid", no scan parameter)
+    left at a zero gradient."""
     from repro_torch.common.config import TrainConfig
     for phase, tc in (
             ("train_reference", TrainConfig(lr=1e-3, entropy_coef=0.01,
@@ -1088,10 +1268,14 @@ def train_reference_case(torch, np, copris, model, tree, adam, cfg, tc,
                 for k in res["cpu"]["metrics"])
     loss_err = abs(res["cuda"]["loss"] - res["cpu"]["loss"])
     gpu_grads = tree.unflatten(res["cuda"]["params"], res["cuda"]["grads"])
-    zero_attn = [f"layer{i}.{n}"
+    # no attention projection and no scan parameter left at zero gradient
+    watched = {"attn": ("wq", "wk", "wv", "wo"), "ssm": ("A_log", "D"),
+               "tm": ("u", "w_base")}
+    zero_attn = [f"layer{i}.{block}.{n}"
                  for i, layer in enumerate(gpu_grads["layers"])
-                 for n in ("wq", "wk", "wv", "wo")
-                 if float(layer["attn"][n].abs().max()) == 0.0]
+                 for block, names in watched.items() if block in layer
+                 for n in names
+                 if float(layer[block][n].abs().max()) == 0.0]
     emit(phase, config=cfg.name, vocab=cfg.vocab_size,
          fused_loss=tc.fused_loss, metrics=sorted(res["cpu"]["metrics"]),
          batch=f"{N} x {T}", loss_gpu=res["cuda"]["loss"],
@@ -1099,9 +1283,10 @@ def train_reference_case(torch, np, copris, model, tree, adam, cfg, tc,
          max_metric_err=m_err, max_grad_err_rel=g_err, grad_rtol=1e-4,
          grad_norm_gpu=res["cuda"]["grad_norm"],
          grad_norm_cpu=res["cpu"]["grad_norm"], grad_norm_rel_err=gn_err,
-         grad_norm_rtol=1e-5, zero_attention_grads=zero_attn, atol=1e-4)
+         grad_norm_rtol=1e-5, zero_watched_grads=zero_attn, atol=1e-4)
     if zero_attn:
-        fail(f"attention weights got zero gradient on the GPU: {zero_attn}")
+        fail(f"attention or scan weights got zero gradient on the GPU: "
+             f"{zero_attn}")
     if not (loss_err <= 1e-4 and m_err <= 1e-4 and g_err <= 1e-4
             and gn_err <= 1e-5):
         fail(f"{phase}: GPU train step disagrees with the CPU train step")
@@ -1249,7 +1434,7 @@ def profile_update(torch, tr, cfg, tc):
         torch, lambda: step(tr.params, tr.opt_state, batch, tc.lr))
     top = sorted(events, key=device_us, reverse=True)[:10]
     return dict(what=f"one make_train_step on a packed batch "
-                f"{list(batch['tokens'].shape)}, llama3.2-1b bf16 compute, "
+                f"{list(batch['tokens'].shape)}, {cfg.name} bf16 compute, "
                 "f32 masters, remat",
                 wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
@@ -1257,28 +1442,35 @@ def profile_update(torch, tr, cfg, tc):
                                  "ms": device_us(e) / 1e3} for e in top])
 
 
-def train_phase(torch, np, kernels, steps=3):
-    """The main path of the training slice: sft_warmup for a few steps, then
-    ``steps`` sequential CoPRISTrainer.step() calls on llama3.2-1b at full
-    width (bf16 compute, f32 master weights, random weights from a seed).
-    Every kernel's launch count is reset just before the steps and read
-    just after."""
+def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
+                steps=3, seed=0, entropy_coef=0.0):
+    """The main path of a training slice: sft_warmup for 4 steps, then
+    ``steps`` sequential CoPRISTrainer.step() calls on ``arch`` at full
+    width (bf16 compute, f32 master weights, remat, the fused loss, random
+    weights from ``seed``), then the device profile of one more update.
+    Every kernel's launch count (with the scans' backward kernels') is
+    reset just before the steps and read just after. With an entropy bonus
+    every step must have a nonzero gradient (the hybrids' phases: the
+    scans' backward kernels then carry one even when all advantages are
+    zero). Returns the launch counts."""
     from repro_torch.common.config import RolloutConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.copris import CoPRISTrainer
     from repro_torch.data.sft import sft_warmup
     from repro_torch.data.tasks import EOS, AdditionTask
     from repro_torch.models import model as M
-    cfg = get_config("llama3.2-1b")
-    task = AdditionTask(max_value=20, seed=0)
-    params = M.init_params(cfg, seed=0, device="cuda")
+    gc.collect()                        # the previous phase's trainer
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    task = AdditionTask(max_value=20, seed=seed)
+    params = M.init_params(cfg, seed=seed, device="cuda")
     t0 = time.perf_counter()
     params, sft_loss = sft_warmup(params, cfg, task, steps=4, batch_size=32,
                                   max_len=24, lr=1e-4)
     torch.cuda.synchronize()
     sft_s = time.perf_counter() - t0
     if not np.isfinite(sft_loss):
-        fail(f"sft loss not finite: {sft_loss}")
+        fail(f"{phase}: sft loss not finite: {sft_loss}")
     # max_len = 128 (the budget 4 + 124, rounded up to the 64-token bucket)
     # is below prompt + response for the task's 5-7 token prompts: a
     # trajectory stops at 127 - len(prompt) tokens, so groups with longer
@@ -1287,7 +1479,8 @@ def train_phase(torch, np, kernels, steps=3):
     ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=4,
                        max_response_len=124, concurrency=16, mode="copris",
                        temperature=1.0)
-    tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=0)
+    tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=seed,
+                     entropy_coef=entropy_coef)
     tr = CoPRISTrainer(cfg, ro, tc, task, eos_id=EOS, params=params)
     del params
     torch.cuda.synchronize()
@@ -1304,28 +1497,31 @@ def train_phase(torch, np, kernels, steps=3):
                               * (tr.last_batch["tokens"].shape[1] - 1))
             outs.append(out)
         torch.cuda.synchronize()
-        launches = read_launches(kernels)
+        launches = read_launches(kernels, backward=True)
         prof = profile_update(torch, tr, cfg, tc)
+        peak = torch.cuda.max_memory_allocated() / 1e9
     finally:
         tr.close()
     keys = ("reward_mean", "pg_loss", "grad_norm", "ratio_mean",
             "off_policy_frac")
-    emit("train", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-         vocab=cfg.vocab_size, sft_steps=4, sft_loss=sft_loss,
-         sft_seconds=sft_s,
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, tied=cfg.tie_embeddings, sft_steps=4,
+         sft_loss=sft_loss, sft_seconds=sft_s, entropy_coef=entropy_coef,
          steps=[{k: o[k] for k in keys + (
              "rollout_time", "reward_time", "update_time", "step_time",
              "resumed", "multi_stage_trajs", "buffer_unfinished", "rows",
              "mean_resp_len", "entropy", "clip_frac")} for o in outs],
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=launches)
-    emit("train_profile", **prof)
+         peak_mem_gb=peak, launches=launches)
+    emit(f"{phase}_profile", **prof)
     for o in outs:
         bad = [k for k in keys if not np.isfinite(o[k])]
         if bad:
-            fail(f"train step {o['step']}: not finite: {bad}")
+            fail(f"{phase} step {o['step']}: not finite: {bad}")
+        if entropy_coef > 0.0 and not o["grad_norm"] > 0.0:
+            fail(f"{phase} step {o['step']}: a zero gradient")
     if not all(n > 0 for n in launches.values()):
-        fail(f"a kernel of the training path never launched: {launches}")
+        fail(f"a kernel of {arch}'s training path never launched: "
+             f"{launches}")
     return launches
 
 
@@ -1616,30 +1812,50 @@ def tc_registers(build, libraries):
 
 def scan_registers(build):
     """ptxas's registers, spill bytes (stores, loads) and static shared
-    memory of each scan kernel (csrc/ssm_scan.cu, csrc/wkv6.cu), by
-    instantiation: {"wkv6_scan_kernel<bf16,64>": [regs, st, ld, smem]}."""
+    memory of each scan kernel (csrc/ssm_scan.cu, csrc/wkv6.cu: the
+    forward's decode and prefill kernels and the backward kernels), by
+    instantiation: {"wkv6_scan_kernel<bf16,64>": [regs, st, ld, smem]};
+    for the backward kernels, which take all theirs dynamically, the bytes
+    they launch with (as their chunk queries report them)."""
+    import ctypes
     import re
     out = {}
+
+    def smem_of(query, *args):
+        n = ctypes.c_int()
+        query(*args, ctypes.addressof(n))
+        return n.value
+
+    smem_bwd = {
+        "ssm_scan_bwd_kernel": lambda dtype, n: smem_of(
+            build.library("ssm_scan").ssm_scan_bwd_chunk, n,
+            dtype == "bf16"),
+        "wkv6_bwd_kernel": lambda dtype, hd: smem_of(
+            build.library("wkv6").wkv6_bwd_chunk, hd)}
     for name in ("ssm_scan", "wkv6"):
         log = build.library_log(name)
         for entry, body in re.findall(
                 r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
                 log, re.S):
-            m = re.search(r"((?:ssm|wkv6)_(?:step|scan)_kernel)I"
-                          r"(f|13__nv_bfloat16)Li(\d+)E", entry)
+            m = re.search(r"((?:ssm|wkv6)_(?:step|scan|scan_bwd|bwd)"
+                          r"_kernel)I(f|13__nv_bfloat16)Li(\d+)E", entry)
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", body)
             smem = re.search(r"(\d+) bytes smem", body)
             if m and regs and spill:
                 dtype = "f32" if m.group(2) == "f" else "bf16"
+                nbytes = (smem_bwd[m.group(1)](dtype, int(m.group(3)))
+                          if m.group(1) in smem_bwd
+                          else int(smem.group(1)) if smem else 0)
                 out[f"{m.group(1)}<{dtype},{m.group(3)}>"] = [
                     int(regs.group(1)), int(spill.group(1)),
-                    int(spill.group(2)), int(smem.group(1)) if smem else 0]
+                    int(spill.group(2)), nbytes]
     return out
 
 
-SPLIT_COUNTS = ("simt_launches", "decode_launches", "prefill_launches")
+SPLIT_COUNTS = ("simt_launches", "decode_launches", "prefill_launches",
+                "bwd_launches")
 
 
 def max_sm_clock_mhz():
@@ -1665,15 +1881,21 @@ def read_by_length(kernels):
             for name, fn in kernels.items() if hasattr(fn, "decode_launches")}
 
 
-def read_launches(kernels):
-    """Launches of each kernel since reset_launches. Every phase that reads
+def read_launches(kernels, backward=False):
+    """Launches of each kernel since reset_launches (with ``backward``, the
+    scans' backward kernels too, as "<name>_bwd"). Every phase that reads
     them runs in bf16, so none may have gone to an f32 SIMT flash or loss
     kernel: those wrappers' launches are then all tensor-core launches."""
     simt = {name: fn.simt_launches for name, fn in kernels.items()
             if getattr(fn, "simt_launches", 0)}
     if simt:
         fail(f"an f32 SIMT kernel ran on a bf16 path: {simt}")
-    return {name: fn.launches for name, fn in kernels.items()}
+    out = {name: fn.launches for name, fn in kernels.items()}
+    if backward:
+        out.update({f"{name}_bwd": fn.bwd_launches
+                    for name, fn in kernels.items()
+                    if hasattr(fn, "bwd_launches")})
+    return out
 
 
 def main() -> int:
@@ -1692,7 +1914,7 @@ def main() -> int:
     import dataclasses
 
     from repro_torch.common import tree
-    from repro_torch.common.config import RolloutConfig
+    from repro_torch.common.config import RolloutConfig, TrainConfig
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import copris
     from repro_torch.core.rollout import RolloutEngine
@@ -1759,6 +1981,25 @@ def main() -> int:
     scans = {"ssm_scan": check_ssm_scan(torch, timer, ssm_scan, sm_mhz),
              "wkv6": check_wkv6(torch, timer, rwkv6_scan)}
     checks.update({name: r["decode"] for name, r in scans.items()})
+    # the scans' backward kernels at the hybrid updates' shape
+    checks["ssm_scan_bwd"] = check_ssm_scan_bwd(torch, timer, ssm_scan,
+                                                sm_mhz)
+    checks["wkv6_bwd"] = check_wkv6_bwd(torch, timer, rwkv6_scan, sm_mhz)
+    # the hybrid updates' shapes of the attention and loss kernels: hymba's
+    # 25/5 heads with its window of 1024; the loss at hymba's d 1600 against
+    # the tied V 32001 and at rwkv6's d 2048 against the untied (2048, 65536)
+    hybrid_checks = {
+        "hymba-1.5b": {
+            "flash_attn": check_flash_lse(
+                torch, F, timer, flash_attn, H=25, KV=5, win=1024,
+                phase="check_flash_attn_lse_hymba"),
+            "flash_attn_bwd": check_flash_bwd(
+                torch, F, timer, flash_attn, H=25, KV=5, win=1024,
+                phase="check_flash_attn_bwd_hymba"),
+            **check_fused_is_grpo(torch, timer, fio, d=1600, V=32001,
+                                  tied=True, suffix="_hymba")},
+        "rwkv6-1.6b": check_fused_is_grpo(torch, timer, fio, d=2048, V=65536,
+                                          tied=False, suffix="_rwkv6")}
     torch.cuda.empty_cache()
     kernels = {"flash_attn": flash_attn.flash_attention,
                "decode_attn": decode_attn.decode_attention,
@@ -1783,6 +2024,13 @@ def main() -> int:
                            "ssm_scan": ssm_scan.selective_scan}
     rwkv_kernels = {"fused_sample": fused_sample.sample_rows,
                     "wkv6": rwkv6_scan.wkv6}
+    loss_kernels = {"fused_is_grpo_fwd": fio.fused_is_grpo_fwd_rows,
+                    "fused_is_grpo_bwd_dh": fio.fused_is_grpo_bwd_dh_rows,
+                    "fused_is_grpo_bwd_dw": fio.fused_is_grpo_bwd_dw_rows}
+    hymba_train_kernels = {
+        **hymba_kernels, **loss_kernels,
+        "flash_attn_bwd": flash_attn.flash_attention_bwd}
+    rwkv_train_kernels = {**rwkv_kernels, **loss_kernels}
 
     # 4. GPU engine vs CPU engine on the reduced config, serving and training
     reference_phase(torch, np, serve_mod, model,
@@ -1798,6 +2046,16 @@ def main() -> int:
         torch, np, copris, model, tree, adam,
         dataclasses.replace(get_smoke_config("llama3.2-1b"),
                             vocab_size=8192, dtype="float32"))
+    # the hybrid families' updates, scans forward and backward: hymba
+    # reduced as above, rwkv6's reduced config
+    for cfg_r in (dataclasses.replace(get_smoke_config("hymba-1.5b"),
+                                      d_model=320, head_dim=64),
+                  get_smoke_config("rwkv6-1.6b")):
+        train_reference_case(
+            torch, np, copris, model, tree, adam,
+            dataclasses.replace(cfg_r, vocab_size=8192, dtype="float32"),
+            TrainConfig(lr=1e-3, entropy_coef=0.01, remat=True),
+            "train_reference_hybrid")
 
     # 5. serve at full width (the main path)
     serve, cfg = serve_mod.make_serve_engine(
@@ -1900,12 +2158,23 @@ def main() -> int:
     train_paged_launches = train_paged_phase(torch, np, train_paged_kernels)
     train_simt["fused_logprob"] = flp.fused_logprob_rows.simt_launches
 
+    # 7b. the hybrid families trained at full width (this slice's main
+    # path): the scans' forward and backward kernels
+    hymba_train = train_phase(torch, np, hymba_train_kernels,
+                              arch="hymba-1.5b", phase="train_hymba",
+                              steps=2, seed=2, entropy_coef=0.01)
+    rwkv_train = train_phase(torch, np, rwkv_train_kernels,
+                             arch="rwkv6-1.6b", phase="train_rwkv6",
+                             steps=2, seed=2, entropy_coef=0.01)
+
     # 8. kernels line: launches from the train phase, from train_paged for
     # the paged decode and the fused log-prob, from serve_hymba and
-    # serve_rwkv6 for the two scans; times from the checks at the train
-    # phase's shapes (flash forward with lse, its backward, the loss
-    # kernels) and at the serve phases' (decode, paged decode, sampling,
-    # and the scans' decode shape)
+    # serve_rwkv6 for the two scans, from train_hymba and train_rwkv6 for
+    # their backward kernels; times from the checks at the train phase's
+    # shapes (flash forward with lse, its backward, the loss kernels, the
+    # scans' backward kernels) and at the serve phases' (decode, paged
+    # decode, sampling, and the scans' decode shape); the flash and loss
+    # rows carry the hybrid updates' shapes under "train_hybrid"
     src = {"flash_attn": ("src/repro_torch/csrc/flash_attn.cu",
                           "src/repro/kernels/flash_attn/flash_attn.py:103",
                           "flash_attn_lse"),
@@ -1942,12 +2211,21 @@ def main() -> int:
                         "src/repro/kernels/ssm_scan/ssm_scan.py:72",
                         "ssm_scan"),
            "wkv6": ("src/repro_torch/csrc/wkv6.cu",
-                    "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:68", "wkv6")}
+                    "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:68", "wkv6"),
+           # the Pallas scans are forward only: JAX differentiates the
+           # lax.scan references
+           "ssm_scan_bwd": ("src/repro_torch/csrc/ssm_scan.cu",
+                            "src/repro/models/ssm.py:73", "ssm_scan_bwd"),
+           "wkv6_bwd": ("src/repro_torch/csrc/wkv6.cu",
+                        "src/repro/models/rwkv6.py:64", "wkv6_bwd")}
     launches = {**train_launches,
                 "paged_decode_attn": train_paged_launches["paged_decode_attn"],
                 "fused_logprob": train_paged_launches["fused_logprob"],
                 "ssm_scan": hymba_launches["ssm_scan"],
-                "wkv6": rwkv_launches["wkv6"]}
+                "wkv6": rwkv_launches["wkv6"],
+                "ssm_scan_bwd": hymba_train["ssm_scan_bwd"],
+                "wkv6_bwd": rwkv_train["wkv6_bwd"]}
+    train_of = {"hymba-1.5b": hymba_train, "rwkv6-1.6b": rwkv_train}
     by_length = {"ssm_scan": hymba_by_length["ssm_scan"],
                  "wkv6": rwkv_by_length["wkv6"]}
     rows = []
@@ -1962,9 +2240,20 @@ def main() -> int:
             # launches: the bf16 tensor-core kernels; the f32 SIMT apart
             row["simt_launches"] = train_simt[name]
         for key in ("library_err", "vs_library", "bound_f32_fma_ms",
-                    "int_ops_per_draw", "bytes_bound_ms"):
+                    "int_ops_per_draw", "bytes_bound_ms", "bound_pipe",
+                    "bounds_ms", "bit_equal_launches"):
             if key in c:
                 row[key] = c[key]
+        hybrid = {arch: dict(c[name], launches=train_of[arch][name])
+                  for arch, c in hybrid_checks.items() if name in c}
+        if hybrid:
+            # the same kernel at the hybrid updates' shapes, with the
+            # launches of train_hymba / train_rwkv6
+            row["train_hybrid"] = {
+                arch: {key: r[key] for key in (
+                    "shape", "launches", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")}
+                for arch, r in hybrid.items()}
         if name in by_length:
             row["launches_by_length"] = by_length[name]
             pre = scans[name]["prefill"]
@@ -2025,35 +2314,32 @@ def ab_main(parent) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.hopper import build, fused_sample, rwkv6_scan, ssm_scan
     from repro_torch.sampling import prng
-    P, I, F = build.P, build.I, build.F
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0))
     build.build_all()
-    old_sample = parent_library(build, parent, "fused_sample", {
-        "fused_sample_rows": (P, P, P, P, I, I, F, I, F, I, I, P)})
-    old_scan = parent_library(build, parent, "ssm_scan", {
-        "ssm_scan_fwd": (P,) * 8 + (I,) * 10 + (P,)})
-    old_wkv = parent_library(build, parent, "wkv6", {
-        "wkv6_fwd": (P,) * 7 + (I,) * 5 + (P,)})
+    # the parent's forward entry points take this tree's arguments
+    old_sample, old_scan, old_wkv = (
+        parent_library(build, parent, name, {fn: build.KERNELS[name][fn]})
+        for name, fn in (("fused_sample", "fused_sample_rows"),
+                         ("ssm_scan", "ssm_scan_fwd"), ("wkv6", "wkv6_fwd")))
     timer = Timer(torch)
     stream = torch.cuda.current_stream().cuda_stream
 
-    # what each tree's scan kernels issue (static SASS opcode counts; the
-    # parent's WKV6 step loop is unrolled over its hd rows)
+    # what each tree's forward scan kernels issue (static SASS opcode counts)
     ab_dir = Path(parent) / "build" / "ab"
     sass = {"parent": (sass_of(build, ab_dir / "wkv6.so")
                        + sass_of(build, ab_dir / "ssm_scan.so")),
             "change": build.sass("wkv6") + build.sass("ssm_scan")}
-    for tree, marker in (("parent", "wkv6_kernelI13__nv_bfloat16Li64E"),
-                         ("parent", "ssm_scan_kernelI13__nv_bfloat16Li16E"),
-                         ("change", "wkv6_step_kernelI13__nv_bfloat16Li64E"),
-                         ("change", "wkv6_scan_kernelI13__nv_bfloat16Li64E"),
-                         ("change", "ssm_scan_kernelI13__nv_bfloat16Li16E")):
-        emit("ab_sass", tree=tree, kernel=marker,
-             opcodes=dict(sorted(sass_opcodes(sass[tree], marker).items())))
+    for tree in ("parent", "change"):
+        for marker in ("wkv6_step_kernelI13__nv_bfloat16Li64E",
+                       "wkv6_scan_kernelI13__nv_bfloat16Li64E",
+                       "ssm_step_kernelI13__nv_bfloat16Li16E",
+                       "ssm_scan_kernelI13__nv_bfloat16Li16E"):
+            emit("ab_sass", tree=tree, kernel=marker, opcodes=dict(sorted(
+                sass_opcodes(sass[tree], marker).items())))
 
     def old_sample_rows(keys, logits, temperature=1.0, top_k=-1, top_p=1.0):
         R, V = logits.shape
@@ -2127,7 +2413,7 @@ def ab_main(parent) -> int:
             build.check(old_wkv.wkv6_fwd(
                 r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), state.data_ptr(), y.data_ptr(), B, T, H, hd,
-                1, stream), "parent wkv6_fwd")
+                1, 0, stream), "parent wkv6_fwd")
             return y
 
         y_old = old_wkv_call(s0.clone())

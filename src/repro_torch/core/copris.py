@@ -189,7 +189,6 @@ class CoPRISTrainer:
         self.tcfg = tcfg
         self.task = task
         self.device = resolve_device(device)
-        M.check_trainable(model_cfg, self.device)
         # the reference's key schedule: PRNGKey(seed) -> split -> one split
         # per collect (the init half is unused: weights come from `params`
         # or the port's own seeded init)

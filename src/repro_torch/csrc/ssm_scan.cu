@@ -56,6 +56,39 @@
 // its states back the same way; B_t and C_t are read by scalar loads
 // through their strides (views of the x_proj output, with no alignment to
 // count on). No shared memory and no barrier.
+//
+// Backward (`ssm_scan_bwd_kernel`, entry `ssm_scan_bwd`; JAX differentiates
+// the lax.scan reference, repro/models/ssm.py::selective_scan, as the Pallas
+// kernel is forward only; plain version
+// repro_torch.hopper.ssm_scan.selective_scan_bwd_plain). With a_t =
+// exp(-exp(A_log) dt_t) and G_t = dL/dh_t = dy_t C_t + a_{t+1} G_{t+1}
+// (from the final state's gradient):
+//
+//   dC_t = sum_c h_t dy_t                 dB_t = sum_c G_t dt_t x_t
+//   dx_t = dt_t (G_t . B_t) + D dy_t      dA_log = sum_{b,t} gA_t dt_t
+//   ddt_t = x_t (G_t . B_t) + sum_n gA_t, gA_t = G_t h_{t-1} a_t (-exp A_log)
+//   dD = sum_{b,t} dy_t x_t               dstate0 = a_1 G_1
+//
+// It keeps the prefill kernel's layout (a block of 320 threads covers 80
+// channels of one row, 4 states a lane) and walks time in reverse. The
+// states are never recovered by dividing by a decay (decays reach 1e-8):
+// a first pass runs the recurrence forward and stores the state at every
+// chunk boundary (kBwdChunk steps) in a scratch buffer, each lane its own
+// 4 states; the reverse pass reloads a chunk's boundary state, recomputes
+// the chunk's states into shared memory (lane-major, each lane its own)
+// and then walks the chunk backwards. Sums over channels (dB_t, dC_t) go
+// over the lanes of a warp by a reduce-scatter (7 shuffles for the 8
+// values a lane holds), then over the block's warps in warp order through
+// shared memory, into one partial a block; the sums over rows and steps
+// (dA_log, dD) are per-row partials. The wrapper adds the partials with
+// torch.sum in a fixed order: no float atomics, so two runs are bit-equal.
+// What bounds it on the H100 is latency, not a pipe's rate: each step is a
+// dependent chain (exponential, products, shuffles), so the number of warps
+// an SM holds sets the pace. The states in shared memory in place of
+// registers and a launch bound of two blocks an SM (<= 96 registers, no
+// spills) measured fastest (chip_variants.py times the alternatives;
+// PERF.md), still far above its FMA pipe's bound: three exponentials an
+// element-step (pass 1, recompute, reverse) where one would do.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -261,6 +294,255 @@ ssm_step_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   }
 }
 
+constexpr int kBwdChunk = 8;      // steps a chunk of the backward
+constexpr int kBwdMinBlocks = 2;  // blocks an SM: <= 96 registers a thread
+
+// Sums each of v[0..7] (dB then dC of this lane's 4 states) over the lanes
+// of a warp with the same q (L apart) by a reduce-scatter in fixed order:
+// halves of the values go to the partners 16, 8, 4 lanes apart, 7 shuffles
+// in place of the 24 of an all-reduce; lane l ends with the sum of value
+// ((l >> 4) & 1) * 4 + ((l >> 3) & 1) * 2 + ((l >> 2) & 1). With L = 2 a
+// last xor 2 completes the sum over the warp's 16 channels.
+template <int L>
+__device__ __forceinline__ float scatter8(const float (&v)[8], int lane) {
+  float a[4], b[2];
+  const bool u16 = lane & 16, u8 = lane & 8, u4 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = (u16 ? v[i + 4] : v[i]) +
+           __shfl_xor_sync(0xffffffffu, u16 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    b[i] = (u8 ? a[i + 2] : a[i]) +
+           __shfl_xor_sync(0xffffffffu, u8 ? a[i] : a[i + 2], 8);
+  float c = (u4 ? b[1] : b[0]) +
+            __shfl_xor_sync(0xffffffffu, u4 ? b[0] : b[1], 4);
+  if (L == 2) c += __shfl_xor_sync(0xffffffffu, c, 2);
+  return c;
+}
+
+template <typename T, int N>
+struct BwdSmem {
+  static constexpr int L = N / 4;                 // lanes a channel
+  static constexpr int CB = kScanThreads / L;     // channels a block
+  static constexpr int NW = kScanThreads / 32;    // warps a block
+  float4 hist[kBwdChunk][kScanThreads];      // a chunk's states, lane-major
+  T xdd[3][kBwdChunk][CB];                   // x, dt, dy of the channels
+  float bc[2][kBwdChunk][N];                 // B_t, C_t widened
+  float part[kBwdChunk][NW][2][N];           // the warps' dB_t, dC_t sums
+};
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kScanThreads, kBwdMinBlocks)
+ssm_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                    const float* __restrict__ A_log, const T* __restrict__ Bc,
+                    const T* __restrict__ Cc, const float* __restrict__ D,
+                    const float* __restrict__ state0, const T* __restrict__ dy,
+                    const float* __restrict__ dstate, T* __restrict__ dx,
+                    T* __restrict__ ddt, float* __restrict__ pbc,
+                    float* __restrict__ pA, float* __restrict__ pD,
+                    float* __restrict__ ds0, float* __restrict__ ckpt,
+                    int len, int di, int b_sb, int b_st, int c_sb,
+                    int c_st) {
+  using Sm = BwdSmem<T, N>;
+  constexpr int L = Sm::L, CB = Sm::CB, NW = Sm::NW, K = kBwdChunk;
+  static_assert(N % 4 == 0 && (L == 2 || L == 4), "N = 8 or 16");
+  extern __shared__ __align__(16) unsigned char smem[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem);
+
+  const int blk = blockIdx.x, b = blockIdx.y, nrows = gridDim.y;
+  const int c0 = blk * CB;
+  const int tid = threadIdx.x, cl = tid / L, q = tid % L;
+  const int lane = tid % 32, wi = tid / 32;
+  const int c = c0 + cl;
+  const bool live = c < di;
+  const int nch = min(CB, di - c0);                 // channels of this block
+  const int nchk = (len + K - 1) / K;
+  const size_t lq = ((size_t)b * di + (live ? c : 0)) * L + q;  // float4s
+
+  float negA[4] = {}, a2[4] = {}, h[4] = {}, g[4] = {};
+  float Dc = 0.f;
+  if (live) {
+    const float4 a4 = reinterpret_cast<const float4*>(A_log)[(size_t)c * L + q];
+    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      negA[k] = -expf(av[k]);
+      a2[k] = negA[k] * repro::tc::kLog2e;
+    }
+    const float4 h4 = reinterpret_cast<const float4*>(state0)[lq];
+    h[0] = h4.x; h[1] = h4.y; h[2] = h4.z; h[3] = h4.w;
+    if (dstate != nullptr) {
+      const float4 g4 = reinterpret_cast<const float4*>(dstate)[lq];
+      g[0] = g4.x; g[1] = g4.y; g[2] = g4.z; g[3] = g4.w;
+    }
+    Dc = D[c];
+  }
+
+  // chunk ch's x, dt (and with `full` dy) of the block's channels and B_t
+  // (and C_t), widened, into shared memory; plain loads
+  auto stage = [&](int ch, bool full) {
+    const int t0 = ch * K, nt = min(K, len - t0);
+    const size_t xrow = ((size_t)b * len + t0) * di + c0;
+    for (int i = tid; i < 3 * K * CB; i += kScanThreads) {
+      const int a = i / (K * CB), s = i / CB % K, e = i % CB;
+      if (s >= nt || e >= nch || (a == 2 && !full)) continue;
+      sm.xdd[a][s][e] = (a == 0 ? x : a == 1 ? dt : dy)[xrow + (size_t)s * di + e];
+    }
+    for (int i = tid; i < 2 * K * N; i += kScanThreads) {
+      const int a = i / (K * N), s = i / N % K, n = i % N;
+      if (s >= nt || (a == 1 && !full)) continue;
+      const T* p = a ? Cc + (size_t)b * c_sb + (size_t)(t0 + s) * c_st
+                     : Bc + (size_t)b * b_sb + (size_t)(t0 + s) * b_st;
+      sm.bc[a][s][n] = repro::to_f(p[n]);
+    }
+  };
+
+  // pass 1: the recurrence forward, the state stored at every chunk start
+  float4* ck = reinterpret_cast<float4*>(ckpt);
+  for (int ch = 0; ch < nchk; ++ch) {
+    __syncthreads();
+    stage(ch, false);
+    __syncthreads();
+    if (live)
+      ck[(((size_t)b * nchk + ch) * di + c) * L + q] =
+          make_float4(h[0], h[1], h[2], h[3]);
+    const int nt = min(K, len - ch * K);
+    for (int s = 0; s < nt; ++s) {
+      const float xv = live ? repro::to_f(sm.xdd[0][s][cl]) : 0.f;
+      const float dtv = live ? repro::to_f(sm.xdd[1][s][cl]) : 0.f;
+      const float dx_ = dtv * xv;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        h[k] = ex2(a2[k] * dtv) * h[k] + dx_ * sm.bc[0][s][4 * q + k];
+    }
+  }
+
+  // pass 2: chunks in reverse; each chunk's states recomputed, then walked
+  // backwards
+  float dA[4] = {0.f, 0.f, 0.f, 0.f}, dD = 0.f;
+  for (int ch = nchk - 1; ch >= 0; --ch) {
+    const int t0 = ch * K, nt = min(K, len - t0);
+    __syncthreads();  // the previous chunk's partials are summed
+    stage(ch, true);
+    __syncthreads();
+    // the chunk's states h_t from its boundary state, into shared memory
+    // (each lane its own 4: 32 registers fewer, so two blocks fit an SM)
+    float4 hc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live) hc = ck[(((size_t)b * nchk + ch) * di + c) * L + q];
+    {
+      float hh[4] = {hc.x, hc.y, hc.z, hc.w};
+      for (int s = 0; s < nt; ++s) {
+        const float xv = live ? repro::to_f(sm.xdd[0][s][cl]) : 0.f;
+        const float dtv = live ? repro::to_f(sm.xdd[1][s][cl]) : 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          hh[k] = ex2(a2[k] * dtv) * hh[k] + (dtv * xv) * sm.bc[0][s][4 * q + k];
+        sm.hist[s][tid] = make_float4(hh[0], hh[1], hh[2], hh[3]);
+      }
+    }
+#pragma unroll
+    for (int s = K - 1; s >= 0; --s) {
+      if (s >= nt) continue;                      // uniform over the block
+      const float xv = live ? repro::to_f(sm.xdd[0][s][cl]) : 0.f;
+      const float dtv = live ? repro::to_f(sm.xdd[1][s][cl]) : 0.f;
+      const float dyv = live ? repro::to_f(sm.xdd[2][s][cl]) : 0.f;
+      // the states after steps s - 1 and s
+      const float4 p4 = s ? sm.hist[s ? s - 1 : 0][tid] : hc;
+      const float4 n4 = sm.hist[s][tid];
+      const float hp[4] = {p4.x, p4.y, p4.z, p4.w};
+      const float hn[4] = {n4.x, n4.y, n4.z, n4.w};
+      float G[4], pb[4], pc[4], gA[4], a[4];
+      float gb = 0.f, sA = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float bn = sm.bc[0][s][4 * q + k], cn = sm.bc[1][s][4 * q + k];
+        a[k] = ex2(a2[k] * dtv);
+        G[k] = fmaf(dyv, cn, g[k]);
+        pc[k] = hn[k] * dyv;
+        pb[k] = G[k] * (dtv * xv);
+        gb = fmaf(G[k], bn, gb);
+        gA[k] = G[k] * hp[k] * a[k] * negA[k];
+        sA += gA[k];
+        dA[k] = fmaf(gA[k], dtv, dA[k]);
+        g[k] = a[k] * G[k];
+      }
+      gb += __shfl_xor_sync(0xffffffffu, gb, 1);
+      sA += __shfl_xor_sync(0xffffffffu, sA, 1);
+      if (L == 4) {
+        gb += __shfl_xor_sync(0xffffffffu, gb, 2);
+        sA += __shfl_xor_sync(0xffffffffu, sA, 2);
+      }
+      if (live && q == 0) {
+        const size_t o = ((size_t)b * len + t0 + s) * di + c;
+        dx[o] = repro::from_f<T>(fmaf(dtv, gb, Dc * dyv));
+        ddt[o] = repro::from_f<T>(fmaf(xv, gb, sA));
+        dD = fmaf(dyv, xv, dD);
+      }
+      // over the warp's channels: the lanes with the same q
+      const float v[8] = {pb[0], pb[1], pb[2], pb[3],
+                          pc[0], pc[1], pc[2], pc[3]};
+      const float sum = scatter8<L>(v, lane);
+      const int e = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 +
+                    ((lane >> 2) & 1);
+      if (L == 4 || (lane & 2) == 0)     // one lane of each (q, e)
+        sm.part[s][wi][e >> 2][4 * q + (e & 3)] = sum;
+    }
+    __syncthreads();
+    // the block's dB_t, dC_t: the warps' sums in warp order
+    for (int i = tid; i < nt * 2 * N; i += kScanThreads) {
+      const int s = i / (2 * N), a = i / N % 2, n = i % N;
+      float acc = sm.part[s][0][a][n];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) acc += sm.part[s][w][a][n];
+      pbc[((((size_t)blk * nrows + b) * len + t0 + s) * 2 + a) * N + n] = acc;
+    }
+  }
+  if (live) {
+    reinterpret_cast<float4*>(ds0)[lq] = make_float4(g[0], g[1], g[2], g[3]);
+    reinterpret_cast<float4*>(pA)[lq] = make_float4(dA[0], dA[1], dA[2], dA[3]);
+    if (q == 0) pD[(size_t)b * di + c] = dD;
+  }
+}
+
+template <typename T, int N>
+void launch_bwd(const void* x, const void* dt, const void* A_log,
+                const void* Bc, const void* Cc, const void* D,
+                const void* state0, const void* dy, const void* dstate,
+                void* dx, void* ddt, void* pbc, void* pA, void* pD, void* ds0,
+                void* ckpt, int B, int len, int di, int b_sb, int b_st,
+                int c_sb, int c_st, cudaStream_t s) {
+  constexpr int CB = BwdSmem<T, N>::CB;
+  constexpr int kSmem = sizeof(BwdSmem<T, N>);
+  cudaFuncSetAttribute(ssm_scan_bwd_kernel<T, N>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  dim3 grid((di + CB - 1) / CB, B);
+  ssm_scan_bwd_kernel<T, N><<<grid, kScanThreads, kSmem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dt),
+      static_cast<const float*>(A_log), static_cast<const T*>(Bc),
+      static_cast<const T*>(Cc), static_cast<const float*>(D),
+      static_cast<const float*>(state0), static_cast<const T*>(dy),
+      static_cast<const float*>(dstate), static_cast<T*>(dx),
+      static_cast<T*>(ddt), static_cast<float*>(pbc),
+      static_cast<float*>(pA), static_cast<float*>(pD),
+      static_cast<float*>(ds0), static_cast<float*>(ckpt), len, di, b_sb,
+      b_st, c_sb, c_st);
+}
+
+template <typename T>
+bool dispatch_bwd(int N, const void* x, const void* dt, const void* A_log,
+                  const void* Bc, const void* Cc, const void* D,
+                  const void* state0, const void* dy, const void* dstate,
+                  void* dx, void* ddt, void* pbc, void* pA, void* pD,
+                  void* ds0, void* ckpt, int B, int len, int di, int b_sb,
+                  int b_st, int c_sb, int c_st, cudaStream_t s) {
+  switch (N) {
+    case 8: launch_bwd<T, 8>(x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s); return true;
+    case 16: launch_bwd<T, 16>(x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s); return true;
+    default: return false;
+  }
+}
+
 template <typename T, int N>
 void launch(const void* x, const void* dt, const void* A_log, const void* Bc,
             const void* Cc, const void* D, void* state, void* y, int B,
@@ -326,6 +608,43 @@ extern "C" int ssm_scan_fwd(const void* x, const void* dt, const void* A_log,
     ok = dispatch_n<__nv_bfloat16>(N, x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, decode, s);
   else if (dtype == repro::kFloat32)
     ok = dispatch_n<float>(N, x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, decode, s);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's chunk length: the wrapper sizes the boundary states by it.
+// *smem, when not null, gets the dynamic shared memory the kernel launches
+// with for N and dtype (chip_smoke.py records it), or -1.
+extern "C" int ssm_scan_bwd_chunk(int N, int dtype, int* smem) {
+  if (smem) {
+    const bool bf16 = dtype == repro::kBFloat16;
+    switch (N) {
+      case 8: *smem = bf16 ? sizeof(BwdSmem<__nv_bfloat16, 8>) : sizeof(BwdSmem<float, 8>); break;
+      case 16: *smem = bf16 ? sizeof(BwdSmem<__nv_bfloat16, 16>) : sizeof(BwdSmem<float, 16>); break;
+      default: *smem = -1;
+    }
+  }
+  return kBwdChunk;
+}
+
+// The backward: every pointer as the wrapper allocates it (dstate may be
+// null: a zero gradient of the final state); the partials are summed by the
+// wrapper. state0, dstate, ds0, ckpt and A_log are read 16 bytes at a time.
+extern "C" int ssm_scan_bwd(const void* x, const void* dt, const void* A_log,
+                            const void* Bc, const void* Cc, const void* D,
+                            const void* state0, const void* dy,
+                            const void* dstate, void* dx, void* ddt,
+                            void* pbc, void* pA, void* pD, void* ds0,
+                            void* ckpt, int B, int len, int di, int N,
+                            int b_sb, int b_st, int c_sb, int c_st, int dtype,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (len < 1) return static_cast<int>(cudaErrorInvalidValue);
+  bool ok = false;
+  if (dtype == repro::kBFloat16)
+    ok = dispatch_bwd<__nv_bfloat16>(N, x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s);
+  else if (dtype == repro::kFloat32)
+    ok = dispatch_bwd<float>(N, x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,6 +48,41 @@
 // c + 1's Qs are formed, chunk c computes and chunk c - 1's y is summed
 // from the warps' partial sums. Nothing waits on device memory, and the
 // Qs and the y sums overlap the other warps' steps.
+//
+// Backward (`wkv6_bwd_kernel`, entry `wkv6_bwd`; JAX differentiates the
+// lax.scan reference, repro/models/rwkv6.py::wkv6_scan, as the Pallas kernel
+// is forward only; plain version repro_torch.hopper.rwkv6_scan.
+// wkv6_bwd_plain). With G_t = dL/dS_t, G_{t-1} = w_t G_t + r_t dy_t^T (from
+// the final state's gradient), Q_t = sum_i r_t[i] u_i k_t[i] and
+// P_t = v_t . dy_t:
+//
+//   dr_t[i] = sum_j S_{t-1}[i,j] dy_t[j] + u_i k_t[i] P_t
+//   dk_t[i] = sum_j G_t[i,j] v_t[j] + u_i r_t[i] P_t
+//   dv_t[j] = sum_i G_t[i,j] k_t[i] + Q_t dy_t[j]
+//   dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
+//   du[i] = sum_{b,t} r_t[i] k_t[i] P_t        dstate0 = G_0
+//
+// One block a (head, row) in the prefill kernel's layout (RT = hd / 8 rows
+// by 4 columns a lane, a head's row slices over its warps), walking time in
+// reverse with G in registers. dw needs S_{t-1} beside G_t, and S is never
+// recovered by dividing by a decay (decays reach 1e-8): a first pass runs
+// the recurrence forward and stores the state at every chunk boundary
+// (kBwdChunk steps) in a scratch buffer, each lane its own elements; the
+// reverse pass reloads a chunk's boundary state, recomputes the chunk's
+// states into shared memory (each lane's own, in a lane-major layout
+// without bank conflicts) and walks the chunk backwards. Row sums (dr, dk,
+// dw) run across a row slice's lanes by a reduce-scatter of xor shuffles
+// (row_scatter: 24 shuffles a step at hd 64 where an all-reduce takes 96);
+// column sums (dv) by xor shuffles across the slices of a warp, then
+// across warps in warp order through shared memory, as the forward's y;
+// Q_t and P_t by one warp a step. du is one partial a row, summed by the
+// wrapper in a fixed order: no float atomics, so two runs are bit-equal.
+// What bounds it on the H100 is latency: each step is a chain of products
+// and shuffles, so the warps an SM holds set the pace. Chunks of 3 steps
+// (55 KB of shared memory a block) and a launch bound of four blocks an SM
+// (<= 128 registers, no spills) measured fastest (chip_variants.py times
+// the alternatives; PERF.md), still far above the FP32 work's bound (about
+// 14 operations a state element and step).
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -388,6 +423,278 @@ wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
         make_float4(S[m][0], S[m][1], S[m][2], S[m][3]);
 }
 
+constexpr int kBwdChunk = 3;      // steps a chunk of the backward
+constexpr int kBwdMinBlocks = 4;  // blocks an SM: <= 128 registers a thread
+
+// The three row sums (dr, dk, dw) of a lane's M rows, over the CG = 2 M
+// lanes of its row slice, by a reduce-scatter in fixed order: at each level
+// half the rows go to the partner M, M / 2, .. 2 lanes apart, then a last
+// xor 1 completes the sums; 3 M shuffles in place of the 3 M log2(CG) of an
+// all-reduce. Lane cg ends with row cg >> 1's sums.
+template <int M>
+__device__ __forceinline__ void row_scatter(const float (&v)[3][M], int cg,
+                                            float (&out)[3]) {
+  if constexpr (M == 1) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      out[a] = v[a][0] + __shfl_xor_sync(0xffffffffu, v[a][0], 1);
+  } else {
+    constexpr int H = M / 2;
+    const bool up = cg & M;
+    float nv[3][H];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int i = 0; i < H; ++i)
+        nv[a][i] = (up ? v[a][i + H] : v[a][i]) +
+                   __shfl_xor_sync(0xffffffffu, up ? v[a][i] : v[a][i + H],
+                                   M);
+    }
+    row_scatter<H>(nv, cg, out);
+  }
+}
+
+// the backward's layout: the prefill kernel's, RT = hd / 8 rows a lane, so
+// a row slice spans CG = 2 RT lanes (what row_scatter takes)
+template <int HD>
+using BwdTile = Tile<HD, HD / 8>;
+
+template <int HD>
+struct BwdSmem {
+  using L = BwdTile<HD>;
+  float4 hist[kBwdChunk][L::RT][L::THREADS];   // S_{t-1}, the lanes' own
+  float in[5][kBwdChunk][HD];                  // r, k, v, w, dy widened
+  float q[kBwdChunk], p[kBwdChunk];            // Q_t and P_t
+  float part[kBwdChunk][L::NW][HD];            // the warps' dv sums
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BwdTile<HD>::THREADS, kBwdMinBlocks)
+wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ w,
+                const float* __restrict__ u, const float* __restrict__ state0,
+                const T* __restrict__ dy, const float* __restrict__ dstate,
+                T* __restrict__ dr, T* __restrict__ dk, T* __restrict__ dv,
+                T* __restrict__ dw, float* __restrict__ pu,
+                float* __restrict__ ds0, float* __restrict__ ckpt, int len,
+                int H) {
+  using L = BwdTile<HD>;
+  constexpr int RT = L::RT, NT = L::THREADS, NW = L::NW, K = kBwdChunk;
+  static_assert(L::CG == 2 * RT, "a row slice of 2 RT lanes");
+  extern __shared__ __align__(16) unsigned char smem[];
+  BwdSmem<HD>& sm = *reinterpret_cast<BwdSmem<HD>*>(smem);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, wi = tid / 32, lane = tid % 32;
+  const int cg = lane % L::CG;
+  const int i0 = RT * (wi * L::RGW + lane / L::CG);   // first row owned
+  const size_t tstride = (size_t)H * HD;
+  const size_t base = (size_t)b * len * tstride + (size_t)h * HD;
+  const size_t sbase = ((size_t)b * H + h) * HD * HD;  // this head's state
+  const int nchk = (len + K - 1) / K;
+
+  float S[RT][4], G[RT][4];
+#pragma unroll
+  for (int m = 0; m < RT; ++m) {
+    load_f<4>(state0 + sbase + (i0 + m) * HD + 4 * cg, S[m]);
+    if (dstate != nullptr) {
+      load_f<4>(dstate + sbase + (i0 + m) * HD + 4 * cg, G[m]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) G[m][n] = 0.f;
+    }
+  }
+  const float u0 = lane < HD ? u[(size_t)h * HD + lane] : 0.f;
+  const float u1 = HD > 32 ? u[(size_t)h * HD + lane + 32] : 0.f;
+  const int mi = cg >> 1;                   // the row of the scattered sums
+  const float ui = u[(size_t)h * HD + i0 + mi];
+
+  // chunk c's inputs a0 .. a1 - 1 of (r, k, v, w, dy), widened; plain loads
+  auto stage = [&](int c, int a0, int a1) {
+    const int t0 = c * K, nt = min(K, len - t0);
+    for (int i = tid; i < 5 * K * HD; i += NT) {
+      const int a = i / (K * HD), s = i / HD % K, j = i % HD;
+      if (s >= nt || a < a0 || a >= a1) continue;
+      const T* g = a == 0 ? r : a == 1 ? k : a == 2 ? v : a == 3 ? w : dy;
+      sm.in[a][s][j] = repro::to_f(g[base + (size_t)(t0 + s) * tstride + j]);
+    }
+  };
+  // the boundary state before chunk c (c >= 1), this lane's row m
+  auto ck = [&](int c, int m) {
+    return ckpt + ((((size_t)b * H + h) * (nchk - 1) + (c - 1)) * HD + i0 + m)
+                      * HD + 4 * cg;
+  };
+
+  // pass 1: the recurrence forward, the state stored at every chunk start
+  for (int c = 0; c < nchk; ++c) {
+    if (c > 0) {
+#pragma unroll
+      for (int m = 0; m < RT; ++m)
+        *reinterpret_cast<float4*>(ck(c, m)) =
+            make_float4(S[m][0], S[m][1], S[m][2], S[m][3]);
+    }
+    __syncthreads();
+    stage(c, 1, 4);
+    __syncthreads();
+    const int nt = min(K, len - c * K);
+    for (int s = 0; s < nt; ++s) {
+#pragma unroll
+      for (int m = 0; m < RT; ++m) {
+        const float kk = sm.in[1][s][i0 + m], ww = sm.in[3][s][i0 + m];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          S[m][n] = fmaf(ww, S[m][n], kk * sm.in[2][s][4 * cg + n]);
+      }
+    }
+  }
+
+  // pass 2: chunks in reverse; each chunk's states recomputed, then walked
+  // backwards
+  float du = 0.f;                           // row mi's du partial
+  for (int c = nchk - 1; c >= 0; --c) {
+    const int t0 = c * K, nt = min(K, len - t0);
+    __syncthreads();  // the previous chunk's dv sums are written
+    stage(c, 0, 5);
+    __syncthreads();
+    // Q_t and P_t, one warp a step
+    for (int s = wi; s < nt; s += NW) {
+      float a[6] = {};
+      if (lane < HD) {
+        a[0] = sm.in[0][s][lane]; a[1] = sm.in[1][s][lane];
+        a[3] = sm.in[2][s][lane]; a[4] = sm.in[4][s][lane];
+      }
+      if (HD > 32) {
+        a[2] = sm.in[0][s][lane + 32]; a[5] = sm.in[1][s][lane + 32];
+      }
+      const float qv = ruk_sum<HD>(a[0], a[1], u0, a[2], a[5], u1);
+      const float pv = ruk_sum<HD>(a[3], a[4], 1.f,
+                                   HD > 32 ? sm.in[2][s][lane + 32] : 0.f,
+                                   HD > 32 ? sm.in[4][s][lane + 32] : 0.f,
+                                   1.f);
+      if (lane == 0) {
+        sm.q[s] = qv;
+        sm.p[s] = pv;
+      }
+    }
+    // this chunk's states S_{t-1}, from its boundary state
+    if (c == 0) {
+#pragma unroll
+      for (int m = 0; m < RT; ++m)
+        load_f<4>(state0 + sbase + (i0 + m) * HD + 4 * cg, S[m]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < RT; ++m) load_f<4>(ck(c, m), S[m]);
+    }
+    for (int s = 0; s < nt; ++s) {
+#pragma unroll
+      for (int m = 0; m < RT; ++m) {
+        sm.hist[s][m][tid] = make_float4(S[m][0], S[m][1], S[m][2], S[m][3]);
+        const float kk = sm.in[1][s][i0 + m], ww = sm.in[3][s][i0 + m];
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          S[m][n] = fmaf(ww, S[m][n], kk * sm.in[2][s][4 * cg + n]);
+      }
+    }
+    __syncthreads();  // Q_t, P_t
+    for (int s = nt - 1; s >= 0; --s) {
+      float vv[4], dyv[4], pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        vv[n] = sm.in[2][s][4 * cg + n];
+        dyv[n] = sm.in[4][s][4 * cg + n];
+      }
+      const float P = sm.p[s];
+      const size_t o = base + (size_t)(t0 + s) * tstride;
+      float acc[3][RT];                         // dr, dk, dw partials
+#pragma unroll
+      for (int m = 0; m < RT; ++m) {
+        const float rr = sm.in[0][s][i0 + m], kk = sm.in[1][s][i0 + m];
+        const float ww = sm.in[3][s][i0 + m];
+        const float4 p4 = sm.hist[s][m][tid];
+        const float sp[4] = {p4.x, p4.y, p4.z, p4.w};
+        float a_r = 0.f, a_k = 0.f, a_w = 0.f;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          a_r = fmaf(sp[n], dyv[n], a_r);
+          a_k = fmaf(G[m][n], vv[n], a_k);
+          a_w = fmaf(G[m][n], sp[n], a_w);
+          pv[n] = fmaf(G[m][n], kk, pv[n]);
+          G[m][n] = fmaf(ww, G[m][n], rr * dyv[n]);
+        }
+        acc[0][m] = a_r;
+        acc[1][m] = a_k;
+        acc[2][m] = a_w;
+      }
+      // row mi's sums; the lane pair splits the stores
+      float sums[3];
+      row_scatter<RT>(acc, cg, sums);
+      const float rr = sm.in[0][s][i0 + mi], kk = sm.in[1][s][i0 + mi];
+      du = fmaf(rr * kk, P, du);
+      if (cg & 1) {
+        dw[o + i0 + mi] = repro::from_f<T>(sums[2]);
+      } else {
+        dr[o + i0 + mi] = repro::from_f<T>(fmaf(ui * kk, P, sums[0]));
+        dk[o + i0 + mi] = repro::from_f<T>(fmaf(ui * rr, P, sums[1]));
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) pv[n] = merge_slices<L::CG>(pv[n]);
+      if (lane < L::CG) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) sm.part[s][wi][4 * cg + n] = pv[n];
+      }
+    }
+    __syncthreads();
+    // dv of the chunk: the warps' sums in warp order, + Q_t dy_t
+    for (int i = tid; i < nt * HD; i += NT) {
+      const int s = i / HD, j = i % HD;
+      float acc = sm.part[s][0][j];
+#pragma unroll
+      for (int x = 1; x < NW; ++x) acc += sm.part[s][x][j];
+      acc = fmaf(sm.q[s], sm.in[4][s][j], acc);
+      dv[base + (size_t)(t0 + s) * tstride + j] = repro::from_f<T>(acc);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < RT; ++m)
+    *reinterpret_cast<float4*>(ds0 + sbase + (i0 + m) * HD + 4 * cg) =
+        make_float4(G[m][0], G[m][1], G[m][2], G[m][3]);
+  if ((cg & 1) == 0) pu[((size_t)b * H + h) * HD + i0 + mi] = du;
+}
+
+template <typename T, int HD>
+void launch_bwd(const void* r, const void* k, const void* v, const void* w,
+                const void* u, const void* state0, const void* dy,
+                const void* dstate, void* dr, void* dk, void* dv, void* dw,
+                void* pu, void* ds0, void* ckpt, int B, int len, int H,
+                cudaStream_t s) {
+  constexpr int kSmem = sizeof(BwdSmem<HD>);
+  cudaFuncSetAttribute(wkv6_bwd_kernel<T, HD>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  dim3 grid(H, B);
+  wkv6_bwd_kernel<T, HD><<<grid, BwdTile<HD>::THREADS, kSmem, s>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(w),
+      static_cast<const float*>(u), static_cast<const float*>(state0),
+      static_cast<const T*>(dy), static_cast<const float*>(dstate),
+      static_cast<T*>(dr), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<T*>(dw), static_cast<float*>(pu), static_cast<float*>(ds0),
+      static_cast<float*>(ckpt), len, H);
+}
+
+template <typename T>
+bool dispatch_bwd(int hd, const void* r, const void* k, const void* v,
+                  const void* w, const void* u, const void* state0,
+                  const void* dy, const void* dstate, void* dr, void* dk,
+                  void* dv, void* dw, void* pu, void* ds0, void* ckpt, int B,
+                  int len, int H, cudaStream_t s) {
+  switch (hd) {
+    case 16: launch_bwd<T, 16>(r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s); return true;
+    case 32: launch_bwd<T, 32>(r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s); return true;
+    case 64: launch_bwd<T, 64>(r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s); return true;
+    default: return false;
+  }
+}
+
 template <typename T, int HD>
 void launch(const void* r, const void* k, const void* v, const void* w,
             const void* u, void* state, void* y, int B, int len, int H,
@@ -449,6 +756,42 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
     ok = dispatch_hd<__nv_bfloat16>(hd, r, k, v, w, u, state, y, B, len, H, decode, s);
   else if (dtype == repro::kFloat32)
     ok = dispatch_hd<float>(hd, r, k, v, w, u, state, y, B, len, H, decode, s);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's chunk length: the wrapper sizes the boundary states by it.
+// *smem, when not null, gets the dynamic shared memory the kernel launches
+// with at head size hd (chip_smoke.py records it), or -1.
+extern "C" int wkv6_bwd_chunk(int hd, int* smem) {
+  if (smem) {
+    switch (hd) {
+      case 16: *smem = sizeof(BwdSmem<16>); break;
+      case 32: *smem = sizeof(BwdSmem<32>); break;
+      case 64: *smem = sizeof(BwdSmem<64>); break;
+      default: *smem = -1;
+    }
+  }
+  return kBwdChunk;
+}
+
+// The backward: every pointer as the wrapper allocates it (dstate may be
+// null: a zero gradient of the final state); du's per-row partials are
+// summed by the wrapper. The states are read and written 16 bytes at a time
+// (16-byte aligned).
+extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
+                        const void* w, const void* u, const void* state0,
+                        const void* dy, const void* dstate, void* dr,
+                        void* dk, void* dv, void* dw, void* pu, void* ds0,
+                        void* ckpt, int B, int len, int H, int hd, int dtype,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (len < 1) return static_cast<int>(cudaErrorInvalidValue);
+  bool ok = false;
+  if (dtype == repro::kBFloat16)
+    ok = dispatch_bwd<__nv_bfloat16>(hd, r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s);
+  else if (dtype == repro::kFloat32)
+    ok = dispatch_bwd<float>(hd, r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,6 @@ import time
 from pathlib import Path
 from typing import Dict
 
-import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -78,12 +77,30 @@ KERNELS = {
         # w_stride_v, h_dtype, splits, softcap, stream
         "fused_logprob_fwd": (P, P, P, P, P, P, I, I, I, I, I, I, I, F, P),
     },
-    # x, dt, A_log, B, C, D, state, y, B, T, di, N, B's batch and time
-    # strides, C's, dtype, prefill_only, stream
-    "ssm_scan": {"ssm_scan_fwd":
-                 (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P)},
-    # r, k, v, w, u, state, y, B, T, H, hd, dtype, prefill_only, stream
-    "wkv6": {"wkv6_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, I, P)},
+    "ssm_scan": {
+        # x, dt, A_log, B, C, D, state, y, B, T, di, N, B's batch and time
+        # strides, C's, dtype, prefill_only, stream
+        "ssm_scan_fwd":
+            (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
+        # x, dt, A_log, B, C, D, state0, dy, dstate (or null), dx, ddt, the
+        # partials of dB/dC, dA_log and dD, dstate0, the chunk-boundary
+        # states, B, T, di, N, B's batch and time strides, C's, dtype, stream
+        "ssm_scan_bwd":
+            (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+             I, I, I, I, P),
+        # the backward's chunk length (steps between boundary states); N,
+        # dtype and a pointer for its dynamic shared memory (or null)
+        "ssm_scan_bwd_chunk": (I, I, P)},
+    "wkv6": {
+        # r, k, v, w, u, state, y, B, T, H, hd, dtype, prefill_only, stream
+        "wkv6_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+        # r, k, v, w, u, state0, dy, dstate (or null), dr, dk, dv, dw, the
+        # partials of du, dstate0, the chunk-boundary states, B, T, H, hd,
+        # dtype, stream
+        "wkv6_bwd": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                     I, P),
+        # the same: hd and a pointer for the shared memory (or null)
+        "wkv6_bwd_chunk": (I, P)},
 }
 
 
@@ -176,15 +193,3 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error code {err}")
 
-
-def forward_only(what: str, *tensors) -> None:
-    """Raise where autograd would need the gradient of a forward-only kernel
-    (grad enabled and an input that requires it): its result would carry no
-    ``grad_fn``, and training would silently see a zero gradient. The scan
-    kernels of the hymba and rwkv6 blocks are forward only, as the Pallas
-    kernels they replace are."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what}: the CUDA kernel is forward only; training the hymba "
-            "and rwkv6 families on the GPU needs the backward scan kernels "
-            "(selective scan and WKV6), which are not ported yet")

@@ -1,13 +1,16 @@
 """WKV6 recurrence of the rwkv6 time-mix: wrapper of the hand-written CUDA
-kernel ``csrc/wkv6.cu`` (the port of the Pallas ``rwkv6_scan`` TPU kernel).
+kernels ``csrc/wkv6.cu`` (the port of the Pallas ``rwkv6_scan`` TPU kernel,
+and the backward that the Pallas family lacks).
 
-On CPU tensors the wrapper runs the plain PyTorch version,
-:func:`wkv6_plain` (a copy of the reference's ``models/rwkv6.wkv6_scan``);
-on CUDA tensors it launches the kernel or raises. T = 1 (a decode step)
-runs the decode kernel, T > 1 the prefill kernel; ``launches`` counts both,
-``decode_launches`` and ``prefill_launches`` each. The kernels are
-forward only, as the Pallas kernel is: on CUDA, an input that requires a
-gradient while grad is enabled raises.
+On CPU tensors the wrapper runs the plain PyTorch versions,
+:func:`wkv6_plain` (a copy of the reference's ``models/rwkv6.wkv6_scan``)
+and :func:`wkv6_bwd_plain`; on CUDA tensors it launches the kernels or
+raises. T = 1 (a decode step) runs the decode kernel, T > 1 the prefill
+kernel; ``launches`` counts both, ``decode_launches`` and
+``prefill_launches`` each. With grad enabled and an input that requires
+it, the recurrence runs as an autograd function whose backward is the
+kernel ``wkv6_bwd`` on the card (counted in ``bwd_launches``) and the plain
+backward on the CPU.
 """
 from __future__ import annotations
 
@@ -42,6 +45,48 @@ def wkv6_plain(r, k, v, w, u, state, seq_mask=None):
     return torch.stack(ys, dim=1).to(dt), s
 
 
+def wkv6_bwd_plain(r, k, v, w, u, state, dy, dstate=None):
+    """The gradients of :func:`wkv6_plain` (without ``seq_mask``: the
+    wrappers apply it to k and w outside) by an explicit reverse loop in
+    float32, the plain version of the kernel ``wkv6_bwd``. ``state`` is the
+    initial state, ``dy`` the gradient of y, ``dstate`` that of the final
+    state (None: zero). With G_t = dL/dS_t, G_{t-1} = w_t G_t + r_t dy_t^T:
+
+        dr_t[i] = sum_j (S_{t-1}[i,j] + u_i k_t[i] v_t[j]) dy_t[j]
+        dk_t[i] = sum_j G_t[i,j] v_t[j] + u_i r_t[i] (v_t . dy_t)
+        dv_t[j] = sum_i G_t[i,j] k_t[i] + (sum_i r_t[i] u_i k_t[i]) dy_t[j]
+        dw_t[i] = sum_j G_t[i,j] S_{t-1}[i,j]
+        du[i] = sum_{b,t} r_t[i] k_t[i] (v_t . dy_t)      dstate0 = G_0
+
+    The states S_t are kept from a forward pass, never recovered by
+    dividing by a decay. Returns (dr, dk, dv, dw, du, dstate0): the first
+    four in r's, k's, v's and w's dtypes, du and dstate0 float32."""
+    rf, kf, vf, wf, dyf = (a.float() for a in (r, k, v, w, dy))
+    uf = u.float()
+    T = r.shape[1]
+    ss = [state.float()]                                      # S_0 .. S_T
+    for t in range(T):
+        ss.append(wf[:, t, :, :, None] * ss[-1]
+                  + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+    G = torch.zeros_like(ss[0]) if dstate is None else dstate.float()
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in reversed(range(T)):
+        rt, kt, vt, wt, dyt = rf[:, t], kf[:, t], vf[:, t], wf[:, t], dyf[:, t]
+        vdy = (vt * dyt).sum(-1, keepdim=True)                # (B, H, 1)
+        q = (rt * uf[None] * kt).sum(-1, keepdim=True)
+        dr[:, t] = (torch.einsum("bhij,bhj->bhi", ss[t], dyt)
+                    + uf[None] * kt * vdy)
+        dk[:, t] = (torch.einsum("bhij,bhj->bhi", G, vt)
+                    + uf[None] * rt * vdy)
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", G, kt) + q * dyt
+        dw[:, t] = (G * ss[t]).sum(-1)
+        du += (rt * kt * vdy).sum(0)
+        G = wt[..., None] * G + rt[..., None] * dyt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du, G)
+
+
 def _check(r, k, v, w, u, state, seq_mask):
     if r.dim() != 4 or not (k.shape == v.shape == w.shape == r.shape):
         raise ValueError(f"wkv6: want r, k, v, w (B, T, H, hd); got "
@@ -62,18 +107,9 @@ def _check(r, k, v, w, u, state, seq_mask):
         raise ValueError("wkv6: tensors on different devices")
 
 
-def wkv6(r, k, v, w, u, state, *, seq_mask=None):
-    """Same contract as :func:`wkv6_plain`. On CUDA: r, k, v, w contiguous
-    in one dtype (float32 or bfloat16), u and the state float32 and
-    contiguous. The kernel updates ``state`` IN PLACE and returns it as the
-    final state."""
-    _check(r, k, v, w, u, state, seq_mask)
-    if r.device.type == "cpu":
-        return wkv6_plain(r, k, v, w, u, state, seq_mask=seq_mask)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6: unsupported device {r.device}")
-    build.forward_only("wkv6", r, k, v, w, u, state)
-    B, T, H, hd = r.shape
+def _check_kernel(r, k, v, w, u, state):
+    """What the CUDA kernels take; raises on anything else."""
+    hd = r.shape[-1]
     if r.dtype not in _DTYPES or not (r.dtype == k.dtype == v.dtype
                                       == w.dtype) or hd not in _HEAD_DIMS:
         raise TypeError(f"wkv6 kernel takes r, k, v, w all float32 or all "
@@ -82,19 +118,73 @@ def wkv6(r, k, v, w, u, state, *, seq_mask=None):
                         f"hd={hd}")
     if u.dtype != torch.float32 or state.dtype != torch.float32:
         raise TypeError("wkv6 kernel: u and the state must be float32")
-    if seq_mask is not None:                           # exact: mask is 0 / 1
-        m = seq_mask[:, :, None, None].to(r.dtype)
-        k = k * m
-        w = w * m + (1 - m)
+
+
+def _forward_kernel(r, k, v, w, u, state):
+    """One counted launch of the forward kernels; updates ``state``."""
     if not all(t.is_contiguous() for t in (r, k, v, w, u, state)):
         raise ValueError("wkv6 kernel needs contiguous r, k, v, w, u, state")
     y = launch(r, k, v, w, u, state)
     wkv6.launches += 1
-    if T == 1:
+    if r.shape[1] == 1:
         wkv6.decode_launches += 1
     else:
         wkv6.prefill_launches += 1
-    return y, state
+    return y
+
+
+class _WKV6(torch.autograd.Function):
+    """WKV6 under autograd: the forward kernel on a copy of the initial
+    state (kept for the backward, which recomputes the states from it),
+    the backward kernel; on the CPU the two plain versions."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        if r.device.type == "cpu":
+            y, final = wkv6_plain(r, k, v, w, u, state)
+        else:
+            final = state.clone()
+            y = _forward_kernel(r, k, v, w, u, final)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return y, final
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        if r.device.type == "cpu":
+            return wkv6_bwd_plain(r, k, v, w, u, state, dy, dstate)
+        grads = launch_bwd(r, k, v, w, u, state, dy, dstate)
+        wkv6.bwd_launches += 1
+        return grads
+
+
+def wkv6(r, k, v, w, u, state, *, seq_mask=None):
+    """Same contract as :func:`wkv6_plain`. On CUDA: r, k, v, w contiguous
+    in one dtype (float32 or bfloat16), u and the state float32 and
+    contiguous. Without autograd the kernel updates ``state`` IN PLACE and
+    returns it as the final state; with grad enabled and an input that
+    requires it, the recurrence is differentiable (``seq_mask`` applied to
+    k and w outside it), ``state`` is left as it was and the final state is
+    a new tensor."""
+    _check(r, k, v, w, u, state, seq_mask)
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"wkv6: unsupported device {r.device}")
+    if r.device.type == "cuda":
+        _check_kernel(r, k, v, w, u, state)
+    inputs = (r, k, v, w, u, state)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+    if r.device.type == "cpu" and not grad:
+        return wkv6_plain(*inputs, seq_mask=seq_mask)
+    if seq_mask is not None:                           # exact: mask is 0 / 1
+        m = seq_mask[:, :, None, None].to(r.dtype)
+        k = k * m
+        w = w * m + (1 - m)
+    if grad:
+        return _WKV6.apply(r, k, v, w, u, state)
+    return _forward_kernel(r, k, v, w, u, state), state
 
 
 def launch(r, k, v, w, u, state, *, prefill_only=False):
@@ -116,6 +206,43 @@ def launch(r, k, v, w, u, state, *, prefill_only=False):
     return y
 
 
+def launch_bwd(r, k, v, w, u, state, dy, dstate=None):
+    """One launch of ``wkv6_bwd`` on CUDA tensors that :func:`wkv6` has
+    checked (``state`` the initial state, left as it is; ``dstate`` the
+    final state's gradient or None), then the fixed-order sum of its
+    per-row partials of du. Counts nothing; returns what
+    :func:`wkv6_bwd_plain` returns."""
+    B, T, H, hd = r.shape
+    dy = dy.to(r.dtype).contiguous()
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    if not all(t.is_contiguous() for t in (r, k, v, w, u, state)):
+        raise ValueError("wkv6 kernel needs contiguous r, k, v, w, u, state")
+    if state.data_ptr() % 16 or (dstate is not None
+                                 and dstate.data_ptr() % 16):
+        raise ValueError("wkv6 kernel: the states must be 16-byte aligned")
+    f32 = dict(device=r.device, dtype=torch.float32)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    pu = torch.empty(B, H, hd, **f32)             # du summed over a row's steps
+    ds0 = torch.empty(B, H, hd, hd, **f32)
+    lib = build.library("wkv6")
+    # the states at the chunk boundaries after the first
+    chunk = lib.wkv6_bwd_chunk(hd, None)
+    nchk = (T + chunk - 1) // chunk
+    ckpt = torch.empty(B, H, max(nchk - 1, 1), hd, hd, **f32)
+    with torch.cuda.device(r.device):
+        err = lib.wkv6_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), state.data_ptr(), dy.data_ptr(),
+            0 if dstate is None else dstate.data_ptr(), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), pu.data_ptr(),
+            ds0.data_ptr(), ckpt.data_ptr(), B, T, H, hd, _DTYPES[r.dtype],
+            torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(err, "wkv6_bwd")
+    return dr, dk, dv, dw, pu.sum(0), ds0
+
+
 wkv6.launches = 0
 wkv6.decode_launches = 0                # T = 1: the decode kernel
 wkv6.prefill_launches = 0               # T > 1: the prefill kernel
+wkv6.bwd_launches = 0                   # the backward kernel

@@ -1,15 +1,16 @@
 """Selective scan of the hymba block's SSM heads: wrapper of the
-hand-written CUDA kernel ``csrc/ssm_scan.cu`` (the port of the Pallas
-``ssm_scan`` TPU kernel).
+hand-written CUDA kernels ``csrc/ssm_scan.cu`` (the port of the Pallas
+``ssm_scan`` TPU kernel, and the backward that the Pallas family lacks).
 
-On CPU tensors the wrapper runs the plain PyTorch version,
+On CPU tensors the wrapper runs the plain PyTorch versions,
 :func:`selective_scan_plain` (a copy of the reference's
-``models/ssm.selective_scan``); on CUDA tensors it launches the kernel or
-raises. T = 1 (a decode step) runs the decode kernel, T > 1 the prefill
-kernel; ``launches`` counts both, ``decode_launches`` and
-``prefill_launches`` each. The kernels are forward only, as the Pallas
-kernel is: on CUDA, an input that requires a gradient while grad is enabled
-raises.
+``models/ssm.selective_scan``) and :func:`selective_scan_bwd_plain`; on
+CUDA tensors it launches the kernels or raises. T = 1 (a decode step) runs
+the decode kernel, T > 1 the prefill kernel; ``launches`` counts both,
+``decode_launches`` and ``prefill_launches`` each. With grad enabled and an
+input that requires it, the scan runs as an autograd function whose
+backward is the kernel ``ssm_scan_bwd`` on the card (counted in
+``bwd_launches``) and the plain backward on the CPU.
 """
 from __future__ import annotations
 
@@ -42,6 +43,53 @@ def selective_scan_plain(x, dt, A_log, Bc, Cc, D, state, seq_mask=None):
     return y.to(out_dt), h
 
 
+def selective_scan_bwd_plain(x, dt, A_log, Bc, Cc, D, state, dy,
+                             dstate=None):
+    """The gradients of :func:`selective_scan_plain` (without ``seq_mask``:
+    the wrappers apply it to dt outside) by an explicit reverse loop in
+    float32, the plain version of the kernel ``ssm_scan_bwd``. ``state`` is
+    the initial state, ``dy`` the gradient of y, ``dstate`` that of the
+    final state (None: zero). With a_t = exp(-exp(A_log) dt_t) and
+    G_t = dL/dh_t = dy_t C_t + a_{t+1} G_{t+1}:
+
+        dC_t = sum_d h_t dy_t               dB_t = sum_d G_t dt_t x_t
+        dx_t = dt_t (G_t . B_t) + D dy_t
+        ddt_t = x_t (G_t . B_t) + sum_n G_t h_{t-1} a_t (-exp A_log)
+        dA_log = sum_{b,t} G_t h_{t-1} a_t (-exp A_log) dt_t
+        dD = sum_{b,t} dy_t x_t             dstate0 = a_1 G_1
+
+    The states h_t are kept from a forward pass, never recovered by
+    dividing by a decay. Returns (dx, ddt, dA_log, dB, dC, dD, dstate0):
+    dx, ddt in x's and dt's dtype, dB, dC in B's and C's, the rest
+    float32."""
+    xf, dtf, Bf, Cf, dyf = (a.float() for a in (x, dt, Bc, Cc, dy))
+    negA = -torch.exp(A_log.float())                          # (di, N)
+    T = x.shape[1]
+    hs, das = [state.float()], []           # h_0 .. h_T; a_1 .. a_T
+    for t in range(T):
+        da = torch.exp(negA[None] * dtf[:, t, :, None])
+        hs.append(da * hs[-1]
+                  + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :])
+        das.append(da)
+    g = (torch.zeros_like(hs[0]) if dstate is None else dstate.float())
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros_like(negA)
+    for t in reversed(range(T)):
+        G = g + dyf[:, t, :, None] * Cf[:, t, None, :]        # (B, di, N)
+        dC[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], dyf[:, t])
+        dB[:, t] = torch.einsum("bdn,bd->bn", G, dtf[:, t] * xf[:, t])
+        gb = (G * Bf[:, t, None, :]).sum(-1)                  # (B, di)
+        gA = G * hs[t] * das[t] * negA[None]
+        dx[:, t] = dtf[:, t] * gb + D.float() * dyf[:, t]
+        ddt[:, t] = xf[:, t] * gb + gA.sum(-1)
+        dA += (gA * dtf[:, t, :, None]).sum(0)
+        g = das[t] * G
+    dD = (dyf * xf).sum((0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA, dB.to(Bc.dtype),
+            dC.to(Cc.dtype), dD, g)
+
+
 def _check(x, dt, A_log, Bc, Cc, D, state, seq_mask):
     if x.dim() != 3 or dt.shape != x.shape:
         raise ValueError(f"selective_scan: want x, dt (B, T, di); got "
@@ -66,20 +114,8 @@ def _check(x, dt, A_log, Bc, Cc, D, state, seq_mask):
         raise ValueError("selective_scan: tensors on different devices")
 
 
-def selective_scan(x, dt, A_log, Bc, Cc, D, state, *, seq_mask=None):
-    """Same contract as :func:`selective_scan_plain`. On CUDA: x, dt, B, C
-    in one dtype (float32 or bfloat16), x and dt contiguous, B and C with a
-    contiguous last axis (views of the x_proj output are read in place);
-    A_log, D and the state float32 and contiguous. The kernel updates
-    ``state`` IN PLACE and returns it as the final state."""
-    _check(x, dt, A_log, Bc, Cc, D, state, seq_mask)
-    if x.device.type == "cpu":
-        return selective_scan_plain(x, dt, A_log, Bc, Cc, D, state,
-                                    seq_mask=seq_mask)
-    if x.device.type != "cuda":
-        raise ValueError(f"selective_scan: unsupported device {x.device}")
-    build.forward_only("selective_scan", x, dt, A_log, Bc, Cc, D, state)
-    B, T, di = x.shape
+def _check_kernel(x, dt, A_log, Bc, Cc, D, state):
+    """What the CUDA kernels take; raises on anything else."""
     N = A_log.shape[-1]
     if x.dtype not in _DTYPES or not (x.dtype == dt.dtype == Bc.dtype
                                       == Cc.dtype) or N not in _STATE_DIMS:
@@ -94,15 +130,71 @@ def selective_scan(x, dt, A_log, Bc, Cc, D, state, *, seq_mask=None):
             or Bc.stride(-1) != 1 or Cc.stride(-1) != 1:
         raise ValueError("selective_scan kernel needs contiguous x, dt, "
                          "A_log, D, state and a contiguous last axis of B, C")
-    if seq_mask is not None:
-        dt = dt * seq_mask[..., None].to(dt.dtype)     # exact: mask is 0 / 1
+
+
+def _forward_kernel(x, dt, A_log, Bc, Cc, D, state):
+    """One counted launch of the forward kernels; updates ``state``."""
     y = launch(x, dt, A_log, Bc, Cc, D, state)
     selective_scan.launches += 1
-    if T == 1:
+    if x.shape[1] == 1:
         selective_scan.decode_launches += 1
     else:
         selective_scan.prefill_launches += 1
-    return y, state
+    return y
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The scan under autograd: the forward kernel on a copy of the initial
+    state (kept for the backward, which recomputes the states from it),
+    the backward kernel; on the CPU the two plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, Bc, Cc, D, state):
+        if x.device.type == "cpu":
+            y, final = selective_scan_plain(x, dt, A_log, Bc, Cc, D, state)
+        else:
+            final = state.clone()
+            y = _forward_kernel(x, dt, A_log, Bc, Cc, D, final)
+        ctx.save_for_backward(x, dt, A_log, Bc, Cc, D, state)
+        return y, final
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dstate):
+        x, dt, A_log, Bc, Cc, D, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if x.device.type == "cpu":
+            return selective_scan_bwd_plain(x, dt, A_log, Bc, Cc, D, state,
+                                            dy, dstate)
+        grads = launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate)
+        selective_scan.bwd_launches += 1
+        return grads
+
+
+def selective_scan(x, dt, A_log, Bc, Cc, D, state, *, seq_mask=None):
+    """Same contract as :func:`selective_scan_plain`. On CUDA: x, dt, B, C
+    in one dtype (float32 or bfloat16), x and dt contiguous, B and C with a
+    contiguous last axis (views of the x_proj output are read in place);
+    A_log, D and the state float32 and contiguous. Without autograd the
+    kernel updates ``state`` IN PLACE and returns it as the final state;
+    with grad enabled and an input that requires it, the scan is
+    differentiable (``seq_mask`` applied to dt outside it), ``state`` is
+    left as it was and the final state is a new tensor."""
+    _check(x, dt, A_log, Bc, Cc, D, state, seq_mask)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"selective_scan: unsupported device {x.device}")
+    if x.device.type == "cuda":
+        _check_kernel(x, dt, A_log, Bc, Cc, D, state)
+    inputs = (x, dt, A_log, Bc, Cc, D, state)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+    if x.device.type == "cpu" and not grad:
+        return selective_scan_plain(*inputs, seq_mask=seq_mask)
+    if seq_mask is not None:
+        dt = dt * seq_mask[..., None].to(dt.dtype)     # exact: mask is 0 / 1
+    if grad:
+        return _SelectiveScan.apply(x, dt, A_log, Bc, Cc, D, state)
+    return _forward_kernel(x, dt, A_log, Bc, Cc, D, state), state
 
 
 def launch(x, dt, A_log, Bc, Cc, D, state, *, prefill_only=False):
@@ -127,6 +219,50 @@ def launch(x, dt, A_log, Bc, Cc, D, state, *, prefill_only=False):
     return y
 
 
+def launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate=None):
+    """One launch of ``ssm_scan_bwd`` on CUDA tensors that
+    :func:`selective_scan` has checked (``state`` the initial state, left
+    as it is; ``dstate`` the final state's gradient or None), then the
+    fixed-order sums of its per-block partials. Counts nothing; returns
+    what :func:`selective_scan_bwd_plain` returns."""
+    B, T, di = x.shape
+    N = A_log.shape[-1]
+    dy = dy.to(x.dtype).contiguous()
+    if dstate is not None:
+        dstate = dstate.float().contiguous()
+    if state.data_ptr() % 16 or A_log.data_ptr() % 16:
+        raise ValueError("selective_scan kernel: the state and A_log must be "
+                         "16-byte aligned")
+    lib = build.library("ssm_scan")
+    cb = 320 // (N // 4)               # channels a block: 320 lanes of 4
+    nblk = (di + cb - 1) // cb
+    chunk = lib.ssm_scan_bwd_chunk(N, _DTYPES[x.dtype], None)
+    nchk = (T + chunk - 1) // chunk
+    f32 = dict(device=x.device, dtype=torch.float32)
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    # per block of channels: dB_t, dC_t (summed over its channels); per row:
+    # dA_log, dD (summed over its steps); the states at chunk boundaries
+    pbc = torch.empty(nblk, B, T, 2, N, **f32)
+    pA = torch.empty(B, di, N, **f32)
+    pD = torch.empty(B, di, **f32)
+    ds0 = torch.empty(B, di, N, **f32)
+    ckpt = torch.empty(B, nchk, di, N, **f32)
+    with torch.cuda.device(x.device):
+        err = lib.ssm_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
+            Cc.data_ptr(), D.data_ptr(), state.data_ptr(), dy.data_ptr(),
+            0 if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), pbc.data_ptr(), pA.data_ptr(), pD.data_ptr(),
+            ds0.data_ptr(), ckpt.data_ptr(), B, T, di, N, Bc.stride(0),
+            Bc.stride(1), Cc.stride(0), Cc.stride(1), _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "ssm_scan_bwd")
+    bc = pbc.sum(0)                       # the blocks' partials, in order
+    return (dx, ddt, pA.sum(0), bc[:, :, 0].to(Bc.dtype),
+            bc[:, :, 1].to(Cc.dtype), pD.sum(0), ds0)
+
+
 selective_scan.launches = 0
 selective_scan.decode_launches = 0      # T = 1: the decode kernel
 selective_scan.prefill_launches = 0     # T > 1: the prefill kernel
+selective_scan.bwd_launches = 0         # the backward kernel

@@ -9,9 +9,12 @@ default; ``--device cpu`` runs the plain PyTorch path on the host). Writes
 metrics.jsonl per step and checkpoints every --ckpt-every steps, in the JAX
 package's checkpoint layout, so ``--resume`` takes a checkpoint of either
 package. ``--overlap``, ``--disaggregated`` and the multi-turn tasks raise
-``NotImplementedError`` until their slice of the port, and so does training
-hymba-1.5b or rwkv6-1.6b on the GPU: their scan kernels have no backward
-yet (on the CPU the plain versions train).
+``NotImplementedError`` until their slice of the port. Every registered
+arch trains on the GPU, hymba-1.5b and rwkv6-1.6b included (their scans'
+backward runs in the kernels of ``csrc/ssm_scan.cu`` and ``csrc/wkv6.cu``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
+        --steps 2 --sft-warmup 4 --max-response 124 --eval-every 0
 """
 from __future__ import annotations
 

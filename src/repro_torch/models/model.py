@@ -4,8 +4,6 @@ Public entry points (plain functions over a parameter dict):
 
 * ``init_params(cfg, seed=..., device=...)`` — the port's own seeded init
 * ``cast_params(params, dtype)`` — weights to the compute dtype, once
-* ``check_trainable(cfg, device)`` — refuses GPU training of the families
-  whose scan kernels have no backward yet (hymba, rwkv)
 * ``forward_train(params, cfg, tokens)`` — full-sequence logits
 * ``forward_hidden(params, cfg, tokens)`` — final-norm hidden states, for
   the fused loss
@@ -104,20 +102,6 @@ def cast_params(params, dtype, device=None):
     if "lm_head" in params:
         out["lm_head"] = mm(params["lm_head"])
     return out
-
-
-def check_trainable(cfg: ModelConfig, device) -> None:
-    """Refuse, in words, to train a model on the GPU whose blocks run a
-    forward-only scan kernel (hymba's selective scan, rwkv's WKV6): the
-    port has no backward kernels for them yet. On the CPU the plain
-    versions are differentiable."""
-    kinds = sorted(set(transformer.layer_kinds(cfg))
-                   & set(transformer.RECURRENT_KINDS))
-    if kinds and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            f"training {cfg.name} ({'/'.join(kinds)} blocks) on the GPU "
-            "needs the backward scan kernels (selective scan and WKV6), "
-            "which are not ported yet; serving and rollouts run")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,

@@ -29,8 +29,6 @@ from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
 
 ATTN_KINDS = ("attn", "local", "global")
 PORTED_KINDS = ATTN_KINDS + ("hymba", "rwkv")
-# kinds whose recurrence runs through a forward-only scan kernel
-RECURRENT_KINDS = ("hymba", "rwkv")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:

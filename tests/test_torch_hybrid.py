@@ -13,10 +13,10 @@ the port, on the CPU, against the JAX package, for both smoke configs:
   round by row count, and the recurrent state carries that rounding
   forward); a kv_snapshot resume across stages that evicts in its first
   stage, dense and paged alike;
-* ``cast_params`` keeps the reference's float32 leaves;
-* the GPU refusals, through the functions that decide them (no GPU here):
-  a scan kernel wrapper given an input that requires grad, and training
-  either family on CUDA.
+* ``cast_params`` keeps the reference's float32 leaves.
+
+Training both families (loss, gradients, AdamW, one trainer step against
+the JAX trainer) is held against JAX in ``tests/test_torch_train.py``.
 """
 import pytest
 
@@ -36,7 +36,6 @@ from repro_torch.common.config import RolloutConfig  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.rollout import RolloutEngine  # noqa: E402
 from repro_torch.data.tasks import EOS, AdditionTask  # noqa: E402
-from repro_torch.hopper import build  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.sampling import prng  # noqa: E402
 
@@ -233,29 +232,3 @@ def test_kv_snapshot_resume_across_stages(arch):
         runs[backend] = _tmap(g1 + g2)
     _assert_same(runs["dense"], runs["paged"], atol=1e-5)
 
-
-# -- the GPU refusals -----------------------------------------------------------
-
-
-def test_scan_wrappers_refuse_grad_requiring_inputs():
-    """The decision the CUDA branch of both scan wrappers takes before it
-    launches: a grad-requiring input under grad mode raises, naming the
-    missing backward kernels; without grad mode, or without such an input,
-    it passes."""
-    x = torch.zeros(2, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward scan kernels"):
-        build.forward_only("selective_scan", x, torch.zeros(2))
-    with torch.no_grad():
-        build.forward_only("wkv6", x)
-    build.forward_only("wkv6", x.detach(), torch.zeros(2))
-
-
-@pytest.mark.parametrize("name", ARCHS + ["llama3.2-1b"])
-def test_training_on_cuda_is_refused_in_words(name):
-    cfg = get_smoke_config(name)
-    if name == "llama3.2-1b":
-        M.check_trainable(cfg, "cuda")
-        return
-    with pytest.raises(NotImplementedError, match="backward scan kernels"):
-        M.check_trainable(cfg, "cuda")
-    M.check_trainable(cfg, "cpu")

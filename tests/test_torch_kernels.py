@@ -1076,16 +1076,229 @@ def test_wkv6_kernel_strong_decay(dev, T):
     _scan_agrees(y, sf, want_y, want_s, torch.float32)
 
 
-def test_scan_kernels_refuse_grad(dev):
-    g = _gen(7)
-    x, dt, A_log, Bc, Cc, D, s0 = _ssm_inputs(2, 4, 64, 16, torch.float32, g,
-                                              dev)
-    with pytest.raises(NotImplementedError, match="backward scan kernels"):
-        ssm_scan.selective_scan(x.requires_grad_(), dt, A_log, Bc, Cc, D, s0)
-    r = torch.randn(2, 4, 2, 32, device=dev, generator=g)
-    u = torch.zeros(2, 32, device=dev, requires_grad=True)
-    s = torch.zeros(2, 2, 32, 32, device=dev)
-    with pytest.raises(NotImplementedError, match="backward scan kernels"):
-        rwkv6_scan.wkv6(r, r, r, torch.sigmoid(r), u, s)
-    with torch.no_grad():
-        rwkv6_scan.wkv6(r, r, r, torch.sigmoid(r), u, s)
+# -- the scans' backward kernels ---------------------------------------------
+
+
+def _bwd_agrees(got, want):
+    """Each gradient against the plain backward's: float32 within 1e-4 of
+    its largest element (sums over channels, rows or steps in another
+    order); bfloat16 within two bf16 ulps of each element plus that (both
+    sides compute in float32 and round once)."""
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        scale = float(y.float().abs().max())
+        if x.dtype == torch.bfloat16:
+            _within_bf16_ulps(x, y, atol=1e-4 * scale)
+        else:
+            torch.testing.assert_close(x, y, rtol=0, atol=1e-4 * scale)
+
+
+def _ssm_bwd_case(B, T, di, N, dtype, dev, *, strong=False, dstate=False,
+                  seed=20):
+    g = _gen(seed)
+    x, dt, A_log, Bc, Cc, D, s0 = _ssm_inputs(B, T, di, N, dtype, g, dev)
+    if strong:
+        # the model's A_log = log(1..N) and steps up to 1.5: decays down to
+        # exp(-16 * 1.5) ~ 4e-11
+        A_log = torch.log(torch.arange(1, N + 1, device=dev,
+                                       dtype=torch.float32)).repeat(di, 1)
+        dt = (torch.rand(B, T, di, device=dev, generator=g) * 1.5).to(dtype)
+    dy = torch.randn(B, T, di, device=dev, generator=g).to(dtype)
+    ds = (torch.randn(B, di, N, device=dev, generator=g) if dstate
+          else None)
+    return (x, dt, A_log, Bc, Cc, D, s0), dy, ds
+
+
+# the JAX kernel tests' cases, T = 1 and 2, both sides of the 8-step chunk,
+# hymba-1.5b's width (40 blocks of 80 channels), channel tails
+SSM_BWD_CASES = [
+    (2, 64, 128, 16), (1, 50, 64, 8), (2, 33, 256, 16),
+    (2, 1, 200, 16), (3, 2, 200, 8), (2, 7, 128, 16), (2, 8, 77, 8),
+    (2, 9, 200, 16), (1, 17, 160, 8), (3, 21, 3200, 16),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,di,N", SSM_BWD_CASES)
+def test_ssm_scan_bwd_kernel(dev, dtype, B, T, di, N):
+    """``ssm_scan_bwd`` against ``selective_scan_bwd_plain``, with a nonzero
+    final-state gradient on every other case; the state left as it was."""
+    args, dy, ds = _ssm_bwd_case(B, T, di, N, dtype, dev, dstate=T % 2 == 1)
+    s0 = args[6].clone()
+    got = ssm_scan.launch_bwd(*args, dy, ds)
+    torch.cuda.synchronize()
+    assert torch.equal(args[6], s0)
+    _bwd_agrees(got, ssm_scan.selective_scan_bwd_plain(*args, dy, ds))
+
+
+@pytest.mark.parametrize("T", [1, 9, 40])
+def test_ssm_scan_bwd_kernel_strong_decay(dev, T):
+    """Decays down to ~1e-11 in float32: every gradient within 1e-4 of its
+    largest element, the states never recovered by dividing by a decay."""
+    args, dy, ds = _ssm_bwd_case(3, T, 200, 16, torch.float32, dev,
+                                 strong=True, dstate=True)
+    got = ssm_scan.launch_bwd(*args, dy, ds)
+    torch.cuda.synchronize()
+    _bwd_agrees(got, ssm_scan.selective_scan_bwd_plain(*args, dy, ds))
+
+
+def test_ssm_scan_bwd_kernel_bit_equal(dev):
+    """Two launches give the same bits: the cross-block partials are summed
+    in a fixed order, never by float atomics."""
+    args, dy, ds = _ssm_bwd_case(4, 27, 3200, 16, torch.bfloat16, dev,
+                                 dstate=True)
+    one = ssm_scan.launch_bwd(*args, dy, ds)
+    two = ssm_scan.launch_bwd(*args, dy, ds)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_ssm_scan_autograd_runs_the_kernels(dev, masked):
+    """With grad on, ``selective_scan`` runs the forward kernel on a copy of
+    the state and the backward kernel (one launch each, counted), and its
+    gradients equal autograd's through the plain version: the mask applied
+    to dt outside, B and C read as views of one projection."""
+    B, T, di, N = 3, 19, 200, 16
+    g = _gen(21)
+    args = list(_ssm_inputs(B, T, di, N, torch.float32, g, dev))
+    mask = None
+    if masked:
+        mask = torch.arange(T, device=dev)[None, :] < torch.tensor(
+            [T, 7, 1], device=dev)[:, None]
+    proj = torch.randn(B, T, 5 + 2 * N, device=dev, generator=g)
+    dy = torch.randn(B, T, di, device=dev, generator=g)
+
+    def run(fn):
+        leaves = ([a.clone().requires_grad_() for a in args[:3]]
+                  + [proj.clone().requires_grad_(),
+                     args[5].clone().requires_grad_()])
+        x, dt, A_log, p, D = leaves
+        y, sf = fn(x, dt, A_log, p[..., 5:5 + N], p[..., 5 + N:], D,
+                   args[6].clone(), seq_mask=mask)
+        (y * dy).sum().backward()
+        return [y.detach(), sf.detach()] + [t.grad for t in leaves]
+
+    fn = ssm_scan.selective_scan
+    n0 = (fn.launches, fn.bwd_launches)
+    got = run(fn)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    want = run(ssm_scan.selective_scan_plain)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0,
+                                   atol=1e-4 * float(y.abs().max()))
+
+
+def _wkv6_bwd_case(B, T, H, hd, dtype, dev, *, strong=False, dstate=False,
+                   seed=30):
+    g = _gen(seed)
+    args = _wkv6_inputs(B, T, H, hd, dtype, g, dev, strong=strong)
+    dy = torch.randn(B, T, H, hd, device=dev, generator=g).to(dtype)
+    ds = (torch.randn(B, H, hd, hd, device=dev, generator=g) if dstate
+          else None)
+    return args, dy, ds
+
+
+# the JAX kernel tests' cases, T = 1 and 2, both sides of the 3-step chunk,
+# every hd
+WKV6_BWD_CASES = [
+    (2, 64, 4, 32), (1, 100, 2, 64), (2, 33, 3, 16),
+    (3, 1, 2, 64), (2, 2, 3, 32), (2, 3, 2, 16), (2, 4, 2, 64),
+    (2, 5, 3, 64), (1, 9, 5, 32), (4, 27, 32, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,hd", WKV6_BWD_CASES)
+def test_wkv6_bwd_kernel(dev, dtype, B, T, H, hd):
+    """``wkv6_bwd`` against ``wkv6_bwd_plain``, with a nonzero final-state
+    gradient on every other case; the state left as it was."""
+    args, dy, ds = _wkv6_bwd_case(B, T, H, hd, dtype, dev, dstate=T % 2 == 1)
+    s0 = args[5].clone()
+    got = rwkv6_scan.launch_bwd(*args, dy, ds)
+    torch.cuda.synchronize()
+    assert torch.equal(args[5], s0)
+    _bwd_agrees(got, rwkv6_scan.wkv6_bwd_plain(*args, dy, ds))
+
+
+@pytest.mark.parametrize("T", [1, 6, 40])
+def test_wkv6_bwd_kernel_strong_decay(dev, T):
+    """Decays down to ~1e-8 in float32: every gradient within 1e-4 of its
+    largest element, the states never recovered by dividing by a decay."""
+    args, dy, ds = _wkv6_bwd_case(3, T, 4, 64, torch.float32, dev,
+                                  strong=True, dstate=True)
+    assert float(args[3].min()) < 1e-6
+    got = rwkv6_scan.launch_bwd(*args, dy, ds)
+    torch.cuda.synchronize()
+    _bwd_agrees(got, rwkv6_scan.wkv6_bwd_plain(*args, dy, ds))
+
+
+def test_wkv6_bwd_kernel_bit_equal(dev):
+    """Two launches give the same bits (du's partials summed in a fixed
+    order)."""
+    args, dy, ds = _wkv6_bwd_case(4, 27, 32, 64, torch.bfloat16, dev,
+                                  dstate=True)
+    one = rwkv6_scan.launch_bwd(*args, dy, ds)
+    two = rwkv6_scan.launch_bwd(*args, dy, ds)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_wkv6_autograd_runs_the_kernels(dev, masked):
+    """With grad on, ``wkv6`` runs the forward kernel on a copy of the state
+    and the backward kernel (one launch each, counted), and its gradients
+    equal autograd's through the plain version, the mask applied to k and w
+    outside."""
+    B, T, H, hd = 3, 19, 2, 32
+    args = _wkv6_inputs(B, T, H, hd, torch.float32, _gen(31), dev)
+    mask = None
+    if masked:
+        mask = torch.arange(T, device=dev)[None, :] < torch.tensor(
+            [T, 7, 1], device=dev)[:, None]
+    dy = torch.randn(B, T, H, hd, device=dev, generator=_gen(32))
+
+    def run(fn):
+        leaves = [a.clone().requires_grad_() for a in args[:5]]
+        y, sf = fn(*leaves, args[5].clone(), seq_mask=mask)
+        (y * dy).sum().backward()
+        return [y.detach(), sf.detach()] + [t.grad for t in leaves]
+
+    fn = rwkv6_scan.wkv6
+    n0 = (fn.launches, fn.bwd_launches)
+    got = run(fn)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    want = run(rwkv6_scan.wkv6_plain)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0,
+                                   atol=1e-4 * float(y.abs().max()))
+
+
+@pytest.mark.parametrize("R", [100, 4064])
+def test_fused_loss_at_hymba_width(dev, R):
+    """The fused IS-GRPO loss at hymba-1.5b's update shape: bf16 hidden of
+    d 1600 (25 k tiles of 64) against the tied embedding read as w (V 32001,
+    ragged): the forward's per-row outputs atol 1e-4, dh within one bf16 ulp
+    of its largest element, dw within 1e-4 of its largest element."""
+    d, V = 1600, 32001
+    h, w, t, b, a = _loss_inputs(dev, R, d, V, torch.bfloat16, True, seed=R)
+    kw = dict(LOSS_KW, entropy_coef=0.01)
+    outs = fio.fused_is_grpo_fwd_rows(h, w, t, b, a, **kw)
+    ref = fio.fwd_plain(h, w, t, b, a, **kw)
+    for name, x, y in zip(("loss", "ratio", "logp", "lse", "ent"), outs, ref):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-5, msg=name)
+    g = _gen(33)
+    ca = torch.randn(R, device=dev, generator=g)
+    ce = torch.randn(R, device=dev, generator=g) * 0.1
+    lse, ent = ref[3], ref[4]
+    dh, dw = fio.fused_is_grpo_bwd_rows(h, w, t, lse, lse - ent, ca, ce)
+    torch.cuda.synchronize()
+    rdh, rdw = fio.bwd_plain(h, w, t, lse, lse - ent, ca, ce)
+    assert dw.stride() == w.stride()
+    torch.testing.assert_close(dh.float(), rdh.float(), rtol=0,
+                               atol=1e-2 * float(rdh.abs().max()))
+    torch.testing.assert_close(dw, rdw, rtol=0,
+                               atol=1e-4 * float(rdw.abs().max()))

@@ -11,11 +11,18 @@ against the JAX package:
   warp), emulated for the decode kernel's tiles and the prefill kernel's,
   against the reference and the Pallas kernel, with strong decay too;
 * ``apply_time_mix`` and ``apply_channel_mix`` on weights converted from
-  the JAX init.
+  the JAX init;
+* ``wkv6_bwd_plain`` (the plain version of the backward kernel
+  ``wkv6_bwd``) against ``jax.vjp`` of the reference, on the JAX kernel
+  tests' cases, T = 1, T on both sides of the kernel's 3-step chunk,
+  bfloat16 inputs, decays down to 1e-8 and a nonzero final-state
+  cotangent; and the wrapper under autograd (the mask applied outside the
+  autograd function) against ``jax.vjp`` with ``seq_mask``.
 
 Tolerances: float32 atol 1e-4 (sums over hd in another order); bfloat16
 outputs within two bf16 ulps of each element (both sides compute in
-float32 and round once).
+float32 and round once). Gradients: float32 within 1e-4 of the largest
+element of each, bfloat16 within two bf16 ulps of each element plus that.
 """
 import pytest
 
@@ -309,3 +316,112 @@ def test_apply_channel_mix_matches_reference(block_params, S):
                                            jnp.asarray(prev))
     np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-4)
     np.testing.assert_array_equal(p.numpy(), np.asarray(p_ref))
+
+
+# -- the backward ----------------------------------------------------------------
+
+
+def _vjp_ref(arrs, dy, dsf, **kw):
+    """jax.vjp of repro.models.rwkv6.wkv6_scan at ``arrs``: every input's
+    cotangent, as float32 numpy arrays."""
+    (_, _), vjp = jax.vjp(lambda *a: jrwkv.wkv6_scan(*a, **kw), *arrs)
+    return [np.asarray(g.astype(jnp.float32)) for g in vjp((dy, dsf))]
+
+
+def _grads_agree(got, want):
+    """float32 within 1e-4 of each gradient's largest element; bfloat16
+    within two bf16 ulps of each element plus that."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        scale = float(np.abs(w).max())
+        gf = g.float().numpy()
+        if g.dtype == torch.bfloat16:
+            mag = np.maximum(np.abs(w), np.float32(2.0 ** -126))
+            ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+            assert (np.abs(gf - w) <= 2 * ulp + 1e-4 * scale).all()
+        else:
+            np.testing.assert_allclose(gf, w, rtol=0, atol=1e-4 * scale)
+
+
+def _cotangents(B, S, H, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, hd)).astype(np.float32),
+            rng.standard_normal((B, H, hd, hd)).astype(np.float32))
+
+
+# the JAX kernel tests' cases, decode, T on both sides of the kernel's
+# 3-step chunk
+BWD_CASES = CASES + [(2, 2, 2, 16, 0), (2, 3, 2, 32, 0), (2, 4, 2, 16, 0)]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_plain_backward_matches_jax_vjp(case):
+    """Every input's gradient, the initial state's included, with a nonzero
+    cotangent of the final state."""
+    B, S, H, hd, _ = case
+    arrs = _inputs(B, S, H, hd, seed=200 + S)
+    dy, dsf = _cotangents(B, S, H, hd, seed=S)
+    got = rwkv6_scan.wkv6_bwd_plain(*_torch(arrs), torch.from_numpy(dy),
+                                    torch.from_numpy(dsf))
+    want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                    jnp.asarray(dsf))
+    _grads_agree(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 37])
+def test_plain_backward_bf16_inputs(S):
+    """bfloat16 r, k, v, w and y's cotangent: their gradients bfloat16, u's
+    and the state's float32, against jax.vjp on the same bfloat16 inputs; a
+    zero final-state cotangent."""
+    B, H, hd = 2, 4, 64
+    tin = _torch(_inputs(B, S, H, hd, seed=12), torch.bfloat16)
+    dy, _ = _cotangents(B, S, H, hd, seed=5)
+    dyb = torch.from_numpy(dy).to(torch.bfloat16)
+    got = rwkv6_scan.wkv6_bwd_plain(*tin, dyb)
+    assert [g.dtype for g in got] == [t.dtype for t in tin]
+    jin = [jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+        for t in tin]
+    want = _vjp_ref(jin, jnp.asarray(dy).astype(jnp.bfloat16),
+                    jnp.zeros((B, H, hd, hd), jnp.float32))
+    _grads_agree(got, want)
+
+
+@pytest.mark.parametrize("S", [1, 30])
+def test_plain_backward_strong_decay(S):
+    """Decays down to 1e-8 (exp(-exp(x)) at x = 2.9): the states are kept
+    from the forward pass, never recovered by dividing by a decay."""
+    B, H, hd = 2, 2, 32
+    arrs = list(_inputs(B, S, H, hd, seed=21))
+    rng = np.random.default_rng(22)
+    arrs[3] = np.exp(-np.exp(rng.uniform(-1.0, 2.9, arrs[3].shape))
+                     ).astype(np.float32)
+    assert arrs[3].min() < 1e-7
+    dy, dsf = _cotangents(B, S, H, hd, seed=23)
+    got = rwkv6_scan.wkv6_bwd_plain(*_torch(arrs), torch.from_numpy(dy),
+                                    torch.from_numpy(dsf))
+    want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                    jnp.asarray(dsf))
+    _grads_agree(got, want)
+
+
+def test_wrapper_under_autograd_matches_jax_vjp():
+    """``wkv6`` with grad on (the autograd function: plain forward and
+    plain backward on the CPU) on right-padded rows: the mask applied to k
+    and w outside, against jax.vjp with seq_mask; the initial state is left
+    as it was."""
+    B, S, H, hd = 3, 13, 2, 32
+    arrs = _inputs(B, S, H, hd, seed=24)
+    mask = np.arange(S)[None, :] < np.array([S, 5, 1])[:, None]
+    dy, dsf = _cotangents(B, S, H, hd, seed=25)
+    tin = [t.clone().requires_grad_() for t in _torch(arrs)]
+    s_before = tin[5].detach().clone()
+    n0 = rwkv6_scan.wkv6.bwd_launches
+    y, sf = rwkv6_scan.wkv6(*tin, seq_mask=torch.from_numpy(mask))
+    torch.autograd.backward((y, sf), (torch.from_numpy(dy),
+                                      torch.from_numpy(dsf)))
+    assert torch.equal(tin[5].detach(), s_before)
+    assert rwkv6_scan.wkv6.bwd_launches == n0          # no kernel here
+    want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                    jnp.asarray(dsf), seq_mask=jnp.asarray(mask))
+    _grads_agree([t.grad for t in tin], want)

@@ -12,11 +12,19 @@ JAX package:
   kernel's T > 1 scan at the JAX kernel tests' cases (also against the
   Pallas kernel), with bfloat16 inputs and masked rows;
 * ``causal_conv1d`` with and without ``lengths``;
-* ``apply_ssm`` on weights converted from the JAX init.
+* ``apply_ssm`` on weights converted from the JAX init;
+* ``selective_scan_bwd_plain`` (the plain version of the backward kernel
+  ``ssm_scan_bwd``) against ``jax.vjp`` of the reference, on the JAX kernel
+  tests' cases, T = 1, bfloat16 inputs, decays down to 1e-8, a nonzero
+  final-state cotangent, and T on both sides of the reference's chunk and
+  the kernel's 8-step chunk; and the wrapper under autograd (the mask
+  applied outside the autograd function) against ``jax.vjp`` with
+  ``seq_mask``.
 
 Tolerances: float32 atol 1e-4 (the sum over N runs in another order);
 bfloat16 outputs within two bf16 ulps of each element (both sides compute
-in float32 and round once).
+in float32 and round once). Gradients: float32 within 1e-4 of the largest
+element of each, bfloat16 within two bf16 ulps of each element plus that.
 """
 import pytest
 
@@ -315,3 +323,119 @@ def test_apply_ssm_matches_reference(ssm_params, mode):
     np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=1e-4)
     np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), atol=1e-4)
     np.testing.assert_allclose(c.numpy(), np.asarray(c_ref), atol=1e-5)
+
+
+# -- the backward ----------------------------------------------------------------
+
+
+def _vjp_ref(arrs, dy, dsf, **kw):
+    """jax.vjp of repro.models.ssm.selective_scan at ``arrs``: every
+    input's cotangent, as float32 numpy arrays."""
+    (_, _), vjp = jax.vjp(lambda *a: jssm.selective_scan(*a, **kw), *arrs)
+    return [np.asarray(g.astype(jnp.float32)) for g in vjp((dy, dsf))]
+
+
+def _grads_agree(got, want):
+    """float32 within 1e-4 of each gradient's largest element; bfloat16
+    within two bf16 ulps of each element plus that."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        scale = float(np.abs(w).max())
+        gf = g.float().numpy()
+        if g.dtype == torch.bfloat16:
+            mag = np.maximum(np.abs(w), np.float32(2.0 ** -126))
+            ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+            assert (np.abs(gf - w) <= 2 * ulp + 1e-4 * scale).all()
+        else:
+            np.testing.assert_allclose(gf, w, rtol=0, atol=1e-4 * scale)
+
+
+# (B, T, di, N, the reference's chunk): the JAX kernel tests' cases, decode,
+# T on both sides of the kernel's 8-step chunk, and T a multiple of the
+# reference's chunk (its chunked, checkpointed branch)
+BWD_CASES = CASES + [(2, 7, 64, 16, 256), (2, 9, 32, 8, 256),
+                     (2, 64, 64, 16, 16)]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_plain_backward_matches_jax_vjp(case):
+    """Every input's gradient, the initial state's included, with a nonzero
+    cotangent of the final state."""
+    B, T, di, N, chunk = case
+    arrs = _inputs(B, T, di, N, seed=100 + T, s0_scale=0.2)
+    rng = np.random.default_rng(T)
+    dy = rng.standard_normal((B, T, di)).astype(np.float32)
+    dsf = rng.standard_normal((B, di, N)).astype(np.float32)
+    got = ssm_scan.selective_scan_bwd_plain(*_torch(arrs),
+                                            torch.from_numpy(dy),
+                                            torch.from_numpy(dsf))
+    want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                    jnp.asarray(dsf), chunk=chunk)
+    _grads_agree(got, want)
+
+
+@pytest.mark.parametrize("T", [1, 37])
+def test_plain_backward_bf16_inputs(T):
+    """bfloat16 x, dt, B, C and y's cotangent: their gradients bfloat16,
+    A_log's, D's and the state's float32, against jax.vjp on the same
+    bfloat16 inputs; a zero final-state cotangent."""
+    arrs = _inputs(2, T, 128, 16, seed=11, s0_scale=0.1)
+    tin = _torch(arrs, torch.bfloat16)
+    rng = np.random.default_rng(3)
+    dy = torch.from_numpy(rng.standard_normal((2, T, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    got = ssm_scan.selective_scan_bwd_plain(*tin, dy)
+    assert [g.dtype for g in got] == [t.dtype for t in tin]
+    jin = [jnp.asarray(t.float().numpy()).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+        for t in tin]
+    want = _vjp_ref(jin, jnp.asarray(dy.float().numpy()).astype(jnp.bfloat16),
+                    jnp.zeros((2, 128, 16), jnp.float32))
+    _grads_agree(got, want)
+
+
+@pytest.mark.parametrize("T", [1, 23])
+def test_plain_backward_strong_decay(T):
+    """The model's A_log = log(1..N) and steps up to 1.2: decays down to
+    exp(-16 * 1.2) ~ 5e-9; the states are kept from the forward pass, never
+    recovered by dividing by a decay."""
+    B, di, N = 2, 64, 16
+    x, _, _, Bc, Cc, D, s0 = _inputs(B, T, di, N, seed=7, s0_scale=0.3)
+    rng = np.random.default_rng(8)
+    dt = rng.uniform(0.0, 1.2, (B, T, di)).astype(np.float32)
+    A_log = np.log(np.arange(1, N + 1, dtype=np.float32))[None].repeat(di, 0)
+    arrs = (x, dt, A_log, Bc, Cc, D, s0)
+    decay = np.exp(-np.exp(A_log)[None, None] * dt[..., None])
+    assert decay.min() < 1e-8
+    dy = rng.standard_normal((B, T, di)).astype(np.float32)
+    dsf = rng.standard_normal((B, di, N)).astype(np.float32)
+    got = ssm_scan.selective_scan_bwd_plain(*_torch(arrs),
+                                            torch.from_numpy(dy),
+                                            torch.from_numpy(dsf))
+    want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                    jnp.asarray(dsf))
+    _grads_agree(got, want)
+
+
+def test_wrapper_under_autograd_matches_jax_vjp():
+    """``selective_scan`` with grad on (the autograd function: plain forward
+    and plain backward on the CPU) on right-padded rows: the mask applied
+    to dt outside, against jax.vjp with seq_mask; the initial state is left
+    as it was."""
+    B, T, di, N = 3, 21, 64, 16
+    arrs = _inputs(B, T, di, N, seed=13, s0_scale=0.2)
+    mask = np.arange(T)[None, :] < np.array([T, 9, 1])[:, None]
+    rng = np.random.default_rng(14)
+    dy = rng.standard_normal((B, T, di)).astype(np.float32)
+    dsf = rng.standard_normal((B, di, N)).astype(np.float32)
+    tin = [t.clone().requires_grad_() for t in _torch(arrs)]
+    s_before = tin[6].detach().clone()
+    n0 = ssm_scan.selective_scan.bwd_launches
+    y, sf = ssm_scan.selective_scan(*tin, seq_mask=torch.from_numpy(mask))
+    torch.autograd.backward((y, sf), (torch.from_numpy(dy),
+                                      torch.from_numpy(dsf)))
+    assert torch.equal(tin[6].detach(), s_before)
+    assert ssm_scan.selective_scan.bwd_launches == n0      # no kernel here
+    want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                    jnp.asarray(dsf), seq_mask=jnp.asarray(mask))
+    _grads_agree([t.grad for t in tin], want)

@@ -7,15 +7,24 @@
   and on the reduced llama3.2-1b with vocab 8192 (fused branch), float32:
   loss, metrics and every gradient against ``jax.value_and_grad`` on
   converted weights, then the parameters after one AdamW step;
-* one sequential ``CoPRISTrainer.step()`` on ``tiny`` against the JAX
-  trainer with the same seed: equal tokens and rewards;
+* the same on the reduced hymba-1.5b and rwkv6-1.6b (vocab 8192, float32):
+  their scans' gradients through the autograd functions' plain backward;
+* one sequential ``CoPRISTrainer.step()`` on ``tiny`` and on the reduced
+  hymba-1.5b and rwkv6-1.6b against the JAX trainer with the same seed:
+  equal tokens and rewards;
 * checkpoints and Adam state between the two layouts.
 
 Tolerances (float32): attention gradients atol 1e-5; loss and metrics atol
 1e-5; gradients atol 2e-5 (sums of a few layers' products in another
-order). Adam's first step is sign-like — delta = g/|g| up to eps — so a
+order), for the hybrids 2e-5 of each leaf's largest element where that is
+above 1: the rwkv6 forward differs between the two frameworks by ~2e-6
+relative (the loss by 4e-7 of 0.18), and autograd through the plain
+forward misses JAX's embedding gradient (largest element 2.7) by the same
+4e-5 as the plain backward does. Adam's first step is sign-like — delta = g/|g| up to eps — so a
 gradient near 0 may flip the step's sign from rounding alone: parameters
-are compared only where |grad| > 1e-5, atol 1e-6.
+are compared only where |grad| > 1e-5 (the hybrids: 1e-3, above their
+gradients' tolerance and their clipped gradients above Adam's eps), atol
+1e-6.
 """
 import dataclasses
 import functools
@@ -121,7 +130,8 @@ def _jax_params(cfg_t, seed=0):
     return jax.tree.map(jnp.asarray, tree)
 
 
-@pytest.fixture(scope="module", params=["tiny", "llama3.2-1b"])
+@pytest.fixture(scope="module", params=["tiny", "llama3.2-1b", "hymba-1.5b",
+                                                "rwkv6-1.6b"])
 def results(request):
     """One JAX and one port evaluation per config: loss, metrics and grads
     (``make_loss_fn``), then the parameters after ``make_train_step``."""
@@ -147,7 +157,8 @@ def results(request):
         pt, adam.init(pt), tb, 1e-3)
     to_port = lambda tree: leaves(convert.params_from_jax(  # noqa: E731
         jax.device_get(tree), cfg_t, "cpu"))
-    return dict(jax=dict(loss=lv_j, metrics=m_j, grads=to_port(g_j),
+    return dict(hybrid=request.param in ("hymba-1.5b", "rwkv6-1.6b"),
+                jax=dict(loss=lv_j, metrics=m_j, grads=to_port(g_j),
                          new=to_port(pj_new), step_metrics=sm_j),
                 port=dict(loss=lv, metrics=m, grads=grads, new=leaves(pt),
                           step_metrics=sm, state=st, params=pt))
@@ -164,15 +175,23 @@ def test_loss_metrics_and_grads_match_jax(results):
                                    err_msg=k)
     assert len(j["grads"]) == len(p["grads"])
     for g, r in zip(p["grads"], j["grads"]):
-        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=2e-5)
-    # every attention projection of every layer gets a gradient
+        # the hybrids: 2e-5 of each leaf's largest element where that is
+        # above 1 (rwkv6's embedding gradient reaches 2.7)
+        scale = max(1.0, float(r.abs().max())) if results["hybrid"] else 1.0
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=2e-5 * scale)
+    # every attention projection and every scan parameter of every layer
+    # gets a gradient
     grads = iter(p["grads"])
     for leaf, g in zip(leaves(p["params"]), grads):
         assert g.shape == leaf.shape
     port_tree = unflatten(p["params"], list(p["grads"]))
+    watched = {"attn": ("wq", "wk", "wv", "wo"), "ssm": ("A_log", "D"),
+               "tm": ("u", "w_base")}
     for layer in port_tree["layers"]:
-        for name in ("wq", "wk", "wv", "wo"):
-            assert float(layer["attn"][name].abs().max()) > 0.0, name
+        assert set(watched) & set(layer)
+        for block, names in watched.items():
+            for name in names if block in layer else ():
+                assert float(layer[block][name].abs().max()) > 0.0, name
 
 
 def test_train_step_adamw_matches_jax(results):
@@ -182,8 +201,12 @@ def test_train_step_adamw_matches_jax(results):
                                rtol=1e-5)
     assert int(p["state"]["step"]) == 1
     compared = 0
+    # Adam's first step is sign-like; the hybrids' gradients agree to
+    # 2e-5 of a leaf's largest element and are clipped by a norm near 48,
+    # so a gradient below 1e-3 lands within 10x of Adam's eps
+    floor = 1e-3 if results["hybrid"] else 1e-5
     for new, ref, g in zip(p["new"], j["new"], j["grads"]):
-        sel = g.abs() > 1e-5          # Adam's first step is sign-like
+        sel = g.abs() > floor
         compared += int(sel.sum())
         np.testing.assert_allclose(new.detach()[sel].numpy(),
                                    ref[sel].numpy(), atol=1e-6)
@@ -228,7 +251,20 @@ def test_legacy_branch_and_entropy_raise():
 
 
 def test_trainer_step_matches_jax_trainer():
-    cfg_j, cfg_t = _configs("tiny")
+    _trainer_step_matches("tiny")
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-1.6b"])
+def test_hybrid_trainer_step_matches_jax_trainer(arch):
+    """The hybrid families (reduced, vocab 8192, float32) train through the
+    scans' autograd functions, plain forward and backward on the CPU."""
+    _trainer_step_matches(arch)
+
+
+def _trainer_step_matches(arch):
+    """One sequential step of each trainer from the same weights and seed:
+    equal tokens and rewards, behaviour logps and metrics atol 1e-5."""
+    cfg_j, cfg_t = _configs(arch)
     pj = _jax_params(cfg_t)
     ro = dict(batch_size=3, group_size=2, max_prompt_len=16,
               max_response_len=16, concurrency=4, mode="copris")
