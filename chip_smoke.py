@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """On-GPU smoke run of the PyTorch port (src/repro_torch): the serving path
 and the CoPRIS training loop at the full width of llama3.2-1b, over the dense
-and the paged KV cache, and serving, rollouts and training of the hybrid
-hymba-1.5b and the attention-free rwkv6-1.6b at full width, through the
-port's hand-written kernels.
+and the paged KV cache, sequential and overlapped (rollout on its own CUDA
+stream), with single-turn tasks and multi-turn environments, and serving,
+rollouts and training of the hybrid hymba-1.5b and the attention-free
+rwkv6-1.6b at full width, through the port's hand-written kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
     python3 chip_smoke.py --ab DIR # sampling, the selective scan and WKV6
@@ -59,7 +60,16 @@ start):
    and no attention weight with a zero gradient; the same as
    "train_reference_hybrid" with the fused loss on the reduced hymba and
    rwkv6 (scans forward and backward), no scan parameter (A_log, D, u,
-   w_base) with a zero gradient;
+   w_base) with a zero gradient; then "reference_overlap": the overlapped
+   trainer on the GPU (reduced config, vocab 8192, float32) records each
+   batch's params version and a sequential CPU trainer replays that
+   schedule (each collect takes ``param_store.get(v)``): equal tokens on
+   every trajectory, losses and metrics atol 1e-4, grad_norm rtol 1e-5,
+   final params atol 1e-4; and "reference_multiturn": MultiTurnMathTask
+   episodes on the reduced config (float32, 20 SFT steps) from the same
+   weights and key on the GPU dense engine, the GPU paged one (8 pages of
+   16: admission blocks and preempts) and the CPU dense one: equal tokens,
+   roles and turn starts on common keys, logps within 1e-5;
 5. serve   — make_serve_engine("llama3.2-1b") with random bf16 weights made
    from a seed serves 24 requests; every kernel's launch count must be > 0;
    then "profile": torch.profiler over two steady decode chunks (host time,
@@ -80,7 +90,24 @@ start):
    loss, grad norm, ratio and off-policy share; rollout, reward and update
    times, resumed partials, peak memory; every kernel launched; then
    "train_profile": torch.profiler over one more update (device busy
-   time, top device kernels); then "train_paged": two CoPRISTrainer.step()
+   time, top device kernels); then "train_overlap": from the train
+   phase's SFT-warmed weights (kept on the host), four overlapped steps
+   (overlap=True, max_staleness=1; the producer collects on its own CUDA
+   stream, the consumer trains on another): finite metrics,
+   param_staleness <= 1 and == 1 at least once, at most 2 ParamStore
+   versions, no trained token from a stage newer than its step, every
+   kernel launched; rollout, update, batch-wait and overlap-saved times
+   and each step's wall time beside the train phase's sequential ones,
+   peak memory; then "train_overlap_profile": torch.profiler over one
+   more overlapped step, kernels on at least two streams, and
+   ``concurrent_ms``, the device time during which kernels of both
+   streams ran at once; then "train_multiturn": two overlapped steps of
+   MultiTurnMathTask(max_value=9, num_turns=2) at full width from the
+   same weights, their SFT continued for 8 steps (after 4 no turn ends
+   with EOS), max_response_len 64: environment steps and second turns,
+   observation positions with loss mask 0, behaviour log-prob 0 and stage
+   -1, every kernel launched, env_wait_time and step times; then
+   "train_paged": two CoPRISTrainer.step()
    calls at full width over the paged KV cache with half the
    dense-equivalent pages and the legacy fused_loss=False loss: prefix
    sharing, copy-on-write, finite metrics, every kernel of that path
@@ -90,7 +117,9 @@ start):
    path launched (the scans' backward kernels and, for hymba, the flash
    backward among them), each with the profile of one more update;
 8. kernels — one {"kernels": [...]} line, one row per kernel entry point,
-   each with the launches of the path it runs on (train; train_paged for
+   each with the launches of the path it runs on (train; the rows that
+   train_overlap and train_multiturn launch carry their counts under
+   ``launches_by_phase``; train_paged for
    the paged decode and the fused log-prob; serve_hymba and serve_rwkv6
    for the two scans, split by T = 1 and T > 1; train_hymba and
    train_rwkv6 for the scans' backward kernels); the sampling row has the
@@ -1443,7 +1472,7 @@ def profile_update(torch, tr, cfg, tc):
 
 
 def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
-                steps=3, seed=0, entropy_coef=0.0):
+                steps=3, seed=0, entropy_coef=0.0, keep=None):
     """The main path of a training slice: sft_warmup for 4 steps, then
     ``steps`` sequential CoPRISTrainer.step() calls on ``arch`` at full
     width (bf16 compute, f32 master weights, remat, the fused loss, random
@@ -1452,7 +1481,9 @@ def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
     reset just before the steps and read just after. With an entropy bonus
     every step must have a nonzero gradient (the hybrids' phases: the
     scans' backward kernels then carry one even when all advantages are
-    zero). Returns the launch counts."""
+    zero). With a dict ``keep``, the SFT-warmed weights go into it, copied
+    to the host (``params``), and the steps' wall times (``step_time``).
+    Returns the launch counts."""
     from repro_torch.common.config import RolloutConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.copris import CoPRISTrainer
@@ -1471,6 +1502,9 @@ def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
     sft_s = time.perf_counter() - t0
     if not np.isfinite(sft_loss):
         fail(f"{phase}: sft loss not finite: {sft_loss}")
+    if keep is not None:
+        from repro_torch.common.tree import tree_map
+        keep["params"] = tree_map(lambda t: t.detach().cpu(), params)
     # max_len = 128 (the budget 4 + 124, rounded up to the 64-token bucket)
     # is below prompt + response for the task's 5-7 token prompts: a
     # trajectory stops at 127 - len(prompt) tokens, so groups with longer
@@ -1502,6 +1536,8 @@ def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
         peak = torch.cuda.max_memory_allocated() / 1e9
     finally:
         tr.close()
+    if keep is not None:
+        keep["step_time"] = [o["step_time"] for o in outs]
     keys = ("reward_mean", "pg_loss", "grad_norm", "ratio_mean",
             "off_policy_frac")
     emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
@@ -1642,6 +1678,366 @@ def train_paged_phase(torch, np, kernels, steps=2):
         fail(f"a kernel of the paged training path never launched: "
              f"{launches}")
     return launches
+
+
+TRAIN_KEYS = ("reward_mean", "pg_loss", "grad_norm", "ratio_mean",
+              "off_policy_frac")
+
+
+def traj_keys(groups):
+    """Each trajectory's identity and content, in batch order."""
+    return [(g.group_id, t.sample_idx, tuple(t.response_tokens),
+             tuple(t.stage_ids), tuple(t.roles))
+            for g in groups for t in g.trajectories]
+
+
+def stream_overlap(spans):
+    """Device kernels given as (start_ns, end_ns, stream), by CUDA stream,
+    and the device time during which kernels of two or more streams ran at
+    once (a sweep over the kernels' start and end times). Returns ({stream:
+    {kernels, busy_ms}}, concurrent_ms, the kernels' first-to-last span in
+    ms)."""
+    per_stream, edges = {}, []
+    for a, b, stream in spans:
+        d = per_stream.setdefault(str(stream), {"kernels": 0, "busy_ms": 0.0})
+        d["kernels"] += 1
+        d["busy_ms"] += (b - a) / 1e6
+        edges += [(a, 1, stream), (b, -1, stream)]
+    edges.sort(key=lambda x: (x[0], x[1]))     # ends before starts at a tie
+    running, concurrent_ns, last = {}, 0, None
+    for t, delta, stream in edges:
+        if last is not None and sum(n > 0 for n in running.values()) >= 2:
+            concurrent_ns += t - last
+        running[stream] = running.get(stream, 0) + delta
+        last = t
+    span_ms = ((max(b for _, b, _ in spans) - min(a for a, _, _ in spans))
+               / 1e6 if spans else 0.0)
+    return per_stream, concurrent_ns / 1e6, span_ms
+
+
+def overlap_profile(torch, tr):
+    """torch.profiler (device activity) over one more overlapped step: the
+    consumer's update on the train stream while the producer collects the
+    next batch on the rollout stream. The profiler's raw device events
+    (copies and fills left out by name; a kernel's ``device_resource_id``
+    is its stream) give each stream's kernels and busy time and
+    ``concurrent_ms``, the device time during which kernels of both
+    streams ran at once."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = tr.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.start_ns(), e.end_ns(), e.device_resource_id())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda
+             and not e.name().startswith(("Memcpy", "Memset"))]
+    per_stream, concurrent_ms, span_ms = stream_overlap(spans)
+    return dict(what="one overlapped CoPRISTrainer.step() under "
+                "torch.profiler (CUDA activity only)", wall_ms=wall_ms,
+                update_time=out["update_time"],
+                batch_wait_time=out["batch_wait_time"],
+                streams=per_stream, kernel_span_ms=span_ms,
+                concurrent_ms=concurrent_ms,
+                concurrent_share_of_span=(concurrent_ms / span_ms
+                                          if span_ms else 0.0))
+
+
+def overlapped_run(torch, tr, kernels, steps, profile=False):
+    """``steps`` overlapped trainer steps (with ``profile``, then the
+    profile of one more) with every kernel's launch count reset just before
+    them; the producer is stopped (close) before the counts are read, so
+    they hold every launch of the path, the producer's look-ahead collect
+    included. Returns (outs, launches, the profile or None)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    outs = []
+    try:
+        for _ in range(steps):
+            out = tr.step()
+            stages = tr.last_batch["stage_ids"]
+            out["newest_token_stage"] = int(stages[stages >= 0].max())
+            out["batch"] = tr.last_batch
+            outs.append(out)
+        prof = overlap_profile(torch, tr) if profile else None
+    finally:
+        tr.close()
+    torch.cuda.synchronize()
+    return outs, read_launches(kernels), prof
+
+
+def check_overlapped(np, phase, outs, launches, max_staleness=1):
+    for o in outs:
+        bad = [k for k in TRAIN_KEYS if not np.isfinite(o[k])]
+        if bad:
+            fail(f"{phase} step {o['step']}: not finite: {bad}")
+        if not 0 <= o["param_staleness"] <= max_staleness:
+            fail(f"{phase} step {o['step']}: param_staleness "
+                 f"{o['param_staleness']} outside [0, {max_staleness}]")
+        if o["param_store_versions"] > max_staleness + 1:
+            fail(f"{phase}: the ParamStore holds "
+                 f"{o['param_store_versions']} versions")
+        if o["newest_token_stage"] > o["step"]:
+            fail(f"{phase} step {o['step']}: a trained token from stage "
+                 f"{o['newest_token_stage']}")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"a kernel of {phase}'s path never launched: {launches}")
+
+
+STEP_REPORT = ("rollout_time", "reward_time", "update_time", "step_time",
+               "batch_wait_time", "overlap_saved_time", "param_staleness",
+               "param_store_versions", "newest_token_stage",
+               "multi_stage_trajs", "mean_resp_len")
+
+
+def train_overlap_phase(torch, np, kernels, sft, steps=4):
+    """The overlapped pipeline at full width: llama3.2-1b in the train
+    phase's configuration (B 8 x G 4, N' 16, max_len 128, bf16 compute, f32
+    masters, the fused loss) from the train phase's SFT-warmed weights
+    (kept on the host, no second SFT), with overlap=True and
+    max_staleness=1: ``steps`` CoPRISTrainer.step() calls, the producer
+    collecting on its CUDA stream while the consumer trains on another, then
+    the profile of one more step. Checks: finite metrics, param_staleness
+    <= 1 every step and == 1 at least once, at most 2 ParamStore versions,
+    no trained token from a stage newer than its step, every kernel of the
+    path launched, kernels on at least two streams in the profiled step.
+    Returns the launch counts."""
+    from repro_torch.common.config import RolloutConfig, TrainConfig
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core.copris import CoPRISTrainer
+    from repro_torch.data.tasks import EOS, AdditionTask
+    gc.collect()                        # the previous phase's trainer
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=4,
+                       max_response_len=124, concurrency=16, mode="copris",
+                       temperature=1.0)
+    tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=0, overlap=True,
+                     max_staleness=1)
+    tr = CoPRISTrainer(cfg, ro, tc, AdditionTask(max_value=20, seed=0),
+                       eos_id=EOS,
+                       params=tree_map(lambda t: t.cuda(), sft["params"]))
+    tr.batch_timeout = 600.0
+    outs, launches, prof = overlapped_run(torch, tr, kernels, steps,
+                                          profile=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    emit("train_overlap", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, max_staleness=1,
+         steps=[{k: o[k] for k in TRAIN_KEYS + STEP_REPORT} for o in outs],
+         sequential_step_time=sft["step_time"], peak_mem_gb=peak,
+         launches=launches)
+    emit("train_overlap_profile", **prof)
+    check_overlapped(np, "train_overlap", outs, launches)
+    if not any(o["param_staleness"] == 1 for o in outs):
+        fail("train_overlap: no batch was collected one update behind")
+    if len([s for s, d in prof["streams"].items() if d["kernels"]]) < 2:
+        fail(f"train_overlap: the profiled step ran kernels on fewer than "
+             f"two streams: {prof['streams']}")
+    return launches
+
+
+def train_multiturn_phase(torch, np, kernels, sft, steps=2, extra_sft=8):
+    """Multi-turn environments at full width: llama3.2-1b from the train
+    phase's SFT-warmed weights with MultiTurnMathTask(max_value=9,
+    num_turns=2), max_response_len 64, overlap=True, ``steps`` steps. A
+    model turn that stops yields its slot to the AsyncEnvWorker; its
+    observation is appended with role 0 and the next dispatch re-prefills
+    it. After the train phase's 4 SFT steps no turn ends with EOS within 64
+    tokens, so every turn would stop at length and end its episode: the
+    SFT on AdditionTask (the per-turn answer format: digits, then EOS; the
+    multi-turn task has no demonstrations) goes on for ``extra_sft`` steps
+    first. Checks: env_steps > 0 and env_turns > 0; observation positions
+    of the trained batches with loss mask 0, behaviour log-prob 0 and stage
+    -1; every kernel of the path launched. Returns the launch counts."""
+    from repro_torch.common.config import RolloutConfig, TrainConfig
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core.copris import CoPRISTrainer
+    from repro_torch.data.sft import sft_warmup
+    from repro_torch.data.tasks import EOS, AdditionTask, MultiTurnMathTask
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    params, sft_loss = sft_warmup(
+        tree_map(lambda t: t.cuda(), sft["params"]), cfg,
+        AdditionTask(max_value=20, seed=0), steps=extra_sft, batch_size=32,
+        max_len=24, lr=1e-4)
+    ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=16,
+                       max_response_len=64, concurrency=16, mode="copris",
+                       temperature=1.0)
+    tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=0, overlap=True,
+                     max_staleness=1)
+    tr = CoPRISTrainer(cfg, ro, tc,
+                       MultiTurnMathTask(max_value=9, num_turns=2, seed=0),
+                       eos_id=EOS, params=params)
+    del params
+    tr.batch_timeout = 600.0
+    outs, launches, _ = overlapped_run(torch, tr, kernels, steps)
+    obs_positions = 0
+    bad_obs = 0
+    for o in outs:
+        b = o["batch"]
+        env_pos = (b["response_mask"] > 0) & (b["loss_mask"] == 0)
+        obs_positions += int(env_pos.sum())
+        bad_obs += int((b["behaviour_logp"][env_pos] != 0.0).sum()
+                       + (b["stage_ids"][env_pos] != -1).sum())
+    emit("train_multiturn", arch=cfg.name, task="MultiTurnMathTask(9, 2)",
+         max_response_len=64, extra_sft_steps=extra_sft,
+         extra_sft_loss=sft_loss,
+         steps=[{k: o[k] for k in TRAIN_KEYS + STEP_REPORT + (
+             "env_steps", "env_turns", "env_failures", "env_timeouts",
+             "env_wait_time")} for o in outs],
+         observation_positions=obs_positions,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches)
+    check_overlapped(np, "train_multiturn", outs, launches)
+    if not (sum(o["env_steps"] for o in outs) > 0
+            and sum(o["env_turns"] for o in outs) > 0):
+        fail("train_multiturn: no environment step or no second turn")
+    if obs_positions == 0 or bad_obs:
+        fail(f"train_multiturn: {obs_positions} observation positions, "
+             f"{bad_obs} with a behaviour log-prob or a stage")
+    return launches
+
+
+def reference_overlap_phase(torch, np, cfg, steps=3):
+    """The overlapped GPU trainer against a sequential CPU trainer that
+    replays its schedule: the reduced config in float32 (vocab 8192, as in
+    train_reference). The GPU run (overlap=True, max_staleness=1) records
+    each batch's params_version; the CPU run's collects take
+    ``param_store.get(v)`` for the recorded v. Equal tokens, stages and
+    roles on every trajectory; losses and metrics atol 1e-4, grad_norm rtol
+    1e-5, final params atol 1e-4 (train_reference's tolerances)."""
+    from repro_torch.common.config import RolloutConfig, TrainConfig
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.core.copris import CoPRISTrainer
+    from repro_torch.data.tasks import EOS, AdditionTask
+    from repro_torch.models import model as M
+    ro = RolloutConfig(batch_size=4, group_size=2, max_prompt_len=16,
+                       max_response_len=24, concurrency=8, mode="copris")
+    base = M.init_params(cfg, seed=6, device="cpu")
+    runs, schedule = {}, None
+    for dev in ("cuda", "cpu"):
+        tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=6, entropy_coef=0.01,
+                         overlap=dev == "cuda")
+        tr = CoPRISTrainer(cfg, ro, tc, AdditionTask(max_value=20, seed=6),
+                           eos_id=EOS, device=dev,
+                           params=tree_map(lambda t: t.to(dev), base))
+        tr.batch_timeout = 300.0
+        if schedule is not None:
+            store, versions = tr.param_store, iter(schedule)
+            store.acquire = lambda: (lambda v: (store.get(v), v))(
+                next(versions))
+        outs, trajs, logps = [], [], []
+        try:
+            for _ in range(steps):
+                outs.append(tr.step())
+                trajs += traj_keys(tr.last_groups)
+                logps += [t.behaviour_logps for grp in tr.last_groups
+                          for t in grp.trajectories]
+        finally:
+            tr.close()
+        if schedule is None:
+            schedule = [o["step"] - o["param_staleness"] for o in outs]
+        runs[dev] = dict(outs=outs, trajs=trajs, logps=logps,
+                         params=[p.detach().cpu() for p in leaves(tr.params)])
+    g, c = runs["cuda"], runs["cpu"]
+    tokens_equal = g["trajs"] == c["trajs"]
+    logp_err = max(float(np.max(np.abs(np.asarray(x) - np.asarray(y))))
+                   for x, y in zip(g["logps"], c["logps"]) if len(x) == len(y))
+    metric_keys = ("pg_loss", "ratio_mean", "approx_kl", "entropy",
+                   "clip_frac", "reward_mean", "off_policy_frac")
+    m_err = max(abs(a[k] - b[k]) for a, b in zip(g["outs"], c["outs"])
+                for k in metric_keys)
+    gn_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                 for a, b in zip(g["outs"], c["outs"]))
+    p_err = max(float((a - b).abs().max())
+                for a, b in zip(g["params"], c["params"]))
+    emit("reference_overlap", config=cfg.name, vocab=cfg.vocab_size,
+         steps=steps, schedule=schedule,
+         trajectories=len(g["trajs"]),
+         tokens_equal=tokens_equal, max_logp_err=logp_err,
+         max_metric_err=m_err, metrics=list(metric_keys), atol=1e-4,
+         grad_norm_rel_err=gn_err, grad_norm_rtol=1e-5,
+         max_param_err=p_err, param_atol=1e-4)
+    if schedule == list(range(steps)):
+        fail("reference_overlap: the GPU run never overlapped")
+    if not (tokens_equal and m_err <= 1e-4 and gn_err <= 1e-5
+            and p_err <= 1e-4):
+        fail("reference_overlap: the overlapped GPU trainer disagrees with "
+             "the CPU replay of its schedule")
+
+
+def reference_multiturn_phase(torch, np, cfg):
+    """Multi-turn engines on the reduced config in float32, the same
+    weights (20 SFT steps on the CPU, so turns end with EOS) and stage key
+    on three engines: GPU dense, GPU paged (8 pages of 16 for 8 slots of
+    max_len 128: admission blocks and preempts), CPU dense. On the common
+    (group_id, sample_idx) keys: equal response tokens, roles and
+    turn_starts, behaviour log-probs within 1e-5."""
+    from repro_torch.common.config import RolloutConfig
+    from repro_torch.common.tree import tree_map
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.data.sft import sft_warmup
+    from repro_torch.data.tasks import EOS, AdditionTask, MultiTurnMathTask
+    from repro_torch.models import model as M
+    from repro_torch.sampling import prng
+    base, _ = sft_warmup(M.init_params(cfg, seed=7, device="cpu"), cfg,
+                         AdditionTask(max_value=20, seed=7), steps=20,
+                         batch_size=32, max_len=24, lr=1e-3)
+    base = tree_map(lambda t: t.detach(), base)
+    res = {}
+    for name, dev, paged in (("gpu_dense", "cuda", False),
+                             ("gpu_paged", "cuda", True),
+                             ("cpu_dense", "cpu", False)):
+        task = MultiTurnMathTask(max_value=9, num_turns=2, seed=3)
+        ro = RolloutConfig(batch_size=4, group_size=2, max_prompt_len=16,
+                           max_response_len=64, concurrency=8, mode="copris",
+                           decode_chunk=8,
+                           kv_backend="paged" if paged else "dense",
+                           kv_page_size=16, kv_num_pages=8)
+        eng = RolloutEngine(cfg, ro, task.sample_prompt, eos_id=EOS,
+                            env_factory=task.make_env, device=dev)
+        try:
+            groups, st = eng.collect(tree_map(lambda t: t.to(dev), base), 0,
+                                     prng.PRNGKey(11))
+        finally:
+            eng.env_worker.shutdown()
+        res[name] = ({(g.group_id, t.sample_idx): t for g in groups
+                      for t in g.trajectories}, st)
+    ref, ref_st = res["cpu_dense"]
+    out = {}
+    ok = True
+    for name in ("gpu_dense", "gpu_paged"):
+        got, st = res[name]
+        common = sorted(set(got) & set(ref))
+        same = all(got[k].response_tokens == ref[k].response_tokens
+                   and got[k].roles == ref[k].roles
+                   and got[k].turn_starts == ref[k].turn_starts
+                   for k in common)
+        err = max((float(np.max(np.abs(np.asarray(got[k].behaviour_logps)
+                                       - np.asarray(ref[k].behaviour_logps))))
+                   for k in common if got[k].response_tokens
+                   == ref[k].response_tokens), default=0.0)
+        multi = sum(ref[k].num_turns > 1 for k in common)
+        out[name] = dict(common=len(common), multi_turn=multi, equal=same,
+                         max_logp_err=err, env_steps=st["env_steps"],
+                         env_turns=st["env_turns"], evicted=st["evicted"],
+                         admission_blocked=st["admission_blocked"],
+                         page_preemptions=st["page_preemptions"])
+        ok = ok and same and err <= 1e-5 and common and multi > 0
+    emit("reference_multiturn", config=cfg.name, engines=out,
+         cpu_dense=dict(env_steps=ref_st["env_steps"],
+                        env_turns=ref_st["env_turns"]), atol=1e-5)
+    pressure = out["gpu_paged"]
+    if not (pressure["admission_blocked"] + pressure["page_preemptions"]
+            > 0):
+        fail("reference_multiturn: the paged engine saw no page pressure")
+    if not ok:
+        fail("reference_multiturn: a GPU engine disagrees with the CPU one")
 
 
 def serve_hybrid_phase(torch, np, serve_mod, arch, kernels, phase, *,
@@ -2056,6 +2452,14 @@ def main() -> int:
             dataclasses.replace(cfg_r, vocab_size=8192, dtype="float32"),
             TrainConfig(lr=1e-3, entropy_coef=0.01, remat=True),
             "train_reference_hybrid")
+    # the overlapped trainer against a CPU replay of its schedule, and the
+    # multi-turn engines on the card against the CPU's
+    reference_overlap_phase(
+        torch, np, dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                                       vocab_size=8192, dtype="float32"))
+    reference_multiturn_phase(
+        torch, np, dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                                       dtype="float32"))
 
     # 5. serve at full width (the main path)
     serve, cfg = serve_mod.make_serve_engine(
@@ -2149,17 +2553,26 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. train at full width, over the dense cache with the fused loss, then
-    # over the paged cache with the legacy loss (this slice's main path)
-    train_launches = train_phase(torch, np, train_kernels)
+    # overlapped and multi-turn, then over the paged cache with the legacy
+    # loss
+    sft = {}
+    train_launches = train_phase(torch, np, train_kernels, keep=sft)
     # the f32 SIMT kernels' launches in the train phase (0: bf16)
     train_simt = {name: fn.simt_launches
                   for name, fn in train_kernels.items()
                   if hasattr(fn, "simt_launches")}
+    # the overlapped pipeline and multi-turn environments, from the train
+    # phase's SFT-warmed weights
+    new_launches = {
+        "train_overlap": train_overlap_phase(torch, np, train_kernels, sft),
+        "train_multiturn": train_multiturn_phase(torch, np, train_kernels,
+                                                 sft)}
+    del sft
     train_paged_launches = train_paged_phase(torch, np, train_paged_kernels)
     train_simt["fused_logprob"] = flp.fused_logprob_rows.simt_launches
 
-    # 7b. the hybrid families trained at full width (this slice's main
-    # path): the scans' forward and backward kernels
+    # 7b. the hybrid families trained at full width: the scans' forward
+    # and backward kernels
     hymba_train = train_phase(torch, np, hymba_train_kernels,
                               arch="hymba-1.5b", phase="train_hymba",
                               steps=2, seed=2, entropy_coef=0.01)
@@ -2239,6 +2652,12 @@ def main() -> int:
         if name in train_simt:
             # launches: the bf16 tensor-core kernels; the f32 SIMT apart
             row["simt_launches"] = train_simt[name]
+        by_phase = {phase: n[name] for phase, n in new_launches.items()
+                    if name in n}
+        if by_phase:
+            # the launches of the overlapped and multi-turn phases, counted
+            # as train's
+            row["launches_by_phase"] = by_phase
         for key in ("library_err", "vs_library", "bound_f32_fma_ms",
                     "int_ops_per_draw", "bytes_bound_ms", "bound_pipe",
                     "bounds_ms", "bit_equal_launches"):

@@ -3,8 +3,11 @@
 Each ported architecture lives in its own module and exposes ``CONFIG``.
 ``get_config(name)`` returns the full config; ``get_smoke_config(name)``
 returns the reduced (<=2 layer, d_model<=512) variant used by the CPU tests.
-Registered: the dense ``attn`` architectures, the hybrid hymba-1.5b and the
-attention-free rwkv6-1.6b.
+Registered: the dense architectures (``attn`` blocks, and gemma2-2b's
+local/global pair), the hybrid hymba-1.5b and the attention-free
+rwkv6-1.6b. On the card the attention kernels take head_dim 32 or 64, so
+of the dense archs with head_dim 128 or 256 (gemma2-2b, qwen3-14b,
+granite-34b, paper-qwen-7b) only the CPU path runs today.
 """
 from __future__ import annotations
 
@@ -18,6 +21,11 @@ _ARCH_MODULES = {
     "small-100m": "small_100m",
     "hymba-1.5b": "hymba_1_5b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "gemma2-2b": "gemma2_2b",
+    "qwen3-14b": "qwen3_14b",
+    "granite-34b": "granite_34b",
+    "musicgen-medium": "musicgen_medium",
+    "paper-qwen-7b": "paper_qwen_7b",
 }
 
 

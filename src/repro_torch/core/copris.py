@@ -6,12 +6,22 @@ gradient accumulation, AdamW); ``CoPRISTrainer`` drives the RL loop on a
 live model: ``RolloutEngine.collect`` → async reward gather →
 ``pack_groups`` → group advantages → loss and its backward → AdamW.
 
-Ported: the sequential pipeline (``overlap=False``): collect, reward
-gather and train inline, with the reference's per-trajectory PRNG streams
-and stage stamps, so a step draws the same tokens as the JAX trainer. The
-overlapped producer thread (``overlap=True``) and the disaggregated
-rollout/train layouts raise ``NotImplementedError`` until their slice; so
-do multi-turn environments (a task with ``make_env``).
+Two pipelines share one code path, as in the reference:
+
+* ``overlap=False`` — the sequential loop: collect, reward gather and train
+  inline, with the reference's per-trajectory PRNG streams and stage
+  stamps, so a step draws the same tokens as the JAX trainer;
+* ``overlap=True`` — a background producer thread runs
+  ``RolloutEngine.collect`` against the freshest version published to the
+  :class:`~repro_torch.core.weight_sync.ParamStore` while the consumer
+  (``step``) trains on a previously collected batch; ``max_staleness``
+  bounds how many optimizer updates the training step may be ahead of the
+  params that generated its batch. On CUDA the producer's kernels run on a
+  stream of their own and the consumer's on another.
+
+Tasks with ``make_env`` (multi-turn environments) run through the async env
+worker in either pipeline. The disaggregated rollout/train layouts are SPMD
+and raise ``NotImplementedError``.
 
 Parameters are float32 master tensors that the trainer owns and updates in
 place (``optim/adam.update``); every update is published to the
@@ -20,7 +30,10 @@ the rollout side acquires.
 """
 from __future__ import annotations
 
+import queue
+import threading
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -33,7 +46,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import leaves, tree_map, unflatten
 from repro_torch.core import grpo
 from repro_torch.core.importance import pack_groups
-from repro_torch.core.reward_worker import AsyncRewardWorker
+from repro_torch.core.reward_worker import AsyncEnvWorker, AsyncRewardWorker
 from repro_torch.core.rollout import RolloutEngine
 from repro_torch.core.scheduler import AdaptiveConcurrencyController
 from repro_torch.core.weight_sync import ParamStore
@@ -162,33 +175,72 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 
 @dataclass
 class _StageBatch:
-    """One collected rollout stage."""
+    """One collected rollout stage, in flight between producer and consumer."""
 
+    collect_idx: int        # 0-based index of this collect within the run
     params_version: int     # trainer.stage baked into the rollout params
     groups: List = field(default_factory=list)
     roll_stats: dict = field(default_factory=dict)
 
 
+class ThreadSafeTask:
+    """Serialises ``sample_prompt`` against the rollout producer thread.
+
+    Tasks draw prompts from a numpy ``Generator``, which is NOT thread-safe;
+    with ``overlap=True`` the producer samples prompts continuously while the
+    main thread may run ``evaluate``/pass@k on the same task. Everything else
+    (``reward`` etc.) passes through untouched — rewards must already be
+    pure/concurrent-safe for the async reward pool.
+    """
+
+    def __init__(self, task, lock: threading.Lock):
+        self._task = task
+        self._lock = lock
+
+    def sample_prompt(self):
+        with self._lock:
+            return self._task.sample_prompt()
+
+    def __getattr__(self, name):
+        return getattr(self._task, name)
+
+
+def _on(stream):
+    """``torch.cuda.stream(stream)``, or no change for ``None``."""
+    return torch.cuda.stream(stream) if stream is not None else nullcontext()
+
+
 class CoPRISTrainer:
-    """The sequential RL loop on one device (the card unless
-    ``device="cpu"``). The trainer takes ownership of ``params`` and updates
-    them in place."""
+    """The RL loop on one device (the card unless ``device="cpu"``). The
+    trainer takes ownership of ``params`` and updates them in place.
+
+    With ``tcfg.overlap`` a background producer thread owns the rollout
+    engine and feeds ``step()`` through a bounded queue; ``close()`` (or the
+    context-manager exit) shuts the pipeline down. On CUDA the producer
+    runs every collect on a stream of its own and the consumer trains on
+    another, so the update's kernels and the rollout's run side by side;
+    weights cross between the two only through the ``ParamStore``, whose
+    versions are fenced by an event. ``overlap=False`` runs the identical
+    logic inline on the caller's stream and reproduces the sequential
+    trainer bit-for-bit."""
 
     def __init__(self, model_cfg: ModelConfig, ro_cfg: RolloutConfig,
                  tcfg: TrainConfig, task, *, eos_id: int, key=None,
                  params=None, device=None):
-        if tcfg.overlap or tcfg.disaggregated:
+        if tcfg.disaggregated:
             raise NotImplementedError(
-                "overlap=True (the producer thread) and disaggregated=True "
-                "come with a later slice of the port; use overlap=False")
-        if hasattr(task, "make_env"):
-            raise NotImplementedError(
-                "multi-turn environments come with a later slice of the port")
+                "disaggregated=True (the train-to-rollout reshard between "
+                "separate meshes) is SPMD and is not ported; on one device "
+                "use overlap=True")
         self.cfg = model_cfg
         self.ro = ro_cfg
         self.tcfg = tcfg
         self.task = task
         self.device = resolve_device(device)
+        # all trainer-originated sample_prompt calls go through this proxy
+        # (producer thread during overlapped rollout, main thread during
+        # evaluate) — hand it to external eval helpers too
+        self.safe_task = ThreadSafeTask(task, threading.Lock())
         # the reference's key schedule: PRNGKey(seed) -> split -> one split
         # per collect (the init half is unused: weights come from `params`
         # or the port's own seeded init)
@@ -197,52 +249,184 @@ class CoPRISTrainer:
         if params is None:
             params = M.init_params(model_cfg, seed=tcfg.seed,
                                    device=self.device)
-        self.params = tree_map(
-            lambda t: t.detach().to(self.device).requires_grad_(), params)
-        self.opt_state = adam.init(self.params)
+
+        # ---- overlapped-pipeline state -------------------------------
+        self.overlap = tcfg.overlap
+        self.max_staleness = tcfg.max_staleness
+        # how long step() may wait on the producer before declaring the
+        # pipeline wedged (None = wait forever; tests set a finite value)
+        self.batch_timeout: Optional[float] = None
+        # CUDA streams of the overlapped pipeline: the producer collects on
+        # one, the consumer trains on the other (None: the caller's current
+        # stream, sequentially). Both start after the work queued so far.
+        self.rollout_stream = self.train_stream = None
+        if self.overlap and self.device.type == "cuda":
+            current = torch.cuda.current_stream(self.device)
+            self.rollout_stream = torch.cuda.Stream(self.device)
+            self.train_stream = torch.cuda.Stream(self.device)
+            self.rollout_stream.wait_stream(current)
+            self.train_stream.wait_stream(current)
+
         timeout = ro_cfg.env_step_timeout or None
         self.reward_worker = AsyncRewardWorker(task.reward, timeout=timeout)
-        self.engine = RolloutEngine(model_cfg, ro_cfg, task.sample_prompt,
-                                    eos_id=eos_id,
-                                    on_finish=self.reward_worker.submit,
-                                    device=self.device)
+        # multi-turn: a task exposing make_env(spec) routes every turn
+        # through the async env pool — the engine yields decode slots while
+        # episodes wait on their environments. make_env must be a pure
+        # function of the spec (no task RNG), so no ThreadSafeTask guard.
+        self.env_worker = None
+        env_factory = None
+        if hasattr(task, "make_env"):
+            self.env_worker = AsyncEnvWorker(timeout=timeout)
+            env_factory = task.make_env
+        with _on(self.rollout_stream):     # the KV cache: rollout's memory
+            self.engine = RolloutEngine(model_cfg, ro_cfg,
+                                        self.safe_task.sample_prompt,
+                                        eos_id=eos_id,
+                                        on_finish=self.reward_worker.submit,
+                                        env_factory=env_factory,
+                                        env_worker=self.env_worker,
+                                        device=self.device)
         self._train_step = make_train_step(model_cfg, tcfg)
         self.stage = 0
         self.history = []
         self.last_groups: List = []
         self.last_batch: Optional[dict] = None
 
-        self.param_store = ParamStore(max_versions=tcfg.max_staleness + 1)
-        self.param_store.publish(self.params, self.stage)
+        # ---- versioned weight sync (ParamStore) ----------------------
+        # ALL producer/consumer param handoff goes through the store: the
+        # consumer publishes version = stage after every update, the
+        # producer / evaluate acquire the freshest. max_staleness bounds
+        # the pipeline depth, so K+1 versions cover every batch still in
+        # flight — older ones are dropped at publish.
+        self.param_store = ParamStore(max_versions=self.max_staleness + 1)
+        with _on(self.train_stream):
+            self.params = tree_map(
+                lambda t: t.detach().to(self.device).requires_grad_(),
+                params)
+            self.opt_state = adam.init(self.params)
+            self.param_store.publish(self.params, self.stage)
 
+        # ---- overlap-aware adaptive N' -------------------------------
+        # observe() runs on the consumer thread between stages; the
+        # producer reads the plain-int target at collect start (GIL-atomic)
         self._concurrency_ctrl = (AdaptiveConcurrencyController(ro_cfg)
                                   if ro_cfg.adaptive_concurrency else None)
         self._concurrency_target: Optional[int] = (
             self._concurrency_ctrl.target if self._concurrency_ctrl else None)
 
+        self._progress = threading.Condition()
+        self._batches: "queue.Queue[_StageBatch]" = queue.Queue(
+            maxsize=self.max_staleness + 1)
+        self._producer: Optional[threading.Thread] = None
+        self._producer_exc: Optional[Exception] = None
+        self._collect_idx = 0                 # next collect, producer-owned
+        self._trained_batches = 0             # consumed collects
+        # store totals already reported, so step metrics emit per-step deltas
         self._reported_dropped = self.param_store.stats_snapshot()["dropped"]
+        self._stop = threading.Event()
         self._closed = False
 
     # ------------------------------------------------------------------
-    def _collect_stage(self, params, version: int) -> _StageBatch:
-        self.key, k_roll = prng.split(self.key)
+    # rollout production (caller thread when sequential, producer thread
+    # when overlapped — never both in a given mode, but a caller may split
+    # the key while a producer is mid-collect, so the split-and-advance is
+    # guarded)
+    # ------------------------------------------------------------------
+    def _next_rollout_key(self):
+        with self._progress:
+            self.key, k = prng.split(self.key)
+        return k
+
+    def _collect_stage(self, params, version: int, idx: int) -> _StageBatch:
+        k_roll = self._next_rollout_key()
         groups, roll_stats = self.engine.collect(
             params, version, k_roll,
             target_concurrency=self._concurrency_target)
-        return _StageBatch(params_version=version, groups=groups,
-                           roll_stats=roll_stats)
+        return _StageBatch(collect_idx=idx, params_version=version,
+                           groups=groups, roll_stats=roll_stats)
+
+    def _producer_loop(self):
+        try:
+            while not self._stop.is_set():
+                # staleness gate: collect ``idx`` trains as the ``idx``-th
+                # consumed batch, so its params snapshot may lag the
+                # training stage by at most max_staleness updates
+                with self._progress:
+                    idx = self._collect_idx
+                    while (self._trained_batches < idx - self.max_staleness
+                           and not self._stop.is_set()):
+                        self._progress.wait(timeout=0.1)
+                if self._stop.is_set():
+                    return
+                # freshest published version, fenced for the rollout stream;
+                # the collect (the bf16 cast of prepare_params included)
+                # runs on that stream
+                with _on(self.rollout_stream):
+                    params, version = self.param_store.acquire()
+                    item = self._collect_stage(params, version, idx)
+                del params       # a dropped version is freed while we wait
+                with self._progress:
+                    self._collect_idx = idx + 1
+                while not self._stop.is_set():
+                    try:
+                        self._batches.put(item, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+        except Exception as e:               # surfaced by _next_batch
+            self._producer_exc = e
+
+    def _ensure_producer(self):
+        if self._closed:
+            raise RuntimeError("trainer is closed")
+        if self._producer is None:
+            self._producer = threading.Thread(target=self._producer_loop,
+                                              name="copris-rollout",
+                                              daemon=True)
+            self._producer.start()
+
+    def _next_batch(self) -> _StageBatch:
+        deadline = (None if self.batch_timeout is None
+                    else time.perf_counter() + self.batch_timeout)
+        while True:
+            try:
+                return self._batches.get(timeout=0.2)
+            except queue.Empty:
+                pass
+            if self._producer_exc is not None:
+                raise RuntimeError("rollout producer failed") \
+                    from self._producer_exc
+            if self._producer is not None and not self._producer.is_alive():
+                raise RuntimeError("rollout producer exited without a batch")
+            if deadline is not None and time.perf_counter() > deadline:
+                raise TimeoutError(
+                    f"no rollout batch within {self.batch_timeout}s — "
+                    "overlapped pipeline wedged?")
 
     # ------------------------------------------------------------------
     def step(self) -> dict:
-        """One training step: collect inline, gather rewards, train."""
+        """One training step. Sequential mode collects inline; overlapped
+        mode consumes the producer's next batch (collected under params up
+        to ``max_staleness`` updates behind the ones being trained)."""
         if self._closed:
             raise RuntimeError("trainer is closed")
         t0 = time.perf_counter()
-        # the freshest published version: (self.params, self.stage) here
-        params, version = self.param_store.acquire()
-        item = self._collect_stage(params, version)
+        if self.overlap:
+            self._ensure_producer()
+            item = self._next_batch()
+        else:
+            # same handoff as the producer thread: freshest published
+            # version — identical to (self.params, self.stage) here, since
+            # the sequential consumer is the only publisher
+            params, version = self.param_store.acquire()
+            with self._progress:
+                idx = self._collect_idx
+            item = self._collect_stage(params, version, idx)
+            with self._progress:
+                self._collect_idx += 1
         t_collected = time.perf_counter()
-        out = self._train_on(item, t0, t_collected)
+        with _on(self.train_stream):
+            out = self._train_on(item, t0, t_collected)
         self.history.append(out)
         return out
 
@@ -258,7 +442,8 @@ class CoPRISTrainer:
                   t_collected: float) -> dict:
         groups, roll_stats = item.groups, item.roll_stats
         # rewards were computed asynchronously during rollout; gather
-        # resolves any stragglers
+        # resolves any stragglers and runs on the CONSUMER thread, so the
+        # producer keeps submitting stage k+1 rewards while stage k gathers
         self.reward_worker.gather(groups)
         t_reward = time.perf_counter()
 
@@ -268,11 +453,20 @@ class CoPRISTrainer:
                                       warmup_steps=self.tcfg.warmup_steps)
         self.params, self.opt_state, metrics = self._train_step(
             self.params, self.opt_state, self._batch_tensors(batch), lr)
+        # publish the update as a new version for the producer, then wake
+        # its staleness gate. Only the consumer thread mutates
+        # params/opt_state/stage; the producer reads exclusively through
+        # the store (fenced copies), so no lock is needed around them.
         self.stage = train_stage + 1
         self.param_store.publish(self.params, self.stage)
-        # kernels run asynchronously: wait for the update before stamping
-        # t_end, so update_time covers the device work
-        self.engine.block_until_ready()
+        with self._progress:
+            self._trained_batches += 1
+            self._progress.notify_all()
+        # kernels run asynchronously: wait for the update (this stream only,
+        # never the rollout's) before stamping t_end, so update_time covers
+        # the update's device work and nothing of the rollout's
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
         t_end = time.perf_counter()
 
         # staleness relative to the CONSUMING training stage
@@ -285,6 +479,8 @@ class CoPRISTrainer:
         off_tokens = int((gaps > 0).sum())
 
         out = {k: float(v) for k, v in metrics.items()}
+        # ONE consistent counter snapshot for both the reported delta and
+        # the new reported total
         ps_stats = self.param_store.stats_snapshot()
         rollout_time = roll_stats["wall_time"]
         update_time = t_end - t_reward
@@ -295,8 +491,6 @@ class CoPRISTrainer:
                 rollout_time=rollout_time,
                 train_time=t_end - t_collected,
                 evicted=roll_stats["evicted"])
-        # the reference's metric keys; the overlap, reshard and environment
-        # ones are 0 in the sequential, single-turn pipeline
         out.update(
             step=train_stage,
             reward_mean=float(batch["rewards"].mean()),
@@ -309,21 +503,33 @@ class CoPRISTrainer:
             step_time=step_time,
             off_policy_frac=off_tokens / max(1, n_resp),
             staleness_hist=staleness_hist,
+            # optimizer updates between the batch's rollout params and the
+            # params trained on it: 0 sequentially, <= max_staleness overlapped
             param_staleness=train_stage - item.params_version,
-            batch_wait_time=0.0,
-            overlap_saved_time=0.0,
+            batch_wait_time=(t_collected - t0 if self.overlap else 0.0),
+            # what the sequential pipeline would have paid on top of this
+            # step's wall-clock (rollout ran concurrently with the previous
+            # train step)
+            overlap_saved_time=(max(0.0, rollout_time + reward_time
+                                    + update_time - step_time)
+                                if self.overlap else 0.0),
             multi_stage_trajs=roll_stats["multi_stage_trajs"],
             utilization=roll_stats["utilization"],
             buffer_unfinished=roll_stats["buffer_unfinished"],
             concurrency_target=roll_stats["concurrency_target"],
             param_store_versions=self.param_store.num_versions,
             dropped_versions=ps_stats["dropped"] - self._reported_dropped,
-            reshard_time=0.0,
+            reshard_time=0.0,          # no disaggregated reshard on one device
             mean_resp_len=float(np.mean([len(t.response_tokens)
                                          for g in groups
                                          for t in g.trajectories])),
-            env_steps=0, env_turns=0, env_failures=0, env_wait_time=0.0,
-            env_timeouts=0,
+            # multi-turn environment accounting (all 0 for single-turn)
+            env_steps=roll_stats["env_steps"],
+            env_turns=roll_stats["env_turns"],
+            env_failures=roll_stats["env_failures"],
+            env_wait_time=roll_stats["env_wait_time"],
+            env_timeouts=(self.env_worker.stats_snapshot()["env_timeouts"]
+                          if self.env_worker is not None else 0),
         )
         self._reported_dropped = ps_stats["dropped"]
         self.last_groups = groups
@@ -333,34 +539,59 @@ class CoPRISTrainer:
     # ------------------------------------------------------------------
     def restore(self, *, params=None, opt_state=None, stage=None):
         """Resume from checkpoint state: copy the given values into the
-        trainer's tensors and republish through the ParamStore. Must be
-        called before the first ``step()``."""
-        if params is not None:
-            with torch.no_grad():
+        trainer's tensors and republish through the ParamStore, so the
+        rollout side acquires the restored weights. Must be called before
+        the first ``step()``."""
+        if self._producer is not None:
+            raise RuntimeError("restore() after the producer started — "
+                               "restore before the first step()")
+        with _on(self.train_stream), torch.no_grad():
+            if params is not None:
                 for dst, src in zip(leaves(self.params), leaves(params)):
                     dst.copy_(src)
-        if opt_state is not None:
-            with torch.no_grad():
+            if opt_state is not None:
                 for name in ("m", "v", "step"):
                     for dst, src in zip(leaves(self.opt_state[name]),
                                         leaves(opt_state[name])):
                         dst.copy_(src)
-        if stage is not None:
-            if stage < self.stage:
-                raise ValueError(
-                    f"restore to stage {stage} < current {self.stage}: "
-                    "ParamStore versions are strictly monotonic — build a "
-                    "fresh trainer to rewind")
-            self.stage = stage
-        self.param_store.publish(self.params, self.stage, replace=True)
+            if stage is not None:
+                if stage < self.stage:
+                    raise ValueError(
+                        f"restore to stage {stage} < current {self.stage}: "
+                        "ParamStore versions are strictly monotonic — build "
+                        "a fresh trainer to rewind")
+                self.stage = stage
+            self.param_store.publish(self.params, self.stage, replace=True)
 
     # ------------------------------------------------------------------
     def close(self):
-        """Stop the reward pool. Idempotent."""
+        """Stop the producer thread, the reward pool and the env pool, and
+        wait for both streams' queued work. Idempotent."""
         if self._closed:
             return
         self._closed = True
+        self._stop.set()
+        with self._progress:
+            self._progress.notify_all()
+        if self._producer is not None:
+            # drain so a blocked put() observes the stop flag
+            while self._producer.is_alive():
+                try:
+                    self._batches.get_nowait()
+                except queue.Empty:
+                    pass
+                self._producer.join(timeout=0.2)
+        while True:                    # batches nobody will train on
+            try:
+                self._batches.get_nowait()
+            except queue.Empty:
+                break
         self.reward_worker.shutdown()
+        if self.env_worker is not None:
+            self.env_worker.shutdown()
+        for stream in (self.rollout_stream, self.train_stream):
+            if stream is not None:
+                stream.synchronize()
 
     def __enter__(self):
         return self
@@ -372,8 +603,11 @@ class CoPRISTrainer:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def evaluate(self, n_prompts: int = 32) -> float:
-        """Greedy accuracy on fresh task prompts (exact reward)."""
+        """Greedy accuracy on fresh task prompts (exact reward), on the
+        caller's stream, through ``safe_task`` (the producer may be
+        sampling prompts meanwhile)."""
         eos_id = self.engine.eos_id
+        # evaluate is a rollout-side consumer: freshest published version
         params, _ = self.param_store.acquire()
         params = self.engine.prepare_params(params)
         dev = self.device
@@ -381,7 +615,7 @@ class CoPRISTrainer:
         for _ in range(n_prompts):
             cache = M.init_cache(self.cfg, 1, self.engine.max_len,
                                  device=dev)
-            prompt, answer = self.task.sample_prompt()
+            prompt, answer = self.safe_task.sample_prompt()
             L = len(prompt)
             pad = np.zeros(-(-L // 16) * 16, np.int32)
             pad[:L] = prompt

@@ -25,8 +25,17 @@ on host state) and shipped with each chunk's inputs.
 
 Modes: "copris" | "sync" | "naive_partial", over the dense or the paged KV
 backend (page-gated admission, preemption under page pressure, prefix
-sharing with copy-on-write). Multi-turn environments are a later slice of
-the port.
+sharing with copy-on-write).
+
+Multi-turn environments (``env_factory``): a model turn that stops yields
+its slot and hands the turn to the :class:`AsyncEnvWorker`; at the next
+chunk boundary the observation is appended with role 0 and the trajectory
+goes back to the scheduler, whose next dispatch re-prefills it.
+
+Streams: every kernel and copy runs on the caller's current CUDA stream,
+and :meth:`RolloutEngine.block_until_ready` waits for that stream only, so
+a producer thread that drives the engine under its own stream (the
+overlapped trainer) never waits for the consumer's update.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import torch
 from repro_torch.common.config import ModelConfig, RolloutConfig
 from repro_torch.common.device import resolve_device, torch_dtype
 from repro_torch.core.buffer import TrajectoryBuffer
+from repro_torch.core.reward_worker import AsyncEnvWorker
 from repro_torch.core.scheduler import ConcurrencyScheduler
 from repro_torch.core.trajectory import Group, Trajectory
 from repro_torch.hopper import fused_sample
@@ -93,17 +103,26 @@ class RolloutEngine:
                  prompt_source: Callable[[], Tuple[np.ndarray, object]], *,
                  eos_id: int, max_len: Optional[int] = None,
                  on_finish: Optional[Callable] = None,
-                 env_factory: Optional[Callable] = None, device=None):
-        if env_factory is not None:
-            raise NotImplementedError(
-                "multi-turn environments (env_factory) are a later slice of "
-                "the port")
+                 env_factory: Optional[Callable] = None,
+                 env_worker: Optional[AsyncEnvWorker] = None, device=None):
         self.cfg = model_cfg
         self.ro = ro_cfg
         self.prompt_source = prompt_source
         self.eos_id = eos_id
         self.on_finish = on_finish      # async-reward hook: (traj, answer)
         self._answers = {}
+        # ---- multi-turn environments -----------------------------------
+        # env_factory(spec) -> Environment (spec = the prompt source's
+        # answer slot). When set, every EOS/length stop yields the slot and
+        # hands the finished turn to the AsyncEnvWorker; observations are
+        # integrated (and the trajectory re-prefilled) at chunk boundaries.
+        # None preserves the single-turn path bit-exactly.
+        self.env_factory = env_factory
+        self.env_worker = env_worker
+        if env_factory is not None and env_worker is None:
+            self.env_worker = AsyncEnvWorker(
+                timeout=ro_cfg.env_step_timeout or None)
+        self._env_pending = {}          # traj_id -> parked Trajectory
         self.device = resolve_device(device)
         self.dtype = torch_dtype(model_cfg.dtype)
         self.pool = ro_cfg.slot_pool
@@ -151,9 +170,12 @@ class RolloutEngine:
             return dict(self.stats_total)
 
     def block_until_ready(self):
-        """Wait for all work queued on the engine's device."""
+        """Wait for the work queued on the engine's stream: the caller's
+        current CUDA stream (the producer's in the overlapped trainer), not
+        the whole device, so a concurrent update on another stream is not
+        waited for."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def prepare_params(self, params):
         """Parameters in the engine's compute dtype and on its device (the
@@ -189,6 +211,78 @@ class RolloutEngine:
             self.on_finish(traj, self._answers.get(traj.group_id))
         sched.release(traj)
 
+    def _stop_slot(self, traj: Trajectory, reason: str,
+                   sched: ConcurrencyScheduler):
+        """A slot-resident trajectory hit a stop (EOS / length). Single-turn:
+        the episode is over. Multi-turn: the TURN is over — yield the slot
+        (the caller frees it, returning its pages to continuous-batching
+        admission) and hand the turn to the async environment."""
+        if self.env_factory is None:
+            self._finish(traj, reason, sched)
+            return
+        if traj.env is None:
+            traj.env = self.env_factory(self._answers.get(traj.group_id))
+            traj.env.reset()
+        traj.awaiting_env = True
+        # a length stop means the response budget is exhausted: the pending
+        # env step is the episode's last (reward still counts, observation
+        # is discarded — there is no room to decode another turn)
+        traj.env_final = traj.env_final or reason == "length"
+        sched.release(traj)
+        self._env_pending[traj.traj_id] = traj
+        self.env_worker.submit(traj.traj_id, traj.env.step,
+                               traj.turn_tokens())
+        self._stats["env_steps"] += 1
+
+    def _finish_episode(self, traj: Trajectory, sched: ConcurrencyScheduler):
+        """Close a multi-turn episode: the env-accumulated return IS the
+        reward (no on_finish — the reward worker has nothing to score)."""
+        traj.awaiting_env = False
+        traj.done = True
+        traj.finish_reason = "length" if traj.env_final else "env_done"
+        traj.reward = float(traj.env_return)
+        sched.release(traj)
+
+    def _poll_env(self, sched: ConcurrencyScheduler, *, block: bool = False):
+        """Integrate finished environment steps (engine thread only): append
+        observations and return trajectories to the dispatch pool, or close
+        episodes the env declared done. Timeouts / raising env fns end the
+        episode with the reward accumulated so far — never a wedged stage."""
+        if not self._env_pending:
+            return
+        if block:
+            t0 = time.perf_counter()
+            self.env_worker.wait(0.05)
+            self._stats["env_wait_time"] += time.perf_counter() - t0
+        finished = False
+        for key, ok, val in self.env_worker.poll():
+            traj = self._env_pending.pop(key, None)
+            if traj is None:
+                continue
+            traj.awaiting_env = False
+            if not ok:
+                self._stats["env_failures"] += 1
+                traj.env_final = True
+                obs, done = np.empty(0, np.int32), True
+            else:
+                obs, r, done = val
+                obs = np.asarray(obs, np.int32).reshape(-1)
+                traj.env_return += float(r)
+            if not done and not traj.env_final:
+                # room check: the next turn needs the observation plus at
+                # least one decodable model token inside both length budgets
+                if (traj.response_len + len(obs) >= self.ro.max_response_len
+                        or traj.total_len + len(obs) >= self.max_len - 1):
+                    traj.env_final = True
+                else:
+                    traj.append_env(obs, self._stage)
+                    self._stats["env_turns"] += 1
+                    continue           # resumable: next dispatch re-prefills
+            self._finish_episode(traj, sched)
+            finished = True
+        if finished:
+            sched.harvest()
+
     def _maybe_done(self, traj: Trajectory) -> Optional[str]:
         if not traj.response_tokens:
             return None
@@ -196,7 +290,10 @@ class RolloutEngine:
             traj.response_tokens[-1], traj.response_len, traj.total_len,
             eos_id=self.eos_id, max_response_len=self.ro.max_response_len,
             max_len=self.max_len)
-        if eos:
+        # an environment observation can legally contain the EOS id; only a
+        # MODEL-sampled EOS ends a turn (device decode only ever samples
+        # model tokens, so the device/host stop predicates stay in lockstep)
+        if eos and traj.roles[-1] == 1:
             return "eos"
         if length:
             return "length"
@@ -274,7 +371,7 @@ class RolloutEngine:
                     self._resume_snapshot(i, traj)   # allocates pages now
                     reason = self._maybe_done(traj)
                     if reason is not None:
-                        self._finish(traj, reason, sched)
+                        self._stop_slot(traj, reason, sched)
                         self.slots[i] = None
                         self.backend.free_slot(i)
                         sched.harvest()
@@ -418,7 +515,7 @@ class RolloutEngine:
             finished = self._prefill_pending(pending, params, stage_key)
             freed = []
             for i, traj, reason in finished:
-                self._finish(traj, reason, sched)
+                self._stop_slot(traj, reason, sched)
                 self.slots[i] = None
                 self.backend.free_slot(i)
                 freed.append(i)
@@ -580,7 +677,9 @@ class RolloutEngine:
                                decode_chunks=0, host_syncs=0,
                                active_slot_steps=0, slot_steps=0, generated=0,
                                overgen_tokens=0, resumed=0, evicted=0,
-                               admission_blocked=0, page_preemptions=0)
+                               admission_blocked=0, page_preemptions=0,
+                               env_steps=0, env_turns=0, env_failures=0,
+                               env_wait_time=0.0)
             self._reserved_pages = 0
             self._reservations.clear()
             self._t0 = time.perf_counter()
@@ -604,23 +703,36 @@ class RolloutEngine:
         Returns False when the engine is idle — nothing live in the pool.
         ``admit_idle`` re-offers idle slots to the scheduler before decoding
         (default: on for the paged backend, whose admission gate and
-        preemption can idle slots mid-stage; serving callers pass True so
+        preemption can idle slots mid-stage, and with environments, whose
+        turns yield their slots; serving callers pass True so
         requests submitted between steps are admitted immediately). The
         stage's params were prepared by :meth:`begin_stage`; ``params`` is
         accepted for API parity."""
         sched = self._sched
         stage_id = self._stage
         params = self._params
-        # the reference's default is `is_paged or has_env`; environments
-        # are a later slice of the port
-        admit = self.backend.is_paged if admit_idle is None else admit_idle
+        # integrate environment observations FIRST: returned trajectories
+        # become resumable before this round's idle slots are re-offered
+        self._poll_env(sched)
+        has_env = self.env_factory is not None
+        admit = ((self.backend.is_paged or has_env)
+                 if admit_idle is None else admit_idle)
         if admit and not sched.done:
+            # slots idled by an admission block, a page preemption, an empty
+            # request queue, or an env-yielded turn are re-offered every
+            # chunk boundary
             idle = [i for i in range(self.pool) if self.slots[i] is None]
             if idle:
                 self._prefill_rounds(
                     self._dispatch_refills(idle, sched), sched, params, key)
         live = np.array([t is not None for t in self.slots], bool)
         if not live.any():
+            if self._env_pending and not sched.done:
+                # every in-flight trajectory is parked on its environment:
+                # block briefly for an observation instead of spinning (the
+                # worker's per-submit timeout bounds the total wait)
+                self._poll_env(sched, block=True)
+                return True
             return False               # nothing in flight and scheduler idle
         if self.backend.is_paged:
             live = self._prepare_decode_pages(live, sched)
@@ -657,7 +769,7 @@ class RolloutEngine:
                 self._stats["generated"] += 1
                 reason = self._maybe_done(traj)
                 if reason:
-                    self._finish(traj, reason, sched)
+                    self._stop_slot(traj, reason, sched)
                     self.slots[i] = None
                     self.backend.free_slot(i)
                     live[i] = False

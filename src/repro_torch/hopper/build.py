@@ -8,15 +8,21 @@ sources and flags, so an edited source is rebuilt and an unchanged one is
 reused. Nothing is built when a module is imported: :func:`library` builds on
 first use, and :func:`build_all` builds every kernel at once, one ``nvcc``
 process per source, all started together.
+
+Kernels are launched from more than one thread (the overlapped trainer's
+rollout producer and its consumer), so a first build takes a lock (two
+threads building one source would write the same temporary file), and each
+wrapper counts its launches through :func:`count`, under a lock, so the
+counts stay exact.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -142,36 +148,57 @@ def _finish(name: str, job) -> None:
     os.replace(tmp, out)       # atomic: a concurrent build never sees half a file
 
 
+_BUILD_LOCK = threading.Lock()    # held while nvcc writes a library
+_LIBRARIES: Dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
+
+
 def build_all() -> Dict[str, float]:
     """Compile every kernel source in parallel; returns {name: seconds}
     (0.0 for a library that was already built)."""
-    t0 = time.perf_counter()
-    jobs = {name: _start(name) for name in KERNELS}
-    secs = {name: 0.0 for name, job in jobs.items() if job is None}
-    running = {name: job for name, job in jobs.items() if job is not None}
-    while running:
-        for name, job in list(running.items()):
-            if job[0].poll() is not None:
-                _finish(name, job)
-                secs[name] = time.perf_counter() - t0
-                del running[name]
-        time.sleep(0.05)
-    return secs
+    with _BUILD_LOCK:
+        t0 = time.perf_counter()
+        jobs = {name: _start(name) for name in KERNELS}
+        secs = {name: 0.0 for name, job in jobs.items() if job is None}
+        running = {name: job for name, job in jobs.items() if job is not None}
+        while running:
+            for name, job in list(running.items()):
+                if job[0].poll() is not None:
+                    _finish(name, job)
+                    secs[name] = time.perf_counter() - t0
+                    del running[name]
+            time.sleep(0.05)
+        return secs
 
 
-@functools.cache
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source ``name`` (built on first use),
-    with its C entry points' argument and return types declared."""
-    job = _start(name)
-    if job is not None:
-        _finish(name, job)
-    lib = ctypes.CDLL(str(_lib_path(name)))
-    for fn_name, argtypes in KERNELS[name].items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    """The loaded library of kernel source ``name`` (built on first use,
+    by one thread at a time), with its C entry points' argument and return
+    types declared."""
+    lib = _LIBRARIES.get(name)
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        if name not in _LIBRARIES:
+            job = _start(name)
+            if job is not None:
+                _finish(name, job)
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn_name, argtypes in KERNELS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _LIBRARIES[name] = lib
+        return _LIBRARIES[name]
+
+
+def count(fn, *extra: str, key: str = "launches") -> None:
+    """Add one launch to the counter ``key`` of wrapper ``fn`` and to each
+    counter named in ``extra``. A bare ``+= 1`` is a read and a write, and
+    loses counts when two threads launch at once."""
+    with _COUNT_LOCK:
+        for k in (key,) + extra:
+            setattr(fn, k, getattr(fn, k) + 1)
 
 
 def library_log(name: str) -> str:

@@ -31,7 +31,11 @@ def split_workspace(device, B, H, KV, hd, length):
     B * H * ceil(length / DECODE_CHUNK) partials of hd + 2 values, and B *
     KV int32 counters, zero between calls (the kernel resets them). Kept per
     (device, stream): calls on one stream are ordered, so they can share
-    it."""
+    it, and threads that decode on streams of their own (the overlapped
+    trainer's rollout producer beside ``evaluate`` on the caller's stream)
+    never share one. A set outgrown on a stream is dropped while that
+    stream may still read it, which is safe: the caching allocator reuses
+    its memory only for work queued later on the same stream."""
     floats = B * H * -(-length // DECODE_CHUNK) * (hd + 2)
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     acc, tickets = _WORKSPACES.get(key, (None, None))
@@ -112,7 +116,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
             int(window), float(attn_softcap), float(scale), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "decode_attn_fwd")
-    decode_attention.launches += 1
+    build.count(decode_attention)
     return out
 
 

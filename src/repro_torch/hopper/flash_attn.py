@@ -75,9 +75,7 @@ def _check_kernel(name, q, *tensors):
 
 
 def _count(fn, dtype):
-    fn.launches += 1
-    if dtype == torch.float32:
-        fn.simt_launches += 1
+    build.count(fn, *(("simt_launches",) if dtype == torch.float32 else ()))
 
 
 def _forward(q, k, v, causal, window, attn_softcap, scale, want_lse):

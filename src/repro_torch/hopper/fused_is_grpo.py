@@ -248,9 +248,7 @@ def fused_is_grpo_fwd_rows(hidden, w, targets, behaviour, adv, *,
             math.log(is_ratio_cap), float(entropy_coef),
             torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check(err, "fused_is_grpo_fwd")
-    fused_is_grpo_fwd_rows.launches += 1
-    if not tc:
-        fused_is_grpo_fwd_rows.simt_launches += 1
+    build.count(fused_is_grpo_fwd_rows, *(() if tc else ("simt_launches",)))
     return tuple(outs)
 
 
@@ -286,9 +284,7 @@ def fused_is_grpo_bwd_dh_rows(hidden, w, targets, lse, ebar, a, e, *,
             err = lib.fused_is_grpo_bwd_dh(*args, _H_DTYPES[hidden.dtype],
                                            float(logit_softcap), stream)
     build.check(err, "fused_is_grpo_bwd_dh")
-    fused_is_grpo_bwd_dh_rows.launches += 1
-    if not tc:
-        fused_is_grpo_bwd_dh_rows.simt_launches += 1
+    build.count(fused_is_grpo_bwd_dh_rows, *(() if tc else ("simt_launches",)))
     return dl, dh
 
 
@@ -317,9 +313,7 @@ def fused_is_grpo_bwd_dw_rows(hidden, dl, dw, *, accumulate=False):
             dw_sv, _H_DTYPES[hidden.dtype], int(accumulate),
             torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check(err, "fused_is_grpo_bwd_dw")
-    fused_is_grpo_bwd_dw_rows.launches += 1
-    if not tc:
-        fused_is_grpo_bwd_dw_rows.simt_launches += 1
+    build.count(fused_is_grpo_bwd_dw_rows, *(() if tc else ("simt_launches",)))
     return dw
 
 

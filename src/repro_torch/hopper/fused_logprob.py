@@ -82,9 +82,7 @@ def fused_logprob_rows(hidden, w, targets, *, logit_softcap=0.0):
             float(logit_softcap),
             torch.cuda.current_stream(hidden.device).cuda_stream)
     build.check(err, "fused_logprob_fwd")
-    fused_logprob_rows.launches += 1
-    if not tc:
-        fused_logprob_rows.simt_launches += 1
+    build.count(fused_logprob_rows, *(() if tc else ("simt_launches",)))
     return logp, lse
 
 

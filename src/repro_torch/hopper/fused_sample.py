@@ -137,7 +137,7 @@ def sample_rows(keys, logits, *, temperature: float = 1.0, top_p: float = 1.0,
     out = launch(keys, logits, temperature=temperature, top_p=top_p,
                  top_k=top_k,
                  cluster=cluster_size(logits.device, R, V, temperature <= 0))
-    sample_rows.launches += 1
+    build.count(sample_rows)
     return out
 
 

@@ -117,7 +117,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, page_size,
             float(attn_softcap), float(scale), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode_attn_fwd")
-    paged_decode_attention.launches += 1
+    build.count(paged_decode_attention)
     return out
 
 

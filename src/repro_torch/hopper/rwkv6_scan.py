@@ -125,11 +125,8 @@ def _forward_kernel(r, k, v, w, u, state):
     if not all(t.is_contiguous() for t in (r, k, v, w, u, state)):
         raise ValueError("wkv6 kernel needs contiguous r, k, v, w, u, state")
     y = launch(r, k, v, w, u, state)
-    wkv6.launches += 1
-    if r.shape[1] == 1:
-        wkv6.decode_launches += 1
-    else:
-        wkv6.prefill_launches += 1
+    build.count(wkv6, "decode_launches" if r.shape[1] == 1
+                else "prefill_launches")
     return y
 
 
@@ -157,7 +154,7 @@ class _WKV6(torch.autograd.Function):
         if r.device.type == "cpu":
             return wkv6_bwd_plain(r, k, v, w, u, state, dy, dstate)
         grads = launch_bwd(r, k, v, w, u, state, dy, dstate)
-        wkv6.bwd_launches += 1
+        build.count(wkv6, key="bwd_launches")
         return grads
 
 

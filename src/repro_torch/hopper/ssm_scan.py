@@ -135,11 +135,8 @@ def _check_kernel(x, dt, A_log, Bc, Cc, D, state):
 def _forward_kernel(x, dt, A_log, Bc, Cc, D, state):
     """One counted launch of the forward kernels; updates ``state``."""
     y = launch(x, dt, A_log, Bc, Cc, D, state)
-    selective_scan.launches += 1
-    if x.shape[1] == 1:
-        selective_scan.decode_launches += 1
-    else:
-        selective_scan.prefill_launches += 1
+    build.count(selective_scan, "decode_launches" if x.shape[1] == 1
+                else "prefill_launches")
     return y
 
 
@@ -168,7 +165,7 @@ class _SelectiveScan(torch.autograd.Function):
             return selective_scan_bwd_plain(x, dt, A_log, Bc, Cc, D, state,
                                             dy, dstate)
         grads = launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate)
-        selective_scan.bwd_launches += 1
+        build.count(selective_scan, key="bwd_launches")
         return grads
 
 

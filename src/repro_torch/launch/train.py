@@ -1,4 +1,4 @@
-"""RL training launcher of the port: the sequential CoPRIS loop on one GPU.
+"""RL training launcher of the port: the CoPRIS loop on one GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch llama3.2-1b --mode copris --steps 20 --concurrency 16 \\
@@ -8,10 +8,20 @@ The flags are those of ``repro.launch.train``, plus ``--device`` (the card by
 default; ``--device cpu`` runs the plain PyTorch path on the host). Writes
 metrics.jsonl per step and checkpoints every --ckpt-every steps, in the JAX
 package's checkpoint layout, so ``--resume`` takes a checkpoint of either
-package. ``--overlap``, ``--disaggregated`` and the multi-turn tasks raise
-``NotImplementedError`` until their slice of the port. Every registered
-arch trains on the GPU, hymba-1.5b and rwkv6-1.6b included (their scans'
-backward runs in the kernels of ``csrc/ssm_scan.cu`` and ``csrc/wkv6.cu``):
+package. ``--overlap`` runs rollout on a producer thread (on the card, on a
+CUDA stream of its own) while the previous batch trains, at most
+``--max-staleness`` updates behind; ``--task multiturn_math`` and
+``--task toolcall`` run multi-turn episodes through the async environment
+worker (their SFT warmup runs on ``AdditionTask``, as those tasks have no
+demonstrations). ``--disaggregated`` raises: it is SPMD. On the CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tiny \\
+        --device cpu --steps 2 --sft-warmup 3 --overlap \\
+        --task multiturn_math --max-response 32 --eval-every 0
+
+Every registered arch trains on the GPU, hymba-1.5b and rwkv6-1.6b included
+(their scans' backward runs in the kernels of ``csrc/ssm_scan.cu`` and
+``csrc/wkv6.cu``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
         --steps 2 --sft-warmup 4 --max-response 124 --eval-every 0
@@ -29,18 +39,20 @@ from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.copris import CoPRISTrainer
 from repro_torch.data.sft import sft_warmup
-from repro_torch.data.tasks import EOS, AdditionTask
+from repro_torch.data.tasks import (EOS, AdditionTask, MultiTurnMathTask,
+                                    ToolCallTask)
 from repro_torch.models import model as M
 
 
 def make_task(name: str, seed: int):
-    """--task registry (single-turn tasks only in the port so far)."""
+    """--task registry. Multi-turn tasks expose make_env(spec) and route
+    rollouts through the async environment worker."""
     if name == "addition":
         return AdditionTask(max_value=20, seed=seed)
-    if name in ("multiturn_math", "toolcall"):
-        raise NotImplementedError(
-            f"--task {name}: multi-turn environments come with a later "
-            "slice of the port")
+    if name == "multiturn_math":
+        return MultiTurnMathTask(max_value=9, num_turns=2, seed=seed)
+    if name == "toolcall":
+        return ToolCallTask(max_value=9, seed=seed)
     raise ValueError(f"unknown task {name!r}")
 
 
@@ -55,7 +67,11 @@ def main(argv=None):
     ap.add_argument("--mode", default="copris",
                     choices=["copris", "sync", "naive_partial"])
     ap.add_argument("--task", default="addition",
-                    choices=["addition", "multiturn_math", "toolcall"])
+                    choices=["addition", "multiturn_math", "toolcall"],
+                    help="multiturn_math / toolcall run multi-turn episodes "
+                         "through the async environment worker (env tokens "
+                         "are loss-masked; slots are yielded during env "
+                         "waits)")
     ap.add_argument("--env-timeout", type=float, default=0.0)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch-size", type=int, default=8)
@@ -65,9 +81,14 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=2e-4)
     ap.add_argument("--no-is", action="store_true",
                     help="disable cross-stage IS correction (ablation)")
-    ap.add_argument("--overlap", action="store_true")
-    ap.add_argument("--max-staleness", type=int, default=1)
-    ap.add_argument("--disaggregated", action="store_true")
+    ap.add_argument("--overlap", action="store_true",
+                    help="rollout on a producer thread (on the GPU, on its "
+                         "own CUDA stream) while the previous batch trains")
+    ap.add_argument("--max-staleness", type=int, default=1,
+                    help="max optimizer updates the train step may be ahead "
+                         "of the params that generated its batch")
+    ap.add_argument("--disaggregated", action="store_true",
+                    help="not ported (SPMD): raises")
     ap.add_argument("--adaptive-concurrency", action="store_true")
     ap.add_argument("--concurrency-min", type=int, default=0)
     ap.add_argument("--concurrency-max", type=int, default=0)
@@ -105,7 +126,12 @@ def main(argv=None):
         params = M.init_params(cfg, seed=args.seed, device=dev)
         if args.sft_warmup > 0:
             print(f"SFT warmup {args.sft_warmup} steps…")
-            params, loss = sft_warmup(params, cfg, task,
+            # multi-turn tasks have no supervised demos; warm up on the
+            # single-turn surrogate (digits + EOS — the per-turn answer
+            # format every env here shares)
+            demo_task = (task if hasattr(task, "demo")
+                         else AdditionTask(max_value=20, seed=args.seed))
+            params, loss = sft_warmup(params, cfg, demo_task,
                                       steps=args.sft_warmup, log_every=50)
             print(f"  warmup done (loss {loss:.3f})")
 
@@ -123,8 +149,14 @@ def main(argv=None):
                 mf.write(json.dumps(out) + "\n")
                 mf.flush()
                 if i % 5 == 0:
-                    extra = (f" N'={out['concurrency_target']}"
-                             if args.adaptive_concurrency else "")
+                    extra = (f" stale={out['param_staleness']}"
+                             f" saved={out['overlap_saved_time']:.1f}s"
+                             if args.overlap else "")
+                    if args.adaptive_concurrency:
+                        extra += f" N'={out['concurrency_target']}"
+                    if out["env_steps"]:
+                        extra += (f" env={out['env_steps']}s/"
+                                  f"{out['env_turns']}t")
                     print(f"step {out['step']:4d} "
                           f"reward={out['reward_mean']:.3f} "
                           f"loss={out['pg_loss']:+.4f} "
@@ -135,7 +167,9 @@ def main(argv=None):
                     from repro_torch.eval.passk import evaluate as eval_passk
                     acc = tr.evaluate(n_prompts=16)
                     params_now, _ = tr.param_store.acquire()
-                    pk = eval_passk(params_now, cfg, task,
+                    # safe_task serialises prompt sampling against the
+                    # overlapped trainer's background rollout thread
+                    pk = eval_passk(params_now, cfg, tr.safe_task,
                                     eos_id=EOS, n_prompts=8,
                                     samples_per_prompt=8,
                                     max_response=args.max_response,

@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port.
 
-* no file under src/repro_torch/, and not chip_smoke.py, imports jax or the
+* no file under src/repro_torch/, and neither chip_smoke.py nor
+  chip_overlap.py, imports jax or the
   JAX package (`repro` / `repro.*`);
 * importing every repro_torch module loads neither jax nor repro;
 * on a machine without CUDA, entry points raise unless asked for the CPU.
@@ -32,9 +33,9 @@ def _imports(path):
 
 def _port_files():
     files = sorted(PORT.rglob("*.py"))
-    smoke = ROOT / "chip_smoke.py"
-    if smoke.exists():
-        files.append(smoke)
+    for script in ("chip_smoke.py", "chip_overlap.py"):
+        if (ROOT / script).exists():
+            files.append(ROOT / script)
     return files
 
 

@@ -21,6 +21,7 @@ from repro.data.tasks import EOS, AdditionTask  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch.common.config import RolloutConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.tasks import MultiTurnMathTask  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.rollout import (RolloutEngine,  # noqa: E402
                                       prefill_pad_dims)
@@ -172,12 +173,28 @@ def test_dense_insert_rows_drops_padding():
     assert (k[1] == 0).all() and (k[:, 8:] == 0).all()   # slot 3 dropped
 
 
-def test_paged_backend_and_envs_are_later_slices():
-    # the paged backend is ported (tests/test_torch_paged.py); multi-turn
-    # environments are still a later slice
-    with pytest.raises(NotImplementedError):
-        RolloutEngine(CFG, RolloutConfig(concurrency=2), lambda: None,
-                      eos_id=0, env_factory=lambda spec: None, device="cpu")
+def test_paged_backend_and_envs_are_later_slices(params):
+    """Both are ported now (tests/test_torch_paged.py,
+    tests/test_torch_multiturn.py): the engine takes an ``env_factory``,
+    a stopped turn parks on its environment without a slot, and its
+    observation (role 0) is followed by a resumed model turn."""
+    task = MultiTurnMathTask(max_value=9, num_turns=2, seed=3)
+    eng = RolloutEngine(CFG, _ro(RolloutConfig, "copris", 4,
+                                 max_response_len=64),
+                        task.sample_prompt, eos_id=EOS,
+                        env_factory=task.make_env, device="cpu")
+    try:
+        groups, st = eng.collect(params, 0, prng.PRNGKey(1))
+    finally:
+        eng.env_worker.shutdown()
+    assert st["env_steps"] > 0 and st["env_turns"] > 0
+    resumed = [t for g in groups for t in g.trajectories
+               if t.num_turns > 1 and t.roles[-1] == 1]
+    assert resumed, "no parked turn resumed after its observation"
+    for t in resumed:
+        t.check_invariants()
+        obs = t.turn_starts[1]
+        assert t.roles[obs - 1] == 0 and t.behaviour_logps[obs - 1] == 0.0
 
 
 def test_prefill_pad_dims_buckets():

@@ -303,11 +303,14 @@ def _trainer_step_matches(arch):
 
 
 def test_trainer_refuses_unported_pipelines():
+    # overlap=True and multi-turn tasks are ported
+    # (tests/test_torch_async_trainer.py, tests/test_torch_multiturn.py);
+    # the disaggregated layouts are SPMD and still raise
     cfg = get_config("tiny")
-    with pytest.raises(NotImplementedError, match="overlap"):
+    with pytest.raises(NotImplementedError, match="disaggregated"):
         copris.CoPRISTrainer(cfg, RolloutConfig(concurrency=2),
-                             TrainConfig(overlap=True), AdditionTask(),
-                             eos_id=EOS, device="cpu")
+                             TrainConfig(overlap=True, disaggregated=True),
+                             AdditionTask(), eos_id=EOS, device="cpu")
 
 
 # -- checkpoints ---------------------------------------------------------------
