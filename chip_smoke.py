@@ -2,15 +2,19 @@
 """On-GPU smoke run of the PyTorch port (src/repro_torch): the serving path
 and the CoPRIS training loop at the full width of llama3.2-1b, over the dense
 and the paged KV cache, sequential and overlapped (rollout on its own CUDA
-stream), with single-turn tasks and multi-turn environments, and serving,
+stream), with single-turn tasks and multi-turn environments, serving,
 rollouts and training of the hybrid hymba-1.5b and the attention-free
-rwkv6-1.6b at full width, through the port's hand-written kernels.
+rwkv6-1.6b at full width, and the archs with wide heads (head_dim 128 and
+256, any GQA ratio): the paper's own paper-qwen-7b, gemma2-2b, qwen3-14b and
+granite-34b, with musicgen-medium, through the port's hand-written kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
-    python3 chip_smoke.py --ab DIR # sampling, the selective scan and WKV6
-                                   # (decode and prefill) against the
-                                   # checkout at DIR, and the sweep of the
-                                   # sampling kernel's cluster sizes
+    python3 chip_smoke.py --ab DIR # llama3.2-1b's attention and loss
+                                   # kernels (and their SASS), sampling,
+                                   # the selective scan and WKV6 (decode and
+                                   # prefill) against the checkout at DIR,
+                                   # and the sweep of the sampling kernel's
+                                   # cluster sizes
 
 Phases, each printed as one JSON line (with ``t_s``, the seconds since the
 start):
@@ -40,13 +44,27 @@ start):
    forward and backward, and the fused log-prob of the legacy loss; the
    first four also at the hybrid updates' shapes: flash at hymba's 25/5
    heads with its window of 1024, the loss at hymba's d 1600 against the
-   tied V 32001 and at rwkv6's d 2048 against the untied V 65536), with
+   tied V 32001 and at rwkv6's d 2048 against the untied V 65536; and at
+   the shapes of the archs with wide heads and of musicgen-medium: flash
+   with lse and its backward at paper-qwen-7b's (28/4 heads of 128: REP
+   7), gemma2-2b's (8/4 of 256, softcap 50, window 4096) and
+   musicgen-medium's (24/24 of 64) update shapes, prefill at theirs and at
+   qwen3-14b's (40/8 of 128) and granite-34b's (48/1 of 128), dense and
+   paged decode at REP 7, 2, 5, 48 and 1 (paged bit-equal to dense),
+   sampling at V 152064 and 256000, the loss
+   at d 3584 / untied V 152064 and d 2304 / tied V 256000 with the logit
+   softcap of 30; every flash backward bit-equal across two launches,
+   within atol 5e-2 of its plain version, or at head_dim 128 and 256
+   within one bf16 ulp of the element where that is larger), with
    its time, the plain version's, one library call's where PyTorch has one,
-   and the least time the card could take; the four flash checks also give
-   SDPA's error against the same plain version (``library_err``, a
-   yardstick of bf16 tensor-core attention) and ``vs_library``, their time
-   over SDPA's, as the two dense decode checks give theirs over SDPA's
-   masked call; the loss kernels' bounds are their tensor cores' (the
+   and the least time the card could take; the flash and decode checks
+   also give the library call's error against the same plain version
+   (``library_err``, a yardstick of bf16 tensor-core attention) and
+   ``vs_library``, their time over its: SDPA's (masked for decode), or
+   with gemma2-2b's score softcap, which SDPA has not, a compiled
+   flex_attention with the softcap as its score_mod, forward (with the
+   logsumexp), backward and decode (SDPA's time without the softcap kept
+   beside it); the loss kernels' bounds are their tensor cores' (the
    forwards and dw 2 bf16 passes of 2 R d V, bwd_dh 5), each with the f32
    FMA bound of the same product kept beside it; every decode-shaped check
    prints the timer's floor, a near-empty launch timed the same way;
@@ -60,7 +78,11 @@ start):
    and no attention weight with a zero gradient; the same as
    "train_reference_hybrid" with the fused loss on the reduced hymba and
    rwkv6 (scans forward and backward), no scan parameter (A_log, D, u,
-   w_base) with a zero gradient; then "reference_overlap": the overlapped
+   w_base) with a zero gradient; "reference_wide" and
+   "train_reference_wide": the same engine and fused-loss train checks on
+   two 2-layer configs with wide heads, paper-qwen-7b's 7/1 heads of 128
+   and gemma2-2b's local/global pair with 2/1 heads of 256, both softcaps
+   and a window of 32; then "reference_overlap": the overlapped
    trainer on the GPU (reduced config, vocab 8192, float32) records each
    batch's params version and a sequential CPU trainer replays that
    schedule (each collect takes ``param_store.get(v)``): equal tokens on
@@ -99,9 +121,11 @@ start):
    kernel launched; rollout, update, batch-wait and overlap-saved times
    and each step's wall time beside the train phase's sequential ones,
    peak memory; then "train_overlap_profile": torch.profiler over one
-   more overlapped step, kernels on at least two streams, and
+   more overlapped step: each stream's kernels and busy time and
    ``concurrent_ms``, the device time during which kernels of both
-   streams ran at once; then "train_multiturn": two overlapped steps of
+   streams ran at once, and from CUDA events on each stream the update's
+   span and the collects', a collect's required to be open during part of
+   the update (``update_overlap_ms``); then "train_multiturn": two overlapped steps of
    MultiTurnMathTask(max_value=9, num_turns=2) at full width from the
    same weights, their SFT continued for 8 steps (after 4 no turn ends
    with EOS), max_response_len 64: environment steps and second turns,
@@ -116,6 +140,20 @@ start):
    runs llama: finite metrics, step times, peak memory, every kernel of the
    path launched (the scans' backward kernels and, for hymba, the flash
    backward among them), each with the profile of one more update;
+   then the wide-head archs through the same entry points, one at a time,
+   each freed before the next: "serve_qwen7b" (paper-qwen-7b at full
+   depth) and "serve_qwen7b_paged" (14 of its 28 layers, 40% of the
+   pages), "copris_qwen7b" (two
+   stages), "train_qwen7b" (4 of its 28 layers at full width: SFT, then
+   two steps with the fused loss at d 3584 / V 152064), "serve_gemma2"
+   and "train_gemma2" (full depth: head_dim 256, the softcaps, the local
+   window), "serve_qwen3_14b" (20 of its 40 layers, qk_norm),
+   "serve_granite" (24 of its 88 layers: the full depth's bf16 weights do
+   not fit the card), "serve_musicgen" and "train_musicgen" (24 of its 48
+   layers, V 2048: the full-logits loss; one step; the three half depths
+   keep the run near 600 s); the train phases with an entropy bonus of
+   0.01, so every step has a gradient; each serve phase with its profile,
+   each train phase with an update's profile;
 8. kernels — one {"kernels": [...]} line, one row per kernel entry point,
    each with the launches of the path it runs on (train; the rows that
    train_overlap and train_multiturn launch carry their counts under
@@ -129,15 +167,19 @@ start):
    (``simt_launches``: every phase that counts launches runs in bf16 and
    fails on a SIMT launch); those rows also carry the hybrid shapes'
    checks under "train_hybrid", with train_hymba's and train_rwkv6's
-   launches;
+   launches, and the wide-head checks under "wide_heads", each with the
+   launches of the phase that runs its shape (every new phase's counts
+   are under ``launches_by_phase``);
 
 then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check raises, so the run exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -168,15 +210,6 @@ def bound(nbytes, flops, peak_flops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def sdpa_err(F, qt, kt, vt, ref):
-    """Largest error of SDPA's causal output, (B, H, S, hd) views, against
-    the plain version's (B, S, H, hd): what bf16 tensor-core attention from
-    a library gives on the same inputs. A yardstick, never a limit."""
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
-    return (out.transpose(1, 2).float() - ref.float()).abs().max().item()
 
 
 class Timer:
@@ -215,37 +248,6 @@ class Timer:
             b.synchronize()
             ts.append(a.elapsed_time(b))
         return statistics.median(ts)
-
-
-def check_flash(torch, F, timer, flash_attn):
-    B, S, H, KV, hd = 16, 512, 32, 8, 64       # initial fill: 16 rows x 512
-    g = torch.Generator(device="cuda").manual_seed(10)
-    q = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
-    k = torch.randn(B, S, KV, hd, device="cuda", generator=g).bfloat16()
-    v = torch.randn(B, S, KV, hd, device="cuda", generator=g).bfloat16()
-    out = flash_attn.flash_attention(q, k, v, causal=True)
-    ref = flash_attn.flash_attention_plain(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    atol = 2e-2
-    if not err <= atol:
-        fail(f"flash_attn disagrees with its plain version: {err} > {atol}")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_err = sdpa_err(F, qt, kt, vt, ref)
-    kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v, causal=True))
-    plain_ms = timer(lambda: flash_attn.flash_attention_plain(
-        q, k, v, causal=True), iters=3, warmup=1)
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-    flops = 4 * B * H * hd * (S * (S + 1) // 2)
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-    res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal",
-               max_abs_err=err, library_err=lib_err, atol=atol, ms=kernel_ms,
-               plain_ms=plain_ms, library_ms=library_ms,
-               vs_library=kernel_ms / library_ms, bound_ms=b_ms, bound_by=b_by)
-    emit("check_flash_attn", **res)
-    return res
 
 
 def check_decode(torch, F, timer, decode_attn):
@@ -512,137 +514,135 @@ def check_sample_train(torch, timer, fused_sample, prng, build, sm_mhz):
     return res
 
 
+def bf16_ulp(torch, x):
+    """One bf16 ulp of each element of x (float32)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+                      - 7)
+
+
 def bf16_excess(torch, got, want, ulps=2.0, atol=1e-4):
     """Largest excess of |got - want| over ``ulps`` bf16 ulps of each element
     of ``want`` plus the float32 ``atol`` (<= 0: within tolerance). Kernel
     and plain version sum in float32 in another order, then round once:
     near zero that order alone exceeds an ulp."""
     want = want.float()
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126)))
-                     - 7)
-    return float(((got.float() - want).abs() - ulps * ulp - atol).max())
+    return float(((got.float() - want).abs() - ulps * bf16_ulp(torch, want)
+                  - atol).max())
 
 
-def check_decode_rep5(torch, F, timer, decode_attn):
-    """Dense decode at hymba-1.5b's GQA ratio: 25 query heads over 5 KV
-    heads, the serve pool of 16, max_len 640, window 1024."""
-    B, L, H, KV, hd, win = 16, 640, 25, 5, 64, 1024
-    g = torch.Generator(device="cuda").manual_seed(17)
+def check_flash_prefill(torch, F, timer, flash_attn, H, KV, hd, win=0,
+                        cap=0.0, phase="check_flash_attn_prefill"):
+    """Prefill at a serve phase's shape: 16 rows of the largest prompt
+    bucket (512), H query heads of ``hd`` over KV, with the model's window
+    (gemma2-2b's 4096 spans the prompt) and score softcap (its 50: the
+    library call is then flex_attention; see attention_library)."""
+    B, S = 16, 512
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
+    k = torch.randn(B, S, KV, hd, device="cuda", generator=g).bfloat16()
+    v = torch.randn(B, S, KV, hd, device="cuda", generator=g).bfloat16()
+    kw = dict(causal=True, window=win, attn_softcap=cap)
+    out = flash_attn.flash_attention(q, k, v, **kw)
+    ref = flash_attn.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    atol = 2e-2
+    if not err <= atol:
+        fail(f"flash_attn prefill at H/KV {H}/{KV} x {hd} disagrees with "
+             f"its plain version: {err} > {atol}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = attention_library(torch, F, timer, qt, kt, vt, ref, cap, win=win,
+                            is_causal=True)
+    kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v, **kw))
+    plain_ms = timer(lambda: flash_attn.flash_attention_plain(q, k, v, **kw),
+                     iters=3, warmup=1)
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    flops = 4 * B * H * hd * (S * (S + 1) // 2)
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal"
+               + (f", window {win}" if win else "")
+               + (f", softcap {cap}" if cap else ""),
+               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, **lib)
+    if res["library_ms"]:
+        res["vs_library"] = kernel_ms / res["library_ms"]
+    emit(phase, **res)
+    return res
+
+
+def check_decode_wide(torch, F, timer, decode_attn, paged_decode_attn, H,
+                      KV, hd, win=0, cap=0.0, tag=""):
+    """Dense and paged decode at a serve phase's shape with wide heads: the
+    pool of 16 rows, max_len 640, live lengths 65-640, H query heads of
+    ``hd`` over KV (REP 7 and 48 at 128, 2 at 256 with gemma2-2b's softcap
+    and window), the paged pools laid out at random in pages of 16. Each
+    kernel against its plain version (atol 2e-2), the paged kernel bit-equal
+    to the dense one on the same live K/V; SDPA's masked call (with a
+    softcap flex_attention's with a length mask) is the library time of the
+    dense kernel. Emits
+    check_decode_attn_<tag> and check_paged_decode_attn_<tag>."""
+    B, L, ps = 16, 640, 16
+    g = torch.Generator(device="cuda").manual_seed(22)
     q = torch.randn(B, 1, H, hd, device="cuda", generator=g).bfloat16()
     kc = torch.randn(B, L, KV, hd, device="cuda", generator=g).bfloat16()
     vc = torch.randn(B, L, KV, hd, device="cuda", generator=g).bfloat16()
     lens = torch.randint(65, L + 1, (B,), device="cuda", generator=g,
                          dtype=torch.int32)
-    out = decode_attn.decode_attention(q, kc, vc, lens, window=win)
-    ref = decode_attn.decode_attention_plain(q, kc, vc, lens, window=win)
+    kp, vp, bt = scatter_pages(torch, kc, vc, lens, ps, g)
+    kw = dict(window=win, attn_softcap=cap)
+    out = decode_attn.decode_attention(q, kc, vc, lens, **kw)
+    paged = paged_decode_attn.paged_decode_attention(q, kp, vp, bt, ps, lens,
+                                                     **kw)
+    ref = decode_attn.decode_attention_plain(q, kc, vc, lens, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    perr = (paged.float() - ref.float()).abs().max().item()
+    dense_diff = (paged.float() - out.float()).abs().max().item()
     atol = 2e-2
-    if not err <= atol:
-        fail(f"decode_attn at H/KV = 5 disagrees with its plain version: "
-             f"{err} > {atol}")
+    if not (err <= atol and perr <= atol and dense_diff == 0.0):
+        fail(f"decode at H/KV {H}/{KV} x {hd}: dense {err}, paged {perr} "
+             f"from the plain version (atol {atol}), paged {dense_diff} "
+             f"from dense")
     mask = (torch.arange(L, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
+    if win > 0:
+        mask = mask & (torch.arange(L, device="cuda")[None, :]
+                       >= (lens - win)[:, None])[:, None, None, :]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
+    lib = attention_library(torch, F, timer, qt, kt, vt, ref, cap, win=win,
+                            lens=lens, attn_mask=mask)
     kernel_ms = timer(lambda: decode_attn.decode_attention(q, kc, vc, lens,
-                                                           window=win))
+                                                           **kw))
     plain_ms = timer(lambda: decode_attn.decode_attention_plain(
-        q, kc, vc, lens, window=win))
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True))
-    live = int(lens.sum().item())
+        q, kc, vc, lens, **kw))
+    paged_ms = timer(lambda: paged_decode_attn.paged_decode_attention(
+        q, kp, vp, bt, ps, lens, **kw))
+    paged_plain_ms = timer(
+        lambda: paged_decode_attn.paged_decode_attention_plain(
+            q, kp, vp, bt, ps, lens, **kw))
+    live = int((lens.clamp(max=win) if win > 0 else lens).sum().item())
     nbytes = 2 * (2 * q.numel() + 2 * live * KV * hd) + 4 * B
-    b_ms, b_by = bound(nbytes, 4 * H * hd * live, PEAK_BF16_FLOPS)
-    res = dict(shape=f"q {list(q.shape)} cache {list(kc.shape)} bf16, "
-               f"window {win}, sum(cache_len)={live}",
-               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, vs_library=kernel_ms / library_ms,
-               bound_ms=b_ms, bound_by=b_by, timer_floor_ms=timer.floor_ms)
-    emit("check_decode_attn_rep5", **res)
-    return res
-
-
-def check_flash_rep5(torch, F, timer, flash_attn):
-    """Prefill at hymba-1.5b's shape: 16 rows of the largest prompt bucket
-    (512), 25 query heads over 5 KV heads, the sliding window of 1024 (the
-    whole prompt: SDPA's causal mask is the same function)."""
-    B, S, H, KV, hd, win = 16, 512, 25, 5, 64, 1024
-    g = torch.Generator(device="cuda").manual_seed(18)
-    q = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
-    k = torch.randn(B, S, KV, hd, device="cuda", generator=g).bfloat16()
-    v = torch.randn(B, S, KV, hd, device="cuda", generator=g).bfloat16()
-    out = flash_attn.flash_attention(q, k, v, causal=True, window=win)
-    ref = flash_attn.flash_attention_plain(q, k, v, causal=True, window=win)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    atol = 2e-2
-    if not err <= atol:
-        fail(f"flash_attn at H/KV = 5, window {win}, disagrees with its plain "
-             f"version: {err} > {atol}")
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_err = sdpa_err(F, qt, kt, vt, ref)
-    kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v, causal=True,
-                                                         window=win))
-    plain_ms = timer(lambda: flash_attn.flash_attention_plain(
-        q, k, v, causal=True, window=win), iters=3, warmup=1)
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-    flops = 4 * B * H * hd * (S * (S + 1) // 2)
+    flops = 4 * H * hd * live
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-    res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal, "
-               f"window {win}", max_abs_err=err, library_err=lib_err,
-               atol=atol, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=library_ms, vs_library=kernel_ms / library_ms,
-               bound_ms=b_ms, bound_by=b_by)
-    emit("check_flash_attn_rep5", **res)
-    return res
-
-
-def check_paged_decode_rep5(torch, timer, paged_decode_attn):
-    """Paged decode at serve_hymba_paged's layout: 16 rows, pools of 256
-    pages of 16, a block table of 40 pages (max_len 640), 25 query heads over
-    5 KV heads, window 1024. Live lengths of 65-256 tokens keep every row's
-    pages inside the pool, as admission does; the pages lie at random."""
-    B, NP, mp, ps, H, KV, hd, win = 16, 256, 40, 16, 25, 5, 64, 1024
-    g = torch.Generator(device="cuda").manual_seed(19)
-    q = torch.randn(B, 1, H, hd, device="cuda", generator=g).bfloat16()
-    kp = torch.randn(NP, ps, KV, hd, device="cuda", generator=g).bfloat16()
-    vp = torch.randn(NP, ps, KV, hd, device="cuda", generator=g).bfloat16()
-    lens = torch.randint(65, NP // B * ps + 1, (B,), device="cuda",
-                         generator=g, dtype=torch.int32)
-    perm = torch.randperm(NP, device="cuda", generator=g).to(torch.int32)
-    bt = torch.full((B, mp), NP, dtype=torch.int32, device="cuda")
-    used = 0
-    for b in range(B):
-        npg = -(-int(lens[b]) // ps)
-        bt[b, :npg] = perm[used:used + npg]
-        used += npg
-    out = paged_decode_attn.paged_decode_attention(q, kp, vp, bt, ps, lens,
-                                                   window=win)
-    ref = paged_decode_attn.paged_decode_attention_plain(q, kp, vp, bt, ps,
-                                                         lens, window=win)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    atol = 2e-2
-    if not err <= atol:
-        fail(f"paged_decode_attn at H/KV = 5 disagrees with its plain "
-             f"version: {err} > {atol}")
-    kernel_ms = timer(lambda: paged_decode_attn.paged_decode_attention(
-        q, kp, vp, bt, ps, lens, window=win))
-    plain_ms = timer(lambda: paged_decode_attn.paged_decode_attention_plain(
-        q, kp, vp, bt, ps, lens, window=win))
-    live = int(lens.sum().item())
-    nbytes = 2 * (2 * q.numel() + 2 * live * KV * hd) + 4 * bt.numel() + 4 * B
-    b_ms, b_by = bound(nbytes, 4 * H * hd * live, PEAK_BF16_FLOPS)
-    res = dict(shape=f"q {list(q.shape)} pools {list(kp.shape)} bf16, "
-               f"block table {list(bt.shape)}, window {win}, "
-               f"sum(cache_len)={live}",
-               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
-               library_ms=None, bound_ms=b_ms, bound_by=b_by,
-               timer_floor_ms=timer.floor_ms)
-    emit("check_paged_decode_attn_rep5", **res)
-    return res
+    pb_ms, pb_by = bound(nbytes + 4 * bt.numel(), flops, PEAK_BF16_FLOPS)
+    shape = (f"q {list(q.shape)}, H/KV {H}/{KV} (REP {H // KV}) x {hd} bf16"
+             + (f", window {win}" if win else "")
+             + (f", softcap {cap}" if cap else "")
+             + f", sum(cache_len)={live}")
+    dense = dict(shape=f"{shape}, cache {list(kc.shape)}", max_abs_err=err,
+                 atol=atol, ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, timer_floor_ms=timer.floor_ms, **lib)
+    if dense["library_ms"]:
+        dense["vs_library"] = kernel_ms / dense["library_ms"]
+    pres = dict(shape=f"{shape}, pools {list(kp.shape)}, block table "
+                f"{list(bt.shape)}", max_abs_err=perr, atol=atol,
+                diff_from_dense_kernel=dense_diff, ms=paged_ms,
+                plain_ms=paged_plain_ms, library_ms=None,
+                dense_kernel_ms=kernel_ms, bound_ms=pb_ms, bound_by=pb_by,
+                timer_floor_ms=timer.floor_ms)
+    emit(f"check_decode_attn_{tag}", **dense)
+    emit(f"check_paged_decode_attn_{tag}", **pres)
+    return dense, pres
 
 
 # the serve phases' largest prompt bucket (prompts of 64-512 tokens)
@@ -861,8 +861,7 @@ def bwd_excess(torch, got, want):
         err = max(err, float(diff.max()))
         tol = torch.full_like(diff, 1e-4 * scale)
         if x.dtype == torch.bfloat16:
-            mag = y.float().abs().clamp_min(2.0 ** -126)
-            tol = tol + 2.0 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            tol = tol + 2.0 * bf16_ulp(torch, y.float())
         excess = max(excess, float((diff - tol).max()))
     return excess, err
 
@@ -985,96 +984,246 @@ def check_wkv6_bwd(torch, timer, rwkv6_scan, sm_mhz):
         f"{hd}] f32", nbytes, 14 * B * T * H * hd * hd, 0, mufu_rate)
 
 
+def flex_call(torch, qt, kt, vt, cap, win=0, lens=None, return_lse=False,
+              kernel_options=None):
+    """A closure of one compiled flex_attention call (torch.compile, for
+    timing only: the port never calls it) computing the kernels' function
+    with a score softcap, which SDPA has not: (B, H, S, hd) views, the tanh
+    softcap ``cap`` as the score_mod, GQA, and as the block mask the causal
+    mask with the window ``win`` (0: none) or, with the cache lengths
+    ``lens``, decode's mask of positions below each row's length (and
+    within the window), with ``kernel_options`` (None: flex_attention's
+    own choice)."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    torch._dynamo.reset()           # a fresh compile for each shape
+
+    def score_mod(s, b, h, qi, ki):
+        return cap * torch.tanh(s / cap)
+
+    B, Sq, Sk = qt.shape[0], qt.shape[2], kt.shape[2]
+    if lens is None:
+        def mask_mod(b, h, qi, ki):
+            m = ki <= qi
+            return m & (qi - ki < win) if win else m
+        block_mask = create_block_mask(mask_mod, None, None, Sq, Sk,
+                                       device=qt.device)
+    else:
+        def mask_mod(b, h, qi, ki):
+            m = ki < lens[b]
+            return m & (ki >= lens[b] - win) if win else m
+        block_mask = create_block_mask(mask_mod, B, None, Sq, Sk,
+                                       device=qt.device)
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
+                      enable_gqa=True, return_lse=return_lse,
+                      kernel_options=kernel_options)
+
+
+# flex_attention's tiles where its own configurations give none for the
+# shape (at the update's 127-row sequences of head_dim 256 its list of
+# choices is empty): 32 x 32 in the forward and both backward passes
+FLEX_SMALL_TILES = {"BLOCK_M": 32, "BLOCK_N": 32, "BLOCK_M1": 32,
+                    "BLOCK_N1": 32, "BLOCK_M2": 32, "BLOCK_N2": 32,
+                    "num_warps": 4, "num_stages": 1}
+
+
+def flex_library(timer, make, err):
+    """library_call of the flex_attention closure ``make(kernel_options)``
+    with flex_attention's own configurations or, where it has none for the
+    shape, with FLEX_SMALL_TILES (then named in ``library_options``)."""
+    lib = library_call(timer, make(None), err)
+    if lib["library_ms"] is None:
+        lib = dict(library_call(timer, make(FLEX_SMALL_TILES), err),
+                   library_options=FLEX_SMALL_TILES,
+                   default_options_failed=lib["library_failed"])
+    return lib
+
+
+def library_call(timer, run, err):
+    """library_ms and library_err of a library call: ``run`` computes its
+    result (the first call compiles), ``err`` its largest error against the
+    plain version. A call that raises (flex_attention's generated kernels
+    may not fit a head size) gives None, with the reason."""
+    try:
+        library_err = err(run())
+        return dict(library_ms=timer(run), library_err=library_err)
+    except Exception as e:                          # noqa: BLE001
+        return dict(library_ms=None, library_err=None,
+                    library_failed=f"{type(e).__name__}: {e}"[:300])
+
+
+def attention_library(torch, F, timer, qt, kt, vt, ref, cap, win=0,
+                      lens=None, ref_lse=None, **kw):
+    """The library call computing the same function on the same inputs,
+    (B, H, S, hd) views: SDPA (``kw``: its causal flag or mask), or with a
+    score softcap, which SDPA has not, flex_attention (see flex_call), with
+    SDPA's time without the softcap kept apart as a yardstick
+    (sdpa_without_softcap_ms). library_err is the call's largest error
+    against the plain version ``ref`` (and the logsumexp ``ref_lse``, where
+    given, for flex_attention)."""
+    def out_err(out):
+        return (out.transpose(1, 2).float() - ref.float()).abs().max().item()
+
+    if cap <= 0.0:
+        return dict(library="scaled_dot_product_attention", **library_call(
+            timer, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True, **kw), out_err))
+
+    def flex_err(res):
+        if ref_lse is None:
+            return out_err(res)
+        return max(out_err(res[0]),
+                   (res[1].float() - ref_lse.float()).abs().max().item())
+
+    lib = flex_library(timer, lambda opts: flex_call(
+        torch, qt, kt, vt, cap, win=win, lens=lens,
+        return_lse=ref_lse is not None, kernel_options=opts), flex_err)
+    return dict(library="flex_attention (compiled), tanh softcap score_mod",
+                sdpa_without_softcap_ms=timer(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, enable_gqa=True, **kw)), **lib)
+
+
 def check_flash_lse(torch, F, timer, flash_attn, H=32, KV=8, win=0,
-                    phase="check_flash_attn_lse"):
+                    phase="check_flash_attn_lse", hd=64, cap=0.0):
     """The train forward: flash_attn with the logsumexp output, at the
-    update's packed shape (32 rows of 127) with H query heads over KV, and a
-    sliding window ``win`` (0: none; hymba's 1024 spans the whole row, so
-    SDPA's causal mask is the same function)."""
-    B, S, hd = TRAIN_B, TRAIN_S, 64
+    update's packed shape (32 rows of 127) with H query heads of ``hd`` over
+    KV, a sliding window ``win`` (0: none; hymba's 1024 and gemma2-2b's
+    4096 span the whole row, so SDPA's causal mask is the same function)
+    and a score softcap ``cap`` (gemma2-2b's 50: the library call is then
+    flex_attention, with its logsumexp)."""
+    B, S = TRAIN_B, TRAIN_S
     g = torch.Generator(device="cuda").manual_seed(13)
     q, k, v = (torch.randn(B, S, n, hd, device="cuda", generator=g).bfloat16()
                for n in (H, KV, KV))
-    out, lse = flash_attn.flash_attention(q, k, v, window=win,
-                                          return_lse=True)
-    ref, ref_lse = flash_attn.flash_attention_plain(q, k, v, window=win,
-                                                    return_lse=True)
+    kw = dict(window=win, attn_softcap=cap)
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    ref, ref_lse = flash_attn.flash_attention_plain(q, k, v, return_lse=True,
+                                                    **kw)
     torch.cuda.synchronize()
     err = max((out.float() - ref.float()).abs().max().item(),
               (lse - ref_lse).abs().max().item())
     atol = 2e-2
     if not err <= atol:
-        fail(f"flash_attn (lse) at H/KV {H}/{KV}, window {win}, disagrees "
-             f"with its plain version: {err}")
+        fail(f"flash_attn (lse) at H/KV {H}/{KV} x {hd}, window {win}, "
+             f"softcap {cap}, disagrees with its plain version: {err}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_err = sdpa_err(F, qt, kt, vt, ref)
+    lib = attention_library(torch, F, timer, qt, kt, vt, ref, cap, win=win,
+                            ref_lse=ref_lse, is_causal=True)
     kernel_ms = timer(lambda: flash_attn.flash_attention(
-        q, k, v, window=win, return_lse=True))
+        q, k, v, return_lse=True, **kw))
     plain_ms = timer(lambda: flash_attn.flash_attention_plain(
-        q, k, v, window=win, return_lse=True), iters=3, warmup=1)
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+        q, k, v, return_lse=True, **kw), iters=3, warmup=1)
     nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * S
     flops = 4 * B * H * hd * (S * (S + 1) // 2)
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
     res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal"
                + (f", window {win}" if win else "")
+               + (f", softcap {cap}" if cap else "")
                + ", with lse (B, H, S) f32",
-               max_abs_err=err, library_err=lib_err, atol=atol, ms=kernel_ms,
-               plain_ms=plain_ms, library_ms=library_ms,
-               vs_library=kernel_ms / library_ms, bound_ms=b_ms, bound_by=b_by)
+               max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, **lib)
+    if res["library_ms"]:
+        res["vs_library"] = kernel_ms / res["library_ms"]
     emit(phase, **res)
     return res
 
 
+def grad_excess(torch, got, want, atol, wide):
+    """Largest excess of |got - want| over atol (<= 0: within tolerance);
+    with ``wide`` (head_dim 128 and 256) over the larger of atol and one
+    bf16 ulp of each element of ``want``: there dk and dv sum REP x S terms
+    and reach |x| in [8, 16), where one ulp is 0.0625 > 5e-2, so kernel and
+    plain version, both exact to ~1e-5 in float32, may round to neighbouring
+    bf16 values."""
+    got, want = got.float(), want.float()
+    tol = torch.full_like(want, atol)
+    if wide:
+        tol = torch.maximum(tol, bf16_ulp(torch, want))
+    return float(((got - want).abs() - tol).max())
+
+
 def check_flash_bwd(torch, F, timer, flash_attn, H=32, KV=8, win=0,
-                    phase="check_flash_attn_bwd"):
+                    phase="check_flash_attn_bwd", hd=64, cap=0.0):
     """The train backward: dq, dk, dv from the saved lse, against the plain
-    version, at check_flash_lse's shapes; the library time is SDPA's
-    backward alone."""
-    B, S, hd = TRAIN_B, TRAIN_S, 64
+    version, at check_flash_lse's shapes, bit-equal across two launches;
+    the library time is SDPA's backward alone (with a softcap
+    flex_attention's, compiled)."""
+    B, S = TRAIN_B, TRAIN_S
     g = torch.Generator(device="cuda").manual_seed(14)
     q, k, v = (torch.randn(B, S, n, hd, device="cuda", generator=g).bfloat16()
                for n in (H, KV, KV))
     do = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
-    out, lse = flash_attn.flash_attention(q, k, v, window=win,
-                                          return_lse=True)
-    grads = flash_attn.flash_attention_bwd(q, k, v, out, lse, do, window=win)
-    ref = flash_attn.flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                               window=win)
+    kw = dict(window=win, attn_softcap=cap)
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    grads = flash_attn.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = flash_attn.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    ref = flash_attn.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(grads, ref))
     atol = 5e-2
-    if not err <= atol:
-        fail(f"flash_attn_bwd at H/KV {H}/{KV}, window {win}, disagrees "
-             f"with its plain version: {err}")
+    excess = max(grad_excess(torch, a, b, atol, hd >= 128)
+                 for a, b in zip(grads, ref))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+    if not (excess <= 0.0 and bit_equal):
+        fail(f"flash_attn_bwd at H/KV {H}/{KV} x {hd}, window {win}, "
+             f"softcap {cap}: {err} from its plain version (excess over the "
+             f"tolerance {excess}), bit-equal across launches {bit_equal}")
     kernel_ms = timer(lambda: flash_attn.flash_attention_bwd(
-        q, k, v, out, lse, do, window=win))
+        q, k, v, out, lse, do, **kw))
     plain_ms = timer(lambda: flash_attn.flash_attention_bwd_plain(
-        q, k, v, out, lse, do, window=win), iters=3, warmup=1)
+        q, k, v, out, lse, do, **kw), iters=3, warmup=1)
+    # the library's backward alone: SDPA's, or with a softcap
+    # flex_attention's (compiled)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
     dot = do.transpose(1, 2)
-    lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                    retain_graph=True)
-    lib_err = max((a.transpose(1, 2).float() - b.float()).abs().max().item()
-                  for a, b in zip(lib_grads, ref))
-    del lib_grads
-    library_ms = timer(lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), dot, retain_graph=True))
+
+    def grads_of(forward):
+        outs = []               # the forward, run once, on the first call
+
+        def run():
+            if not outs:
+                outs.append(forward())
+            return torch.autograd.grad(outs[0], (qt, kt, vt), dot,
+                                       retain_graph=True)
+        return run
+
+    def grads_err(grads):
+        return max((a.transpose(1, 2).float() - b.float()).abs().max().item()
+                   for a, b in zip(grads, ref))
+
+    if cap > 0.0:
+        lib = dict(library="flex_attention (compiled) backward, tanh "
+                   "softcap score_mod", **flex_library(
+                       timer, lambda opts: grads_of(flex_call(
+                           torch, qt, kt, vt, cap, win=win,
+                           kernel_options=opts)), grads_err))
+    else:
+        lib = dict(library="scaled_dot_product_attention backward",
+                   **library_call(timer, grads_of(
+                       lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, is_causal=True, enable_gqa=True)),
+                       grads_err))
     # read q, out, dout, k, v, lse; write dq, dk, dv
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * B * H * S
     # QK^T, dO V^T, dS K, P^T dO, dS^T Q: 5 causal products
     flops = 10 * B * H * hd * (S * (S + 1) // 2)
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
     res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal"
-               + (f", window {win}" if win else ""),
-               max_abs_err=err, library_err=lib_err, atol=atol, ms=kernel_ms,
-               plain_ms=plain_ms, library_ms=library_ms,
-               vs_library=kernel_ms / library_ms, bound_ms=b_ms, bound_by=b_by)
+               + (f", window {win}" if win else "")
+               + (f", softcap {cap}" if cap else ""),
+               max_abs_err=err, atol=atol,
+               tolerance="atol" + (" or one bf16 ulp of the element"
+                                   if hd >= 128 else ""),
+               max_excess_over_tolerance=excess, bit_equal_launches=bit_equal,
+               ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               **lib)
+    if res["library_ms"]:
+        res["vs_library"] = kernel_ms / res["library_ms"]
     emit(phase, **res)
     return res
 
@@ -1087,7 +1236,7 @@ BWD_DH_TC_PASSES = 5
 
 
 def check_fused_is_grpo(torch, timer, fio, d=2048, V=128256, tied=True,
-                        suffix=""):
+                        suffix="", cap=0.0):
     """The loss kernels at a train phase's largest packed shape: R = 32 x
     127 rows, hidden (R, d) bf16, against the f32 unembedding: with
     ``tied`` the embedding (V, d) read in its own layout (llama3.2-1b's
@@ -1096,7 +1245,8 @@ def check_fused_is_grpo(torch, timer, fio, d=2048, V=128256, tied=True,
     tensor cores from split bf16 terms and is bound at 989 TFLOP/s: the
     forward and dw 2 passes of 2 R d V, bwd_dh 5; each keeps beside it the
     f32 FMA bound (one pass at 67 TFLOP/s) of the f32 product its plain
-    version computes. Rows are emitted as check_<kernel><suffix>."""
+    version computes. ``cap`` is the final-logit softcap (gemma2-2b's 30).
+    Rows are emitted as check_<kernel><suffix>."""
     R = TRAIN_B * TRAIN_S
     g = torch.Generator(device="cuda").manual_seed(15)
     h = torch.randn(R, d, device="cuda", generator=g).bfloat16()
@@ -1108,7 +1258,7 @@ def check_fused_is_grpo(torch, timer, fio, d=2048, V=128256, tied=True,
                       dtype=torch.int32)
     beh = torch.randn(R, device="cuda", generator=g) * 0.3 - 11.0
     adv = torch.randn(R, device="cuda", generator=g)
-    kw = dict(logit_softcap=0.0, clip_low=0.2, clip_high=0.28, use_is=True,
+    kw = dict(logit_softcap=cap, clip_low=0.2, clip_high=0.28, use_is=True,
               is_ratio_cap=10.0, entropy_coef=0.0)
     outs = fio.fused_is_grpo_fwd_rows(h, w, t, beh, adv, **kw)
     ref = fio.fwd_plain(h, w, t, beh, adv, **kw)
@@ -1122,9 +1272,11 @@ def check_fused_is_grpo(torch, timer, fio, d=2048, V=128256, tied=True,
     ca = torch.randn(R, device="cuda", generator=g)
     ce = torch.randn(R, device="cuda", generator=g) * 0.1
     ebar = lse - ent
-    dl, dh = fio.fused_is_grpo_bwd_dh_rows(h, w, t, lse, ebar, ca, ce)
+    dl, dh = fio.fused_is_grpo_bwd_dh_rows(h, w, t, lse, ebar, ca, ce,
+                                           logit_softcap=cap)
     dw = fio.fused_is_grpo_bwd_dw_rows(h, dl, torch.empty_like(w))
-    rdl, rdh = fio.bwd_dh_plain(h, w, t, lse, ebar, ca, ce)
+    rdl, rdh = fio.bwd_dh_plain(h, w, t, lse, ebar, ca, ce,
+                                logit_softcap=cap)
     rdw = fio.bwd_dw_plain(h, rdl)
     torch.cuda.synchronize()
     # sums of 128256 (dh) or 4064 (dw) f32 products in another order:
@@ -1143,9 +1295,9 @@ def check_fused_is_grpo(torch, timer, fio, d=2048, V=128256, tied=True,
                          iters=3)
     gemm_ms = timer(lambda: hf @ w, iters=3)
     dh_ms = timer(lambda: fio.fused_is_grpo_bwd_dh_rows(
-        h, w, t, lse, ebar, ca, ce), iters=3, warmup=1)
-    dh_plain_ms = timer(lambda: fio.bwd_dh_plain(h, w, t, lse, ebar, ca, ce),
-                        iters=3, warmup=1)
+        h, w, t, lse, ebar, ca, ce, logit_softcap=cap), iters=3, warmup=1)
+    dh_plain_ms = timer(lambda: fio.bwd_dh_plain(
+        h, w, t, lse, ebar, ca, ce, logit_softcap=cap), iters=3, warmup=1)
     dw_ms = timer(lambda: fio.fused_is_grpo_bwd_dw_rows(h, dl, dw),
                   iters=3, warmup=1)
     dw_plain_ms = timer(lambda: fio.bwd_dw_plain(h, dl), iters=3, warmup=1)
@@ -1157,7 +1309,8 @@ def check_fused_is_grpo(torch, timer, fio, d=2048, V=128256, tied=True,
     op = 2 * R * d * V
     shape = (f"hidden [{R}, {d}] bf16, "
              + (f"w = embed.T of [{V}, {d}] f32, " if tied
-                else f"w = lm_head [{d}, {V}] f32, ") + "tensor cores, ")
+                else f"w = lm_head [{d}, {V}] f32, ")
+             + (f"logit softcap {cap}, " if cap else "") + "tensor cores, ")
     f_bytes = 2 * R * d + 4 * V * d + 3 * rows_io + 5 * rows_io
     b_f = bound(f_bytes, SPLIT_TC_PASSES * op, PEAK_BF16_FLOPS)
     b_f_f32 = bound(f_bytes, op, PEAK_F32_FLOPS)
@@ -1472,7 +1625,8 @@ def profile_update(torch, tr, cfg, tc):
 
 
 def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
-                steps=3, seed=0, entropy_coef=0.0, keep=None):
+                steps=3, seed=0, entropy_coef=0.0, keep=None, num_layers=0,
+                cut=""):
     """The main path of a training slice: sft_warmup for 4 steps, then
     ``steps`` sequential CoPRISTrainer.step() calls on ``arch`` at full
     width (bf16 compute, f32 master weights, remat, the fused loss, random
@@ -1483,7 +1637,8 @@ def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
     scans' backward kernels then carry one even when all advantages are
     zero). With a dict ``keep``, the SFT-warmed weights go into it, copied
     to the host (``params``), and the steps' wall times (``step_time``).
-    Returns the launch counts."""
+    ``num_layers`` > 0 keeps that many layers at the full widths, for the
+    reason ``cut``. Returns the launch counts."""
     from repro_torch.common.config import RolloutConfig, TrainConfig
     from repro_torch.configs import get_config
     from repro_torch.core.copris import CoPRISTrainer
@@ -1493,6 +1648,9 @@ def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
     gc.collect()                        # the previous phase's trainer
     torch.cuda.empty_cache()
     cfg = get_config(arch)
+    full_layers = cfg.num_layers
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     task = AdditionTask(max_value=20, seed=seed)
     params = M.init_params(cfg, seed=seed, device="cuda")
     t0 = time.perf_counter()
@@ -1540,14 +1698,18 @@ def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
         keep["step_time"] = [o["step_time"] for o in outs]
     keys = ("reward_mean", "pg_loss", "grad_norm", "ratio_mean",
             "off_policy_frac")
+    extra = {}
+    if num_layers:
+        extra["depth_cut"] = f"{num_layers} of {full_layers} layers: {cut}"
     emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}",
          vocab=cfg.vocab_size, tied=cfg.tie_embeddings, sft_steps=4,
          sft_loss=sft_loss, sft_seconds=sft_s, entropy_coef=entropy_coef,
          steps=[{k: o[k] for k in keys + (
              "rollout_time", "reward_time", "update_time", "step_time",
              "resumed", "multi_stage_trajs", "buffer_unfinished", "rows",
              "mean_resp_len", "entropy", "clip_frac")} for o in outs],
-         peak_mem_gb=peak, launches=launches)
+         peak_mem_gb=peak, launches=launches, **extra)
     emit(f"{phase}_profile", **prof)
     for o in outs:
         bad = [k for k in keys if not np.isfinite(o[k])]
@@ -1722,18 +1884,45 @@ def overlap_profile(torch, tr):
     (copies and fills left out by name; a kernel's ``device_resource_id``
     is its stream) give each stream's kernels and busy time and
     ``concurrent_ms``, the device time during which kernels of both
-    streams ran at once."""
+    streams ran at once. CUDA events bracket, on the stream each runs on,
+    the step's update and every collect the producer starts in the step
+    (the trainer's ``_train_on`` and ``_collect_stage`` wrapped for the
+    step): returns the profile and those events, which are complete once
+    the producer has stopped (stream_spans reads them)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = tr.step()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = {"update": [], "collect": []}
+
+    def bracket(fn, kind):
+        def run(*a, **kw):
+            stream = torch.cuda.current_stream()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            try:
+                return fn(*a, **kw)
+            finally:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(stream)
+                spans[kind].append((stream.stream_id, start, end))
+        return run
+
+    torch.cuda.synchronize()
+    origin = torch.cuda.Event(enable_timing=True)
+    origin.record()
+    tr._train_on = bracket(tr._train_on, "update")
+    tr._collect_stage = bracket(tr._collect_stage, "collect")
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = tr.step()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del tr._train_on, tr._collect_stage      # the methods again
     cuda = torch.autograd.DeviceType.CUDA
-    spans = [(e.start_ns(), e.end_ns(), e.device_resource_id())
-             for e in prof.profiler.kineto_results.events()
-             if e.device_type() == cuda
-             and not e.name().startswith(("Memcpy", "Memset"))]
-    per_stream, concurrent_ms, span_ms = stream_overlap(spans)
+    kernels = [(e.start_ns(), e.end_ns(), e.device_resource_id())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    per_stream, concurrent_ms, span_ms = stream_overlap(kernels)
     return dict(what="one overlapped CoPRISTrainer.step() under "
                 "torch.profiler (CUDA activity only)", wall_ms=wall_ms,
                 update_time=out["update_time"],
@@ -1741,7 +1930,24 @@ def overlap_profile(torch, tr):
                 streams=per_stream, kernel_span_ms=span_ms,
                 concurrent_ms=concurrent_ms,
                 concurrent_share_of_span=(concurrent_ms / span_ms
-                                          if span_ms else 0.0))
+                                          if span_ms else 0.0)), \
+        (origin, spans)
+
+
+def stream_spans(events):
+    """The update's and the collects' device-time spans from
+    overlap_profile's CUDA events (ms after its origin event), each with
+    its stream, and ``update_overlap_ms``: the part of the update's span
+    during which a collect's span was open on another stream."""
+    origin, spans = events
+    timed = {kind: [(sid, origin.elapsed_time(a), origin.elapsed_time(b))
+                    for sid, a, b in evs] for kind, evs in spans.items()}
+    overlap = sum(max(0.0, min(u1, c1) - max(u0, c0))
+                  for us, u0, u1 in timed["update"]
+                  for cs, c0, c1 in timed["collect"] if cs != us)
+    return dict(update_spans_ms=timed["update"],
+                collect_spans_ms=timed["collect"],
+                update_overlap_ms=overlap)
 
 
 def overlapped_run(torch, tr, kernels, steps, profile=False):
@@ -1753,7 +1959,7 @@ def overlapped_run(torch, tr, kernels, steps, profile=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(kernels)
-    outs = []
+    outs, prof = [], None
     try:
         for _ in range(steps):
             out = tr.step()
@@ -1761,10 +1967,13 @@ def overlapped_run(torch, tr, kernels, steps, profile=False):
             out["newest_token_stage"] = int(stages[stages >= 0].max())
             out["batch"] = tr.last_batch
             outs.append(out)
-        prof = overlap_profile(torch, tr) if profile else None
+        if profile:
+            prof, events = overlap_profile(torch, tr)
     finally:
         tr.close()
     torch.cuda.synchronize()
+    if profile:
+        prof["cuda_events"] = stream_spans(events)
     return outs, read_launches(kernels), prof
 
 
@@ -1802,8 +2011,11 @@ def train_overlap_phase(torch, np, kernels, sft, steps=4):
     the profile of one more step. Checks: finite metrics, param_staleness
     <= 1 every step and == 1 at least once, at most 2 ParamStore versions,
     no trained token from a stage newer than its step, every kernel of the
-    path launched, kernels on at least two streams in the profiled step.
-    Returns the launch counts."""
+    path launched, and in the profiled step a collect's span on the rollout
+    stream open during part of the update's span on the train stream (CUDA
+    events; torch.profiler once recorded no kernel of the rollout thread's
+    stream, so its per-stream counts are reported, not checked). Returns
+    the launch counts."""
     from repro_torch.common.config import RolloutConfig, TrainConfig
     from repro_torch.common.tree import tree_map
     from repro_torch.configs import get_config
@@ -1833,9 +2045,10 @@ def train_overlap_phase(torch, np, kernels, sft, steps=4):
     check_overlapped(np, "train_overlap", outs, launches)
     if not any(o["param_staleness"] == 1 for o in outs):
         fail("train_overlap: no batch was collected one update behind")
-    if len([s for s, d in prof["streams"].items() if d["kernels"]]) < 2:
-        fail(f"train_overlap: the profiled step ran kernels on fewer than "
-             f"two streams: {prof['streams']}")
+    ev = prof["cuda_events"]
+    if not ev["update_overlap_ms"] > 0.0:
+        fail(f"train_overlap: in the profiled step no collect ran on another "
+             f"stream during the update: {ev}")
     return launches
 
 
@@ -2040,23 +2253,30 @@ def reference_multiturn_phase(torch, np, cfg):
         fail("reference_multiturn: a GPU engine disagrees with the CPU one")
 
 
-def serve_hybrid_phase(torch, np, serve_mod, arch, kernels, phase, *,
-                       kv_backend="dense", kv_num_pages=0):
+def serve_arch_phase(torch, np, serve_mod, arch, kernels, phase, *,
+                     kv_backend="dense", kv_num_pages=0, num_layers=0,
+                     cut=""):
     """``arch`` served at full width with random bf16 weights made from a
     seed: pool 16, decode_chunk 8, 24 requests of 64-512 prompt tokens and
     128 new tokens each, over the dense cache or the paged one with
-    ``kv_num_pages`` pages of 16. Every kernel of the path must launch and
-    every request return; a paged run must show page pressure. Then the
-    profile phase's two steady decode chunks. Returns the launch counts."""
+    ``kv_num_pages`` pages of 16; at full depth, or at ``num_layers`` of
+    its layers for the reason ``cut`` (listed in the phase's line as
+    ``depth_cut``). Every kernel of the path must launch and every
+    request return; a paged run must show page pressure. Then the profile
+    phase's two steady decode chunks. Returns the launch counts."""
     gc.collect()
     torch.cuda.empty_cache()
     serve, cfg = serve_mod.make_serve_engine(
         arch, max_prompt_len=512, max_tokens=128, concurrency=16,
         temperature=0.8, top_k=50, top_p=0.95, kv_backend=kv_backend,
-        kv_page_size=16, kv_num_pages=kv_num_pages, seed=0)
+        kv_page_size=16, kv_num_pages=kv_num_pages, seed=0,
+        num_layers=num_layers)
     full = serve_mod.get_config(arch)
-    if (cfg.num_layers, cfg.d_model, cfg.vocab_size) != (
-            full.num_layers, full.d_model, full.vocab_size):
+    if (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab_size) != (
+            full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
+            full.d_ff, full.vocab_size) \
+            or cfg.num_layers != (num_layers or full.num_layers):
         fail(f"{phase}: not the full {arch} width: {cfg}")
     prompts = serve_prompts(np, cfg, n=24)
     for p in prompts:
@@ -2081,7 +2301,10 @@ def serve_hybrid_phase(torch, np, serve_mod, arch, kernels, phase, *,
                      admission_blocked=stats["admission_blocked"],
                      page_preemptions=stats["page_preemptions"],
                      pages_allocated=backend.pages_allocated)
+    if num_layers:
+        extra["depth_cut"] = f"{num_layers} of {full.num_layers} layers: {cut}"
     emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+         heads=f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}",
          vocab=cfg.vocab_size, kv_backend=kv_backend,
          requests=len(results), tokens=ntok, seconds=wall,
          tokens_per_s=ntok / wall, decode_chunks=stats["decode_chunks"],
@@ -2098,23 +2321,24 @@ def serve_hybrid_phase(torch, np, serve_mod, arch, kernels, phase, *,
     return launches, by_length
 
 
-def copris_hybrid_phase(torch, np, model, kernels_of):
-    """Two RolloutEngine.collect stages on each family at full width with
-    random bf16 weights: hymba-1.5b resumes with kv_snapshot (the snapshot
-    carries the ssm / conv state beside the K/V), rwkv6-1.6b re-prefills.
-    max_len 256 < the 192 + 128 budget, so a group's stop length depends on
-    its prompt: groups finish at different times, early termination
-    evicts, the next stage resumes."""
+def copris_arch_phase(torch, np, model, runs):
+    """Two RolloutEngine.collect stages on each of ``runs`` ((arch,
+    resume strategy, kernels, phase)) at full width with random bf16
+    weights: hymba-1.5b resumes with kv_snapshot (the snapshot carries the
+    ssm / conv state beside the K/V), rwkv6-1.6b and paper-qwen-7b
+    re-prefill. max_len 256 < the 192 + 128 budget, so a group's stop
+    length depends on its prompt: groups finish at different times, early
+    termination evicts, the next stage resumes."""
     from repro_torch.common.config import RolloutConfig
     from repro_torch.configs import get_config
     from repro_torch.core.rollout import RolloutEngine
     from repro_torch.sampling import prng
-    for arch, strategy in (("hymba-1.5b", "kv_snapshot"),
-                           ("rwkv6-1.6b", "reprefill")):
+    for arch, strategy, kernels, phase in runs:
         gc.collect()
         torch.cuda.empty_cache()
         cfg = get_config(arch)
-        params = model.init_params(cfg, seed=2, device="cuda")
+        params = model.init_params(cfg, seed=2, device="cuda",
+                                   compute_dtype=torch.bfloat16)
         ro = RolloutConfig(batch_size=4, group_size=4, max_prompt_len=192,
                            max_response_len=128, concurrency=16,
                            mode="copris", temperature=0.8, top_k=50,
@@ -2127,7 +2351,6 @@ def copris_hybrid_phase(torch, np, model, kernels_of):
 
         eng = RolloutEngine(cfg, ro, source, eos_id=cfg.vocab_size - 1,
                             max_len=256)
-        kernels = kernels_of[arch]
         stages = []
         for stage in range(2):
             reset_launches(kernels)
@@ -2146,16 +2369,15 @@ def copris_hybrid_phase(torch, np, model, kernels_of):
                     t.check_invariants()
                     if not all(np.isfinite(lp) and lp <= 0.0
                                for lp in t.behaviour_logps):
-                        fail(f"copris_hybrid {arch}: logp not finite or > 0")
-        emit("copris_hybrid", arch=arch, resume_strategy=strategy,
-             stages=stages)
+                        fail(f"{phase} {arch}: logp not finite or > 0")
+        emit(phase, arch=arch, resume_strategy=strategy, stages=stages)
         if stages[0]["evicted"] == 0 or stages[1]["resumed"] == 0:
-            fail(f"copris_hybrid {arch}: evicted {stages[0]['evicted']}, "
+            fail(f"{phase} {arch}: evicted {stages[0]['evicted']}, "
                  f"resumed {stages[1]['resumed']}")
         if strategy == "kv_snapshot" and stages[1]["snapshot_resumes"] == 0:
-            fail(f"copris_hybrid {arch}: no kv_snapshot resume")
+            fail(f"{phase} {arch}: no kv_snapshot resume")
         if not all(n > 0 for n in stages[0]["launches"].values()):
-            fail(f"copris_hybrid {arch}: a kernel never launched")
+            fail(f"{phase} {arch}: a kernel never launched")
         del params, eng
 
 
@@ -2295,6 +2517,11 @@ def read_launches(kernels, backward=False):
 
 
 def main() -> int:
+    # the compiled flex_attention of the library timings (never the port's)
+    # caches its generated kernels in the checkout's build directory
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2306,8 +2533,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch.nn.functional as F
-
-    import dataclasses
 
     from repro_torch.common import tree
     from repro_torch.common.config import RolloutConfig, TrainConfig
@@ -2353,7 +2578,9 @@ def main() -> int:
 
     # 3. kernel checks at the main path's shapes
     timer = Timer(torch)
-    checks = {"flash_attn": check_flash(torch, F, timer, flash_attn),
+    checks = {"flash_attn": check_flash_prefill(
+                  torch, F, timer, flash_attn, 32, 8, 64,
+                  phase="check_flash_attn"),
               "decode_attn": check_decode(torch, F, timer, decode_attn),
               "fused_sample": check_sample(torch, timer, fused_sample, prng),
               "fused_sample_train": check_sample_train(
@@ -2364,13 +2591,15 @@ def main() -> int:
               "flash_attn_bwd": check_flash_bwd(torch, F, timer, flash_attn),
               **check_fused_is_grpo(torch, timer, fio),
               "fused_logprob": check_fused_logprob(torch, timer, flp),
-              "decode_attn_rep5": check_decode_rep5(torch, F, timer,
-                                                    decode_attn),
-              # the hybrid serve phases' shapes: hymba's heads, both vocabs
-              "flash_attn_rep5": check_flash_rep5(torch, F, timer,
-                                                  flash_attn),
-              "paged_decode_attn_rep5": check_paged_decode_rep5(
-                  torch, timer, paged_decode_attn),
+              # the hybrid serve phases' shapes: hymba's heads (25/5) and
+              # window, both vocabs
+              "flash_attn_rep5": check_flash_prefill(
+                  torch, F, timer, flash_attn, 25, 5, 64, win=1024,
+                  phase="check_flash_attn_rep5"),
+              **dict(zip(("decode_attn_rep5", "paged_decode_attn_rep5"),
+                         check_decode_wide(
+                             torch, F, timer, decode_attn, paged_decode_attn,
+                             25, 5, 64, win=1024, tag="rep5"))),
               **{f"fused_sample_{V}": check_sample(
                   torch, timer, fused_sample, prng, V=V,
                   phase=f"check_fused_sample_{V}") for V in (32001, 65536)}}
@@ -2396,6 +2625,51 @@ def main() -> int:
                                   tied=True, suffix="_hymba")},
         "rwkv6-1.6b": check_fused_is_grpo(torch, timer, fio, d=2048, V=65536,
                                           tied=False, suffix="_rwkv6")}
+    torch.cuda.empty_cache()
+    # the wide heads' shapes (head_dim 128 and 256) and the other archs the
+    # serve and train phases below run: paper-qwen-7b's train and prefill
+    # shapes (28/4 heads of 128: REP 7), gemma2-2b's (8/4 of 256, softcap
+    # 50, its local window of 4096), qwen3-14b's prefill (40/8 of 128: REP
+    # 5), granite-34b's (48/1 of 128: MQA), musicgen-medium's train and
+    # prefill shapes (24/24 of 64: REP 1); dense and paged decode at each
+    # arch's ratio; sampling at V 152064 and 256000; the loss at
+    # paper-qwen-7b's d 3584 / untied V 152064 and gemma2-2b's d 2304 /
+    # tied V 256000 with its logit softcap of 30
+    wide_checks = {}
+    for arch, tag, H, KV, hd, win, cap, trained in (
+            ("paper-qwen-7b", "qwen7b", 28, 4, 128, 0, 0.0, True),
+            ("gemma2-2b", "gemma2", 8, 4, 256, 4096, 50.0, True),
+            ("qwen3-14b", "qwen3_14b", 40, 8, 128, 0, 0.0, False),
+            ("granite-34b", "granite", 48, 1, 128, 0, 0.0, False),
+            ("musicgen-medium", "musicgen", 24, 24, 64, 0, 0.0, True)):
+        c = {}
+        if trained:
+            c["flash_attn"] = check_flash_lse(
+                torch, F, timer, flash_attn, H=H, KV=KV, win=win, hd=hd,
+                cap=cap, phase=f"check_flash_attn_lse_{tag}")
+            c["flash_attn_bwd"] = check_flash_bwd(
+                torch, F, timer, flash_attn, H=H, KV=KV, win=win, hd=hd,
+                cap=cap, phase=f"check_flash_attn_bwd_{tag}")
+        c["flash_attn_prefill"] = check_flash_prefill(
+            torch, F, timer, flash_attn, H, KV, hd, win=win, cap=cap,
+            phase=f"check_flash_attn_prefill_{tag}")
+        c["decode_attn"], c["paged_decode_attn"] = check_decode_wide(
+            torch, F, timer, decode_attn, paged_decode_attn, H, KV, hd,
+            win=win, cap=cap, tag=tag)
+        wide_checks[arch] = c
+        torch.cuda.empty_cache()
+    wide_checks["paper-qwen-7b"]["fused_sample"] = check_sample(
+        torch, timer, fused_sample, prng, V=152064,
+        phase="check_fused_sample_152064")
+    wide_checks["gemma2-2b"]["fused_sample"] = check_sample(
+        torch, timer, fused_sample, prng, V=256000,
+        phase="check_fused_sample_256000")
+    wide_checks["paper-qwen-7b"].update(check_fused_is_grpo(
+        torch, timer, fio, d=3584, V=152064, tied=False, suffix="_qwen7b"))
+    torch.cuda.empty_cache()
+    wide_checks["gemma2-2b"].update(check_fused_is_grpo(
+        torch, timer, fio, d=2304, V=256000, tied=True, cap=30.0,
+        suffix="_gemma2"))
     torch.cuda.empty_cache()
     kernels = {"flash_attn": flash_attn.flash_attention,
                "decode_attn": decode_attn.decode_attention,
@@ -2452,6 +2726,23 @@ def main() -> int:
             dataclasses.replace(cfg_r, vocab_size=8192, dtype="float32"),
             TrainConfig(lr=1e-3, entropy_coef=0.01, remat=True),
             "train_reference_hybrid")
+    # the wide heads on the card against the CPU, float32, 2 layers:
+    # paper-qwen-7b's 7/1 heads of 128 and gemma2-2b's local/global pair
+    # with 2/1 heads of 256, both softcaps and a window of 32 (below the
+    # engine's prompts and the train batch's 64 positions)
+    for cfg_r in (dataclasses.replace(get_smoke_config("paper-qwen-7b"),
+                                      num_heads=7, num_kv_heads=1,
+                                      head_dim=128),
+                  dataclasses.replace(get_smoke_config("gemma2-2b"),
+                                      num_heads=2, num_kv_heads=1,
+                                      head_dim=256, sliding_window=32)):
+        reference_phase(torch, np, serve_mod, model, cfg_r,
+                        phase="reference_wide")
+        train_reference_case(
+            torch, np, copris, model, tree, adam,
+            dataclasses.replace(cfg_r, vocab_size=8192, dtype="float32"),
+            TrainConfig(lr=1e-3, entropy_coef=0.01, remat=True),
+            "train_reference_wide")
     # the overlapped trainer against a CPU replay of its schedule, and the
     # multi-turn engines on the card against the CPU's
     reference_overlap_phase(
@@ -2535,16 +2826,17 @@ def main() -> int:
     del params, eng
 
     # 6b. the hybrid families served at full width, then two CoPRIS stages
-    hymba_launches, hymba_by_length = serve_hybrid_phase(
+    hymba_launches, hymba_by_length = serve_arch_phase(
         torch, np, serve_mod, "hymba-1.5b", hymba_kernels, "serve_hymba")
     # 40% of the dense-equivalent 16 x 640 / 16 = 640 pages
-    serve_hybrid_phase(torch, np, serve_mod, "hymba-1.5b",
+    serve_arch_phase(torch, np, serve_mod, "hymba-1.5b",
                        hymba_paged_kernels, "serve_hymba_paged",
                        kv_backend="paged", kv_num_pages=256)
-    rwkv_launches, rwkv_by_length = serve_hybrid_phase(
+    rwkv_launches, rwkv_by_length = serve_arch_phase(
         torch, np, serve_mod, "rwkv6-1.6b", rwkv_kernels, "serve_rwkv6")
-    copris_hybrid_phase(torch, np, model, {"hymba-1.5b": hymba_kernels,
-                                           "rwkv6-1.6b": rwkv_kernels})
+    copris_arch_phase(torch, np, model, (
+        ("hymba-1.5b", "kv_snapshot", hymba_kernels, "copris_hybrid"),
+        ("rwkv6-1.6b", "reprefill", rwkv_kernels, "copris_hybrid")))
 
     # a serve engine and its RolloutEngine form a reference cycle (the
     # engine's prompt source is a bound method of the serve engine): collect
@@ -2579,6 +2871,57 @@ def main() -> int:
     rwkv_train = train_phase(torch, np, rwkv_train_kernels,
                              arch="rwkv6-1.6b", phase="train_rwkv6",
                              steps=2, seed=2, entropy_coef=0.01)
+
+    # 7c. the wide-head archs through the same entry points: paper-qwen-7b
+    # (the paper's model: 28/4 heads of 128) served at full depth over the
+    # dense cache and at 14 of its 28 layers over the paged one, two CoPRIS
+    # stages, trained at 4 of its 28 layers; gemma2-2b (8/4 of 256, softcaps, local window) served over
+    # the dense cache and trained at full depth (its paged decode is held
+    # to the dense kernel bit for bit in the kernel checks); qwen3-14b
+    # (40/8 of 128, qk_norm) served at 20 of its 40 layers; granite-34b
+    # (48/1 of 128) at 24 of its 88; musicgen-medium (24/24 of 64, V 2048:
+    # the full-logits loss) served and trained at 24 of its 48
+    musicgen_train_kernels = {
+        **kernels, "flash_attn_bwd": flash_attn.flash_attention_bwd}
+    # the paged paper-qwen-7b, qwen3-14b and musicgen-medium at half depth:
+    # the whole run took 647 s with the last two at full depth and 633 s
+    # with them at half depth and the paged paper-qwen-7b at full depth,
+    # over the ~600 s it aims at; no kernel's shape depends on the depth
+    time_cut = "the run's time (no kernel's shape depends on the depth)"
+    wide = {}
+    wide["serve_qwen7b"] = serve_arch_phase(
+        torch, np, serve_mod, "paper-qwen-7b", kernels, "serve_qwen7b")[0]
+    wide["serve_qwen7b_paged"] = serve_arch_phase(
+        torch, np, serve_mod, "paper-qwen-7b", serve_paged_kernels,
+        "serve_qwen7b_paged", kv_backend="paged", kv_num_pages=256,
+        num_layers=14, cut=time_cut)[0]
+    copris_arch_phase(torch, np, model, (
+        ("paper-qwen-7b", "reprefill", kernels, "copris_qwen7b"),))
+    wide["train_qwen7b"] = train_phase(
+        torch, np, train_kernels, arch="paper-qwen-7b", phase="train_qwen7b",
+        steps=2, seed=2, entropy_coef=0.01, num_layers=4,
+        cut="the full depth's training state (~122 GB) does not fit the card")
+    wide["serve_gemma2"] = serve_arch_phase(
+        torch, np, serve_mod, "gemma2-2b", kernels, "serve_gemma2")[0]
+    wide["train_gemma2"] = train_phase(
+        torch, np, train_kernels, arch="gemma2-2b", phase="train_gemma2",
+        steps=2, seed=2, entropy_coef=0.01)
+    wide["serve_qwen3_14b"] = serve_arch_phase(
+        torch, np, serve_mod, "qwen3-14b", kernels, "serve_qwen3_14b",
+        num_layers=20, cut=time_cut)[0]
+    wide["serve_granite"] = serve_arch_phase(
+        torch, np, serve_mod, "granite-34b", kernels, "serve_granite",
+        num_layers=24,
+        cut="the full depth's bf16 weights (93.9 GB) do not fit the card")[0]
+    wide["serve_musicgen"] = serve_arch_phase(
+        torch, np, serve_mod, "musicgen-medium", kernels, "serve_musicgen",
+        num_layers=24, cut=time_cut)[0]
+    # one step: a rollout of 48 layers at 124 tokens took ~22 s
+    wide["train_musicgen"] = train_phase(
+        torch, np, musicgen_train_kernels, arch="musicgen-medium",
+        phase="train_musicgen", steps=1, seed=2, entropy_coef=0.01,
+        num_layers=24, cut=time_cut)
+    new_launches.update(wide)
 
     # 8. kernels line: launches from the train phase, from train_paged for
     # the paged decode and the fused log-prob, from serve_hymba and
@@ -2673,6 +3016,31 @@ def main() -> int:
                     "shape", "launches", "max_abs_err", "ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms")}
                 for arch, r in hybrid.items()}
+        wide_rows = {}
+        for arch, c in wide_checks.items():
+            entry = {}
+            for key, label in ((name, "check"),
+                               (f"{name}_prefill", "prefill")):
+                if key not in c:
+                    continue
+                phase = WIDE_LAUNCHES.get((arch, key))
+                entry[label] = dict(
+                    {k: c[key].get(k) for k in (
+                        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library", "library_ms",
+                        "library_err", "library_failed", "library_options",
+                        "default_options_failed", "vs_library",
+                        "bit_equal_launches",
+                        "diff_from_dense_kernel", "dense_kernel_ms",
+                        "sdpa_without_softcap_ms") if k in c[key]},
+                    launches=wide[phase][name] if phase else None,
+                    launches_of=phase)
+            if entry:
+                wide_rows[arch] = entry
+        if wide_rows:
+            # the same kernel at the wide heads' shapes, with the launches
+            # of the phase that runs that shape on the main path
+            row["wide_heads"] = wide_rows
         if name in by_length:
             row["launches_by_length"] = by_length[name]
             pre = scans[name]["prefill"]
@@ -2687,6 +3055,37 @@ def main() -> int:
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
+
+# which phase's launches stand beside a wide-head check in the kernels line:
+# (arch, check) -> phase; a check with no phase (the paged decode of every
+# arch but paper-qwen-7b) is not on any path of this run
+WIDE_LAUNCHES = {
+    ("paper-qwen-7b", "flash_attn"): "train_qwen7b",
+    ("paper-qwen-7b", "flash_attn_prefill"): "serve_qwen7b",
+    ("paper-qwen-7b", "flash_attn_bwd"): "train_qwen7b",
+    ("paper-qwen-7b", "decode_attn"): "serve_qwen7b",
+    ("paper-qwen-7b", "paged_decode_attn"): "serve_qwen7b_paged",
+    ("paper-qwen-7b", "fused_sample"): "serve_qwen7b",
+    ("paper-qwen-7b", "fused_is_grpo_fwd"): "train_qwen7b",
+    ("paper-qwen-7b", "fused_is_grpo_bwd_dh"): "train_qwen7b",
+    ("paper-qwen-7b", "fused_is_grpo_bwd_dw"): "train_qwen7b",
+    ("gemma2-2b", "flash_attn"): "train_gemma2",
+    ("gemma2-2b", "flash_attn_prefill"): "serve_gemma2",
+    ("gemma2-2b", "flash_attn_bwd"): "train_gemma2",
+    ("gemma2-2b", "decode_attn"): "serve_gemma2",
+    ("gemma2-2b", "fused_sample"): "serve_gemma2",
+    ("gemma2-2b", "fused_is_grpo_fwd"): "train_gemma2",
+    ("gemma2-2b", "fused_is_grpo_bwd_dh"): "train_gemma2",
+    ("gemma2-2b", "fused_is_grpo_bwd_dw"): "train_gemma2",
+    ("qwen3-14b", "flash_attn_prefill"): "serve_qwen3_14b",
+    ("qwen3-14b", "decode_attn"): "serve_qwen3_14b",
+    ("granite-34b", "flash_attn_prefill"): "serve_granite",
+    ("granite-34b", "decode_attn"): "serve_granite",
+    ("musicgen-medium", "flash_attn"): "train_musicgen",
+    ("musicgen-medium", "flash_attn_prefill"): "serve_musicgen",
+    ("musicgen-medium", "flash_attn_bwd"): "train_musicgen",
+    ("musicgen-medium", "decode_attn"): "serve_musicgen",
+}
 
 SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
 TRAIN_SAMPLING = dict(temperature=1.0)
@@ -2717,8 +3116,127 @@ def sass_of(build, lib_path):
                           capture_output=True, text=True, check=True).stdout
 
 
+def sass_functions(text):
+    """{kernel: its instructions} of a ``cuobjdump -sass`` listing: names
+    without their translation unit's anonymous-namespace prefix (which
+    hashes the file), instructions without addresses and encodings, branch
+    labels numbered within the function."""
+    out = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        block = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", block)
+        lines = block.splitlines()
+        labels, body = {}, []
+        for line in lines[1:]:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+            if m:
+                body.append(re.sub(r"\.L_x_\d+", lambda x: labels.setdefault(
+                    x.group(0), f"L{len(labels)}"), m.group(1)))
+        out[lines[0].strip()] = "\n".join(body)
+    return out
+
+
+def with_libraries(build, libs, fn):
+    """``fn()`` with the wrappers' loaded libraries replaced by ``libs``
+    ({source name: CDLL}): the same Python wrapper launches another tree's
+    kernel through the same C entry point."""
+    saved = {name: build.library(name) for name in libs}
+    build._LIBRARIES.update(libs)
+    try:
+        return fn()
+    finally:
+        build._LIBRARIES.update(saved)
+
+
+def ab_attention_loss(torch, timer, build, parent, in_turns):
+    """llama3.2-1b's attention and loss kernels of this tree against those
+    of the checkout at ``parent``, through this tree's wrappers (the C entry
+    points are the same), timed in turns: flash forward with lse at the
+    train shape and without at the prefill shape, its backward, dense and
+    paged decode at the serve shape, the three loss kernels at d 2048 / V
+    128256. Then, per library, the kernels whose SASS is the same in both
+    trees and those that differ (the wgmma.cuh changes must leave the loss
+    library's SASS as it was)."""
+    from repro_torch.hopper import decode_attn, flash_attn
+    from repro_torch.hopper import fused_is_grpo as fio
+    from repro_torch.hopper import paged_decode_attn
+    names = ("flash_attn", "flash_attn_bwd", "decode_attn",
+             "paged_decode_attn", "fused_is_grpo")
+    old = {name: parent_library(build, parent, name, build.KERNELS[name])
+           for name in names}
+    g = torch.Generator(device="cuda").manual_seed(31)
+
+    def ab(label, call, shape):
+        a = with_libraries(build, old, call)
+        b = call()
+        torch.cuda.synchronize()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        emit(f"ab_{label}", shape=shape, same_bits_as_parent=same,
+             **in_turns(lambda: with_libraries(build, old, call), call))
+
+    B, S, H, KV, hd = TRAIN_B, TRAIN_S, 32, 8, 64
+    q, k, v, do = (torch.randn(B, S, n, hd, device="cuda", generator=g)
+                   .bfloat16() for n in (H, KV, KV, H))
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True)
+    ab("flash_attn_lse", lambda: flash_attn.flash_attention(
+        q, k, v, return_lse=True), f"q {list(q.shape)} kv {list(k.shape)}")
+    ab("flash_attn_bwd", lambda: flash_attn.flash_attention_bwd(
+        q, k, v, out, lse, do), f"q {list(q.shape)} kv {list(k.shape)}")
+    qp, kp_, vp_ = (torch.randn(16, PREFILL_T, n, hd, device="cuda",
+                                generator=g).bfloat16() for n in (H, KV, KV))
+    ab("flash_attn_prefill", lambda: flash_attn.flash_attention(
+        qp, kp_, vp_), f"q {list(qp.shape)} kv {list(kp_.shape)}")
+    L, ps = 640, 16
+    qd = torch.randn(16, 1, H, hd, device="cuda", generator=g).bfloat16()
+    kc, vc = (torch.randn(16, L, KV, hd, device="cuda", generator=g)
+              .bfloat16() for _ in range(2))
+    lens = torch.randint(65, L + 1, (16,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    kpool, vpool, bt = scatter_pages(torch, kc, vc, lens, ps, g)
+    ab("decode_attn", lambda: decode_attn.decode_attention(qd, kc, vc, lens),
+       f"q {list(qd.shape)} cache {list(kc.shape)}")
+    ab("paged_decode_attn", lambda: paged_decode_attn.paged_decode_attention(
+        qd, kpool, vpool, bt, ps, lens), f"pools {list(kpool.shape)}")
+    R, d, V = TRAIN_B * TRAIN_S, 2048, 128256
+    h = torch.randn(R, d, device="cuda", generator=g).bfloat16()
+    w = (torch.randn(V, d, device="cuda", generator=g) * 0.02).T
+    t = torch.randint(0, V, (R,), device="cuda", generator=g,
+                      dtype=torch.int32)
+    beh = torch.randn(R, device="cuda", generator=g) * 0.3 - 11.0
+    adv = torch.randn(R, device="cuda", generator=g)
+    kw = dict(logit_softcap=0.0, clip_low=0.2, clip_high=0.28, use_is=True,
+              is_ratio_cap=10.0, entropy_coef=0.0)
+    fwd = fio.fused_is_grpo_fwd_rows(h, w, t, beh, adv, **kw)
+    lse_l, ent = fwd[3], fwd[4]
+    ca = torch.randn(R, device="cuda", generator=g)
+    ce = torch.randn(R, device="cuda", generator=g) * 0.1
+    dl, _ = fio.fused_is_grpo_bwd_dh_rows(h, w, t, lse_l, lse_l - ent, ca, ce)
+    dw = torch.empty_like(w)
+    shape = f"hidden [{R}, {d}] bf16, w = embed.T of [{V}, {d}] f32"
+    ab("fused_is_grpo_fwd", lambda: fio.fused_is_grpo_fwd_rows(
+        h, w, t, beh, adv, **kw), shape)
+    ab("fused_is_grpo_bwd_dh", lambda: fio.fused_is_grpo_bwd_dh_rows(
+        h, w, t, lse_l, lse_l - ent, ca, ce), shape)
+    ab("fused_is_grpo_bwd_dw", lambda: fio.fused_is_grpo_bwd_dw_rows(
+        h, dl, dw).clone(), shape)
+    ab_dir = Path(parent) / "build" / "ab"
+    for name in names:
+        before = sass_functions(sass_of(build, ab_dir / f"{name}.so"))
+        after = sass_functions(build.sass(name))
+        common = sorted(set(before) & set(after))
+        emit("ab_sass_functions", library=name,
+             same=sum(before[f] == after[f] for f in common),
+             differ=[f for f in common if before[f] != after[f]],
+             only_parent=len(set(before) - set(after)),
+             only_change=len(set(after) - set(before)))
+
+
 def ab_main(parent) -> int:
-    """``python3 chip_smoke.py --ab PARENT``: this tree's sampling kernel,
+    """``python3 chip_smoke.py --ab PARENT``: this tree's attention kernels
+    (flash forward and backward, dense and paged decode) and loss kernels
+    at llama3.2-1b's shapes, with their SASS compared function by function
+    (ab_attention_loss), then its sampling kernel,
     selective scan (decode and prefill) and WKV6 (decode and prefill)
     against those of the checkout at PARENT (both built here), timed in
     turns (parent, change, change, parent) at the main paths' shapes, with
@@ -2776,6 +3294,8 @@ def ab_main(parent) -> int:
         ts = [timer(f) for f in (old, new, new, old)]
         return dict(parent_ms=(ts[0] + ts[3]) / 2, ms=(ts[1] + ts[2]) / 2,
                     turns_ms=ts)
+
+    ab_attention_loss(torch, timer, build, parent, in_turns)
 
     g = torch.Generator(device="cuda").manual_seed(12)
     for label, V, kw in (("serve", 128256, SERVE_SAMPLING),

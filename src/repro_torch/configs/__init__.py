@@ -5,9 +5,9 @@ Each ported architecture lives in its own module and exposes ``CONFIG``.
 returns the reduced (<=2 layer, d_model<=512) variant used by the CPU tests.
 Registered: the dense architectures (``attn`` blocks, and gemma2-2b's
 local/global pair), the hybrid hymba-1.5b and the attention-free
-rwkv6-1.6b. On the card the attention kernels take head_dim 32 or 64, so
-of the dense archs with head_dim 128 or 256 (gemma2-2b, qwen3-14b,
-granite-34b, paper-qwen-7b) only the CPU path runs today.
+rwkv6-1.6b. All of them run on the card: the attention kernels take
+head_dim 32, 64, 128 and 256 (gemma2-2b's 256; paper-qwen-7b's, qwen3-14b's
+and granite-34b's 128) and any GQA ratio (granite-34b's is 48).
 """
 from __future__ import annotations
 

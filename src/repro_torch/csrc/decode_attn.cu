@@ -5,8 +5,11 @@
 //   (body `_kernel`).
 // Plain reference: repro_torch.models.attention.decode_attention. One query
 // token per row attends to cache positions [lo, cache_len), lo = cache_len -
-// window for sliding-window layers and 0 otherwise; the REP = H / KV query
-// heads of a GQA group share every K/V element the block loads.
+// window for sliding-window layers and 0 otherwise; the query heads of a
+// block's head group (REP = H / KV up to 5; a wider ratio as REP / RG groups
+// over the grid, e.g. REP 7 as 7 groups of 1, REP 8, 16 and 48 as groups of
+// 4) share every K/V element the block loads. Head sizes 32, 64, 128, 256
+// (any other raises) and any integer REP.
 //
 // Layout: the MODEL's cache layout (B, L, KV, hd) — the one
 // models/attention.py writes — not the Pallas kernel's (B, KV, L, hd), so the
@@ -39,45 +42,50 @@ struct DenseRows {
   }
 };
 
-template <typename T, int HD, int REP>
+template <typename T, int HD, int RG>
 __global__ void __launch_bounds__(repro::kDecodeWarps * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, const int* __restrict__ lens,
-              T* __restrict__ o, int L, int KV, int window, float softcap,
-              float scale, repro::DecodeSplit ws) {
-  const int g = blockIdx.y;
+              T* __restrict__ o, int L, int KV, int NG, int window,
+              float softcap, float scale, repro::DecodeSplit ws) {
+  const int REP = RG * NG;  // NG: groups of RG query heads per kv head
+  const int g = blockIdx.y / NG;
+  const int gi = blockIdx.y % NG;
   const int b = blockIdx.z;
   const int len = min(lens[b], L);
   const int lo = window > 0 ? max(0, len - window) : 0;
   const long long stride = (long long)KV * HD;
   const DenseRows rows{(long long)b * L * stride + (long long)g * HD, stride};
-  const size_t head = ((size_t)b * KV * REP + g * REP) * HD;
-  repro::decode_attend<T, HD, REP>(q + head, kc, vc, rows, lo, len, softcap,
-                                   scale, o + head, ws, b * KV + g);
+  const size_t head = ((size_t)b * KV * REP + g * REP + gi * RG) * HD;
+  const int pair = b * KV + g;
+  repro::decode_attend<T, HD, RG>(
+      q + head, kc, vc, rows, lo, len, softcap, scale, o + head, ws,
+      pair * NG + gi, (size_t)pair * ws.chunks * REP + gi * RG, REP);
 }
 
 struct Args {
   const void *q, *k, *v;
   const int* lens;
   void* o;
-  int B, L, KV, window;
+  int B, L, KV, NG, window;
   float softcap, scale;
   repro::DecodeSplit ws;
   cudaStream_t stream;
 };
 
-template <typename T, int HD, int REP>
+template <typename T, int HD, int RG>
 void launch(const Args& a) {
-  dim3 grid(a.ws.chunks, a.KV, a.B);
-  decode_kernel<T, HD, REP><<<grid, repro::kDecodeWarps * 32, 0, a.stream>>>(
+  dim3 grid(a.ws.chunks, a.KV * a.NG, a.B);
+  decode_kernel<T, HD, RG><<<grid, repro::kDecodeWarps * 32, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.lens, static_cast<T*>(a.o), a.L, a.KV,
-      a.window, a.softcap, a.scale, a.ws);
+      a.NG, a.window, a.softcap, a.scale, a.ws);
 }
 
+// one instantiation per head-group size RG; a.NG groups per kv head
 template <typename T, int HD>
-bool dispatch_rep(int rep, const Args& a) {
-  switch (rep) {
+bool dispatch_group(int rg, const Args& a) {
+  switch (rg) {
     case 1: launch<T, HD, 1>(a); return true;
     case 2: launch<T, HD, 2>(a); return true;
     case 3: launch<T, HD, 3>(a); return true;
@@ -90,7 +98,8 @@ bool dispatch_rep(int rep, const Args& a) {
 }  // namespace
 
 // ws: the split workspace, ws_floats float32 (acc, then (max, sum) pairs);
-// tickets: B * KV int32 counters, zero between calls (decode_common.cuh)
+// tickets: B * H int32 counters (one per row, kv head and head group),
+// zero between calls (decode_common.cuh)
 extern "C" int decode_attn_fwd(const void* q, const void* k_cache,
                                const void* v_cache, const void* cache_len,
                                void* o, void* ws, long long ws_floats,
@@ -104,19 +113,26 @@ extern "C" int decode_attn_fwd(const void* q, const void* k_cache,
   float* acc = static_cast<float*>(ws);
   const repro::DecodeSplit split{acc, reinterpret_cast<float2*>(acc + slots * hd),
                                  static_cast<int*>(tickets), chunks};
+  const int rep = H / KV, rg = repro::decode_group(rep);
   const Args a{q, k_cache, v_cache, static_cast<const int*>(cache_len), o, B,
-               L, KV, window, softcap, scale, split,
+               L, KV, rep / rg, window, softcap, scale, split,
                static_cast<cudaStream_t>(stream)};
-  const int rep = H / KV;
   bool ok = false;
-  if (dtype == repro::kBFloat16 && hd == 64)
-    ok = dispatch_rep<__nv_bfloat16, 64>(rep, a);
-  else if (dtype == repro::kFloat32 && hd == 64)
-    ok = dispatch_rep<float, 64>(rep, a);
-  else if (dtype == repro::kBFloat16 && hd == 32)
-    ok = dispatch_rep<__nv_bfloat16, 32>(rep, a);
-  else if (dtype == repro::kFloat32 && hd == 32)
-    ok = dispatch_rep<float, 32>(rep, a);
+  if (dtype == repro::kBFloat16) {
+    switch (hd) {
+      case 32: ok = dispatch_group<__nv_bfloat16, 32>(rg, a); break;
+      case 64: ok = dispatch_group<__nv_bfloat16, 64>(rg, a); break;
+      case 128: ok = dispatch_group<__nv_bfloat16, 128>(rg, a); break;
+      case 256: ok = dispatch_group<__nv_bfloat16, 256>(rg, a); break;
+    }
+  } else if (dtype == repro::kFloat32) {
+    switch (hd) {
+      case 32: ok = dispatch_group<float, 32>(rg, a); break;
+      case 64: ok = dispatch_group<float, 64>(rg, a); break;
+      case 128: ok = dispatch_group<float, 128>(rg, a); break;
+      case 256: ok = dispatch_group<float, 256>(rg, a); break;
+    }
+  }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,12 +18,21 @@
 // (32, 127, 32, 64), prefill q (16, 512, 32 or 25, 64), k/v over 8 or 5
 // heads) it does 4 * B * H * hd * S^2 / 2 operations (~17 GFLOP at the
 // prefill shape, 0.017 ms at 989 TFLOP/s in bf16) against
-// 2 * B * S * (2 H + 2 KV) * hd bytes (84 MB, 0.025 ms at 3.35 TB/s).
+// 2 * B * S * (2 H + 2 KV) * hd bytes (84 MB, 0.025 ms at 3.35 TB/s); at
+// the wide heads' (paper-qwen-7b's 28/4 x 128, gemma2-2b's 8/4 x 256,
+// granite-34b's 48/1 x 128) bytes too.
 //
-// bfloat16: tensor cores (wgmma, sm_90a), flash_fwd_tc. One block of one
-// warpgroup (128 threads) per (64-row q tile, head, batch row). (Two
-// warpgroups sharing each K/V tile across 128 q rows ran slower at every
-// main-path shape.) The Q tile (64 x hd bf16) and a ring of two stages of 64-key K and V tiles live in
+// Head sizes 32, 64, 128 and 256, any H / KV. bfloat16: tensor cores
+// (wgmma, sm_90a), flash_fwd_tc. One block of one warpgroup (128 threads)
+// per (64-row q tile, head, batch row) up to hd 128. At hd 256 O's f32
+// accumulator would be 128 registers a thread beside S (32) and P (16), so
+// O's columns are split over two warpgroups (256 threads), 128 each, and
+// both compute the tile's S and softmax from the shared Q and K tiles (S
+// done twice: 1.5x the products of one warpgroup); ptxas gives 151
+// registers at hd 128 and 156 at 256, no spills. (Two warpgroups sharing
+// each K/V tile across 128 q rows ran slower at every hd-64 main-path
+// shape.) Tiles wider than 64 columns are stored as 64-column panels
+// (wgmma.cuh). The Q tile (64 x hd bf16) and a ring of two stages of 64-key K and V tiles live in
 // swizzled shared memory (wgmma.cuh), filled by cp.async with zero-fill
 // past Sk, so a ragged tile never reads the next batch row; tile j + 1 is in
 // flight while tile j computes. Per K/V tile: S = Q K^T by hd/16 wgmma
@@ -31,7 +40,8 @@
 // accumulator in registers (row max and row sum across the quad of threads
 // that holds a row; softcap tanh; the causal, window and Sk masks only on
 // tiles that straddle them; tiles masked for the whole q tile are skipped by
-// the loop bounds); then O += P V by 4 wgmma m64n{hd}k16 with P rounded to
+// the loop bounds); then O += P V by 4 wgmma m64n{OC}k16 (OC = hd, 128 at
+// hd 256: a warpgroup's columns; n128 reads V across two panels) with P rounded to
 // bf16 in registers as the A operand and V read MN-major (the transpose
 // bit). Rounding points: bf16 inputs, f32 products and sums, P rounded to
 // bf16 once before P V (its row sum l is taken in f32), O / l rounded to
@@ -40,7 +50,10 @@
 // float32: flash_fwd_simt, one thread per query row on the f32 FMA pipes
 // (the first version of this kernel), kept because f32 callers (the
 // GPU-against-CPU references) need atol 1e-4, which TF32 wgmma would not
-// meet. It stages 32-key K/V tiles in shared memory, read as broadcasts.
+// meet. It stages 32-key K/V tiles in shared memory (16 at hd 256, inside
+// the 48 KB of static shared memory), read as broadcasts. At hd 128 and 256
+// a thread's q row and accumulator spill to local memory (255 registers):
+// it serves the small f32 reference configs, never a bf16 main path.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -52,26 +65,51 @@ using repro::kNegInf;
 // bfloat16: tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int TILE = 64;      // query rows per block, keys per K/V tile
-constexpr int THREADS = 128;  // one warpgroup
+constexpr int TILE = 64;  // query rows per block, keys per K/V tile
 
+// One warpgroup holds O's HD / 2 f32 columns per thread up to HD = 128; at
+// HD = 256 O's columns are split over two warpgroups (128 each), which both
+// compute the tile's S and softmax from the shared Q and K tiles.
 template <int HD>
-struct FwdSmem {
+struct Fwd {
+  static constexpr int kWG = HD > 128 ? HD / 128 : 1;  // warpgroups
+  static constexpr int kOC = HD / kWG;       // O columns per warpgroup
+  static constexpr int kThreads = 128 * kWG;
   static constexpr int kTile = TILE * HD * 2;  // bytes of one swizzled tile
   static constexpr int kBytes = 5 * kTile;     // Q, K[2], V[2]
   static constexpr int kAlloc = kBytes + 1024;  // + alignment slack
 };
 
+// O (+)= P V over the four k-steps of a 64-key tile, for N = OC columns of
+// an MN-major V tile (dv: the descriptor of the warpgroup's first column)
+template <int HD, int OC>
+__device__ __forceinline__ void mma_pv(float (&acc)[OC / 2],
+                                       const uint32_t (&pa)[4][4],
+                                       uint64_t dv) {
+  using namespace repro::tc;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (OC == 128)
+      mma_rs_n128(acc, pa[kk], dv + kk * kstep_mnmajor<HD>());
+    else if constexpr (OC == 64)
+      mma_rs_n64(acc, pa[kk], dv + kk * kstep_mnmajor<HD>());
+    else
+      mma_rs_n32(acc, pa[kk], dv + kk * kstep_mnmajor<HD>());
+  }
+}
+
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Fwd<HD>::kThreads)
 flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
              float* __restrict__ lse, int Sq, int Sk, int H, int KV,
              int causal, int window, float softcap, float scale) {
   using namespace repro::tc;
-  constexpr int NO = HD / 2;  // O accumulator registers per thread
-  constexpr int KT = FwdSmem<HD>::kTile;
+  constexpr int OC = Fwd<HD>::kOC;
+  constexpr int NT = Fwd<HD>::kThreads;
+  constexpr int NO = OC / 2;  // O accumulator registers per thread
+  constexpr int KT = Fwd<HD>::kTile;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -82,7 +120,9 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   const int b = blockIdx.z;
   const int g = h / (H / KV);
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  // this thread's warpgroup (its O columns) and warp within it
+  const int wg = Fwd<HD>::kWG > 1 ? tid / 128 : 0;
+  const int warp = (Fwd<HD>::kWG > 1 ? tid % 128 : tid) / 32, lane = tid % 32;
   const int row0 = 16 * warp + lane / 4;  // this thread's rows: +0 and +8
   const int col0 = 2 * (lane % 4);        // its columns: +8 j, +1
 
@@ -97,11 +137,11 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
   const __nv_bfloat16* kbase = k + ((size_t)b * Sk * KV + g) * HD;
   const __nv_bfloat16* vbase = v + ((size_t)b * Sk * KV + g) * HD;
-  load_tile<HD>(sQ, q + (((size_t)b * Sq + q0) * H + h) * HD, q_stride,
-                Sq - q0);
+  load_tile<HD, NT>(sQ, q + (((size_t)b * Sq + q0) * H + h) * HD, q_stride,
+                    Sq - q0);
   if (ntiles > 0) {
-    load_tile<HD>(sK, kbase + kv_lo * kv_stride, kv_stride, Sk - kv_lo);
-    load_tile<HD>(sV, vbase + kv_lo * kv_stride, kv_stride, Sk - kv_lo);
+    load_tile<HD, NT>(sK, kbase + kv_lo * kv_stride, kv_stride, Sk - kv_lo);
+    load_tile<HD, NT>(sV, vbase + kv_lo * kv_stride, kv_stride, Sk - kv_lo);
   }
   cp_async_commit();
 
@@ -111,16 +151,18 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
   float m[2] = {kNegInf, kNegInf};  // running max of rows row0, row0 + 8
   float l[2] = {0.f, 0.f};          // this thread's share of the row sums
   const uint64_t dQ = make_desc<HD>(sQ);
+  // this warpgroup's first V column: panel OC / 64 * wg of a wide tile
+  const uint32_t v_col = OC >= 64 ? wg * (OC / 64) * kPanelBytes : 0;
 
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = kv_lo + t * TILE;
     const int st = t & 1;
     if (t + 1 < ntiles) {  // prefetch the next tile into the other stage
       const int k1 = k0 + TILE;
-      load_tile<HD>(sK + (st ^ 1) * KT, kbase + k1 * kv_stride, kv_stride,
-                    Sk - k1);
-      load_tile<HD>(sV + (st ^ 1) * KT, vbase + k1 * kv_stride, kv_stride,
-                    Sk - k1);
+      load_tile<HD, NT>(sK + (st ^ 1) * KT, kbase + k1 * kv_stride,
+                        kv_stride, Sk - k1);
+      load_tile<HD, NT>(sV + (st ^ 1) * KT, vbase + k1 * kv_stride,
+                        kv_stride, Sk - k1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -138,8 +180,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     const uint64_t dK = make_desc<HD>(sK + st * KT);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      mma_ss_n64(s, dQ + kk * kstep_kmajor<HD>(),
-                 dK + kk * kstep_kmajor<HD>(), kk > 0);
+      mma_ss_n64(s, dQ + kmajor_off<HD>(kk), dK + kmajor_off<HD>(kk),
+                 kk > 0);
     mma_commit();
     mma_wait();
     fence_regs(s);
@@ -186,17 +228,10 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     uint32_t pa[4][4];
     to_a_frags(s, pa);
 
-    // O += P V
+    // O += P V (this warpgroup's OC columns)
     fence_regs(acc);
     mma_fence();
-    const uint64_t dV = make_desc_mn<HD>(sV + st * KT);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if constexpr (HD == 64)
-        mma_rs_n64(acc, pa[kk], dV + kk * kstep_mnmajor<HD>());
-      else
-        mma_rs_n32(acc, pa[kk], dV + kk * kstep_mnmajor<HD>());
-    }
+    mma_pv<HD, OC>(acc, pa, make_desc_mn<HD>(sV + st * KT + v_col));
     mma_commit();
     mma_wait();
     fence_regs(acc);
@@ -217,14 +252,14 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
     if (qp >= Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
     const float inv = 1.f / denom;
-    __nv_bfloat16* op = o + (((size_t)b * Sq + qp) * H + h) * HD;
+    __nv_bfloat16* op = o + (((size_t)b * Sq + qp) * H + h) * HD + wg * OC;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < OC / 8; ++j) {
       const int i = 4 * j + 2 * r;
       *reinterpret_cast<uint32_t*>(op + 8 * j + col0) =
           pack_bf16(acc[i] * inv, acc[i + 1] * inv);
     }
-    if (lse != nullptr && lane % 4 == 0)
+    if (lse != nullptr && wg == 0 && lane % 4 == 0)
       lse[((size_t)b * H + h) * Sq + qp] = m[r] + logf(denom);
   }
 }
@@ -233,12 +268,12 @@ template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int Sq, int Sk, int H, int KV, int causal,
               int window, float softcap, float scale, cudaStream_t stream) {
-  constexpr int bytes = FwdSmem<HD>::kAlloc;
+  constexpr int bytes = Fwd<HD>::kAlloc;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((Sq + TILE - 1) / TILE, H, B);
-  flash_fwd_tc<HD><<<grid, THREADS, bytes, stream>>>(
+  flash_fwd_tc<HD><<<grid, Fwd<HD>::kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -251,7 +286,10 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;  // query rows per block (one per thread)
-constexpr int BK = 32;  // keys per shared-memory tile
+// keys per shared-memory tile: the K, V and score tiles stay inside the 48
+// KB of static shared memory (36 KB at HD = 256 with 16 keys)
+template <int HD>
+__host__ __device__ constexpr int simt_keys() { return HD > 128 ? 16 : 32; }
 
 template <int HD>
 __global__ void __launch_bounds__(BQ)
@@ -266,6 +304,7 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int qpos = q0 + tid;
   const bool qvalid = qpos < Sq;
+  constexpr int BK = simt_keys<HD>();
 
   __shared__ float ks[BK][HD];
   __shared__ float vs[BK][HD];
@@ -377,10 +416,21 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   float* l = static_cast<float*>(lse);
 #define REPRO_LAUNCH(FN, HD) \
   FN<HD>(q, k, v, o, l, B, Sq, Sk, H, KV, causal, window, softcap, scale, s)
-  if (dtype == repro::kBFloat16 && hd == 64) return REPRO_LAUNCH(launch_tc, 64);
-  if (dtype == repro::kBFloat16 && hd == 32) return REPRO_LAUNCH(launch_tc, 32);
-  if (dtype == repro::kFloat32 && hd == 64) return REPRO_LAUNCH(launch_simt, 64);
-  if (dtype == repro::kFloat32 && hd == 32) return REPRO_LAUNCH(launch_simt, 32);
+  if (dtype == repro::kBFloat16) {
+    switch (hd) {
+      case 32: return REPRO_LAUNCH(launch_tc, 32);
+      case 64: return REPRO_LAUNCH(launch_tc, 64);
+      case 128: return REPRO_LAUNCH(launch_tc, 128);
+      case 256: return REPRO_LAUNCH(launch_tc, 256);
+    }
+  } else if (dtype == repro::kFloat32) {
+    switch (hd) {
+      case 32: return REPRO_LAUNCH(launch_simt, 32);
+      case 64: return REPRO_LAUNCH(launch_simt, 64);
+      case 128: return REPRO_LAUNCH(launch_simt, 128);
+      case 256: return REPRO_LAUNCH(launch_simt, 256);
+    }
+  }
 #undef REPRO_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

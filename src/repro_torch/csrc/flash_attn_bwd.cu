@@ -44,6 +44,17 @@
 // The dk/dv pass holds two f32 accumulators and four fragment sets; it is
 // capped at 168 registers (__launch_bounds__(128, 3): three blocks per SM,
 // not two), and ptxas spills a few words at hd 64 (PERF.md).
+// Head sizes 32, 64, 128 and 256, any H / KV, in column blocks that keep
+// every hd's registers at hd 64's or below: a dq block accumulates DQC =
+// min(hd, 128) columns of dQ (64 registers; dQ += dS K is m64n128k16 at hd
+// 128 and 256, K read across two panels), a dk/dv block 64 columns of each
+// (one panel of dO and Q). At hd 256 the grid runs 2 dq blocks per q tile
+// and 4 dk/dv blocks per key tile (2 at hd 128), each computing S and dP
+// over all of hd from full-width tiles (wgmma.cuh's 64-column panels):
+// more products than one block holding all columns, which two f32
+// accumulators of hd / 2 registers each could not fit. Each block still
+// owns its gradient elements, so the bits stay the same from run to run.
+// Shared memory: six tiles, 194 KB at hd 256.
 // Rounding points: bf16 inputs, f32 products and sums; P and dS are passed
 // to their products as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi)
 // (two wgmma each), so the products see them to ~2^-17 relative. Rounded
@@ -54,19 +65,29 @@
 // float32: the first version, kept for f32 callers (the GPU-against-CPU
 // references need atol 1e-4, which TF32 wgmma would not meet): one thread
 // per query row (dq pass) or key (dk/dv pass) on the f32 FMA pipes, with
-// 32-key K/V tiles (dq) or 16-row q/dout tiles (dk/dv) staged in shared
-// memory and read as broadcasts; p = exp(s - L), ds = p (dp - D) (times the
-// softcap chain 1 - tanh^2).
+// 32-key K/V tiles (dq; 16 at hd 256) or 16-row q/dout tiles (dk/dv)
+// staged in shared memory and read as broadcasts; p = exp(s - L), ds = p
+// (dp - D) (times the softcap chain 1 - tanh^2). The dk/dv pass's tiles
+// are dynamic shared memory (41.6 KB at hd 64, 161 KB at 256); at hd 128
+// and 256 the per-thread rows spill to local memory.
 #include "common.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr int BQ = 64;   // dq pass: query rows per block (one per thread)
-constexpr int BK = 32;   // dq pass: keys per shared-memory tile
 constexpr int BKV = 64;  // dk/dv pass: keys per block (one per thread)
 constexpr int BQ2 = 16;  // dk/dv pass: query rows per shared-memory tile
-                         // (41.6 KB of static shared memory at hd 64)
+// dq pass: keys per shared-memory tile, inside the 48 KB of static shared
+// memory (32 KB at HD = 256 with 16 keys)
+template <int HD>
+__host__ __device__ constexpr int simt_keys() { return HD > 128 ? 16 : 32; }
+// dk/dv pass: its dynamic shared memory (the block's padded K and V rows,
+// the q and dout tiles, their lse and D): 41.6 KB at HD = 64, 161 KB at 256
+template <int HD>
+__host__ __device__ constexpr int simt_dkv_bytes() {
+  return 4 * (2 * BKV * (HD + 1) + 2 * BQ2 * HD + 2 * BQ2);
+}
 
 __device__ __forceinline__ bool visible(int qp, int kp, int Sq, int Sk,
                                         int causal, int window) {
@@ -107,6 +128,14 @@ template <int HD>
 __host__ __device__ constexpr int tile_bytes() {
   return TILE * HD * 2;
 }
+// Column blocks: a block accumulates dQ over DQC columns (up to 128: one
+// accumulator of 64 registers a thread) and dK, dV over 64 columns each (two
+// of 32), whatever HD is; at a wider HD the grid runs HD / DQC or HD / 64
+// blocks per tile, each computing the tile's S and dP over all of hd.
+template <int HD>
+__host__ __device__ constexpr int dq_cols() { return HD > 128 ? 128 : HD; }
+template <int HD>
+__host__ __device__ constexpr int dkv_cols() { return HD > 64 ? 64 : HD; }
 // six swizzled tiles (dq: Q, dO, K[2], V[2]; dk/dv: K, V, Q[2], dO[2]), the
 // dk/dv pass's lse and D rows of two stages, and alignment slack
 template <int HD>
@@ -133,25 +162,29 @@ __device__ __forceinline__ Grad prob_grad(float s_acc, float dp, float L,
   return {p, p * (dp - D) * chain};
 }
 
-template <int HD>
-__device__ __forceinline__ void mma_rs(float (&d)[HD / 2],
+// d += a B for N = 32, 64 or 128 columns of an MN-major B
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 64)
+  if constexpr (N == 128)
+    repro::tc::mma_rs_n128(d, a, db);
+  else if constexpr (N == 64)
     repro::tc::mma_rs_n64(d, a, db);
   else
     repro::tc::mma_rs_n32(d, a, db);
 }
 
-// d += (hi + lo) B over the four k-steps of a 64-deep product, B MN-major
-template <int HD>
-__device__ __forceinline__ void mma_rs2(float (&d)[HD / 2],
+// d += (hi + lo) B over the four k-steps of a 64-deep product, B MN-major in
+// a tile of HD columns, N of them read
+template <int HD, int N>
+__device__ __forceinline__ void mma_rs2(float (&d)[N / 2],
                                         const uint32_t (&hi)[4][4],
                                         const uint32_t (&lo)[4][4],
                                         uint64_t db) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    mma_rs<HD>(d, hi[kk], db + kk * repro::tc::kstep_mnmajor<HD>());
-    mma_rs<HD>(d, lo[kk], db + kk * repro::tc::kstep_mnmajor<HD>());
+    mma_rs<N>(d, hi[kk], db + kk * repro::tc::kstep_mnmajor<HD>());
+    mma_rs<N>(d, lo[kk], db + kk * repro::tc::kstep_mnmajor<HD>());
   }
 }
 
@@ -161,8 +194,8 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
                                        uint64_t db) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    repro::tc::mma_ss_n64(d, da + kk * repro::tc::kstep_kmajor<HD>(),
-                          db + kk * repro::tc::kstep_kmajor<HD>(), kk > 0);
+    repro::tc::mma_ss_n64(d, da + repro::tc::kmajor_off<HD>(kk),
+                          db + repro::tc::kmajor_off<HD>(kk), kk > 0);
 }
 
 __device__ __forceinline__ void zero(float (&d)[32]) {
@@ -180,14 +213,18 @@ bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
           __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int KV,
           int causal, int window, float softcap, float scale) {
   using namespace repro::tc;
-  constexpr int NO = HD / 2;
+  constexpr int DQC = dq_cols<HD>();
+  constexpr int NCB = HD / DQC;  // column blocks per q tile
+  constexpr int NO = DQC / 2;
   constexpr int KT = tile_bytes<HD>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base, sO = base + KT, sK = base + 2 * KT,
                  sV = base + 4 * KT;
 
-  const int q0 = blockIdx.x * TILE;
+  // this block's q tile and dQ column block
+  const int cb = NCB > 1 ? blockIdx.x % NCB : 0;
+  const int q0 = (NCB > 1 ? blockIdx.x / NCB : blockIdx.x) * TILE;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int g = h / (H / KV);
@@ -272,10 +309,12 @@ bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
     uint32_t hi[4][4], lo[4][4];
     to_a_frags2(s, hi, lo);
 
-    // dQ += dS K
+    // dQ += dS K (this block's DQC columns of K)
     fence_regs(acc);
     mma_fence();
-    mma_rs2<HD>(acc, hi, lo, make_desc_mn<HD>(sK + st * KT));
+    mma_rs2<HD, DQC>(acc, hi, lo,
+                     make_desc_mn<HD>(sK + st * KT +
+                                      cb * (DQC / 64) * kPanelBytes));
     mma_commit();
     mma_wait();
     fence_regs(acc);
@@ -289,9 +328,9 @@ bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int qp = q0 + row0 + 8 * r;
     if (qp >= Sq) continue;
-    __nv_bfloat16* op = dq + (((size_t)b * Sq + qp) * H + h) * HD;
+    __nv_bfloat16* op = dq + (((size_t)b * Sq + qp) * H + h) * HD + cb * DQC;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < DQC / 8; ++j) {
       const int i = 4 * j + 2 * r;
       *reinterpret_cast<uint32_t*>(op + 8 * j + col0) =
           pack_bf16(acc[i] * scale, acc[i + 1] * scale);
@@ -310,7 +349,9 @@ bwd_dkv_tc(const __nv_bfloat16* __restrict__ q,
            int Sq, int Sk, int H, int KV, int causal, int window,
            float softcap, float scale) {
   using namespace repro::tc;
-  constexpr int NO = HD / 2;
+  constexpr int KC = dkv_cols<HD>();
+  constexpr int NCB = HD / KC;  // column blocks per key tile
+  constexpr int NO = KC / 2;
   constexpr int KT = tile_bytes<HD>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -320,7 +361,9 @@ bwd_dkv_tc(const __nv_bfloat16* __restrict__ q,
   // lse and D of the stage's q rows: [stage][0: lse, 1: D][64]
   float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + 6 * KT);
 
-  const int k0 = blockIdx.x * TILE;
+  // this block's key tile and dK / dV column block (one 64-column panel)
+  const int cb = NCB > 1 ? blockIdx.x % NCB : 0;
+  const int k0 = (NCB > 1 ? blockIdx.x / NCB : blockIdx.x) * TILE;
   const int g = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = H / KV;
@@ -404,15 +447,15 @@ bwd_dkv_tc(const __nv_bfloat16* __restrict__ q,
       dp[i] = gr.ds;
     }
 
-    // dV += P^T dO, dK += dS^T Q
+    // dV += P^T dO, dK += dS^T Q (this block's panel of dO and Q)
     uint32_t phi[4][4], plo[4][4], dhi[4][4], dlo[4][4];
     to_a_frags2(s, phi, plo);
     to_a_frags2(dp, dhi, dlo);
     fence_regs(dva);
     fence_regs(dka);
     mma_fence();
-    mma_rs2<HD>(dva, phi, plo, make_desc_mn<HD>(sO + st * KT));
-    mma_rs2<HD>(dka, dhi, dlo, make_desc_mn<HD>(sQ + st * KT));
+    mma_rs2<HD, KC>(dva, phi, plo, panel_desc_mn<HD>(sO + st * KT, cb));
+    mma_rs2<HD, KC>(dka, dhi, dlo, panel_desc_mn<HD>(sQ + st * KT, cb));
     mma_commit();
     mma_wait();
     fence_regs(dva);
@@ -429,9 +472,9 @@ bwd_dkv_tc(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int kp = k0 + row0 + 8 * r;
     if (kp >= Sk) continue;
-    const size_t off = (((size_t)b * Sk + kp) * KV + g) * HD;
+    const size_t off = (((size_t)b * Sk + kp) * KV + g) * HD + cb * KC;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < KC / 8; ++j) {
       const int i = 4 * j + 2 * r;
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j + col0) =
           pack_bf16(dka[i] * scale, dka[i + 1] * scale);
@@ -462,11 +505,11 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
   const size_t rows = (size_t)B * Sq * H;
   delta_kernel<bf, HD><<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
       static_cast<const bf*>(o), dot, delta, B, Sq, H);
-  dim3 gq((Sq + TILE - 1) / TILE, H, B);
+  dim3 gq((Sq + TILE - 1) / TILE * (HD / dq_cols<HD>()), H, B);
   bwd_dq_tc<HD><<<gq, THREADS, bytes, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<bf*>(dq), Sq, Sk, H, KV,
       causal, window, softcap, scale);
-  dim3 gk((Sk + TILE - 1) / TILE, KV, B);
+  dim3 gk((Sk + TILE - 1) / TILE * (HD / dkv_cols<HD>()), KV, B);
   bwd_dkv_tc<HD><<<gk, THREADS, bytes, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv),
       Sq, Sk, H, KV, causal, window, softcap, scale);
@@ -492,6 +535,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int qpos = q0 + tid;
   const bool qvalid = qpos < Sq;
+  constexpr int BK = simt_keys<HD>();
 
   __shared__ float ks[BK][HD];
   __shared__ float vs[BK][HD];
@@ -579,12 +623,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kpos = k0 + tid;
   const bool kvalid = kpos < Sk;
 
-  __shared__ float kt[BKV][HD + 1];  // own rows, padded: conflict-free
-  __shared__ float vt[BKV][HD + 1];
-  __shared__ float qs[BQ2][HD];      // broadcast tiles
-  __shared__ float dos[BQ2][HD];
-  __shared__ float Ls[BQ2];
-  __shared__ float Ds[BQ2];
+  // own rows, padded (conflict-free); the broadcast tiles; their lse and D
+  extern __shared__ float smem_f[];
+  float(*kt)[HD + 1] = reinterpret_cast<float(*)[HD + 1]>(smem_f);
+  float(*vt)[HD + 1] = kt + BKV;
+  float(*qs)[HD] = reinterpret_cast<float(*)[HD]>(vt + BKV);
+  float(*dos)[HD] = qs + BQ2;
+  float* Ls = reinterpret_cast<float*>(dos + BQ2);
+  float* Ds = Ls + BQ2;
 
   {
     const size_t off = ((size_t)(b * Sk + (kvalid ? kpos : 0)) * KV + g) * HD;
@@ -681,8 +727,13 @@ int launch_simt(const void* q, const void* k, const void* v, const void* o,
   flash_bwd_dq_kernel<T, HD><<<gq, BQ, 0, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), Sq, Sk, H, KV,
       causal, window, softcap, scale);
+  constexpr int dkv_bytes = simt_dkv_bytes<HD>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 gk((Sk + BKV - 1) / BKV, KV, B);
-  flash_bwd_dkv_kernel<T, HD><<<gk, BKV, 0, stream>>>(
+  flash_bwd_dkv_kernel<T, HD><<<gk, BKV, dkv_bytes, stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       Sq, Sk, H, KV, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
@@ -705,12 +756,21 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
 #define REPRO_ARGS                                                          \
   q, k, v, o, l, dout, dq, dk, dv, dl, B, Sq, Sk, H, KV, causal, window,    \
       softcap, scale, s
-  if (dtype == repro::kBFloat16 && hd == 64) return launch_tc<64>(REPRO_ARGS);
-  if (dtype == repro::kBFloat16 && hd == 32) return launch_tc<32>(REPRO_ARGS);
-  if (dtype == repro::kFloat32 && hd == 64)
-    return launch_simt<float, 64>(REPRO_ARGS);
-  if (dtype == repro::kFloat32 && hd == 32)
-    return launch_simt<float, 32>(REPRO_ARGS);
+  if (dtype == repro::kBFloat16) {
+    switch (hd) {
+      case 32: return launch_tc<32>(REPRO_ARGS);
+      case 64: return launch_tc<64>(REPRO_ARGS);
+      case 128: return launch_tc<128>(REPRO_ARGS);
+      case 256: return launch_tc<256>(REPRO_ARGS);
+    }
+  } else if (dtype == repro::kFloat32) {
+    switch (hd) {
+      case 32: return launch_simt<float, 32>(REPRO_ARGS);
+      case 64: return launch_simt<float, 64>(REPRO_ARGS);
+      case 128: return launch_simt<float, 128>(REPRO_ARGS);
+      case 256: return launch_simt<float, 256>(REPRO_ARGS);
+    }
+  }
 #undef REPRO_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,7 +27,8 @@
 // kernel clamps it to NP - 1 for its DMA instead.
 //
 // What bounds it on the H100: memory, as for the dense kernel — ~REP
-// multiply-adds per live cache byte.
+// multiply-adds per live cache byte. It takes the dense kernel's head sizes
+// and GQA ratios, split into the same head groups.
 #include "decode_common.cuh"
 
 namespace {
@@ -44,48 +45,53 @@ struct PagedRows {
   }
 };
 
-template <typename T, int HD, int REP>
+template <typename T, int HD, int RG>
 __global__ void __launch_bounds__(repro::kDecodeWarps * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ bt,
                     const int* __restrict__ lens, T* __restrict__ o, int NP,
-                    int shift, int max_pages, int KV, int window,
+                    int shift, int max_pages, int KV, int NG, int window,
                     float softcap, float scale, repro::DecodeSplit ws) {
-  const int g = blockIdx.y;
+  const int REP = RG * NG;  // NG: groups of RG query heads per kv head
+  const int g = blockIdx.y / NG;
+  const int gi = blockIdx.y % NG;
   const int b = blockIdx.z;
   const int len = min(lens[b], max_pages << shift);
   const int lo = window > 0 ? max(0, len - window) : 0;
   const PagedRows rows{bt + (size_t)b * max_pages, NP, shift,
                        (1 << shift) - 1, (long long)KV * HD,
                        (long long)g * HD};
-  const size_t head = ((size_t)b * KV * REP + g * REP) * HD;
-  repro::decode_attend<T, HD, REP>(q + head, kp, vp, rows, lo, len, softcap,
-                                   scale, o + head, ws, b * KV + g);
+  const size_t head = ((size_t)b * KV * REP + g * REP + gi * RG) * HD;
+  const int pair = b * KV + g;
+  repro::decode_attend<T, HD, RG>(
+      q + head, kp, vp, rows, lo, len, softcap, scale, o + head, ws,
+      pair * NG + gi, (size_t)pair * ws.chunks * REP + gi * RG, REP);
 }
 
 struct Args {
   const void *q, *k, *v;
   const int *bt, *lens;
   void* o;
-  int B, NP, shift, max_pages, KV, window;
+  int B, NP, shift, max_pages, KV, NG, window;
   float softcap, scale;
   repro::DecodeSplit ws;
   cudaStream_t stream;
 };
 
-template <typename T, int HD, int REP>
+template <typename T, int HD, int RG>
 void launch(const Args& a) {
-  dim3 grid(a.ws.chunks, a.KV, a.B);
-  paged_decode_kernel<T, HD, REP><<<grid, repro::kDecodeWarps * 32, 0,
-                                    a.stream>>>(
+  dim3 grid(a.ws.chunks, a.KV * a.NG, a.B);
+  paged_decode_kernel<T, HD, RG><<<grid, repro::kDecodeWarps * 32, 0,
+                                   a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), a.bt, a.lens, static_cast<T*>(a.o), a.NP,
-      a.shift, a.max_pages, a.KV, a.window, a.softcap, a.scale, a.ws);
+      a.shift, a.max_pages, a.KV, a.NG, a.window, a.softcap, a.scale, a.ws);
 }
 
+// one instantiation per head-group size RG; a.NG groups per kv head
 template <typename T, int HD>
-bool dispatch_rep(int rep, const Args& a) {
-  switch (rep) {
+bool dispatch_group(int rg, const Args& a) {
+  switch (rg) {
     case 1: launch<T, HD, 1>(a); return true;
     case 2: launch<T, HD, 2>(a); return true;
     case 3: launch<T, HD, 3>(a); return true;
@@ -120,20 +126,27 @@ extern "C" int paged_decode_attn_fwd(const void* q, const void* k_pool,
   float* acc = static_cast<float*>(ws);
   const repro::DecodeSplit split{acc, reinterpret_cast<float2*>(acc + slots * hd),
                                  static_cast<int*>(tickets), chunks};
+  const int rep = H / KV, rg = repro::decode_group(rep);
   const Args a{q, k_pool, v_pool, static_cast<const int*>(block_table),
                static_cast<const int*>(cache_len), o, B, NP, shift,
-               max_pages, KV, window, softcap, scale, split,
+               max_pages, KV, rep / rg, window, softcap, scale, split,
                static_cast<cudaStream_t>(stream)};
-  const int rep = H / KV;
   bool ok = false;
-  if (dtype == repro::kBFloat16 && hd == 64)
-    ok = dispatch_rep<__nv_bfloat16, 64>(rep, a);
-  else if (dtype == repro::kFloat32 && hd == 64)
-    ok = dispatch_rep<float, 64>(rep, a);
-  else if (dtype == repro::kBFloat16 && hd == 32)
-    ok = dispatch_rep<__nv_bfloat16, 32>(rep, a);
-  else if (dtype == repro::kFloat32 && hd == 32)
-    ok = dispatch_rep<float, 32>(rep, a);
+  if (dtype == repro::kBFloat16) {
+    switch (hd) {
+      case 32: ok = dispatch_group<__nv_bfloat16, 32>(rg, a); break;
+      case 64: ok = dispatch_group<__nv_bfloat16, 64>(rg, a); break;
+      case 128: ok = dispatch_group<__nv_bfloat16, 128>(rg, a); break;
+      case 256: ok = dispatch_group<__nv_bfloat16, 256>(rg, a); break;
+    }
+  } else if (dtype == repro::kFloat32) {
+    switch (hd) {
+      case 32: ok = dispatch_group<float, 32>(rg, a); break;
+      case 64: ok = dispatch_group<float, 64>(rg, a); break;
+      case 128: ok = dispatch_group<float, 128>(rg, a); break;
+      case 256: ok = dispatch_group<float, 256>(rg, a); break;
+    }
+  }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,10 +7,11 @@ On a CPU tensor the wrapper runs the plain PyTorch version,
 CUDA tensor it launches the kernel or raises.
 
 The kernel splits each row over chunks of :data:`DECODE_CHUNK` positions and
-merges the chunks' partials in the same launch; :func:`split_workspace`
-holds the float32 partials and the per-(row, kv head) ticket counters it
-needs, one set per device and stream, grown when a call needs more and never
-synchronised with the host. The paged kernel shares it.
+merges the chunks' partials in the same launch; a GQA ratio above 5 is
+also split over the grid into groups of query heads. :func:`split_workspace`
+holds the float32 partials and the per-(row, kv head, head group) ticket
+counters it needs, one set per device and stream, grown when a call needs
+more and never synchronised with the host. The paged kernel shares it.
 """
 from __future__ import annotations
 
@@ -19,17 +20,17 @@ import torch
 from repro_torch.hopper import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)
-_REPS = (1, 2, 3, 4, 5)         # the GQA ratios csrc/decode_attn.cu dispatches
+_HEAD_DIMS = (32, 64, 128, 256)
 DECODE_CHUNK = 128              # kDecodeChunk of csrc/decode_common.cuh
 _WORKSPACES = {}
 
 
-def split_workspace(device, B, H, KV, hd, length):
+def split_workspace(device, B, H, hd, length):
     """(partials, tickets) for a split decode of B rows of H query heads
-    over KV heads and ``length`` cache positions: float32 room for
-    B * H * ceil(length / DECODE_CHUNK) partials of hd + 2 values, and B *
-    KV int32 counters, zero between calls (the kernel resets them). Kept per
+    over ``length`` cache positions: float32 room for B * H *
+    ceil(length / DECODE_CHUNK) partials of hd + 2 values, and B * H int32
+    counters, one per (row, kv head, group of query heads) at most, zero
+    between calls (the kernel resets them). Kept per
     (device, stream): calls on one stream are ordered, so they can share
     it, and threads that decode on streams of their own (the overlapped
     trainer's rollout producer beside ``evaluate`` on the caller's stream)
@@ -41,8 +42,8 @@ def split_workspace(device, B, H, KV, hd, length):
     acc, tickets = _WORKSPACES.get(key, (None, None))
     if acc is None or acc.numel() < floats:
         acc = torch.empty(floats, dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < B * KV:
-        tickets = torch.zeros(B * KV, dtype=torch.int32, device=device)
+    if tickets is None or tickets.numel() < B * H:
+        tickets = torch.zeros(B * H, dtype=torch.int32, device=device)
     _WORKSPACES[key] = (acc, tickets)
     return acc, tickets
 
@@ -91,10 +92,10 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, _, H, hd = q.shape
     L, KV = k_cache.shape[1], k_cache.shape[2]
-    if q.dtype not in _DTYPES or hd not in _HEAD_DIMS or H // KV not in _REPS:
-        raise TypeError(f"decode_attention kernel takes float32/bfloat16, "
-                        f"head_dim in {_HEAD_DIMS}, H/KV in {_REPS}; got "
-                        f"{q.dtype}, hd={hd}, H/KV={H // KV}")
+    if q.dtype not in _DTYPES or hd not in _HEAD_DIMS:
+        raise TypeError(f"decode_attention kernel takes float32/bfloat16 "
+                        f"with head_dim in {_HEAD_DIMS}; got {q.dtype}, "
+                        f"hd={hd}")
     if cache_len.dtype != torch.int32:
         raise TypeError(f"decode_attention: cache_len must be int32, got "
                         f"{cache_len.dtype}")
@@ -108,7 +109,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
     out = torch.empty_like(q)
     lib = build.library("decode_attn")
     with torch.cuda.device(q.device):
-        ws, tickets = split_workspace(q.device, B, H, KV, hd, L)
+        ws, tickets = split_workspace(q.device, B, H, hd, L)
         err = lib.decode_attn_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             cache_len.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(),

@@ -14,8 +14,8 @@ on CUDA tensors they launch the kernels or raise.
 On CUDA the kernel is chosen by dtype, never as a fallback: bfloat16 runs
 the tensor-core (``wgmma``) kernels, float32 the SIMT kernels on the f32
 FMA pipes (the f32 GPU-against-CPU references need atol 1e-4, which TF32
-tensor cores would not meet). Both take head_dim 32 or 64; anything else
-raises. Each wrapper counts its launches in ``launches``, and those of the
+tensor cores would not meet). Both take head_dim 32, 64, 128 or 256
+(the registry's archs) and any H / KV; anything else raises. Each wrapper counts its launches in ``launches``, and those of the
 f32 SIMT kernels also in ``simt_launches``.
 """
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 from repro_torch.hopper import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)
+_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, attn_softcap=0.0,

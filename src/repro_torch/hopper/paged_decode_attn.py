@@ -24,8 +24,7 @@ from repro_torch.hopper import build
 from repro_torch.hopper.decode_attn import split_workspace
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)
-_REPS = (1, 2, 3, 4, 5)
+_HEAD_DIMS = (32, 64, 128, 256)
 _PAGE_SIZES = (8, 16, 32)
 
 
@@ -88,11 +87,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, page_size,
     B, _, H, hd = q.shape
     NP, ps, KV, _ = k_pool.shape
     if q.dtype not in _DTYPES or hd not in _HEAD_DIMS \
-            or H // KV not in _REPS or ps not in _PAGE_SIZES:
+            or ps not in _PAGE_SIZES:
         raise TypeError(f"paged_decode_attention kernel takes float32/"
-                        f"bfloat16, head_dim in {_HEAD_DIMS}, H/KV in "
-                        f"{_REPS}, page_size in {_PAGE_SIZES}; got {q.dtype},"
-                        f" hd={hd}, H/KV={H // KV}, ps={ps}")
+                        f"bfloat16, head_dim in {_HEAD_DIMS}, page_size in "
+                        f"{_PAGE_SIZES}; got {q.dtype}, hd={hd}, ps={ps}")
     if block_table.dtype != torch.int32 or cache_len.dtype != torch.int32:
         raise TypeError(f"paged_decode_attention: block_table and cache_len "
                         f"must be int32, got {block_table.dtype}, "
@@ -108,7 +106,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, page_size,
     max_pages = block_table.shape[1]
     lib = build.library("paged_decode_attn")
     with torch.cuda.device(q.device):
-        ws, tickets = split_workspace(q.device, B, H, KV, hd, max_pages * ps)
+        ws, tickets = split_workspace(q.device, B, H, hd, max_pages * ps)
         err = lib.paged_decode_attn_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), cache_len.data_ptr(), out.data_ptr(),

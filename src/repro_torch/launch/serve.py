@@ -32,7 +32,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from repro_torch.common.config import ModelConfig, RolloutConfig
-from repro_torch.common.device import resolve_device
+from repro_torch.common.device import resolve_device, torch_dtype
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.rollout import RolloutEngine
 from repro_torch.models import model as M
@@ -197,18 +197,26 @@ def make_serve_engine(arch: str = "tiny", *, smoke: bool = False,
                       concurrency: int = 4, temperature: float = 0.8,
                       top_p: float = 1.0, top_k: int = -1,
                       kv_backend: str = "dense", kv_page_size: int = 16,
-                      kv_num_pages: int = 0, seed: int = 0, device=None):
+                      kv_num_pages: int = 0, seed: int = 0, device=None,
+                      num_layers: int = 0):
     """Build a ready ServeEngine with random weights made from ``seed``.
-    Runs on the GPU unless ``device='cpu'``."""
+    Runs on the GPU unless ``device='cpu'``. ``num_layers`` > 0 keeps that
+    many layers of the config at its widths (a model whose weights do not
+    fit the card, served at reduced depth)."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if num_layers > 0:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     ro = RolloutConfig(batch_size=1, group_size=1,
                        max_prompt_len=max_prompt_len,
                        max_response_len=max_tokens, concurrency=concurrency,
                        mode="copris", temperature=temperature, top_p=top_p,
                        top_k=top_k, kv_backend=kv_backend,
                        kv_page_size=kv_page_size, kv_num_pages=kv_num_pages)
-    params = M.init_params(cfg, seed=seed, device=dev)
+    # the weights as the engine reads them, cast layer by layer: a model
+    # whose float32 weights do not fit the card is served all the same
+    params = M.init_params(cfg, seed=seed, device=dev,
+                           compute_dtype=torch_dtype(cfg.dtype))
     return ServeEngine(cfg, ro, eos_id=cfg.vocab_size - 1, params=params,
                        key=prng.PRNGKey(seed + 1), device=dev), cfg
 

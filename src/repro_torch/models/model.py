@@ -34,26 +34,37 @@ from repro_torch.models.transformer import _gather_last
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "wi", "wg")
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
+                compute_dtype=None):
     """Random parameters made from ``seed`` (a torch.Generator on the target
     device), in ``cfg.param_dtype``, with the reference's structured values
     where it has them (the SSM's A_log, dt_bias and D; rwkv's mixes, decay
     base and norm scale; hymba's fusion weights). Runs on the GPU unless
-    device='cpu'."""
+    device='cpu'. With ``compute_dtype`` the result is ``cast_params`` of
+    those parameters, each layer cast as soon as it is made, so the
+    ``param_dtype`` copy of the whole model never exists at once (serving a
+    model whose float32 weights do not fit the card)."""
     if cfg.uses_media:
         raise NotImplementedError("media (VLM) models are not ported yet")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    tok = embed_init((cfg.vocab_size, cfg.d_model), dtype, dev, gen)
+    layers = []
+    for kind in transformer.layer_kinds(cfg):
+        layer = transformer.init_block(cfg, kind, dtype, dev, gen)
+        layers.append(layer if compute_dtype is None
+                      else _cast_layer(layer, compute_dtype, dev))
     params = {
-        "embed": {"tok": embed_init((cfg.vocab_size, cfg.d_model), dtype, dev,
-                                    gen)},
-        "layers": transformer.init_stack(cfg, dtype, dev, gen),
+        "embed": {"tok": tok},
+        "layers": layers,
         "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), dtype,
                                        dev, gen)
+    if compute_dtype is not None:
+        params = _cast_outer(params, layers, compute_dtype, dev)
     return params
 
 
@@ -73,34 +84,45 @@ def cast_params(params, dtype, device=None):
     float32; the float32 leaves of ``_F32_KEYS`` as they are. Casting once
     equals the reference's per-use ``.astype``. Tensors already in the
     wanted dtype and device are shared, not copied."""
+    return _cast_outer(params, [_cast_layer(p, dtype, device)
+                                for p in params["layers"]], dtype, device)
+
+
+def _cast_outer(params, layers, dtype, device):
+    """``params``' embedding, final norm and lm_head as ``cast_params``
+    casts them, around the cast ``layers``."""
+    def mm(t):
+        return t.to(device=device, dtype=dtype)
+
+    out = {"embed": {"tok": mm(params["embed"]["tok"])}, "layers": layers,
+           "final_norm": params["final_norm"].to(device=device)}
+    if "lm_head" in params:
+        out["lm_head"] = mm(params["lm_head"])
+    return out
+
+
+def _cast_layer(p, dtype, device):
+    """One layer's leaves as ``cast_params`` casts them."""
     def mm(t):
         return t.to(device=device, dtype=dtype)
 
     def keep(t):
         return t.to(device=device)
 
-    def layer(p):
-        out = {}
-        for name, v in p.items():
-            if name in _NORM_KEYS:
-                out[name] = keep(v)
-            elif name == "attn":
-                out[name] = {k: (mm(t) if k in _MATMUL_KEYS else keep(t))
-                             for k, t in v.items()}
-            elif name in _F32_KEYS:
-                out[name] = {k: (keep(t) if k in _F32_KEYS[name] else mm(t))
-                             for k, t in v.items()}
-            elif name == "mlp":
-                out[name] = {k: mm(t) for k, t in v.items()}
-            else:                                       # hymba's beta
-                out[name] = mm(v)
-        return out
-
-    out = {"embed": {"tok": mm(params["embed"]["tok"])},
-           "layers": [layer(p) for p in params["layers"]],
-           "final_norm": keep(params["final_norm"])}
-    if "lm_head" in params:
-        out["lm_head"] = mm(params["lm_head"])
+    out = {}
+    for name, v in p.items():
+        if name in _NORM_KEYS:
+            out[name] = keep(v)
+        elif name == "attn":
+            out[name] = {k: (mm(t) if k in _MATMUL_KEYS else keep(t))
+                         for k, t in v.items()}
+        elif name in _F32_KEYS:
+            out[name] = {k: (keep(t) if k in _F32_KEYS[name] else mm(t))
+                         for k, t in v.items()}
+        elif name == "mlp":
+            out[name] = {k: mm(t) for k, t in v.items()}
+        else:                                           # hymba's beta
+            out[name] = mm(v)
     return out
 
 

@@ -69,11 +69,6 @@ def init_block(cfg: ModelConfig, kind: str, dtype, device, gen):
     return p
 
 
-def init_stack(cfg: ModelConfig, dtype, device, gen):
-    return [init_block(cfg, kind, dtype, device, gen)
-            for kind in layer_kinds(cfg)]
-
-
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device, *, kv_pages=None):
     """``kv_pages=(num_pages, page_size)`` makes the K/V leaves physical page

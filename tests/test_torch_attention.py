@@ -28,6 +28,11 @@ PREFILL_CASES = [
     (1, 100, 4, 1, 64, 0, 0.0, 32),     # ragged S over several blocks
     (2, 96, 4, 2, 32, 24, 0.0, 32),     # sliding window
     (1, 80, 2, 2, 32, 0, 20.0, 32),     # softcap
+    # the published head dims: paper-qwen-7b's 128 at REP 7, granite-34b's
+    # 128 at REP 48 (MQA), gemma2-2b's 256 with a window and a softcap
+    (1, 70, 7, 1, 128, 0, 0.0, 32),
+    (1, 40, 48, 1, 128, 0, 0.0, 32),
+    (2, 72, 2, 1, 256, 24, 50.0, 32),
 ]
 
 
@@ -52,7 +57,7 @@ def test_chunked_attention_vs_jax(case):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
 
-@pytest.mark.parametrize("case", PREFILL_CASES[:3])
+@pytest.mark.parametrize("case", PREFILL_CASES[:3] + PREFILL_CASES[4:])
 def test_flash_wrapper_vs_pallas_interpret(case):
     """The kernel wrapper on CPU tensors (its plain version) vs the Pallas
     flash kernel run in interpret mode."""
@@ -73,6 +78,9 @@ DECODE_CASES = [
     (3, 96, 4, 4, 64, 0, 0.0),
     (4, 64, 8, 2, 32, 16, 0.0),
     (2, 64, 4, 1, 32, 0, 25.0),
+    (3, 96, 7, 1, 128, 0, 0.0),         # paper-qwen-7b: 128, REP 7
+    (2, 64, 48, 1, 128, 0, 0.0),        # granite-34b: 128, REP 48
+    (3, 80, 4, 2, 256, 24, 50.0),       # gemma2-2b: 256, window, softcap
 ]
 
 

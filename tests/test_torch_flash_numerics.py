@@ -14,7 +14,9 @@ same bf16 values and rounds its result to bf16, as the plain versions do.
 Tolerances are the card's, unchanged: forward atol 2e-2, logsumexp 1e-4,
 backward 5e-2. At the train shape a single bf16 rounding of P and dS, as
 SDPA does, misses the backward's atol (one bf16 ulp, 0.0625, of a dv in
-[8, 16)); the two terms meet it.
+[8, 16)); the two terms meet it. The cases at head_dim 128 and 256 run
+there too; their backward also admits one bf16 ulp of the element where
+that exceeds 5e-2 (the card's check at those head sizes does the same).
 """
 import pytest
 
@@ -131,11 +133,18 @@ FWD_CASES = [
     (2, 192, 8, 2, 64, 48, 0.0),
     (1, 64, 4, 2, 32, 0, 30.0),
     (2, 150, 8, 2, 64, 0, 0.0),
+    # head_dim 128 at REP 7 and 48, 256 with a window and a softcap
+    (2, 150, 14, 2, 128, 0, 0.0),
+    (1, 130, 4, 2, 256, 40, 50.0),
+    (1, 70, 48, 1, 128, 0, 0.0),
 ]
 BWD_CASES = [
     (2, 127, 8, 2, 64, 0, 0.0),
     (1, 100, 4, 4, 64, 40, 0.0),
     (2, 70, 4, 1, 32, 0, 20.0),
+    (2, 127, 14, 2, 128, 0, 0.0),
+    (1, 130, 4, 2, 256, 40, 50.0),
+    (1, 100, 48, 1, 128, 0, 0.0),
 ]
 
 
@@ -153,7 +162,8 @@ def test_forward_rounding_vs_jax(B, S, H, KV, hd, window, cap):
     assert float((lse - ref_lse).abs().max()) <= LSE_ATOL
 
 
-def _bwd_vs_jax(B, S, H, KV, hd, window, cap, terms, seed):
+def _bwd_pair(B, S, H, KV, hd, window, cap, terms, seed):
+    """(emulated gradients, JAX's rounded to bf16)."""
     q, k, v, do = _inputs(B, S, H, KV, hd, seed=seed, grad=True)
     f, args = _jax_fwd(q, k, v, True, window, cap)
     out_r, vjp = jax.vjp(f, *args)
@@ -163,13 +173,32 @@ def _bwd_vs_jax(B, S, H, KV, hd, window, cap, terms, seed):
     out, lse = emulate_fwd(q, k, v, causal=True, window=window, cap=cap)
     got = emulate_bwd(q, k, v, out, lse, do, causal=True, window=window,
                       cap=cap, terms=terms)
+    return got, ref
+
+
+def _bwd_vs_jax(B, S, H, KV, hd, window, cap, terms, seed):
+    got, ref = _bwd_pair(B, S, H, KV, hd, window, cap, terms, seed)
     return [float((a - b).abs().max()) for a, b in zip(got, ref)]
+
+
+def _ulp(x):
+    """One bf16 ulp of each element of x."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+                      - 7)
 
 
 @pytest.mark.parametrize("B,S,H,KV,hd,window,cap", BWD_CASES)
 def test_backward_rounding_vs_jax(B, S, H, KV, hd, window, cap):
-    errs = _bwd_vs_jax(B, S, H, KV, hd, window, cap, _two_terms, seed=S)
-    assert max(errs) <= BWD_ATOL, errs
+    """atol 5e-2; at head_dim 128 and 256 also one bf16 ulp of the reference
+    element where that is larger: dk and dv sum REP x S terms and reach
+    [8, 16), where one ulp is 0.0625, and float32 sums that agree to ~1e-5
+    may round to neighbouring bf16 values (REP 48: dk one ulp apart)."""
+    got, ref = _bwd_pair(B, S, H, KV, hd, window, cap, _two_terms, seed=S)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        tol = _ulp(b).clamp_min(BWD_ATOL) if hd >= 128 \
+            else torch.full_like(b, BWD_ATOL)
+        excess = float(((a - b).abs() - tol).max())
+        assert excess <= 0.0, (name, excess, float((a - b).abs().max()))
 
 
 @pytest.mark.parametrize("terms,meets", [(_two_terms, True), (_bf16, False)],

@@ -7,7 +7,13 @@ Tolerance: float32 model logits, atol 1e-4 (a few layers of float32
 matmuls summed in another order); engine logps atol 1e-5, tokens equal.
 ``paper-qwen-7b`` runs at ``reduced(max_d_model=448)`` (7 heads of 64) on
 both sides: its default reduction gives head_dim 73, on which the
-reference's rope raises."""
+reference's rope raises. The archs whose published head_dim is 128 or 256
+also run at it, with their published GQA ratio, on the reduced config (2
+layers, d_model 512): paper-qwen-7b 7/1 x 128, qwen3-14b 5/1 x 128 (qk_norm),
+gemma2-2b 2/1 x 256 (local/global, window 64, both softcaps), granite-34b
+48/1 x 128 (MQA, d_ff 256)."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -31,13 +37,24 @@ from repro_torch.sampling import prng  # noqa: E402
 torch.set_num_threads(1)
 ATOL = 1e-4
 # (arch, smoke): False the full config, True the reduced one, an int the
-# reduced one at that max_d_model
+# reduced one at that max_d_model, a dict the reduced one with those fields
+# replaced (the published head_dim and GQA ratio)
 ARCHS = [("tiny", False), ("llama3.2-1b", True), ("gemma2-2b", True),
          ("qwen3-14b", True), ("granite-34b", True),
-         ("musicgen-medium", True), ("paper-qwen-7b", 448)]
+         ("musicgen-medium", True), ("paper-qwen-7b", 448),
+         ("paper-qwen-7b", dict(num_heads=7, num_kv_heads=1, head_dim=128)),
+         ("qwen3-14b", dict(num_heads=5, num_kv_heads=1, head_dim=128)),
+         ("gemma2-2b", dict(num_heads=2, num_kv_heads=1, head_dim=256)),
+         ("granite-34b", dict(num_heads=48, num_kv_heads=1, head_dim=128,
+                              d_ff=256))]
+IDS = [a if not isinstance(s, dict) else f"{a}-hd{s['head_dim']}"
+       for a, s in ARCHS]
 
 
 def _cfgs(arch, smoke):
+    if isinstance(smoke, dict):
+        return (dataclasses.replace(jget_smoke(arch), **smoke),
+                dataclasses.replace(get_smoke_config(arch), **smoke))
     if smoke is True:
         return jget_smoke(arch), get_smoke_config(arch)
     if smoke:
@@ -46,7 +63,7 @@ def _cfgs(arch, smoke):
     return jget_config(arch), get_config(arch)
 
 
-@pytest.fixture(scope="module", params=ARCHS, ids=[a for a, _ in ARCHS])
+@pytest.fixture(scope="module", params=ARCHS, ids=IDS)
 def pair(request):
     arch, smoke = request.param
     cfg_j, cfg_t = _cfgs(arch, smoke)
@@ -221,3 +238,37 @@ def test_cast_params_bf16_keeps_norms_f32():
     assert c["layers"][0]["ln1"].dtype == torch.float32
     again = TM.cast_params(c, torch.bfloat16)
     assert again["layers"][0]["mlp"]["wi"] is c["layers"][0]["mlp"]["wi"]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-2b", "hymba-1.5b",
+                                  "rwkv6-1.6b"])
+def test_init_params_cast_as_made_equals_cast_params(arch):
+    """init_params(compute_dtype=bf16), which casts each layer as it is
+    made, gives cast_params of the float32 init bit for bit: the
+    projections in bf16, norms and the recurrences' float32 leaves kept."""
+    from repro_torch.common.tree import leaves
+    cfg = get_smoke_config(arch)
+    want = TM.cast_params(TM.init_params(cfg, seed=4, device="cpu"),
+                          torch.bfloat16, "cpu")
+    got = TM.init_params(cfg, seed=4, device="cpu",
+                         compute_dtype=torch.bfloat16)
+    assert len(leaves(got)) == len(leaves(want))
+    for a, b in zip(leaves(got), leaves(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_make_serve_engine_depth_cut():
+    """``num_layers`` keeps the config's widths at fewer layers, and the
+    engine serves a request at that depth."""
+    from repro_torch.launch import serve
+    eng, cfg = serve.make_serve_engine("llama3.2-1b", smoke=True,
+                                       num_layers=1, max_tokens=4,
+                                       device="cpu")
+    full = get_smoke_config("llama3.2-1b")
+    assert cfg.num_layers == 1 and len(eng.params["layers"]) == 1
+    assert (cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.vocab_size) == (
+        full.d_model, full.num_heads, full.head_dim, full.vocab_size)
+    eng.submit(serve.GenerateRequest(prompt=np.arange(5)))
+    (res,) = eng.drain()
+    assert 1 <= len(res.tokens) <= 4
+    eng.close()

@@ -2,7 +2,8 @@
 
 * the plain paged decode attention (``paged_gather_kv`` + ``decode_attention``)
   against the JAX oracle ``ref.paged_decode_attention`` and the Pallas
-  kernel in interpret mode, on the JAX kernel tests' four cases: atol 3e-5
+  kernel in interpret mode, on the JAX kernel tests' four cases and four at
+  head_dim 128 and 256 (REP 7 and 48, a window, a softcap): atol 3e-5
   for float32, 3e-2 for bfloat16 (the Pallas kernel rounds its
   probabilities to bf16 inside an online softmax);
 * the model: paged ``decode_step`` equals dense bit for bit; the paged
@@ -66,6 +67,12 @@ PDA_CASES = [
     (3, 20, 6, 8, 8, 8, 32, 0, 30.0, "float32"),
     (2, 16, 8, 16, 4, 1, 64, 48, 0.0, "float32"),
     (1, 9, 3, 32, 5, 5, 64, 0, 0.0, "bfloat16"),
+    # the published head dims: REP 7 and 48 at 128, 256 with a window and a
+    # softcap, and REP 7 at 128 in bfloat16
+    (2, 12, 4, 16, 7, 1, 128, 0, 0.0, "float32"),
+    (2, 12, 4, 16, 48, 1, 128, 0, 0.0, "float32"),
+    (2, 16, 8, 16, 4, 2, 256, 40, 50.0, "float32"),
+    (1, 9, 3, 32, 7, 1, 128, 0, 0.0, "bfloat16"),
 ]
 
 
