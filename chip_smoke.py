@@ -11,10 +11,11 @@ granite-34b, with musicgen-medium, through the port's hand-written kernels.
     python3 chip_smoke.py          # from the root of a checkout, one GPU
     python3 chip_smoke.py --ab DIR # llama3.2-1b's attention and loss
                                    # kernels (and their SASS), sampling,
-                                   # the selective scan and WKV6 (decode and
-                                   # prefill) against the checkout at DIR,
-                                   # and the sweep of the sampling kernel's
-                                   # cluster sizes
+                                   # the selective scan and WKV6 (decode,
+                                   # prefill and backward; the scan
+                                   # libraries' SASS) against the checkout
+                                   # at DIR, and the sweep of the sampling
+                                   # kernel's cluster sizes
 
 Phases, each printed as one JSON line (with ``t_s``, the seconds since the
 start):
@@ -25,7 +26,8 @@ start):
    libraries and of the loss library (its bf16 forward, dl, dh and dw
    kernels), which must have some; ptxas's registers and spills of the
    tensor-core kernels (every kernel named ``*_tc``) and of the scan
-   kernels, forward and backward (with their shared memory);
+   kernels, forward (the prefill kernels that store the backward's
+   boundary states too) and backward (with their shared memory);
 3. kernel checks — each kernel against its plain PyTorch version at the
    main paths' shapes (serving: prefill, dense and paged decode and
    sampling, each also at the hybrid paths' shapes, hymba's H/KV = 5 and
@@ -35,8 +37,12 @@ start):
    the selective scan bounded by the largest of its bytes, its FMA-pipe
    operations and its exponentials on the MUFU pipe; the scans' backward
    kernels at the JAX kernel tests' f32 cases and at the hybrid updates'
-   shape, bf16 (32 rows of 127 steps), bit-equal across two launches and
-   bounded the same way;
+   shape, bf16 (32 rows of 127 steps), as autograd runs them: reading the
+   boundary states their forward kernel stored, bit-equal across two
+   launches, bounded the same way; the save kernels (the prefill kernels
+   that store those states) at the same shape, y and state bit-equal to
+   the forward kernel's, y and the last boundary state against the plain
+   forward, timed with and without the stores and bounded;
    sampling also as the train phase runs it, T = 1 untruncated, bounded by
    the larger of its bytes and the threefry draws' integer instructions,
    counted from the SASS of the draw probes; training: the
@@ -138,8 +144,9 @@ start):
    launched; then "train_hymba" and "train_rwkv6": sft_warmup, then two
    CoPRISTrainer.step() calls on each family at full width, as "train"
    runs llama: finite metrics, step times, peak memory, every kernel of the
-   path launched (the scans' backward kernels and, for hymba, the flash
-   backward among them), each with the profile of one more update;
+   path launched (the scans' backward kernels, once per layer per update,
+   and, for hymba, the flash backward among them), each with the profile
+   of one more update;
    then the wide-head archs through the same entry points, one at a time,
    each freed before the next: "serve_qwen7b" (paper-qwen-7b at full
    depth) and "serve_qwen7b_paged" (14 of its 28 layers, 40% of the
@@ -866,51 +873,133 @@ def bwd_excess(torch, got, want):
     return excess, err
 
 
-def bwd_check(torch, timer, name, kernel, plain, cases, train_args,
-              train_shape, nbytes, flops, exps, mufu_rate):
-    """One backward scan kernel (``kernel(*args, dy, dstate)``, the launch
-    that autograd makes) against its plain version: at the JAX kernel
-    tests' float32 cases with a nonzero final-state gradient, then at the
-    update's shape in bf16 (a zero final-state gradient, as training
-    gives), where it is timed beside the plain version and launched a
-    second time to show the same bits. Bound: the largest of the bytes (every
+def bwd_check(torch, timer, name, mod, plain, cases, train_args,
+              train_shape, nbytes, flops, exps, mufu_rate, fwd_plain,
+              fwd_bound):
+    """One backward scan kernel (``mod.launch_bwd(*args, dy, dstate)``)
+    against its plain version: at the JAX kernel tests' float32 cases with
+    a nonzero final-state gradient, then at the update's shape in bf16 (a
+    zero final-state gradient, as training gives). As under autograd, the
+    forward kernel stores the backward's boundary states
+    (``mod.launch(..., ckpt=mod.boundaries(...))``) and the backward reads
+    them: checked at every case, timed beside the plain version and
+    launched a second time to show the same bits. The forward with its
+    stores (the save kernel) is held to the forward without (the same y
+    and state bit for bit) and to its plain version ``fwd_plain`` (y within
+    2 bf16 ulps + 1e-4, the last boundary state within 1e-4 of its largest
+    element against the plain state after as many steps), timed beside
+    both (``fwd_ms``, ``fwd_save_ms``), with its own bound
+    (``fwd_bound(boundary bytes)``: the forward's bytes and operations, the
+    boundary states' writes added). ``same_basis_ms`` is the backward plus
+    the stores of the two forwards an update runs under remat,
+    2 (fwd_save_ms - fwd_ms): the work that replaced the first pass an
+    earlier backward ran itself. Bound: the largest of the bytes (every
     input read once, every gradient written once), the float32 operations
     on the FMA pipe at 67 TFLOP/s (an FMA counted as two) and ``exps``
     exponentials on the MUFU pipe; no single PyTorch call computes it."""
+    wkv = mod.__name__.endswith("rwkv6_scan")
+
+    def split(args):          # (forward inputs, state, dy, dstate)
+        return (args[:5], args[5], args[6], args[7]) if wkv else \
+            (args[:6], args[6], args[7], args[8])
+
+    def saved(args):          # the forward's boundary states, its y, state
+        inputs, state, _, _ = split(args)
+        ckpt = (mod.boundaries(inputs[0]) if wkv
+                else mod.boundaries(inputs[0], inputs[2].shape[-1]))
+        final = state.clone()
+        y = mod.launch(*inputs, final, ckpt=ckpt)
+        return ckpt, y, final
+
+    def grads(args, ckpt):
+        return mod.launch_bwd(*args, ckpt=ckpt)
+
     worst = -1.0
     for args in cases:
-        excess, _ = bwd_excess(torch, kernel(*args), plain(*args))
-        worst = max(worst, excess)
+        ckpt, _, _ = saved(args)
+        worst = max(worst, bwd_excess(torch, grads(args, ckpt),
+                                      plain(*args))[0])
     if worst > 0.0:
         fail(f"{name} disagrees with its plain version at the kernel tests' "
              f"cases by {worst} beyond the tolerance")
-    got = kernel(*train_args)
+    ckpt, y_save, final_save = saved(train_args)
+    inputs, state, _, _ = split(train_args)
+    final = state.clone()
+    y = mod.launch(*inputs, final)
+    got = grads(train_args, ckpt)
     want = plain(*train_args)
-    again = kernel(*train_args)
+    again = grads(train_args, ckpt)
     torch.cuda.synchronize()
     excess, err = bwd_excess(torch, got, want)
     same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
-    if excess > 0.0 or not same_bits:
+    fwd_same = torch.equal(y, y_save) and torch.equal(final, final_save)
+    if excess > 0.0 or not same_bits or not fwd_same:
         fail(f"{name} at the update's shape: {excess} beyond the tolerance, "
-             f"bit-equal across launches: {same_bits}")
-    del got, want, again
-    kernel_ms = timer(lambda: kernel(*train_args))
+             f"bit-equal across launches: {same_bits}, the forward's stores "
+             f"leave y and the state: {fwd_same}")
+    # the save kernel against the plain forward: y, and the last boundary
+    # state against the plain state after as many steps
+    from repro_torch.hopper import build
+    T = inputs[0].shape[1]
+    bf16 = int(inputs[0].dtype == torch.bfloat16)
+    chunk = (build.library("wkv6").wkv6_bwd_chunk(inputs[0].shape[-1], bf16,
+                                                  None) if wkv
+             else build.library("ssm_scan").ssm_scan_bwd_chunk(
+                 inputs[2].shape[-1], bf16, None))
+    nb = ckpt.shape[2] if wkv else ckpt.shape[1]
+    yp, _ = fwd_plain(*inputs, state)
+    _, sp = fwd_plain(*(a[:, :nb * chunk] if a.dim() >= 3 and a.shape[1] == T
+                        else a for a in inputs), state)
+    last = ckpt[:, :, nb - 1] if wkv else ckpt[:, nb - 1]
+    torch.cuda.synchronize()
+    save_excess = bf16_excess(torch, y_save, yp)
+    save_err = float((y_save.float() - yp.float()).abs().max())
+    bound_err = float((last - sp).abs().max() / sp.abs().max())
+    if not (save_excess <= 0.0 and bound_err <= 1e-4):
+        fail(f"{name}'s save kernel at the update's shape: y {save_excess} "
+             f"beyond 2 bf16 ulps + 1e-4, the last boundary state "
+             f"{bound_err} of its largest element")
+    del got, want, again, y, y_save, yp, sp
+    kernel_ms = timer(lambda: grads(train_args, ckpt))
+    fwd_ms = timer(lambda: mod.launch(*inputs, final))
+    fwd_save_ms = timer(lambda: mod.launch(*inputs, final, ckpt=ckpt))
     plain_ms = timer(lambda: plain(*train_args), iters=3, warmup=1)
+    boundary_bytes = ckpt.numel() * 4
     bounds = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
               "fma": flops / PEAK_F32_FLOPS * 1e3,
               "mufu": exps / mufu_rate * 1e3}
     pipe = max(bounds, key=bounds.get)
+    save_bounds = fwd_bound(boundary_bytes)
+    save_pipe = max(save_bounds, key=save_bounds.get)
+    save = dict(
+        shape=train_shape, ms=fwd_save_ms, fwd_ms=fwd_ms,
+        max_abs_err=save_err,
+        tol="y 2 bf16 ulps + 1e-4, the last boundary state 1e-4 of its "
+            "largest element; y and the state bit-equal to the forward "
+            "kernel's", excess_over_tol=save_excess,
+        boundary_err_of_max=bound_err, same_bits=fwd_same,
+        boundary_bytes=boundary_bytes,
+        plain_ms=timer(lambda: fwd_plain(*inputs, state), iters=3,
+                       warmup=1),
+        library_ms=None, bound_ms=save_bounds[save_pipe],
+        bound_by="bytes" if save_pipe == "bytes" else "operations",
+        bound_pipe=None if save_pipe == "bytes" else save_pipe,
+        bounds_ms=save_bounds)
     res = dict(shape=train_shape, max_abs_err=err,
                tol="f32 1e-4 of each gradient's largest element; bf16 2 "
                    "ulps + that", excess_over_tol=excess,
                excess_over_tol_cases=worst, bit_equal_launches=same_bits,
-               ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+               fwd_save_same_bits=fwd_same, ms=kernel_ms, fwd_ms=fwd_ms,
+               fwd_save_ms=fwd_save_ms,
+               same_basis_ms=kernel_ms + 2 * (fwd_save_ms - fwd_ms),
+               boundary_bytes=boundary_bytes,
+               plain_ms=plain_ms, library_ms=None,
                library="none: no single PyTorch call computes it",
                bound_ms=bounds[pipe],
                bound_by="bytes" if pipe == "bytes" else "operations",
                bound_pipe=None if pipe == "bytes" else pipe,
                bounds_ms=bounds, bytes=nbytes, flops=flops, exp_count=exps,
-               timer_floor_ms=timer.floor_ms)
+               timer_floor_ms=timer.floor_ms, save_kernel=save)
     emit(f"check_{name}", **res)
     return res
 
@@ -940,12 +1029,20 @@ def check_ssm_scan_bwd(torch, timer, ssm_scan, sm_mhz):
     train = case(B, T, di, N, torch.bfloat16, 55, False)
     nbytes = (2 * (5 * B * T * di + 4 * B * T * N) + 4 * 2 * (di * N + di)
               + 4 * 2 * B * di * N)
+
+    def fwd_bound(extra):     # as check_ssm_scan's, with the stores' bytes
+        fwd_bytes = (2 * (3 * B * T * di + 2 * B * T * N)
+                     + 4 * (di * N + di) + 8 * B * di * N + extra)
+        return {"bytes": fwd_bytes / PEAK_BYTES_PER_S * 1e3,
+                "fma": 7 * B * T * di * N / PEAK_F32_FLOPS * 1e3,
+                "mufu": (B * T * di * N + di * N) / mufu_rate * 1e3}
+
     return bwd_check(
-        torch, timer, "ssm_scan_bwd", ssm_scan.launch_bwd,
+        torch, timer, "ssm_scan_bwd", ssm_scan,
         ssm_scan.selective_scan_bwd_plain, cases, train,
         f"x, dt, dy [{B}, {T}, {di}] bf16, B, C [{B}, {T}, {N}] views, "
         f"state [{B}, {di}, {N}] f32", nbytes, 20 * B * T * di * N,
-        B * T * di * N, mufu_rate)
+        B * T * di * N, mufu_rate, ssm_scan.selective_scan_plain, fwd_bound)
 
 
 def check_wkv6_bwd(torch, timer, rwkv6_scan, sm_mhz):
@@ -977,11 +1074,19 @@ def check_wkv6_bwd(torch, timer, rwkv6_scan, sm_mhz):
     B, T, H, hd = TRAIN_B, TRAIN_S, 32, 64
     train = case(B, T, H, hd, torch.bfloat16, 65, False)
     nbytes = 2 * 9 * B * T * H * hd + 4 * 2 * H * hd + 4 * 2 * B * H * hd * hd
+
+    def fwd_bound(extra):     # as check_wkv6's, with the stores' bytes
+        fwd_bytes = (2 * 5 * B * T * H * hd + 4 * H * hd
+                     + 8 * B * H * hd * hd + extra)
+        return {"bytes": fwd_bytes / PEAK_BYTES_PER_S * 1e3,
+                "fma": 6 * B * T * H * hd * hd / PEAK_F32_FLOPS * 1e3}
+
     return bwd_check(
-        torch, timer, "wkv6_bwd", rwkv6_scan.launch_bwd,
+        torch, timer, "wkv6_bwd", rwkv6_scan,
         rwkv6_scan.wkv6_bwd_plain, cases, train,
         f"r, k, v, w, dy [{B}, {T}, {H}, {hd}] bf16, state [{B}, {H}, {hd}, "
-        f"{hd}] f32", nbytes, 14 * B * T * H * hd * hd, 0, mufu_rate)
+        f"{hd}] f32", nbytes, 14 * B * T * H * hd * hd, 0, mufu_rate,
+        rwkv6_scan.wkv6_plain, fwd_bound)
 
 
 def flex_call(torch, qt, kt, vt, cap, win=0, lens=None, return_lse=False,
@@ -1720,6 +1825,16 @@ def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
     if not all(n > 0 for n in launches.values()):
         fail(f"a kernel of {arch}'s training path never launched: "
              f"{launches}")
+    for name in ("ssm_scan", "wkv6"):
+        # a scan's backward: once per layer per update; its save kernel
+        # once per forward under autograd, twice under remat (the step's
+        # and the recompute's)
+        want = {f"{name}_bwd": steps * cfg.num_layers,
+                f"{name}_save": steps * cfg.num_layers * (1 + tc.remat)}
+        for key, n in want.items():
+            if key in launches and launches[key] != n:
+                fail(f"{phase}: {key} launched {launches[key]} times in "
+                     f"{steps} updates of {cfg.num_layers} layers")
     return launches
 
 
@@ -2431,31 +2546,32 @@ def tc_registers(build, libraries):
 def scan_registers(build):
     """ptxas's registers, spill bytes (stores, loads) and static shared
     memory of each scan kernel (csrc/ssm_scan.cu, csrc/wkv6.cu: the
-    forward's decode and prefill kernels and the backward kernels), by
+    forward's decode and prefill kernels, the prefill kernels that store
+    the backward's boundary states, and the backward kernels), by
     instantiation: {"wkv6_scan_kernel<bf16,64>": [regs, st, ld, smem]};
     for the backward kernels, which take all theirs dynamically, the bytes
-    they launch with (as their chunk queries report them)."""
+    they launch with (as their queries report them)."""
     import ctypes
     import re
     out = {}
 
-    def smem_of(query, *args):
-        n = ctypes.c_int()
-        query(*args, ctypes.addressof(n))
-        return n.value
+    def smem_of(query):
+        def smem(dtype, n):
+            v = ctypes.c_int()
+            query(n, int(dtype == "bf16"), ctypes.addressof(v))
+            return [v.value]
+        return smem
 
     smem_bwd = {
-        "ssm_scan_bwd_kernel": lambda dtype, n: smem_of(
-            build.library("ssm_scan").ssm_scan_bwd_chunk, n,
-            dtype == "bf16"),
-        "wkv6_bwd_kernel": lambda dtype, hd: smem_of(
-            build.library("wkv6").wkv6_bwd_chunk, hd)}
+        "ssm_scan_bwd_kernel": smem_of(
+            build.library("ssm_scan").ssm_scan_bwd_chunk),
+        "wkv6_bwd_kernel": smem_of(build.library("wkv6").wkv6_bwd_chunk)}
     for name in ("ssm_scan", "wkv6"):
         log = build.library_log(name)
         for entry, body in re.findall(
                 r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
                 log, re.S):
-            m = re.search(r"((?:ssm|wkv6)_(?:step|scan|scan_bwd|bwd)"
+            m = re.search(r"((?:ssm|wkv6)_(?:step|scan|scan_save|scan_bwd|bwd)"
                           r"_kernel)I(f|13__nv_bfloat16)Li(\d+)E", entry)
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -2465,15 +2581,15 @@ def scan_registers(build):
                 dtype = "f32" if m.group(2) == "f" else "bf16"
                 nbytes = (smem_bwd[m.group(1)](dtype, int(m.group(3)))
                           if m.group(1) in smem_bwd
-                          else int(smem.group(1)) if smem else 0)
+                          else [int(smem.group(1)) if smem else 0])
                 out[f"{m.group(1)}<{dtype},{m.group(3)}>"] = [
                     int(regs.group(1)), int(spill.group(1)),
-                    int(spill.group(2)), nbytes]
+                    int(spill.group(2)), *nbytes]
     return out
 
 
 SPLIT_COUNTS = ("simt_launches", "decode_launches", "prefill_launches",
-                "bwd_launches")
+                "save_launches", "bwd_launches")
 
 
 def max_sm_clock_mhz():
@@ -2501,7 +2617,8 @@ def read_by_length(kernels):
 
 def read_launches(kernels, backward=False):
     """Launches of each kernel since reset_launches (with ``backward``, the
-    scans' backward kernels too, as "<name>_bwd"). Every phase that reads
+    scans' backward kernels too, as "<name>_bwd", and their save kernels,
+    the forward under autograd, as "<name>_save"). Every phase that reads
     them runs in bf16, so none may have gone to an f32 SIMT flash or loss
     kernel: those wrappers' launches are then all tensor-core launches."""
     simt = {name: fn.simt_launches for name, fn in kernels.items()
@@ -2510,9 +2627,10 @@ def read_launches(kernels, backward=False):
         fail(f"an f32 SIMT kernel ran on a bf16 path: {simt}")
     out = {name: fn.launches for name, fn in kernels.items()}
     if backward:
-        out.update({f"{name}_bwd": fn.bwd_launches
-                    for name, fn in kernels.items()
-                    if hasattr(fn, "bwd_launches")})
+        for name, fn in kernels.items():
+            if hasattr(fn, "bwd_launches"):
+                out[f"{name}_bwd"] = fn.bwd_launches
+                out[f"{name}_save"] = fn.save_launches
     return out
 
 
@@ -2926,9 +3044,10 @@ def main() -> int:
     # 8. kernels line: launches from the train phase, from train_paged for
     # the paged decode and the fused log-prob, from serve_hymba and
     # serve_rwkv6 for the two scans, from train_hymba and train_rwkv6 for
-    # their backward kernels; times from the checks at the train phase's
-    # shapes (flash forward with lse, its backward, the loss kernels, the
-    # scans' backward kernels) and at the serve phases' (decode, paged
+    # their backward and save kernels; times from the checks at the train
+    # phase's shapes (flash forward with lse, its backward, the loss
+    # kernels, the scans' backward and save kernels) and at the serve
+    # phases' (decode, paged
     # decode, sampling, and the scans' decode shape); the flash and loss
     # rows carry the hybrid updates' shapes under "train_hybrid"
     src = {"flash_attn": ("src/repro_torch/csrc/flash_attn.cu",
@@ -2973,14 +3092,26 @@ def main() -> int:
            "ssm_scan_bwd": ("src/repro_torch/csrc/ssm_scan.cu",
                             "src/repro/models/ssm.py:73", "ssm_scan_bwd"),
            "wkv6_bwd": ("src/repro_torch/csrc/wkv6.cu",
-                        "src/repro/models/rwkv6.py:64", "wkv6_bwd")}
+                        "src/repro/models/rwkv6.py:64", "wkv6_bwd"),
+           # the forward under autograd: the prefill kernels storing the
+           # backward's boundary states
+           "ssm_scan_save": ("src/repro_torch/csrc/ssm_scan.cu",
+                             "src/repro/kernels/ssm_scan/ssm_scan.py:72",
+                             "ssm_scan_save"),
+           "wkv6_save": ("src/repro_torch/csrc/wkv6.cu",
+                         "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:68",
+                         "wkv6_save")}
+    checks["ssm_scan_save"] = checks["ssm_scan_bwd"]["save_kernel"]
+    checks["wkv6_save"] = checks["wkv6_bwd"]["save_kernel"]
     launches = {**train_launches,
                 "paged_decode_attn": train_paged_launches["paged_decode_attn"],
                 "fused_logprob": train_paged_launches["fused_logprob"],
                 "ssm_scan": hymba_launches["ssm_scan"],
                 "wkv6": rwkv_launches["wkv6"],
                 "ssm_scan_bwd": hymba_train["ssm_scan_bwd"],
-                "wkv6_bwd": rwkv_train["wkv6_bwd"]}
+                "wkv6_bwd": rwkv_train["wkv6_bwd"],
+                "ssm_scan_save": hymba_train["ssm_scan_save"],
+                "wkv6_save": rwkv_train["wkv6_save"]}
     train_of = {"hymba-1.5b": hymba_train, "rwkv6-1.6b": rwkv_train}
     by_length = {"ssm_scan": hymba_by_length["ssm_scan"],
                  "wkv6": rwkv_by_length["wkv6"]}
@@ -3003,7 +3134,8 @@ def main() -> int:
             row["launches_by_phase"] = by_phase
         for key in ("library_err", "vs_library", "bound_f32_fma_ms",
                     "int_ops_per_draw", "bytes_bound_ms", "bound_pipe",
-                    "bounds_ms", "bit_equal_launches"):
+                    "bounds_ms", "bit_equal_launches", "same_basis_ms",
+                    "fwd_ms", "boundary_bytes"):
             if key in c:
                 row[key] = c[key]
         hybrid = {arch: dict(c[name], launches=train_of[arch][name])
@@ -3123,7 +3255,7 @@ def sass_functions(text):
     labels numbered within the function."""
     out = {}
     for block in re.split(r"\n\s*Function : ", text)[1:]:
-        block = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", block)
+        block = re.sub(r"_GLOBAL__N__\w+?_cu_\w{8}", "", block)
         lines = block.splitlines()
         labels, body = {}, []
         for line in lines[1:]:
@@ -3232,6 +3364,103 @@ def ab_attention_loss(torch, timer, build, parent, in_turns):
              only_change=len(set(after) - set(before)))
 
 
+def ab_backward(torch, timer, build, old_scan, old_wkv, in_turns, g):
+    """The scans' backward kernels of this tree against the parent's
+    (called as the parent's wrappers called them: a scratch that their own
+    first pass fills with the boundary states) at the hybrid updates'
+    shape, bf16, in turns: this tree's reading the boundaries its forward
+    stored (``ms``, the main path's), and with the forward that stores
+    them run first on a copy of the state (``with_forward``: the save
+    kernel plus the backward, what ``launch_bwd`` does given none).
+    Summation orders changed, so the bits may differ: each tree's excess
+    over the tolerance against the plain backward."""
+    from repro_torch.hopper import rwkv6_scan, ssm_scan
+    stream = torch.cuda.current_stream().cuda_stream
+    f32 = dict(device="cuda", dtype=torch.float32)
+    B, T = TRAIN_B, TRAIN_S
+
+    di, N = 3200, 16
+    args = ssm_inputs(torch, B, T, di, N, torch.bfloat16, g, model_A=True)
+    dy = torch.randn(B, T, di, device="cuda", generator=g).bfloat16()
+    x, dt, A_log, Bc, Cc, D, s0 = args
+
+    def old_ssm():
+        cb = 320 // (N // 4)
+        nblk = (di + cb - 1) // cb
+        chunk = old_scan.ssm_scan_bwd_chunk(N, 1, None)
+        nchk = (T + chunk - 1) // chunk
+        dx, ddt = torch.empty_like(x), torch.empty_like(x)
+        pbc = torch.empty(nblk, B, T, 2, N, **f32)
+        pA, pD = torch.empty(B, di, N, **f32), torch.empty(B, di, **f32)
+        ds0 = torch.empty(B, di, N, **f32)
+        ckpt = torch.empty(B, nchk, di, N, **f32)
+        build.check(old_scan.ssm_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
+            Cc.data_ptr(), D.data_ptr(), s0.data_ptr(), dy.data_ptr(), 0,
+            dx.data_ptr(), ddt.data_ptr(), pbc.data_ptr(), pA.data_ptr(),
+            pD.data_ptr(), ds0.data_ptr(), ckpt.data_ptr(), B, T, di, N,
+            Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1), 1,
+            stream), "parent ssm_scan_bwd")
+        bc = pbc.sum(0)
+        return (dx, ddt, pA.sum(0), bc[:, :, 0].to(Bc.dtype),
+                bc[:, :, 1].to(Cc.dtype), pD.sum(0), ds0)
+
+    ckpt = ssm_scan.boundaries(x, N)
+    ssm_scan.launch(*args[:6], s0.clone(), ckpt=ckpt)
+    ab_bwd_pair(torch, "ssm_scan_bwd",
+                f"x, dt, dy [{B}, {T}, {di}] bf16, state [{B}, {di}, {N}]",
+                old_ssm, lambda: ssm_scan.launch_bwd(*args, dy, ckpt=ckpt),
+                lambda: ssm_scan.launch_bwd(*args, dy),
+                ssm_scan.selective_scan_bwd_plain(*args, dy), in_turns)
+
+    H, hd = 32, 64
+    r, k, v = (torch.randn(B, T, H, hd, device="cuda", generator=g)
+               .mul(0.5).bfloat16() for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(
+        B, T, H, hd, device="cuda", generator=g) * 0.5 - 1.0)).bfloat16()
+    u = torch.randn(H, hd, device="cuda", generator=g) * 0.3
+    s0 = torch.randn(B, H, hd, hd, device="cuda", generator=g) * 0.2
+    dy = torch.randn(B, T, H, hd, device="cuda", generator=g).bfloat16()
+
+    def old_wkv_bwd():
+        chunk = old_wkv.wkv6_bwd_chunk(hd, None)
+        nchk = (T + chunk - 1) // chunk
+        dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+        pu = torch.empty(B, H, hd, **f32)
+        ds0 = torch.empty(B, H, hd, hd, **f32)
+        ck = torch.empty(B, H, max(nchk - 1, 1), hd, hd, **f32)
+        build.check(old_wkv.wkv6_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), dy.data_ptr(), 0, dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), pu.data_ptr(),
+            ds0.data_ptr(), ck.data_ptr(), B, T, H, hd, 1, stream),
+            "parent wkv6_bwd")
+        return dr, dk, dv, dw, pu.sum(0), ds0
+
+    ckpt = rwkv6_scan.boundaries(r)
+    rwkv6_scan.launch(r, k, v, w, u, s0.clone(), ckpt=ckpt)
+    ab_bwd_pair(torch, "wkv6_bwd",
+                f"r, k, v, w, dy [{B}, {T}, {H}, {hd}] bf16",
+                old_wkv_bwd,
+                lambda: rwkv6_scan.launch_bwd(r, k, v, w, u, s0, dy,
+                                              ckpt=ckpt),
+                lambda: rwkv6_scan.launch_bwd(r, k, v, w, u, s0, dy),
+                rwkv6_scan.wkv6_bwd_plain(r, k, v, w, u, s0, dy), in_turns)
+
+
+def ab_bwd_pair(torch, name, shape, old, new, new_with_forward, want,
+                in_turns):
+    a, b, c = old(), new(), new_with_forward()
+    torch.cuda.synchronize()
+    emit(f"ab_{name}", shape=shape,
+         same_bits_as_parent=all(torch.equal(x, y) for x, y in zip(a, b)),
+         with_forward_same_bits=all(torch.equal(x, y) for x, y in zip(b, c)),
+         excess_over_tol_parent=bwd_excess(torch, a, want)[0],
+         excess_over_tol=bwd_excess(torch, b, want)[0],
+         **in_turns(old, new),
+         with_forward=in_turns(old, new_with_forward))
+
+
 def ab_main(parent) -> int:
     """``python3 chip_smoke.py --ab PARENT``: this tree's attention kernels
     (flash forward and backward, dense and paged decode) and loss kernels
@@ -3240,7 +3469,10 @@ def ab_main(parent) -> int:
     selective scan (decode and prefill) and WKV6 (decode and prefill)
     against those of the checkout at PARENT (both built here), timed in
     turns (parent, change, change, parent) at the main paths' shapes, with
-    the SASS opcode counts of both trees' scan kernels; then this tree's
+    the SASS opcode counts of both trees' scan kernels; the scans' backward
+    kernels at the hybrid updates' shape (ab_backward) and the scan
+    libraries' SASS function by function (their serve kernels must keep
+    theirs); then this tree's
     sampling kernel over cluster sizes {4, 6, 7, 8, 16} (with the clusters
     the card holds at once) and through the wrapper's own choice, at 1, 3
     and 16 rows of the three served vocabularies, in both sampling
@@ -3257,11 +3489,20 @@ def ab_main(parent) -> int:
         check=True).stdout.strip().splitlines()[0]
     emit("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0))
     build.build_all()
-    # the parent's forward entry points take this tree's arguments
+    # the parent's forward and backward entry points take this tree's
+    # arguments; its wkv6_bwd_chunk its own, without the dtype
+    P, I = build.P, build.I
     old_sample, old_scan, old_wkv = (
-        parent_library(build, parent, name, {fn: build.KERNELS[name][fn]})
-        for name, fn in (("fused_sample", "fused_sample_rows"),
-                         ("ssm_scan", "ssm_scan_fwd"), ("wkv6", "wkv6_fwd")))
+        parent_library(build, parent, name, {
+            fn: build.KERNELS[name][fn], **bwd})
+        for name, fn, bwd in (
+            ("fused_sample", "fused_sample_rows", {}),
+            ("ssm_scan", "ssm_scan_fwd", {
+                "ssm_scan_bwd": (P,) * 16 + (I,) * 9 + (P,),
+                "ssm_scan_bwd_chunk": (I, I, P)}),
+            ("wkv6", "wkv6_fwd", {
+                "wkv6_bwd": (P,) * 15 + (I,) * 5 + (P,),
+                "wkv6_bwd_chunk": (I, P)})))
     timer = Timer(torch)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -3363,6 +3604,23 @@ def ab_main(parent) -> int:
                                         .abs().max()),
              **in_turns(lambda: old_wkv_call(work),
                         lambda: rwkv6_scan.wkv6(r, k, v, w, u, work)))
+
+    ab_backward(torch, timer, build, old_scan, old_wkv, in_turns, g)
+    # the scan libraries function by function: the serve instantiations
+    # (decode and prefill kernels) must keep their SASS
+    for name in ("ssm_scan", "wkv6"):
+        before = sass_functions(sass_of(build, ab_dir / f"{name}.so"))
+        after = sass_functions(build.sass(name))
+        common = sorted(set(before) & set(after))
+        serve = [f for f in common if re.search(r"(step|scan)_kernel", f)
+                 and "bwd" not in f]
+        emit("ab_sass_functions", library=name,
+             same=sum(before[f] == after[f] for f in common),
+             differ=[f for f in common if before[f] != after[f]],
+             serve_kernels=len(serve),
+             serve_same_sass=all(before[f] == after[f] for f in serve),
+             only_parent=sorted(set(before) - set(after)),
+             only_change=sorted(set(after) - set(before)))
 
     totals = {}
     for label, kw in (("serve", SERVE_SAMPLING), ("train", TRAIN_SAMPLING)):

@@ -69,26 +69,29 @@
 //   ddt_t = x_t (G_t . B_t) + sum_n gA_t, gA_t = G_t h_{t-1} a_t (-exp A_log)
 //   dD = sum_{b,t} dy_t x_t               dstate0 = a_1 G_1
 //
-// It keeps the prefill kernel's layout (a block of 320 threads covers 80
-// channels of one row, 4 states a lane) and walks time in reverse. The
-// states are never recovered by dividing by a decay (decays reach 1e-8):
-// a first pass runs the recurrence forward and stores the state at every
-// chunk boundary (kBwdChunk steps) in a scratch buffer, each lane its own
-// 4 states; the reverse pass reloads a chunk's boundary state, recomputes
-// the chunk's states into shared memory (lane-major, each lane its own)
-// and then walks the chunk backwards. Sums over channels (dB_t, dC_t) go
-// over the lanes of a warp by a reduce-scatter (7 shuffles for the 8
-// values a lane holds), then over the block's warps in warp order through
-// shared memory, into one partial a block; the sums over rows and steps
-// (dA_log, dD) are per-row partials. The wrapper adds the partials with
-// torch.sum in a fixed order: no float atomics, so two runs are bit-equal.
-// What bounds it on the H100 is latency, not a pipe's rate: each step is a
-// dependent chain (exponential, products, shuffles), so the number of warps
-// an SM holds sets the pace. The states in shared memory in place of
-// registers and a launch bound of two blocks an SM (<= 96 registers, no
-// spills) measured fastest (chip_variants.py times the alternatives;
-// PERF.md), still far above its FMA pipe's bound: three exponentials an
-// element-step (pass 1, recompute, reverse) where one would do.
+// A block of 160 threads covers 40 channels of one row (80 at N 8), 4
+// states a lane, and walks time in reverse. The states are never recovered
+// by dividing by a decay (decays reach 1e-8): the state at every boundary
+// of kBwdChunk steps is stored in a scratch buffer by the forward under
+// autograd (ssm_scan_save_kernel, entry `ssm_scan_fwd_save`; the wrapper,
+// given none, runs that kernel on a copy of the state first); the backward
+// reloads a chunk's boundary state, recomputes the chunk's states h_t and
+// decays a_t into shared memory (lane-major, each lane its own), so the
+// reverse walk spends no exponential: one an element-step, where the first
+// design spent three. x, dt, dy and B_t, C_t are staged a chunk ahead by
+// cp.async (16- and 4-byte copies), one barrier a chunk before its walk
+// and one after. Sums over channels (dB_t, dC_t): once step t is walked,
+// each lane stores its 8 terms in the place of its h_t and a_t, and after
+// the chunk the block sums each (step, n) over its channels in channel
+// order, into one partial a block (the first design's warp reduce-scatter
+// of xor shuffles issued a quarter of the walk's instructions); the sums
+// over rows and steps (dA_log, dD) are per-row partials. The wrapper adds
+// the partials with torch.sum in a fixed order: no float atomics, so two
+// runs are bit-equal. What bounds it on the H100 is latency, not a pipe's
+// rate: each step is a dependent chain (products, shuffles), so the warps
+// an SM holds set the pace: 45 KB of shared memory a block and a launch
+// bound of four blocks an SM (<= 102 registers, no spills; chip_variants.py
+// times the alternatives, PERF.md).
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -120,14 +123,21 @@ struct ScanSmem {
   alignas(16) float bc[2][2][STEPS][N];  // B_t, C_t widened, 2 buffers
 };
 
-template <typename T, int N>
-__global__ void __launch_bounds__(kScanThreads, 5)
-ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
-                const float* __restrict__ A_log, const T* __restrict__ Bc,
-                const T* __restrict__ Cc, const float* __restrict__ D,
-                float* __restrict__ state, T* __restrict__ y, int len,
-                int di, int b_sb, int b_st, int c_sb, int c_st, int xvec,
-                int bcvec) {
+// the backward's boundary interval: the state is kept every kBwdChunk steps
+constexpr int kBwdChunk = 8;
+
+// The prefill kernel's body; with SAVE (the forward under autograd) it also
+// stores the state before every step t = kBwdChunk m, m >= 1, into ckpt
+// (B, ceil(len / kBwdChunk) - 1, di, N): the boundaries the backward would
+// otherwise recompute. Serving instantiates it without.
+template <typename T, int N, bool SAVE>
+__device__ __forceinline__ void scan_body(
+    const T* __restrict__ x, const T* __restrict__ dt,
+    const float* __restrict__ A_log, const T* __restrict__ Bc,
+    const T* __restrict__ Cc, const float* __restrict__ D,
+    float* __restrict__ state, T* __restrict__ y, int len, int di, int b_sb,
+    int b_st, int c_sb, int c_st, int xvec, int bcvec,
+    float* __restrict__ ckpt) {
   using Sm = ScanSmem<T, N>;
   constexpr int L = Sm::L, CB = Sm::CB, STEPS = Sm::STEPS;
   static_assert(N % 4 == 0 && (L == 2 || L == 4), "N = 8 or 16");
@@ -221,6 +231,15 @@ ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     if (ch + 1 < nchunks) widen(ch + 1);
     const int nt = min(STEPS, len - ch * STEPS), xb = ch % 3, bb = ch & 1;
     for (int s = 0; s < nt; ++s, yp += di) {
+      if constexpr (SAVE) {
+        const int t = ch * STEPS + s;
+        if (t > 0 && t % kBwdChunk == 0 && live) {
+          const int nb = (len + kBwdChunk - 1) / kBwdChunk - 1;
+          reinterpret_cast<float4*>(ckpt)[(((size_t)b * nb + t / kBwdChunk - 1)
+                                           * di + c) * L + q] =
+              make_float4(h[0], h[1], h[2], h[3]);
+        }
+      }
       const float xv = repro::to_f(sm.xd[xb][0][s][cl]);
       const float dv = repro::to_f(sm.xd[xb][1][s][cl]);
       const float4 b4 = reinterpret_cast<const float4*>(sm.bc[bb][0][s])[q];
@@ -240,6 +259,30 @@ ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     }
   }
   if (live) *st = make_float4(h[0], h[1], h[2], h[3]);
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kScanThreads, 5)
+ssm_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                const float* __restrict__ A_log, const T* __restrict__ Bc,
+                const T* __restrict__ Cc, const float* __restrict__ D,
+                float* __restrict__ state, T* __restrict__ y, int len,
+                int di, int b_sb, int b_st, int c_sb, int c_st, int xvec,
+                int bcvec) {
+  scan_body<T, N, false>(x, dt, A_log, Bc, Cc, D, state, y, len, di, b_sb,
+                         b_st, c_sb, c_st, xvec, bcvec, nullptr);
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kScanThreads, 5)
+ssm_scan_save_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                     const float* __restrict__ A_log, const T* __restrict__ Bc,
+                     const T* __restrict__ Cc, const float* __restrict__ D,
+                     float* __restrict__ state, T* __restrict__ y, int len,
+                     int di, int b_sb, int b_st, int c_sb, int c_st, int xvec,
+                     int bcvec, float* __restrict__ ckpt) {
+  scan_body<T, N, true>(x, dt, A_log, Bc, Cc, D, state, y, len, di, b_sb,
+                        b_st, c_sb, c_st, xvec, bcvec, ckpt);
 }
 
 constexpr int kStepThreads = 256;  // (row, channel, 4 states) per thread
@@ -294,46 +337,38 @@ ssm_step_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   }
 }
 
-constexpr int kBwdChunk = 8;      // steps a chunk of the backward
-constexpr int kBwdMinBlocks = 2;  // blocks an SM: <= 96 registers a thread
+constexpr int kBwdThreads = 160;  // (row, channel, 4 states) a thread
 
-// Sums each of v[0..7] (dB then dC of this lane's 4 states) over the lanes
-// of a warp with the same q (L apart) by a reduce-scatter in fixed order:
-// halves of the values go to the partners 16, 8, 4 lanes apart, 7 shuffles
-// in place of the 24 of an all-reduce; lane l ends with the sum of value
-// ((l >> 4) & 1) * 4 + ((l >> 3) & 1) * 2 + ((l >> 2) & 1). With L = 2 a
-// last xor 2 completes the sum over the warp's 16 channels.
-template <int L>
-__device__ __forceinline__ float scatter8(const float (&v)[8], int lane) {
-  float a[4], b[2];
-  const bool u16 = lane & 16, u8 = lane & 8, u4 = lane & 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    a[i] = (u16 ? v[i + 4] : v[i]) +
-           __shfl_xor_sync(0xffffffffu, u16 ? v[i] : v[i + 4], 16);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    b[i] = (u8 ? a[i + 2] : a[i]) +
-           __shfl_xor_sync(0xffffffffu, u8 ? a[i] : a[i + 2], 8);
-  float c = (u4 ? b[1] : b[0]) +
-            __shfl_xor_sync(0xffffffffu, u4 ? b[0] : b[1], 4);
-  if (L == 2) c += __shfl_xor_sync(0xffffffffu, c, 2);
-  return c;
+// 4 consecutive elements of shared memory (16- or 8-byte aligned), widened
+__device__ __forceinline__ void load_t4(const float* p, float (&o)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
 }
+__device__ __forceinline__ void load_t4(const __nv_bfloat16* p,
+                                        float (&o)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  o[0] = __uint_as_float(t.x << 16);
+  o[1] = __uint_as_float(t.x & 0xffff0000u);
+  o[2] = __uint_as_float(t.y << 16);
+  o[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+constexpr int kBwdMinBlocks = 4;  // blocks an SM
 
 template <typename T, int N>
 struct BwdSmem {
   static constexpr int L = N / 4;                 // lanes a channel
-  static constexpr int CB = kScanThreads / L;     // channels a block
-  static constexpr int NW = kScanThreads / 32;    // warps a block
-  float4 hist[kBwdChunk][kScanThreads];      // a chunk's states, lane-major
-  T xdd[3][kBwdChunk][CB];                   // x, dt, dy of the channels
-  float bc[2][kBwdChunk][N];                 // B_t, C_t widened
-  float part[kBwdChunk][NW][2][N];           // the warps' dB_t, dC_t sums
+  static constexpr int CB = kBwdThreads / L;      // channels a block
+  // h_t and a_t, each lane its own; once step t is walked, the lane's
+  // terms of dB_t and dC_t in their place
+  float4 hist[kBwdChunk][2][kBwdThreads];
+  alignas(16) T xdd[2][3][kBwdChunk][CB];   // x, dt, dy as loaded, 2 buffers
+  alignas(16) T bc[2][2][kBwdChunk][N];     // B_t, C_t as loaded, 2 buffers
 };
 
+// ckpt (B, ceil(len / K) - 1, di, N): the state before chunk ch >= 1, as
+// ssm_scan_save_kernel stores it. A job is one chunk, from the last.
 template <typename T, int N>
-__global__ void __launch_bounds__(kScanThreads, kBwdMinBlocks)
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
 ssm_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                     const float* __restrict__ A_log, const T* __restrict__ Bc,
                     const T* __restrict__ Cc, const float* __restrict__ D,
@@ -341,19 +376,21 @@ ssm_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                     const float* __restrict__ dstate, T* __restrict__ dx,
                     T* __restrict__ ddt, float* __restrict__ pbc,
                     float* __restrict__ pA, float* __restrict__ pD,
-                    float* __restrict__ ds0, float* __restrict__ ckpt,
+                    float* __restrict__ ds0, const float* __restrict__ ckpt,
                     int len, int di, int b_sb, int b_st, int c_sb,
-                    int c_st) {
+                    int c_st, int xvec, int bcvec) {
   using Sm = BwdSmem<T, N>;
-  constexpr int L = Sm::L, CB = Sm::CB, NW = Sm::NW, K = kBwdChunk;
+  constexpr int L = Sm::L, CB = Sm::CB, K = kBwdChunk;
+  constexpr int NT = kBwdThreads;
+  constexpr int E16 = 16 / sizeof(T), E4 = 4 / sizeof(T);
   static_assert(N % 4 == 0 && (L == 2 || L == 4), "N = 8 or 16");
+  static_assert((CB * sizeof(T)) % 16 == 0, "blocks of whole 16-byte pieces");
   extern __shared__ __align__(16) unsigned char smem[];
   Sm& sm = *reinterpret_cast<Sm*>(smem);
 
   const int blk = blockIdx.x, b = blockIdx.y, nrows = gridDim.y;
   const int c0 = blk * CB;
   const int tid = threadIdx.x, cl = tid / L, q = tid % L;
-  const int lane = tid % 32, wi = tid / 32;
   const int c = c0 + cl;
   const bool live = c < di;
   const int nch = min(CB, di - c0);                 // channels of this block
@@ -379,89 +416,126 @@ ssm_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     Dc = D[c];
   }
 
-  // chunk ch's x, dt (and with `full` dy) of the block's channels and B_t
-  // (and C_t), widened, into shared memory; plain loads
-  auto stage = [&](int ch, bool full) {
-    const int t0 = ch * K, nt = min(K, len - t0);
+  // job j: chunk nchk - 1 - j; x, dt, dy, B_t and C_t into buffer j & 1 by
+  // cp.async (plain loads where the addresses are not aligned for it)
+  auto stage = [&](int j) {
+    const int ch = nchk - 1 - j, t0 = ch * K, nt = min(K, len - t0);
+    const int buf = j & 1;
     const size_t xrow = ((size_t)b * len + t0) * di + c0;
-    for (int i = tid; i < 3 * K * CB; i += kScanThreads) {
-      const int a = i / (K * CB), s = i / CB % K, e = i % CB;
-      if (s >= nt || e >= nch || (a == 2 && !full)) continue;
-      sm.xdd[a][s][e] = (a == 0 ? x : a == 1 ? dt : dy)[xrow + (size_t)s * di + e];
+    if (xvec) {                 // nch * sizeof(T) is a multiple of 16
+      constexpr int PM = CB / E16;
+      for (int i = tid; i < 3 * K * PM; i += NT) {
+        const int a = i / (K * PM), s = i / PM % K, pc = i % PM;
+        if (s >= nt || pc * E16 >= nch) continue;
+        cp_async16(smem_addr(&sm.xdd[buf][a][s][pc * E16]),
+                   (a == 0 ? x : a == 1 ? dt : dy) + xrow + (size_t)s * di
+                       + pc * E16, true);
+      }
+    } else {
+      for (int i = tid; i < 3 * K * CB; i += NT) {
+        const int a = i / (K * CB), s = i / CB % K, e = i % CB;
+        if (s >= nt || e >= nch) continue;
+        sm.xdd[buf][a][s][e] =
+            (a == 0 ? x : a == 1 ? dt : dy)[xrow + (size_t)s * di + e];
+      }
     }
-    for (int i = tid; i < 2 * K * N; i += kScanThreads) {
-      const int a = i / (K * N), s = i / N % K, n = i % N;
-      if (s >= nt || (a == 1 && !full)) continue;
+    constexpr int PB = N / E4;
+    for (int i = tid; i < 2 * K * PB; i += NT) {
+      const int a = i / (K * PB), s = i / PB % K, pc = i % PB;
+      if (s >= nt) continue;
       const T* p = a ? Cc + (size_t)b * c_sb + (size_t)(t0 + s) * c_st
                      : Bc + (size_t)b * b_sb + (size_t)(t0 + s) * b_st;
-      sm.bc[a][s][n] = repro::to_f(p[n]);
+      T* d = &sm.bc[buf][a][s][pc * E4];
+      if (bcvec) {              // 4-byte aligned views
+        cp_async4(smem_addr(d), p + pc * E4, true);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E4; ++e) d[e] = p[pc * E4 + e];
+      }
     }
   };
-
-  // pass 1: the recurrence forward, the state stored at every chunk start
-  float4* ck = reinterpret_cast<float4*>(ckpt);
-  for (int ch = 0; ch < nchk; ++ch) {
-    __syncthreads();
-    stage(ch, false);
-    __syncthreads();
-    if (live)
-      ck[(((size_t)b * nchk + ch) * di + c) * L + q] =
-          make_float4(h[0], h[1], h[2], h[3]);
-    const int nt = min(K, len - ch * K);
-    for (int s = 0; s < nt; ++s) {
-      const float xv = live ? repro::to_f(sm.xdd[0][s][cl]) : 0.f;
-      const float dtv = live ? repro::to_f(sm.xdd[1][s][cl]) : 0.f;
-      const float dx_ = dtv * xv;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        h[k] = ex2(a2[k] * dtv) * h[k] + dx_ * sm.bc[0][s][4 * q + k];
-    }
-  }
-
-  // pass 2: chunks in reverse; each chunk's states recomputed, then walked
-  // backwards
-  float dA[4] = {0.f, 0.f, 0.f, 0.f}, dD = 0.f;
-  for (int ch = nchk - 1; ch >= 0; --ch) {
+  // the block's dB_t, dC_t of chunk ch: its channels' terms in channel
+  // order (lane q of channel cl holds states 4 q .. 4 q + 3)
+  auto block_sum = [&](int ch) {
     const int t0 = ch * K, nt = min(K, len - t0);
-    __syncthreads();  // the previous chunk's partials are summed
-    stage(ch, true);
+    for (int i = tid; i < nt * 2 * N; i += NT) {
+      const int s = i / (2 * N), a = i / N % 2, n = i % N;
+      const float* v = reinterpret_cast<const float*>(&sm.hist[s][a][0]) + n;
+      float acc = v[0];
+      for (int e = 1; e < CB; ++e) acc += v[e * N];
+      pbc[((((size_t)blk * nrows + b) * len + t0 + s) * 2 + a) * N + n] = acc;
+    }
+  };
+  const float4* ck = reinterpret_cast<const float4*>(ckpt);
+  auto ck_at = [&](int ch) {   // the boundary state before chunk ch >= 1
+    return (((size_t)b * (nchk - 1) + ch - 1) * di + c) * L + q;
+  };
+
+  // one barrier a job: after it job j's inputs have landed and job j + 1's
+  // load; a second after the reverse walk, before the chunk's sums
+  float dA[4] = {0.f, 0.f, 0.f, 0.f}, dD = 0.f;
+  // the boundary state of the next chunk, loaded a chunk ahead
+  float4 hb = make_float4(h[0], h[1], h[2], h[3]);
+  if (nchk > 1 && live) hb = ck[ck_at(nchk - 1)];
+  stage(0);
+  cp_async_commit();
+  for (int j = 0; j < nchk; ++j) {
+    const int ch = nchk - 1 - j, buf = j & 1;
+    const int t0 = ch * K, nt = min(K, len - t0);
+    cp_async_wait<0>();
     __syncthreads();
-    // the chunk's states h_t from its boundary state, into shared memory
-    // (each lane its own 4: 32 registers fewer, so two blocks fit an SM)
-    float4 hc = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (live) hc = ck[(((size_t)b * nchk + ch) * di + c) * L + q];
+    if (j + 1 < nchk) stage(j + 1);
+    cp_async_commit();
+    // the chunk's states h_t and decays a_t from its boundary state, into
+    // shared memory (each lane its own): the reverse walk spends no
+    // exponential
+    const float4 hc = hb;
+    if (ch > 0 && live)
+      hb = ch == 1 ? reinterpret_cast<const float4*>(state0)[lq]
+                   : ck[ck_at(ch - 1)];
     {
       float hh[4] = {hc.x, hc.y, hc.z, hc.w};
-      for (int s = 0; s < nt; ++s) {
-        const float xv = live ? repro::to_f(sm.xdd[0][s][cl]) : 0.f;
-        const float dtv = live ? repro::to_f(sm.xdd[1][s][cl]) : 0.f;
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          hh[k] = ex2(a2[k] * dtv) * hh[k] + (dtv * xv) * sm.bc[0][s][4 * q + k];
-        sm.hist[s][tid] = make_float4(hh[0], hh[1], hh[2], hh[3]);
+      for (int s = 0; s < K; ++s) {
+        if (s >= nt) break;
+        const float xv = live ? repro::to_f(sm.xdd[buf][0][s][cl]) : 0.f;
+        const float dv = live ? repro::to_f(sm.xdd[buf][1][s][cl]) : 0.f;
+        float bn[4], av[4];
+        load_t4(&sm.bc[buf][0][s][4 * q], bn);
+        const float dx_ = dv * xv;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          av[k] = ex2(a2[k] * dv);
+          hh[k] = av[k] * hh[k] + dx_ * bn[k];
+        }
+        sm.hist[s][0][tid] = make_float4(hh[0], hh[1], hh[2], hh[3]);
+        sm.hist[s][1][tid] = make_float4(av[0], av[1], av[2], av[3]);
       }
     }
 #pragma unroll
     for (int s = K - 1; s >= 0; --s) {
       if (s >= nt) continue;                      // uniform over the block
-      const float xv = live ? repro::to_f(sm.xdd[0][s][cl]) : 0.f;
-      const float dtv = live ? repro::to_f(sm.xdd[1][s][cl]) : 0.f;
-      const float dyv = live ? repro::to_f(sm.xdd[2][s][cl]) : 0.f;
-      // the states after steps s - 1 and s
-      const float4 p4 = s ? sm.hist[s ? s - 1 : 0][tid] : hc;
-      const float4 n4 = sm.hist[s][tid];
+      const float xv = live ? repro::to_f(sm.xdd[buf][0][s][cl]) : 0.f;
+      const float dtv = live ? repro::to_f(sm.xdd[buf][1][s][cl]) : 0.f;
+      const float dyv = live ? repro::to_f(sm.xdd[buf][2][s][cl]) : 0.f;
+      // the states after steps s - 1 and s, and step s's decays
+      const float4 p4 = s ? sm.hist[s ? s - 1 : 0][0][tid] : hc;
+      const float4 n4 = sm.hist[s][0][tid];
+      const float4 a4 = sm.hist[s][1][tid];
       const float hp[4] = {p4.x, p4.y, p4.z, p4.w};
       const float hn[4] = {n4.x, n4.y, n4.z, n4.w};
-      float G[4], pb[4], pc[4], gA[4], a[4];
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      float bn[4], cn[4];
+      load_t4(&sm.bc[buf][0][s][4 * q], bn);
+      load_t4(&sm.bc[buf][1][s][4 * q], cn);
+      float G[4], pbv[4], pcv[4], gA[4];
       float gb = 0.f, sA = 0.f;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const float bn = sm.bc[0][s][4 * q + k], cn = sm.bc[1][s][4 * q + k];
-        a[k] = ex2(a2[k] * dtv);
-        G[k] = fmaf(dyv, cn, g[k]);
-        pc[k] = hn[k] * dyv;
-        pb[k] = G[k] * (dtv * xv);
-        gb = fmaf(G[k], bn, gb);
+        G[k] = fmaf(dyv, cn[k], g[k]);
+        pcv[k] = hn[k] * dyv;
+        pbv[k] = G[k] * (dtv * xv);
+        gb = fmaf(G[k], bn[k], gb);
         gA[k] = G[k] * hp[k] * a[k] * negA[k];
         sA += gA[k];
         dA[k] = fmaf(gA[k], dtv, dA[k]);
@@ -479,24 +553,12 @@ ssm_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         ddt[o] = repro::from_f<T>(fmaf(xv, gb, sA));
         dD = fmaf(dyv, xv, dD);
       }
-      // over the warp's channels: the lanes with the same q
-      const float v[8] = {pb[0], pb[1], pb[2], pb[3],
-                          pc[0], pc[1], pc[2], pc[3]};
-      const float sum = scatter8<L>(v, lane);
-      const int e = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 +
-                    ((lane >> 2) & 1);
-      if (L == 4 || (lane & 2) == 0)     // one lane of each (q, e)
-        sm.part[s][wi][e >> 2][4 * q + (e & 3)] = sum;
+      // this step's h_t and a_t are read: its terms of dB_t, dC_t go there
+      sm.hist[s][0][tid] = make_float4(pbv[0], pbv[1], pbv[2], pbv[3]);
+      sm.hist[s][1][tid] = make_float4(pcv[0], pcv[1], pcv[2], pcv[3]);
     }
     __syncthreads();
-    // the block's dB_t, dC_t: the warps' sums in warp order
-    for (int i = tid; i < nt * 2 * N; i += kScanThreads) {
-      const int s = i / (2 * N), a = i / N % 2, n = i % N;
-      float acc = sm.part[s][0][a][n];
-#pragma unroll
-      for (int w = 1; w < NW; ++w) acc += sm.part[s][w][a][n];
-      pbc[((((size_t)blk * nrows + b) * len + t0 + s) * 2 + a) * N + n] = acc;
-    }
+    block_sum(ch);
   }
   if (live) {
     reinterpret_cast<float4*>(ds0)[lq] = make_float4(g[0], g[1], g[2], g[3]);
@@ -506,18 +568,30 @@ ssm_scan_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 }
 
 template <typename T, int N>
-void launch_bwd(const void* x, const void* dt, const void* A_log,
-                const void* Bc, const void* Cc, const void* D,
-                const void* state0, const void* dy, const void* dstate,
-                void* dx, void* ddt, void* pbc, void* pA, void* pD, void* ds0,
-                void* ckpt, int B, int len, int di, int b_sb, int b_st,
-                int c_sb, int c_st, cudaStream_t s) {
+int launch_bwd(const void* x, const void* dt, const void* A_log,
+               const void* Bc, const void* Cc, const void* D,
+               const void* state0, const void* dy, const void* dstate,
+               void* dx, void* ddt, void* pbc, void* pA, void* pD, void* ds0,
+               const void* ckpt, int B, int len, int di, int b_sb, int b_st,
+               int c_sb, int c_st, cudaStream_t s) {
   constexpr int CB = BwdSmem<T, N>::CB;
   constexpr int kSmem = sizeof(BwdSmem<T, N>);
-  cudaFuncSetAttribute(ssm_scan_bwd_kernel<T, N>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  cudaError_t e = cudaFuncSetAttribute(
+      ssm_scan_bwd_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // x, dt, dy: 16-byte copies when every row and block of channels is
+  // 16-byte aligned; B, C: 4-byte copies when the views are 4-byte aligned
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x) |
+                       reinterpret_cast<uintptr_t>(dt) |
+                       reinterpret_cast<uintptr_t>(dy);
+  const bool xvec = (xa % 16) == 0 && (di * sizeof(T)) % 16 == 0;
+  const uintptr_t ba =
+      reinterpret_cast<uintptr_t>(Bc) | reinterpret_cast<uintptr_t>(Cc);
+  const bool bcvec = (ba % 4) == 0 &&
+                     ((size_t)(b_sb | b_st | c_sb | c_st) * sizeof(T)) % 4 == 0;
   dim3 grid((di + CB - 1) / CB, B);
-  ssm_scan_bwd_kernel<T, N><<<grid, kScanThreads, kSmem, s>>>(
+  ssm_scan_bwd_kernel<T, N><<<grid, kBwdThreads, kSmem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const float*>(A_log), static_cast<const T*>(Bc),
       static_cast<const T*>(Cc), static_cast<const float*>(D),
@@ -525,21 +599,22 @@ void launch_bwd(const void* x, const void* dt, const void* A_log,
       static_cast<const float*>(dstate), static_cast<T*>(dx),
       static_cast<T*>(ddt), static_cast<float*>(pbc),
       static_cast<float*>(pA), static_cast<float*>(pD),
-      static_cast<float*>(ds0), static_cast<float*>(ckpt), len, di, b_sb,
-      b_st, c_sb, c_st);
+      static_cast<float*>(ds0), static_cast<const float*>(ckpt), len, di,
+      b_sb, b_st, c_sb, c_st, xvec, bcvec);
+  return 0;
 }
 
 template <typename T>
-bool dispatch_bwd(int N, const void* x, const void* dt, const void* A_log,
-                  const void* Bc, const void* Cc, const void* D,
-                  const void* state0, const void* dy, const void* dstate,
-                  void* dx, void* ddt, void* pbc, void* pA, void* pD,
-                  void* ds0, void* ckpt, int B, int len, int di, int b_sb,
-                  int b_st, int c_sb, int c_st, cudaStream_t s) {
+int dispatch_bwd(int N, const void* x, const void* dt, const void* A_log,
+                 const void* Bc, const void* Cc, const void* D,
+                 const void* state0, const void* dy, const void* dstate,
+                 void* dx, void* ddt, void* pbc, void* pA, void* pD,
+                 void* ds0, const void* ckpt, int B, int len, int di,
+                 int b_sb, int b_st, int c_sb, int c_st, cudaStream_t s) {
   switch (N) {
-    case 8: launch_bwd<T, 8>(x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s); return true;
-    case 16: launch_bwd<T, 16>(x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s); return true;
-    default: return false;
+    case 8: return launch_bwd<T, 8>(x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s);
+    case 16: return launch_bwd<T, 16>(x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -547,7 +622,7 @@ template <typename T, int N>
 void launch(const void* x, const void* dt, const void* A_log, const void* Bc,
             const void* Cc, const void* D, void* state, void* y, int B,
             int len, int di, int b_sb, int b_st, int c_sb, int c_st,
-            bool decode, cudaStream_t s) {
+            bool decode, float* ckpt, cudaStream_t s) {
   if (decode) {
     const long long threads = (long long)B * di * (N / 4);
     ssm_step_kernel<T, N><<<(unsigned)((threads + kStepThreads - 1) / kStepThreads),
@@ -570,6 +645,15 @@ void launch(const void* x, const void* dt, const void* A_log, const void* Bc,
                      ((size_t)(b_sb | b_st | c_sb | c_st) * sizeof(T)) % 4 == 0;
   static_assert((CB * sizeof(T)) % 16 == 0, "blocks of whole 16-byte pieces");
   dim3 grid((di + CB - 1) / CB, B);
+  if (ckpt != nullptr) {
+    ssm_scan_save_kernel<T, N><<<grid, kScanThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dt),
+        static_cast<const float*>(A_log), static_cast<const T*>(Bc),
+        static_cast<const T*>(Cc), static_cast<const float*>(D),
+        static_cast<float*>(state), static_cast<T*>(y), len, di, b_sb, b_st,
+        c_sb, c_st, xvec, bcvec, ckpt);
+    return;
+  }
   ssm_scan_kernel<T, N><<<grid, kScanThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const float*>(A_log), static_cast<const T*>(Bc),
@@ -582,10 +666,10 @@ template <typename T>
 bool dispatch_n(int N, const void* x, const void* dt, const void* A_log,
                 const void* Bc, const void* Cc, const void* D, void* state,
                 void* y, int B, int len, int di, int b_sb, int b_st, int c_sb,
-                int c_st, bool decode, cudaStream_t s) {
+                int c_st, bool decode, float* ckpt, cudaStream_t s) {
   switch (N) {
-    case 8: launch<T, 8>(x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, decode, s); return true;
-    case 16: launch<T, 16>(x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, decode, s); return true;
+    case 8: launch<T, 8>(x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, decode, ckpt, s); return true;
+    case 16: launch<T, 16>(x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, decode, ckpt, s); return true;
     default: return false;
   }
 }
@@ -605,16 +689,38 @@ extern "C" int ssm_scan_fwd(const void* x, const void* dt, const void* A_log,
   const bool decode = len == 1 && !prefill_only;
   bool ok = false;
   if (dtype == repro::kBFloat16)
-    ok = dispatch_n<__nv_bfloat16>(N, x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, decode, s);
+    ok = dispatch_n<__nv_bfloat16>(N, x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, decode, nullptr, s);
   else if (dtype == repro::kFloat32)
-    ok = dispatch_n<float>(N, x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, decode, s);
+    ok = dispatch_n<float>(N, x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, decode, nullptr, s);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward's chunk length: the wrapper sizes the boundary states by it.
-// *smem, when not null, gets the dynamic shared memory the kernel launches
-// with for N and dtype (chip_smoke.py records it), or -1.
+// The forward under autograd: the prefill kernel at any len, storing the
+// backward's boundary states into ckpt (B, ceil(len / chunk) - 1, di, N)
+// f32, 16-byte aligned, as ssm_scan_bwd reads them.
+extern "C" int ssm_scan_fwd_save(const void* x, const void* dt,
+                                 const void* A_log, const void* Bc,
+                                 const void* Cc, const void* D, void* state,
+                                 void* y, void* ckpt, int B, int len, int di,
+                                 int N, int b_sb, int b_st, int c_sb,
+                                 int c_st, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ck = static_cast<float*>(ckpt);
+  if (ck == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  bool ok = false;
+  if (dtype == repro::kBFloat16)
+    ok = dispatch_n<__nv_bfloat16>(N, x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, false, ck, s);
+  else if (dtype == repro::kFloat32)
+    ok = dispatch_n<float>(N, x, dt, A_log, Bc, Cc, D, state, y, B, len, di, b_sb, b_st, c_sb, c_st, false, ck, s);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's chunk length (the boundary interval): the wrapper sizes
+// the boundary states by it. *smem, when not null, gets the dynamic shared
+// memory the kernel launches with for N and dtype (chip_smoke.py records
+// it), or -1.
 extern "C" int ssm_scan_bwd_chunk(int N, int dtype, int* smem) {
   if (smem) {
     const bool bf16 = dtype == repro::kBFloat16;
@@ -627,24 +733,33 @@ extern "C" int ssm_scan_bwd_chunk(int N, int dtype, int* smem) {
   return kBwdChunk;
 }
 
+// The channels a block of the backward covers at state size N: the
+// wrapper sizes the per-block partials of dB and dC by it.
+extern "C" int ssm_scan_bwd_channels(int N) {
+  return N == 8 ? BwdSmem<float, 8>::CB : BwdSmem<float, 16>::CB;
+}
+
 // The backward: every pointer as the wrapper allocates it (dstate may be
 // null: a zero gradient of the final state); the partials are summed by the
-// wrapper. state0, dstate, ds0, ckpt and A_log are read 16 bytes at a time.
+// wrapper. ckpt: the boundary states ssm_scan_fwd_save stored, null only
+// when len fits in one chunk. state0, dstate, ds0, ckpt and A_log are read
+// 16 bytes at a time.
 extern "C" int ssm_scan_bwd(const void* x, const void* dt, const void* A_log,
                             const void* Bc, const void* Cc, const void* D,
                             const void* state0, const void* dy,
                             const void* dstate, void* dx, void* ddt,
                             void* pbc, void* pA, void* pD, void* ds0,
-                            void* ckpt, int B, int len, int di, int N,
+                            const void* ckpt, int B, int len, int di, int N,
                             int b_sb, int b_st, int c_sb, int c_st, int dtype,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (len < 1) return static_cast<int>(cudaErrorInvalidValue);
-  bool ok = false;
+  if (len < 1 || (ckpt == nullptr && len > kBwdChunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaErrorInvalidValue);
   if (dtype == repro::kBFloat16)
-    ok = dispatch_bwd<__nv_bfloat16>(N, x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s);
+    err = dispatch_bwd<__nv_bfloat16>(N, x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s);
   else if (dtype == repro::kFloat32)
-    ok = dispatch_bwd<float>(N, x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    err = dispatch_bwd<float>(N, x, dt, A_log, Bc, Cc, D, state0, dy, dstate, dx, ddt, pbc, pA, pD, ds0, ckpt, B, len, di, b_sb, b_st, c_sb, c_st, s);
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

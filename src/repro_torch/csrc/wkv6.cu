@@ -63,26 +63,35 @@
 //   du[i] = sum_{b,t} r_t[i] k_t[i] P_t        dstate0 = G_0
 //
 // One block a (head, row) in the prefill kernel's layout (RT = hd / 8 rows
-// by 4 columns a lane, a head's row slices over its warps), walking time in
-// reverse with G in registers. dw needs S_{t-1} beside G_t, and S is never
-// recovered by dividing by a decay (decays reach 1e-8): a first pass runs
-// the recurrence forward and stores the state at every chunk boundary
-// (kBwdChunk steps) in a scratch buffer, each lane its own elements; the
-// reverse pass reloads a chunk's boundary state, recomputes the chunk's
-// states into shared memory (each lane's own, in a lane-major layout
-// without bank conflicts) and walks the chunk backwards. Row sums (dr, dk,
-// dw) run across a row slice's lanes by a reduce-scatter of xor shuffles
-// (row_scatter: 24 shuffles a step at hd 64 where an all-reduce takes 96);
-// column sums (dv) by xor shuffles across the slices of a warp, then
-// across warps in warp order through shared memory, as the forward's y;
-// Q_t and P_t by one warp a step. du is one partial a row, summed by the
-// wrapper in a fixed order: no float atomics, so two runs are bit-equal.
-// What bounds it on the H100 is latency: each step is a chain of products
-// and shuffles, so the warps an SM holds set the pace. Chunks of 3 steps
-// (55 KB of shared memory a block) and a launch bound of four blocks an SM
-// (<= 128 registers, no spills) measured fastest (chip_variants.py times
-// the alternatives; PERF.md), still far above the FP32 work's bound (about
-// 14 operations a state element and step).
+// by 4 columns a lane, 32 elements of S and of G in registers at hd 64, a
+// head's row slices over its warps), walking time in reverse with G in
+// registers. dw needs S_{t-1} beside G_t, and S is never recovered by
+// dividing by a decay (decays reach 1e-8): the forward under autograd
+// (wkv6_scan_save_kernel, entry `wkv6_fwd_save`) stores the state at every
+// boundary of kBwdChunk = 8 steps in a scratch buffer, which the backward
+// reads; the wrapper, given none, runs that kernel on a copy of the state
+// first. The backward takes an interval of 8 steps a job, from the last,
+// its inputs staged an interval ahead by cp.async (16-byte copies) with one
+// barrier a job before the walk and one after, and walks it back in halves
+// of kBwdHist = 4 steps: S from the interval's boundary (kept in shared
+// memory), advanced over the half's earlier steps, then the half's states
+// S_{t-1} kept in shared memory (16 KB a step at hd 64, each lane its own)
+// and walked backwards. Row sums (dr, dk, dw) run across a row slice's
+// lanes by a reduce-scatter of xor shuffles (row_scatter) and are stored
+// as they complete; column sums (dv) over the warp's slices (col_scatter),
+// then across warps in warp order through shared memory, + Q_t dy_t; Q_t
+// and P_t by each warp for the interval's steps (lane s + 8 p over a
+// quarter of step s's elements, merged by xor shuffles). du is one partial
+// a row, summed by the wrapper in a fixed order: no float atomics, so two
+// runs are bit-equal. What bounds the kernel is latency and issue: each
+// step is a chain of products and shuffles, about 14 float32 operations a
+// state element and step, two blocks an SM (98 KB of shared memory a
+// block in bf16).
+// Splitting a head's columns over a thread-block cluster (exact: S and G
+// evolve element by element with row scalars r, k, w and column scalars v,
+// dy; the row sums then merged in rank order through distributed shared
+// memory) lost on the H100: chip_variants.py builds it from
+// variants/wkv6_bwd_cluster.cu and times it beside this kernel (PERF.md).
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -108,6 +117,8 @@ template <int HD>
 using StepTile = Tile<HD, HD / 16>;   // decode: 16-byte state accesses
 template <int HD>
 using ScanTile = Tile<HD, HD / 8>;    // prefill: 32 elements a lane at hd 64
+template <int HD>
+using BwdTile = Tile<HD, HD / 8>;     // backward: RT = CG / 2 rows a lane
 
 // merges a partial sum over the row slices of a warp (lanes CG apart)
 template <int CG>
@@ -232,6 +243,9 @@ wkv6_step_kernel(const T* __restrict__ r, const T* __restrict__ k,
 
 constexpr int kChunk = 8;  // steps staged per chunk
 
+// the backward's boundary interval: the state is kept every kBwdChunk steps
+constexpr int kBwdChunk = 8;
+
 template <typename T, int HD>
 struct ScanSmem {
   alignas(16) T raw[4][4][kChunk][HD];  // r, k, w, v as loaded, 4 buffers
@@ -288,12 +302,16 @@ __device__ __forceinline__ void load_t(const __nv_bfloat16* p,
     out[x] = __uint_as_float(x % 2 ? b[x / 2] & 0xffff0000u : b[x / 2] << 16);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(ScanTile<HD>::THREADS, 4)
-wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ w,
-                 const float* __restrict__ u, float* __restrict__ state,
-                 T* __restrict__ y, int len, int H, int vec) {
+// The prefill kernel's body; with SAVE (the forward under autograd) it also
+// stores the state before every step t = kBwdChunk m, m >= 1, into ckpt
+// (B, H, ceil(len / kBwdChunk) - 1, hd, hd): the boundaries the backward
+// would otherwise recompute. Serving instantiates it without.
+template <typename T, int HD, bool SAVE>
+__device__ __forceinline__ void scan_body(
+    const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ w, const float* __restrict__ u,
+    float* __restrict__ state, T* __restrict__ y, int len, int H, int vec,
+    float* __restrict__ ckpt) {
   using L = ScanTile<HD>;
   constexpr int RT = L::RT, NT = L::THREADS;
   constexpr int E = 16 / sizeof(T);         // elements a 16-byte copy
@@ -396,6 +414,18 @@ wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
     if (c == nchunks) break;
     const int nt = min(kChunk, len - c * kChunk), cb = c & 3;
     for (int s = 0; s < nt; ++s) {
+      if constexpr (SAVE) {
+        const int t = c * kChunk + s;
+        if (t > 0 && t % kBwdChunk == 0) {
+          const int nb = (len + kBwdChunk - 1) / kBwdChunk - 1;
+          float* ck = ckpt + (((size_t)b * H + h) * nb + t / kBwdChunk - 1)
+                                 * HD * HD;
+#pragma unroll
+          for (int m = 0; m < RT; ++m)
+            *reinterpret_cast<float4*>(ck + (i0 + m) * HD + 4 * cg) =
+                make_float4(S[m][0], S[m][1], S[m][2], S[m][3]);
+        }
+      }
       float rr[RT], kk[RT], ww[RT], vv[4];
       load_t<RT>(&sm.raw[cb][0][s][i0], rr);
       load_t<RT>(&sm.raw[cb][1][s][i0], kk);
@@ -423,8 +453,27 @@ wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
         make_float4(S[m][0], S[m][1], S[m][2], S[m][3]);
 }
 
-constexpr int kBwdChunk = 3;      // steps a chunk of the backward
-constexpr int kBwdMinBlocks = 4;  // blocks an SM: <= 128 registers a thread
+template <typename T, int HD>
+__global__ void __launch_bounds__(ScanTile<HD>::THREADS, 4)
+wkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ w,
+                 const float* __restrict__ u, float* __restrict__ state,
+                 T* __restrict__ y, int len, int H, int vec) {
+  scan_body<T, HD, false>(r, k, v, w, u, state, y, len, H, vec, nullptr);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(ScanTile<HD>::THREADS, 4)
+wkv6_scan_save_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ w,
+                      const float* __restrict__ u, float* __restrict__ state,
+                      T* __restrict__ y, int len, int H, int vec,
+                      float* __restrict__ ckpt) {
+  scan_body<T, HD, true>(r, k, v, w, u, state, y, len, H, vec, ckpt);
+}
+
+constexpr int kBwdHist = 4;       // steps of S_{t-1} a block keeps
+constexpr int kBwdMinBlocks = 2;  // blocks an SM
 
 // The three row sums (dr, dk, dw) of a lane's M rows, over the CG = 2 M
 // lanes of its row slice, by a reduce-scatter in fixed order: at each level
@@ -454,21 +503,51 @@ __device__ __forceinline__ void row_scatter(const float (&v)[3][M], int cg,
   }
 }
 
-// the backward's layout: the prefill kernel's, RT = hd / 8 rows a lane, so
-// a row slice spans CG = 2 RT lanes (what row_scatter takes)
-template <int HD>
-using BwdTile = Tile<HD, HD / 8>;
-
-template <int HD>
+// KB steps an interval between boundary states, KH of S_{t-1} kept
+template <typename T, int HD, int KH, int KB>
 struct BwdSmem {
   using L = BwdTile<HD>;
-  float4 hist[kBwdChunk][L::RT][L::THREADS];   // S_{t-1}, the lanes' own
-  float in[5][kBwdChunk][HD];                  // r, k, v, w, dy widened
-  float q[kBwdChunk], p[kBwdChunk];            // Q_t and P_t
-  float part[kBwdChunk][L::NW][HD];            // the warps' dv sums
+  float4 hist[KH][L::RT][L::THREADS];  // S_{t-1}, each lane its own
+  alignas(16) T raw[2][5][KB][HD];     // r, k, v, w, dy as loaded, 2 buffers
+  float part[KB][L::NW][HD];           // the warps' dv sums
+  float q[KB];                         // Q_t
+  float u[HD];
+  float4 bnd[KB > KH ? L::RT : 1][L::THREADS];  // the interval's boundary
 };
 
-template <typename T, int HD>
+// Sums each of a lane's 4 column partials over the 32 / CG row slices of a
+// warp (lanes CG apart) by a reduce-scatter in fixed order and stores the
+// warp's sums at out[0 .. 4 CG): at xor 16 two of the four go to the
+// partner, at xor 8 one (with 4 or more slices a warp), then an all-reduce
+// over the slices left; one lane of each column stores it.
+template <int CG>
+__device__ __forceinline__ void col_scatter(const float (&v)[4], int lane,
+                                            float* out) {
+  const bool u16 = lane & 16;
+  float a[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    a[i] = (u16 ? v[i + 2] : v[i]) +
+           __shfl_xor_sync(0xffffffffu, u16 ? v[i] : v[i + 2], 16);
+  const int col = 4 * (lane % CG) + (u16 ? 2 : 0);
+  if constexpr (CG == 16) {
+    out[col] = a[0];
+    out[col + 1] = a[1];
+  } else {
+    const bool u8 = lane & 8;
+    float x = (u8 ? a[1] : a[0]) +
+              __shfl_xor_sync(0xffffffffu, u8 ? a[0] : a[1], 8);
+#pragma unroll
+    for (int off = CG; off < 8; off <<= 1)
+      x += __shfl_xor_sync(0xffffffffu, x, off);
+    if ((lane & (8 - CG)) == 0) out[col + (u8 ? 1 : 0)] = x;
+  }
+}
+
+// ckpt (B, H, ceil(len / KB) - 1, hd, hd): the state before interval
+// c >= 1, as wkv6_scan_save_kernel stores it. A job is one interval of KB
+// steps, from the last, walked back in sub-chunks of KH.
+template <typename T, int HD, int KH, int KB>
 __global__ void __launch_bounds__(BwdTile<HD>::THREADS, kBwdMinBlocks)
 wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ w,
@@ -476,18 +555,25 @@ wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
                 const T* __restrict__ dy, const float* __restrict__ dstate,
                 T* __restrict__ dr, T* __restrict__ dk, T* __restrict__ dv,
                 T* __restrict__ dw, float* __restrict__ pu,
-                float* __restrict__ ds0, float* __restrict__ ckpt, int len,
-                int H) {
+                float* __restrict__ ds0, const float* __restrict__ ckpt,
+                int len, int H, int vec) {
   using L = BwdTile<HD>;
-  constexpr int RT = L::RT, NT = L::THREADS, NW = L::NW, K = kBwdChunk;
-  static_assert(L::CG == 2 * RT, "a row slice of 2 RT lanes");
+  using Sm = BwdSmem<T, HD, KH, KB>;
+  constexpr int K = KB;
+  constexpr int RT = L::RT, CG = L::CG, NT = L::THREADS, NW = L::NW;
+  constexpr int E = 16 / sizeof(T), PR = HD / E;   // 16-byte pieces a row
+  constexpr int EP = HD / (32 / K);                // Q, P: elements a lane
+  constexpr int EV = EP < 4 ? EP : 4;              // ... a load
+  static_assert(CG == 2 * RT && RT >= 1 && 32 % K == 0 && EP >= 1,
+                "2 RT lanes a row slice; K divides a warp");
   extern __shared__ __align__(16) unsigned char smem[];
-  BwdSmem<HD>& sm = *reinterpret_cast<BwdSmem<HD>*>(smem);
+  Sm& sm = *reinterpret_cast<Sm*>(smem);
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, wi = tid / 32, lane = tid % 32;
-  const int cg = lane % L::CG;
-  const int i0 = RT * (wi * L::RGW + lane / L::CG);   // first row owned
+  const int cg = lane % CG, mi = cg >> 1;   // mi: the row of the row sums
+  const int i0 = RT * (wi * L::RGW + lane / CG);   // first row owned
+  const int jc = 4 * cg;                           // first column owned
   const size_t tstride = (size_t)H * HD;
   const size_t base = (size_t)b * len * tstride + (size_t)h * HD;
   const size_t sbase = ((size_t)b * H + h) * HD * HD;  // this head's state
@@ -496,209 +582,249 @@ wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
   float S[RT][4], G[RT][4];
 #pragma unroll
   for (int m = 0; m < RT; ++m) {
-    load_f<4>(state0 + sbase + (i0 + m) * HD + 4 * cg, S[m]);
     if (dstate != nullptr) {
-      load_f<4>(dstate + sbase + (i0 + m) * HD + 4 * cg, G[m]);
+      load_f<4>(dstate + sbase + (i0 + m) * HD + jc, G[m]);
     } else {
 #pragma unroll
       for (int n = 0; n < 4; ++n) G[m][n] = 0.f;
     }
   }
-  const float u0 = lane < HD ? u[(size_t)h * HD + lane] : 0.f;
-  const float u1 = HD > 32 ? u[(size_t)h * HD + lane + 32] : 0.f;
-  const int mi = cg >> 1;                   // the row of the scattered sums
+  for (int i = tid; i < HD; i += NT) sm.u[i] = u[(size_t)h * HD + i];
   const float ui = u[(size_t)h * HD + i0 + mi];
 
-  // chunk c's inputs a0 .. a1 - 1 of (r, k, v, w, dy), widened; plain loads
-  auto stage = [&](int c, int a0, int a1) {
-    const int t0 = c * K, nt = min(K, len - t0);
-    for (int i = tid; i < 5 * K * HD; i += NT) {
-      const int a = i / (K * HD), s = i / HD % K, j = i % HD;
-      if (s >= nt || a < a0 || a >= a1) continue;
-      const T* g = a == 0 ? r : a == 1 ? k : a == 2 ? v : a == 3 ? w : dy;
-      sm.in[a][s][j] = repro::to_f(g[base + (size_t)(t0 + s) * tstride + j]);
-    }
-  };
-  // the boundary state before chunk c (c >= 1), this lane's row m
-  auto ck = [&](int c, int m) {
-    return ckpt + ((((size_t)b * H + h) * (nchk - 1) + (c - 1)) * HD + i0 + m)
-                      * HD + 4 * cg;
-  };
-
-  // pass 1: the recurrence forward, the state stored at every chunk start
-  for (int c = 0; c < nchk; ++c) {
-    if (c > 0) {
-#pragma unroll
-      for (int m = 0; m < RT; ++m)
-        *reinterpret_cast<float4*>(ck(c, m)) =
-            make_float4(S[m][0], S[m][1], S[m][2], S[m][3]);
-    }
-    __syncthreads();
-    stage(c, 1, 4);
-    __syncthreads();
-    const int nt = min(K, len - c * K);
-    for (int s = 0; s < nt; ++s) {
-#pragma unroll
-      for (int m = 0; m < RT; ++m) {
-        const float kk = sm.in[1][s][i0 + m], ww = sm.in[3][s][i0 + m];
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          S[m][n] = fmaf(ww, S[m][n], kk * sm.in[2][s][4 * cg + n]);
-      }
-    }
-  }
-
-  // pass 2: chunks in reverse; each chunk's states recomputed, then walked
-  // backwards
-  float du = 0.f;                           // row mi's du partial
-  for (int c = nchk - 1; c >= 0; --c) {
-    const int t0 = c * K, nt = min(K, len - t0);
-    __syncthreads();  // the previous chunk's dv sums are written
-    stage(c, 0, 5);
-    __syncthreads();
-    // Q_t and P_t, one warp a step
-    for (int s = wi; s < nt; s += NW) {
-      float a[6] = {};
-      if (lane < HD) {
-        a[0] = sm.in[0][s][lane]; a[1] = sm.in[1][s][lane];
-        a[3] = sm.in[2][s][lane]; a[4] = sm.in[4][s][lane];
-      }
-      if (HD > 32) {
-        a[2] = sm.in[0][s][lane + 32]; a[5] = sm.in[1][s][lane + 32];
-      }
-      const float qv = ruk_sum<HD>(a[0], a[1], u0, a[2], a[5], u1);
-      const float pv = ruk_sum<HD>(a[3], a[4], 1.f,
-                                   HD > 32 ? sm.in[2][s][lane + 32] : 0.f,
-                                   HD > 32 ? sm.in[4][s][lane + 32] : 0.f,
-                                   1.f);
-      if (lane == 0) {
-        sm.q[s] = qv;
-        sm.p[s] = pv;
-      }
-    }
-    // this chunk's states S_{t-1}, from its boundary state
-    if (c == 0) {
-#pragma unroll
-      for (int m = 0; m < RT; ++m)
-        load_f<4>(state0 + sbase + (i0 + m) * HD + 4 * cg, S[m]);
-    } else {
-#pragma unroll
-      for (int m = 0; m < RT; ++m) load_f<4>(ck(c, m), S[m]);
-    }
-    for (int s = 0; s < nt; ++s) {
-#pragma unroll
-      for (int m = 0; m < RT; ++m) {
-        sm.hist[s][m][tid] = make_float4(S[m][0], S[m][1], S[m][2], S[m][3]);
-        const float kk = sm.in[1][s][i0 + m], ww = sm.in[3][s][i0 + m];
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          S[m][n] = fmaf(ww, S[m][n], kk * sm.in[2][s][4 * cg + n]);
-      }
-    }
-    __syncthreads();  // Q_t, P_t
-    for (int s = nt - 1; s >= 0; --s) {
-      float vv[4], dyv[4], pv[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        vv[n] = sm.in[2][s][4 * cg + n];
-        dyv[n] = sm.in[4][s][4 * cg + n];
-      }
-      const float P = sm.p[s];
-      const size_t o = base + (size_t)(t0 + s) * tstride;
-      float acc[3][RT];                         // dr, dk, dw partials
-#pragma unroll
-      for (int m = 0; m < RT; ++m) {
-        const float rr = sm.in[0][s][i0 + m], kk = sm.in[1][s][i0 + m];
-        const float ww = sm.in[3][s][i0 + m];
-        const float4 p4 = sm.hist[s][m][tid];
-        const float sp[4] = {p4.x, p4.y, p4.z, p4.w};
-        float a_r = 0.f, a_k = 0.f, a_w = 0.f;
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          a_r = fmaf(sp[n], dyv[n], a_r);
-          a_k = fmaf(G[m][n], vv[n], a_k);
-          a_w = fmaf(G[m][n], sp[n], a_w);
-          pv[n] = fmaf(G[m][n], kk, pv[n]);
-          G[m][n] = fmaf(ww, G[m][n], rr * dyv[n]);
-        }
-        acc[0][m] = a_r;
-        acc[1][m] = a_k;
-        acc[2][m] = a_w;
-      }
-      // row mi's sums; the lane pair splits the stores
-      float sums[3];
-      row_scatter<RT>(acc, cg, sums);
-      const float rr = sm.in[0][s][i0 + mi], kk = sm.in[1][s][i0 + mi];
-      du = fmaf(rr * kk, P, du);
-      if (cg & 1) {
-        dw[o + i0 + mi] = repro::from_f<T>(sums[2]);
+  // job j: interval nchk - 1 - j; its inputs go to raw[j & 1]
+  auto stage = [&](int j) {
+    const int t0 = (nchk - 1 - j) * K, nt = min(K, len - t0);
+    for (int i = tid; i < 5 * K * PR; i += NT) {
+      const int a = i / (K * PR), s = i / PR % K, pc = i % PR;
+      if (s >= nt) continue;
+      const T* g = (a == 0 ? r : a == 1 ? k : a == 2 ? v : a == 3 ? w : dy) +
+                   base + (size_t)(t0 + s) * tstride + pc * E;
+      T* d = &sm.raw[j & 1][a][s][pc * E];
+      if (vec) {
+        cp_async16(smem_addr(d), g, true);
       } else {
-        dr[o + i0 + mi] = repro::from_f<T>(fmaf(ui * kk, P, sums[0]));
-        dk[o + i0 + mi] = repro::from_f<T>(fmaf(ui * rr, P, sums[1]));
+#pragma unroll
+        for (int e = 0; e < E; ++e) d[e] = g[e];
+      }
+    }
+  };
+  // this lane's rows of the boundary state before interval c
+  auto load_bound = [&](int c, float (&dst)[RT][4]) {
+#pragma unroll
+    for (int m = 0; m < RT; ++m)
+      load_f<4>(c == 0 ? state0 + sbase + (i0 + m) * HD + jc
+                       : ckpt + ((((size_t)b * H + h) * (nchk - 1) + (c - 1))
+                                 * HD + i0 + m) * HD + jc,
+                dst[m]);
+  };
+
+  // one block barrier a job: after it job j's inputs have landed and job
+  // j + 1's load; a second after the walk, before the interval's dv
+  float du = 0.f;                           // row mi's du partial
+  // the boundary state of the next interval, loaded an interval ahead
+  float Sb[RT][4];
+  load_bound(nchk - 1, Sb);
+  stage(0);
+  cp_async_commit();
+  for (int j = 0; j < nchk; ++j) {
+    const int c = nchk - 1 - j, buf = j & 1;
+    const int t0 = c * K, nt = min(K, len - t0);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < nchk) stage(j + 1);
+    cp_async_commit();
+    // Q_t and P_t of the interval's steps: lane s + K p sums the p-th share
+    // of step s's elements in order, merged by xor shuffles K, 2 K, .. 16
+    float qv = 0.f, pv = 0.f;
+    {
+      const int s = lane % K, e0 = lane / K * EP;
+      if (s < nt) {
+#pragma unroll
+        for (int e = 0; e < EP; e += EV) {
+          float rr[EV], kk[EV], vv[EV], dd[EV];
+          load_t<EV>(&sm.raw[buf][0][s][e0 + e], rr);
+          load_t<EV>(&sm.raw[buf][1][s][e0 + e], kk);
+          load_t<EV>(&sm.raw[buf][2][s][e0 + e], vv);
+          load_t<EV>(&sm.raw[buf][4][s][e0 + e], dd);
+#pragma unroll
+          for (int x = 0; x < EV; ++x) {
+            qv = fmaf(rr[x] * kk[x], sm.u[e0 + e + x], qv);
+            pv = fmaf(vv[x], dd[x], pv);
+          }
+        }
       }
 #pragma unroll
-      for (int n = 0; n < 4; ++n) pv[n] = merge_slices<L::CG>(pv[n]);
-      if (lane < L::CG) {
+      for (int off = K; off < 32; off <<= 1) {
+        qv += __shfl_xor_sync(0xffffffffu, qv, off);
+        pv += __shfl_xor_sync(0xffffffffu, pv, off);
+      }
+      if (wi == 0 && lane < K) sm.q[lane] = qv;
+    }
+    // the interval backwards, in sub-chunks of KH steps from the last: S
+    // from the interval's boundary (kept in shared memory), advanced without
+    // keeping over the sub-chunk's earlier steps, then the sub-chunk's
+    // states S_{t-1} kept in hist and walked backwards; the next interval's
+    // boundary loads meanwhile
 #pragma unroll
-        for (int n = 0; n < 4; ++n) sm.part[s][wi][4 * cg + n] = pv[n];
+    for (int m = 0; m < RT; ++m) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) S[m][n] = Sb[m][n];
+    }
+    if constexpr (KB > KH) {
+      if (nt > KH) {
+#pragma unroll
+        for (int m = 0; m < RT; ++m)
+          sm.bnd[m][tid] = make_float4(S[m][0], S[m][1], S[m][2], S[m][3]);
+      }
+    }
+    if (c > 0) load_bound(c - 1, Sb);
+    auto advance = [&](int t) {           // S over step t of the interval
+      float kk[RT], ww[RT], vv[4];
+      load_t<RT>(&sm.raw[buf][1][t][i0], kk);
+      load_t<RT>(&sm.raw[buf][3][t][i0], ww);
+      load_t<4>(&sm.raw[buf][2][t][jc], vv);
+#pragma unroll
+      for (int m = 0; m < RT; ++m) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          S[m][n] = fmaf(ww[m], S[m][n], kk[m] * vv[n]);
+      }
+    };
+    const int last = (nt - 1) / KH;
+    for (int q = last; q >= 0; --q) {
+      const int s0 = q * KH, ns = min(KH, nt - s0);
+      if constexpr (KB > KH) {
+        if (q != last) {
+#pragma unroll
+          for (int m = 0; m < RT; ++m) {
+            const float4 b4 = sm.bnd[m][tid];
+            S[m][0] = b4.x; S[m][1] = b4.y; S[m][2] = b4.z; S[m][3] = b4.w;
+          }
+        }
+      }
+      for (int t = 0; t < s0; ++t) advance(t);
+#pragma unroll
+      for (int s = 0; s < KH; ++s) {
+        if (s >= ns) break;
+#pragma unroll
+        for (int m = 0; m < RT; ++m)
+          sm.hist[s][m][tid] = make_float4(S[m][0], S[m][1], S[m][2], S[m][3]);
+        advance(s0 + s);
+      }
+#pragma unroll
+      for (int s = KH - 1; s >= 0; --s) {
+        if (s >= ns) continue;                    // uniform over the block
+        const int t = s0 + s;                     // the step in the interval
+        float rr[RT], kk[RT], ww[RT], vv[4], dyv[4];
+        load_t<RT>(&sm.raw[buf][0][t][i0], rr);
+        load_t<RT>(&sm.raw[buf][1][t][i0], kk);
+        load_t<RT>(&sm.raw[buf][3][t][i0], ww);
+        load_t<4>(&sm.raw[buf][2][t][jc], vv);
+        load_t<4>(&sm.raw[buf][4][t][jc], dyv);
+        const float P = __shfl_sync(0xffffffffu, pv, t);
+        float acc[3][RT], cs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int m = 0; m < RT; ++m) {
+          const float4 p4 = sm.hist[s][m][tid];
+          const float sp[4] = {p4.x, p4.y, p4.z, p4.w};
+          float a_r = 0.f, a_k = 0.f, a_w = 0.f;
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            a_r = fmaf(sp[n], dyv[n], a_r);
+            a_k = fmaf(G[m][n], vv[n], a_k);
+            a_w = fmaf(G[m][n], sp[n], a_w);
+            cs[n] = fmaf(G[m][n], kk[m], cs[n]);
+            G[m][n] = fmaf(ww[m], G[m][n], rr[m] * dyv[n]);
+          }
+          acc[0][m] = a_r;
+          acc[1][m] = a_k;
+          acc[2][m] = a_w;
+        }
+        // row mi's sums plus the u terms; the lane pair splits the stores
+        float sums[3];
+        row_scatter<RT>(acc, cg, sums);
+        const float rm = repro::to_f(sm.raw[buf][0][t][i0 + mi]);
+        const float km = repro::to_f(sm.raw[buf][1][t][i0 + mi]);
+        const size_t o = base + (size_t)(t0 + t) * tstride + i0 + mi;
+        if (cg & 1) {
+          dw[o] = repro::from_f<T>(sums[2]);
+        } else {
+          dr[o] = repro::from_f<T>(fmaf(ui * km, P, sums[0]));
+          dk[o] = repro::from_f<T>(fmaf(ui * rm, P, sums[1]));
+        }
+        du = fmaf(rm * km, P, du);
+        col_scatter<CG>(cs, lane, &sm.part[t][wi][0]);
       }
     }
     __syncthreads();
-    // dv of the chunk: the warps' sums in warp order, + Q_t dy_t
+    // dv of the interval: the warps' sums in warp order, + Q_t dy_t
     for (int i = tid; i < nt * HD; i += NT) {
-      const int s = i / HD, j = i % HD;
-      float acc = sm.part[s][0][j];
+      const int s = i / HD, jj = i % HD;
+      float acc = sm.part[s][0][jj];
 #pragma unroll
-      for (int x = 1; x < NW; ++x) acc += sm.part[s][x][j];
-      acc = fmaf(sm.q[s], sm.in[4][s][j], acc);
-      dv[base + (size_t)(t0 + s) * tstride + j] = repro::from_f<T>(acc);
+      for (int x = 1; x < NW; ++x) acc += sm.part[s][x][jj];
+      acc = fmaf(sm.q[s], repro::to_f(sm.raw[buf][4][s][jj]), acc);
+      dv[base + (size_t)(t0 + s) * tstride + jj] = repro::from_f<T>(acc);
     }
   }
 #pragma unroll
   for (int m = 0; m < RT; ++m)
-    *reinterpret_cast<float4*>(ds0 + sbase + (i0 + m) * HD + 4 * cg) =
+    *reinterpret_cast<float4*>(ds0 + sbase + (i0 + m) * HD + jc) =
         make_float4(G[m][0], G[m][1], G[m][2], G[m][3]);
   if ((cg & 1) == 0) pu[((size_t)b * H + h) * HD + i0 + mi] = du;
 }
 
+// the backward's dynamic shared memory at head size HD
 template <typename T, int HD>
-void launch_bwd(const void* r, const void* k, const void* v, const void* w,
-                const void* u, const void* state0, const void* dy,
-                const void* dstate, void* dr, void* dk, void* dv, void* dw,
-                void* pu, void* ds0, void* ckpt, int B, int len, int H,
-                cudaStream_t s) {
-  constexpr int kSmem = sizeof(BwdSmem<HD>);
-  cudaFuncSetAttribute(wkv6_bwd_kernel<T, HD>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  dim3 grid(H, B);
-  wkv6_bwd_kernel<T, HD><<<grid, BwdTile<HD>::THREADS, kSmem, s>>>(
+constexpr int kBwdSmem = sizeof(BwdSmem<T, HD, kBwdHist, kBwdChunk>);
+
+template <typename T, int HD>
+int launch_bwd(const void* r, const void* k, const void* v, const void* w,
+               const void* u, const void* state0, const void* dy,
+               const void* dstate, void* dr, void* dk, void* dv, void* dw,
+               void* pu, void* ds0, const void* ckpt, int B, int len, int H,
+               cudaStream_t s) {
+  constexpr auto kernel = wkv6_bwd_kernel<T, HD, kBwdHist, kBwdChunk>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem<T, HD>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // cp.async takes 16-byte aligned rows
+  const uintptr_t any = reinterpret_cast<uintptr_t>(r) |
+                        reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) |
+                        reinterpret_cast<uintptr_t>(w) |
+                        reinterpret_cast<uintptr_t>(dy);
+  kernel<<<dim3(H, B), BwdTile<HD>::THREADS, kBwdSmem<T, HD>, s>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(w),
       static_cast<const float*>(u), static_cast<const float*>(state0),
       static_cast<const T*>(dy), static_cast<const float*>(dstate),
       static_cast<T*>(dr), static_cast<T*>(dk), static_cast<T*>(dv),
       static_cast<T*>(dw), static_cast<float*>(pu), static_cast<float*>(ds0),
-      static_cast<float*>(ckpt), len, H);
+      static_cast<const float*>(ckpt), len, H,
+      static_cast<int>(any % 16 == 0));
+  return 0;
 }
 
 template <typename T>
-bool dispatch_bwd(int hd, const void* r, const void* k, const void* v,
-                  const void* w, const void* u, const void* state0,
-                  const void* dy, const void* dstate, void* dr, void* dk,
-                  void* dv, void* dw, void* pu, void* ds0, void* ckpt, int B,
-                  int len, int H, cudaStream_t s) {
+int dispatch_bwd(int hd, const void* r, const void* k, const void* v,
+                 const void* w, const void* u, const void* state0,
+                 const void* dy, const void* dstate, void* dr, void* dk,
+                 void* dv, void* dw, void* pu, void* ds0, const void* ckpt,
+                 int B, int len, int H, cudaStream_t s) {
   switch (hd) {
-    case 16: launch_bwd<T, 16>(r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s); return true;
-    case 32: launch_bwd<T, 32>(r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s); return true;
-    case 64: launch_bwd<T, 64>(r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s); return true;
-    default: return false;
+    case 16: return launch_bwd<T, 16>(r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s);
+    case 32: return launch_bwd<T, 32>(r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s);
+    case 64: return launch_bwd<T, 64>(r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T, int HD>
 void launch(const void* r, const void* k, const void* v, const void* w,
             const void* u, void* state, void* y, int B, int len, int H,
-            bool decode, cudaStream_t s) {
+            bool decode, float* ckpt, cudaStream_t s) {
   const T* r_ = static_cast<const T*>(r);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
@@ -721,9 +847,16 @@ void launch(const void* r, const void* k, const void* v, const void* w,
   const bool vec = any % 16 == 0;
   // dynamic shared memory: above the 48 KB a static array may take
   constexpr int kSmem = sizeof(ScanSmem<T, HD>);
+  dim3 grid(H, B);
+  if (ckpt != nullptr) {
+    cudaFuncSetAttribute(wkv6_scan_save_kernel<T, HD>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    wkv6_scan_save_kernel<T, HD><<<grid, ScanTile<HD>::THREADS, kSmem, s>>>(
+        r_, k_, v_, w_, u_, st, y_, len, H, vec, ckpt);
+    return;
+  }
   cudaFuncSetAttribute(wkv6_scan_kernel<T, HD>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  dim3 grid(H, B);
   wkv6_scan_kernel<T, HD><<<grid, ScanTile<HD>::THREADS, kSmem, s>>>(
       r_, k_, v_, w_, u_, st, y_, len, H, vec);
 }
@@ -731,11 +864,11 @@ void launch(const void* r, const void* k, const void* v, const void* w,
 template <typename T>
 bool dispatch_hd(int hd, const void* r, const void* k, const void* v,
                  const void* w, const void* u, void* state, void* y, int B,
-                 int len, int H, bool decode, cudaStream_t s) {
+                 int len, int H, bool decode, float* ckpt, cudaStream_t s) {
   switch (hd) {
-    case 16: launch<T, 16>(r, k, v, w, u, state, y, B, len, H, decode, s); return true;
-    case 32: launch<T, 32>(r, k, v, w, u, state, y, B, len, H, decode, s); return true;
-    case 64: launch<T, 64>(r, k, v, w, u, state, y, B, len, H, decode, s); return true;
+    case 16: launch<T, 16>(r, k, v, w, u, state, y, B, len, H, decode, ckpt, s); return true;
+    case 32: launch<T, 32>(r, k, v, w, u, state, y, B, len, H, decode, ckpt, s); return true;
+    case 64: launch<T, 64>(r, k, v, w, u, state, y, B, len, H, decode, ckpt, s); return true;
     default: return false;
   }
 }
@@ -753,22 +886,43 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
   const bool decode = len == 1 && !prefill_only;
   bool ok = false;
   if (dtype == repro::kBFloat16)
-    ok = dispatch_hd<__nv_bfloat16>(hd, r, k, v, w, u, state, y, B, len, H, decode, s);
+    ok = dispatch_hd<__nv_bfloat16>(hd, r, k, v, w, u, state, y, B, len, H, decode, nullptr, s);
   else if (dtype == repro::kFloat32)
-    ok = dispatch_hd<float>(hd, r, k, v, w, u, state, y, B, len, H, decode, s);
+    ok = dispatch_hd<float>(hd, r, k, v, w, u, state, y, B, len, H, decode, nullptr, s);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward's chunk length: the wrapper sizes the boundary states by it.
-// *smem, when not null, gets the dynamic shared memory the kernel launches
-// with at head size hd (chip_smoke.py records it), or -1.
-extern "C" int wkv6_bwd_chunk(int hd, int* smem) {
+// The forward under autograd: the prefill kernel at any len, storing the
+// backward's boundary states into ckpt (B, H, ceil(len / chunk) - 1, hd,
+// hd) f32, 16-byte aligned, as wkv6_bwd reads them.
+extern "C" int wkv6_fwd_save(const void* r, const void* k, const void* v,
+                             const void* w, const void* u, void* state,
+                             void* y, void* ckpt, int B, int len, int H,
+                             int hd, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ck = static_cast<float*>(ckpt);
+  if (ck == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  bool ok = false;
+  if (dtype == repro::kBFloat16)
+    ok = dispatch_hd<__nv_bfloat16>(hd, r, k, v, w, u, state, y, B, len, H, false, ck, s);
+  else if (dtype == repro::kFloat32)
+    ok = dispatch_hd<float>(hd, r, k, v, w, u, state, y, B, len, H, false, ck, s);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's chunk length (the boundary interval): the wrapper sizes
+// the boundary states by it. *smem, when not null, gets the dynamic shared
+// memory the kernel launches with at head size hd and dtype (chip_smoke.py
+// records it), or -1.
+extern "C" int wkv6_bwd_chunk(int hd, int dtype, int* smem) {
   if (smem) {
+    const bool bf16 = dtype == repro::kBFloat16;
     switch (hd) {
-      case 16: *smem = sizeof(BwdSmem<16>); break;
-      case 32: *smem = sizeof(BwdSmem<32>); break;
-      case 64: *smem = sizeof(BwdSmem<64>); break;
+      case 16: *smem = bf16 ? kBwdSmem<__nv_bfloat16, 16> : kBwdSmem<float, 16>; break;
+      case 32: *smem = bf16 ? kBwdSmem<__nv_bfloat16, 32> : kBwdSmem<float, 32>; break;
+      case 64: *smem = bf16 ? kBwdSmem<__nv_bfloat16, 64> : kBwdSmem<float, 64>; break;
       default: *smem = -1;
     }
   }
@@ -777,21 +931,23 @@ extern "C" int wkv6_bwd_chunk(int hd, int* smem) {
 
 // The backward: every pointer as the wrapper allocates it (dstate may be
 // null: a zero gradient of the final state); du's per-row partials are
-// summed by the wrapper. The states are read and written 16 bytes at a time
-// (16-byte aligned).
+// summed by the wrapper. ckpt: the boundary states wkv6_fwd_save stored,
+// null only when len fits in one interval. The states are read and
+// written 16 bytes at a time (16-byte aligned).
 extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
                         const void* w, const void* u, const void* state0,
                         const void* dy, const void* dstate, void* dr,
                         void* dk, void* dv, void* dw, void* pu, void* ds0,
-                        void* ckpt, int B, int len, int H, int hd, int dtype,
-                        void* stream) {
+                        const void* ckpt, int B, int len, int H, int hd,
+                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (len < 1) return static_cast<int>(cudaErrorInvalidValue);
-  bool ok = false;
+  if (len < 1 || (ckpt == nullptr && len > kBwdChunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = static_cast<int>(cudaErrorInvalidValue);
   if (dtype == repro::kBFloat16)
-    ok = dispatch_bwd<__nv_bfloat16>(hd, r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s);
+    err = dispatch_bwd<__nv_bfloat16>(hd, r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s);
   else if (dtype == repro::kFloat32)
-    ok = dispatch_bwd<float>(hd, r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    err = dispatch_bwd<float>(hd, r, k, v, w, u, state0, dy, dstate, dr, dk, dv, dw, pu, ds0, ckpt, B, len, H, s);
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

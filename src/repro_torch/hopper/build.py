@@ -88,25 +88,36 @@ KERNELS = {
         # strides, C's, dtype, prefill_only, stream
         "ssm_scan_fwd":
             (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
+        # the same with the backward's boundary states stored (after y):
+        # x, dt, A_log, B, C, D, state, y, boundaries, B, T, di, N, strides,
+        # dtype, stream
+        "ssm_scan_fwd_save":
+            (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
         # x, dt, A_log, B, C, D, state0, dy, dstate (or null), dx, ddt, the
         # partials of dB/dC, dA_log and dD, dstate0, the chunk-boundary
-        # states, B, T, di, N, B's batch and time strides, C's, dtype, stream
+        # states the forward stored, B, T, di, N, B's batch and time
+        # strides, C's, dtype, stream
         "ssm_scan_bwd":
             (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
              I, I, I, I, P),
         # the backward's chunk length (steps between boundary states); N,
         # dtype and a pointer for its dynamic shared memory (or null)
-        "ssm_scan_bwd_chunk": (I, I, P)},
+        "ssm_scan_bwd_chunk": (I, I, P),
+        # the channels a block of the backward covers at state size N
+        "ssm_scan_bwd_channels": (I,)},
     "wkv6": {
         # r, k, v, w, u, state, y, B, T, H, hd, dtype, prefill_only, stream
         "wkv6_fwd": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+        # the same with the backward's boundary states stored (after y):
+        # r, k, v, w, u, state, y, boundaries, B, T, H, hd, dtype, stream
+        "wkv6_fwd_save": (P, P, P, P, P, P, P, P, I, I, I, I, I, P),
         # r, k, v, w, u, state0, dy, dstate (or null), dr, dk, dv, dw, the
-        # partials of du, dstate0, the chunk-boundary states, B, T, H, hd,
-        # dtype, stream
+        # partials of du, dstate0, the chunk-boundary states the forward
+        # stored, B, T, H, hd, dtype, stream
         "wkv6_bwd": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I,
                      I, P),
-        # the same: hd and a pointer for the shared memory (or null)
-        "wkv6_bwd_chunk": (I, P)},
+        # the same: hd, dtype and a pointer for the shared memory (or null)
+        "wkv6_bwd_chunk": (I, I, P)},
 }
 
 

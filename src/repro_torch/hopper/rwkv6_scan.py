@@ -10,7 +10,10 @@ kernel; ``launches`` counts both, ``decode_launches`` and
 ``prefill_launches`` each. With grad enabled and an input that requires
 it, the recurrence runs as an autograd function whose backward is the
 kernel ``wkv6_bwd`` on the card (counted in ``bwd_launches``) and the plain
-backward on the CPU.
+backward on the CPU; on the card its forward runs the prefill kernel that
+also stores the states the backward starts its chunks from
+(:func:`boundaries`), counted in ``save_launches`` in place of
+``prefill_launches``.
 """
 from __future__ import annotations
 
@@ -120,40 +123,59 @@ def _check_kernel(r, k, v, w, u, state):
         raise TypeError("wkv6 kernel: u and the state must be float32")
 
 
-def _forward_kernel(r, k, v, w, u, state):
-    """One counted launch of the forward kernels; updates ``state``."""
+def _forward_kernel(r, k, v, w, u, state, ckpt=None):
+    """One counted launch of the forward kernels; updates ``state`` (and
+    stores the backward's boundary states into ``ckpt``)."""
     if not all(t.is_contiguous() for t in (r, k, v, w, u, state)):
         raise ValueError("wkv6 kernel needs contiguous r, k, v, w, u, state")
-    y = launch(r, k, v, w, u, state)
-    build.count(wkv6, "decode_launches" if r.shape[1] == 1
+    y = launch(r, k, v, w, u, state, ckpt=ckpt)
+    build.count(wkv6, "save_launches" if ckpt is not None
+                else "decode_launches" if r.shape[1] == 1
                 else "prefill_launches")
     return y
 
 
+def boundaries(r):
+    """The scratch of the backward's boundary states for inputs shaped as
+    ``r`` (CUDA): (B, H, ceil(T / chunk) - 1, hd, hd) float32, the state
+    before every chunk of ``wkv6_bwd_chunk`` steps but the first; None when
+    T fits in one chunk."""
+    B, T, H, hd = r.shape
+    chunk = build.library("wkv6").wkv6_bwd_chunk(hd, _DTYPES[r.dtype], None)
+    nb = (T + chunk - 1) // chunk - 1
+    if nb < 1:
+        return None
+    return torch.empty(B, H, nb, hd, hd, device=r.device,
+                       dtype=torch.float32)
+
+
 class _WKV6(torch.autograd.Function):
     """WKV6 under autograd: the forward kernel on a copy of the initial
-    state (kept for the backward, which recomputes the states from it),
-    the backward kernel; on the CPU the two plain versions."""
+    state, storing the states at the backward's chunk boundaries (kept for
+    the backward, which recomputes each chunk's states from them), the
+    backward kernel; on the CPU the two plain versions."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state):
+        ckpt = None
         if r.device.type == "cpu":
             y, final = wkv6_plain(r, k, v, w, u, state)
         else:
             final = state.clone()
-            y = _forward_kernel(r, k, v, w, u, final)
-        ctx.save_for_backward(r, k, v, w, u, state)
+            ckpt = boundaries(r)
+            y = _forward_kernel(r, k, v, w, u, final, ckpt)
+        ctx.save_for_backward(r, k, v, w, u, state, ckpt)
         return y, final
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy, dstate):
-        r, k, v, w, u, state = ctx.saved_tensors
+        r, k, v, w, u, state, ckpt = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(r)
         if r.device.type == "cpu":
             return wkv6_bwd_plain(r, k, v, w, u, state, dy, dstate)
-        grads = launch_bwd(r, k, v, w, u, state, dy, dstate)
+        grads = launch_bwd(r, k, v, w, u, state, dy, dstate, ckpt=ckpt)
         build.count(wkv6, key="bwd_launches")
         return grads
 
@@ -184,31 +206,40 @@ def wkv6(r, k, v, w, u, state, *, seq_mask=None):
     return _forward_kernel(r, k, v, w, u, state), state
 
 
-def launch(r, k, v, w, u, state, *, prefill_only=False):
+def launch(r, k, v, w, u, state, *, prefill_only=False, ckpt=None):
     """One launch on CUDA tensors that :func:`wkv6` has checked: the decode
-    kernel at T = 1 (unless ``prefill_only``), else the prefill kernel.
-    Updates ``state`` in place, counts nothing, returns y."""
+    kernel at T = 1 (unless ``prefill_only``), else the prefill kernel;
+    with ``ckpt`` (:func:`boundaries`) the prefill kernel that also stores
+    the backward's boundary states there. Updates ``state`` in place,
+    counts nothing, returns y."""
     B, T, H, hd = r.shape
     if state.data_ptr() % 16:
         raise ValueError("wkv6 kernel: the state must be 16-byte aligned")
     y = torch.empty_like(r)
     lib = build.library("wkv6")
+    stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
-        err = lib.wkv6_fwd(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), state.data_ptr(), y.data_ptr(), B, T, H, hd,
-            _DTYPES[r.dtype], int(prefill_only),
-            torch.cuda.current_stream(r.device).cuda_stream)
+        if ckpt is None:
+            err = lib.wkv6_fwd(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), state.data_ptr(), y.data_ptr(), B, T, H, hd,
+                _DTYPES[r.dtype], int(prefill_only), stream)
+        else:
+            err = lib.wkv6_fwd_save(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), state.data_ptr(), y.data_ptr(),
+                ckpt.data_ptr(), B, T, H, hd, _DTYPES[r.dtype], stream)
     build.check(err, "wkv6_fwd")
     return y
 
 
-def launch_bwd(r, k, v, w, u, state, dy, dstate=None):
+def launch_bwd(r, k, v, w, u, state, dy, dstate=None, *, ckpt=None):
     """One launch of ``wkv6_bwd`` on CUDA tensors that :func:`wkv6` has
     checked (``state`` the initial state, left as it is; ``dstate`` the
-    final state's gradient or None), then the fixed-order sum of its
-    per-row partials of du. Counts nothing; returns what
-    :func:`wkv6_bwd_plain` returns."""
+    final state's gradient or None; ``ckpt`` the boundary states the
+    forward stored, or None: the forward that stores them runs first, on a
+    copy of the state), then the fixed-order sum of its per-row partials of
+    du. Counts nothing; returns what :func:`wkv6_bwd_plain` returns."""
     B, T, H, hd = r.shape
     dy = dy.to(r.dtype).contiguous()
     if dstate is not None:
@@ -223,17 +254,21 @@ def launch_bwd(r, k, v, w, u, state, dy, dstate=None):
     pu = torch.empty(B, H, hd, **f32)             # du summed over a row's steps
     ds0 = torch.empty(B, H, hd, hd, **f32)
     lib = build.library("wkv6")
-    # the states at the chunk boundaries after the first
-    chunk = lib.wkv6_bwd_chunk(hd, None)
-    nchk = (T + chunk - 1) // chunk
-    ckpt = torch.empty(B, H, max(nchk - 1, 1), hd, hd, **f32)
+    if ckpt is None:
+        ckpt = boundaries(r)
+        if ckpt is not None:
+            launch(r, k, v, w, u, state.clone(), ckpt=ckpt)
+    if ckpt is not None and (ckpt.data_ptr() % 16 or not ckpt.is_contiguous()):
+        raise ValueError("wkv6 kernel: the boundary states must be "
+                         "contiguous and 16-byte aligned")
     with torch.cuda.device(r.device):
         err = lib.wkv6_bwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), state.data_ptr(), dy.data_ptr(),
             0 if dstate is None else dstate.data_ptr(), dr.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), pu.data_ptr(),
-            ds0.data_ptr(), ckpt.data_ptr(), B, T, H, hd, _DTYPES[r.dtype],
+            ds0.data_ptr(), 0 if ckpt is None else ckpt.data_ptr(), B, T, H,
+            hd, _DTYPES[r.dtype],
             torch.cuda.current_stream(r.device).cuda_stream)
     build.check(err, "wkv6_bwd")
     return dr, dk, dv, dw, pu.sum(0), ds0
@@ -242,4 +277,5 @@ def launch_bwd(r, k, v, w, u, state, dy, dstate=None):
 wkv6.launches = 0
 wkv6.decode_launches = 0                # T = 1: the decode kernel
 wkv6.prefill_launches = 0               # T > 1: the prefill kernel
+wkv6.save_launches = 0                  # ... storing the boundary states
 wkv6.bwd_launches = 0                   # the backward kernel

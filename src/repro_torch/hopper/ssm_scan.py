@@ -10,7 +10,10 @@ the decode kernel, T > 1 the prefill kernel; ``launches`` counts both,
 ``decode_launches`` and ``prefill_launches`` each. With grad enabled and an
 input that requires it, the scan runs as an autograd function whose
 backward is the kernel ``ssm_scan_bwd`` on the card (counted in
-``bwd_launches``) and the plain backward on the CPU.
+``bwd_launches``) and the plain backward on the CPU; on the card its forward
+runs the prefill kernel that also stores the states the backward starts its
+chunks from (:func:`boundaries`), counted in ``save_launches`` in place of
+``prefill_launches``.
 """
 from __future__ import annotations
 
@@ -132,39 +135,59 @@ def _check_kernel(x, dt, A_log, Bc, Cc, D, state):
                          "A_log, D, state and a contiguous last axis of B, C")
 
 
-def _forward_kernel(x, dt, A_log, Bc, Cc, D, state):
-    """One counted launch of the forward kernels; updates ``state``."""
-    y = launch(x, dt, A_log, Bc, Cc, D, state)
-    build.count(selective_scan, "decode_launches" if x.shape[1] == 1
+def _forward_kernel(x, dt, A_log, Bc, Cc, D, state, ckpt=None):
+    """One counted launch of the forward kernels; updates ``state`` (and
+    stores the backward's boundary states into ``ckpt``)."""
+    y = launch(x, dt, A_log, Bc, Cc, D, state, ckpt=ckpt)
+    build.count(selective_scan, "save_launches" if ckpt is not None
+                else "decode_launches" if x.shape[1] == 1
                 else "prefill_launches")
     return y
 
 
+def boundaries(x, N):
+    """The scratch of the backward's boundary states for x (B, T, di) on
+    CUDA and state size N: (B, ceil(T / chunk) - 1, di, N) float32, the
+    state before every chunk of ``ssm_scan_bwd_chunk`` steps but the first;
+    None when T fits in one chunk."""
+    B, T, di = x.shape
+    chunk = build.library("ssm_scan").ssm_scan_bwd_chunk(N, _DTYPES[x.dtype],
+                                                          None)
+    nb = (T + chunk - 1) // chunk - 1
+    if nb < 1:
+        return None
+    return torch.empty(B, nb, di, N, device=x.device, dtype=torch.float32)
+
+
 class _SelectiveScan(torch.autograd.Function):
     """The scan under autograd: the forward kernel on a copy of the initial
-    state (kept for the backward, which recomputes the states from it),
-    the backward kernel; on the CPU the two plain versions."""
+    state, storing the states at the backward's chunk boundaries (kept for
+    the backward, which recomputes each chunk's states from them), the
+    backward kernel; on the CPU the two plain versions."""
 
     @staticmethod
     def forward(ctx, x, dt, A_log, Bc, Cc, D, state):
+        ckpt = None
         if x.device.type == "cpu":
             y, final = selective_scan_plain(x, dt, A_log, Bc, Cc, D, state)
         else:
             final = state.clone()
-            y = _forward_kernel(x, dt, A_log, Bc, Cc, D, final)
-        ctx.save_for_backward(x, dt, A_log, Bc, Cc, D, state)
+            ckpt = boundaries(x, A_log.shape[-1])
+            y = _forward_kernel(x, dt, A_log, Bc, Cc, D, final, ckpt)
+        ctx.save_for_backward(x, dt, A_log, Bc, Cc, D, state, ckpt)
         return y, final
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy, dstate):
-        x, dt, A_log, Bc, Cc, D, state = ctx.saved_tensors
+        x, dt, A_log, Bc, Cc, D, state, ckpt = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
         if x.device.type == "cpu":
             return selective_scan_bwd_plain(x, dt, A_log, Bc, Cc, D, state,
                                             dy, dstate)
-        grads = launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate)
+        grads = launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate,
+                           ckpt=ckpt)
         build.count(selective_scan, key="bwd_launches")
         return grads
 
@@ -194,10 +217,13 @@ def selective_scan(x, dt, A_log, Bc, Cc, D, state, *, seq_mask=None):
     return _forward_kernel(x, dt, A_log, Bc, Cc, D, state), state
 
 
-def launch(x, dt, A_log, Bc, Cc, D, state, *, prefill_only=False):
+def launch(x, dt, A_log, Bc, Cc, D, state, *, prefill_only=False,
+           ckpt=None):
     """One launch on CUDA tensors that :func:`selective_scan` has checked:
     the decode kernel at T = 1 (unless ``prefill_only``), else the prefill
-    kernel. Updates ``state`` in place, counts nothing, returns y."""
+    kernel; with ``ckpt`` (:func:`boundaries`) the prefill kernel that also
+    stores the backward's boundary states there. Updates ``state`` in
+    place, counts nothing, returns y."""
     B, T, di = x.shape
     N = A_log.shape[-1]
     if state.data_ptr() % 16 or A_log.data_ptr() % 16:
@@ -205,23 +231,31 @@ def launch(x, dt, A_log, Bc, Cc, D, state, *, prefill_only=False):
                          "16-byte aligned")
     y = torch.empty_like(x)
     lib = build.library("ssm_scan")
+    ptrs = (x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
+            Cc.data_ptr(), D.data_ptr(), state.data_ptr(), y.data_ptr())
+    strides = (Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.ssm_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
-            Cc.data_ptr(), D.data_ptr(), state.data_ptr(), y.data_ptr(),
-            B, T, di, N, Bc.stride(0), Bc.stride(1), Cc.stride(0),
-            Cc.stride(1), _DTYPES[x.dtype], int(prefill_only),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if ckpt is None:
+            err = lib.ssm_scan_fwd(*ptrs, B, T, di, N, *strides,
+                                   _DTYPES[x.dtype], int(prefill_only),
+                                   stream)
+        else:
+            err = lib.ssm_scan_fwd_save(*ptrs, ckpt.data_ptr(), B, T, di, N,
+                                        *strides, _DTYPES[x.dtype], stream)
     build.check(err, "ssm_scan_fwd")
     return y
 
 
-def launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate=None):
+def launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate=None, *,
+               ckpt=None):
     """One launch of ``ssm_scan_bwd`` on CUDA tensors that
     :func:`selective_scan` has checked (``state`` the initial state, left
-    as it is; ``dstate`` the final state's gradient or None), then the
-    fixed-order sums of its per-block partials. Counts nothing; returns
-    what :func:`selective_scan_bwd_plain` returns."""
+    as it is; ``dstate`` the final state's gradient or None; ``ckpt`` the
+    boundary states the forward stored, or None: the forward that stores
+    them runs first, on a copy of the state), then the fixed-order sums of
+    its per-block partials. Counts nothing; returns what
+    :func:`selective_scan_bwd_plain` returns."""
     B, T, di = x.shape
     N = A_log.shape[-1]
     dy = dy.to(x.dtype).contiguous()
@@ -231,27 +265,32 @@ def launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate=None):
         raise ValueError("selective_scan kernel: the state and A_log must be "
                          "16-byte aligned")
     lib = build.library("ssm_scan")
-    cb = 320 // (N // 4)               # channels a block: 320 lanes of 4
+    cb = lib.ssm_scan_bwd_channels(N)  # channels a block
     nblk = (di + cb - 1) // cb
-    chunk = lib.ssm_scan_bwd_chunk(N, _DTYPES[x.dtype], None)
-    nchk = (T + chunk - 1) // chunk
     f32 = dict(device=x.device, dtype=torch.float32)
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
     # per block of channels: dB_t, dC_t (summed over its channels); per row:
-    # dA_log, dD (summed over its steps); the states at chunk boundaries
+    # dA_log, dD (summed over its steps)
     pbc = torch.empty(nblk, B, T, 2, N, **f32)
     pA = torch.empty(B, di, N, **f32)
     pD = torch.empty(B, di, **f32)
     ds0 = torch.empty(B, di, N, **f32)
-    ckpt = torch.empty(B, nchk, di, N, **f32)
+    if ckpt is None:
+        ckpt = boundaries(x, N)
+        if ckpt is not None:
+            launch(x, dt, A_log, Bc, Cc, D, state.clone(), ckpt=ckpt)
+    if ckpt is not None and (ckpt.data_ptr() % 16 or not ckpt.is_contiguous()):
+        raise ValueError("selective_scan kernel: the boundary states must be "
+                         "contiguous and 16-byte aligned")
     with torch.cuda.device(x.device):
         err = lib.ssm_scan_bwd(
             x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
             Cc.data_ptr(), D.data_ptr(), state.data_ptr(), dy.data_ptr(),
             0 if dstate is None else dstate.data_ptr(), dx.data_ptr(),
             ddt.data_ptr(), pbc.data_ptr(), pA.data_ptr(), pD.data_ptr(),
-            ds0.data_ptr(), ckpt.data_ptr(), B, T, di, N, Bc.stride(0),
-            Bc.stride(1), Cc.stride(0), Cc.stride(1), _DTYPES[x.dtype],
+            ds0.data_ptr(), 0 if ckpt is None else ckpt.data_ptr(), B, T, di,
+            N, Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1),
+            _DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ssm_scan_bwd")
     bc = pbc.sum(0)                       # the blocks' partials, in order
@@ -262,4 +301,5 @@ def launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate=None):
 selective_scan.launches = 0
 selective_scan.decode_launches = 0      # T = 1: the decode kernel
 selective_scan.prefill_launches = 0     # T > 1: the prefill kernel
+selective_scan.save_launches = 0        # ... storing the boundary states
 selective_scan.bwd_launches = 0         # the backward kernel

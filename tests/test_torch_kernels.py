@@ -1281,12 +1281,14 @@ def _ssm_bwd_case(B, T, di, N, dtype, dev, *, strong=False, dstate=False,
     return (x, dt, A_log, Bc, Cc, D, s0), dy, ds
 
 
-# the JAX kernel tests' cases, T = 1 and 2, both sides of the 8-step chunk,
-# hymba-1.5b's width (40 blocks of 80 channels), channel tails
+# the JAX kernel tests' cases, T = 1 and 2, both sides of the 8-step
+# boundary interval and of two, hymba-1.5b's width (80 blocks of 40
+# channels), channel tails, N 8 and 16
 SSM_BWD_CASES = [
     (2, 64, 128, 16), (1, 50, 64, 8), (2, 33, 256, 16),
     (2, 1, 200, 16), (3, 2, 200, 8), (2, 7, 128, 16), (2, 8, 77, 8),
     (2, 9, 200, 16), (1, 17, 160, 8), (3, 21, 3200, 16),
+    (2, 15, 120, 16), (2, 16, 96, 8), (1, 24, 40, 16), (2, 25, 3200, 16),
 ]
 
 
@@ -1372,12 +1374,15 @@ def _wkv6_bwd_case(B, T, H, hd, dtype, dev, *, strong=False, dstate=False,
     return args, dy, ds
 
 
-# the JAX kernel tests' cases, T = 1 and 2, both sides of the 3-step chunk,
-# every hd
+# the JAX kernel tests' cases, T = 1 and 2, inside the first 4 steps of
+# the 8-step boundary interval and past them, on both sides of one interval
+# and of several, every hd
 WKV6_BWD_CASES = [
     (2, 64, 4, 32), (1, 100, 2, 64), (2, 33, 3, 16),
     (3, 1, 2, 64), (2, 2, 3, 32), (2, 3, 2, 16), (2, 4, 2, 64),
     (2, 5, 3, 64), (1, 9, 5, 32), (4, 27, 32, 64),
+    (2, 7, 2, 64), (2, 8, 3, 32), (2, 15, 2, 64), (2, 16, 3, 32),
+    (2, 17, 2, 16), (1, 31, 2, 64), (2, 32, 2, 32), (2, 33, 4, 64),
 ]
 
 
@@ -1473,3 +1478,98 @@ def test_fused_loss_at_hymba_width(dev, R):
                                atol=1e-2 * float(rdh.abs().max()))
     torch.testing.assert_close(dw, rdw, rtol=0,
                                atol=1e-4 * float(rdw.abs().max()))
+
+
+# -- the forward's boundary states under autograd -----------------------------
+
+
+def _saved_pair(mod, args, state, dy, ds, N=None):
+    """The forward that stores the backward's boundary states against the
+    one that does not (y and the final state), and the backward reading
+    those boundaries against itself and against ``launch_bwd`` given none
+    (which runs the storing forward on a copy of the state first)."""
+    ckpt = (mod.boundaries(args[0]) if N is None
+            else mod.boundaries(args[0], N))
+    s_save, s_plain = state.clone(), state.clone()
+    y_save = mod.launch(*args, s_save, ckpt=ckpt)
+    y = mod.launch(*args, s_plain)
+    saved = mod.launch_bwd(*args, state, dy, ds, ckpt=ckpt)
+    again = mod.launch_bwd(*args, state, dy, ds, ckpt=ckpt)
+    unsaved = mod.launch_bwd(*args, state, dy, ds)
+    torch.cuda.synchronize()
+    assert torch.equal(y_save, y) and torch.equal(s_save, s_plain)
+    assert all(torch.equal(a, b) for a, b in zip(saved, again))
+    assert all(torch.equal(a, b) for a, b in zip(saved, unsaved))
+    return saved
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,di,N", [(2, 9, 200, 16), (2, 16, 77, 8),
+                                      (2, 17, 3200, 16), (1, 40, 160, 8)])
+def test_ssm_scan_bwd_reads_the_forward_boundaries(dev, dtype, B, T, di, N):
+    """The prefill kernel that stores the boundary states (the forward
+    under autograd) gives the bits of the one that does not; the backward
+    that reads them is bit-equal across launches and to the wrapper's own
+    storing forward, within tolerance of the plain backward."""
+    args, dy, ds = _ssm_bwd_case(B, T, di, N, dtype, dev, dstate=T % 2 == 1)
+    got = _saved_pair(ssm_scan, args[:6], args[6], dy, ds, N=N)
+    _bwd_agrees(got, ssm_scan.selective_scan_bwd_plain(*args, dy, ds))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,hd", [(2, 17, 2, 16), (2, 33, 3, 32),
+                                      (2, 48, 2, 64), (1, 100, 2, 64)])
+def test_wkv6_bwd_reads_the_forward_boundaries(dev, dtype, B, T, H, hd):
+    """As for the selective scan: the forward's stores leave y and the
+    state as they were, and the backward reading them is bit-equal across
+    launches and to the wrapper's own storing forward."""
+    args, dy, ds = _wkv6_bwd_case(B, T, H, hd, dtype, dev, dstate=T % 2 == 1)
+    got = _saved_pair(rwkv6_scan, args[:5], args[5], dy, ds)
+    _bwd_agrees(got, rwkv6_scan.wkv6_bwd_plain(*args, dy, ds))
+
+
+@pytest.mark.parametrize("T", [17, 45])
+def test_scans_bwd_saved_strong_decay(dev, T):
+    """Decays down to ~1e-8 (WKV6) and ~1e-11 (selective scan), float32:
+    the backward from the stored boundaries is within 1e-4 of each
+    gradient's largest element."""
+    args, dy, ds = _wkv6_bwd_case(3, T, 4, 64, torch.float32, dev,
+                                  strong=True, dstate=True)
+    got = _saved_pair(rwkv6_scan, args[:5], args[5], dy, ds)
+    _bwd_agrees(got, rwkv6_scan.wkv6_bwd_plain(*args, dy, ds))
+    args, dy, ds = _ssm_bwd_case(3, T, 200, 16, torch.float32, dev,
+                                 strong=True, dstate=True)
+    got = _saved_pair(ssm_scan, args[:6], args[6], dy, ds, N=16)
+    _bwd_agrees(got, ssm_scan.selective_scan_bwd_plain(*args, dy, ds))
+
+
+@pytest.mark.parametrize("T", [9, 40])
+def test_scans_bwd_refuse_missing_boundaries(dev, T):
+    """Past one boundary interval each backward entry point needs the
+    boundary states the forward stored: given none it returns an error,
+    never a result of its own."""
+    from repro_torch.hopper import build
+    args, dy, _ = _wkv6_bwd_case(1, T, 2, 64, torch.bfloat16, dev)
+    r, k, v, w, u, s0 = args
+    grads = [torch.empty_like(r) for _ in range(4)]
+    pu, ds0 = torch.empty(1, 2, 64, device=dev), torch.empty_like(s0)
+    err = build.library("wkv6").wkv6_bwd(
+        *(t.data_ptr() for t in (r, k, v, w, u, s0, dy)), 0,
+        *(t.data_ptr() for t in grads), pu.data_ptr(), ds0.data_ptr(), 0,
+        1, T, 2, 64, 1, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    args, dy, _ = _ssm_bwd_case(1, T, 80, 16, torch.bfloat16, dev)
+    x, dt, A_log, Bc, Cc, D, s0 = args
+    lib = build.library("ssm_scan")
+    nblk = (80 + lib.ssm_scan_bwd_channels(16) - 1) \
+        // lib.ssm_scan_bwd_channels(16)
+    outs = [torch.empty_like(x), torch.empty_like(x),
+            torch.empty(nblk, 1, T, 2, 16, device=dev),
+            torch.empty(1, 80, 16, device=dev), torch.empty(1, 80, device=dev),
+            torch.empty_like(s0)]
+    err = lib.ssm_scan_bwd(
+        *(t.data_ptr() for t in (x, dt, A_log, Bc, Cc, D, s0, dy)), 0,
+        *(t.data_ptr() for t in outs), 0, 1, T, 80, 16, Bc.stride(0),
+        Bc.stride(1), Cc.stride(0), Cc.stride(1), 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0

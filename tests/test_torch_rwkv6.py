@@ -425,3 +425,167 @@ def test_wrapper_under_autograd_matches_jax_vjp():
     want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
                     jnp.asarray(dsf), seq_mask=jnp.asarray(mask))
     _grads_agree([t.grad for t in tin], want)
+
+
+# -- the backward kernel's schedule ------------------------------------------------
+
+
+def _butterfly(x, offsets):
+    """xor-shuffle sums over the last axis (lanes), in the order of
+    ``offsets``: lane l adds lane l ^ o's value at each level."""
+    idx = torch.arange(x.shape[-1])
+    for o in offsets:
+        x = x + x[..., idx ^ o]
+    return x
+
+
+def _seq_sum(x, dim):
+    """A sum along ``dim`` in index order (a lane's own loop)."""
+    x = x.movedim(dim, 0)
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
+
+
+def wkv6_bwd_split(r, k, v, w, u, state, dy, dstate=None, *, C, K):
+    """The schedule of the backward kernel ``wkv6_bwd`` (csrc/wkv6.cu, C =
+    1; with C > 1 the cluster design of variants/wkv6_bwd_cluster.cu) in
+    torch, float32. The state at every boundary of K steps comes from the
+    forward (the save kernel); each chunk's states are recomputed from its
+    boundary and walked backwards. A head's hd columns split over C blocks
+    of BC = hd / C columns; a lane owns RT = BC / 8 rows by 4 columns, so CG = 2 RT lanes
+    span a row slice of the block and a warp holds 32 / CG slices. Row sums
+    (dr, dk, dw): each lane sums its 4 columns in order, the slice's lanes
+    merge by xor shuffles RT, RT / 2, .. 1 (row_scatter), rank 0 adds the u
+    terms, the blocks' partials add up in rank order. dv: each lane sums
+    its RT rows in order, the warp's slices merge by xor shuffles 16, 8
+    lanes apart and then CG, 2 CG, .. 4 (col_scatter), the warps add up in
+    warp order, + Q dy. Q and P: lane s + K p of a warp sums the p-th of
+    32 / K shares of step s's elements in order, merged by xor shuffles K,
+    2 K, .. 16. du: rank 0's lanes over the steps in reverse; the rows' du
+    summed over the batch. Returns what wkv6_bwd_plain returns, float32."""
+    rf, kf, vf, wf, dyf = (a.float() for a in (r, k, v, w, dy))
+    uf = u.float()
+    B, T, H, hd = r.shape
+    BC = hd // C
+    CG = BC // 4
+    RT, RGW = CG // 2, 32 // CG
+    NW = hd // (RT * RGW)
+    LS = 32 // K
+    nchk = -(-T // K)
+    S = state.float()
+    bounds = [S]
+    for t in range((nchk - 1) * K):
+        S = wf[:, t, :, :, None] * S + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        if (t + 1) % K == 0:
+            bounds.append(S)
+    G = torch.zeros_like(S) if dstate is None else dstate.float().clone()
+    dr, dk, dv, dw = (torch.empty(B, T, H, hd) for _ in range(4))
+    du = torch.zeros(B, H, hd)
+
+    def lanes_sum(x):                  # (B, H, hd) -> (B, H): Q or P
+        part = _seq_sum(x.view(B, H, LS, hd // LS), -1)
+        offsets = [1 << i for i in range(LS.bit_length() - 1)]
+        return _butterfly(part, offsets)[..., 0]
+
+    def row_sums(prod):                # sum_j prod[i, j]: per block, lanes
+        lane = _seq_sum(prod.view(B, H, hd, C, CG, 4), -1)
+        offsets = [RT >> i for i in range(RT.bit_length())]
+        return _butterfly(lane, offsets)[..., 0]             # (B, H, hd, C)
+
+    def rank_order(parts):
+        acc = parts[..., 0]
+        for q in range(1, C):
+            acc = acc + parts[..., q]
+        return acc
+
+    for c in reversed(range(nchk)):
+        t0 = c * K
+        nt = min(K, T - t0)
+        S = bounds[c]
+        hist = []
+        for s in range(nt):
+            t = t0 + s
+            hist.append(S)
+            S = (wf[:, t, :, :, None] * S
+                 + kf[:, t, :, :, None] * vf[:, t, :, None, :])
+        for s in reversed(range(nt)):
+            t = t0 + s
+            rt, kt, vt, wt, dyt = (a[:, t] for a in (rf, kf, vf, wf, dyf))
+            Q = lanes_sum(rt * kt * uf[None])
+            P = lanes_sum(vt * dyt)
+            pr = row_sums(hist[s] * dyt[..., None, :])
+            pk = row_sums(G * vt[..., None, :])
+            pw = row_sums(G * hist[s])
+            pr[..., 0] = pr[..., 0] + uf[None] * kt * P[..., None]
+            pk[..., 0] = pk[..., 0] + uf[None] * rt * P[..., None]
+            dr[:, t], dk[:, t], dw[:, t] = (rank_order(p) for p in (pr, pk, pw))
+            du = du + rt * kt * P[..., None]
+            lane = _seq_sum((G * kt[..., None]).view(B, H, NW, RGW, RT, hd), -2)
+            slice_offsets = [x // CG for x in (16, 8) if x >= CG] + \
+                [1 << i for i in range(max(0, (8 // CG).bit_length() - 1))]
+            col = _butterfly(lane.movedim(-1, -2), slice_offsets)[..., 0]
+            dv[:, t] = _seq_sum(col, 2) + Q[..., None] * dyt
+            G = wt[..., None] * G + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du.sum(0), G
+
+
+# the kernel's configuration (C = 1, K = 8) at every hd, and the column
+# splits and boundary intervals chip_variants.py times at hd 64
+SCHEDULES = [(16, 1, 8), (32, 1, 8), (64, 1, 8), (64, 1, 4), (64, 1, 16),
+             (64, 2, 4), (64, 2, 8), (64, 4, 8), (64, 4, 16), (32, 2, 16)]
+
+
+@pytest.mark.parametrize("hd,C,K", SCHEDULES, ids=str)
+def test_bwd_schedule_matches_jax_vjp(hd, C, K):
+    """The backward kernel's schedule against jax.vjp of
+    repro.models.rwkv6.wkv6_scan, float32 within 1e-4 of each gradient's
+    largest element, with a nonzero final-state cotangent: T on both sides
+    of the boundary interval (one chunk, a partial last chunk)."""
+    for B, S, H in ((2, K - 1, 2), (2, 2 * K + 3, 3)):
+        arrs = _inputs(B, S, H, hd, seed=300 + S + hd)
+        dy, dsf = _cotangents(B, S, H, hd, seed=S + C)
+        got = wkv6_bwd_split(*_torch(arrs), torch.from_numpy(dy),
+                             torch.from_numpy(dsf), C=C, K=K)
+        want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                        jnp.asarray(dsf))
+        _grads_agree(got, want)
+
+
+@pytest.mark.parametrize("case", CASES[:3], ids=str)
+def test_bwd_schedule_kernel_cases(case):
+    """The kernel's configuration at the JAX kernel tests' cases, against
+    jax.vjp and against the plain backward."""
+    B, S, H, hd, _ = case
+    arrs = _inputs(B, S, H, hd, seed=400 + S)
+    dy, dsf = _cotangents(B, S, H, hd, seed=S + 1)
+    got = wkv6_bwd_split(*_torch(arrs), torch.from_numpy(dy),
+                         torch.from_numpy(dsf), C=1, K=8)
+    want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                    jnp.asarray(dsf))
+    _grads_agree(got, want)
+    plain = rwkv6_scan.wkv6_bwd_plain(*_torch(arrs), torch.from_numpy(dy),
+                                      torch.from_numpy(dsf))
+    _grads_agree(got, [p.numpy() for p in plain])
+
+
+@pytest.mark.parametrize("S", [17, 45])
+def test_bwd_schedule_strong_decay(S):
+    """Decays down to 1e-8 at rwkv6-1.6b's head_dim, the kernel's
+    configuration (one block a head, boundaries every 8 steps) and a
+    cluster of 4 blocks: every gradient within 1e-4 of its largest element
+    of jax.vjp's."""
+    B, H, hd = 2, 2, 64
+    arrs = list(_inputs(B, S, H, hd, seed=31))
+    rng = np.random.default_rng(32)
+    arrs[3] = np.exp(-np.exp(rng.uniform(-1.0, 2.9, arrs[3].shape))
+                     ).astype(np.float32)
+    assert arrs[3].min() < 1e-7
+    dy, dsf = _cotangents(B, S, H, hd, seed=33)
+    want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                    jnp.asarray(dsf))
+    for C, K in ((1, 8), (4, 16)):
+        got = wkv6_bwd_split(*_torch(arrs), torch.from_numpy(dy),
+                             torch.from_numpy(dsf), C=C, K=K)
+        _grads_agree(got, want)

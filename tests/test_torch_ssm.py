@@ -439,3 +439,160 @@ def test_wrapper_under_autograd_matches_jax_vjp():
     want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
                     jnp.asarray(dsf), seq_mask=jnp.asarray(mask))
     _grads_agree([t.grad for t in tin], want)
+
+
+# -- the backward kernel's schedule ------------------------------------------------
+
+
+def _butterfly(x, offsets):
+    """xor-shuffle sums over the last axis (lanes), in the order of
+    ``offsets``: lane l adds lane l ^ o's value at each level."""
+    idx = torch.arange(x.shape[-1])
+    for o in offsets:
+        x = x + x[..., idx ^ o]
+    return x
+
+
+def _in_order(x, dim):
+    """A sum along ``dim`` in index order."""
+    x = x.movedim(dim, 0)
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
+
+
+def selective_scan_bwd_split(x, dt, A_log, Bc, Cc, D, state, dy,
+                             dstate=None, *, K=8, threads=160):
+    """The schedule of the backward kernel ``ssm_scan_bwd``
+    (csrc/ssm_scan.cu) in torch, float32. The state at every boundary of K
+    steps comes from a forward pass; each chunk's states h_t and decays a_t
+    are recomputed from its boundary and kept, and the reverse walk reads
+    a_t (no exponential of its own). Lane q of a channel owns states
+    4q .. 4q + 3 (L = N / 4 lanes a channel); G.B and the sum of gA over
+    them in order, merged over the channel's lanes by xor shuffles 1, then
+    2. dB_t, dC_t: over the block's channels (``threads`` / L) in channel
+    order, then the blocks in order. dA_log and dD: each row over the
+    steps in reverse, then the rows in order. Returns what
+    selective_scan_bwd_plain returns, float32."""
+    xf, dtf, Bf, Cf, dyf = (a.float() for a in (x, dt, Bc, Cc, dy))
+    Bn, T, di = x.shape
+    N = A_log.shape[-1]
+    L = N // 4
+    CB = threads // L                             # channels a block
+    nblk = -(-di // CB)
+    pad = nblk * CB - di
+    negA = -torch.exp(A_log.float())
+    nchk = -(-T // K)
+
+    def step(h, t):
+        a = torch.exp(negA[None] * dtf[:, t, :, None])
+        return a * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :], a
+
+    h = state.float()
+    bounds = [h]
+    for t in range((nchk - 1) * K):
+        h, _ = step(h, t)
+        if (t + 1) % K == 0:
+            bounds.append(h)
+
+    def lanes(v):                      # (B, di, N) -> (B, di): lanes in order
+        part = _in_order(v.view(Bn, di, L, 4), -1)
+        return _butterfly(part, [1, 2][:L.bit_length() - 1])[..., 0]
+
+    def over_channels(v):              # (B, di, N) -> (B, N)
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        return _in_order(_in_order(v.view(Bn, nblk, CB, N), 2), 1)
+
+    g = torch.zeros_like(h) if dstate is None else dstate.float().clone()
+    dx, ddt = torch.empty(Bn, T, di), torch.empty(Bn, T, di)
+    dB, dC = torch.empty(Bn, T, N), torch.empty(Bn, T, N)
+    dA = torch.zeros(Bn, di, N)
+    dD = torch.zeros(Bn, di)
+    for c in reversed(range(nchk)):
+        t0 = c * K
+        nt = min(K, T - t0)
+        hs, as_ = [bounds[c]], []
+        for s in range(nt):
+            hn, a = step(hs[-1], t0 + s)
+            hs.append(hn)
+            as_.append(a)
+        for s in reversed(range(nt)):
+            t = t0 + s
+            G = g + dyf[:, t, :, None] * Cf[:, t, None, :]
+            dC[:, t] = over_channels(hs[s + 1] * dyf[:, t, :, None])
+            dB[:, t] = over_channels(G * (dtf[:, t] * xf[:, t])[..., None])
+            gb = lanes(G * Bf[:, t, None, :])
+            gA = G * hs[s] * as_[s] * negA[None]
+            dx[:, t] = dtf[:, t] * gb + D.float() * dyf[:, t]
+            ddt[:, t] = xf[:, t] * gb + lanes(gA)
+            dA = dA + gA * dtf[:, t, :, None]
+            dD = dD + dyf[:, t] * xf[:, t]
+            g = as_[s] * G
+    return (dx, ddt, _in_order(dA, 0), dB, dC, _in_order(dD, 0), g)
+
+
+@pytest.mark.parametrize("N,threads,K", [(16, 160, 8), (8, 160, 8),
+                                         (16, 320, 8), (16, 96, 8),
+                                         (16, 160, 4)],
+                         ids=str)
+def test_bwd_schedule_matches_jax_vjp(N, threads, K):
+    """The backward kernel's schedule (the kernel's: 160 threads a block,
+    boundaries every 8 steps; and the variants chip_variants.py times)
+    against jax.vjp of repro.models.ssm.selective_scan, float32 within 1e-4
+    of each gradient's largest element, with a nonzero final-state
+    cotangent: T = 1, inside one chunk and over a partial last chunk,
+    channels over several blocks with a tail."""
+    for B, T, di in ((2, 1, 96), (2, K - 1, 64), (2, 2 * K + 3, 200)):
+        arrs = _inputs(B, T, di, N, seed=500 + T + N, s0_scale=0.2)
+        rng = np.random.default_rng(T + threads)
+        dy = rng.standard_normal((B, T, di)).astype(np.float32)
+        dsf = rng.standard_normal((B, di, N)).astype(np.float32)
+        got = selective_scan_bwd_split(*_torch(arrs), torch.from_numpy(dy),
+                                       torch.from_numpy(dsf), K=K,
+                                       threads=threads)
+        want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                        jnp.asarray(dsf))
+        _grads_agree(got, want)
+
+
+@pytest.mark.parametrize("case", CASES[:3], ids=str)
+def test_bwd_schedule_kernel_cases(case):
+    """The kernel's schedule at the JAX kernel tests' cases, against
+    jax.vjp (with the reference's chunk) and the plain backward."""
+    B, T, di, N, chunk = case
+    arrs = _inputs(B, T, di, N, seed=600 + T, s0_scale=0.2)
+    rng = np.random.default_rng(T + 1)
+    dy = rng.standard_normal((B, T, di)).astype(np.float32)
+    dsf = rng.standard_normal((B, di, N)).astype(np.float32)
+    tin = _torch(arrs)
+    got = selective_scan_bwd_split(*tin, torch.from_numpy(dy),
+                                   torch.from_numpy(dsf))
+    want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                    jnp.asarray(dsf), chunk=chunk)
+    _grads_agree(got, want)
+    plain = ssm_scan.selective_scan_bwd_plain(*tin, torch.from_numpy(dy),
+                                              torch.from_numpy(dsf))
+    _grads_agree(got, [p.numpy() for p in plain])
+
+
+@pytest.mark.parametrize("T", [9, 23])
+def test_bwd_schedule_strong_decay(T):
+    """The model's A_log = log(1..N) and steps up to 1.2 (decays down to
+    ~5e-9): the kernel's schedule within 1e-4 of each gradient's largest
+    element of jax.vjp's; the states come from the boundaries, never from
+    dividing by a decay."""
+    B, di, N = 2, 64, 16
+    x, _, _, Bc, Cc, D, s0 = _inputs(B, T, di, N, seed=17, s0_scale=0.3)
+    rng = np.random.default_rng(18)
+    dt = rng.uniform(0.0, 1.2, (B, T, di)).astype(np.float32)
+    A_log = np.log(np.arange(1, N + 1, dtype=np.float32))[None].repeat(di, 0)
+    arrs = (x, dt, A_log, Bc, Cc, D, s0)
+    assert np.exp(-np.exp(A_log)[None, None] * dt[..., None]).min() < 1e-8
+    dy = rng.standard_normal((B, T, di)).astype(np.float32)
+    dsf = rng.standard_normal((B, di, N)).astype(np.float32)
+    got = selective_scan_bwd_split(*_torch(arrs), torch.from_numpy(dy),
+                                   torch.from_numpy(dsf))
+    want = _vjp_ref([jnp.asarray(a) for a in arrs], jnp.asarray(dy),
+                    jnp.asarray(dsf))
+    _grads_agree(got, want)
