@@ -4,9 +4,12 @@ and the CoPRIS training loop at the full width of llama3.2-1b, over the dense
 and the paged KV cache, sequential and overlapped (rollout on its own CUDA
 stream), with single-turn tasks and multi-turn environments, serving,
 rollouts and training of the hybrid hymba-1.5b and the attention-free
-rwkv6-1.6b at full width, and the archs with wide heads (head_dim 128 and
-256, any GQA ratio): the paper's own paper-qwen-7b, gemma2-2b, qwen3-14b and
-granite-34b, with musicgen-medium, through the port's hand-written kernels.
+rwkv6-1.6b at full width, the archs with wide heads (head_dim 128 and 256,
+any GQA ratio): the paper's own paper-qwen-7b, gemma2-2b, qwen3-14b and
+granite-34b, with musicgen-medium, and the mixtures of experts
+deepseek-moe-16b and qwen3-moe-235b-a22b and the VLM llama-3.2-vision-90b
+(cross-attention to 1601 media tokens), through the port's hand-written
+kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
     python3 chip_smoke.py --ab DIR # llama3.2-1b's attention and loss
@@ -59,7 +62,15 @@ start):
    paged decode at REP 7, 2, 5, 48 and 1 (paged bit-equal to dense),
    sampling at V 152064 and 256000, the loss
    at d 3584 / untied V 152064 and d 2304 / tied V 256000 with the logit
-   softcap of 30; every flash backward bit-equal across two launches,
+   softcap of 30; and at the MoE and VLM archs' shapes: flash with lse
+   and its backward at deepseek-moe-16b's update shape (16/16 heads of
+   128), prefill at its, qwen3-moe-235b-a22b's (64/4) and
+   llama-3.2-vision-90b's (64/8), dense and paged decode at REP 1, 16 and
+   8 x 128, sampling at V 102400 and 151936, the loss at d 2048 / untied
+   V 102400, and the cross-attention non-causal against 1601 media keys:
+   the forward with lse at q (16, 512, 64, 128), the backward at (32, 127)
+   rows (bit-equal across launches) and the decode step at Sq = 1, SDPA
+   the library call of each; every flash backward bit-equal across two launches,
    within atol 5e-2 of its plain version, or at head_dim 128 and 256
    within one bf16 ulp of the element where that is larger), with
    its time, the plain version's, one library call's where PyTorch has one,
@@ -88,7 +99,15 @@ start):
    "train_reference_wide": the same engine and fused-loss train checks on
    two 2-layer configs with wide heads, paper-qwen-7b's 7/1 heads of 128
    and gemma2-2b's local/global pair with 2/1 heads of 256, both softcaps
-   and a window of 32; then "reference_overlap": the overlapped
+   and a window of 32; "reference_moe" and "train_reference_moe": the
+   same on reduced deepseek-moe-16b and qwen3-moe-235b-a22b with their
+   capacity-bounded dispatch (equal tokens; the router loss GPU against
+   CPU; no router and no expert left at a zero gradient; where token
+   streams part, the router margin of the token where they do);
+   "reference_vlm" and "train_reference_vlm": llama-3.2-vision-90b reduced
+   to one period (4 attn, 1 xattn), its gates open, with media in the
+   engine's prefills and in mb["media"] (no cross-attention weight, gate
+   or mlp_gate left at a zero gradient); then "reference_overlap": the overlapped
    trainer on the GPU (reduced config, vocab 8192, float32) records each
    batch's params version and a sequential CPU trainer replays that
    schedule (each collect takes ``param_store.get(v)``): equal tokens on
@@ -158,7 +177,16 @@ start):
    "serve_granite" (24 of its 88 layers: the full depth's bf16 weights do
    not fit the card), "serve_musicgen" and "train_musicgen" (24 of its 48
    layers, V 2048: the full-logits loss; one step; the three half depths
-   keep the run near 600 s); the train phases with an entropy bonus of
+   keep the run near 600 s); then the MoE and VLM archs: "serve_deepseek"
+   (deepseek-moe-16b at full depth) and "serve_deepseek_paged" (14 of its
+   28 layers, 40% of the pages), "copris_deepseek" (two stages, evicting
+   and re-prefilling), "train_deepseek" (its dense first layer and two MoE
+   layers at full width: SFT, then two steps; ``router_aux`` finite and >
+   0 in each), "serve_qwen3_moe" (8 of its 94 layers), "serve_vision"
+   (llama-3.2-vision-90b at 10 of its 100 layers, two xattn layers, with
+   its 1601 x 7680 media), "grad_vision" (its loss and gradient with
+   mb["media"] at one 5-layer period, float32 weights: the non-causal
+   flash backward on the path); the train phases with an entropy bonus of
    0.01, so every step has a gradient; each serve phase with its profile,
    each train phase with an update's profile;
 8. kernels — one {"kernels": [...]} line, one row per kernel entry point,
@@ -174,7 +202,9 @@ start):
    (``simt_launches``: every phase that counts launches runs in bf16 and
    fails on a SIMT launch); those rows also carry the hybrid shapes'
    checks under "train_hybrid", with train_hymba's and train_rwkv6's
-   launches, and the wide-head checks under "wide_heads", each with the
+   launches, the wide-head checks under "wide_heads", the MoE archs'
+   under "moe" and the VLM's (its cross-attention under
+   "cross_attention" and "cross_decode") under "vlm", each with the
    launches of the phase that runs its shape (every new phase's counts
    are under ``launches_by_phase``);
 
@@ -1333,6 +1363,121 @@ def check_flash_bwd(torch, F, timer, flash_attn, H=32, KV=8, win=0,
     return res
 
 
+# the VLM's cross-attention: H/KV 64/8 heads of 128 against the 1601 media
+# tokens (25 full tiles of 64 keys and one key over)
+XATTN_H, XATTN_KV, XATTN_HD, XATTN_M = 64, 8, 128, 1601
+
+
+def check_flash_cross(torch, F, timer, flash_attn):
+    """The flash kernels non-causal with Sk != Sq, as llama-3.2-vision-90b's
+    xattn layers run them: the forward with its logsumexp at the prefill
+    shape, q (16, 512, 64, 128) against media k/v (16, 1601, 8, 128); the
+    backward at the update's (32, 127) rows against 1601 keys, bit-equal
+    across two launches; and the decode step, q (16, 1, 64, 128) against
+    the cached media K/V (the flash kernel at Sq = 1). Each against its
+    plain version (forward atol 2e-2, the logsumexp of rows that see every
+    key included; backward atol 5e-2 or one bf16 ulp of the element), with
+    SDPA non-causal as the library call. Returns {"cross_fwd",
+    "cross_bwd", "cross_decode"}."""
+    H, KV, hd, M = XATTN_H, XATTN_KV, XATTN_HD, XATTN_M
+    out_res = {}
+    for label, B, S in (("cross_fwd", 16, 512), ("cross_decode", 16, 1)):
+        g = torch.Generator(device="cuda").manual_seed(31)
+        q = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
+        k, v = (torch.randn(B, M, KV, hd, device="cuda",
+                            generator=g).bfloat16() for _ in range(2))
+        want_lse = label == "cross_fwd"
+        kw = dict(causal=False, return_lse=want_lse)
+        got = flash_attn.flash_attention(q, k, v, **kw)
+        ref = flash_attn.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        out, lse = got if want_lse else (got, None)
+        ref_out, ref_lse = ref if want_lse else (ref, None)
+        err = (out.float() - ref_out.float()).abs().max().item()
+        lse_err = ((lse - ref_lse).abs().max().item() if want_lse else 0.0)
+        atol = 2e-2
+        if not max(err, lse_err) <= atol:
+            fail(f"flash_attn {label} at q {list(q.shape)} against "
+                 f"{M} keys: {err} (lse {lse_err}) from its plain version")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = attention_library(torch, F, timer, qt, kt, vt, ref_out, 0.0)
+        kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v, **kw))
+        plain_ms = timer(lambda: flash_attn.flash_attention_plain(
+            q, k, v, **kw), iters=3, warmup=1)
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel()) \
+            + (4 * B * H * S if want_lse else 0)
+        flops = 4 * B * H * hd * S * M
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 "
+                   "non-causal" + (", with lse (B, H, S) f32" if want_lse
+                                   else ""),
+                   max_abs_err=max(err, lse_err), out_err=err,
+                   lse_err=lse_err, atol=atol, ms=kernel_ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **lib)
+        if res["library_ms"]:
+            res["vs_library"] = kernel_ms / res["library_ms"]
+        emit(f"check_flash_attn_{label}", **res)
+        out_res[label] = res
+        del q, k, v, got, ref
+    B, S = TRAIN_B, TRAIN_S
+    g = torch.Generator(device="cuda").manual_seed(32)
+    q = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
+    k, v = (torch.randn(B, M, KV, hd, device="cuda", generator=g).bfloat16()
+            for _ in range(2))
+    do = torch.randn(B, S, H, hd, device="cuda", generator=g).bfloat16()
+    kw = dict(causal=False)
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    grads = flash_attn.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = flash_attn.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    ref = flash_attn.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(grads, ref))
+    atol = 5e-2
+    excess = max(grad_excess(torch, a, b, atol, True)
+                 for a, b in zip(grads, ref))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+    if not (excess <= 0.0 and bit_equal):
+        fail(f"flash_attn_bwd non-causal at q {list(q.shape)} against {M} "
+             f"keys: {err} from its plain version (excess {excess}), "
+             f"bit-equal across launches {bit_equal}")
+    kernel_ms = timer(lambda: flash_attn.flash_attention_bwd(
+        q, k, v, out, lse, do, **kw))
+    plain_ms = timer(lambda: flash_attn.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, **kw), iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    outs = []
+
+    def sdpa_grads():
+        if not outs:
+            outs.append(F.scaled_dot_product_attention(qt, kt, vt,
+                                                       enable_gqa=True))
+        return torch.autograd.grad(outs[0], (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    lib = dict(library="scaled_dot_product_attention backward",
+               **library_call(timer, sdpa_grads, lambda gs: max(
+                   (a.transpose(1, 2).float() - b.float()).abs().max().item()
+                   for a, b in zip(gs, ref))))
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * B * H * S
+    flops = 10 * B * H * hd * S * M
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 non-causal",
+               max_abs_err=err, atol=atol,
+               tolerance="atol or one bf16 ulp of the element",
+               max_excess_over_tolerance=excess, bit_equal_launches=bit_equal,
+               ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               **lib)
+    if res["library_ms"]:
+        res["vs_library"] = kernel_ms / res["library_ms"]
+    emit("check_flash_attn_bwd_cross", **res)
+    out_res["cross_bwd"] = res
+    return out_res
+
+
 # bf16 passes of 2 R d V in the tensor-core loss kernels (split_gemm.cuh):
 # the forwards' logits h w_hi + h w_mid and dw's dl_hi^T h + dl_mid^T h take
 # 2; bwd_dh 5, the logits and dl_hi w_hi + dl_hi w_mid + dl_mid w_hi for dh
@@ -1515,8 +1660,35 @@ def train_reference_phase(torch, np, copris, model, tree, adam, cfg):
                              phase)
 
 
+def open_gates(params):
+    """Set the xattn layers' tanh gates (zero at init, where the
+    cross-attention would not reach the output) to 0.5 and 0.7."""
+    for layer in params["layers"]:
+        if "xattn" in layer:
+            layer["xattn"]["gate"].fill_(0.5)
+            layer["mlp_gate"].fill_(0.7)
+    return params
+
+
+def ref_media(np, cfg, rows=None):
+    """A media model's frontend embeddings, (M, d_media) or (rows, M,
+    d_media), float32, from a seed; None for a model without media."""
+    if not cfg.uses_media:
+        return None
+    xa = cfg.cross_attn
+    shape = (xa.num_media_tokens, xa.d_media)
+    m = (np.random.default_rng(6).normal(size=shape) * 0.1).astype(
+        np.float32)
+    return m if rows is None else np.broadcast_to(m, (rows,) + shape).copy()
+
+
 def train_reference_case(torch, np, copris, model, tree, adam, cfg, tc,
                          phase):
+    """See train_reference_phase. A MoE config reports its router loss
+    (``router_aux`` among the metrics) and fails if the router or any
+    expert of any layer has an all-zero gradient; a VLM config trains on
+    ``mb["media"]`` with its gates open and fails if a cross-attention
+    projection, its gate or ``mlp_gate`` has one."""
     rng = np.random.default_rng(4)
     N, T = 8, 64
     mask = np.zeros((N, T), np.float32)
@@ -1528,7 +1700,9 @@ def train_reference_case(torch, np, copris, model, tree, adam, cfg, tc,
                 behaviour_logp=((rng.standard_normal((N, T)) * 0.3 - 9.0)
                                 * mask).astype(np.float32),
                 advantages=rng.standard_normal(N).astype(np.float32))
-    base = model.init_params(cfg, seed=5, device="cpu")
+    if cfg.uses_media:
+        host["media"] = ref_media(np, cfg, rows=N)
+    base = open_gates(model.init_params(cfg, seed=5, device="cpu"))
     res = {}
     for dev in ("cuda", "cpu"):
         params = tree.tree_map(lambda x: x.to(dev).clone().requires_grad_(),
@@ -1555,14 +1729,32 @@ def train_reference_case(torch, np, copris, model, tree, adam, cfg, tc,
                 for k in res["cpu"]["metrics"])
     loss_err = abs(res["cuda"]["loss"] - res["cpu"]["loss"])
     gpu_grads = tree.unflatten(res["cuda"]["params"], res["cuda"]["grads"])
-    # no attention projection and no scan parameter left at zero gradient
+    # no attention projection, no scan parameter, no router, no expert and
+    # no cross-attention weight or gate left at zero gradient
     watched = {"attn": ("wq", "wk", "wv", "wo"), "ssm": ("A_log", "D"),
-               "tm": ("u", "w_base")}
+               "tm": ("u", "w_base"), "moe": ("router",),
+               "xattn": ("wq", "wk", "wv", "wo", "gate")}
     zero_attn = [f"layer{i}.{block}.{n}"
                  for i, layer in enumerate(gpu_grads["layers"])
                  for block, names in watched.items() if block in layer
                  for n in names
                  if float(layer[block][n].abs().max()) == 0.0]
+    for i, layer in enumerate(gpu_grads["layers"]):
+        if "mlp_gate" in layer and float(layer["mlp_gate"].abs()) == 0.0:
+            zero_attn.append(f"layer{i}.mlp_gate")
+        for n in ("wi", "wg", "wo") if "moe" in layer else ():
+            per_expert = layer["moe"][n].abs().flatten(1).amax(1)
+            zero_attn += [f"layer{i}.moe.{n}[{e}]"
+                          for e in (per_expert == 0).nonzero().flatten()
+                          .tolist()]
+    extra = {}
+    if cfg.moe is not None:
+        extra = dict(router_aux_gpu=res["cuda"]["metrics"]["router_aux"],
+                     router_aux_cpu=res["cpu"]["metrics"]["router_aux"],
+                     dispatch=cfg.moe.dispatch,
+                     capacity_factor=cfg.moe.capacity_factor)
+    if cfg.uses_media:
+        extra["media"] = list(host["media"].shape)
     emit(phase, config=cfg.name, vocab=cfg.vocab_size,
          fused_loss=tc.fused_loss, metrics=sorted(res["cpu"]["metrics"]),
          batch=f"{N} x {T}", loss_gpu=res["cuda"]["loss"],
@@ -1570,10 +1762,11 @@ def train_reference_case(torch, np, copris, model, tree, adam, cfg, tc,
          max_metric_err=m_err, max_grad_err_rel=g_err, grad_rtol=1e-4,
          grad_norm_gpu=res["cuda"]["grad_norm"],
          grad_norm_cpu=res["cpu"]["grad_norm"], grad_norm_rel_err=gn_err,
-         grad_norm_rtol=1e-5, zero_watched_grads=zero_attn, atol=1e-4)
+         grad_norm_rtol=1e-5, zero_watched_grads=zero_attn, atol=1e-4,
+         **extra)
     if zero_attn:
-        fail(f"attention or scan weights got zero gradient on the GPU: "
-             f"{zero_attn}")
+        fail(f"attention, scan, expert or cross-attention weights got zero "
+             f"gradient on the GPU: {zero_attn}")
     if not (loss_err <= 1e-4 and m_err <= 1e-4 and g_err <= 1e-4
             and gn_err <= 1e-5):
         fail(f"{phase}: GPU train step disagrees with the CPU train step")
@@ -1584,8 +1777,13 @@ def reference_phase(torch, np, serve_mod, model, cfg, phase="reference"):
     versions) on a reduced config in float32, same weights and keys, over
     the dense and the paged KV cache; and the CPU paged engine against the
     CPU dense one (the same plain arithmetic: logps within 1e-6, or 1e-5
-    where a recurrent state carries the paged prefill's rounding)."""
-    params = model.init_params(cfg, seed=3, device="cpu")
+    where a recurrent state, a MoE router or cross-attention carries the
+    paged prefill's rounding). A VLM serves with media and its gates open.
+    Where a MoE's token streams part, the phase reports the router margin
+    (its top_k-th minus its (k+1)-th probability) of the token where they
+    part, the least over the layers."""
+    params = open_gates(model.init_params(cfg, seed=3, device="cpu"))
+    media = ref_media(np, cfg)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size - 1, int(n))
                for n in rng.integers(8, 60, 6)]
@@ -1600,7 +1798,7 @@ def reference_phase(torch, np, serve_mod, model, cfg, phase="reference"):
         eng = serve_mod.ServeEngine(cfg, ro, eos_id=cfg.vocab_size - 1,
                                     params=params,
                                     key=serve_mod.prng.PRNGKey(9),
-                                    device=dev)
+                                    media=media, device=dev)
         for p in prompts:
             eng.submit(serve_mod.GenerateRequest(prompt=p))
         outs[dev, kv] = {r.request_id: r for r in eng.drain()}
@@ -1613,7 +1811,8 @@ def reference_phase(torch, np, serve_mod, model, cfg, phase="reference"):
                   for i in outs[b])
         return same, err
 
-    cpu_atol = 1e-6 if cfg.block_pattern == ("attn",) else 1e-5
+    cpu_atol = 1e-6 if cfg.block_pattern == ("attn",) \
+        and not cfg.prefix_pattern else 1e-5
     pairs = {"gpu_dense_vs_cpu_dense": (("cuda", "dense"), ("cpu", "dense"),
                                         1e-3),
              "gpu_paged_vs_cpu_paged": (("cuda", "paged"), ("cpu", "paged"),
@@ -1627,13 +1826,62 @@ def reference_phase(torch, np, serve_mod, model, cfg, phase="reference"):
         same, err = compare(a, b)
         res[name] = dict(equal_token_streams=same, max_logp_err=err,
                          atol=atol)
+        if same != len(prompts) and cfg.moe is not None:
+            res[name]["router_margin_where_parted"] = router_margins(
+                torch, np, model, cfg, params, prompts, outs[a], outs[b])
+    extra = {}
+    if cfg.moe is not None:
+        extra = dict(dispatch=cfg.moe.dispatch,
+                     capacity_factor=cfg.moe.capacity_factor)
+    if media is not None:
+        extra["media"] = list(media.shape)
     emit(phase, config=cfg.name, requests=len(prompts),
          d_model=cfg.d_model, heads=cfg.num_heads, head_dim=cfg.head_dim,
-         **res)
+         layers=list(cfg.prefix_pattern)
+         + list(cfg.block_pattern) * cfg.num_repeats, **extra, **res)
     for name, r in res.items():
         if r["equal_token_streams"] != len(prompts) \
                 or not r["max_logp_err"] <= r["atol"]:
             fail(f"{phase} {name}: engines disagree on {cfg.name}")
+
+
+def router_margins(torch, np, model, cfg, params, prompts, a, b):
+    """For each request whose two token streams part: the least router
+    margin (top_k-th minus (k+1)-th probability, over the MoE layers) at
+    the position that chose the first differing token, from a CPU forward
+    of the prompt and the common tokens (the dense dispatch routes each
+    token alone)."""
+    from repro_torch.models import moe as moe_mod
+    out = {}
+    orig = moe_mod.route
+    for i in b:
+        ta, tb = a[i].tokens, b[i].tokens
+        if ta == tb:
+            continue
+        n = next(j for j in range(min(len(ta), len(tb)) + 1)
+                 if j == min(len(ta), len(tb)) or ta[j] != tb[j])
+        seq = np.concatenate([prompts[i], np.asarray(tb[:n], np.int64)])
+        seen = []
+
+        def spy(router, c, xt, _orig=orig, _seen=seen):
+            r = _orig(router, c, xt)
+            top = torch.topk(r[0], c.moe.top_k + 1, dim=-1).values
+            _seen.append((top[:, -2] - top[:, -1])[-1].item())
+            return r
+
+        moe_mod.route = spy
+        try:
+            dense = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, dispatch="dense"))
+            media = ref_media(np, cfg, rows=1)
+            with torch.no_grad():
+                model.forward_train(
+                    params, dense, torch.from_numpy(seq[None]),
+                    media=None if media is None else torch.from_numpy(media))
+        finally:
+            moe_mod.route = orig
+        out[str(i)] = dict(position=len(seq) - 1, margin=min(seen))
+    return out
 
 
 def device_us(e):
@@ -1802,10 +2050,14 @@ def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
     if keep is not None:
         keep["step_time"] = [o["step_time"] for o in outs]
     keys = ("reward_mean", "pg_loss", "grad_norm", "ratio_mean",
-            "off_policy_frac")
+            "off_policy_frac") + (("router_aux",) if cfg.moe else ())
     extra = {}
     if num_layers:
         extra["depth_cut"] = f"{num_layers} of {full_layers} layers: {cut}"
+    if cfg.moe:
+        extra.update(moe_dispatch=cfg.moe.dispatch,
+                     capacity_factor=cfg.moe.capacity_factor,
+                     router_aux_coef=cfg.moe.router_aux_coef)
     emit(phase, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
          heads=f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}",
          vocab=cfg.vocab_size, tied=cfg.tie_embeddings, sft_steps=4,
@@ -1822,6 +2074,9 @@ def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
             fail(f"{phase} step {o['step']}: not finite: {bad}")
         if entropy_coef > 0.0 and not o["grad_norm"] > 0.0:
             fail(f"{phase} step {o['step']}: a zero gradient")
+        if cfg.moe and not o["router_aux"] > 0.0:
+            fail(f"{phase} step {o['step']}: router_aux "
+                 f"{o['router_aux']} not > 0")
     if not all(n > 0 for n in launches.values()):
         fail(f"a kernel of {arch}'s training path never launched: "
              f"{launches}")
@@ -1835,6 +2090,92 @@ def train_phase(torch, np, kernels, arch="llama3.2-1b", phase="train",
             if key in launches and launches[key] != n:
                 fail(f"{phase}: {key} launched {launches[key]} times in "
                      f"{steps} updates of {cfg.num_layers} layers")
+    return launches
+
+
+def grad_vision_phase(torch, np, kernels, num_layers=5):
+    """llama-3.2-vision-90b's loss gradient at full width: one make_loss_fn
+    (the fused loss, entropy 0.01) and its backward on 8 rows of 128 tokens
+    with mb["media"] (8 x 1601 x 7680), float32 weights, bf16 compute,
+    remat, the gates open, at one period of its layers (4 attn, 1 xattn;
+    the weights and their gradients of 5 layers are ~51 GB, the optimizer
+    state would not fit beside them). The VLM trains only through its
+    loss: as in the reference, its rollouts carry no media. The flash
+    kernels run causal (self-attention) and non-causal against the 1601
+    media keys (the xattn layer), forward with the logsumexp and backward;
+    every kernel of the path must launch, the gates and every
+    cross-attention projection get a nonzero gradient. Returns the launch
+    counts."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.tree import leaves, unflatten
+    from repro_torch.configs import get_config
+    from repro_torch.core import copris
+    from repro_torch.models import model as M
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("llama-3.2-vision-90b")
+    cfg = dataclasses.replace(full, num_layers=num_layers)
+    params = open_gates(M.init_params(cfg, seed=2, device="cuda"))
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(8)
+    N, T = 8, 128
+    mask = np.zeros((N, T), np.float32)
+    mask[:, 16:] = 1.0
+    host = dict(tokens=rng.integers(0, cfg.vocab_size - 1, (N, T)).astype(
+                    np.int32), loss_mask=mask,
+                behaviour_logp=((rng.standard_normal((N, T)) * 0.3 - 11.0)
+                                * mask).astype(np.float32),
+                advantages=rng.standard_normal(N).astype(np.float32))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    xa = cfg.cross_attn
+    batch["media"] = torch.randn(
+        N, xa.num_media_tokens, xa.d_media, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(9)) * 0.1
+    loss_fn = copris.make_loss_fn(cfg, TrainConfig(entropy_coef=0.01,
+                                                   remat=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    loss, metrics = loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, flat)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    g = unflatten(params, list(grads))
+    xattn = [(i, layer) for i, layer in enumerate(g["layers"])
+             if "xattn" in layer]
+    zero = [f"layer{i}.{n}" for i, layer in xattn
+            for n, t in (("xattn.gate", layer["xattn"]["gate"]),
+                         ("mlp_gate", layer["mlp_gate"]),
+                         *((f"xattn.{k}", layer["xattn"][k])
+                           for k in ("wq", "wk", "wv", "wo")))
+            if float(t.abs().max()) == 0.0]
+    finite = all(bool(torch.isfinite(t).all()) for t in grads)
+    emit("grad_vision", arch=cfg.name, layers=cfg.num_layers,
+         depth_cut=f"{num_layers} of {full.num_layers} layers: the float32 "
+         "weights and gradients of one period (~51 GB) fit the card, an "
+         "optimizer's state beside them would not",
+         d_model=cfg.d_model,
+         heads=f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}",
+         batch=f"{N} x {T}", media=list(batch["media"].shape),
+         loss=float(loss.detach()),
+         metrics={k: float(v) for k, v in metrics.items()},
+         gate_grads={f"layer{i}": dict(
+             gate=float(layer["xattn"]["gate"]),
+             mlp_gate=float(layer["mlp_gate"])) for i, layer in xattn},
+         seconds=seconds, launches=launches, zero_grads=zero,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if not (np.isfinite(float(loss.detach())) and finite):
+        fail("grad_vision: loss or a gradient not finite")
+    if zero:
+        fail(f"grad_vision: zero gradient in {zero}")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"a kernel of the VLM's loss gradient never launched: "
+             f"{launches}")
+    del params, flat, grads, g, batch
     return launches
 
 
@@ -2440,10 +2781,10 @@ def copris_arch_phase(torch, np, model, runs):
     """Two RolloutEngine.collect stages on each of ``runs`` ((arch,
     resume strategy, kernels, phase)) at full width with random bf16
     weights: hymba-1.5b resumes with kv_snapshot (the snapshot carries the
-    ssm / conv state beside the K/V), rwkv6-1.6b and paper-qwen-7b
-    re-prefill. max_len 256 < the 192 + 128 budget, so a group's stop
-    length depends on its prompt: groups finish at different times, early
-    termination evicts, the next stage resumes."""
+    ssm / conv state beside the K/V), rwkv6-1.6b, paper-qwen-7b and
+    deepseek-moe-16b re-prefill. max_len 256 < the 192 + 128 budget, so a
+    group's stop length depends on its prompt: groups finish at different
+    times, early termination evicts, the next stage resumes."""
     from repro_torch.common.config import RolloutConfig
     from repro_torch.configs import get_config
     from repro_torch.core.rollout import RolloutEngine
@@ -2654,7 +2995,7 @@ def main() -> int:
 
     from repro_torch.common import tree
     from repro_torch.common.config import RolloutConfig, TrainConfig
-    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import copris
     from repro_torch.core.rollout import RolloutEngine
     from repro_torch.hopper import build, decode_attn, flash_attn, fused_sample
@@ -2789,6 +3130,45 @@ def main() -> int:
         torch, timer, fio, d=2304, V=256000, tied=True, cap=30.0,
         suffix="_gemma2"))
     torch.cuda.empty_cache()
+    # the MoE and VLM archs' shapes, all heads of 128: deepseek-moe-16b's
+    # update and prefill (16/16: REP 1), qwen3-moe-235b-a22b's prefill
+    # (64/4: REP 16) and llama-3.2-vision-90b's (64/8: REP 8), dense and
+    # paged decode at each ratio; sampling at V 102400 and 151936; the loss
+    # at deepseek-moe-16b's d 2048 / untied V 102400; and the vision
+    # model's cross-attention, non-causal against 1601 media tokens
+    moe_checks = {}
+    for arch, tag, H, KV, trained in (
+            ("deepseek-moe-16b", "deepseek", 16, 16, True),
+            ("qwen3-moe-235b-a22b", "qwen3_moe", 64, 4, False),
+            ("llama-3.2-vision-90b", "vision", 64, 8, False)):
+        c = {}
+        if trained:
+            c["flash_attn"] = check_flash_lse(
+                torch, F, timer, flash_attn, H=H, KV=KV, hd=128,
+                phase=f"check_flash_attn_lse_{tag}")
+            c["flash_attn_bwd"] = check_flash_bwd(
+                torch, F, timer, flash_attn, H=H, KV=KV, hd=128,
+                phase=f"check_flash_attn_bwd_{tag}")
+        c["flash_attn_prefill"] = check_flash_prefill(
+            torch, F, timer, flash_attn, H, KV, 128,
+            phase=f"check_flash_attn_prefill_{tag}")
+        c["decode_attn"], c["paged_decode_attn"] = check_decode_wide(
+            torch, F, timer, decode_attn, paged_decode_attn, H, KV, 128,
+            tag=tag)
+        moe_checks[arch] = c
+        torch.cuda.empty_cache()
+    moe_checks["deepseek-moe-16b"]["fused_sample"] = check_sample(
+        torch, timer, fused_sample, prng, V=102400,
+        phase="check_fused_sample_102400")
+    moe_checks["qwen3-moe-235b-a22b"]["fused_sample"] = check_sample(
+        torch, timer, fused_sample, prng, V=151936,
+        phase="check_fused_sample_151936")
+    moe_checks["deepseek-moe-16b"].update(check_fused_is_grpo(
+        torch, timer, fio, d=2048, V=102400, tied=False, suffix="_deepseek"))
+    vlm_checks = {"llama-3.2-vision-90b": {
+        **moe_checks.pop("llama-3.2-vision-90b"),
+        **check_flash_cross(torch, F, timer, flash_attn)}}
+    torch.cuda.empty_cache()
     kernels = {"flash_attn": flash_attn.flash_attention,
                "decode_attn": decode_attn.decode_attention,
                "fused_sample": fused_sample.sample_rows}
@@ -2869,6 +3249,34 @@ def main() -> int:
     reference_multiturn_phase(
         torch, np, dataclasses.replace(get_smoke_config("llama3.2-1b"),
                                        dtype="float32"))
+    # the MoE and VLM block kinds on the card against the CPU, float32:
+    # deepseek-moe-16b reduced (a dense layer, then a MoE layer of 4
+    # experts top-2 and a shared one; 8/8 heads of 64) and
+    # qwen3-moe-235b-a22b reduced (4 experts top-2, qk_norm, 16/1 heads of
+    # 32), with their published capacity-bounded dispatch at its default
+    # factor (the reduced configs' own is the dense one); then
+    # llama-3.2-vision-90b reduced to one period of its pattern (4 attn,
+    # 1 xattn; 8/1 heads of 64; 16 media tokens), media in the engine's
+    # prefills and in mb["media"]
+    for arch in ("deepseek-moe-16b", "qwen3-moe-235b-a22b"):
+        cfg_r = get_smoke_config(arch)
+        cfg_r = dataclasses.replace(cfg_r, moe=dataclasses.replace(
+            cfg_r.moe, dispatch="sparse"))
+        reference_phase(torch, np, serve_mod, model, cfg_r,
+                        phase="reference_moe")
+        train_reference_case(
+            torch, np, copris, model, tree, adam,
+            dataclasses.replace(cfg_r, vocab_size=8192),
+            TrainConfig(lr=1e-3, entropy_coef=0.01, remat=True),
+            "train_reference_moe")
+    cfg_v = get_config("llama-3.2-vision-90b").reduced(num_layers=5)
+    reference_phase(torch, np, serve_mod, model, cfg_v,
+                    phase="reference_vlm")
+    train_reference_case(
+        torch, np, copris, model, tree, adam,
+        dataclasses.replace(cfg_v, vocab_size=8192),
+        TrainConfig(lr=1e-3, entropy_coef=0.01, remat=True),
+        "train_reference_vlm")
 
     # 5. serve at full width (the main path)
     serve, cfg = serve_mod.make_serve_engine(
@@ -2944,12 +3352,18 @@ def main() -> int:
     del params, eng
 
     # 6b. the hybrid families served at full width, then two CoPRIS stages
+    # (the paged hymba at 16 of its 32 layers: with its profile it took 55
+    # s, the run's longest serve phase, and the MoE and VLM phases took the
+    # run from ~600 to 687 s on an H100 80GB HBM3 at 700 W; no kernel's
+    # shape depends on the depth)
+    time_cut = "the run's time (no kernel's shape depends on the depth)"
     hymba_launches, hymba_by_length = serve_arch_phase(
         torch, np, serve_mod, "hymba-1.5b", hymba_kernels, "serve_hymba")
     # 40% of the dense-equivalent 16 x 640 / 16 = 640 pages
     serve_arch_phase(torch, np, serve_mod, "hymba-1.5b",
-                       hymba_paged_kernels, "serve_hymba_paged",
-                       kv_backend="paged", kv_num_pages=256)
+                     hymba_paged_kernels, "serve_hymba_paged",
+                     kv_backend="paged", kv_num_pages=256, num_layers=16,
+                     cut=time_cut)
     rwkv_launches, rwkv_by_length = serve_arch_phase(
         torch, np, serve_mod, "rwkv6-1.6b", rwkv_kernels, "serve_rwkv6")
     copris_arch_phase(torch, np, model, (
@@ -3005,7 +3419,6 @@ def main() -> int:
     # the whole run took 647 s with the last two at full depth and 633 s
     # with them at half depth and the paged paper-qwen-7b at full depth,
     # over the ~600 s it aims at; no kernel's shape depends on the depth
-    time_cut = "the run's time (no kernel's shape depends on the depth)"
     wide = {}
     wide["serve_qwen7b"] = serve_arch_phase(
         torch, np, serve_mod, "paper-qwen-7b", kernels, "serve_qwen7b")[0]
@@ -3040,6 +3453,43 @@ def main() -> int:
         phase="train_musicgen", steps=1, seed=2, entropy_coef=0.01,
         num_layers=24, cut=time_cut)
     new_launches.update(wide)
+
+    # 7d. the MoE and VLM archs through the same entry points, each freed
+    # before the next: deepseek-moe-16b served at full depth over the dense
+    # cache and at 14 of its 28 layers over the paged one, two CoPRIS
+    # stages at full depth, trained at 1 + 2 of its layers (the dense first
+    # layer and two MoE layers, full width); qwen3-moe-235b-a22b served at
+    # 8 of its 94 layers; llama-3.2-vision-90b served at 10 of its 100
+    # layers (two periods: two xattn layers) with its media, and its loss
+    # gradient with mb["media"] at 5
+    moe_vlm = {}
+    moe_vlm["serve_deepseek"] = serve_arch_phase(
+        torch, np, serve_mod, "deepseek-moe-16b", kernels,
+        "serve_deepseek")[0]
+    moe_vlm["serve_deepseek_paged"] = serve_arch_phase(
+        torch, np, serve_mod, "deepseek-moe-16b", serve_paged_kernels,
+        "serve_deepseek_paged", kv_backend="paged", kv_num_pages=256,
+        num_layers=14, cut=time_cut)[0]
+    copris_arch_phase(torch, np, model, (
+        ("deepseek-moe-16b", "reprefill", kernels, "copris_deepseek"),))
+    moe_vlm["train_deepseek"] = train_phase(
+        torch, np, train_kernels, arch="deepseek-moe-16b",
+        phase="train_deepseek", steps=2, seed=2, entropy_coef=0.01,
+        num_layers=3, cut="the full depth's training state (16.4 B "
+        "parameters at ~16 bytes each, ~262 GB) does not fit the card")
+    moe_vlm["serve_qwen3_moe"] = serve_arch_phase(
+        torch, np, serve_mod, "qwen3-moe-235b-a22b", kernels,
+        "serve_qwen3_moe", num_layers=8,
+        cut="the full depth's bf16 weights (~470 GB, 4.97 GB a layer) do "
+        "not fit the card")[0]
+    moe_vlm["serve_vision"] = serve_arch_phase(
+        torch, np, serve_mod, "llama-3.2-vision-90b", kernels,
+        "serve_vision", num_layers=10,
+        cut="the full depth's bf16 weights (~178 GB, 1.71 GB a layer) do "
+        "not fit the card")[0]
+    moe_vlm["grad_vision"] = grad_vision_phase(torch, np, {
+        "flash_attn": flash_attn.flash_attention,
+        "flash_attn_bwd": flash_attn.flash_attention_bwd, **loss_kernels})
 
     # 8. kernels line: launches from the train phase, from train_paged for
     # the paged decode and the fused log-prob, from serve_hymba and
@@ -3148,31 +3598,14 @@ def main() -> int:
                     "shape", "launches", "max_abs_err", "ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms")}
                 for arch, r in hybrid.items()}
-        wide_rows = {}
-        for arch, c in wide_checks.items():
-            entry = {}
-            for key, label in ((name, "check"),
-                               (f"{name}_prefill", "prefill")):
-                if key not in c:
-                    continue
-                phase = WIDE_LAUNCHES.get((arch, key))
-                entry[label] = dict(
-                    {k: c[key].get(k) for k in (
-                        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library", "library_ms",
-                        "library_err", "library_failed", "library_options",
-                        "default_options_failed", "vs_library",
-                        "bit_equal_launches",
-                        "diff_from_dense_kernel", "dense_kernel_ms",
-                        "sdpa_without_softcap_ms") if k in c[key]},
-                    launches=wide[phase][name] if phase else None,
-                    launches_of=phase)
-            if entry:
-                wide_rows[arch] = entry
-        if wide_rows:
-            # the same kernel at the wide heads' shapes, with the launches
-            # of the phase that runs that shape on the main path
-            row["wide_heads"] = wide_rows
+        # the same kernel at the wide heads', the MoEs' and the VLM's
+        # shapes, each with the launches of the phase that runs that shape
+        for key, arch_checks, phases in (
+                ("wide_heads", wide_checks, wide),
+                ("moe", moe_checks, moe_vlm), ("vlm", vlm_checks, moe_vlm)):
+            entries = arch_rows(name, arch_checks, phases)
+            if entries:
+                row[key] = entries
         if name in by_length:
             row["launches_by_length"] = by_length[name]
             pre = scans[name]["prefill"]
@@ -3188,10 +3621,49 @@ def main() -> int:
     return 0
 
 
-# which phase's launches stand beside a wide-head check in the kernels line:
+# the checks that stand in a kernel's row of the kernels line, under the
+# labels there: its own shape ("check"), prefill, and the cross-attention's
+ROW_CHECKS = {"flash_attn": (("flash_attn", "check"),
+                             ("flash_attn_prefill", "prefill"),
+                             ("cross_fwd", "cross_attention"),
+                             ("cross_decode", "cross_decode")),
+              "flash_attn_bwd": (("flash_attn_bwd", "check"),
+                                 ("cross_bwd", "cross_attention"))}
+ROW_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library", "library_ms", "library_err", "library_failed",
+            "library_options", "default_options_failed", "vs_library",
+            "bit_equal_launches", "diff_from_dense_kernel", "dense_kernel_ms",
+            "sdpa_without_softcap_ms", "lse_err")
+
+
+def arch_rows(name, arch_checks, phases):
+    """{arch: {label: the check's numbers, with the launches of the phase
+    that runs that shape}} of kernel ``name`` over ``arch_checks`` ({arch:
+    {check key: result}}); ``phases`` holds each phase's launch counts. A
+    check with no phase in ARCH_LAUNCHES is on no path of this run
+    (launches null)."""
+    rows = {}
+    for arch, c in arch_checks.items():
+        entry = {}
+        for key, label in ROW_CHECKS.get(name, ((name, "check"),)):
+            if key not in c:
+                continue
+            phase = ARCH_LAUNCHES.get((arch, key))
+            entry[label] = dict(
+                {k: c[key][k] for k in ROW_KEYS if k in c[key]},
+                launches=phases[phase][name] if phase else None,
+                launches_of=phase)
+        if entry:
+            rows[arch] = entry
+    return rows
+
+
+# which phase's launches stand beside an arch's check in the kernels line:
 # (arch, check) -> phase; a check with no phase (the paged decode of every
-# arch but paper-qwen-7b) is not on any path of this run
-WIDE_LAUNCHES = {
+# arch but paper-qwen-7b and deepseek-moe-16b) is not on any path of this
+# run. The flash counts of serve_vision and grad_vision are those of the
+# self- and the cross-attention together (one wrapper)
+ARCH_LAUNCHES = {
     ("paper-qwen-7b", "flash_attn"): "train_qwen7b",
     ("paper-qwen-7b", "flash_attn_prefill"): "serve_qwen7b",
     ("paper-qwen-7b", "flash_attn_bwd"): "train_qwen7b",
@@ -3217,6 +3689,23 @@ WIDE_LAUNCHES = {
     ("musicgen-medium", "flash_attn_prefill"): "serve_musicgen",
     ("musicgen-medium", "flash_attn_bwd"): "train_musicgen",
     ("musicgen-medium", "decode_attn"): "serve_musicgen",
+    ("deepseek-moe-16b", "flash_attn"): "train_deepseek",
+    ("deepseek-moe-16b", "flash_attn_prefill"): "serve_deepseek",
+    ("deepseek-moe-16b", "flash_attn_bwd"): "train_deepseek",
+    ("deepseek-moe-16b", "decode_attn"): "serve_deepseek",
+    ("deepseek-moe-16b", "paged_decode_attn"): "serve_deepseek_paged",
+    ("deepseek-moe-16b", "fused_sample"): "serve_deepseek",
+    ("deepseek-moe-16b", "fused_is_grpo_fwd"): "train_deepseek",
+    ("deepseek-moe-16b", "fused_is_grpo_bwd_dh"): "train_deepseek",
+    ("deepseek-moe-16b", "fused_is_grpo_bwd_dw"): "train_deepseek",
+    ("qwen3-moe-235b-a22b", "flash_attn_prefill"): "serve_qwen3_moe",
+    ("qwen3-moe-235b-a22b", "decode_attn"): "serve_qwen3_moe",
+    ("qwen3-moe-235b-a22b", "fused_sample"): "serve_qwen3_moe",
+    ("llama-3.2-vision-90b", "flash_attn_prefill"): "serve_vision",
+    ("llama-3.2-vision-90b", "decode_attn"): "serve_vision",
+    ("llama-3.2-vision-90b", "cross_fwd"): "grad_vision",
+    ("llama-3.2-vision-90b", "cross_decode"): "serve_vision",
+    ("llama-3.2-vision-90b", "cross_bwd"): "grad_vision",
 }
 
 SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)

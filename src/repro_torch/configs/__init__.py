@@ -3,11 +3,14 @@
 Each ported architecture lives in its own module and exposes ``CONFIG``.
 ``get_config(name)`` returns the full config; ``get_smoke_config(name)``
 returns the reduced (<=2 layer, d_model<=512) variant used by the CPU tests.
-Registered: the dense architectures (``attn`` blocks, and gemma2-2b's
-local/global pair), the hybrid hymba-1.5b and the attention-free
-rwkv6-1.6b. All of them run on the card: the attention kernels take
-head_dim 32, 64, 128 and 256 (gemma2-2b's 256; paper-qwen-7b's, qwen3-14b's
-and granite-34b's 128) and any GQA ratio (granite-34b's is 48).
+Registered: every architecture of the JAX registry. The dense ones
+(``attn`` blocks, and gemma2-2b's local/global pair), the hybrid hymba-1.5b,
+the attention-free rwkv6-1.6b, the mixtures of experts deepseek-moe-16b (a
+dense first layer, then ``moe`` blocks) and qwen3-moe-235b-a22b, and the
+VLM llama-3.2-vision-90b (an ``xattn`` block every fifth layer). All of them
+run on the card: the attention kernels take head_dim 32, 64, 128 and 256
+(gemma2-2b's 256; the 128 of paper-qwen-7b, qwen3-14b, granite-34b, both
+MoEs and the VLM) and any GQA ratio (granite-34b's is 48).
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ _ARCH_MODULES = {
     "granite-34b": "granite_34b",
     "musicgen-medium": "musicgen_medium",
     "paper-qwen-7b": "paper_qwen_7b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "llama-3.2-vision-90b": "llama3_2_vision_90b",
 }
 
 
@@ -35,7 +41,7 @@ def list_archs():
 
 def get_config(name: str) -> ModelConfig:
     if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown or not yet ported arch {name!r}; "
+        raise KeyError(f"unknown arch {name!r}; "
                        f"available: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.CONFIG

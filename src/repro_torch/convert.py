@@ -4,8 +4,11 @@ port's parameter dict, both ways, and the same for the AdamW state.
 The caller hands over the tree as numpy arrays — ``jax.device_get(params)``
 of ``repro.models.model.init_params``, or ``repro.checkpoint.ckpt.load(path,
 to_device=False)`` — so this module needs no JAX. The tree holds
-``embed.tok`` (V, d), ``stack.prefix`` (a list of per-layer dicts, nested
-for the recurrent kinds: hymba's ``ssm``, rwkv's ``tm`` and ``cm``),
+``embed.tok`` (V, d) (and the VLM's ``embed.media_proj`` (d_media, d)),
+``stack.prefix`` (a list of per-layer dicts, nested for the recurrent and
+MoE kinds: hymba's ``ssm``, rwkv's ``tm`` and ``cm``, the MoE's ``moe``
+with its float32 ``router``, (E, d, f) expert stacks and ``shared`` block;
+xattn's ``xattn`` with its ``gate``, and its scalar ``mlp_gate``),
 ``stack.body`` (one dict per ``block_pattern`` entry, every leaf stacked on a
 leading repeats axis: the ``lax.scan`` layout), ``final_norm`` and, for
 untied embeddings, ``lm_head``. The port's stack is the flat per-layer list
@@ -22,7 +25,6 @@ import torch
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device
-from repro_torch.models.transformer import PORTED_KINDS
 
 
 def _tensor(a, device):
@@ -40,10 +42,6 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
     """JAX ``init_params`` pytree (numpy leaves) -> the port's parameters, in
     the tree's own dtype (float32 master weights), on ``device``."""
     dev = resolve_device(device)
-    for kind in tuple(cfg.prefix_pattern) + tuple(cfg.block_pattern):
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet")
     stack = tree["stack"]
     layers = [_tree(p, dev) for p in stack["prefix"]]
     body = list(stack["body"])
@@ -53,7 +51,7 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
     for r in range(cfg.num_repeats):
         for j in range(len(cfg.block_pattern)):
             layers.append(_tree(body[j], dev, index=r))
-    params = {"embed": {"tok": _tensor(tree["embed"]["tok"], dev)},
+    params = {"embed": _tree(tree["embed"], dev),
               "layers": layers,
               "final_norm": _tensor(tree["final_norm"], dev)}
     if not cfg.tie_embeddings:
@@ -86,7 +84,7 @@ def params_to_jax(params, cfg: ModelConfig):
     body = tuple(stacked([layers[n_pre + r * P + j]
                           for r in range(cfg.num_repeats)])
                  for j in range(P))
-    tree = {"embed": {"tok": _numpy(params["embed"]["tok"])},
+    tree = {"embed": to_np(params["embed"]),
             "stack": {"prefix": [to_np(p) for p in layers[:n_pre]],
                       "body": body},
             "final_norm": _numpy(params["final_norm"])}

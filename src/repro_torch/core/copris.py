@@ -65,7 +65,11 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
     (B, S, V) logits; with ``fused_loss=False`` the legacy branch scores the
     log-probs with the fused vocab-blocked kernel (``score_logprobs``) and
     applies the unfused GRPO loss, without entropy; below the threshold
-    (``tiny``) the full logits are computed."""
+    (``tiny``) the full logits are computed. In every branch the loss is
+    the GRPO loss plus ``router_aux_coef`` times the MoE layers' summed
+    load-balance loss (``metrics["router_aux"]``; zero without MoE), and
+    a VLM reads its media from ``mb["media"]``."""
+    aux_coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
     big_vocab = cfg.vocab_size >= FUSED_VOCAB_THRESHOLD
     if big_vocab and not tcfg.fused_loss and tcfg.entropy_coef > 0.0:
         raise ValueError(
@@ -81,8 +85,10 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
         # loss_mask = response positions of the model's own tokens
         mask = mb["loss_mask"][:, 1:]
         behaviour = mb["behaviour_logp"][:, 1:]
+        media = mb.get("media")
         if big_vocab and tcfg.fused_loss:
-            hidden = M.forward_hidden(params, cfg, inputs, remat=tcfg.remat)
+            hidden, aux = M.forward_hidden(params, cfg, inputs, media=media,
+                                           remat=tcfg.remat, return_aux=True)
             adv_tok = mb["advantages"][:, None].expand(targets.shape)
             loss_tok, ratio, logp_new, entropy = fio.fused_is_grpo(
                 hidden, M.unembed_weight(params, cfg), targets, behaviour,
@@ -99,8 +105,9 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
             # legacy fused-logprob recompute (no entropy available —
             # entropy_coef > 0 is rejected at build time above)
             entropy = None
-            logp_new = M.score_logprobs(params, cfg, inputs, targets,
-                                        remat=tcfg.remat)
+            logp_new, aux = M.score_logprobs(params, cfg, inputs, targets,
+                                             media=media, remat=tcfg.remat,
+                                             return_aux=True)
             loss, metrics = grpo.grpo_loss(
                 logp_new, behaviour, mb["advantages"], mask,
                 clip_low=tcfg.clip_low, clip_high=tcfg.clip_high,
@@ -108,7 +115,8 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
                 loss_agg=tcfg.loss_agg, entropy=None,
                 entropy_coef=tcfg.entropy_coef)
         else:
-            logits = M.forward_train(params, cfg, inputs, remat=tcfg.remat)
+            logits, aux = M.forward_train(params, cfg, inputs, media=media,
+                                          remat=tcfg.remat, return_aux=True)
             logp_all = F.log_softmax(logits, dim=-1)
             logp_new = logp_all.gather(-1, targets[..., None].long())[..., 0]
             entropy = -(logp_all.exp() * logp_all).sum(-1)
@@ -123,9 +131,8 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
                 denom = mask.sum().clamp_min(1.0)
                 metrics["entropy"] = (entropy * mask).sum() / denom
             metrics["pg_loss"] = loss.detach()
-            # dense models only in the port: no MoE router loss
-            metrics["router_aux"] = torch.zeros((), device=loss.device)
-        return loss, metrics
+            metrics["router_aux"] = aux["router_aux"].detach()
+        return loss + aux_coef * aux["router_aux"], metrics
 
     return loss_fn
 

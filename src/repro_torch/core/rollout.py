@@ -104,7 +104,8 @@ class RolloutEngine:
                  eos_id: int, max_len: Optional[int] = None,
                  on_finish: Optional[Callable] = None,
                  env_factory: Optional[Callable] = None,
-                 env_worker: Optional[AsyncEnvWorker] = None, device=None):
+                 env_worker: Optional[AsyncEnvWorker] = None, media=None,
+                 device=None):
         self.cfg = model_cfg
         self.ro = ro_cfg
         self.prompt_source = prompt_source
@@ -124,6 +125,12 @@ class RolloutEngine:
                 timeout=ro_cfg.env_step_timeout or None)
         self._env_pending = {}          # traj_id -> parked Trajectory
         self.device = resolve_device(device)
+        # a VLM's frontend embeddings (M, d_media), the same for every
+        # request: each prefill broadcasts them to its rows; decode reads
+        # the media K/V the prefill cached in the slot
+        self.media = (None if media is None else
+                      torch.as_tensor(np.asarray(media, np.float32),
+                                      device=self.device))
         self.dtype = torch_dtype(model_cfg.dtype)
         self.pool = ro_cfg.slot_pool
         self.max_len = max_len or _round_up(
@@ -181,6 +188,12 @@ class RolloutEngine:
         """Parameters in the engine's compute dtype and on its device (the
         matmul weights are cast once; already-cast params pass through)."""
         return M.cast_params(params, self.dtype, self.device)
+
+    def _media_for(self, batch):
+        """The media broadcast to ``batch`` prefill rows, or None."""
+        if self.media is None:
+            return None
+        return self.media[None].expand(batch, *self.media.shape)
 
     def _sample(self, keys, logits):
         return fused_sample.sample_rows(
@@ -495,7 +508,8 @@ class RolloutEngine:
         scratch = M.init_cache(self.cfg, n, S, self.dtype, dev)
         logits, scratch = M.prefill(
             params, self.cfg, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(lengths).to(dev), scratch)
+            torch.from_numpy(lengths).to(dev), scratch,
+            media=self._media_for(n))
         rows = torch.from_numpy(np.clip(row_map, 0, n - 1).astype(np.int64))
         logits = logits[rows.to(dev)]
         tok, logp = self._sample(keys.to(dev), logits)

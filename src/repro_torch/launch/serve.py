@@ -11,14 +11,19 @@ owning the loop.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --requests 12 --concurrency 4 --max-tokens 32
 
-``--arch`` takes every registered architecture: the dense ones, the hybrid
-hymba-1.5b and the attention-free rwkv6-1.6b (no K/V: over
-``--kv-backend paged`` it keeps the page accounting and per-slot state).
+``--arch`` takes every registered architecture: the dense ones, the
+mixtures of experts, the VLM llama-3.2-vision-90b (served with random media
+embeddings), the hybrid hymba-1.5b and the attention-free rwkv6-1.6b (no
+K/V: over ``--kv-backend paged`` it keeps the page accounting and per-slot
+state).
 
 Weights are random, made from ``--seed``. ``--smoke`` selects the reduced
 config; ``--device cpu`` runs the plain PyTorch path on the host;
 ``--kv-backend paged`` serves over the paged KV cache (``--kv-page-size``
-tokens a page, ``--kv-num-pages`` pages; 0 = the dense-equivalent count).
+tokens a page, ``--kv-num-pages`` pages; 0 = the dense-equivalent count);
+``--num-layers`` serves fewer layers at the published widths (a model
+whose weights do not fit the card: qwen3-moe-235b-a22b at 8 of its 94
+layers, llama-3.2-vision-90b at 10 of its 100).
 """
 from __future__ import annotations
 
@@ -70,7 +75,7 @@ class ServeEngine:
     """
 
     def __init__(self, model_cfg: ModelConfig, ro_cfg: RolloutConfig, *,
-                 eos_id: int, params, key, device=None):
+                 eos_id: int, params, key, media=None, device=None):
         if ro_cfg.group_size != 1:
             raise ValueError("serving: one trajectory per request "
                              "(group_size=1)")
@@ -87,7 +92,7 @@ class ServeEngine:
         self._harvested = 0            # prefix of sched.completed consumed
         self._key = key
         self.eng = RolloutEngine(model_cfg, ro_cfg, self._next_prompt,
-                                 eos_id=eos_id, device=device)
+                                 eos_id=eos_id, media=media, device=device)
         self._params = self.eng.prepare_params(params)
         self._sched = None
 
@@ -199,14 +204,29 @@ def make_serve_engine(arch: str = "tiny", *, smoke: bool = False,
                       kv_backend: str = "dense", kv_page_size: int = 16,
                       kv_num_pages: int = 0, seed: int = 0, device=None,
                       num_layers: int = 0):
-    """Build a ready ServeEngine with random weights made from ``seed``.
-    Runs on the GPU unless ``device='cpu'``. ``num_layers`` > 0 keeps that
-    many layers of the config at its widths (a model whose weights do not
-    fit the card, served at reduced depth)."""
+    """Build a ready ServeEngine with random weights made from ``seed``,
+    and for a media model its media, as the reference makes them: a numpy
+    ``default_rng(seed)`` normal of shape (M, d_media) times 0.1, the same
+    for every request. Runs on the GPU unless ``device='cpu'``.
+    ``num_layers`` > 0 keeps that many layers of the config at its widths
+    (a model whose weights do not fit the card, served at reduced depth):
+    the prefix and whole repeats of ``block_pattern``."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if num_layers > 0:
+        body = num_layers - len(cfg.prefix_pattern)
+        if body <= 0 or body % len(cfg.block_pattern):
+            raise ValueError(
+                f"num_layers={num_layers}: {cfg.name} needs its "
+                f"{len(cfg.prefix_pattern)} prefix layers and whole repeats "
+                f"of its {len(cfg.block_pattern)}-layer block pattern")
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    rng = np.random.default_rng(seed)
+    media = None
+    if cfg.uses_media:
+        xa = cfg.cross_attn
+        media = rng.normal(size=(xa.num_media_tokens, xa.d_media)).astype(
+            np.float32) * 0.1
     ro = RolloutConfig(batch_size=1, group_size=1,
                        max_prompt_len=max_prompt_len,
                        max_response_len=max_tokens, concurrency=concurrency,
@@ -218,7 +238,8 @@ def make_serve_engine(arch: str = "tiny", *, smoke: bool = False,
     params = M.init_params(cfg, seed=seed, device=dev,
                            compute_dtype=torch_dtype(cfg.dtype))
     return ServeEngine(cfg, ro, eos_id=cfg.vocab_size - 1, params=params,
-                       key=prng.PRNGKey(seed + 1), device=dev), cfg
+                       key=prng.PRNGKey(seed + 1), media=media,
+                       device=dev), cfg
 
 
 def main(argv=None):
@@ -237,6 +258,10 @@ def main(argv=None):
     ap.add_argument("--kv-page-size", type=int, default=16)
     ap.add_argument("--kv-num-pages", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--num-layers", type=int, default=0,
+                    help="serve this many layers of the config at its "
+                         "widths (0: all): the prefix and whole repeats "
+                         "of its block pattern")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -246,7 +271,7 @@ def main(argv=None):
         max_tokens=args.max_tokens, concurrency=args.concurrency,
         temperature=args.temperature, kv_backend=args.kv_backend,
         kv_page_size=args.kv_page_size, kv_num_pages=args.kv_num_pages,
-        seed=args.seed, device=args.device)
+        seed=args.seed, device=args.device, num_layers=args.num_layers)
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         serve.submit(GenerateRequest(

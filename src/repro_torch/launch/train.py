@@ -19,9 +19,13 @@ demonstrations). ``--disaggregated`` raises: it is SPMD. On the CPU:
         --device cpu --steps 2 --sft-warmup 3 --overlap \\
         --task multiturn_math --max-response 32 --eval-every 0
 
-Every registered arch trains on the GPU, hymba-1.5b and rwkv6-1.6b included
-(their scans' backward runs in the kernels of ``csrc/ssm_scan.cu`` and
-``csrc/wkv6.cu``):
+Every registered arch but the VLM trains on the GPU: hymba-1.5b and
+rwkv6-1.6b (their scans' backward runs in the kernels of
+``csrc/ssm_scan.cu`` and ``csrc/wkv6.cu``), and the MoEs deepseek-moe-16b
+and qwen3-moe-235b-a22b (the loss adds ``router_aux_coef`` times the
+router's load-balance loss). llama-3.2-vision-90b needs media in every
+forward but decode, and these tasks' rollouts carry none, as in the
+reference; its loss takes ``mb["media"]`` (``core/copris.make_loss_fn``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
         --steps 2 --sft-warmup 4 --max-response 124 --eval-every 0

@@ -1,5 +1,6 @@
 """GQA attention: chunked-causal (flash-style online softmax) for prefill,
-and single-token decode against the dense or the paged KV cache.
+single-token decode against the dense or the paged KV cache, and the VLM's
+non-causal cross-attention to media tokens.
 
 :func:`chunked_attention` and :func:`decode_attention` are the plain PyTorch
 versions of the prefill and decode kernels (``hopper/flash_attn.py``,
@@ -26,7 +27,10 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
-def init_attention(cfg, dtype, device, gen):
+def init_attention(cfg, dtype, device, gen, *, cross: bool = False):
+    """Self-attention projections (with qk-norm scales where the config has
+    them); ``cross`` makes the cross-attention's: no qk-norm, and the
+    llama-vision tanh ``gate``, zero at init."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
         "wq": dense_init((d, h * hd), dtype, device, gen),
@@ -34,9 +38,11 @@ def init_attention(cfg, dtype, device, gen):
         "wv": dense_init((d, kv * hd), dtype, device, gen),
         "wo": dense_init((h * hd, d), dtype, device, gen, fan_in=h * hd),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones(hd, dtype=dtype, device=device)
         p["k_norm"] = torch.ones(hd, dtype=dtype, device=device)
+    if cross:
+        p["gate"] = torch.zeros((), dtype=dtype, device=device)
     return p
 
 
@@ -323,3 +329,28 @@ def attention_block(params, cfg, x, positions, *, kind: str, kv_cache=None,
 
     y = out.flatten(-2) @ params["wo"].to(dt)
     return y, new_kv
+
+
+def cross_attention_block(params, cfg, x, media, *, media_kv=None):
+    """Tanh-gated (llama-vision) non-causal cross-attention of x (B, S, d)
+    to the projected media embeddings ``media`` (B, M, d).
+
+    ``media_kv``: the cached (mk, mv) (B, M, KV, hd), which decode reads
+    instead of projecting the media again (they are static per request:
+    prefill writes them into the slot cache). Train, prefill and decode all
+    run the flash kernel with ``causal=False``: q (B, S, H, hd) against the
+    M media keys, and at decode the same kernel at S = 1 (one query row
+    against every key: a 64-row q tile with one live row). On CPU tensors
+    it is the plain ``chunked_attention``, as in the reference. Returns
+    (y, (mk, mv))."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).unflatten(-1, (h, hd))
+    if media_kv is None:
+        k = (media @ params["wk"].to(dt)).unflatten(-1, (kv, hd))
+        v = (media @ params["wv"].to(dt)).unflatten(-1, (kv, hd))
+    else:
+        k, v = (t.to(dt) for t in media_kv)
+    out = flash_op.flash_attention(q, k, v, causal=False)
+    y = out.flatten(-2) @ params["wo"].to(dt)
+    return torch.tanh(params["gate"].to(dt)) * y, (k, v)

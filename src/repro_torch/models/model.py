@@ -15,9 +15,16 @@ Public entry points (plain functions over a parameter dict):
   token, against a dense cache or (``paged``) an ``init_paged_cache`` one
 * ``decode_scan(...)`` — ``steps`` decode+sample iterations, no host sync
 
+The train-mode entry points take ``media`` (B, M, d_media), the VLM's
+frontend embeddings (which the VLM requires there and in ``prefill``;
+decode reads the media K/V its prefill cached), and with ``return_aux``
+also return the reference's aux dict ``{"router_aux": sum of the MoE
+layers' load-balance losses}``.
+
 Parameters: ``{"embed": {"tok": (V, d)}, "layers": [per-layer dict, ...],
-"final_norm": (d,)}`` plus ``"lm_head": (d, V)`` for untied embeddings.
-``convert.params_from_jax`` builds the same structure from the JAX pytree.
+"final_norm": (d,)}`` plus ``"lm_head": (d, V)`` for untied embeddings and
+``embed.media_proj`` (d_media, d) for the VLM. ``convert.params_from_jax``
+builds the same structure from the JAX pytree.
 """
 from __future__ import annotations
 
@@ -44,8 +51,6 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     those parameters, each layer cast as soon as it is made, so the
     ``param_dtype`` copy of the whole model never exists at once (serving a
     model whose float32 weights do not fit the card)."""
-    if cfg.uses_media:
-        raise NotImplementedError("media (VLM) models are not ported yet")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -63,6 +68,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), dtype,
                                        dev, gen)
+    if cfg.uses_media:
+        params["embed"]["media_proj"] = dense_init(
+            (cfg.cross_attn.d_media, cfg.d_model), dtype, dev, gen)
     if compute_dtype is not None:
         params = _cast_outer(params, layers, compute_dtype, dev)
     return params
@@ -82,8 +90,11 @@ def cast_params(params, dtype, device=None):
     projections, MLP, embedding, lm_head and hymba's ``beta`` in ``dtype``;
     the norm scales in their own dtype, since rms_norm reads them in
     float32; the float32 leaves of ``_F32_KEYS`` as they are. Casting once
-    equals the reference's per-use ``.astype``. Tensors already in the
-    wanted dtype and device are shared, not copied."""
+    equals the reference's per-use ``.astype``. The MoE router stays
+    float32 (the reference routes in float32); its experts, the shared
+    experts, the cross-attention with its gate, ``mlp_gate`` and
+    ``media_proj`` take ``dtype``. Tensors already in the wanted dtype and
+    device are shared, not copied."""
     return _cast_outer(params, [_cast_layer(p, dtype, device)
                                 for p in params["layers"]], dtype, device)
 
@@ -94,7 +105,8 @@ def _cast_outer(params, layers, dtype, device):
     def mm(t):
         return t.to(device=device, dtype=dtype)
 
-    out = {"embed": {"tok": mm(params["embed"]["tok"])}, "layers": layers,
+    out = {"embed": {k: mm(t) for k, t in params["embed"].items()},
+           "layers": layers,
            "final_norm": params["final_norm"].to(device=device)}
     if "lm_head" in params:
         out["lm_head"] = mm(params["lm_head"])
@@ -113,15 +125,19 @@ def _cast_layer(p, dtype, device):
     for name, v in p.items():
         if name in _NORM_KEYS:
             out[name] = keep(v)
-        elif name == "attn":
-            out[name] = {k: (mm(t) if k in _MATMUL_KEYS else keep(t))
+        elif name in ("attn", "xattn"):         # xattn's tanh gate: dtype
+            out[name] = {k: (mm(t) if k in _MATMUL_KEYS or k == "gate"
+                             else keep(t))
                          for k, t in v.items()}
         elif name in _F32_KEYS:
             out[name] = {k: (keep(t) if k in _F32_KEYS[name] else mm(t))
                          for k, t in v.items()}
-        elif name == "mlp":
-            out[name] = {k: mm(t) for k, t in v.items()}
-        else:                                           # hymba's beta
+        elif name in ("mlp", "moe"):
+            out[name] = {k: (keep(t) if k == "router"
+                             else {kk: mm(tt) for kk, tt in t.items()}
+                             if isinstance(t, dict) else mm(t))
+                         for k, t in v.items()}
+        else:                           # hymba's beta, xattn's mlp_gate
             out[name] = mm(v)
     return out
 
@@ -156,6 +172,18 @@ def _embed(params, cfg: ModelConfig, tokens):
     return x
 
 
+def _project_media(params, cfg: ModelConfig, media, *, mode="train"):
+    """media (B, M, d_media) -> (B, M, d) in the compute dtype. A media
+    model needs its media in every mode but decode, which reads the media
+    K/V its prefill cached."""
+    if media is None and cfg.uses_media and mode != "decode":
+        raise ValueError(f"{cfg.name} requires media embeddings")
+    if media is None:
+        return None
+    dt = torch_dtype(cfg.dtype)
+    return media.to(dt) @ params["embed"]["media_proj"].to(dt)
+
+
 def unembed_weight(params, cfg: ModelConfig):
     """The (d, V) unembedding matrix: the tied (V, d) embedding as a
     transposed view (so its gradient reaches ``embed.tok`` in its own
@@ -171,10 +199,11 @@ def _logits(params, cfg: ModelConfig, x):
     return out
 
 
-def backbone(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
-             cache_len=None, seq_mask=None, lengths=None, mode="train",
-             remat=False, paged=None):
-    """Embed + stack + final norm. Returns (hidden (B, S, d), new_cache)."""
+def backbone(params, cfg: ModelConfig, tokens, *, positions=None, media=None,
+             cache=None, cache_len=None, seq_mask=None, lengths=None,
+             mode="train", remat=False, paged=None):
+    """Embed + stack + final norm. Returns (hidden (B, S, d), new_cache,
+    aux): ``aux`` the sum of the MoE layers' router losses, float32."""
     B, S = tokens.shape
     if positions is None:
         if mode == "decode":
@@ -182,28 +211,36 @@ def backbone(params, cfg: ModelConfig, tokens, *, positions=None, cache=None,
         else:
             positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = _embed(params, cfg, tokens)
-    x, new_cache = transformer.apply_stack(
-        params["layers"], cfg, x, positions=positions, cache=cache,
-        cache_len=cache_len, seq_mask=seq_mask, lengths=lengths, mode=mode,
-        remat=remat, paged=paged)
+    media_p = _project_media(params, cfg, media, mode=mode)
+    x, new_cache, aux = transformer.apply_stack(
+        params["layers"], cfg, x, positions=positions, media=media_p,
+        cache=cache, cache_len=cache_len, seq_mask=seq_mask, lengths=lengths,
+        mode=mode, remat=remat, paged=paged)
     x = rms_norm(x, params["final_norm"], eps=cfg.rms_eps)
-    return x, new_cache
+    return x, new_cache, aux
 
 
-def forward_train(params, cfg: ModelConfig, tokens, *, remat=False):
-    """Full-sequence logits (B, S, V) float32 (causal, no cache).
-    Differentiable in ``params``; ``remat`` checkpoints each layer."""
-    x, _ = backbone(params, cfg, tokens, mode="train", remat=remat)
-    return _logits(params, cfg, x)
+def forward_train(params, cfg: ModelConfig, tokens, *, media=None,
+                  remat=False, return_aux=False):
+    """Full-sequence logits (B, S, V) float32 (causal, no cache), and with
+    ``return_aux`` the aux dict. Differentiable in ``params``; ``remat``
+    checkpoints each layer."""
+    x, _, aux = backbone(params, cfg, tokens, media=media, mode="train",
+                         remat=remat)
+    logits = _logits(params, cfg, x)
+    return (logits, {"router_aux": aux}) if return_aux else logits
 
 
-def forward_hidden(params, cfg: ModelConfig, tokens, *, remat=True):
+def forward_hidden(params, cfg: ModelConfig, tokens, *, media=None,
+                   remat=True, return_aux=False):
     """Backbone only: final-norm hidden states (B, S, d) in the compute
-    dtype. The pre-unembedding entry point of the fused loss
-    (``hopper/fused_is_grpo``), which reads (hidden, unembed_weight) and
-    never materialises the (B, S, V) logits."""
-    x, _ = backbone(params, cfg, tokens, mode="train", remat=remat)
-    return x
+    dtype, and with ``return_aux`` the aux dict. The pre-unembedding entry
+    point of the fused loss (``hopper/fused_is_grpo``), which reads
+    (hidden, unembed_weight) and never materialises the (B, S, V)
+    logits."""
+    x, _, aux = backbone(params, cfg, tokens, media=media, mode="train",
+                         remat=remat)
+    return (x, {"router_aux": aux}) if return_aux else x
 
 
 def token_logprobs_from_logits(logits, targets):
@@ -213,50 +250,60 @@ def token_logprobs_from_logits(logits, targets):
     return tgt - lse
 
 
-def score_logprobs(params, cfg: ModelConfig, tokens, targets, *, remat=True):
+def score_logprobs(params, cfg: ModelConfig, tokens, targets, *, media=None,
+                   remat=True, return_aux=False):
     """Per-token log-prob of ``targets`` given ``tokens`` (same length;
     targets[t] is the next-token label of position t), float32 (B, S),
     differentiable in ``params``. The fused vocab-blocked op
     (``hopper/fused_logprob``) reads the final hidden states and the
-    unembedding and never materialises the (B, S, V) logits."""
-    x = forward_hidden(params, cfg, tokens, remat=remat)
-    return flp.fused_logprob(x, unembed_weight(params, cfg), targets,
-                             logit_softcap=cfg.logit_softcap)
+    unembedding and never materialises the (B, S, V) logits. With
+    ``return_aux`` also the aux dict."""
+    x, aux = forward_hidden(params, cfg, tokens, media=media, remat=remat,
+                            return_aux=True)
+    lp = flp.fused_logprob(x, unembed_weight(params, cfg), targets,
+                           logit_softcap=cfg.logit_softcap)
+    return (lp, aux) if return_aux else lp
 
 
 # -- serving ----------------------------------------------------------------
 
 
-def prefill(params, cfg: ModelConfig, tokens, lengths, cache):
+def prefill(params, cfg: ModelConfig, tokens, lengths, cache, *, media=None):
     """Seed ``cache`` (written in place) with right-padded prompts.
 
     tokens: (B, S) right-padded; lengths: (B,) true lengths; cache: a stack
     cache with max_len >= S. The recurrent blocks freeze their state over
     the pads (``seq_mask``) and take their carries at each row's last real
-    token (``lengths``). Returns (next_token_logits (B, V), cache)."""
+    token (``lengths``). A media model's ``media`` (B, M, d_media) seeds
+    its xattn layers' media K/V. Returns (next_token_logits (B, V),
+    cache)."""
     S = tokens.shape[1]
     seq_mask = torch.arange(S, device=tokens.device)[None, :] \
         < lengths[:, None]
-    x, new_cache = backbone(params, cfg, tokens, cache=cache,
-                            seq_mask=seq_mask, lengths=lengths,
-                            mode="prefill")
+    x, new_cache, _ = backbone(params, cfg, tokens, media=media, cache=cache,
+                               seq_mask=seq_mask, lengths=lengths,
+                               mode="prefill")
     last = _gather_last(x, lengths)                      # (B, d)
     return _logits(params, cfg, last), new_cache
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, cache_len, *,
-                paged=None):
+                media=None, paged=None):
     """token: (B,) int — the *input* token; cache_len: (B,) int32. Returns
     logits (B, V) for the next token and the cache, with the token's K/V
     written at cache_len. ``paged=(block_table (B, max_pages) int32,
-    page_size)`` decodes against an :func:`init_paged_cache` cache."""
-    x, new_cache = backbone(params, cfg, token[:, None], cache=cache,
-                            cache_len=cache_len, mode="decode", paged=paged)
+    page_size)`` decodes against an :func:`init_paged_cache` cache. The
+    xattn layers read the media K/V in the cache, so ``media`` is optional
+    here (projected, then unused, as in the reference)."""
+    x, new_cache, _ = backbone(params, cfg, token[:, None], media=media,
+                               cache=cache, cache_len=cache_len,
+                               mode="decode", paged=paged)
     return _logits(params, cfg, x)[:, 0], new_cache
 
 
 def decode_scan(params, cfg: ModelConfig, cache, last_token, cache_len,
-                active, aux, *, steps: int, step_fn, paged=None):
+                active, aux, *, steps: int, step_fn, media=None,
+                paged=None):
     """Run ``steps`` decode+sample iterations on the device, with no host
     synchronisation inside (no ``.item()``, no ``.cpu()``), so the loop can be
     captured as a CUDA graph. The caller supplies the sampling / stop policy::
@@ -277,7 +324,7 @@ def decode_scan(params, cfg: ModelConfig, cache, last_token, cache_len,
     clen, last_tok, act, a = cache_len, last_token, active, aux
     for _ in range(steps):
         logits, cache = decode_step(params, cfg, last_tok, cache, clen,
-                                    paged=paged)
+                                    media=media, paged=paged)
         tok, logp, stop, a = step_fn(logits, clen, act, a)
         clen = clen + act.to(clen.dtype)
         last_tok = torch.where(act, tok.to(last_tok.dtype), last_tok)

@@ -1,18 +1,21 @@
-"""Decoder stack over the ported block kinds: the attention kinds (attn /
-local / global), the hybrid ``hymba`` (parallel sliding-window attention and
-SSM heads, fused by learned scalars, shared MLP) and the attention-free
-``rwkv`` (RWKV6 time-mix + channel-mix).
+"""Decoder stack over the reference's block kinds: the attention kinds (attn
+/ local / global), ``moe`` (self-attention + a mixture-of-experts FFN), the
+VLM's ``xattn`` (tanh-gated cross-attention to media tokens + a tanh-gated
+MLP), the hybrid ``hymba`` (parallel sliding-window attention and SSM heads,
+fused by learned scalars, shared MLP) and the attention-free ``rwkv``
+(RWKV6 time-mix + channel-mix).
 
 The reference stacks its repeated layers on a leading axis and runs them
 under ``lax.scan``; here the stack is a plain list of per-layer parameter
 dicts in execution order (``prefix_pattern`` layers first, then the repeats
-of ``block_pattern``) and a Python loop runs them. The reference's moe and
-xattn kinds are not ported yet.
+of ``block_pattern``) and a Python loop runs them. Every block returns its
+router loss (zero but for ``moe``), and the stack sums them.
 
 Cache leaves: attention K/V are the dict keys ``"k"``/``"v"`` (dense
-(batch, max_len, KV, hd) or paged pools); every other leaf (hymba's
-``ssm``/``conv``, rwkv's ``wkv``/``tm_prev``/``cm_prev``) is per slot, with
-no length axis. All of them are updated in place by prefill and decode.
+(batch, max_len, KV, hd) or paged pools); every other leaf (xattn's media
+K/V ``mk``/``mv`` (batch, M, KV, hd), hymba's ``ssm``/``conv``, rwkv's
+``wkv``/``tm_prev``/``cm_prev``) is per slot, with no length axis. All of
+them are updated in place by prefill (``mk``/``mv`` only there) and decode.
 """
 from __future__ import annotations
 
@@ -21,14 +24,12 @@ from typing import List
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import VALID_BLOCK_KINDS, ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
-
-ATTN_KINDS = ("attn", "local", "global")
-PORTED_KINDS = ATTN_KINDS + ("hymba", "rwkv")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -37,9 +38,9 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 
 def _check_kind(kind: str):
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ported: {PORTED_KINDS})")
+    if kind not in VALID_BLOCK_KINDS:
+        raise ValueError(f"unknown block kind {kind!r} (known: "
+                         f"{VALID_BLOCK_KINDS})")
 
 
 # ---------------------------------------------------------------------------
@@ -58,8 +59,17 @@ def init_block(cfg: ModelConfig, kind: str, dtype, device, gen):
         return {"ln1": ones(), **rwkv_mod.init_rwkv_block(cfg, dtype, device,
                                                           gen),
                 "ln2": ones()}
+    if kind == "xattn":
+        return {"ln1": ones(), "ln2": ones(),
+                "xattn": attn_mod.init_attention(cfg, dtype, device, gen,
+                                                 cross=True),
+                "mlp": init_mlp(d, cfg.d_ff, dtype, device, gen),
+                "mlp_gate": torch.zeros((), dtype=dtype, device=device)}
     p = {"ln1": ones(), "ln2": ones(),
          "attn": attn_mod.init_attention(cfg, dtype, device, gen)}
+    if kind == "moe":
+        p["moe"] = moe_mod.init_moe(cfg, dtype, device, gen)
+        return p
     if kind == "hymba":
         p["ssm"] = ssm_mod.init_ssm(cfg, dtype, device, gen)
         p["fuse_norm_a"] = ones()
@@ -74,11 +84,15 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     """``kv_pages=(num_pages, page_size)`` makes the K/V leaves physical page
     pools (num_pages, page_size, KV, hd) shared by all slots
     (``attention.paged_pool``) instead of (batch, max_len, KV, hd); the
-    recurrent state leaves keep their per-slot batch axis."""
+    recurrent state and media K/V leaves keep their per-slot batch axis."""
     _check_kind(kind)
     if kind == "rwkv":
         return rwkv_mod.init_rwkv_state(cfg, batch, dtype, device)
     kv, hd = cfg.num_kv_heads, cfg.head_dim
+    if kind == "xattn":       # static per request: written at prefill
+        shape = (batch, cfg.cross_attn.num_media_tokens, kv, hd)
+        return {"mk": torch.zeros(shape, dtype=dtype, device=device),
+                "mv": torch.zeros(shape, dtype=dtype, device=device)}
     if kv_pages is not None:
         np_, ps = kv_pages
         c = {name: attn_mod.paged_pool(np_, ps, kv, hd, dtype, device)
@@ -141,21 +155,50 @@ def _attention(params, cfg, kind, h, positions, cache, cache_len, mode,
     return a
 
 
+def _moe_ffn(params, cfg, h2):
+    """The moe block's FFN and its router loss. Decode (one token a row)
+    and ``dispatch == "dense"`` take the dropless dense dispatch: capacity
+    at a token count of one would drop whole tokens and break decode /
+    full-forward consistency. Otherwise the capacity-bounded sparse
+    dispatch; ``"shardmap"`` is an SPMD dispatch whose no-mesh branch, the
+    sparse one, is the only one on one card."""
+    if cfg.moe.dispatch == "dense" or h2.shape[1] == 1:
+        return moe_mod.apply_moe(params["moe"], cfg, h2)
+    return moe_mod.apply_moe_sparse(params["moe"], cfg, h2)
+
+
 def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
-                cache=None, cache_len=None, seq_mask=None, lengths=None,
-                mode: str = "train", paged=None):
-    """Returns (x_out, new_cache).
+                media=None, cache=None, cache_len=None, seq_mask=None,
+                lengths=None, mode: str = "train", paged=None):
+    """Returns (x_out, new_cache, aux): ``aux`` the block's router loss,
+    float32, for ``moe``, and None for every other kind.
 
     mode: "train" (no cache), "prefill" (seeds ``cache`` from right-padded
     rows: K/V at positions [0, S); the recurrent state frozen over the pads
     by ``seq_mask`` (B, S) and the conv tail and token-shift carries taken
-    at each row's last real token, ``lengths`` (B,)), "decode" (x is
-    (B, 1, d), ``cache_len`` (B,) tokens already in cache; K/V written in
-    place at cache_len, the state advanced in place, for inactive slots
-    too, as in the reference). ``paged=(block_table, page_size)`` selects
-    the paged-KV decode path (decode mode only). The cache is updated in
-    place and returned."""
+    at each row's last real token, ``lengths`` (B,); xattn's media K/V from
+    ``media`` (B, M, d), the projected media), "decode" (x is (B, 1, d),
+    ``cache_len`` (B,) tokens already in cache; K/V written in place at
+    cache_len, the state advanced in place, for inactive slots too, as in
+    the reference; xattn reads its cached media K/V). ``paged=(block_table,
+    page_size)`` selects the paged-KV decode path (decode mode only). The
+    cache is updated in place and returned."""
     _check_kind(kind)
+    aux = None
+    if kind == "xattn":
+        h = rms_norm(x, params["ln1"], eps=cfg.rms_eps)
+        media_kv = None
+        if mode == "decode" and cache is not None:
+            media_kv = (cache["mk"], cache["mv"])
+        a, (mk, mv) = attn_mod.cross_attention_block(
+            params["xattn"], cfg, h, media, media_kv=media_kv)
+        if mode == "prefill" and cache is not None:
+            cache["mk"].copy_(mk)
+            cache["mv"].copy_(mv)
+        x = x + a
+        h2 = rms_norm(x, params["ln2"], eps=cfg.rms_eps)
+        f = apply_mlp(params["mlp"], h2)
+        return x + torch.tanh(params["mlp_gate"].to(x.dtype)) * f, cache, aux
     if kind == "rwkv":
         st = cache if cache is not None else rwkv_mod.init_rwkv_state(
             cfg, x.shape[0], x.dtype, x.device)
@@ -175,7 +218,7 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
             _store(cache, "wkv", wkv)
             _store(cache, "tm_prev", tm_prev)
             _store(cache, "cm_prev", cm_prev)
-        return x + y2, cache
+        return x + y2, cache, aux
 
     h = rms_norm(x, params["ln1"], eps=cfg.rms_eps)
     a = _attention(params, cfg, "local" if kind == "hymba" else kind, h,
@@ -196,36 +239,55 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
              + beta[1] * rms_norm(s, params["fuse_norm_s"], eps=cfg.rms_eps))
     x = x + a
     h2 = rms_norm(x, params["ln2"], eps=cfg.rms_eps)
-    return x + apply_mlp(params["mlp"], h2), cache
+    if kind == "moe":
+        f, aux = _moe_ffn(params, cfg, h2)
+        return x + f, cache, aux
+    return x + apply_mlp(params["mlp"], h2), cache, aux
 
 
-def apply_stack(params, cfg: ModelConfig, x, *, positions, cache=None,
-                cache_len=None, seq_mask=None, lengths=None,
+def apply_stack(params, cfg: ModelConfig, x, *, positions, media=None,
+                cache=None, cache_len=None, seq_mask=None, lengths=None,
                 mode: str = "train", remat: bool = False, paged=None):
-    """Run all layers. Returns (x, new_cache).
+    """Run all layers. Returns (x, new_cache, aux): ``aux`` the sum of the
+    layers' router losses, float32.
 
     ``remat`` (train mode, with autograd on): each layer runs under
     ``torch.utils.checkpoint``, keeping only its input and recomputing its
     activations in the backward — the reference's ``jax.checkpoint`` of the
     scanned layer body. ``paged`` (the block table and page size) is shared
-    by every layer; each layer has its own page pools."""
+    by every layer; each layer has its own page pools. ``media`` (B, M, d),
+    the projected media, is read by every xattn layer."""
     new_cache = None if cache is None else []
+    aux_total = None
     ckpt = remat and mode == "train" and torch.is_grad_enabled()
     for i, kind in enumerate(layer_kinds(cfg)):
         c = cache[i] if cache is not None else None
-        if ckpt:
+        aux = None
+        if ckpt and kind == "moe":
+            x, aux = checkpoint(_train_block, params[i], cfg, kind, x,
+                                positions, media, use_reentrant=False)
+            nc = None
+        elif ckpt:
             x = checkpoint(_train_block, params[i], cfg, kind, x, positions,
-                           use_reentrant=False)
+                           media, use_reentrant=False)
             nc = None
         else:
-            x, nc = apply_block(params[i], cfg, kind, x, positions=positions,
-                                cache=c, cache_len=cache_len,
-                                seq_mask=seq_mask, lengths=lengths,
-                                mode=mode, paged=paged)
+            x, nc, aux = apply_block(params[i], cfg, kind, x,
+                                     positions=positions, media=media,
+                                     cache=c, cache_len=cache_len,
+                                     seq_mask=seq_mask, lengths=lengths,
+                                     mode=mode, paged=paged)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
         if new_cache is not None:
             new_cache.append(nc)
-    return x, new_cache
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux_total
 
 
-def _train_block(params, cfg, kind, x, positions):
-    return apply_block(params, cfg, kind, x, positions=positions)[0]
+def _train_block(params, cfg, kind, x, positions, media):
+    """One layer in train mode: x, or (x, aux) for a moe layer."""
+    x, _, aux = apply_block(params, cfg, kind, x, positions=positions,
+                            media=media)
+    return x if aux is None else (x, aux)

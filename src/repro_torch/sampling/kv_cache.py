@@ -2,10 +2,11 @@
 
 The engine keeps a *fixed pool* of ``N'`` slots; every slot owns a region of
 the batched cache, a list of per-layer dicts of tensors: attention K/V
-(``"k"``, ``"v"``) and, for the recurrent block kinds, per-slot state
-(hymba's ``ssm``/``conv``, rwkv's ``wkv``/``tm_prev``/``cm_prev``). The
-engine never touches the layout directly: it goes through a
-:class:`CacheBackend`.
+(``"k"``, ``"v"``) and per-slot leaves: the recurrent block kinds' state
+(hymba's ``ssm``/``conv``, rwkv's ``wkv``/``tm_prev``/``cm_prev``) and the
+VLM's media K/V (xattn's ``mk``/``mv``, written at prefill, read at every
+decode step). The engine never touches the layout directly: it goes
+through a :class:`CacheBackend`.
 Two implementations, as in the reference:
 
 * :class:`DenseCache` — one dense ``max_len`` region per slot: per-layer
@@ -38,8 +39,9 @@ KV_KEYS = ("k", "v")
 def _is_kv(name: str) -> bool:
     """Attention K/V leaves are exactly the keys "k" and "v" of a layer's
     cache dict (paged where the backend pages); every other leaf (hymba's
-    ``ssm``/``conv``, rwkv's ``wkv``/``tm_prev``/``cm_prev``) has no length
-    axis and stays per slot in both backends."""
+    ``ssm``/``conv``, rwkv's ``wkv``/``tm_prev``/``cm_prev``, xattn's media
+    K/V ``mk``/``mv``) has no length axis and stays per slot in both
+    backends: inserted at prefill, copied into snapshots and back."""
     return name in KV_KEYS
 
 

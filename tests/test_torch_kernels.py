@@ -379,6 +379,43 @@ def test_flash_attention_bwd_kernel(dev, dtype, atol, B, S, H, KV, hd,
                            wide=hd >= 128 and dtype == torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype,atol,gatol", [(torch.float32, 1e-4, 1e-4),
+                                              (torch.bfloat16, 2e-2, 5e-2)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", [
+    (2, 1, 101, 8, 2, 64),                    # decode against media K/V
+    (2, 37, 129, 8, 2, 128),                  # ragged tiles on both sides
+    (1, 70, 1601, 16, 2, 128),                # 25 tiles of 64 and 1 key
+    (2, 130, 40, 4, 4, 32),                   # Sq > Sk
+])
+def test_flash_attention_kernel_noncausal_cross(dev, dtype, atol, gatol, B,
+                                                Sq, Sk, H, KV, hd):
+    """The cross-attention's mode: causal=False with Sq != Sk. The forward
+    with its logsumexp (every row sees every key) and the backward against
+    their plain versions, the bf16 backward bit-equal across launches."""
+    g = _gen(7)
+    q = torch.randn(B, Sq, H, hd, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(B, Sk, KV, hd, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, Sq, H, hd, device=dev, generator=g).to(dtype)
+    kw = dict(causal=False)
+    out, lse = flash_attn.flash_attention(q, k, v, return_lse=True, **kw)
+    ref, ref_lse = flash_attn.flash_attention_plain(q, k, v,
+                                                    return_lse=True, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    grads = flash_attn.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = flash_attn.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = flash_attn.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dq", "dk", "dv"), grads, want, again):
+        assert a.shape == b.shape and a.dtype == dtype
+        _assert_grad_close(a, b, gatol, name,
+                           wide=hd >= 128 and dtype == torch.bfloat16)
+        if dtype == torch.bfloat16:
+            assert torch.equal(a, c), name
+
+
 # the main paths' bf16 shapes: train (with lse), serve prefill, hymba
 # prefill; paper-qwen-7b's and gemma2-2b's train and prefill shapes
 TC_SHAPES = [

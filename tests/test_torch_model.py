@@ -1,7 +1,13 @@
 """Port parity: the model (weights converted from the JAX init) vs
 repro.models.model, and the port's own prefill+decode vs its full forward,
-for every dense arch of the registry (reduced): forward, prefill and decode
-(also across gemma2-2b's sliding window), and one engine collect.
+for every dense, MoE and VLM arch of the registry (reduced): forward,
+prefill and decode (also across gemma2-2b's sliding window), and one engine
+collect. The MoE smoke configs take the dropless dense dispatch, as the
+reference's do; the capacity-bounded one is held against the JAX engine
+at its default capacity factor in ``test_moe_sparse_engine_collect_vs_jax``.
+llama-3.2-vision-90b runs one 5-layer period of its pattern (4 ``attn``, 1
+``xattn``) with its tanh gates set to 0.5 / 0.7 (zero at init, where the
+cross-attention would not reach the output) and 16 media tokens a row.
 
 Tolerance: float32 model logits, atol 1e-4 (a few layers of float32
 matmuls summed in another order); engine logps atol 1e-5, tokens equal.
@@ -46,15 +52,27 @@ ARCHS = [("tiny", False), ("llama3.2-1b", True), ("gemma2-2b", True),
          ("qwen3-14b", dict(num_heads=5, num_kv_heads=1, head_dim=128)),
          ("gemma2-2b", dict(num_heads=2, num_kv_heads=1, head_dim=256)),
          ("granite-34b", dict(num_heads=48, num_kv_heads=1, head_dim=128,
-                              d_ff=256))]
-IDS = [a if not isinstance(s, dict) else f"{a}-hd{s['head_dim']}"
+                              d_ff=256)),
+         ("deepseek-moe-16b", True), ("qwen3-moe-235b-a22b", True),
+         ("llama-3.2-vision-90b",
+          dict(num_layers=5, block_pattern=("attn",) * 4 + ("xattn",)))]
+IDS = [a if not isinstance(s, dict) else
+       f"{a}-hd{s['head_dim']}" if "head_dim" in s else f"{a}-xattn"
        for a, s in ARCHS]
+
+
+def _replace(cfg, fields):
+    """``cfg`` with ``fields`` replaced; a dict value replaces fields of
+    that sub-config (``moe=dict(dispatch="sparse")``)."""
+    return dataclasses.replace(cfg, **{
+        k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+        else v for k, v in fields.items()})
 
 
 def _cfgs(arch, smoke):
     if isinstance(smoke, dict):
-        return (dataclasses.replace(jget_smoke(arch), **smoke),
-                dataclasses.replace(get_smoke_config(arch), **smoke))
+        return (_replace(jget_smoke(arch), smoke),
+                _replace(get_smoke_config(arch), smoke))
     if smoke is True:
         return jget_smoke(arch), get_smoke_config(arch)
     if smoke:
@@ -63,13 +81,41 @@ def _cfgs(arch, smoke):
     return jget_config(arch), get_config(arch)
 
 
+def _open_gates(layers):
+    """Set every xattn layer's tanh gates (zero at init) to 0.5 / 0.7."""
+    for layer in layers:
+        if "xattn" in layer:
+            layer["xattn"]["gate"] = np.full_like(layer["xattn"]["gate"], 0.5)
+            layer["mlp_gate"] = np.full_like(layer["mlp_gate"], 0.7)
+
+
+def _pair(cfg_j, cfg_t):
+    tree = jax.device_get(JM.init_params(jax.random.PRNGKey(0), cfg_j))
+    _open_gates(tree["stack"]["body"])
+    return (cfg_j, cfg_t, jax.tree.map(jnp.asarray, tree),
+            params_from_jax(tree, cfg_t, device="cpu"))
+
+
 @pytest.fixture(scope="module", params=ARCHS, ids=IDS)
 def pair(request):
-    arch, smoke = request.param
-    cfg_j, cfg_t = _cfgs(arch, smoke)
-    pj = JM.init_params(jax.random.PRNGKey(0), cfg_j)
-    pt = params_from_jax(jax.device_get(pj), cfg_t, device="cpu")
-    return cfg_j, cfg_t, pj, pt
+    return _pair(*_cfgs(*request.param))
+
+
+def _media(cfg, B, seed=0):
+    """Numpy media (B, M, d_media) for a VLM config, else None."""
+    if not cfg.uses_media:
+        return None
+    xa = cfg.cross_attn
+    return (np.random.default_rng(seed).normal(
+        size=(B, xa.num_media_tokens, xa.d_media)) * 0.1).astype(np.float32)
+
+
+def _jm(media):
+    return None if media is None else jnp.asarray(media)
+
+
+def _tm(media):
+    return None if media is None else torch.from_numpy(media)
 
 
 def _prompts(cfg, B=3, S=24, seed=0):
@@ -84,27 +130,34 @@ def test_convert_layout(pair):
     assert len(pt["layers"]) == cfg_t.num_layers
     # the last layer is the last repeat of the pattern's last block kind
     body = jax.device_get(pj)["stack"]["body"][-1]
-    np.testing.assert_array_equal(pt["layers"][-1]["attn"]["wq"].numpy(),
-                                  np.asarray(body["attn"]["wq"][-1]))
+    a = "xattn" if "xattn" in body else "attn"
+    np.testing.assert_array_equal(pt["layers"][-1][a]["wq"].numpy(),
+                                  np.asarray(body[a]["wq"][-1]))
 
 
 def test_forward_train_vs_jax(pair):
     cfg_j, cfg_t, pj, pt = pair
     toks, _ = _prompts(cfg_t)
-    ref, _ = JM.forward_train(pj, cfg_j, jnp.asarray(toks))
-    got = TM.forward_train(pt, cfg_t, torch.from_numpy(toks))
+    media = _media(cfg_t, toks.shape[0])
+    ref, aux = JM.forward_train(pj, cfg_j, jnp.asarray(toks), media=_jm(media))
+    got, taux = TM.forward_train(pt, cfg_t, torch.from_numpy(toks),
+                                 media=_tm(media), return_aux=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+    np.testing.assert_allclose(float(taux["router_aux"]),
+                               float(aux["router_aux"]), atol=1e-5)
 
 
 def test_prefill_and_decode_vs_jax(pair):
     cfg_j, cfg_t, pj, pt = pair
     toks, lens = _prompts(cfg_t)
     B, L = toks.shape[0], 48
+    media = _media(cfg_t, B)
     cj = JM.init_cache(cfg_j, B, L)
-    lj, cj = JM.prefill(pj, cfg_j, jnp.asarray(toks), jnp.asarray(lens), cj)
+    lj, cj = JM.prefill(pj, cfg_j, jnp.asarray(toks), jnp.asarray(lens), cj,
+                        media=_jm(media))
     ct = TM.init_cache(cfg_t, B, L, device="cpu")
     lt, ct = TM.prefill(pt, cfg_t, torch.from_numpy(toks),
-                        torch.from_numpy(lens), ct)
+                        torch.from_numpy(lens), ct, media=_tm(media))
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=ATOL)
     nxt = np.asarray(jnp.argmax(lj, -1), np.int32)
     dj, _ = JM.decode_step(pj, cfg_j, jnp.asarray(nxt), cj, jnp.asarray(lens))
@@ -128,11 +181,13 @@ def test_decode_scan_vs_jax(pair):
         return (torch.argmax(logits, -1).to(torch.int32), torch.zeros(B),
                 clen + 1 >= 20, aux)
 
+    media = _media(cfg_t, B)
     cj = JM.init_cache(cfg_j, B, L)
-    lj, cj = JM.prefill(pj, cfg_j, jnp.asarray(toks), jnp.asarray(lens), cj)
+    lj, cj = JM.prefill(pj, cfg_j, jnp.asarray(toks), jnp.asarray(lens), cj,
+                        media=_jm(media))
     ct = TM.init_cache(cfg_t, B, L, device="cpu")
     lt, ct = TM.prefill(pt, cfg_t, torch.from_numpy(toks),
-                        torch.from_numpy(lens), ct)
+                        torch.from_numpy(lens), ct, media=_tm(media))
     first = np.asarray(jnp.argmax(lj, -1), np.int32)
     (cj, lastj, clj, actj, _), (tj, _, aj) = JM.decode_scan(
         pj, cfg_j, cj, jnp.asarray(first), jnp.asarray(lens),
@@ -144,8 +199,10 @@ def test_decode_scan_vs_jax(pair):
     np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
     np.testing.assert_array_equal(clt.numpy(), np.asarray(clj))
     np.testing.assert_array_equal(lastt.numpy(), np.asarray(lastj))
-    kj = np.asarray(cj["body"][-1]["k"][-1])      # the last layer's cache
-    np.testing.assert_allclose(ct[-1]["k"].numpy(), kj, atol=ATOL)
+    # the last layer's cache: its K, or the media K an xattn layer holds
+    name = "mk" if "mk" in ct[-1] else "k"
+    kj = np.asarray(cj["body"][-1][name][-1])
+    np.testing.assert_allclose(ct[-1][name].numpy(), kj, atol=ATOL)
 
 
 def test_decode_across_window_vs_jax(pair):
@@ -156,12 +213,13 @@ def test_decode_across_window_vs_jax(pair):
     rng = np.random.default_rng(5)
     S, P = 80, 40
     toks = rng.integers(0, cfg_t.vocab_size, (2, S)).astype(np.int32)
-    ref, _ = JM.forward_train(pj, cfg_j, jnp.asarray(toks))
+    media = _media(cfg_t, 2)
+    ref, _ = JM.forward_train(pj, cfg_j, jnp.asarray(toks), media=_jm(media))
     ref = np.asarray(ref)
     cache = TM.init_cache(cfg_t, 2, 128, device="cpu")
     lens = torch.full((2,), P, dtype=torch.int32)
     logits, cache = TM.prefill(pt, cfg_t, torch.from_numpy(toks[:, :P]),
-                               lens, cache)
+                               lens, cache, media=_tm(media))
     np.testing.assert_allclose(logits.numpy(), ref[:, P - 1], atol=ATOL)
     for t in range(P, S):
         logits, cache = TM.decode_step(
@@ -173,9 +231,34 @@ def test_decode_across_window_vs_jax(pair):
 
 def test_engine_collect_vs_jax(pair):
     """One CoPRIS collect of each engine from the same weights, prompts and
-    stage key: equal tokens and finish reasons, logps within 1e-5."""
-    cfg_j, cfg_t, pj, pt = pair
+    stage key (and a VLM's media): equal tokens and finish reasons, logps
+    within 1e-5."""
+    _collect_vs_jax(*pair)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b"])
+def test_moe_sparse_engine_collect_vs_jax(arch):
+    """The MoE smoke configs with the capacity-bounded dispatch at the
+    default capacity factor (1.25): prefill drops the reference's (token,
+    k) pairs, since both engines prefill the same padded (rows, bucket)
+    batches; the forward and the collect match the JAX engine's."""
+    cfg_j, cfg_t, pj, pt = _pair(*_cfgs(arch, dict(moe=dict(
+        dispatch="sparse"))))
+    assert cfg_t.moe.capacity_factor == 1.25
+    toks, _ = _prompts(cfg_t)
+    ref, aux = JM.forward_train(pj, cfg_j, jnp.asarray(toks))
+    got, taux = TM.forward_train(pt, cfg_t, torch.from_numpy(toks),
+                                 return_aux=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+    np.testing.assert_allclose(float(taux["router_aux"]),
+                               float(aux["router_aux"]), atol=1e-5)
+    _collect_vs_jax(cfg_j, cfg_t, pj, pt)
+
+
+def _collect_vs_jax(cfg_j, cfg_t, pj, pt):
     V = cfg_t.vocab_size
+    media = _media(cfg_t, 1)
+    media = None if media is None else media[0]
     ro = dict(batch_size=2, group_size=2, max_prompt_len=16,
               max_response_len=8, concurrency=4, mode="copris",
               decode_chunk=4)
@@ -186,10 +269,10 @@ def test_engine_collect_vs_jax(pair):
                         None)
 
     got, st = RolloutEngine(cfg_t, RolloutConfig(**ro), source(7),
-                            eos_id=V - 1, device="cpu").collect(
+                            eos_id=V - 1, media=media, device="cpu").collect(
         pt, 0, prng.PRNGKey(3))
     ref, jst = JRolloutEngine(cfg_j, JRolloutConfig(**ro), source(7),
-                              eos_id=V - 1).collect(
+                              eos_id=V - 1, media=media).collect(
         pj, 0, jax.random.PRNGKey(3))
 
     def tmap(groups):
@@ -212,14 +295,20 @@ def test_prefill_then_decode_matches_full_forward(arch, smoke):
     decode, gives the full forward's next-token logits at every position."""
     cfg = _cfgs(arch, smoke)[1]
     params = TM.init_params(cfg, seed=3, device="cpu")
+    for layer in params["layers"]:
+        if "xattn" in layer:
+            layer["xattn"]["gate"].fill_(0.5)
+            layer["mlp_gate"].fill_(0.7)
     rng = np.random.default_rng(2)
     S, P = 20, 12
     toks = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32))
-    full = TM.forward_train(params, cfg, toks)
+    media = _tm(_media(cfg, 2))
+    full = TM.forward_train(params, cfg, toks, media=media)
     cache = TM.init_cache(cfg, 2, 64, device="cpu")
     lens = torch.full((2,), P, dtype=torch.int32)
-    logits, cache = TM.prefill(params, cfg, toks[:, :P], lens, cache)
+    logits, cache = TM.prefill(params, cfg, toks[:, :P], lens, cache,
+                               media=media)
     np.testing.assert_allclose(logits.numpy(), full[:, P - 1].numpy(),
                                atol=ATOL)
     for t in range(P, S):
@@ -241,13 +330,18 @@ def test_cast_params_bf16_keeps_norms_f32():
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-2b", "hymba-1.5b",
-                                  "rwkv6-1.6b"])
+                                  "rwkv6-1.6b", "deepseek-moe-16b",
+                                  "qwen3-moe-235b-a22b",
+                                  "llama-3.2-vision-90b"])
 def test_init_params_cast_as_made_equals_cast_params(arch):
     """init_params(compute_dtype=bf16), which casts each layer as it is
     made, gives cast_params of the float32 init bit for bit: the
-    projections in bf16, norms and the recurrences' float32 leaves kept."""
+    projections in bf16, norms and the recurrences' and the MoE router's
+    float32 leaves kept (the VLM at one 5-layer period, with its xattn
+    layer and media projection)."""
     from repro_torch.common.tree import leaves
-    cfg = get_smoke_config(arch)
+    cfg = get_config(arch).reduced(
+        num_layers=5 if arch == "llama-3.2-vision-90b" else 2)
     want = TM.cast_params(TM.init_params(cfg, seed=4, device="cpu"),
                           torch.bfloat16, "cpu")
     got = TM.init_params(cfg, seed=4, device="cpu",

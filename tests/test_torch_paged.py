@@ -15,7 +15,14 @@
   orders), one prefill per group, admission pressure with blocking and
   preemption, kv_snapshot resume under preemption, and the port's paged
   engine against the JAX paged engine (tokens equal, logps atol 1e-5);
-* serving: paged returns the dense token streams.
+* serving: paged returns the dense token streams;
+* the MoE and VLM configs: paged equals dense on the two MoE smoke configs
+  with the capacity-bounded dispatch at ``capacity_factor=16.0`` (no
+  (token, k) pair dropped, so a request's tokens do not depend on the rows
+  it is prefilled beside, and the two backends may batch differently); the
+  VLM's media K/V (``mk``/``mv``, per slot) travel in both backends'
+  snapshots and come back in another slot, and a paged kv_snapshot run
+  under preemption equals the dense run.
 
 Paged equals dense: tokens equal; behaviour logps equal to atol 1e-6 with
 prefix sharing on — a shared prefill runs fewer rows, and the CPU GEMM's
@@ -560,3 +567,111 @@ def test_serve_paged_matches_dense():
         streams.append({r.request_id: r.tokens for r in out})
         serve.close()
     assert streams[0] == streams[1]
+
+
+# -- MoE and VLM ---------------------------------------------------------------
+
+
+def _moe_cfg(arch):
+    import dataclasses
+    cfg = get_config(arch).reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch="sparse", capacity_factor=16.0))
+
+
+def _vlm_cfg():
+    return get_config("llama-3.2-vision-90b").reduced(num_layers=5)
+
+
+def _vlm_media(cfg):
+    xa = cfg.cross_attn
+    return (np.random.default_rng(3).normal(
+        size=(xa.num_media_tokens, xa.d_media)) * 0.1).astype(np.float32)
+
+
+def _open(params):
+    for layer in params["layers"]:
+        if "xattn" in layer:
+            layer["xattn"]["gate"].fill_(0.5)
+            layer["mlp_gate"].fill_(0.7)
+    return params
+
+
+def _run_cfg(cfg, params, backend, *, media=None, **kw):
+    task = AdditionTask(max_value=20, seed=9)
+    base = dict(batch_size=3, group_size=2, max_prompt_len=16,
+                max_response_len=16, concurrency=4, mode="copris",
+                decode_chunk=4, kv_backend=backend)
+    base.update(kw)
+    eng = RolloutEngine(cfg, RolloutConfig(**base), task.sample_prompt,
+                        eos_id=EOS, media=media, device="cpu")
+    return eng.collect(params, 0, prng.PRNGKey(42))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b"])
+def test_moe_engine_paged_equals_dense_with_headroom(arch):
+    """Sparse dispatch at capacity_factor 16: paged (with prefix sharing,
+    and under page pressure with preemption) gives the dense content."""
+    cfg = _moe_cfg(arch)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    gd, _ = _run_cfg(cfg, params, "dense")
+    gp, sp = _run_cfg(cfg, params, "paged", kv_page_size=8)
+    assert sp["shared_prefill_rows"] > 0
+    base = _tmap(gd)
+    assert set(base) == set(_tmap(gp))
+    _assert_same_content(base, _tmap(gp), logp_atol=1e-5)
+    gq, sq = _run_cfg(cfg, params, "paged", kv_page_size=8, kv_num_pages=8)
+    assert sq["page_preemptions"] > 0
+    _assert_same_content(base, _tmap(gq), logp_atol=1e-5)
+
+
+@pytest.mark.parametrize("backend", ["dense", "paged"])
+def test_media_kv_travels_in_snapshots(backend):
+    """A prefilled slot's media K/V are the projected media's, its snapshot
+    carries them, and inserting it into another slot of a fresh cache
+    restores them there (the other slots stay zero)."""
+    cfg = _vlm_cfg()
+    params = _open(M.init_params(cfg, seed=0, device="cpu"))
+    media = torch.from_numpy(_vlm_media(cfg))
+    kw = dict(page_size=8, num_pages=12) if backend == "paged" else {}
+    b = kvc.make_backend(backend, cfg, 2, 32, device="cpu", **kw)
+    toks = torch.arange(1, 9)[None].repeat(2, 1)
+    lengths = torch.tensor([8, 5], dtype=torch.int32)
+    scratch = M.init_cache(cfg, 2, 8, device="cpu")
+    M.prefill(params, cfg, toks, lengths, scratch,
+              media=media[None].expand(2, *media.shape))
+    flat = np.full((2, 8), -1)
+    if backend == "paged":
+        for i in range(2):
+            fp = b.alloc_slot_prefix(i, int(lengths[i]))
+            flat[i, :len(fp)] = fp
+        kvc.paged_insert_rows(b.cache, scratch, np.arange(2), np.arange(2),
+                              flat)
+    else:
+        kvc.dense_insert_rows(b.cache, scratch, np.arange(2), np.arange(2))
+    x = params["layers"][4]
+    proj = media @ params["embed"]["media_proj"]
+    want_k = (proj @ x["xattn"]["wk"]).unflatten(-1, (cfg.num_kv_heads,
+                                                       cfg.head_dim))
+    torch.testing.assert_close(b.cache[4]["mk"][1], want_k)
+    snap = b.extract_snapshot(1)
+    b2 = kvc.make_backend(backend, cfg, 3, 32, device="cpu", **kw)
+    b2.insert_snapshot(snap, 2)
+    for name in ("mk", "mv"):
+        assert torch.equal(b2.cache[4][name][2], b.cache[4][name][1])
+        assert (b2.cache[4][name][:2] == 0).all()
+
+
+def test_vlm_paged_preemption_snapshot_equals_dense():
+    """The VLM engine with media, paged under page pressure with
+    kv_snapshot resumes (evicted slots come back with their media K/V from
+    the snapshot, not from a prefill), against the dense engine."""
+    cfg = _vlm_cfg()
+    params = _open(M.init_params(cfg, seed=0, device="cpu"))
+    media = _vlm_media(cfg)
+    gd, _ = _run_cfg(cfg, params, "dense", media=media,
+                     resume_strategy="kv_snapshot")
+    gp, st = _run_cfg(cfg, params, "paged", media=media, kv_page_size=8,
+                      kv_num_pages=8, resume_strategy="kv_snapshot")
+    assert st["page_preemptions"] > 0 and st["snapshot_resumes"] > 0
+    _assert_same_content(_tmap(gd), _tmap(gp), logp_atol=1e-5)

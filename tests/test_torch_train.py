@@ -99,10 +99,15 @@ def test_flash_backward_matches_reference(H, KV, window, cap):
 def _configs(arch):
     if arch == "tiny":
         return jget_config("tiny"), get_config("tiny")
-    # reduced llama3.2-1b with vocab 8192: the fused-loss branch, in f32
+    # reduced llama3.2-1b with vocab 8192: the fused-loss branch, in f32;
+    # the MoE with its published capacity-bounded dispatch (the smoke
+    # config's is the dense one), at the default capacity factor
     kw = dict(vocab_size=8192, dtype="float32")
-    return (dataclasses.replace(jget_smoke(arch), **kw),
-            dataclasses.replace(get_smoke_config(arch), **kw))
+    cfgs = (jget_smoke(arch), get_smoke_config(arch))
+    if arch == "deepseek-moe-16b":
+        cfgs = tuple(dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, dispatch="sparse")) for c in cfgs)
+    return tuple(dataclasses.replace(c, **kw) for c in cfgs)
 
 
 def _batch(cfg, N=4, T=24, seed=0):
@@ -131,7 +136,7 @@ def _jax_params(cfg_t, seed=0):
 
 
 @pytest.fixture(scope="module", params=["tiny", "llama3.2-1b", "hymba-1.5b",
-                                                "rwkv6-1.6b"])
+                                        "rwkv6-1.6b", "deepseek-moe-16b"])
 def results(request):
     """One JAX and one port evaluation per config: loss, metrics and grads
     (``make_loss_fn``), then the parameters after ``make_train_step``."""
@@ -157,7 +162,8 @@ def results(request):
         pt, adam.init(pt), tb, 1e-3)
     to_port = lambda tree: leaves(convert.params_from_jax(  # noqa: E731
         jax.device_get(tree), cfg_t, "cpu"))
-    return dict(hybrid=request.param in ("hymba-1.5b", "rwkv6-1.6b"),
+    return dict(scaled=request.param in ("hymba-1.5b", "rwkv6-1.6b",
+                                         "deepseek-moe-16b"),
                 jax=dict(loss=lv_j, metrics=m_j, grads=to_port(g_j),
                          new=to_port(pj_new), step_metrics=sm_j),
                 port=dict(loss=lv, metrics=m, grads=grads, new=leaves(pt),
@@ -175,9 +181,10 @@ def test_loss_metrics_and_grads_match_jax(results):
                                    err_msg=k)
     assert len(j["grads"]) == len(p["grads"])
     for g, r in zip(p["grads"], j["grads"]):
-        # the hybrids: 2e-5 of each leaf's largest element where that is
-        # above 1 (rwkv6's embedding gradient reaches 2.7)
-        scale = max(1.0, float(r.abs().max())) if results["hybrid"] else 1.0
+        # the hybrids and the MoE: 2e-5 of each leaf's largest element
+        # where that is above 1 (rwkv6's embedding gradient reaches 2.7,
+        # the MoE router's sums of products are larger still)
+        scale = max(1.0, float(r.abs().max())) if results["scaled"] else 1.0
         np.testing.assert_allclose(g.numpy(), r.numpy(), atol=2e-5 * scale)
     # every attention projection and every scan parameter of every layer
     # gets a gradient
@@ -186,7 +193,7 @@ def test_loss_metrics_and_grads_match_jax(results):
         assert g.shape == leaf.shape
     port_tree = unflatten(p["params"], list(p["grads"]))
     watched = {"attn": ("wq", "wk", "wv", "wo"), "ssm": ("A_log", "D"),
-               "tm": ("u", "w_base")}
+               "tm": ("u", "w_base"), "moe": ("router", "wi", "wg", "wo")}
     for layer in port_tree["layers"]:
         assert set(watched) & set(layer)
         for block, names in watched.items():
@@ -201,10 +208,10 @@ def test_train_step_adamw_matches_jax(results):
                                rtol=1e-5)
     assert int(p["state"]["step"]) == 1
     compared = 0
-    # Adam's first step is sign-like; the hybrids' gradients agree to
-    # 2e-5 of a leaf's largest element and are clipped by a norm near 48,
-    # so a gradient below 1e-3 lands within 10x of Adam's eps
-    floor = 1e-3 if results["hybrid"] else 1e-5
+    # Adam's first step is sign-like; the hybrids' and the MoE's gradients
+    # agree to 2e-5 of a leaf's largest element and are clipped by a norm
+    # near 48, so a gradient below 1e-3 lands within 10x of Adam's eps
+    floor = 1e-3 if results["scaled"] else 1e-5
     for new, ref, g in zip(p["new"], j["new"], j["grads"]):
         sel = g.abs() > floor
         compared += int(sel.sum())
@@ -261,9 +268,25 @@ def test_hybrid_trainer_step_matches_jax_trainer(arch):
     _trainer_step_matches(arch)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b"])
+def test_moe_trainer_step_matches_jax_trainer(arch):
+    """deepseek-moe-16b (reduced: a dense layer, then a MoE layer of 4
+    experts top-2 and a shared one; vocab 8192, float32, the sparse
+    dispatch): the rollout, the loss with its router term and the updated
+    parameters against the JAX trainer."""
+    tt, jt = _trainer_step_matches(arch)
+    new_t = leaves(tt.params)
+    new_j = leaves(convert.params_from_jax(jax.device_get(jt.params),
+                                           tt.cfg, "cpu"))
+    assert len(new_t) == len(new_j)
+    for a, b in zip(new_t, new_j):
+        np.testing.assert_allclose(a.detach().numpy(), b.numpy(), atol=1e-5)
+
+
 def _trainer_step_matches(arch):
     """One sequential step of each trainer from the same weights and seed:
-    equal tokens and rewards, behaviour logps and metrics atol 1e-5."""
+    equal tokens and rewards, behaviour logps and metrics atol 1e-5.
+    Returns the two trainers, stepped and closed."""
     cfg_j, cfg_t = _configs(arch)
     pj = _jax_params(cfg_t)
     ro = dict(batch_size=3, group_size=2, max_prompt_len=16,
@@ -297,9 +320,10 @@ def _trainer_step_matches(arch):
         np.testing.assert_allclose(a[key].behaviour_logps,
                                    b[key].behaviour_logps, atol=1e-5)
     for k in ("pg_loss", "ratio_mean", "approx_kl", "entropy", "grad_norm",
-              "reward_mean", "off_policy_frac"):
+              "reward_mean", "off_policy_frac", "router_aux"):
         np.testing.assert_allclose(out_t[k], out_j[k], atol=1e-5, err_msg=k)
     assert out_t["step"] == out_j["step"] == 0 and tt.stage == 1
+    return tt, jt
 
 
 def test_trainer_refuses_unported_pipelines():
