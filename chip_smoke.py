@@ -8,8 +8,10 @@ rwkv6-1.6b at full width, the archs with wide heads (head_dim 128 and 256,
 any GQA ratio): the paper's own paper-qwen-7b, gemma2-2b, qwen3-14b and
 granite-34b, with musicgen-medium, and the mixtures of experts
 deepseek-moe-16b and qwen3-moe-235b-a22b and the VLM llama-3.2-vision-90b
-(cross-attention to 1601 media tokens), through the port's hand-written
-kernels.
+(cross-attention to 1601 media tokens), the sharded update on
+torch.distributed (a (1, 1) mesh over NCCL, the expert-parallel MoE
+dispatch, the torchrun launcher) and the disaggregated trainer, through
+the port's hand-written kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
     python3 chip_smoke.py --ab DIR # llama3.2-1b's attention and loss
@@ -25,6 +27,10 @@ start):
 
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds every kernel source from csrc/, in parallel;
+   then "multihost": ``python -m torch.distributed.run --standalone
+   --nproc-per-node 1 -m repro_torch.launch.multihost --arch llama3.2-1b
+   --steps 2`` (global batch 8 x 512, a (1, 1) mesh over NCCL) as a
+   subprocess, which must exit 0 with two finite losses;
    cuobjdump counts the HGMMA (wgmma) instructions of the two flash
    libraries and of the loss library (its bf16 forward, dl, dh and dw
    kernels), which must have some; ptxas's registers and spills of the
@@ -128,7 +134,8 @@ start):
    profile phase's two chunks over the paged cache;
 6. copris  — two RolloutEngine.collect stages: the first buffers partials
    (early termination), the second resumes them;
-   then "serve_hymba", "serve_hymba_paged" (40% of the pages) and
+   then "serve_hymba" (16 of its 32 layers), "serve_hymba_paged" (8 of
+   its 32 layers, 40% of the pages) and
    "serve_rwkv6": 24 requests each at full width, each with its profile;
    then "copris_hybrid": two stages on each family (hymba resuming from
    kv_snapshot, rwkv6 by re-prefill), evicting and resuming;
@@ -156,6 +163,12 @@ start):
    with EOS), max_response_len 64: environment steps and second turns,
    observation positions with loss mask 0, behaviour log-prob 0 and stage
    -1, every kernel launched, env_wait_time and step times; then
+   "train_disaggregated": three steps from the same weights with
+   overlap=True, disaggregated=True, train and rollout on cuda:0 (every
+   version the reshard's copy on a copy stream): the store's freshest
+   version equal to the consumer's params bit for bit at every stage,
+   reshard_time (the copies' span on their stream) a step and the step
+   times beside train_overlap's; then
    "train_paged": two CoPRISTrainer.step()
    calls at full width over the paged KV cache with half the
    dense-equivalent pages and the legacy fused_loss=False loss: prefix
@@ -168,7 +181,7 @@ start):
    of one more update;
    then the wide-head archs through the same entry points, one at a time,
    each freed before the next: "serve_qwen7b" (paper-qwen-7b at full
-   depth) and "serve_qwen7b_paged" (14 of its 28 layers, 40% of the
+   depth) and "serve_qwen7b_paged" (7 of its 28 layers, 40% of the
    pages), "copris_qwen7b" (two
    stages), "train_qwen7b" (4 of its 28 layers at full width: SFT, then
    two steps with the fused loss at d 3584 / V 152064), "serve_gemma2"
@@ -178,11 +191,24 @@ start):
    not fit the card), "serve_musicgen" and "train_musicgen" (24 of its 48
    layers, V 2048: the full-logits loss; one step; the three half depths
    keep the run near 600 s); then the MoE and VLM archs: "serve_deepseek"
-   (deepseek-moe-16b at full depth) and "serve_deepseek_paged" (14 of its
+   (deepseek-moe-16b at full depth) and "serve_deepseek_paged" (7 of its
    28 layers, 40% of the pages), "copris_deepseek" (two stages, evicting
    and re-prefilling), "train_deepseek" (its dense first layer and two MoE
    layers at full width: SFT, then two steps; ``router_aux`` finite and >
-   0 in each), "serve_qwen3_moe" (8 of its 94 layers), "serve_vision"
+   0 in each), "train_sharded" (two make_train_step updates of
+   llama3.2-1b at full width and depth on seeded 32 x 128 batches,
+   unsharded and on a (1, 1) ("data", "model") mesh in a NCCL process
+   group of world size 1: params, AdamW state and batch as DTensors, the
+   flash and loss kernels on the local shards through local_map; each
+   leaf's update and AdamW moments within 1e-4 of its largest element,
+   loss and grad_norm, the flash and loss kernels launched in the sharded
+   run, both runs' update times and peak memory; the group destroyed
+   after it), "train_moe_ep" (the same 1 + 2 layers: make_loss_fn and
+   its gradient with dispatch="shardmap" on the (1, 1) mesh, two
+   all-to-all exchanges a MoE layer, against "sparse" unsharded from the
+   same weights: in bf16 and in float32 loss and metrics within 1e-4 and
+   each gradient leaf within 1e-4 of its largest element, every kernel
+   launched in bf16), "serve_qwen3_moe" (8 of its 94 layers), "serve_vision"
    (llama-3.2-vision-90b at 10 of its 100 layers, two xattn layers, with
    its 1601 x 7680 media), "grad_vision" (its loss and gradient with
    mb["media"] at one 5-layer period, float32 weights: the non-causal
@@ -2498,6 +2524,7 @@ def train_overlap_phase(torch, np, kernels, sft, steps=4):
          sequential_step_time=sft["step_time"], peak_mem_gb=peak,
          launches=launches)
     emit("train_overlap_profile", **prof)
+    sft["overlap_steps"] = [{k: o[k] for k in STEP_REPORT} for o in outs]
     check_overlapped(np, "train_overlap", outs, launches)
     if not any(o["param_staleness"] == 1 for o in outs):
         fail("train_overlap: no batch was collected one update behind")
@@ -2506,6 +2533,370 @@ def train_overlap_phase(torch, np, kernels, sft, steps=4):
         fail(f"train_overlap: in the profiled step no collect ran on another "
              f"stream during the update: {ev}")
     return launches
+
+
+def train_disaggregated_phase(torch, np, kernels, sft, steps=3):
+    """The disaggregated trainer at full width: llama3.2-1b in the
+    train_overlap phase's configuration from the same SFT-warmed weights,
+    with overlap=True, disaggregated=True, train and rollout on cuda:0:
+    every published version is the reshard's copy onto the rollout device
+    (a copy stream, fenced by the store's event). Checks: at every stage
+    (the construction's version 0 and after each step) the store's
+    freshest version equals the consumer's params bit for bit, the
+    overlapped pipeline's checks, reshard_time > 0 each step, every
+    kernel of the path launched. Reports reshard_time (the copies' span
+    on the copy stream, CUDA events) and the step, rollout and update
+    times beside train_overlap's. Returns the launch counts."""
+    from repro_torch.common.config import RolloutConfig, TrainConfig
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core.copris import CoPRISTrainer
+    from repro_torch.data.tasks import EOS, AdditionTask
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=4,
+                       max_response_len=124, concurrency=16, mode="copris",
+                       temperature=1.0)
+    tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=0, overlap=True,
+                     max_staleness=1, disaggregated=True)
+    tr = CoPRISTrainer(cfg, ro, tc, AdditionTask(max_value=20, seed=0),
+                       eos_id=EOS,
+                       params=tree_map(lambda t: t.cuda(), sft["params"]),
+                       rollout_device="cuda:0")
+    tr.batch_timeout = 600.0
+
+    def store_is_consumer():
+        torch.cuda.synchronize()
+        stored = tr.param_store.get(tr.stage)
+        torch.cuda.synchronize()
+        return all(torch.equal(a, b.detach())
+                   for a, b in zip(leaves(stored), leaves(tr.params)))
+
+    same = [store_is_consumer()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    outs = []
+    try:
+        for _ in range(steps):
+            out = tr.step()
+            stages = tr.last_batch["stage_ids"]
+            out["newest_token_stage"] = int(stages[stages >= 0].max())
+            outs.append(out)
+            same.append(store_is_consumer())
+    finally:
+        tr.close()
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    keys = STEP_REPORT + ("reshard_time", "dropped_versions")
+    emit("train_disaggregated", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, max_staleness=1,
+         train_device=str(tr.device), rollout_device=str(tr.rollout_device),
+         steps=[{k: o[k] for k in TRAIN_KEYS + keys} for o in outs],
+         store_equals_consumer=same,
+         train_overlap_steps=sft.get("overlap_steps"),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches)
+    check_overlapped(np, "train_disaggregated", outs, launches)
+    if not all(same):
+        fail(f"train_disaggregated: the store's version differs from the "
+             f"consumer's params at a stage: {same}")
+    if not all(o["reshard_time"] > 0.0 for o in outs):
+        fail("train_disaggregated: a step without a timed reshard")
+    return launches
+
+
+def update_batch(np, cfg, rows=32, T=128, seed=7):
+    """A seeded update batch of ``rows`` x ``T`` tokens (the train phase's
+    packed shape): random tokens, a loss span per row, behaviour log-probs
+    near a uniform policy's, normal advantages."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((rows, T), np.float32)
+    for n in range(rows):
+        mask[n, rng.integers(4, 16):rng.integers(64, T)] = 1.0
+    return dict(
+        tokens=rng.integers(0, cfg.vocab_size, (rows, T)).astype(np.int32),
+        loss_mask=mask,
+        behaviour_logp=((rng.standard_normal((rows, T)) * 0.3 - 1.0
+                         - np.log(cfg.vocab_size)) * mask).astype(np.float32),
+        advantages=rng.standard_normal(rows).astype(np.float32))
+
+
+def as_float(v):
+    """A metric's value (a DTensor one gathered first)."""
+    return float(v.full_tensor() if hasattr(v, "full_tensor") else v)
+
+
+def leaf_rel(a, b):
+    """max |a - b| over max |b| (max |a - b| where b is all zero)."""
+    scale = float(b.abs().max())
+    diff = float((a.float() - b.float()).abs().max())
+    return diff / scale if scale > 0.0 else diff
+
+
+def local_leaves(tree):
+    from repro_torch.common.tree import leaves
+    return [(t.to_local() if hasattr(t, "to_local") else t).detach()
+            for t in leaves(tree)]
+
+
+def train_sharded_phase(torch, np, kernels, steps=2):
+    """The sharded update on the card: llama3.2-1b at full width and
+    depth (f32 masters, bf16 compute, remat, the fused loss, entropy
+    0.01), ``steps`` make_train_step updates on seeded 32 x 128 batches
+    (the train phase's packed shape), once unsharded and once on a (1, 1)
+    ("data", "model") mesh in a NCCL process group of world size 1:
+    params, AdamW state and batch as DTensors placed by launch/sharding,
+    the flash and fused-loss kernels on the local shards through
+    local_map. Checks each leaf's update (params after minus before) and
+    AdamW moments against the unsharded run's, within 1e-4 of the leaf's
+    largest element (the train references' gradient tolerance), pg_loss
+    atol 1e-4 and grad_norm rtol 1e-5, and the flash forward and backward
+    and the loss's forward, dh and dw launched in the sharded run. Reports
+    both runs' update times and the peak memory above what each held
+    before its updates. Returns the sharded run's launch counts."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.partitioning import set_activation_mesh
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core.copris import make_train_step
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_single_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    tc = TrainConfig(lr=1e-5, entropy_coef=0.01, remat=True)
+    base = M.init_params(cfg, seed=3, device="cuda")
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in update_batch(np, cfg, seed=20 + i).items()}
+               for i in range(steps)]
+    step = make_train_step(cfg, tc)
+    mesh = make_single_mesh()
+
+    def run(sharded):
+        params = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                          base)
+        if sharded:
+            set_activation_mesh(mesh)
+            params = shd.shard_params(params, mesh, cfg)
+        opt = adam.init(params)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(kernels)
+        times, metrics = [], []
+        try:
+            for b in batches:
+                if sharded:
+                    b = shd.shard_batch(b, mesh)
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, b, tc.lr)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                metrics.append({k: as_float(v) for k, v in m.items()})
+        finally:
+            set_activation_mesh(None)
+        return dict(params=local_leaves(params), m=local_leaves(opt["m"]),
+                    v=local_leaves(opt["v"]), times=times, metrics=metrics,
+                    launches=read_launches(kernels),
+                    peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9)
+
+    plain = run(False)
+    try:
+        sharded = run(True)
+    finally:
+        # NCCL's buffers out of the way of the later phases (gemma2-2b's
+        # update peaks within 4 GB of the card's memory)
+        torch.distributed.destroy_process_group()
+    base_leaves = [t.detach() for t in leaves(base)]
+    errs = {"update": [leaf_rel(a - p0, b - p0) for a, b, p0 in zip(
+                sharded["params"], plain["params"], base_leaves)],
+            "m": [leaf_rel(a, b) for a, b in zip(sharded["m"], plain["m"])],
+            "v": [leaf_rel(a, b) for a, b in zip(sharded["v"], plain["v"])]}
+    worst = {k: max(v) for k, v in errs.items()}
+    loss_err = max(abs(a["pg_loss"] - b["pg_loss"])
+                   for a, b in zip(sharded["metrics"], plain["metrics"]))
+    gn_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                 for a, b in zip(sharded["metrics"], plain["metrics"]))
+    launches = sharded["launches"]
+    emit("train_sharded", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size,
+         mesh={"data": 1, "model": 1}, backend="nccl", updates=steps,
+         batch="32 x 128", rel_tol=1e-4, worst_leaf_rel_err=worst,
+         bit_equal_leaves={k: sum(e == 0.0 for e in v)
+                           for k, v in errs.items()},
+         leaves=len(errs["m"]), pg_loss_err=loss_err, grad_norm_rel_err=gn_err,
+         metrics_sharded=sharded["metrics"], metrics_unsharded=plain["metrics"],
+         update_s_sharded=sharded["times"], update_s_unsharded=plain["times"],
+         update_peak_gb_sharded=sharded["peak_gb"],
+         update_peak_gb_unsharded=plain["peak_gb"],
+         launches=launches, launches_unsharded=plain["launches"])
+    needed = ("flash_attn", "flash_attn_bwd", "fused_is_grpo_fwd",
+              "fused_is_grpo_bwd_dh", "fused_is_grpo_bwd_dw")
+    if not all(launches[k] > 0 for k in needed):
+        fail(f"train_sharded: a kernel never ran on the local shards: "
+             f"{launches}")
+    if not (max(worst.values()) <= 1e-4 and loss_err <= 1e-4
+            and gn_err <= 1e-5):
+        fail(f"train_sharded: the sharded update disagrees with the "
+             f"unsharded one: {worst}, loss {loss_err}, grad_norm {gn_err}")
+    return launches
+
+
+def leaf_names(tree, prefix=""):
+    """Each leaf's dotted path, in the order of common.tree.leaves."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def moe_ep_arm(torch, np, cfg, dispatch, base, batch, tc, mesh):
+    """make_loss_fn and its gradient with ``dispatch``: "shardmap" on the
+    mesh (params and batch as DTensors), "sparse" unsharded."""
+    from repro_torch.common.partitioning import set_activation_mesh
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.core.copris import make_loss_fn
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.moe_shardmap import apply_moe_shardmap
+    c = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                         dispatch=dispatch))
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(), base)
+    b = batch
+    if dispatch == "shardmap":
+        set_activation_mesh(mesh)
+        params = shd.shard_params(params, mesh, cfg)
+        b = shd.shard_batch(batch, mesh)
+    x0 = apply_moe_shardmap.exchanges
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        loss, metrics = make_loss_fn(c, tc)(params, b)
+        grads = torch.autograd.grad(loss, leaves(params))
+        torch.cuda.synchronize()
+    finally:
+        set_activation_mesh(None)
+    return dict(seconds=time.perf_counter() - t0,
+                loss=as_float(loss.detach()),
+                metrics={k: as_float(v) for k, v in metrics.items()},
+                grads=local_leaves(grads),
+                exchanges=apply_moe_shardmap.exchanges - x0)
+
+
+def moe_ep_errors(ep, sp, names):
+    errs = [leaf_rel(a, b) for a, b in zip(ep["grads"], sp["grads"])]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    return dict(loss_err=abs(ep["loss"] - sp["loss"]),
+                max_metric_err=max(abs(ep["metrics"][k] - sp["metrics"][k])
+                                   for k in sp["metrics"]),
+                max_grad_err_rel=errs[worst], worst_leaf=names[worst],
+                bit_equal_leaves=sum(e == 0.0 for e in errs),
+                router_aux_shardmap=ep["metrics"]["router_aux"],
+                router_aux_sparse=sp["metrics"]["router_aux"],
+                exchanges=ep["exchanges"],
+                seconds_shardmap=ep["seconds"],
+                seconds_sparse=sp["seconds"])
+
+
+def moe_ep_runs(torch, np, full, num_layers, tc, mesh, kernels):
+    """train_moe_ep's two dtypes: {dtype: moe_ep_errors, "launches": the
+    bf16 shardmap run's launch counts}."""
+    from repro_torch.models import model as M
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(full, num_layers=num_layers, dtype=dtype)
+        base = M.init_params(cfg, seed=4, device="cuda")
+        names = leaf_names(base)
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in update_batch(np, cfg, seed=30).items()}
+        sp = moe_ep_arm(torch, np, cfg, "sparse", base, batch, tc, mesh)
+        reset_launches(kernels)
+        ep = moe_ep_arm(torch, np, cfg, "shardmap", base, batch, tc, mesh)
+        if dtype == "bfloat16":
+            out["launches"] = read_launches(kernels)
+        out[dtype] = moe_ep_errors(ep, sp, names)
+        del base, sp, ep
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_moe_ep_phase(torch, np, kernels, num_layers=3):
+    """The expert-parallel dispatch on the card: deepseek-moe-16b at its
+    dense first layer and two MoE layers, full width (64 experts top-6, 2
+    shared; the fused loss, entropy 0.01, remat), make_loss_fn and its
+    gradient on a seeded 32 x 128 batch with dispatch="shardmap" on the
+    (1, 1) mesh (tokens routed per rank, two all-to-all exchanges a layer
+    through the NCCL group) against dispatch="sparse" unsharded, from the
+    same weights. With one rank and T <= 65536 the per-rank capacity and
+    aux are the sparse dispatch's and the exchange is a copy. In bf16
+    compute (the main path, whose launches are counted: every kernel must
+    have run, and the exchanges) and in float32 compute, loss and metrics
+    (router_aux among them) must agree within 1e-4 and each gradient leaf
+    within 1e-4 of its largest element (the train references'
+    tolerance); the bit-equal leaves are reported. Returns the launch
+    counts of the bf16 shardmap run."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_single_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("deepseek-moe-16b")
+    tc = TrainConfig(lr=1e-5, entropy_coef=0.01, remat=True)
+    mesh = make_single_mesh()
+    try:
+        out = moe_ep_runs(torch, np, full, num_layers, tc, mesh, kernels)
+    finally:
+        torch.distributed.destroy_process_group()
+    launches = out.pop("launches")
+    emit("train_moe_ep", arch=full.name, layers=num_layers,
+         depth_cut=f"{num_layers} of {full.num_layers} layers: the full "
+         "depth's training state (~262 GB) does not fit the card",
+         d_model=full.d_model, experts=full.moe.num_experts,
+         top_k=full.moe.top_k, capacity_factor=full.moe.capacity_factor,
+         mesh={"data": 1, "model": 1}, batch="32 x 128", atol=1e-4,
+         grad_rtol=1e-4, bf16=out["bfloat16"],
+         float32=out["float32"], launches=launches)
+    bf, f32 = out["bfloat16"], out["float32"]
+    if not all(o["exchanges"] > 0 for o in out.values()):
+        fail(f"train_moe_ep: no exchange in a shardmap run: {out}")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"train_moe_ep: a kernel never launched: {launches}")
+    if not all(o["loss_err"] <= 1e-4 and o["max_metric_err"] <= 1e-4
+               and o["max_grad_err_rel"] <= 1e-4 for o in (bf, f32)):
+        fail(f"train_moe_ep: shardmap disagrees with sparse: {out}")
+    return launches
+
+
+def multihost_phase(np):
+    """The sharded launcher as a user starts it: torchrun with one process
+    (--standalone: its rendezvous on a free local port) running
+    repro_torch.launch.multihost on llama3.2-1b at full width, 2 updates of
+    a global batch of 8 x 512 on a (1, 1) mesh over NCCL. It must exit 0
+    with two finite losses."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.multihost",
+           "--arch", "llama3.2-1b", "--steps", "2", "--global-batch", "8",
+           "--seq-len", "512", "--microbatches", "1"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    losses = [float(m.group(1))
+              for m in re.finditer(r"step \d+: loss (\S+)", r.stdout)]
+    emit("multihost", command=" ".join(cmd[1:]), returncode=r.returncode,
+         losses=losses, seconds=wall,
+         stderr_tail=r.stderr[-3000:] if r.returncode else "")
+    if r.returncode != 0 or len(losses) != 2 \
+            or not all(np.isfinite(losses)):
+        fail(f"multihost: exit {r.returncode}, losses {losses}")
 
 
 def train_multiturn_phase(torch, np, kernels, sft, steps=2, extra_sft=8):
@@ -3034,6 +3425,8 @@ def main() -> int:
     if not all(hgmma.values()):
         fail(f"a tensor-core library has no HGMMA (wgmma) instruction: "
              f"{hgmma}")
+    # the sharded launcher under torchrun, while the card is still empty
+    multihost_phase(np)
 
     # 3. kernel checks at the main path's shapes
     timer = Timer(torch)
@@ -3352,17 +3745,21 @@ def main() -> int:
     del params, eng
 
     # 6b. the hybrid families served at full width, then two CoPRIS stages
-    # (the paged hymba at 16 of its 32 layers: with its profile it took 55
-    # s, the run's longest serve phase, and the MoE and VLM phases took the
-    # run from ~600 to 687 s on an H100 80GB HBM3 at 700 W; no kernel's
-    # shape depends on the depth)
+    # (the paged hymba at 8 of its 32 layers, the dense one at 16: with
+    # its profile the paged one took 55 s at full depth, the run's longest
+    # serve phase; the MoE and VLM phases took the run from ~600 to 687 s
+    # on an H100 80GB HBM3 at 700 W, then the sharded and disaggregated
+    # phases added ~90 s, so the paged hymba went from 16 to 8 layers, the
+    # dense one from 32 to 16 and the paged paper-qwen-7b and deepseek
+    # from 14 to 7; no kernel's shape depends on the depth)
     time_cut = "the run's time (no kernel's shape depends on the depth)"
     hymba_launches, hymba_by_length = serve_arch_phase(
-        torch, np, serve_mod, "hymba-1.5b", hymba_kernels, "serve_hymba")
+        torch, np, serve_mod, "hymba-1.5b", hymba_kernels, "serve_hymba",
+        num_layers=16, cut=time_cut)
     # 40% of the dense-equivalent 16 x 640 / 16 = 640 pages
     serve_arch_phase(torch, np, serve_mod, "hymba-1.5b",
                      hymba_paged_kernels, "serve_hymba_paged",
-                     kv_backend="paged", kv_num_pages=256, num_layers=16,
+                     kv_backend="paged", kv_num_pages=256, num_layers=8,
                      cut=time_cut)
     rwkv_launches, rwkv_by_length = serve_arch_phase(
         torch, np, serve_mod, "rwkv6-1.6b", rwkv_kernels, "serve_rwkv6")
@@ -3391,6 +3788,9 @@ def main() -> int:
         "train_overlap": train_overlap_phase(torch, np, train_kernels, sft),
         "train_multiturn": train_multiturn_phase(torch, np, train_kernels,
                                                  sft)}
+    # the disaggregated trainer from the same weights
+    new_launches["train_disaggregated"] = train_disaggregated_phase(
+        torch, np, train_kernels, sft)
     del sft
     train_paged_launches = train_paged_phase(torch, np, train_paged_kernels)
     train_simt["fused_logprob"] = flp.fused_logprob_rows.simt_launches
@@ -3425,7 +3825,7 @@ def main() -> int:
     wide["serve_qwen7b_paged"] = serve_arch_phase(
         torch, np, serve_mod, "paper-qwen-7b", serve_paged_kernels,
         "serve_qwen7b_paged", kv_backend="paged", kv_num_pages=256,
-        num_layers=14, cut=time_cut)[0]
+        num_layers=7, cut=time_cut)[0]
     copris_arch_phase(torch, np, model, (
         ("paper-qwen-7b", "reprefill", kernels, "copris_qwen7b"),))
     wide["train_qwen7b"] = train_phase(
@@ -3469,7 +3869,7 @@ def main() -> int:
     moe_vlm["serve_deepseek_paged"] = serve_arch_phase(
         torch, np, serve_mod, "deepseek-moe-16b", serve_paged_kernels,
         "serve_deepseek_paged", kv_backend="paged", kv_num_pages=256,
-        num_layers=14, cut=time_cut)[0]
+        num_layers=7, cut=time_cut)[0]
     copris_arch_phase(torch, np, model, (
         ("deepseek-moe-16b", "reprefill", kernels, "copris_deepseek"),))
     moe_vlm["train_deepseek"] = train_phase(
@@ -3477,6 +3877,13 @@ def main() -> int:
         phase="train_deepseek", steps=2, seed=2, entropy_coef=0.01,
         num_layers=3, cut="the full depth's training state (16.4 B "
         "parameters at ~16 bytes each, ~262 GB) does not fit the card")
+    # the sharded update on a (1, 1) NCCL mesh against the unsharded one,
+    # then the expert-parallel dispatch; each destroys its process group
+    new_launches["train_sharded"] = train_sharded_phase(torch, np,
+                                                        train_kernels)
+    new_launches["train_moe_ep"] = train_moe_ep_phase(torch, np, {
+        "flash_attn": flash_attn.flash_attention,
+        "flash_attn_bwd": flash_attn.flash_attention_bwd, **loss_kernels})
     moe_vlm["serve_qwen3_moe"] = serve_arch_phase(
         torch, np, serve_mod, "qwen3-moe-235b-a22b", kernels,
         "serve_qwen3_moe", num_layers=8,

@@ -20,8 +20,19 @@ Two pipelines share one code path, as in the reference:
   stream of their own and the consumer's on another.
 
 Tasks with ``make_env`` (multi-turn environments) run through the async env
-worker in either pipeline. The disaggregated rollout/train layouts are SPMD
-and raise ``NotImplementedError``.
+worker in either pipeline. With ``TrainConfig.disaggregated`` every
+published version is resharded from the train side to the rollout side
+(``weight_sync.make_param_resharder``): here the two sides are devices of
+one process (``device`` / ``rollout_device``, the counterpart of the
+reference's ``train_mesh`` / ``rollout_mesh``), and the reshard copies each
+version onto the rollout device bit for bit.
+
+``make_train_step`` also runs sharded: given parameters, AdamW state and a
+batch as ``DTensor`` s (``launch/sharding``) under an active mesh
+(``common/partitioning.set_activation_mesh``), the same code computes the
+sharded update — attention and the fused loss kernels on each rank's local
+shards through ``local_map``, the logits materialised sharded where the
+vocabulary is sharded, gradients and the global norm over the whole mesh.
 
 Parameters are float32 master tensors that the trainer owns and updates in
 place (``optim/adam.update``); every update is published to the
@@ -43,14 +54,17 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig, RolloutConfig, TrainConfig
 from repro_torch.common.device import resolve_device
+from repro_torch.common.partitioning import (activation_placements,
+                                             is_sharded, replicated)
 from repro_torch.common.tree import leaves, tree_map, unflatten
 from repro_torch.core import grpo
 from repro_torch.core.importance import pack_groups
 from repro_torch.core.reward_worker import AsyncEnvWorker, AsyncRewardWorker
 from repro_torch.core.rollout import RolloutEngine
 from repro_torch.core.scheduler import AdaptiveConcurrencyController
-from repro_torch.core.weight_sync import ParamStore
+from repro_torch.core.weight_sync import ParamStore, make_param_resharder
 from repro_torch.hopper import fused_is_grpo as fio
+from repro_torch.launch.mesh import make_disaggregated_devices
 from repro_torch.models import model as M
 from repro_torch.optim import adam, schedule
 from repro_torch.sampling import prng
@@ -149,14 +163,15 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         flat = leaves(params)
         loss, metrics = loss_fn(params, mb)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        return metrics, [torch.zeros_like(p) if g is None else g
-                         for p, g in zip(flat, grads)]
+        return metrics, [torch.zeros_like(p) if g is None
+                         else _like(g, p) for p, g in zip(flat, grads)]
 
     def train_step(params, opt_state, batch, lr):
         n = next(iter(batch.values())).shape[0] // k
         gsum, msum = None, None
         for i in range(k):
-            mb = {key: v[i * n:(i + 1) * n] for key, v in batch.items()}
+            mb = {key: _rows(v, i * n, (i + 1) * n)
+                  for key, v in batch.items()}
             metrics, g = grad_fn(params, mb)
             if gsum is None:
                 gsum, msum = g, metrics
@@ -172,9 +187,35 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             betas=tcfg.betas, eps=tcfg.eps, weight_decay=tcfg.weight_decay,
             grad_clip=tcfg.grad_clip)
         msum.update(om)
-        return params, opt_state, msum
+        return params, opt_state, {key: _full(v) for key, v in msum.items()}
 
     return train_step
+
+
+def _like(g, p):
+    """A ``DTensor`` gradient in its parameter's placements (a pending
+    sum becomes a reduce-scatter or an all-reduce here); a plain one as it
+    is."""
+    if is_sharded(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _rows(v, lo, hi):
+    """Rows [lo, hi) of a batch leaf. A ``DTensor`` leaf is gathered,
+    sliced and sharded again over the batch axes, so a microbatch is the
+    reference's (rows [lo, hi) of the global batch)."""
+    if not is_sharded(v) or (lo == 0 and hi == v.shape[0]):
+        return v[lo:hi]
+    mesh = v.device_mesh
+    rows = v.redistribute(mesh, replicated(mesh))[lo:hi]
+    return rows.redistribute(mesh, activation_placements(mesh, rows.shape,
+                                                         "dp"))
+
+
+def _full(v):
+    """A metric as a plain tensor (a ``DTensor`` one gathered)."""
+    return v.full_tensor() if is_sharded(v) else v
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +262,10 @@ class CoPRISTrainer:
     """The RL loop on one device (the card unless ``device="cpu"``). The
     trainer takes ownership of ``params`` and updates them in place.
 
+    With ``tcfg.disaggregated`` the rollout side runs on ``rollout_device``
+    (default: ``device``, the train side) and reads only the versions the
+    store copied there.
+
     With ``tcfg.overlap`` a background producer thread owns the rollout
     engine and feeds ``step()`` through a bounded queue; ``close()`` (or the
     context-manager exit) shuts the pipeline down. On CUDA the producer
@@ -233,17 +278,21 @@ class CoPRISTrainer:
 
     def __init__(self, model_cfg: ModelConfig, ro_cfg: RolloutConfig,
                  tcfg: TrainConfig, task, *, eos_id: int, key=None,
-                 params=None, device=None):
-        if tcfg.disaggregated:
-            raise NotImplementedError(
-                "disaggregated=True (the train-to-rollout reshard between "
-                "separate meshes) is SPMD and is not ported; on one device "
-                "use overlap=True")
+                 params=None, device=None, rollout_device=None):
         self.cfg = model_cfg
         self.ro = ro_cfg
         self.tcfg = tcfg
         self.task = task
         self.device = resolve_device(device)
+        self.rollout_device = self.device
+        reshard = None
+        sides = make_disaggregated_devices(self.device, rollout_device)
+        if tcfg.disaggregated:
+            self.device, self.rollout_device = sides
+            reshard, _ = make_param_resharder(model_cfg, params, *sides)
+        elif sides[0] != sides[1]:
+            raise ValueError("rollout_device differs from the train device: "
+                             "that needs TrainConfig(disaggregated=True)")
         # all trainer-originated sample_prompt calls go through this proxy
         # (producer thread during overlapped rollout, main thread during
         # evaluate) — hand it to external eval helpers too
@@ -268,11 +317,12 @@ class CoPRISTrainer:
         # stream, sequentially). Both start after the work queued so far.
         self.rollout_stream = self.train_stream = None
         if self.overlap and self.device.type == "cuda":
-            current = torch.cuda.current_stream(self.device)
-            self.rollout_stream = torch.cuda.Stream(self.device)
+            self.rollout_stream = torch.cuda.Stream(self.rollout_device)
             self.train_stream = torch.cuda.Stream(self.device)
-            self.rollout_stream.wait_stream(current)
-            self.train_stream.wait_stream(current)
+            self.rollout_stream.wait_stream(
+                torch.cuda.current_stream(self.rollout_device))
+            self.train_stream.wait_stream(
+                torch.cuda.current_stream(self.device))
 
         timeout = ro_cfg.env_step_timeout or None
         self.reward_worker = AsyncRewardWorker(task.reward, timeout=timeout)
@@ -292,7 +342,7 @@ class CoPRISTrainer:
                                         on_finish=self.reward_worker.submit,
                                         env_factory=env_factory,
                                         env_worker=self.env_worker,
-                                        device=self.device)
+                                        device=self.rollout_device)
         self._train_step = make_train_step(model_cfg, tcfg)
         self.stage = 0
         self.history = []
@@ -305,7 +355,8 @@ class CoPRISTrainer:
         # producer / evaluate acquire the freshest. max_staleness bounds
         # the pipeline depth, so K+1 versions cover every batch still in
         # flight — older ones are dropped at publish.
-        self.param_store = ParamStore(max_versions=self.max_staleness + 1)
+        self.param_store = ParamStore(max_versions=self.max_staleness + 1,
+                                      reshard=reshard)
         with _on(self.train_stream):
             self.params = tree_map(
                 lambda t: t.detach().to(self.device).requires_grad_(),
@@ -329,7 +380,7 @@ class CoPRISTrainer:
         self._collect_idx = 0                 # next collect, producer-owned
         self._trained_batches = 0             # consumed collects
         # store totals already reported, so step metrics emit per-step deltas
-        self._reported_dropped = self.param_store.stats_snapshot()["dropped"]
+        self._reported = self.param_store.stats_snapshot()
         self._stop = threading.Event()
         self._closed = False
 
@@ -525,8 +576,9 @@ class CoPRISTrainer:
             buffer_unfinished=roll_stats["buffer_unfinished"],
             concurrency_target=roll_stats["concurrency_target"],
             param_store_versions=self.param_store.num_versions,
-            dropped_versions=ps_stats["dropped"] - self._reported_dropped,
-            reshard_time=0.0,          # no disaggregated reshard on one device
+            dropped_versions=ps_stats["dropped"] - self._reported["dropped"],
+            reshard_time=(ps_stats["reshard_time"]
+                          - self._reported["reshard_time"]),
             mean_resp_len=float(np.mean([len(t.response_tokens)
                                          for g in groups
                                          for t in g.trajectories])),
@@ -538,7 +590,7 @@ class CoPRISTrainer:
             env_timeouts=(self.env_worker.stats_snapshot()["env_timeouts"]
                           if self.env_worker is not None else 0),
         )
-        self._reported_dropped = ps_stats["dropped"]
+        self._reported = ps_stats
         self.last_groups = groups
         self.last_batch = batch
         return out
@@ -617,7 +669,7 @@ class CoPRISTrainer:
         # evaluate is a rollout-side consumer: freshest published version
         params, _ = self.param_store.acquire()
         params = self.engine.prepare_params(params)
-        dev = self.device
+        dev = self.rollout_device
         correct = 0.0
         for _ in range(n_prompts):
             cache = M.init_cache(self.cfg, 1, self.engine.max_len,

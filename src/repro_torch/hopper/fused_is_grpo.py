@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch.common.partitioning import is_sharded
 from repro_torch.core import grpo
 from repro_torch.hopper import build
 
@@ -387,6 +388,97 @@ class _FusedISGRPO(torch.autograd.Function):
                 None)
 
 
+def materialize_stats(hidden, w, targets, *, logit_softcap=0.0):
+    """The reference's ``materialize`` route, in plain PyTorch (autograd):
+    the (B, S, V) logits in one product, laid out rows over the batch axes
+    and vocabulary over "model" (``shard_activation``), then (logp, lse,
+    entropy) float32 (B, S) from them. The sharded training path takes it
+    where the vocabulary is sharded: blocking over a vocab-sharded weight
+    would reshard the weight."""
+    from repro_torch.common.partitioning import shard_activation
+    logits = _softcap(hidden.float() @ w.to(hidden.dtype).float(),
+                      logit_softcap)
+    logits = shard_activation(logits, "dp", None, "tp")
+    m = logits.detach().amax(-1, keepdim=True)
+    e = torch.exp(logits - m)
+    z = e.sum(-1, keepdim=True)
+    lse = (m + torch.log(z))[..., 0]
+    ebar = ((e / z) * logits).sum(-1)
+    return _target_logit(logits, targets) - lse, lse, lse - ebar
+
+
+def materialize_is_grpo(hidden, w, targets, behaviour, adv, **cfg):
+    """:func:`materialize_stats` and the shared epilogue: ``(loss_tok,
+    ratio, logp, entropy)`` float32 (B, S)."""
+    logp, _, ent = materialize_stats(hidden, w, targets,
+                                     logit_softcap=cfg["logit_softcap"])
+    loss_tok, ratio = epilogue(logp, ent, behaviour, adv, **cfg)
+    return loss_tok, ratio, logp, ent
+
+
+def _target_logit(logits, targets):
+    """logits[..., targets] of the (B, S, V) ``DTensor`` logits: each rank
+    picks the targets in its own vocabulary slice, and the picks sum over
+    "model"."""
+    if not is_sharded(logits):
+        return logits.gather(-1, targets[..., None].long())[..., 0]
+    from torch.distributed.tensor import Partial
+    from repro_torch.common.partitioning import (activation_placements,
+                                                 local_call, vocab_slice)
+    mesh = logits.device_mesh
+    rows = activation_placements(mesh, targets.shape, "dp", None)
+    lay = activation_placements(mesh, logits.shape, "dp", None, "tp")
+    split, start, v_local = vocab_slice(mesh, logits.shape[-1], lay, 2)
+
+    def pick(lg, t):
+        local = t.long() - start
+        hit = (local >= 0) & (local < v_local)
+        got = lg.gather(-1, torch.where(hit, local, 0)[..., None])[..., 0]
+        return got * hit.to(got.dtype)
+
+    out = tuple(Partial() if a == "model" and split else r
+                for a, r in zip(mesh.mesh_dim_names, rows))
+    return local_call(pick, mesh, (logits, targets), (lay, rows), out)
+
+
+def vocab_parallel(hidden) -> bool:
+    """Whether the sharded path's loss materialises its logits: a mesh
+    whose "model" axis has more than one rank shards the vocabulary."""
+    mesh = hidden.device_mesh
+    return dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1) > 1
+
+
+def on_own_rows(fn, hidden, w, rows, n_out):
+    """``fn(h, w, *rows)`` (a fused op of this family) on each rank's own
+    rows through ``local_map``: hidden (B, S, d) and each of ``rows``
+    (B, S) over the batch axes, the weight whole on every rank (its
+    gradient a pending sum over the batch axes). Returns ``n_out``
+    (B, S) ``DTensor`` s in the rows' layout (one when ``n_out`` is 1)."""
+    from repro_torch.common.partitioning import (activation_placements,
+                                                 local_call,
+                                                 partial_over_rows,
+                                                 replicated)
+    mesh = hidden.device_mesh
+    hid = activation_placements(mesh, hidden.shape, "dp", None, None)
+    row = activation_placements(mesh, rows[0].shape, "dp", None)
+    n = len(rows)
+    return local_call(
+        lambda h, w_, *r: fn(h.contiguous(), w_, *r), mesh,
+        (hidden, w) + tuple(rows), (hid, replicated(mesh)) + (row,) * n,
+        (row,) * n_out if n_out > 1 else row,
+        (None, partial_over_rows(mesh, hid)) + (None,) * n)
+
+
+def _sharded_is_grpo(hidden, w, targets, behaviour, adv, cfg):
+    """The loss on a mesh: :func:`materialize_is_grpo` where the
+    vocabulary is sharded, else the fused op on each rank's own rows
+    (:func:`on_own_rows`)."""
+    if vocab_parallel(hidden):
+        return materialize_is_grpo(hidden, w, targets, behaviour, adv, **cfg)
+    return on_own_rows(lambda h, w_, t, b, a: _FusedISGRPO.apply(
+        h, w_, t, b, a, cfg), hidden, w, (targets, behaviour, adv), 4)
+
+
 def fused_is_grpo(hidden, w, targets, behaviour, adv, *,
                   logit_softcap: float = 0.0, clip_low: float = 0.2,
                   clip_high: float = 0.28, use_is: bool = True,
@@ -396,11 +488,16 @@ def fused_is_grpo(hidden, w, targets, behaviour, adv, *,
     entropy)`` float32 (B, S). ``adv`` is per-token (broadcast per-sequence
     advantages before calling). Differentiable in hidden, w, behaviour and
     adv; the (B, S, V) logits are never kept between forward and backward.
+    On ``DTensor`` s (the sharded training path) see
+    :func:`_sharded_is_grpo`.
     """
     cfg = dict(logit_softcap=float(logit_softcap), clip_low=float(clip_low),
                clip_high=float(clip_high), use_is=bool(use_is),
                is_ratio_cap=float(is_ratio_cap),
                entropy_coef=float(entropy_coef))
+    if is_sharded(hidden):
+        return _sharded_is_grpo(hidden, w, targets, behaviour.float(),
+                                adv.float(), cfg)
     return _FusedISGRPO.apply(hidden, w, targets, behaviour.float(),
                               adv.float(), cfg)
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common.partitioning import is_sharded
 from repro_torch.hopper import build
 from repro_torch.hopper import fused_is_grpo as fio
 
@@ -115,8 +116,19 @@ class _FusedLogprob(torch.autograd.Function):
 
 def fused_logprob(hidden, w, targets, *, logit_softcap: float = 0.0):
     """hidden (B, S, d); w (d, V); targets (B, S) int. Returns
-    log p(targets) float32 (B, S), differentiable in hidden and w."""
-    return _FusedLogprob.apply(hidden, w, targets, float(logit_softcap))
+    log p(targets) float32 (B, S), differentiable in hidden and w. On
+    ``DTensor`` s (the sharded training path) routed as the fused IS-GRPO
+    loss is: the logits materialised where the vocabulary is sharded
+    (``fused_is_grpo.materialize_stats``), else this op on each rank's own
+    rows (``fused_is_grpo.on_own_rows``)."""
+    cap = float(logit_softcap)
+    if not is_sharded(hidden):
+        return _FusedLogprob.apply(hidden, w, targets, cap)
+    if fio.vocab_parallel(hidden):
+        return fio.materialize_stats(hidden, w, targets,
+                                     logit_softcap=cap)[0]
+    return fio.on_own_rows(lambda h, w_, t: _FusedLogprob.apply(
+        h, w_, t, cap), hidden, w, (targets,), 1)
 
 
 fused_logprob_rows.launches = 0

@@ -1,0 +1,92 @@
+"""Device meshes of the port: the counterpart of ``repro.launch.mesh``.
+
+JAX runs one controller over a mesh of devices; ``torch.distributed`` runs
+one process per rank, so a mesh here is a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the default
+process group, with the reference's axis names ``("data", "model")``. The
+process group comes from the launcher (``launch/multihost`` under
+``torchrun``) or, for the one-rank mesh, from :func:`make_single_mesh`
+itself. Nothing here runs at import.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.common.device import resolve_device
+
+AXES = ("data", "model")
+
+
+def _backend(device_type: str) -> str:
+    return "nccl" if device_type == "cuda" else "gloo"
+
+
+def init_single_process_group(device_type: str):
+    """A world-size-1 default process group on an in-process store (no
+    port, no file), unless one exists already."""
+    if not dist.is_initialized():
+        dist.init_process_group(_backend(device_type), store=dist.HashStore(),
+                                rank=0, world_size=1)
+
+
+def make_mesh(data: int, model: int, *, device_type: Optional[str] = None):
+    """The (data, model) mesh over every rank of the default process group.
+    ``device_type`` defaults to ``"cuda"``, as the entry points do."""
+    device_type = device_type or "cuda"
+    want = data * model
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if want != have:
+        raise ValueError(
+            f"mesh ({data}, {model}) needs {want} ranks, the process group "
+            f"has {have}: launch {want} processes (torchrun "
+            f"--nproc-per-node {want}) or pick a shape whose product is "
+            f"{have}")
+    init_single_process_group(device_type)
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, (data, model), mesh_dim_names=AXES)
+
+
+def make_single_mesh(device=None):
+    """A (1, 1) ``("data", "model")`` mesh on ``device``'s type (the card
+    unless ``device="cpu"``): the counterpart of ``make_cpu_mesh``. Makes a
+    world-size-1 process group when there is none."""
+    return make_mesh(1, 1, device_type=resolve_device(device).type)
+
+
+def make_disaggregated_devices(train=None, rollout=None
+                               ) -> Tuple[torch.device, torch.device]:
+    """The train and rollout devices of the one-process disaggregated
+    trainer: the counterpart of ``make_disaggregated_meshes``. ``rollout``
+    defaults to ``train``, and ``train`` to the card; a card is named with
+    its index. Raises when a device is not there."""
+    train_dev = _indexed(resolve_device(train))
+    rollout_dev = _indexed(resolve_device(train_dev if rollout is None
+                                          else rollout))
+    for role, dev in (("train", train_dev), ("rollout", rollout_dev)):
+        if dev.type == "cuda" and dev.index is not None \
+                and dev.index >= torch.cuda.device_count():
+            raise ValueError(
+                f"disaggregated {role} device {dev} is not there: "
+                f"{torch.cuda.device_count()} visible — pick another "
+                "--rollout-device or leave it to share the train device")
+    return train_dev, rollout_dev
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:<the current device>``, so two names of one card
+    compare equal."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def mesh_shape(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh``, or of a plain dict of
+    that form (the rules take either, so they are testable without
+    ranks)."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))

@@ -13,7 +13,10 @@ CUDA stream of its own) while the previous batch trains, at most
 ``--max-staleness`` updates behind; ``--task multiturn_math`` and
 ``--task toolcall`` run multi-turn episodes through the async environment
 worker (their SFT warmup runs on ``AdditionTask``, as those tasks have no
-demonstrations). ``--disaggregated`` raises: it is SPMD. On the CPU:
+demonstrations). ``--overlap --disaggregated`` publishes every version
+through the train-to-rollout reshard, a copy onto ``--rollout-device``
+(default: the train device; the counterpart of the reference's rollout
+mesh). On the CPU:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tiny \\
         --device cpu --steps 2 --sft-warmup 3 --overlap \\
@@ -92,7 +95,11 @@ def main(argv=None):
                     help="max optimizer updates the train step may be ahead "
                          "of the params that generated its batch")
     ap.add_argument("--disaggregated", action="store_true",
-                    help="not ported (SPMD): raises")
+                    help="with --overlap: publish every version through the "
+                         "train-to-rollout reshard onto --rollout-device")
+    ap.add_argument("--rollout-device", default=None,
+                    help="the rollout side's device with --disaggregated "
+                         "(default: the train device)")
     ap.add_argument("--adaptive-concurrency", action="store_true")
     ap.add_argument("--concurrency-min", type=int, default=0)
     ap.add_argument("--concurrency-max", type=int, default=0)
@@ -140,7 +147,7 @@ def main(argv=None):
             print(f"  warmup done (loss {loss:.3f})")
 
     tr = CoPRISTrainer(cfg, ro, tc, task, eos_id=EOS, params=params,
-                       device=dev)
+                       device=dev, rollout_device=args.rollout_device)
     if state is not None:
         tr.restore(opt_state=convert.opt_state_from_jax(
             state["opt_state"], cfg, dev), stage=state["stage"])
@@ -156,6 +163,8 @@ def main(argv=None):
                     extra = (f" stale={out['param_staleness']}"
                              f" saved={out['overlap_saved_time']:.1f}s"
                              if args.overlap else "")
+                    if args.disaggregated:
+                        extra += f" reshard={out['reshard_time']:.3f}s"
                     if args.adaptive_concurrency:
                         extra += f" N'={out['concurrency_target']}"
                     if out["env_steps"]:

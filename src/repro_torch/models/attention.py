@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common.partitioning import over_heads, split_heads
 from repro_torch.hopper import decode_attn as decode_op
 from repro_torch.hopper import flash_attn as flash_op
 from repro_torch.hopper import paged_decode_attn as paged_op
@@ -291,44 +292,44 @@ def attention_block(params, cfg, x, positions, *, kind: str, kv_cache=None,
     """
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).unflatten(-1, (h, hd))
-    k = (x @ params["wk"].to(dt)).unflatten(-1, (kv, hd))
-    v = (x @ params["wv"].to(dt)).unflatten(-1, (kv, hd))
+    q = split_heads(x @ params["wq"].to(dt), h, hd)
+    k = split_heads(x @ params["wk"].to(dt), kv, hd)
+    v = split_heads(x @ params["wv"].to(dt), kv, hd)
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], eps=cfg.rms_eps)
         k = rms_norm(k, params["k_norm"], eps=cfg.rms_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-
     window = cfg.sliding_window if kind == "local" else 0
     cap = cfg.attn_softcap
 
-    if kv_cache is None:
-        out = flash_op.flash_attention(q, k, v.contiguous(), causal=True,
-                                       window=window, attn_softcap=cap)
-        new_kv = (k, v)
-    elif paged is not None:
+    def attend(q, k, v, positions):
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        if kv_cache is None:
+            out = flash_op.flash_attention(q, k, v.contiguous(), causal=True,
+                                           window=window, attn_softcap=cap)
+            return out.flatten(-2), k, v
         k_cache, v_cache = kv_cache
-        bt, psz = paged
-        paged_write_kv(k_cache, k, bt, psz, cache_len)
-        paged_write_kv(v_cache, v, bt, psz, cache_len)
-        out = paged_op.paged_decode_attention(
-            q, k_cache, v_cache, bt, psz, cache_len + 1, window=window,
-            attn_softcap=cap)
-        new_kv = (k_cache, v_cache)
-    else:
-        k_cache, v_cache = kv_cache
-        B, L = x.shape[0], k_cache.shape[1]
-        rows = torch.arange(B, device=x.device)
-        idx = cache_len.to(torch.int64).clamp(0, L - 1)
-        k_cache[rows, idx] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, idx] = v[:, 0].to(v_cache.dtype)
-        out = decode_op.decode_attention(q, k_cache, v_cache, cache_len + 1,
-                                         window=window, attn_softcap=cap)
-        new_kv = (k_cache, v_cache)
+        if paged is not None:
+            bt, psz = paged
+            paged_write_kv(k_cache, k, bt, psz, cache_len)
+            paged_write_kv(v_cache, v, bt, psz, cache_len)
+            out = paged_op.paged_decode_attention(
+                q, k_cache, v_cache, bt, psz, cache_len + 1, window=window,
+                attn_softcap=cap)
+        else:
+            B, L = x.shape[0], k_cache.shape[1]
+            rows = torch.arange(B, device=x.device)
+            idx = cache_len.to(torch.int64).clamp(0, L - 1)
+            k_cache[rows, idx] = k[:, 0].to(k_cache.dtype)
+            v_cache[rows, idx] = v[:, 0].to(v_cache.dtype)
+            out = decode_op.decode_attention(q, k_cache, v_cache,
+                                             cache_len + 1, window=window,
+                                             attn_softcap=cap)
+        return out.flatten(-2), k_cache, v_cache
 
-    y = out.flatten(-2) @ params["wo"].to(dt)
-    return y, new_kv
+    # on a mesh (training: no cache) on each rank's own rows and heads
+    out, k, v = over_heads(attend, q, k, v, positions)
+    return out @ params["wo"].to(dt), (k, v)
 
 
 def cross_attention_block(params, cfg, x, media, *, media_kv=None):
@@ -345,12 +346,18 @@ def cross_attention_block(params, cfg, x, media, *, media_kv=None):
     (y, (mk, mv))."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).unflatten(-1, (h, hd))
+    q = split_heads(x @ params["wq"].to(dt), h, hd)
     if media_kv is None:
-        k = (media @ params["wk"].to(dt)).unflatten(-1, (kv, hd))
-        v = (media @ params["wv"].to(dt)).unflatten(-1, (kv, hd))
+        k = split_heads(media @ params["wk"].to(dt), kv, hd)
+        v = split_heads(media @ params["wv"].to(dt), kv, hd)
     else:
         k, v = (t.to(dt) for t in media_kv)
-    out = flash_op.flash_attention(q, k, v, causal=False)
-    y = out.flatten(-2) @ params["wo"].to(dt)
+
+    def attend(q, k, v, _):
+        out = flash_op.flash_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), causal=False)
+        return out.flatten(-2), k, v
+
+    out, k, v = over_heads(attend, q, k, v)
+    y = out @ params["wo"].to(dt)
     return torch.tanh(params["gate"].to(dt)) * y, (k, v)

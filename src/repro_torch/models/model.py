@@ -33,6 +33,10 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device, torch_dtype
+from repro_torch.common.partitioning import (activation_placements,
+                                             is_sharded, local_call,
+                                             replicated, shard_activation,
+                                             vocab_slice)
 from repro_torch.hopper import fused_logprob as flp
 from repro_torch.models import transformer
 from repro_torch.models.layers import dense_init, embed_init, rms_norm, softcap
@@ -164,9 +168,52 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # ---------------------------------------------------------------------------
 
 
+def _lookup(tok, tokens):
+    """``F.embedding``; under a mesh the vocab-parallel lookup (``tok``
+    (V, d) sharded over "model" by vocabulary rows, ``tokens`` over the
+    batch axes): each rank looks up the ids of its own vocabulary slice, and
+    the partial rows sum over "model"."""
+    if not is_sharded(tok):
+        return F.embedding(tokens, tok)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = tok.device_mesh
+    names = mesh.mesh_dim_names
+    vocab = activation_placements(mesh, tok.shape, "tp", None)
+    rows = activation_placements(mesh, tokens.shape, "dp", None)
+    split, start, v_local = vocab_slice(mesh, tok.shape[0], vocab, 0)
+
+    def lookup(w, ids):
+        if not split:
+            return F.embedding(ids, w)
+        local = ids.long() - start
+        hit = (local >= 0) & (local < v_local)
+        out = F.embedding(torch.where(hit, local, 0), w)
+        return out * hit[..., None].to(out.dtype)
+
+    out_pl = tuple(Partial() if a == "model" and split else r
+                   for a, r in zip(names, rows))
+    grad_pl = tuple(Shard(0) if a == "model" and split
+                    else Partial() if r.is_shard() else Replicate()
+                    for a, r in zip(names, rows))
+    return local_call(lookup, mesh, (tok, tokens), (vocab, rows), out_pl,
+                      (grad_pl, None))
+
+
+def _positions(tokens):
+    """(B, S) positions 0..S-1, in ``tokens``' layout under a mesh."""
+    B, S = tokens.shape
+    pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    if not is_sharded(tokens):
+        return pos
+    from torch.distributed.tensor import DTensor
+    mesh = tokens.device_mesh
+    return DTensor.from_local(pos, mesh, replicated(mesh), run_check=False
+                              ).redistribute(mesh, tokens.placements)
+
+
 def _embed(params, cfg: ModelConfig, tokens):
     dt = torch_dtype(cfg.dtype)
-    x = F.embedding(tokens, params["embed"]["tok"]).to(dt)
+    x = _lookup(params["embed"]["tok"], tokens).to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     return x
@@ -204,13 +251,16 @@ def backbone(params, cfg: ModelConfig, tokens, *, positions=None, media=None,
              mode="train", remat=False, paged=None):
     """Embed + stack + final norm. Returns (hidden (B, S, d), new_cache,
     aux): ``aux`` the sum of the MoE layers' router losses, float32."""
-    B, S = tokens.shape
+    if is_sharded(tokens) and mode != "train":
+        raise ValueError("backbone: prefill and decode on a mesh are sharded "
+                         "serving, which is not ported")
     if positions is None:
         if mode == "decode":
             positions = cache_len[:, None]
         else:
-            positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+            positions = _positions(tokens)
     x = _embed(params, cfg, tokens)
+    x = shard_activation(x, "dp", None, None)
     media_p = _project_media(params, cfg, media, mode=mode)
     x, new_cache, aux = transformer.apply_stack(
         params["layers"], cfg, x, positions=positions, media=media_p,
@@ -256,8 +306,8 @@ def score_logprobs(params, cfg: ModelConfig, tokens, targets, *, media=None,
     targets[t] is the next-token label of position t), float32 (B, S),
     differentiable in ``params``. The fused vocab-blocked op
     (``hopper/fused_logprob``) reads the final hidden states and the
-    unembedding and never materialises the (B, S, V) logits. With
-    ``return_aux`` also the aux dict."""
+    unembedding and never materialises the (B, S, V) logits (on a mesh
+    see ``fused_logprob``). With ``return_aux`` also the aux dict."""
     x, aux = forward_hidden(params, cfg, tokens, media=media, remat=remat,
                             return_aux=True)
     lp = flp.fused_logprob(x, unembed_weight(params, cfg), targets,

@@ -58,7 +58,10 @@ def route(router, cfg, xt):
     loss of these T tokens."""
     m = cfg.moe
     probs = torch.softmax(xt.float() @ router, dim=-1)
-    top_w, top_i = torch.topk(probs, m.top_k, dim=-1)
+    # a stable sort: on ties the lower expert first, as jax.lax.top_k
+    # (the expert-parallel dispatch's zero pad rows tie on every expert)
+    top_w, top_i = (t[..., :m.top_k] for t in torch.sort(
+        probs, dim=-1, descending=True, stable=True))
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
     frac_tokens = F.one_hot(top_i, m.num_experts).float().sum(1).mean(0)
     aux = m.num_experts * (frac_tokens * probs.mean(0)).sum()
@@ -152,5 +155,9 @@ def apply_moe_sparse(params, cfg, x, *, capacity_factor: float | None = None,
         y = torch.cat(ys)
         aux = torch.stack(auxs).mean()
     if "shared" in params:
-        y = y + _shared(params, xt, dt)
+        # a view of x of its own: x's gradient is then (routed) + (shared),
+        # two terms, summed as the expert-parallel dispatch sums them; on
+        # xt the four terms (router, dispatch, shared wg and wi) would add
+        # in another order, which rounds apart in bfloat16
+        y = y + _shared(params, x.reshape(T, d), dt)
     return y.reshape(B, S, d), aux

@@ -25,8 +25,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import VALID_BLOCK_KINDS, ModelConfig
+from repro_torch.common.partitioning import (activation_placements,
+                                             get_activation_mesh, is_sharded,
+                                             local_call, partial_over_rows,
+                                             replicated)
+from repro_torch.common.tree import leaves, unflatten
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.moe_shardmap import apply_moe_shardmap
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
@@ -155,16 +161,64 @@ def _attention(params, cfg, kind, h, positions, cache, cache_len, mode,
     return a
 
 
-def _moe_ffn(params, cfg, h2):
-    """The moe block's FFN and its router loss. Decode (one token a row)
-    and ``dispatch == "dense"`` take the dropless dense dispatch: capacity
-    at a token count of one would drop whole tokens and break decode /
-    full-forward consistency. Otherwise the capacity-bounded sparse
-    dispatch; ``"shardmap"`` is an SPMD dispatch whose no-mesh branch, the
-    sparse one, is the only one on one card."""
+def _moe_ffn(params, cfg, h2, mode="train"):
+    """The moe block's FFN and its router loss, dispatched as the reference
+    does. Decode (one token a row) and ``dispatch == "dense"`` take the
+    dropless dense dispatch: capacity at a token count of one would drop
+    whole tokens and break decode / full-forward consistency.
+    ``"shardmap"`` in training under an active mesh with a "model" axis
+    takes the expert-parallel all-to-all (``models/moe_shardmap``);
+    everything else the capacity-bounded sparse dispatch. On a mesh the
+    dense and sparse dispatches run whole on every rank (their capacity is
+    the whole batch's), on all rows gathered."""
+    if cfg.moe.dispatch == "shardmap" and mode == "train":
+        mesh = get_activation_mesh()
+        if mesh is not None and "model" in mesh.mesh_dim_names \
+                and is_sharded(h2):
+            return apply_moe_shardmap(params["moe"], cfg, h2, mesh)
     if cfg.moe.dispatch == "dense" or h2.shape[1] == 1:
-        return moe_mod.apply_moe(params["moe"], cfg, h2)
-    return moe_mod.apply_moe_sparse(params["moe"], cfg, h2)
+        fn = moe_mod.apply_moe
+    else:
+        fn = moe_mod.apply_moe_sparse
+    if not is_sharded(h2):
+        return fn(params["moe"], cfg, h2)
+    return _whole(fn, params["moe"], cfg, h2)
+
+
+def _per_row(fn, params, x):
+    """``fn(params, x) -> y`` (y's rows are x's) on a mesh: each rank runs
+    it on its own rows with the weights whole (their gradients a pending
+    sum over the batch axes). The recurrent branches (hymba's SSM, the rwkv
+    block) take it: their scans run per row and per channel, so a rank's
+    rows need nothing of another's."""
+    mesh = x.device_mesh
+    flat = leaves(params)
+    rows = activation_placements(mesh, x.shape, "dp")
+    grad_w = partial_over_rows(mesh, rows)
+
+    def run(x_, *ws):
+        return fn(unflatten(params, list(ws)), x_)
+
+    return local_call(run, mesh, (x, *flat),
+                      (rows,) + (replicated(mesh),) * len(flat), rows,
+                      (None,) + (grad_w,) * len(flat))
+
+
+def _whole(fn, params, cfg, x):
+    """``fn(params, cfg, x) -> (y, aux)`` on a mesh, computed whole on
+    every rank: weights and rows gathered, y's rows sharded again over the
+    batch axes."""
+    mesh = x.device_mesh
+    flat = leaves(params)
+    rep = replicated(mesh)
+
+    def run(x_, *ws):
+        return fn(unflatten(params, list(ws)), cfg, x_)
+
+    y, aux = local_call(run, mesh, (x, *flat), (rep,) * (1 + len(flat)),
+                        (rep, rep))
+    return y.redistribute(mesh, activation_placements(mesh, x.shape,
+                                                      "dp")), aux
 
 
 def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
@@ -199,6 +253,10 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
         h2 = rms_norm(x, params["ln2"], eps=cfg.rms_eps)
         f = apply_mlp(params["mlp"], h2)
         return x + torch.tanh(params["mlp_gate"].to(x.dtype)) * f, cache, aux
+    if kind == "rwkv" and is_sharded(x):
+        return _per_row(lambda p, x_: apply_block(p, cfg, kind, x_,
+                                                  positions=None)[0],
+                        params, x), cache, aux
     if kind == "rwkv":
         st = cache if cache is not None else rwkv_mod.init_rwkv_state(
             cfg, x.shape[0], x.dtype, x.device)
@@ -227,6 +285,9 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
         if mode == "decode":
             s, ssm_st, conv_st = ssm_mod.apply_ssm(
                 params["ssm"], cfg, h, cache["ssm"], cache["conv"])
+        elif is_sharded(h):
+            s = _per_row(lambda p, h_: ssm_mod.apply_ssm(p, cfg, h_)[0],
+                         params["ssm"], h)
         else:
             s, ssm_st, conv_st = ssm_mod.apply_ssm(
                 params["ssm"], cfg, h, None, None, seq_mask=seq_mask,
@@ -240,7 +301,7 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
     x = x + a
     h2 = rms_norm(x, params["ln2"], eps=cfg.rms_eps)
     if kind == "moe":
-        f, aux = _moe_ffn(params, cfg, h2)
+        f, aux = _moe_ffn(params, cfg, h2, mode)
         return x + f, cache, aux
     return x + apply_mlp(params["mlp"], h2), cache, aux
 

@@ -327,14 +327,28 @@ def _trainer_step_matches(arch):
 
 
 def test_trainer_refuses_unported_pipelines():
-    # overlap=True and multi-turn tasks are ported
-    # (tests/test_torch_async_trainer.py, tests/test_torch_multiturn.py);
-    # the disaggregated layouts are SPMD and still raise
+    # overlap=True, multi-turn tasks and the disaggregated trainer are
+    # ported (tests/test_torch_async_trainer.py, test_torch_multiturn.py,
+    # test_torch_weight_sync.py); what is still refused: a rollout device
+    # apart from the train device without disaggregated=True, and a
+    # rollout device that is not there
     cfg = get_config("tiny")
-    with pytest.raises(NotImplementedError, match="disaggregated"):
+    tr = copris.CoPRISTrainer(cfg, RolloutConfig(concurrency=2),
+                              TrainConfig(overlap=True, disaggregated=True),
+                              AdditionTask(), eos_id=EOS, device="cpu")
+    tr.close()
+    assert tr.rollout_device == tr.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="disaggregated"):
         copris.CoPRISTrainer(cfg, RolloutConfig(concurrency=2),
-                             TrainConfig(overlap=True, disaggregated=True),
-                             AdditionTask(), eos_id=EOS, device="cpu")
+                             TrainConfig(), AdditionTask(), eos_id=EOS,
+                             device="cpu", rollout_device="meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            copris.CoPRISTrainer(
+                cfg, RolloutConfig(concurrency=2),
+                TrainConfig(overlap=True, disaggregated=True),
+                AdditionTask(), eos_id=EOS, device="cpu",
+                rollout_device="cuda")
 
 
 # -- checkpoints ---------------------------------------------------------------

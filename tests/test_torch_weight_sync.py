@@ -7,11 +7,20 @@
   so an update in place does not reach a published version;
 * config validation: ``disaggregated`` requires ``overlap``; the trainer's
   ``restore`` republishes through the store;
+* the disaggregated reshard (``make_param_resharder``): a bit-exact copy
+  onto the rollout device, or on a mesh a redistribute to the serving
+  placements; the disaggregated trainer (tiny, 3 overlapped steps, its
+  collects pinned one update behind): the store's freshest version is the
+  consumer's params bit for bit at every stage, and its params end equal
+  to the same run without the reshard; ``launch/train.py --overlap
+  --disaggregated`` on the CPU;
 * on the card (marked ``cuda``, skipped elsewhere; the decision is taken
   inside the fixture): a version acquired on a second stream while the
   first keeps updating the masters in place reads exactly the published
   values, and a decode chunk on one stream while a loop of GEMMs runs on
-  another gives the tokens it gives alone. This file imports no JAX, so
+  another gives the tokens it gives alone, and the reshard's
+  ``reshard_time`` is its copies' span on the copy stream, not the update
+  queued before them. This file imports no JAX, so
   the GPU machine runs it:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_weight_sync.py
@@ -27,7 +36,8 @@ from repro_torch.common.config import RolloutConfig, TrainConfig  # noqa: E402
 from repro_torch.common.tree import leaves  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.copris import CoPRISTrainer  # noqa: E402
-from repro_torch.core.weight_sync import ParamStore  # noqa: E402
+from repro_torch.core.weight_sync import (ParamStore,  # noqa: E402
+                                          make_param_resharder)
 from repro_torch.data.tasks import EOS, AdditionTask  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.sampling import prng  # noqa: E402
@@ -151,6 +161,142 @@ def test_restore_republishes_through_the_store():
         tr.close()
 
 
+# -- the disaggregated reshard ----------------------------------------------------
+
+
+def test_param_resharder_is_a_bit_exact_copy():
+    """Device sides: every leaf copied onto the rollout device, same
+    dtype, same bits, no aliasing of the masters; as the store's reshard
+    its time lands in ``reshard_time``."""
+    cfg = get_config("tiny")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    reshard, out = make_param_resharder(cfg, params, "cpu", "cpu")
+    assert out == torch.device("cpu")
+    copy, elapsed = reshard(params)
+    assert elapsed() > 0.0
+    for a, b in zip(leaves(copy), leaves(params)):
+        assert a.dtype == b.dtype and a.device == b.device
+        assert a.data_ptr() != b.data_ptr()
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32
+                           else a, b.view(torch.int32)
+                           if b.dtype == torch.float32 else b)
+    ps = ParamStore(max_versions=2, reshard=reshard)
+    ps.publish(params, 0)
+    with torch.no_grad():
+        leaves(params)[0].add_(1.0)
+    got, _ = ps.acquire()
+    assert not torch.equal(leaves(got)[0], leaves(params)[0])
+    assert ps.stats_snapshot()["reshard_time"] > 0.0
+
+
+def test_param_resharder_on_a_mesh_redistributes_to_serving():
+    """Mesh sides (one mesh for both): each DTensor leaf goes from its
+    training placements to the serve_tp_only ones, on a copy, the values
+    unchanged bit for bit."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_single_mesh
+    cfg = get_config("tiny")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    mesh = make_single_mesh("cpu")
+    try:
+        sharded = shd.shard_params(params, mesh, cfg)
+        reshard, out = make_param_resharder(cfg, sharded, mesh, mesh)
+        copy, elapsed = reshard(sharded)
+        assert elapsed() >= 0.0
+        want = shd.params_placements(params, mesh, cfg=cfg,
+                                     serve_tp_only=True)
+        for a, b, pl, full in zip(leaves(copy), leaves(sharded),
+                                  leaves_of_placements(want, params),
+                                  leaves(params)):
+            assert tuple(a.placements) == pl
+            assert a.to_local().data_ptr() != b.to_local().data_ptr()
+            assert torch.equal(a.full_tensor(), full)
+        with pytest.raises(NotImplementedError, match="disaggregated"):
+            make_param_resharder(cfg, sharded, mesh, "cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def leaves_of_placements(pl_tree, like):
+    """The placements of ``pl_tree`` in the leaf order of ``like``."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like)
+                for x in leaves_of_placements(pl_tree[k], like[k])]
+    if isinstance(like, list):
+        return [x for i, v in enumerate(like)
+                for x in leaves_of_placements(pl_tree[i], v)]
+    return [pl_tree]
+
+
+_RO = dict(batch_size=4, group_size=2, max_prompt_len=16,
+           max_response_len=12, concurrency=8, mode="copris")
+
+
+def _overlapped(disaggregated, steps=3):
+    """A tiny overlapped run, its collects pinned to the version one
+    update behind (the store's ``acquire`` replaced by ``get`` of that
+    version), so two runs collect the same batches. Returns (outs, whether
+    the store's freshest version was the consumer's params at each stage,
+    the final params)."""
+    cfg = get_config("tiny")
+    tr = CoPRISTrainer(
+        cfg, RolloutConfig(**_RO),
+        TrainConfig(lr=2e-4, warmup_steps=2, overlap=True,
+                    disaggregated=disaggregated, seed=0),
+        AdditionTask(max_value=9, seed=0), eos_id=EOS,
+        params=M.init_params(cfg, seed=0, device="cpu"), device="cpu")
+    tr.batch_timeout = 120.0
+    store, nxt = tr.param_store, iter(range(1 << 30))
+
+    def pinned():
+        v = max(0, next(nxt) - 1)
+        assert store.wait_for(v, timeout=120.0)
+        return store.get(v), v
+
+    store.acquire = pinned
+
+    def same():
+        return all(torch.equal(a, b.detach()) for a, b in
+                   zip(leaves(store.get(tr.stage)), leaves(tr.params)))
+
+    stages, outs = [same()], []
+    try:
+        for _ in range(steps):
+            outs.append(tr.step())
+            stages.append(same())
+        final = [t.detach().clone() for t in leaves(tr.params)]
+    finally:
+        tr.close()
+    return outs, stages, final
+
+
+def test_disaggregated_trainer_store_is_the_consumers_params():
+    outs, stages, final = _overlapped(True)
+    assert stages == [True] * 4
+    for o in outs:
+        assert np.isfinite(o["pg_loss"]) and o["reshard_time"] >= 0.0
+        assert o["param_staleness"] <= 1
+    assert outs[0]["reshard_time"] > 0.0
+    # the reshard is a copy: the same run without it ends on the same bits
+    _, _, plain = _overlapped(False)
+    assert all(torch.equal(a, b) for a, b in zip(final, plain))
+
+
+def test_train_launcher_runs_disaggregated(tmp_path):
+    import json
+
+    from repro_torch.launch import train as train_launch
+    train_launch.main(["--arch", "tiny", "--device", "cpu", "--steps", "2",
+                       "--sft-warmup", "3", "--overlap", "--disaggregated",
+                       "--rollout-device", "cpu", "--max-response", "16",
+                       "--eval-every", "0", "--out", str(tmp_path)])
+    rows = [json.loads(line) for line in
+            open(tmp_path / "metrics.jsonl").read().splitlines()]
+    assert len(rows) == 2
+    assert all(r["reshard_time"] >= 0.0 and np.isfinite(r["pg_loss"])
+               for r in rows)
+
+
 # -- streams on the card -------------------------------------------------------
 
 
@@ -197,6 +343,31 @@ def test_snapshot_integrity_across_streams(dev):
     assert torch.equal(out, want)
     torch.cuda.synchronize()
     assert torch.equal(got["w"].cpu(), want)
+
+
+@pytest.mark.cuda
+def test_param_resharder_times_the_copy_stream(dev):
+    """On the card the reshard's copies wait for the update queued before
+    them, land bit for bit, and ``reshard_time`` is their own span on the
+    copy stream: above zero and below the queued work it waited for."""
+    cfg = get_config("tiny")
+    params = M.init_params(cfg, seed=0, device=dev)
+    reshard, _ = make_param_resharder(cfg, params, dev, dev)
+    ps = ParamStore(max_versions=2, reshard=reshard)
+    busy = torch.randn(4096, 4096, device=dev) * 1e-3
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+    e0.record()
+    _busy(busy)
+    with torch.no_grad():
+        leaves(params)[0].add_(1.0)           # the update, behind the GEMMs
+    e1.record()
+    ps.publish(params, 0)
+    want = [t.detach().clone() for t in leaves(params)]
+    st = ps.stats_snapshot()
+    got, _ = ps.acquire()
+    assert all(torch.equal(a, b) for a, b in zip(leaves(got), want))
+    assert 0.0 < st["reshard_time"] < e0.elapsed_time(e1) / 1e3
 
 
 @pytest.mark.cuda

@@ -1,0 +1,202 @@
+"""Rank-side helpers of the multi-rank tests of the port
+(``tests/test_torch_distributed.py``): no JAX here, so a spawned rank
+imports only torch and the port.
+
+:func:`spawn` starts ``world`` ranks with ``torch.multiprocessing.spawn``,
+each in a gloo process group on a file store under the test's temporary
+directory (never a fixed TCP port: several test workers run at once),
+with one thread each; every rank runs one of the functions below on the
+inputs the test wrote (numpy arrays, pickled) and its result comes back
+the same way. A rank's exception fails the spawn with its traceback.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+
+import numpy as np
+
+
+# the cases at vocab 8192 (the big-vocab loss), float32
+ARCH = {"llama": "llama3.2-1b", "hymba": "hymba-1.5b", "rwkv": "rwkv6-1.6b",
+        "qwen3": "qwen3-14b", "gemma2": "gemma2-2b"}
+VLM = "llama-3.2-vision-90b"
+
+
+def case_config(name: str, get_config=None, get_smoke_config=None):
+    """The port's config of a test case; given the JAX package's
+    ``get_config`` / ``get_smoke_config``, the JAX one from the same
+    fields. gemma2: its sliding window cut to 8, so it binds in a 24-token
+    row; vlm: one 5-layer period of the VLM (one xattn layer)."""
+    if get_config is None:
+        from repro_torch.configs import get_config, get_smoke_config
+    if name == "tiny":
+        return get_config("tiny")
+    if name == "vlm":
+        return dataclasses.replace(get_config(VLM).reduced(num_layers=5),
+                                   vocab_size=8192, dtype="float32")
+    if name in ARCH:
+        cfg = dataclasses.replace(get_smoke_config(ARCH[name]),
+                                  vocab_size=8192, dtype="float32")
+        if name == "gemma2":
+            cfg = dataclasses.replace(cfg, sliding_window=8)
+        return cfg
+    if name in ("deepseek", "deepseek-sparse"):
+        cfg = get_smoke_config("deepseek-moe-16b")
+        moe = dataclasses.replace(
+            cfg.moe, num_experts=8, top_k=2, capacity_factor=16.0,
+            router_aux_coef=0.0,
+            dispatch="shardmap" if name == "deepseek" else "sparse")
+        return dataclasses.replace(cfg, moe=moe, vocab_size=8192,
+                                   dtype="float32")
+    raise KeyError(name)
+
+
+def spawn(fn: str, tmp_path, world: int, **inputs):
+    """Run ``fn(rank, mesh_shape=..., **inputs)`` on ``world`` gloo ranks;
+    returns the ranks' results in rank order."""
+    import torch.multiprocessing as mp
+    with open(os.path.join(tmp_path, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    mp.spawn(_entry, args=(world, str(tmp_path), fn), nprocs=world,
+             join=True)
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp_path, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _entry(rank, world, tmp, fn):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world)
+    try:
+        with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+            inputs = pickle.load(f)
+        res = globals()[fn](rank, **inputs)
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _np(tree):
+    """A tree of tensors (DTensors gathered whole) as numpy arrays."""
+    from repro_torch.common.tree import tree_map
+    return tree_map(lambda t: (t.full_tensor() if hasattr(t, "full_tensor")
+                               else t).detach().cpu().numpy().copy(), tree)
+
+
+def _mesh(mesh_shape):
+    from repro_torch.common.partitioning import set_activation_mesh
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*mesh_shape, device_type="cpu")
+    set_activation_mesh(mesh)
+    return mesh
+
+
+def _placement_leaves(pl_tree, like):
+    """The placements of ``pl_tree`` in the leaf order of ``like``."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like)
+                for x in _placement_leaves(pl_tree[k], like[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for i, v in enumerate(like)
+                for x in _placement_leaves(pl_tree[i], v)]
+    return [pl_tree]
+
+
+# -- rank functions -----------------------------------------------------------
+
+
+def train_step(rank, *, mesh_shape, case, params, batch, tc):
+    """One sharded ``make_train_step`` from the JAX-layout ``params``:
+    the full updated params, AdamW state and metrics, and the all-to-all
+    exchanges the step made."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.common.tree import leaves
+    from repro_torch.core import copris
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.moe_shardmap import apply_moe_shardmap
+    from repro_torch.optim import adam
+    cfg = case_config(case)
+    mesh = _mesh(mesh_shape)
+    p = shd.shard_params(convert.params_from_jax(params, cfg, "cpu"), mesh,
+                         cfg)
+    st = adam.init(p)
+    b = shd.shard_batch({k: torch.from_numpy(v) for k, v in batch.items()},
+                        mesh)
+    # AdamW's moments take their parameter's placements, which are the
+    # reference's opt-state rules
+    want = shd.opt_state_placements(p, mesh, cfg)
+    opt_placed = all(tuple(t.placements) == tuple(pl) for name in ("m", "v")
+                     for t, pl in zip(leaves(st[name]),
+                                      _placement_leaves(want[name], p)))
+    before = apply_moe_shardmap.exchanges
+    p, st, m = copris.make_train_step(cfg, TrainConfig(**tc))(p, st, b,
+                                                              1e-3)
+    return dict(params=_np(p), m=_np(st["m"]), v=_np(st["v"]),
+                step=int(st["step"]), opt_placed=opt_placed,
+                metrics={k: float(v) for k, v in m.items()},
+                exchanges=apply_moe_shardmap.exchanges - before)
+
+
+def moe_dispatch(rank, *, mesh_shape, params, x, cf):
+    """``apply_moe_shardmap`` on the deepseek case's layer: y, aux and the
+    gradients of ``y.sum()``, gathered."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.common.tree import leaves
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.moe_shardmap import apply_moe_shardmap
+    cfg = case_config("deepseek")
+    mesh = _mesh(mesh_shape)
+    p = shd.shard_params({"moe": {k: (torch.from_numpy(v) if not
+                                      isinstance(v, dict) else
+                                      {kk: torch.from_numpy(vv)
+                                       for kk, vv in v.items()})
+                                  for k, v in params.items()}},
+                         mesh, cfg)["moe"]
+    xd = distribute_tensor(torch.from_numpy(x), mesh,
+                           [Shard(0), Replicate()]).requires_grad_()
+    before = apply_moe_shardmap.exchanges
+    y, aux = apply_moe_shardmap(p, cfg, xd, mesh, capacity_factor=cf)
+    y.sum().backward()
+    return dict(y=y.full_tensor().detach().numpy(),
+                aux=float(aux.full_tensor()),
+                grads=_np({k: ({kk: vv.grad for kk, vv in v.items()}
+                               if isinstance(v, dict) else v.grad)
+                           for k, v in p.items()}),
+                dx=xd.grad.full_tensor().numpy(),
+                n_grads=len(leaves(p)),
+                exchanges=apply_moe_shardmap.exchanges - before)
+
+
+def launcher(rank, *, mesh_shape, bad_mesh, steps):
+    """``multihost.main`` on a mesh that does not fit the world (its exit
+    code), then ``multihost.run`` on ``mesh_shape``: the losses, each
+    rank's local shards with their placements, and the full params."""
+    from repro_torch.common.tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch import multihost
+    code = multihost.main(["--arch", "tiny", "--device", "cpu", "--mesh",
+                           ",".join(map(str, bad_mesh)), "--steps", "1"])
+    mesh = _mesh(mesh_shape)
+    params, _, losses = multihost.run(get_config("tiny"), mesh,
+                                      global_batch=8, seq_len=16,
+                                      steps=steps, microbatches=2)
+    return dict(code=code, losses=losses,
+                coord=tuple(int(c) for c in mesh.get_coordinate()),
+                local=[t.to_local().detach().numpy().copy()
+                       for t in leaves(params)],
+                data_replicated=[t.placements[0].is_replicate()
+                                 for t in leaves(params)],
+                full=[np.asarray(t) for t in leaves(_np(params))])
