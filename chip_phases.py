@@ -3,12 +3,17 @@ check of the paths they drive: the kernels are built from the checkout,
 then each named phase runs as in the full script and prints its JSON line.
 
     python3 chip_phases.py [moe_ep] [sharded] [disagg] [multihost]
+                           [decode_split] [serve_sharded] [copris_sharded]
 
 ``moe_ep``: ``train_moe_ep``; ``sharded``: ``train_sharded``; ``disagg``:
 ``train`` (its SFT-warmed weights), ``train_overlap`` and
-``train_disaggregated``; ``multihost``: the torchrun launcher. With no
-name, all four. The last line is ``ALL OK`` when every phase passed; a
-failing phase exits non-zero, as in ``chip_smoke.py``.
+``train_disaggregated``; ``multihost``: the torchrun launcher;
+``decode_split``: the dense decode kernel's lse and the length split's
+checks; ``serve_sharded``: the ``serve`` phase (its profile included),
+then ``serve_sharded``; ``copris_sharded``: the trainer on a (1, 1) mesh
+against the unsharded one. With no name, the first four. The last line is
+``ALL OK`` when every phase passed; a failing phase exits non-zero, as in
+``chip_smoke.py``.
 """
 import subprocess
 import sys
@@ -59,10 +64,42 @@ def main(names):
             cs.train_disaggregated_phase(torch, np, train_kernels, sft)
         elif name == "multihost":
             cs.multihost_phase(np)
+        elif name == "decode_split":
+            import torch.nn.functional as F
+            timer = cs.Timer(torch)
+            cs.check_decode(torch, F, timer, decode_attn)
+            cs.check_decode_split(torch, timer, decode_attn, 32, 8, 64,
+                                  "llama")
+            cs.check_decode_split(torch, timer, decode_attn, 48, 1, 128,
+                                  "granite")
+        elif name == "serve_sharded":
+            serve_dense_then_sharded(kernels)
+        elif name == "copris_sharded":
+            cs.copris_sharded_phase(torch, np, train_kernels)
         else:
             raise SystemExit(f"chip_phases: unknown phase {name}")
         print("phase", name, time.perf_counter() - t, flush=True)
     print("ALL OK", flush=True)
+
+
+def serve_dense_then_sharded(kernels):
+    """The ``serve`` phase's 24 requests unsharded (and its steady-chunk
+    profile), then ``serve_sharded`` against them."""
+    from repro_torch.launch import serve as serve_mod
+    serve, cfg = serve_mod.make_serve_engine(
+        "llama3.2-1b", max_prompt_len=512, max_tokens=128, concurrency=16,
+        temperature=0.8, top_k=50, top_p=0.95, seed=0)
+    for p in cs.serve_prompts(np, cfg):
+        serve.submit(serve_mod.GenerateRequest(prompt=p))
+    t0 = time.perf_counter()
+    results = serve.drain()
+    serve.eng.block_until_ready()
+    wall = time.perf_counter() - t0
+    ntok = cs.check_results(np, results, cfg, len(results))
+    dense = dict(results=results, tokens_per_s=ntok / wall,
+                 profile=cs.profile_phase(torch, np, serve, cfg))
+    del serve
+    cs.serve_sharded_phase(torch, np, serve_mod, kernels, dense)
 
 
 if __name__ == "__main__":

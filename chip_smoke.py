@@ -29,8 +29,9 @@ start):
 2. build   — nvcc builds every kernel source from csrc/, in parallel;
    then "multihost": ``python -m torch.distributed.run --standalone
    --nproc-per-node 1 -m repro_torch.launch.multihost --arch llama3.2-1b
-   --steps 2`` (global batch 8 x 512, a (1, 1) mesh over NCCL) as a
-   subprocess, which must exit 0 with two finite losses;
+   --steps 2`` (global batch 8 x 512, a (1, 1) mesh over NCCL, its
+   params made by sharding.init_sharded_params) as a subprocess, which
+   must exit 0 with two finite losses and rank 0's init peak memory;
    cuobjdump counts the HGMMA (wgmma) instructions of the two flash
    libraries and of the loss library (its bf16 forward, dl, dh and dw
    kernels), which must have some; ptxas's registers and spills of the
@@ -39,7 +40,10 @@ start):
    boundary states too) and backward (with their shared memory);
 3. kernel checks — each kernel against its plain PyTorch version at the
    main paths' shapes (serving: prefill, dense and paged decode and
-   sampling, each also at the hybrid paths' shapes, hymba's H/KV = 5 and
+   sampling; the dense decode's lse and float32 output, and its length
+   split for sharded serving: 2 and 4 slices launched with their start,
+   merged by the log-sum-exp rule, against the whole cache at llama's and
+   granite-34b's shapes; each also at the hybrid paths' shapes, hymba's H/KV = 5 and
    window and the vocabularies of 32001 and 65536; the selective scan and
    WKV6 at their decode and prefill shapes, plus the JAX kernel tests'
    cases, each scan's decode kernel beside its prefill kernel at T = 1,
@@ -131,14 +135,20 @@ start):
    then "serve_paged": the same 24 requests over the paged KV cache with
    40% of the dense-equivalent pages: page pressure (blocked admissions or
    preemptions) and every request returned; then "profile_paged": the
-   profile phase's two chunks over the paged cache;
+   profile phase's two chunks over the paged cache; then "serve_sharded":
+   the same 24 requests on a (1, 1) NCCL mesh (weights in the serve
+   layout, the cache by cache_placements, prefill, decode and sampling on
+   the local shards), bit-equal to "serve", every kernel launched, its
+   steady-chunk host and device time beside the unsharded (its group
+   destroyed);
 6. copris  — two RolloutEngine.collect stages: the first buffers partials
    (early termination), the second resumes them;
    then "serve_hymba" (16 of its 32 layers), "serve_hymba_paged" (8 of
    its 32 layers, 40% of the pages) and
-   "serve_rwkv6": 24 requests each at full width, each with its profile;
-   then "copris_hybrid": two stages on each family (hymba resuming from
-   kv_snapshot, rwkv6 by re-prefill), evicting and resuming;
+   "serve_rwkv6" (12 of its 24): 24 requests each at full width, each
+   with its profile; then "copris_hybrid": two stages on each family at
+   those 16 and 12 layers (hymba resuming from kv_snapshot, rwkv6 by
+   re-prefill), evicting and resuming;
 7. train   — sft_warmup, then three CoPRISTrainer.step() calls on
    llama3.2-1b at full width (bf16 compute, f32 masters): finite reward,
    loss, grad norm, ratio and off-policy share; rollout, reward and update
@@ -174,26 +184,27 @@ start):
    dense-equivalent pages and the legacy fused_loss=False loss: prefix
    sharing, copy-on-write, finite metrics, every kernel of that path
    launched; then "train_hymba" and "train_rwkv6": sft_warmup, then two
-   CoPRISTrainer.step() calls on each family at full width, as "train"
+   CoPRISTrainer.step() calls on each family at full width (16 and 12
+   layers), as "train"
    runs llama: finite metrics, step times, peak memory, every kernel of the
    path launched (the scans' backward kernels, once per layer per update,
    and, for hymba, the flash backward among them), each with the profile
    of one more update;
    then the wide-head archs through the same entry points, one at a time,
-   each freed before the next: "serve_qwen7b" (paper-qwen-7b at full
-   depth) and "serve_qwen7b_paged" (7 of its 28 layers, 40% of the
-   pages), "copris_qwen7b" (two
-   stages), "train_qwen7b" (4 of its 28 layers at full width: SFT, then
-   two steps with the fused loss at d 3584 / V 152064), "serve_gemma2"
-   and "train_gemma2" (full depth: head_dim 256, the softcaps, the local
-   window), "serve_qwen3_14b" (20 of its 40 layers, qk_norm),
+   each freed before the next: "serve_qwen7b" (paper-qwen-7b at 14 of
+   its 28 layers) and "serve_qwen7b_paged" (7 of its 28 layers, 40% of
+   the pages), "copris_qwen7b" (two stages at 14), "train_qwen7b" (4 of
+   its 28 layers at full width: SFT, then two steps with the fused loss
+   at d 3584 / V 152064), "serve_gemma2" and "train_gemma2" (14 of its 26
+   layers: head_dim 256, the softcaps, the local window),
+   "serve_qwen3_14b" (20 of its 40 layers, qk_norm),
    "serve_granite" (24 of its 88 layers: the full depth's bf16 weights do
    not fit the card), "serve_musicgen" and "train_musicgen" (24 of its 48
    layers, V 2048: the full-logits loss; one step; the three half depths
    keep the run near 600 s); then the MoE and VLM archs: "serve_deepseek"
-   (deepseek-moe-16b at full depth) and "serve_deepseek_paged" (7 of its
-   28 layers, 40% of the pages), "copris_deepseek" (two stages, evicting
-   and re-prefilling), "train_deepseek" (its dense first layer and two MoE
+   (deepseek-moe-16b at 14 of its 28 layers) and "serve_deepseek_paged"
+   (7 of its 28 layers, 40% of the pages), "copris_deepseek" (two stages
+   at 14, evicting and re-prefilling), "train_deepseek" (its dense first layer and two MoE
    layers at full width: SFT, then two steps; ``router_aux`` finite and >
    0 in each), "train_sharded" (two make_train_step updates of
    llama3.2-1b at full width and depth on seeded 32 x 128 batches,
@@ -203,7 +214,14 @@ start):
    leaf's update and AdamW moments within 1e-4 of its largest element,
    loss and grad_norm, the flash and loss kernels launched in the sharded
    run, both runs' update times and peak memory; the group destroyed
-   after it), "train_moe_ep" (the same 1 + 2 layers: make_loss_fn and
+   after it), "copris_sharded" (two CoPRISTrainer steps of llama3.2-1b
+   at full width and depth, unsharded and with train_mesh a (1, 1) NCCL
+   mesh: sharded init and AdamW state, the sharded update, versions
+   resharded to the serve layout, the sharded engine; rollout tokens
+   equal at both steps, each leaf's update within 1e-4 of its largest
+   element, the kernels launched; step times beside the unsharded ones,
+   and the peak memory of init_sharded_params against the whole model
+   first; its group destroyed), "train_moe_ep" (the same 1 + 2 layers: make_loss_fn and
    its gradient with dispatch="shardmap" on the (1, 1) mesh, two
    all-to-all exchanges a MoE layer, against "sparse" unsharded from the
    same weights: in bf16 and in float32 loss and metrics within 1e-4 and
@@ -340,12 +358,90 @@ def check_decode(torch, F, timer, decode_attn):
     nbytes = 2 * (2 * q.numel() + 2 * live * KV * hd) + 4 * B
     flops = 4 * H * hd * live
     b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    # the log-sum-exp output of the length split (sharded serving): the
+    # kernel's lse against the plain version's, its float32 output rounding
+    # to the bf16 call's bits, and the kernel's time with it, in turns with
+    # the time without it
+    out_l, lse = decode_attn.decode_attention(q, kc, vc, lens,
+                                              return_lse=True)
+    _, lse_ref = decode_attn.decode_attention_plain(q, kc, vc, lens,
+                                                    return_lse=True)
+    torch.cuda.synchronize()
+    lse_err = (lse - lse_ref).abs().max().item()
+    same_out = out_l.dtype == torch.float32 and torch.equal(
+        out_l.to(out.dtype), out)
+    if not (lse_err <= 1e-4 and same_out):
+        fail(f"decode_attn's lse {lse_err} from the plain version's (atol "
+             f"1e-4), float32 output with lse rounding to the output "
+             f"without: {same_out}")
+    lse_ms = [timer(lambda: decode_attn.decode_attention(
+        q, kc, vc, lens, return_lse=True)) for _ in range(2)]
+    no_lse_ms = [kernel_ms, timer(lambda: decode_attn.decode_attention(
+        q, kc, vc, lens))]
     res = dict(shape=f"q {list(q.shape)} cache {list(kc.shape)} bf16, "
                f"sum(cache_len)={live}",
                max_abs_err=err, atol=atol, ms=kernel_ms, plain_ms=plain_ms,
                library_ms=library_ms, vs_library=kernel_ms / library_ms,
-               bound_ms=b_ms, bound_by=b_by, timer_floor_ms=timer.floor_ms)
+               bound_ms=b_ms, bound_by=b_by, timer_floor_ms=timer.floor_ms,
+               lse_err=lse_err, lse_atol=1e-4, with_lse_ms=lse_ms,
+               without_lse_ms=no_lse_ms)
     emit("check_decode_attn", **res)
+    return res
+
+
+def check_decode_split(torch, timer, decode_attn, H, KV, hd, tag):
+    """The length split of sharded serving on one card: the pool of 16
+    rows, max_len 640, live lengths 1-640 (rows whose live range misses
+    whole slices), H query heads of ``hd`` over KV, in float32 and in
+    bf16. The cache is cut into 2 and 4 slices along its length, each
+    launched with its ``start`` and ``return_lse``, and the slices' outputs
+    merged by the log-sum-exp rule (m = max lse, w = exp(lse - m), sum w o
+    / sum w, in float32, as models/attention.merge_slices does over the
+    "model" ranks) against the whole-cache kernel: within 1e-5 in float32,
+    within one bf16 ulp of each element (plus 1e-5) in bf16. Times a
+    4-way slice's launch beside the whole cache's."""
+    B, L = 16, 640
+    g = torch.Generator(device="cuda").manual_seed(31)
+    lens = torch.randint(1, L + 1, (B,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    lens[:4] = torch.tensor([1, 100, 200, 640], device="cuda")
+    res = {"shape": f"pool {B}, max_len {L}, H/KV {H}/{KV} (REP {H // KV})"
+           f" x {hd}, lengths 1-640", "errors": {}}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q = torch.randn(B, 1, H, hd, device="cuda", generator=g).to(dtype)
+        kc = torch.randn(B, L, KV, hd, device="cuda", generator=g).to(dtype)
+        vc = torch.randn(B, L, KV, hd, device="cuda", generator=g).to(dtype)
+        whole = decode_attn.decode_attention(q, kc, vc, lens).float()
+        for n in (2, 4):
+            size = L // n
+            parts = [decode_attn.decode_attention(
+                q, kc[:, i * size:(i + 1) * size].contiguous(),
+                vc[:, i * size:(i + 1) * size].contiguous(), lens,
+                start=i * size, return_lse=True) for i in range(n)]
+            lse = torch.stack([p[1] for p in parts])
+            m = lse.amax(0)
+            w = torch.exp(lse - torch.where(torch.isfinite(m), m, 0.0))
+            num = sum(p[0].float() * wi[:, None, :, None]
+                      for p, wi in zip(parts, w))
+            merged = num / w.sum(0).clamp_min(1e-30)[:, None, :, None]
+            err = (merged - whole).abs().max().item()
+            if dtype == torch.float32:
+                ok = err <= 1e-5
+            else:
+                ok = bf16_excess(torch, merged, whole, ulps=1.0,
+                                 atol=1e-5) <= 0.0
+            res["errors"][f"{name}_{n}way"] = err
+            if not ok:
+                fail(f"decode length split {n}-way at {H}/{KV} x {hd} "
+                     f"{name}: merged slices {err} from the whole cache")
+        if dtype == torch.bfloat16:
+            sl = (kc[:, :L // 4].contiguous(), vc[:, :L // 4].contiguous())
+            res["slice_4way_ms"] = timer(lambda: decode_attn.decode_attention(
+                q, *sl, lens, start=0, return_lse=True))
+            res["whole_ms"] = timer(lambda: decode_attn.decode_attention(
+                q, kc, vc, lens))
+    res.update(f32_atol=1e-5, bf16_tol="one bf16 ulp + 1e-5")
+    emit(f"check_decode_split_{tag}", **res)
     return res
 
 
@@ -1959,17 +2055,19 @@ def profile_phase(torch, np, serve, cfg, chunks=2, phase="profile"):
     decode_ms = sum(device_us(e) for e in events
                     if "decode_kernel" in e.key) / 1e3 / chunks
     top = sorted(events, key=device_us, reverse=True)[:8]
-    emit(phase, what=f"{chunks} decode chunks of "
-         f"{serve.eng.ro.decode_chunk} steps, pool 16, {cfg.name} bf16, "
-         f"kv_backend {serve.eng.ro.kv_backend}",
-         live_slots=sum(t is not None for t in serve.eng.slots),
-         wall_ms_per_chunk=wall_ms, device_busy_ms_per_chunk=busy_ms,
-         decode_attn_ms_per_chunk=decode_ms,
-         device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
-         top_device_ops=[{"name": e.key[:80], "count": e.count,
-                          "ms_per_chunk": device_us(e) / 1e3 / chunks}
-                         for e in top])
+    res = dict(what=f"{chunks} decode chunks of "
+               f"{serve.eng.ro.decode_chunk} steps, pool 16, {cfg.name} "
+               f"bf16, kv_backend {serve.eng.ro.kv_backend}",
+               live_slots=sum(t is not None for t in serve.eng.slots),
+               wall_ms_per_chunk=wall_ms, device_busy_ms_per_chunk=busy_ms,
+               decode_attn_ms_per_chunk=decode_ms,
+               device_idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+               top_device_ops=[{"name": e.key[:80], "count": e.count,
+                                "ms_per_chunk": device_us(e) / 1e3 / chunks}
+                               for e in top])
+    emit(phase, **res)
     serve.close()                       # in-flight requests stay buffered
+    return res
 
 
 def serve_request(rng, cfg, lo=64, hi=512):
@@ -2746,6 +2844,199 @@ def train_sharded_phase(torch, np, kernels, steps=2):
     return launches
 
 
+def serve_sharded_phase(torch, np, serve_mod, kernels, dense):
+    """Sharded serving on the card: llama3.2-1b at full width and depth,
+    the ``serve`` phase's engine settings and 24 requests, on a (1, 1)
+    ("data", "model") mesh in a NCCL process group of world size 1: the
+    weights made already in the serve layout (DTensors), the slot cache
+    laid out by cache_placements, prefill, decode and sampling on the local
+    shards through local_map, every host read gathered. Its tokens and
+    logps must equal the unsharded ``serve`` phase's bit for bit
+    (``dense["results"]``), and the flash, decode and sampling kernels
+    must have launched. Then the steady-chunk profile of ``profile_phase``
+    beside the unsharded one's (``dense["profile"]``). Destroys its
+    process group."""
+    from repro_torch.common import tree
+    from repro_torch.launch.mesh import make_single_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_single_mesh()
+    try:
+        serve, cfg = serve_mod.make_serve_engine(
+            "llama3.2-1b", max_prompt_len=512, max_tokens=128,
+            concurrency=16, temperature=0.8, top_k=50, top_p=0.95, seed=0,
+            mesh=mesh)
+        for p in serve_prompts(np, cfg):
+            serve.submit(serve_mod.GenerateRequest(prompt=p))
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        results = serve.drain()
+        serve.eng.block_until_ready()
+        wall = time.perf_counter() - t0
+        launches = read_launches(kernels)
+        stats = serve.close()
+        ntok = check_results(np, results, cfg, len(dense["results"]))
+        want = {r.request_id: r for r in dense["results"]}
+        differ = [r.request_id for r in results
+                  if (r.tokens, r.logprobs) != (want[r.request_id].tokens,
+                                                want[r.request_id].logprobs)]
+        prof = profile_phase(torch, np, serve, cfg,
+                             phase="serve_sharded_profile")
+        layout = [str(t.placements) for t in tree.leaves(
+            serve.eng.cache)[:2]]
+    finally:
+        torch.distributed.destroy_process_group()
+    emit("serve_sharded", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size,
+         mesh={"data": 1, "model": 1}, backend="nccl",
+         requests=len(results), tokens=ntok, seconds=wall,
+         tokens_per_s=ntok / wall,
+         tokens_per_s_unsharded=dense["tokens_per_s"],
+         decode_chunks=stats["decode_chunks"], launches=launches,
+         bit_equal_requests=len(results) - len(differ), differ=differ,
+         cache_layout=layout,
+         wall_ms_per_chunk=prof["wall_ms_per_chunk"],
+         device_busy_ms_per_chunk=prof["device_busy_ms_per_chunk"],
+         wall_ms_per_chunk_unsharded=dense["profile"]["wall_ms_per_chunk"],
+         device_busy_ms_per_chunk_unsharded=dense["profile"][
+             "device_busy_ms_per_chunk"])
+    if differ:
+        fail(f"serve_sharded: requests {differ} differ from the unsharded "
+             "serve phase's tokens or logps")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"serve_sharded: a kernel never ran on the local shards: "
+             f"{launches}")
+    return launches
+
+
+def sharded_init_memory(torch, mesh, cfg):
+    """The peak memory of making llama3.2-1b's training params on ``mesh``
+    two ways: the whole float32 model first, then shard_params (before
+    init_sharded_params), and init_sharded_params (each piece distributed
+    as it is made). Bytes above what was allocated before each, and
+    whether the two give the same shards."""
+    from repro_torch.common import tree
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as M
+
+    def peak(make):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = make()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    before, peak_before = peak(lambda: shd.shard_params(
+        M.init_params(cfg, seed=3, device="cuda"), mesh, cfg))
+    before = [t.to_local() for t in tree.leaves(before)]
+    after, peak_after = peak(lambda: shd.init_sharded_params(cfg, mesh,
+                                                             seed=3))
+    same = all(torch.equal(a.to_local(), b)
+               for a, b in zip(tree.leaves(after), before))
+    del before
+    params_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                       for t in tree.leaves(after))
+    return after, dict(peak_bytes_whole_then_shard=peak_before,
+                       peak_bytes_init_sharded=peak_after,
+                       params_bytes=params_bytes, same_shards=same)
+
+
+def copris_sharded_phase(torch, np, kernels, steps=2):
+    """The CoPRIS trainer on one mesh on the card: llama3.2-1b at full
+    width and depth (f32 masters, bf16 compute, remat, the fused loss,
+    entropy 0.01 for a gradient from random weights), ``steps`` sequential
+    CoPRISTrainer steps unsharded and then with ``train_mesh`` a (1, 1)
+    NCCL mesh: params made by init_sharded_params and sharded AdamW state,
+    the sharded update, each version redistributed to the serve layout,
+    the sharded rollout engine. Rollout tokens must be equal step for
+    step, each leaf's update within 1e-4 of its largest element
+    (train_sharded's rule), the rollout and update kernels launched on
+    the local shards. Reports both arms' step, rollout and update times,
+    and the sharded init's peak memory against the whole model's first
+    (sharded_init_memory). Destroys its process group."""
+    from repro_torch.common import tree
+    from repro_torch.common.config import RolloutConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.copris import CoPRISTrainer
+    from repro_torch.data.tasks import EOS, AdditionTask
+    from repro_torch.launch.mesh import make_single_mesh
+    from repro_torch.models import model as M
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=4,
+                       max_response_len=32, concurrency=16, mode="copris",
+                       temperature=1.0)
+    tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=3, entropy_coef=0.01)
+    base = tree.tree_map(lambda t: t.detach().cpu(),
+                         M.init_params(cfg, seed=3, device="cuda"))
+
+    def run(mesh, params):
+        tr = CoPRISTrainer(cfg, ro, tc, AdditionTask(max_value=20, seed=3),
+                           eos_id=EOS, params=params, train_mesh=mesh)
+        reset_launches(kernels)
+        outs, trajs = [], []
+        try:
+            for _ in range(steps):
+                outs.append(tr.step())
+                trajs.append(traj_keys(tr.last_groups))
+            launches = read_launches(kernels, backward=True)
+            new = local_leaves(tr.params)
+        finally:
+            tr.close()
+        return dict(outs=outs, trajs=trajs, launches=launches,
+                    params=[t.cpu() for t in new])
+
+    plain = run(None, tree.tree_map(lambda t: t.cuda(), base))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_single_mesh()
+    try:
+        params, init_mem = sharded_init_memory(torch, mesh, cfg)
+        # the trainer shards the same values itself; the init's shards
+        # are checked above
+        del params
+        sharded = run(mesh, tree.tree_map(lambda t: t.cuda(), base))
+    finally:
+        torch.distributed.destroy_process_group()
+    p0 = tree.leaves(base)
+    rel = [leaf_rel(a - b0, b - b0) for a, b, b0 in zip(
+        sharded["params"], plain["params"], p0)]
+    equal_tokens = [a == b for a, b in zip(sharded["trajs"], plain["trajs"])]
+    keys = ("step_time", "rollout_time", "update_time", "reshard_time",
+            "reward_mean", "pg_loss", "grad_norm", "mean_resp_len")
+    launches = sharded["launches"]
+    emit("copris_sharded", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size,
+         mesh={"data": 1, "model": 1}, backend="nccl", steps=steps,
+         rollout="batch 8 x group 4, response <= 32, concurrency 16",
+         tokens_equal_by_step=equal_tokens,
+         worst_leaf_update_rel_err=max(rel),
+         bit_equal_leaves=sum(e == 0.0 for e in rel), leaves=len(rel),
+         rel_tol=1e-4,
+         steps_sharded=[{k: o[k] for k in keys} for o in sharded["outs"]],
+         steps_unsharded=[{k: o[k] for k in keys} for o in plain["outs"]],
+         launches=launches, launches_unsharded=plain["launches"],
+         sharded_init=init_mem)
+    if not all(equal_tokens):
+        fail(f"copris_sharded: rollout tokens differ from the unsharded "
+             f"trainer's: {equal_tokens}")
+    if not max(rel) <= 1e-4:
+        fail(f"copris_sharded: a leaf's update {max(rel)} from the "
+             "unsharded one (1e-4 of its largest element)")
+    if not init_mem["same_shards"]:
+        fail("copris_sharded: init_sharded_params differs from "
+             "shard_params(init_params)")
+    if not all(n > 0 for n in launches.values()):
+        fail(f"copris_sharded: a kernel never ran on the local shards: "
+             f"{launches}")
+    return launches
+
+
 def leaf_names(tree, prefix=""):
     """Each leaf's dotted path, in the order of common.tree.leaves."""
     if isinstance(tree, dict):
@@ -2891,12 +3182,18 @@ def multihost_phase(np):
     wall = time.perf_counter() - t0
     losses = [float(m.group(1))
               for m in re.finditer(r"step \d+: loss (\S+)", r.stdout)]
+    mem = re.search(r"init peak memory (\d+) bytes, params and AdamW "
+                    r"state (\d+) bytes", r.stdout)
     emit("multihost", command=" ".join(cmd[1:]), returncode=r.returncode,
          losses=losses, seconds=wall,
+         init_peak_bytes_rank0=int(mem.group(1)) if mem else None,
+         params_and_adamw_bytes_rank0=int(mem.group(2)) if mem else None,
+         init="sharding.init_sharded_params",
          stderr_tail=r.stderr[-3000:] if r.returncode else "")
     if r.returncode != 0 or len(losses) != 2 \
-            or not all(np.isfinite(losses)):
-        fail(f"multihost: exit {r.returncode}, losses {losses}")
+            or not all(np.isfinite(losses)) or mem is None:
+        fail(f"multihost: exit {r.returncode}, losses {losses}, init "
+             f"memory line {mem}")
 
 
 def train_multiturn_phase(torch, np, kernels, sft, steps=2, extra_sft=8):
@@ -3168,9 +3465,10 @@ def serve_arch_phase(torch, np, serve_mod, arch, kernels, phase, *,
     return launches, by_length
 
 
-def copris_arch_phase(torch, np, model, runs):
+def copris_arch_phase(torch, np, model, runs, *, cut=""):
     """Two RolloutEngine.collect stages on each of ``runs`` ((arch,
-    resume strategy, kernels, phase)) at full width with random bf16
+    resume strategy, kernels, phase, layers: 0 for all, else that many of
+    the config's layers for the reason ``cut``)) at full width with random bf16
     weights: hymba-1.5b resumes with kv_snapshot (the snapshot carries the
     ssm / conv state beside the K/V), rwkv6-1.6b, paper-qwen-7b and
     deepseek-moe-16b re-prefill. max_len 256 < the 192 + 128 budget, so a
@@ -3180,10 +3478,12 @@ def copris_arch_phase(torch, np, model, runs):
     from repro_torch.configs import get_config
     from repro_torch.core.rollout import RolloutEngine
     from repro_torch.sampling import prng
-    for arch, strategy, kernels, phase in runs:
+    for arch, strategy, kernels, phase, num_layers in runs:
         gc.collect()
         torch.cuda.empty_cache()
-        cfg = get_config(arch)
+        cfg = full = get_config(arch)
+        if num_layers:
+            cfg = dataclasses.replace(cfg, num_layers=num_layers)
         params = model.init_params(cfg, seed=2, device="cuda",
                                    compute_dtype=torch.bfloat16)
         ro = RolloutConfig(batch_size=4, group_size=4, max_prompt_len=192,
@@ -3217,7 +3517,10 @@ def copris_arch_phase(torch, np, model, runs):
                     if not all(np.isfinite(lp) and lp <= 0.0
                                for lp in t.behaviour_logps):
                         fail(f"{phase} {arch}: logp not finite or > 0")
-        emit(phase, arch=arch, resume_strategy=strategy, stages=stages)
+        extra = ({"depth_cut": f"{num_layers} of {full.num_layers} layers: "
+                  f"{cut}"} if num_layers else {})
+        emit(phase, arch=arch, resume_strategy=strategy, stages=stages,
+             layers=cfg.num_layers, **extra)
         if stages[0]["evicted"] == 0 or stages[1]["resumed"] == 0:
             fail(f"{phase} {arch}: evicted {stages[0]['evicted']}, "
                  f"resumed {stages[1]['resumed']}")
@@ -3434,6 +3737,13 @@ def main() -> int:
                   torch, F, timer, flash_attn, 32, 8, 64,
                   phase="check_flash_attn"),
               "decode_attn": check_decode(torch, F, timer, decode_attn),
+              # the length split of sharded serving at llama's shape (REP
+              # 4 x 64) and granite-34b's (MQA: REP 48 x 128)
+              "decode_split": {
+                  "llama3.2-1b": check_decode_split(
+                      torch, timer, decode_attn, 32, 8, 64, "llama"),
+                  "granite-34b": check_decode_split(
+                      torch, timer, decode_attn, 48, 1, 128, "granite")},
               "fused_sample": check_sample(torch, timer, fused_sample, prng),
               "fused_sample_train": check_sample_train(
                   torch, timer, fused_sample, prng, build, sm_mhz),
@@ -3700,8 +4010,12 @@ def main() -> int:
     if not all(n > 0 for n in serve_launches.values()):
         fail(f"a kernel of the serving path never launched: {serve_launches}")
 
-    profile_phase(torch, np, serve, cfg)
+    dense_serve["profile"] = profile_phase(torch, np, serve, cfg)
     serve_paged_phase(torch, np, serve_mod, serve_paged_kernels, dense_serve)
+    # the same requests served on a (1, 1) mesh: bit-equal to the above
+    dense_serve["results"] = results
+    new_serve_launches = {"serve_sharded": serve_sharded_phase(
+        torch, np, serve_mod, kernels, dense_serve)}
 
     # 6. CoPRIS collect: early termination buffers partials, then resumes
     params = serve.params
@@ -3751,7 +4065,13 @@ def main() -> int:
     # on an H100 80GB HBM3 at 700 W, then the sharded and disaggregated
     # phases added ~90 s, so the paged hymba went from 16 to 8 layers, the
     # dense one from 32 to 16 and the paged paper-qwen-7b and deepseek
-    # from 14 to 7; no kernel's shape depends on the depth)
+    # from 14 to 7; no kernel's shape depends on the depth. The sharded
+    # serving phases added ~66 s and the decode library's build ~20 s, to
+    # 933 s on an H100 80GB HBM3 at 700 W, over PR 25's 826: so rwkv6 is
+    # served, and both hybrids are trained and run two CoPRIS stages, at
+    # half depth, and paper-qwen-7b, gemma2-2b and deepseek-moe-16b are
+    # served, and run their CoPRIS stages, at half depth too, gemma2-2b
+    # trained at 14 of 26)
     time_cut = "the run's time (no kernel's shape depends on the depth)"
     hymba_launches, hymba_by_length = serve_arch_phase(
         torch, np, serve_mod, "hymba-1.5b", hymba_kernels, "serve_hymba",
@@ -3762,10 +4082,12 @@ def main() -> int:
                      kv_backend="paged", kv_num_pages=256, num_layers=8,
                      cut=time_cut)
     rwkv_launches, rwkv_by_length = serve_arch_phase(
-        torch, np, serve_mod, "rwkv6-1.6b", rwkv_kernels, "serve_rwkv6")
+        torch, np, serve_mod, "rwkv6-1.6b", rwkv_kernels, "serve_rwkv6",
+        num_layers=12, cut=time_cut)
     copris_arch_phase(torch, np, model, (
-        ("hymba-1.5b", "kv_snapshot", hymba_kernels, "copris_hybrid"),
-        ("rwkv6-1.6b", "reprefill", rwkv_kernels, "copris_hybrid")))
+        ("hymba-1.5b", "kv_snapshot", hymba_kernels, "copris_hybrid", 16),
+        ("rwkv6-1.6b", "reprefill", rwkv_kernels, "copris_hybrid", 12)),
+        cut=time_cut)
 
     # a serve engine and its RolloutEngine form a reference cycle (the
     # engine's prompt source is a bound method of the serve engine): collect
@@ -3795,20 +4117,23 @@ def main() -> int:
     train_paged_launches = train_paged_phase(torch, np, train_paged_kernels)
     train_simt["fused_logprob"] = flp.fused_logprob_rows.simt_launches
 
-    # 7b. the hybrid families trained at full width: the scans' forward
-    # and backward kernels
+    # 7b. the hybrid families trained at full width, half depth: the scans'
+    # forward and backward kernels
     hymba_train = train_phase(torch, np, hymba_train_kernels,
                               arch="hymba-1.5b", phase="train_hymba",
-                              steps=2, seed=2, entropy_coef=0.01)
+                              steps=2, seed=2, entropy_coef=0.01,
+                              num_layers=16, cut=time_cut)
     rwkv_train = train_phase(torch, np, rwkv_train_kernels,
                              arch="rwkv6-1.6b", phase="train_rwkv6",
-                             steps=2, seed=2, entropy_coef=0.01)
+                             steps=2, seed=2, entropy_coef=0.01,
+                             num_layers=12, cut=time_cut)
 
     # 7c. the wide-head archs through the same entry points: paper-qwen-7b
-    # (the paper's model: 28/4 heads of 128) served at full depth over the
-    # dense cache and at 14 of its 28 layers over the paged one, two CoPRIS
-    # stages, trained at 4 of its 28 layers; gemma2-2b (8/4 of 256, softcaps, local window) served over
-    # the dense cache and trained at full depth (its paged decode is held
+    # (the paper's model: 28/4 heads of 128) served at 14 of its 28
+    # layers over the dense cache and at 7 over the paged one, two CoPRIS
+    # stages at 14, trained at 4 of its 28 layers; gemma2-2b (8/4 of 256,
+    # softcaps, local window) served over the dense cache and trained at 14
+    # of its 26 layers (its paged decode is held
     # to the dense kernel bit for bit in the kernel checks); qwen3-14b
     # (40/8 of 128, qk_norm) served at 20 of its 40 layers; granite-34b
     # (48/1 of 128) at 24 of its 88; musicgen-medium (24/24 of 64, V 2048:
@@ -3821,22 +4146,25 @@ def main() -> int:
     # over the ~600 s it aims at; no kernel's shape depends on the depth
     wide = {}
     wide["serve_qwen7b"] = serve_arch_phase(
-        torch, np, serve_mod, "paper-qwen-7b", kernels, "serve_qwen7b")[0]
+        torch, np, serve_mod, "paper-qwen-7b", kernels, "serve_qwen7b",
+        num_layers=14, cut=time_cut)[0]
     wide["serve_qwen7b_paged"] = serve_arch_phase(
         torch, np, serve_mod, "paper-qwen-7b", serve_paged_kernels,
         "serve_qwen7b_paged", kv_backend="paged", kv_num_pages=256,
         num_layers=7, cut=time_cut)[0]
     copris_arch_phase(torch, np, model, (
-        ("paper-qwen-7b", "reprefill", kernels, "copris_qwen7b"),))
+        ("paper-qwen-7b", "reprefill", kernels, "copris_qwen7b", 14),),
+        cut=time_cut)
     wide["train_qwen7b"] = train_phase(
         torch, np, train_kernels, arch="paper-qwen-7b", phase="train_qwen7b",
         steps=2, seed=2, entropy_coef=0.01, num_layers=4,
         cut="the full depth's training state (~122 GB) does not fit the card")
     wide["serve_gemma2"] = serve_arch_phase(
-        torch, np, serve_mod, "gemma2-2b", kernels, "serve_gemma2")[0]
+        torch, np, serve_mod, "gemma2-2b", kernels, "serve_gemma2",
+        num_layers=14, cut=time_cut)[0]
     wide["train_gemma2"] = train_phase(
         torch, np, train_kernels, arch="gemma2-2b", phase="train_gemma2",
-        steps=2, seed=2, entropy_coef=0.01)
+        steps=2, seed=2, entropy_coef=0.01, num_layers=14, cut=time_cut)
     wide["serve_qwen3_14b"] = serve_arch_phase(
         torch, np, serve_mod, "qwen3-14b", kernels, "serve_qwen3_14b",
         num_layers=20, cut=time_cut)[0]
@@ -3855,9 +4183,9 @@ def main() -> int:
     new_launches.update(wide)
 
     # 7d. the MoE and VLM archs through the same entry points, each freed
-    # before the next: deepseek-moe-16b served at full depth over the dense
-    # cache and at 14 of its 28 layers over the paged one, two CoPRIS
-    # stages at full depth, trained at 1 + 2 of its layers (the dense first
+    # before the next: deepseek-moe-16b served at 14 of its 28 layers over
+    # the dense cache and at 7 over the paged one, two CoPRIS stages at 14,
+    # trained at 1 + 2 of its layers (the dense first
     # layer and two MoE layers, full width); qwen3-moe-235b-a22b served at
     # 8 of its 94 layers; llama-3.2-vision-90b served at 10 of its 100
     # layers (two periods: two xattn layers) with its media, and its loss
@@ -3865,13 +4193,14 @@ def main() -> int:
     moe_vlm = {}
     moe_vlm["serve_deepseek"] = serve_arch_phase(
         torch, np, serve_mod, "deepseek-moe-16b", kernels,
-        "serve_deepseek")[0]
+        "serve_deepseek", num_layers=14, cut=time_cut)[0]
     moe_vlm["serve_deepseek_paged"] = serve_arch_phase(
         torch, np, serve_mod, "deepseek-moe-16b", serve_paged_kernels,
         "serve_deepseek_paged", kv_backend="paged", kv_num_pages=256,
         num_layers=7, cut=time_cut)[0]
     copris_arch_phase(torch, np, model, (
-        ("deepseek-moe-16b", "reprefill", kernels, "copris_deepseek"),))
+        ("deepseek-moe-16b", "reprefill", kernels, "copris_deepseek", 14),),
+        cut=time_cut)
     moe_vlm["train_deepseek"] = train_phase(
         torch, np, train_kernels, arch="deepseek-moe-16b",
         phase="train_deepseek", steps=2, seed=2, entropy_coef=0.01,
@@ -3881,6 +4210,10 @@ def main() -> int:
     # then the expert-parallel dispatch; each destroys its process group
     new_launches["train_sharded"] = train_sharded_phase(torch, np,
                                                         train_kernels)
+    # the CoPRIS trainer on one (1, 1) mesh against the unsharded one
+    new_launches["copris_sharded"] = copris_sharded_phase(torch, np,
+                                                          train_kernels)
+    new_launches.update(new_serve_launches)
     new_launches["train_moe_ep"] = train_moe_ep_phase(torch, np, {
         "flash_attn": flash_attn.flash_attention,
         "flash_attn_bwd": flash_attn.flash_attention_bwd, **loss_kernels})
@@ -3992,9 +4325,13 @@ def main() -> int:
         for key in ("library_err", "vs_library", "bound_f32_fma_ms",
                     "int_ops_per_draw", "bytes_bound_ms", "bound_pipe",
                     "bounds_ms", "bit_equal_launches", "same_basis_ms",
-                    "fwd_ms", "boundary_bytes"):
+                    "fwd_ms", "boundary_bytes", "lse_err", "with_lse_ms",
+                    "without_lse_ms"):
             if key in c:
                 row[key] = c[key]
+        if name == "decode_attn":
+            # the slices of a length-split cache, merged, against the whole
+            row["length_split"] = checks["decode_split"]
         hybrid = {arch: dict(c[name], launches=train_of[arch][name])
                   for arch, c in hybrid_checks.items() if name in c}
         if hybrid:
@@ -4178,7 +4515,9 @@ def with_libraries(build, libs, fn):
 def ab_attention_loss(torch, timer, build, parent, in_turns):
     """llama3.2-1b's attention and loss kernels of this tree against those
     of the checkout at ``parent``, through this tree's wrappers (the C entry
-    points are the same), timed in turns: flash forward with lse at the
+    points must be the same: a parent before the decode kernel took
+    ``start`` and ``lse`` cannot be timed so), timed in turns: flash
+    forward with lse at the
     train shape and without at the prefill shape, its backward, dense and
     paged decode at the serve shape, the three loss kernels at d 2048 / V
     128256. Then, per library, the kernels whose SASS is the same in both

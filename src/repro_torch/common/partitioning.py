@@ -8,15 +8,22 @@ drift into partial-logits layouts. The reference also constrains the
 selective scan's state and inputs; here the SSM branch runs on each rank's
 own rows inside ``local_map``, where they are plain tensors.
 
-Without a mesh every call is a no-op that returns its input itself; so is a
-call on a plain tensor (a rank's local shard inside ``local_map``).
+A call on a plain tensor (unsharded, or a rank's local shard inside
+``local_map``) is a no-op that returns its input itself.
 
 The attention layers decide here how they run on a mesh:
 :func:`split_heads` lays a projection out so that no rank holds a piece of
 a head, and :func:`over_heads` runs the one attention function of a layer
-either as it is (plain tensors) or on each rank's rows and whole heads.
+either as it is (plain tensors) or on each rank's rows and whole heads,
+with the layer's K/V cache leaves (serving) on each rank's own shard.
+:func:`on_rows` does the same for a function of a batch's rows with whole
+weights (the recurrent branches, the MoE dispatches, the fused losses, the
+serving path's row gathers and sampling). Each is the function itself on
+plain tensors, so the model has one code path for both.
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 _STATE: dict = {"mesh": None}
 
@@ -27,6 +34,19 @@ def set_activation_mesh(mesh):
 
 def get_activation_mesh():
     return _STATE["mesh"]
+
+
+@contextmanager
+def activation_mesh(mesh):
+    """``with activation_mesh(mesh):`` installs ``mesh`` (None: leaves the
+    installed one) for the block and restores the one before it."""
+    before = _STATE["mesh"]
+    if mesh is not None:
+        _STATE["mesh"] = mesh
+    try:
+        yield
+    finally:
+        _STATE["mesh"] = before
 
 
 def _resolve(mesh, tag) -> tuple:
@@ -43,7 +63,9 @@ def _resolve(mesh, tag) -> tuple:
 def activation_placements(mesh, shape, *tags) -> tuple:
     """One placement per mesh dim for tensor dims tagged ``tags`` ("dp":
     the batch axes, "tp": "model", None: replicated); a dim that does not
-    divide its axes stays replicated."""
+    divide its axes stays replicated, and so does a dim of size 1 (a
+    one-row prefill: ``DTensor`` views cannot merge a sharded singleton
+    dim)."""
     from torch.distributed.tensor import Replicate, Shard
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     out = {a: Replicate() for a in mesh.mesh_dim_names}
@@ -52,7 +74,7 @@ def activation_placements(mesh, shape, *tags) -> tuple:
         n = 1
         for a in axes:
             n *= sizes[a]
-        if axes and shape[i] % n == 0:
+        if axes and shape[i] % n == 0 and shape[i] > 1:
             for a in axes:
                 out[a] = Shard(i)
     return tuple(out[a] for a in mesh.mesh_dim_names)
@@ -60,14 +82,13 @@ def activation_placements(mesh, shape, *tags) -> tuple:
 
 def shard_activation(x, *tags):
     """Redistribute the ``DTensor`` ``x`` to the placements ``tags`` name
-    on the installed mesh; ``x`` itself without a mesh or for a plain
-    tensor. Tags: "dp" (batch axes), "tp" ("model"), None."""
-    mesh = _STATE["mesh"]
-    if mesh is None:
-        return x
+    on the installed mesh (or, with none installed, on ``x`` 's own: the
+    serving path); ``x`` itself for a plain tensor. Tags: "dp" (batch
+    axes), "tp" ("model"), None."""
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
+    mesh = _STATE["mesh"] or x.device_mesh
     want = activation_placements(mesh, x.shape, *tags)
     if tuple(x.placements) == want:
         return x
@@ -121,6 +142,139 @@ def local_call(fn, mesh, args, in_placements, out_placements,
                      device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
+def on_rows(fn, args, params=None, *, n_out: int = 1, n_rep: int = 0,
+            whole: bool = False):
+    """``fn(*args, params)`` (``fn(*args)`` when ``params`` is None), a
+    function of a batch's rows: each of ``args`` has the rows on dim 0, and
+    ``fn`` returns ``n_out`` tensors whose dim 0 are those rows, then
+    ``n_rep`` others (one tensor when the two add up to 1). ``params`` is a
+    tree of weights every rank holds whole.
+
+    Plain tensors: ``fn`` itself. ``DTensor`` s: ``fn`` on each rank's own
+    rows through :func:`local_call`, the rows over the batch axes, the
+    weights replicated with their gradients a pending sum over the batch
+    axes; ``whole``: every rank runs ``fn`` on all rows (a function whose
+    rows are not independent, e.g. a capacity-bounded MoE dispatch) and
+    the row outputs are laid out over the batch axes after it, the others
+    replicated."""
+    x = args[0]
+    if not is_sharded(x):
+        return fn(*args) if params is None else fn(*args, params)
+    from repro_torch.common.tree import leaves, unflatten
+    mesh = x.device_mesh
+    flat = [] if params is None else leaves(params)
+    n = len(args)
+    rep = replicated(mesh)
+    rows = [activation_placements(mesh, a.shape, "dp") for a in args]
+
+    def run(*ts):
+        local = ts[:n]
+        if params is None:
+            return fn(*local)
+        return fn(*local, unflatten(params, list(ts[n:])))
+
+    if whole:
+        outs = local_call(run, mesh, tuple(args) + tuple(flat),
+                          (rep,) * (n + len(flat)),
+                          rep if n_out + n_rep == 1
+                          else (rep,) * (n_out + n_rep))
+        if n_out + n_rep == 1:
+            return outs.redistribute(mesh, rows[0]) if n_out else outs
+        return tuple(o.redistribute(mesh, rows[0]) if i < n_out else o
+                     for i, o in enumerate(outs))
+    if n_rep:
+        raise ValueError("on_rows: an output that is not a row's needs "
+                         "whole=True")
+    grad_w = partial_over_rows(mesh, rows[0])
+    return local_call(run, mesh, tuple(args) + tuple(flat),
+                      tuple(rows) + (rep,) * len(flat),
+                      rows[0] if n_out == 1 else (rows[0],) * n_out,
+                      (None,) * n + (grad_w,) * len(flat))
+
+
+def on_mesh(t, like):
+    """The plain tensor ``t`` (the same values on every rank, e.g. read
+    from host state) as a replicated ``DTensor`` on ``like`` 's mesh when
+    ``like`` is one (a ``DTensor`` or a ``DeviceMesh``), else ``t``."""
+    mesh = getattr(like, "device_mesh", like)
+    if mesh is None or not hasattr(mesh, "mesh_dim_names"):
+        return t
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, replicated(mesh), run_check=False)
+
+
+def replicate(t):
+    """A ``DTensor`` laid out whole on every rank; a plain tensor as it
+    is."""
+    if not is_sharded(t):
+        return t
+    mesh = t.device_mesh
+    return t.redistribute(mesh, replicated(mesh))
+
+
+def to_host(t):
+    """``t`` whole as a plain tensor: a ``DTensor`` gathered
+    (``full_tensor``, a collective every rank makes in the same order, so
+    every rank reads the same values)."""
+    return t.full_tensor() if is_sharded(t) else t
+
+
+def local_shard(t):
+    """This rank's shard of the ``DTensor`` t (its own storage: writes to it
+    land in t); a plain tensor itself."""
+    return t.to_local() if is_sharded(t) else t
+
+
+def gather_dims(t, dims):
+    """The ``DTensor`` t with its shards on the tensor dims ``dims``
+    gathered, every other placement kept; a plain tensor itself."""
+    if not is_sharded(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    want = tuple(Replicate() if p.is_shard() and p.dim in dims else p
+                 for p in t.placements)
+    return t if want == tuple(t.placements) else t.redistribute(
+        t.device_mesh, want)
+
+
+def _shard_axes(t, dim: int) -> list:
+    """The mesh dims that shard tensor dim ``dim`` of the ``DTensor`` t,
+    in mesh order."""
+    from torch.distributed.tensor import Shard
+    return [i for i, p in enumerate(t.placements) if p == Shard(dim)]
+
+
+def shard_start(t, dim: int) -> int:
+    """The global index of the first element of this rank's shard of ``t``
+    along ``dim``: 0 for a plain tensor or an unsharded dim. Shards are
+    even (the sharding rules replicate a dim that does not divide)."""
+    if not is_sharded(t):
+        return 0
+    axes = _shard_axes(t, dim)
+    mesh = t.device_mesh
+    idx, n = 0, 1
+    for i in axes:
+        idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+        n *= mesh.size(i)
+    return idx * (t.shape[dim] // n)
+
+
+def shard_group(t, dim: int):
+    """The process group over whose ranks ``t`` 's dim ``dim`` is split, or
+    None where it is not (a plain tensor, a dim sharded on no mesh dim)."""
+    if not is_sharded(t):
+        return None
+    axes = _shard_axes(t, dim)
+    if not axes:
+        return None
+    if len(axes) > 1:
+        raise NotImplementedError(
+            "a dim split over several mesh dims (the shard_seq cache "
+            "layout) is not ported to the port's serving path: ROADMAP "
+            "queue 1")
+    return t.device_mesh.get_group(axes[0])
+
+
 def split_heads(t, n: int, hd: int):
     """(..., n * hd) -> (..., n, hd). A ``DTensor`` whose last dim is
     sharded below a head (n not a multiple of the "model" axis) is laid
@@ -133,19 +287,23 @@ def split_heads(t, n: int, hd: int):
     return t.unflatten(-1, (n, hd))
 
 
-def over_heads(fn, q, k, v, rows=None):
-    """``fn(q, k, v, rows) -> (out, k, v)``, an attention over q (B, Sq,
-    H, hd) and k, v (B, Sk, KV, hd) with ``rows`` (B, Sq) (positions, or
-    None) that returns out (B, Sq, H * hd) and the keys and values it
-    used. Plain tensors: ``fn`` itself. ``DTensor`` s: ``fn`` on each
-    rank's local rows and whole heads through :func:`local_call`, rows
-    over the batch axes and heads over "model" when H and KV both divide
-    it (each rank then holds whole GQA groups), else all heads on every
-    rank; q, k and v are laid out so first, so a hand kernel never sees a
-    piece of a head. out's heads are flattened on each rank, so no view
-    of the ``DTensor`` splits or merges a sharded head dim."""
+def over_heads(fn, q, k, v, *rows, cache=()):
+    """``fn(q, k, v, *rows, *cache) -> (out, k, v)``, an attention over q
+    (B, Sq, H, hd) and k, v (B, Sk, KV, hd) with ``rows`` (tensors with
+    the batch on dim 0: positions, cache lengths) and ``cache`` (the
+    layer's K/V cache leaves, which decode writes in place) that returns
+    out (B, Sq, H * hd) and the keys and values it used. Plain tensors:
+    ``fn`` itself. ``DTensor`` s: ``fn`` on each rank's local rows and
+    whole heads through :func:`local_call`, rows over the batch axes and
+    heads over "model" when H and KV both divide it (each rank then holds
+    whole GQA groups), else all heads on every rank; q, k and v are laid
+    out so first, so a hand kernel never sees a piece of a head. Each
+    cache leaf goes in its own layout and is never redistributed, so
+    ``fn`` 's writes land in the leaf's own storage (a redistributed cache
+    would take them in a copy). out's heads are flattened on each rank,
+    so no view of the ``DTensor`` splits or merges a sharded head dim."""
     if not is_sharded(q):
-        return fn(q, k, v, rows)
+        return fn(q, k, v, *rows, *cache)
     mesh = q.device_mesh
     tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
     heads = "tp" if q.shape[2] % tp == 0 and k.shape[2] % tp == 0 else None
@@ -153,13 +311,11 @@ def over_heads(fn, q, k, v, rows=None):
     k_pl = activation_placements(mesh, k.shape, "dp", None, heads, None)
     out_pl = activation_placements(mesh, q.shape[:2] + (
         q.shape[2] * q.shape[3],), "dp", None, heads)
-    if rows is None:
-        return local_call(lambda q_, k_, v_: fn(q_, k_, v_, None), mesh,
-                          (q, k, v), (q_pl, k_pl, k_pl),
-                          (out_pl, k_pl, k_pl))
-    return local_call(fn, mesh, (q, k, v, rows),
-                      (q_pl, k_pl, k_pl, activation_placements(
-                          mesh, rows.shape, "dp", None)),
+    return local_call(fn, mesh, (q, k, v, *rows, *cache),
+                      (q_pl, k_pl, k_pl)
+                      + tuple(activation_placements(mesh, r.shape, "dp")
+                              for r in rows)
+                      + tuple(tuple(c.placements) for c in cache),
                       (out_pl, k_pl, k_pl))
 
 

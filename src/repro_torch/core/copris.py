@@ -34,6 +34,14 @@ sharded update — attention and the fused loss kernels on each rank's local
 shards through ``local_map``, the logits materialised sharded where the
 vocabulary is sharded, gradients and the global norm over the whole mesh.
 
+``CoPRISTrainer(train_mesh=)`` runs the whole loop on one mesh, every rank
+in lockstep: the params made already sharded (or the given ones sharded)
+in the training layout with their AdamW state, the update sharded, each
+published version redistributed to the serving layout, and the rollout
+engine sharded on the same mesh (``rollout_mesh`` defaults to
+``train_mesh``; another mesh is refused, as in the reference's
+single-program form).
+
 Parameters are float32 master tensors that the trainer owns and updates in
 place (``optim/adam.update``); every update is published to the
 :class:`~repro_torch.core.weight_sync.ParamStore` as a detached copy, which
@@ -54,8 +62,10 @@ import torch.nn.functional as F
 
 from repro_torch.common.config import ModelConfig, RolloutConfig, TrainConfig
 from repro_torch.common.device import resolve_device
-from repro_torch.common.partitioning import (activation_placements,
-                                             is_sharded, replicated)
+from repro_torch.common.partitioning import (activation_mesh,
+                                             activation_placements,
+                                             is_sharded, on_mesh, replicated,
+                                             to_host)
 from repro_torch.common.tree import leaves, tree_map, unflatten
 from repro_torch.core import grpo
 from repro_torch.core.importance import pack_groups
@@ -64,7 +74,7 @@ from repro_torch.core.rollout import RolloutEngine
 from repro_torch.core.scheduler import AdaptiveConcurrencyController
 from repro_torch.core.weight_sync import ParamStore, make_param_resharder
 from repro_torch.hopper import fused_is_grpo as fio
-from repro_torch.launch.mesh import make_disaggregated_devices
+from repro_torch.launch.mesh import make_disaggregated_devices, mesh_device
 from repro_torch.models import model as M
 from repro_torch.optim import adam, schedule
 from repro_torch.sampling import prng
@@ -187,7 +197,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             betas=tcfg.betas, eps=tcfg.eps, weight_decay=tcfg.weight_decay,
             grad_clip=tcfg.grad_clip)
         msum.update(om)
-        return params, opt_state, {key: _full(v) for key, v in msum.items()}
+        return params, opt_state, {key: to_host(v) for key, v in msum.items()}
 
     return train_step
 
@@ -213,9 +223,14 @@ def _rows(v, lo, hi):
                                                          "dp"))
 
 
-def _full(v):
-    """A metric as a plain tensor (a ``DTensor`` one gathered)."""
-    return v.full_tensor() if is_sharded(v) else v
+def _into(dst, src):
+    """``src`` (a plain tensor, the same on every rank) in ``dst`` 's
+    layout: distributed where ``dst`` is a ``DTensor``."""
+    if not is_sharded(dst) or is_sharded(src):
+        return src
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(src.to(dst.device), dst.device_mesh,
+                             dst.placements, src_data_rank=None)
 
 
 # ---------------------------------------------------------------------------
@@ -278,21 +293,33 @@ class CoPRISTrainer:
 
     def __init__(self, model_cfg: ModelConfig, ro_cfg: RolloutConfig,
                  tcfg: TrainConfig, task, *, eos_id: int, key=None,
-                 params=None, device=None, rollout_device=None):
+                 params=None, device=None, rollout_device=None,
+                 train_mesh=None, rollout_mesh=None):
         self.cfg = model_cfg
         self.ro = ro_cfg
         self.tcfg = tcfg
         self.task = task
-        self.device = resolve_device(device)
-        self.rollout_device = self.device
+        self.train_mesh = train_mesh
+        self.rollout_mesh = (train_mesh if rollout_mesh is None
+                             else rollout_mesh)
         reshard = None
-        sides = make_disaggregated_devices(self.device, rollout_device)
-        if tcfg.disaggregated:
-            self.device, self.rollout_device = sides
-            reshard, _ = make_param_resharder(model_cfg, params, *sides)
-        elif sides[0] != sides[1]:
-            raise ValueError("rollout_device differs from the train device: "
-                             "that needs TrainConfig(disaggregated=True)")
+        if self.rollout_mesh is not None:
+            # one mesh for the whole loop: the device is the rank's own
+            params = self._mesh_params(params, rollout_device)
+            self.device = self.rollout_device = mesh_device(train_mesh)
+            reshard, _ = make_param_resharder(model_cfg, params, train_mesh,
+                                              self.rollout_mesh)
+        else:
+            self.device = resolve_device(device)
+            self.rollout_device = self.device
+            sides = make_disaggregated_devices(self.device, rollout_device)
+            if tcfg.disaggregated:
+                self.device, self.rollout_device = sides
+                reshard, _ = make_param_resharder(model_cfg, params, *sides)
+            elif sides[0] != sides[1]:
+                raise ValueError("rollout_device differs from the train "
+                                 "device: that needs "
+                                 "TrainConfig(disaggregated=True)")
         # all trainer-originated sample_prompt calls go through this proxy
         # (producer thread during overlapped rollout, main thread during
         # evaluate) — hand it to external eval helpers too
@@ -342,7 +369,8 @@ class CoPRISTrainer:
                                         on_finish=self.reward_worker.submit,
                                         env_factory=env_factory,
                                         env_worker=self.env_worker,
-                                        device=self.rollout_device)
+                                        device=self.rollout_device,
+                                        mesh=self.rollout_mesh)
         self._train_step = make_train_step(model_cfg, tcfg)
         self.stage = 0
         self.history = []
@@ -358,9 +386,9 @@ class CoPRISTrainer:
         self.param_store = ParamStore(max_versions=self.max_staleness + 1,
                                       reshard=reshard)
         with _on(self.train_stream):
-            self.params = tree_map(
-                lambda t: t.detach().to(self.device).requires_grad_(),
-                params)
+            self.params = (params if self.train_mesh is not None else
+                           tree_map(lambda t: t.detach().to(
+                               self.device).requires_grad_(), params))
             self.opt_state = adam.init(self.params)
             self.param_store.publish(self.params, self.stage)
 
@@ -383,6 +411,28 @@ class CoPRISTrainer:
         self._reported = self.param_store.stats_snapshot()
         self._stop = threading.Event()
         self._closed = False
+
+    def _mesh_params(self, params, rollout_device):
+        """The train-layout ``DTensor`` params of the trainer on a mesh:
+        made already sharded from ``tcfg.seed``, or the given ones (the
+        same full values on every rank) sharded. Refuses what one mesh
+        does not run."""
+        from repro_torch.launch import sharding as shd
+        if self.train_mesh is None:
+            raise ValueError("rollout_mesh without a train_mesh")
+        if self.tcfg.overlap:
+            raise NotImplementedError(
+                "overlap=True on a mesh: the producer thread and the "
+                "consumer would issue collectives on one process group from "
+                "two threads, whose order no rank can agree on, and "
+                "deadlock (ROADMAP queue 1)")
+        if rollout_device is not None:
+            raise ValueError("rollout_device with a mesh: the rollout side "
+                             "is rollout_mesh")
+        if params is None:
+            return shd.init_sharded_params(self.cfg, self.train_mesh,
+                                           seed=self.tcfg.seed)
+        return shd.shard_params(params, self.train_mesh, self.cfg)
 
     # ------------------------------------------------------------------
     # rollout production (caller thread when sequential, producer thread
@@ -489,12 +539,17 @@ class CoPRISTrainer:
         return out
 
     def _batch_tensors(self, batch):
+        """The packed batch on the train device (on a mesh, its rows over
+        the batch axes: ``sharding.shard_batch``)."""
         dev = self.device
         tb = {k: torch.from_numpy(batch[k]).to(dev)
               for k in ("tokens", "loss_mask", "behaviour_logp")}
         tb["advantages"] = grpo.group_advantages(
             torch.from_numpy(batch["rewards"]).to(dev), self.ro.group_size)
-        return tb
+        if self.train_mesh is None:
+            return tb
+        from repro_torch.launch.sharding import shard_batch
+        return shard_batch(tb, self.train_mesh)
 
     def _train_on(self, item: _StageBatch, t0: float,
                   t_collected: float) -> dict:
@@ -509,8 +564,9 @@ class CoPRISTrainer:
         batch = pack_groups(groups, max_len=self.engine.max_len)
         lr = schedule.warmup_constant(train_stage, lr=self.tcfg.lr,
                                       warmup_steps=self.tcfg.warmup_steps)
-        self.params, self.opt_state, metrics = self._train_step(
-            self.params, self.opt_state, self._batch_tensors(batch), lr)
+        with activation_mesh(self.train_mesh):
+            self.params, self.opt_state, metrics = self._train_step(
+                self.params, self.opt_state, self._batch_tensors(batch), lr)
         # publish the update as a new version for the producer, then wake
         # its staleness gate. Only the consumer thread mutates
         # params/opt_state/stage; the producer reads exclusively through
@@ -607,12 +663,12 @@ class CoPRISTrainer:
         with _on(self.train_stream), torch.no_grad():
             if params is not None:
                 for dst, src in zip(leaves(self.params), leaves(params)):
-                    dst.copy_(src)
+                    dst.copy_(_into(dst, src))
             if opt_state is not None:
                 for name in ("m", "v", "step"):
                     for dst, src in zip(leaves(self.opt_state[name]),
                                         leaves(opt_state[name])):
-                        dst.copy_(src)
+                        dst.copy_(_into(dst, src))
             if stage is not None:
                 if stage < self.stage:
                     raise ValueError(
@@ -669,29 +725,31 @@ class CoPRISTrainer:
         # evaluate is a rollout-side consumer: freshest published version
         params, _ = self.param_store.acquire()
         params = self.engine.prepare_params(params)
-        dev = self.rollout_device
+        dev, mesh = self.rollout_device, self.rollout_mesh
+
+        def put(values):            # replicated on the mesh, if any
+            return on_mesh(torch.tensor(values, dtype=torch.int32,
+                                        device=dev), mesh)
+
         correct = 0.0
         for _ in range(n_prompts):
             cache = M.init_cache(self.cfg, 1, self.engine.max_len,
-                                 device=dev)
+                                 device=dev, mesh=mesh)
             prompt, answer = self.safe_task.sample_prompt()
             L = len(prompt)
             pad = np.zeros(-(-L // 16) * 16, np.int32)
             pad[:L] = prompt
-            logits, cache = M.prefill(
-                params, self.cfg, torch.from_numpy(pad)[None].to(dev),
-                torch.tensor([L], dtype=torch.int32, device=dev), cache)
+            logits, cache = M.prefill(params, self.cfg, put(pad[None]),
+                                      put([L]), cache)
             toks, cl = [], L
-            tok = int(logits[0].argmax())
+            tok = int(to_host(logits)[0].argmax())
             for _ in range(32):
                 toks.append(tok)
                 if tok == eos_id:
                     break
-                lg, cache = M.decode_step(
-                    params, self.cfg,
-                    torch.tensor([tok], dtype=torch.int32, device=dev),
-                    cache, torch.tensor([cl], dtype=torch.int32, device=dev))
+                lg, cache = M.decode_step(params, self.cfg, put([tok]),
+                                          cache, put([cl]))
                 cl += 1
-                tok = int(lg[0].argmax())
+                tok = int(to_host(lg)[0].argmax())
             correct += self.task.reward(toks, answer)
         return correct / n_prompts

@@ -32,6 +32,14 @@ its slot and hands the turn to the :class:`AsyncEnvWorker`; at the next
 chunk boundary the observation is appended with role 0 and the trajectory
 goes back to the scheduler, whose next dispatch re-prefills it.
 
+On a mesh (``mesh=``, a ("data", "model") ``DeviceMesh``; every rank
+runs the engine in lockstep): the weights in the serve layout
+(``launch/sharding``: tensor-parallel only, the reference's decode
+placements), the slot cache laid out as ``cache_placements`` says, the
+host's inputs replicated on the mesh, sampling on each rank's own rows of
+whole-vocabulary logits, and every host read gathered (``full_tensor``) so
+every rank's scheduler sees the same values and takes the same decisions.
+
 Streams: every kernel and copy runs on the caller's current CUDA stream,
 and :meth:`RolloutEngine.block_until_ready` waits for that stream only, so
 a producer thread that drives the engine under its own stream (the
@@ -48,11 +56,14 @@ import torch
 
 from repro_torch.common.config import ModelConfig, RolloutConfig
 from repro_torch.common.device import resolve_device, torch_dtype
+from repro_torch.common.partitioning import (on_mesh, on_rows, replicate,
+                                             to_host)
 from repro_torch.core.buffer import TrajectoryBuffer
 from repro_torch.core.reward_worker import AsyncEnvWorker
 from repro_torch.core.scheduler import ConcurrencyScheduler
 from repro_torch.core.trajectory import Group, Trajectory
 from repro_torch.hopper import fused_sample
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.models import model as M
 from repro_torch.sampling import kv_cache as kvc
 from repro_torch.sampling import prng
@@ -98,6 +109,27 @@ def stop_flags(tok, resp_len_after, total_len_after, *, eos_id: int,
     return eos, length
 
 
+def _check_mesh_engine(cfg, ro, env_factory, mesh):
+    """What the engine on a mesh does not run yet (ROADMAP queue 1) raises
+    here, before any work."""
+    M.check_mesh_serving(cfg)
+    missing = []
+    if ro.kv_backend != "dense":
+        missing.append("the paged KV cache (the reference has no sharding "
+                       "rule for page pools)")
+    if ro.resume_strategy != "reprefill":
+        missing.append(f"resume_strategy={ro.resume_strategy!r} (per-slot "
+                       "snapshots of a sharded cache)")
+    if env_factory is not None:
+        missing.append("multi-turn environments")
+    if "kvg" in mesh.mesh_dim_names:
+        missing.append("the kvg serve mesh")
+    if missing:
+        raise NotImplementedError(
+            "the rollout engine on a mesh: " + "; ".join(missing)
+            + " not ported (ROADMAP queue 1)")
+
+
 class RolloutEngine:
     def __init__(self, model_cfg: ModelConfig, ro_cfg: RolloutConfig,
                  prompt_source: Callable[[], Tuple[np.ndarray, object]], *,
@@ -105,7 +137,7 @@ class RolloutEngine:
                  on_finish: Optional[Callable] = None,
                  env_factory: Optional[Callable] = None,
                  env_worker: Optional[AsyncEnvWorker] = None, media=None,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = model_cfg
         self.ro = ro_cfg
         self.prompt_source = prompt_source
@@ -124,6 +156,10 @@ class RolloutEngine:
             self.env_worker = AsyncEnvWorker(
                 timeout=ro_cfg.env_step_timeout or None)
         self._env_pending = {}          # traj_id -> parked Trajectory
+        self.mesh = mesh
+        if mesh is not None:
+            _check_mesh_engine(model_cfg, ro_cfg, env_factory, mesh)
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
         # a VLM's frontend embeddings (M, d_media), the same for every
         # request: each prefill broadcasts them to its rows; decode reads
@@ -145,7 +181,7 @@ class RolloutEngine:
         self.backend = kvc.make_backend(
             ro_cfg.kv_backend, model_cfg, self.pool, self.max_len,
             page_size=ro_cfg.kv_page_size, num_pages=ro_cfg.kv_num_pages,
-            device=self.device)
+            device=self.device, mesh=mesh)
         # pages promised to dispatched-but-not-yet-prefilled work
         self._reserved_pages = 0
         self._reservations = {}        # traj_id -> reserved page count
@@ -186,8 +222,19 @@ class RolloutEngine:
 
     def prepare_params(self, params):
         """Parameters in the engine's compute dtype and on its device (the
-        matmul weights are cast once; already-cast params pass through)."""
-        return M.cast_params(params, self.dtype, self.device)
+        matmul weights are cast once; already-cast params pass through);
+        on a mesh then laid out in the serve layout (plain tensors, the same
+        on every rank, are distributed; ``DTensor`` s redistributed)."""
+        params = M.cast_params(params, self.dtype, self.device)
+        if self.mesh is None:
+            return params
+        from repro_torch.launch.sharding import shard_params
+        return shard_params(params, self.mesh, self.cfg, serve_tp_only=True,
+                            serve_decode=True)
+
+    def _put(self, a):
+        """A host array on the engine's device, replicated on its mesh."""
+        return on_mesh(torch.from_numpy(a).to(self.device), self.mesh)
 
     def _media_for(self, batch):
         """The media broadcast to ``batch`` prefill rows, or None."""
@@ -196,9 +243,15 @@ class RolloutEngine:
         return self.media[None].expand(batch, *self.media.shape)
 
     def _sample(self, keys, logits):
-        return fused_sample.sample_rows(
-            keys, logits, temperature=self.ro.temperature,
-            top_p=self.ro.top_p, top_k=self.ro.top_k)
+        """(tokens, logps) of ``logits`` (B, V) under ``keys`` (B, 2). On a
+        mesh each rank draws its own rows of the whole-vocabulary logits,
+        and the draws are replicated."""
+        tok, logp = on_rows(
+            lambda k, lg: fused_sample.sample_rows(
+                k, lg, temperature=self.ro.temperature, top_p=self.ro.top_p,
+                top_k=self.ro.top_k),
+            (on_mesh(keys, logits), logits), n_out=2)
+        return replicate(tok), replicate(logp)
 
     # ------------------------------------------------------------------
     def _new_group(self) -> Optional[Group]:
@@ -505,20 +558,23 @@ class RolloutEngine:
         n, S = tokens.shape
         keys = prng.fold_in(_fold_slot_keys(stage_key, gid, sidx),
                             torch.as_tensor(resp_idx))
-        scratch = M.init_cache(self.cfg, n, S, self.dtype, dev)
+        scratch = M.init_cache(self.cfg, n, S, self.dtype, dev,
+                               mesh=self.mesh)
         logits, scratch = M.prefill(
-            params, self.cfg, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(lengths).to(dev), scratch,
+            params, self.cfg, self._put(tokens), self._put(lengths), scratch,
             media=self._media_for(n))
         rows = torch.from_numpy(np.clip(row_map, 0, n - 1).astype(np.int64))
-        logits = logits[rows.to(dev)]
+        rows = rows.to(dev)
+        # each slot's row (a row gather: whole rows on every rank on a mesh)
+        logits = on_rows(lambda lg: lg[rows], (logits,), n_out=0, n_rep=1,
+                         whole=True)
         tok, logp = self._sample(keys.to(dev), logits)
         if self.backend.is_paged:
             kvc.paged_insert_rows(self.cache, scratch, slot_ids, row_map,
                                   flat_pos)
         else:
             kvc.dense_insert_rows(self.cache, scratch, slot_ids, row_map)
-        out = torch.stack([tok.float(), logp]).cpu().numpy()
+        out = to_host(torch.stack([tok.float(), logp])).cpu().numpy()
         return out[0].astype(np.int32), out[1]
 
     def _prefill_rounds(self, pending, sched: ConcurrencyScheduler, params,
@@ -630,14 +686,12 @@ class RolloutEngine:
         # a fresh device block table for every chunk (None for dense)
         bt = self.backend.block_table_device()
         _, (toks, logps, acts) = M.decode_scan(
-            params, self.cfg, self.cache,
-            torch.from_numpy(self.last_token).to(dev),
-            torch.from_numpy(self.cache_len).to(dev),
-            torch.from_numpy(live).to(dev),
-            (torch.from_numpy(resp_len).to(dev), 0), steps=D,
-            step_fn=step_fn,
+            params, self.cfg, self.cache, self._put(self.last_token),
+            self._put(self.cache_len), self._put(live),
+            (self._put(resp_len), 0), steps=D, step_fn=step_fn,
             paged=None if bt is None else (bt, self.backend.page_size))
-        out = torch.stack([toks.float(), logps, acts.float()]).cpu().numpy()
+        out = to_host(torch.stack([toks.float(), logps, acts.float()])
+                      ).cpu().numpy()
         return out[0].astype(np.int32), out[1], out[2].astype(bool)
 
     # ------------------------------------------------------------------

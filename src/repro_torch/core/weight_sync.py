@@ -51,7 +51,10 @@ def _clone(x):
 
 
 def _cuda_leaves(tree):
-    return [t for t in leaves(tree)
+    """The tree's CUDA tensors; of a ``DTensor`` its local shard (the
+    storage a stream reads)."""
+    return [t.to_local() if hasattr(t, "to_local") else t
+            for t in leaves(tree)
             if isinstance(t, torch.Tensor) and t.is_cuda]
 
 

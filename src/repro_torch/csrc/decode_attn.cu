@@ -15,6 +15,14 @@
 // models/attention.py writes — not the Pallas kernel's (B, KV, L, hd), so the
 // cache is read in place with no transpose. q and out are (B, 1, H, hd).
 //
+// A slice of the cache: `start` is the global position of the slice's
+// first row (0 for a whole cache), and the kernel reads global positions
+// [max(start, cache_len - window), min(cache_len, start + L)); with `lse`
+// it also returns each head's log-sum-exp (B, H) float32, so that the
+// slices of a cache whose length is split over ranks merge into the
+// whole-cache result (models/attention.py, on a mesh); the output is then
+// float32, so the slices merge before their one rounding.
+//
 // What bounds it on the H100: memory. Each live cache byte is used for ~REP
 // multiply-adds, far below the ~295 operations per byte at which the card
 // stops being memory-bound, so the kernel reads each live cache byte once
@@ -46,28 +54,37 @@ template <typename T, int HD, int RG>
 __global__ void __launch_bounds__(repro::kDecodeWarps * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, const int* __restrict__ lens,
-              T* __restrict__ o, int L, int KV, int NG, int window,
-              float softcap, float scale, repro::DecodeSplit ws) {
+              void* __restrict__ o, float* __restrict__ lse, int L, int KV,
+              int NG, int start, int window, float softcap, float scale,
+              repro::DecodeSplit ws) {
   const int REP = RG * NG;  // NG: groups of RG query heads per kv head
   const int g = blockIdx.y / NG;
   const int gi = blockIdx.y % NG;
   const int b = blockIdx.z;
-  const int len = min(lens[b], L);
-  const int lo = window > 0 ? max(0, len - window) : 0;
+  // the live range in the slice's own positions
+  const int len = min(lens[b] - start, L);
+  const int lo = window > 0 ? max(0, lens[b] - window - start) : 0;
   const long long stride = (long long)KV * HD;
   const DenseRows rows{(long long)b * L * stride + (long long)g * HD, stride};
   const size_t head = ((size_t)b * KV * REP + g * REP + gi * RG) * HD;
   const int pair = b * KV + g;
+  // with the lse the outputs are float32, for the slices' merge
+  const bool f32 = lse != nullptr;
+  const repro::DecodeOut<T> out{
+      f32 ? static_cast<void*>(static_cast<float*>(o) + head)
+          : static_cast<void*>(static_cast<T*>(o) + head), f32};
   repro::decode_attend<T, HD, RG>(
-      q + head, kc, vc, rows, lo, len, softcap, scale, o + head, ws,
-      pair * NG + gi, (size_t)pair * ws.chunks * REP + gi * RG, REP);
+      q + head, kc, vc, rows, lo, len, softcap, scale, out, ws,
+      pair * NG + gi, (size_t)pair * ws.chunks * REP + gi * RG, REP,
+      f32 ? lse + head / HD : nullptr);
 }
 
 struct Args {
   const void *q, *k, *v;
   const int* lens;
   void* o;
-  int B, L, KV, NG, window;
+  float* lse;
+  int B, L, KV, NG, start, window;
   float softcap, scale;
   repro::DecodeSplit ws;
   cudaStream_t stream;
@@ -78,8 +95,8 @@ void launch(const Args& a) {
   dim3 grid(a.ws.chunks, a.KV * a.NG, a.B);
   decode_kernel<T, HD, RG><<<grid, repro::kDecodeWarps * 32, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.lens, static_cast<T*>(a.o), a.L, a.KV,
-      a.NG, a.window, a.softcap, a.scale, a.ws);
+      static_cast<const T*>(a.v), a.lens, a.o, a.lse, a.L, a.KV, a.NG,
+      a.start, a.window, a.softcap, a.scale, a.ws);
 }
 
 // one instantiation per head-group size RG; a.NG groups per kv head
@@ -99,12 +116,15 @@ bool dispatch_group(int rg, const Args& a) {
 
 // ws: the split workspace, ws_floats float32 (acc, then (max, sum) pairs);
 // tickets: B * H int32 counters (one per row, kv head and head group),
-// zero between calls (decode_common.cuh)
+// zero between calls (decode_common.cuh); lse: (B, H) float32 or null,
+// and with it o float32; start: the global position of the cache slice's
+// first row
 extern "C" int decode_attn_fwd(const void* q, const void* k_cache,
                                const void* v_cache, const void* cache_len,
-                               void* o, void* ws, long long ws_floats,
-                               void* tickets, int B, int L, int H, int KV,
-                               int hd, int window, float softcap, float scale,
+                               void* o, void* lse, void* ws,
+                               long long ws_floats, void* tickets, int B,
+                               int L, int H, int KV, int hd, int start,
+                               int window, float softcap, float scale,
                                int dtype, void* stream) {
   if (KV < 1 || H % KV != 0 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (L + repro::kDecodeChunk - 1) / repro::kDecodeChunk;
@@ -114,9 +134,9 @@ extern "C" int decode_attn_fwd(const void* q, const void* k_cache,
   const repro::DecodeSplit split{acc, reinterpret_cast<float2*>(acc + slots * hd),
                                  static_cast<int*>(tickets), chunks};
   const int rep = H / KV, rg = repro::decode_group(rep);
-  const Args a{q, k_cache, v_cache, static_cast<const int*>(cache_len), o, B,
-               L, KV, rep / rg, window, softcap, scale, split,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{q, k_cache, v_cache, static_cast<const int*>(cache_len), o,
+               static_cast<float*>(lse), B, L, KV, rep / rg, start, window,
+               softcap, scale, split, static_cast<cudaStream_t>(stream)};
   bool ok = false;
   if (dtype == repro::kBFloat16) {
     switch (hd) {

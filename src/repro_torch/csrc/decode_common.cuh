@@ -36,6 +36,15 @@
 // element offset of position pos's K (= V) row for this block's kv head,
 // or -1 for a position that reads as zeros (a sentinel page of the paged
 // cache).
+//
+// With `lse` non-null the block that writes a head's output also writes
+// its log-sum-exp, m + log(l) over the scaled, soft-capped scores it read
+// (float32): the (max, sum) the writing block already holds. A caller that
+// holds one slice of a row's cache (the length split over "model" ranks)
+// merges the slices' outputs by it, so it takes them unrounded: the
+// outputs are then float32 (else the inputs' T), a choice made at run time
+// by the store (DecodeOut), so it adds no instantiation. A row whose live
+// range [lo, len) is empty writes zeros and an lse of -inf.
 #pragma once
 
 #include "common.cuh"
@@ -53,6 +62,21 @@ struct DecodeSplit {
   float2* ml;
   int* ticket;
   int chunks;  // chunk slots per (row, kv head): ceil(max length / C)
+};
+
+// Where a block stores its query heads' outputs (RG rows of HD from p):
+// in the inputs' type T, or float32 (f32) for a caller that merges the
+// slices of a length-split cache.
+template <typename T>
+struct DecodeOut {
+  void* p;
+  bool f32;
+  __device__ __forceinline__ void operator()(int i, float x) const {
+    if (f32)
+      static_cast<float*>(p)[i] = x;
+    else
+      static_cast<T*>(p)[i] = from_f<T>(x);
+  }
 };
 
 // Query heads one block reduces: the largest divisor of REP up to 5. A
@@ -79,10 +103,12 @@ __device__ __forceinline__ void decode_attend(const T* __restrict__ q,
                                               const T* __restrict__ vc,
                                               const Rows rows, int lo,
                                               int len, float softcap,
-                                              float scale, T* __restrict__ o,
+                                              float scale,
+                                              const DecodeOut<T> o,
                                               const DecodeSplit ws,
                                               int ticket, size_t slot_base,
-                                              int rep) {
+                                              int rep,
+                                              float* __restrict__ lse) {
   constexpr int C = kDecodeChunk;
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
   constexpr int LANES = HD / VEC < 32 ? HD / VEC : 32;  // lanes of a position
@@ -95,9 +121,11 @@ __device__ __forceinline__ void decode_attend(const T* __restrict__ q,
                 "head_dim layout");
 
   const int c = blockIdx.x;
-  if (len <= 0) {  // an empty row returns zeros (never made by the engine)
-    if (c == 0)
-      for (int t = threadIdx.x; t < RG * HD; t += NW * 32) o[t] = from_f<T>(0.f);
+  if (len <= lo) {  // an empty range returns zeros (and an lse of -inf)
+    if (c == 0) {
+      for (int t = threadIdx.x; t < RG * HD; t += NW * 32) o(t, 0.f);
+      if (lse != nullptr && threadIdx.x < RG) lse[threadIdx.x] = __int_as_float(0xff800000);  // -inf
+    }
     return;
   }
   const int c_lo = lo / C, c_hi = (len - 1) / C;
@@ -228,7 +256,8 @@ __device__ __forceinline__ void decode_attend(const T* __restrict__ q,
       aa += sm_acc[w][r][d] * cw;
     }
     if (one_chunk) {
-      o[r * HD + d] = from_f<T>(aa / fmaxf(ll, 1e-30f));
+      o(r * HD + d, aa / fmaxf(ll, 1e-30f));
+      if (lse != nullptr && d == 0) lse[r] = mm + logf(ll);
     } else {
       ws.acc[(slot0 + r) * HD + d] = aa;
       if (d == 0) ws.ml[slot0 + r] = make_float2(mm, ll);
@@ -257,7 +286,8 @@ __device__ __forceinline__ void decode_attend(const T* __restrict__ q,
       ll += p.y * cw;
       aa += __ldcg(&ws.acc[s * HD + d]) * cw;
     }
-    o[r * HD + d] = from_f<T>(aa / fmaxf(ll, 1e-30f));
+    o(r * HD + d, aa / fmaxf(ll, 1e-30f));
+    if (lse != nullptr && d == 0) lse[r] = mm + logf(ll);
   }
   if (threadIdx.x == 0) ws.ticket[ticket] = 0;
 }

@@ -64,8 +64,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const size_t head = ((size_t)b * KV * REP + g * REP + gi * RG) * HD;
   const int pair = b * KV + g;
   repro::decode_attend<T, HD, RG>(
-      q + head, kp, vp, rows, lo, len, softcap, scale, o + head, ws,
-      pair * NG + gi, (size_t)pair * ws.chunks * REP + gi * RG, REP);
+      q + head, kp, vp, rows, lo, len, softcap, scale,
+      repro::DecodeOut<T>{o + head, false}, ws,
+      pair * NG + gi, (size_t)pair * ws.chunks * REP + gi * RG, REP,
+      nullptr);
 }
 
 struct Args {

@@ -44,10 +44,12 @@ KERNELS = {
     "flash_attn_bwd": {"flash_attn_bwd":
                        (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                         F, F, I, P)},
-    # q, k_cache, v_cache, cache_len, out, workspace, its float32 count,
-    # tickets, B, L, H, KV, hd, window, softcap, scale, dtype, stream
+    # q, k_cache, v_cache, cache_len, out, lse (or null), workspace, its
+    # float32 count, tickets, B, L, H, KV, hd, start, window, softcap,
+    # scale, dtype, stream
     "decode_attn": {"decode_attn_fwd":
-                    (P, P, P, P, P, P, LL, P, I, I, I, I, I, I, F, F, I, P)},
+                    (P, P, P, P, P, P, P, LL, P, I, I, I, I, I, I, I, F, F,
+                     I, P)},
     # q, k_pool, v_pool, block_table, cache_len, out, workspace, its float32
     # count, tickets, B, NP, page_size, max_pages, H, KV, hd, window,
     # softcap, scale, dtype, stream

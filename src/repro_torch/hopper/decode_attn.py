@@ -49,11 +49,14 @@ def split_workspace(device, B, H, hd, length):
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len, *, window=0,
-                           attn_softcap=0.0, scale=0.0):
-    """The plain PyTorch version (masked softmax over the whole cache)."""
+                           attn_softcap=0.0, scale=0.0, start=0,
+                           return_lse=False):
+    """The plain PyTorch version (masked softmax over the whole cache or,
+    with ``start``, over a slice of it)."""
     from repro_torch.models.attention import decode_attention
     return decode_attention(q, k_cache, v_cache, cache_len, window=window,
-                            attn_softcap=attn_softcap, scale=scale)
+                            attn_softcap=attn_softcap, scale=scale,
+                            start=start, return_lse=return_lse)
 
 
 def _check(q, k_cache, v_cache, cache_len):
@@ -77,17 +80,27 @@ def _check(q, k_cache, v_cache, cache_len):
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
-                     attn_softcap=0.0, scale=0.0):
+                     attn_softcap=0.0, scale=0.0, start=0, return_lse=False):
     """q: (B, 1, H, hd); k_cache/v_cache: (B, L, KV, hd) in the model's cache
     layout; cache_len: (B,) int32 valid entries per row, including the
     current token. Returns (B, 1, H, hd) in q's dtype. The kernel reads
     positions [max(0, cache_len - window), min(cache_len, L)); a row with
-    cache_len <= 0 (never produced by the engine) returns zeros."""
+    an empty range (cache_len <= 0, never produced by the engine) returns
+    zeros.
+
+    ``start``: the caches hold global positions [start, start + L) of a
+    longer cache (one rank's slice of a cache whose length is split over
+    ranks); the kernel then reads [max(start, cache_len - window),
+    min(cache_len, start + L)). ``return_lse``: also return each head's
+    log-sum-exp over the scores read, float32 (B, H), -inf for an empty
+    range, by which the slices' outputs merge; the output is then float32,
+    unrounded, so the slices merge before their one rounding."""
     _check(q, k_cache, v_cache, cache_len)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       window=window, attn_softcap=attn_softcap,
-                                      scale=scale)
+                                      scale=scale, start=start,
+                                      return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, _, H, hd = q.shape
@@ -106,19 +119,23 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
                              f"16-byte aligned {name}")
     if scale <= 0.0:
         scale = hd ** -0.5
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse
+                           else q.dtype)
+    lse = (torch.empty(B, H, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = build.library("decode_attn")
     with torch.cuda.device(q.device):
         ws, tickets = split_workspace(q.device, B, H, hd, L)
         err = lib.decode_attn_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cache_len.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(),
-            tickets.data_ptr(), B, L, H, KV, hd,
+            cache_len.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), ws.data_ptr(),
+            ws.numel(), tickets.data_ptr(), B, L, H, KV, hd, int(start),
             int(window), float(attn_softcap), float(scale), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "decode_attn_fwd")
     build.count(decode_attention)
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

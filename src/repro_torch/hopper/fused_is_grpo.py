@@ -450,23 +450,13 @@ def vocab_parallel(hidden) -> bool:
 
 def on_own_rows(fn, hidden, w, rows, n_out):
     """``fn(h, w, *rows)`` (a fused op of this family) on each rank's own
-    rows through ``local_map``: hidden (B, S, d) and each of ``rows``
+    rows (``partitioning.on_rows``): hidden (B, S, d) and each of ``rows``
     (B, S) over the batch axes, the weight whole on every rank (its
     gradient a pending sum over the batch axes). Returns ``n_out``
     (B, S) ``DTensor`` s in the rows' layout (one when ``n_out`` is 1)."""
-    from repro_torch.common.partitioning import (activation_placements,
-                                                 local_call,
-                                                 partial_over_rows,
-                                                 replicated)
-    mesh = hidden.device_mesh
-    hid = activation_placements(mesh, hidden.shape, "dp", None, None)
-    row = activation_placements(mesh, rows[0].shape, "dp", None)
-    n = len(rows)
-    return local_call(
-        lambda h, w_, *r: fn(h.contiguous(), w_, *r), mesh,
-        (hidden, w) + tuple(rows), (hid, replicated(mesh)) + (row,) * n,
-        (row,) * n_out if n_out > 1 else row,
-        (None, partial_over_rows(mesh, hid)) + (None,) * n)
+    from repro_torch.common.partitioning import on_rows
+    return on_rows(lambda h, *r: fn(h.contiguous(), r[-1], *r[:-1]),
+                   (hidden,) + tuple(rows), w, n_out=n_out)
 
 
 def _sharded_is_grpo(hidden, w, targets, behaviour, adv, cfg):

@@ -83,6 +83,14 @@ def _indexed(dev: torch.device) -> torch.device:
     return dev
 
 
+def mesh_device(mesh) -> torch.device:
+    """The device of this rank's shards on ``mesh``: its card (the current
+    CUDA device) or the host."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def mesh_shape(mesh) -> dict:
     """``{axis name: size}`` of a ``DeviceMesh``, or of a plain dict of
     that form (the rules take either, so they are testable without

@@ -60,23 +60,26 @@ def synthetic_batch(cfg, global_batch: int, seq_len: int, rng):
 def run(cfg, mesh, *, global_batch: int, seq_len: int, steps: int,
         microbatches: int = 1, log=None):
     """Materialise sharded params and AdamW state on ``mesh`` (the port's
-    seeded init, every rank the same, then ``shard_params``) and run
-    ``steps`` sharded updates (lr ``LR``) on seeded synthetic batches. Returns
-    ``(params, opt_state, losses)``; ``log`` (rank 0 only, if given)
-    receives each step's line."""
+    seeded init made already sharded, ``sharding.init_sharded_params``,
+    then ``adam.init`` of the shards) and run ``steps`` sharded updates (lr
+    ``LR``) on seeded synthetic batches. Returns ``(params, opt_state,
+    losses)``; ``log`` (rank 0 only, if given) receives each step's line,
+    and on the card first the peak memory of the init."""
     from repro_torch.common.config import TrainConfig
     from repro_torch.common.partitioning import set_activation_mesh
     from repro_torch.core.copris import make_train_step
     from repro_torch.launch import sharding as shd
-    from repro_torch.models import model as M
     from repro_torch.optim import adam
 
     set_activation_mesh(mesh)
     dev = torch.device(mesh.device_type, torch.cuda.current_device()
                        if mesh.device_type == "cuda" else None)
-    params = shd.shard_params(M.init_params(cfg, seed=0, device=dev),
-                              mesh, cfg)
+    params = shd.init_sharded_params(cfg, mesh, seed=0)
     opt = adam.init(params)
+    if log is not None and dist.get_rank() == 0 and dev.type == "cuda":
+        log(f"init peak memory {torch.cuda.max_memory_allocated(dev)} bytes, "
+            f"params and AdamW state {torch.cuda.memory_allocated(dev)} "
+            "bytes (rank 0)")
     step = make_train_step(cfg, TrainConfig(microbatches=microbatches,
                                             remat=True))
     rng = np.random.default_rng(0)
@@ -111,6 +114,24 @@ def _init_process_group(device_type: str):
                             init_method="env://")
 
 
+def mesh_from_args(spec, device_type: str):
+    """The (data, model) mesh a launcher's ``--mesh DATA,MODEL`` (None:
+    every rank on "data") names, over the default process group from
+    torchrun's environment; None, after saying why, when its product is not
+    the world size."""
+    from repro_torch.launch.mesh import make_mesh
+    _init_process_group(device_type)
+    world = dist.get_world_size()
+    data, model = ((world, 1) if spec is None
+                   else tuple(int(n) for n in spec.split(",")))
+    if data * model != world:
+        print(f"launcher: mesh ({data}, {model}) needs {data * model} "
+              f"ranks, found {world}; launch torchrun --nproc-per-node "
+              f"{data * model}", file=sys.stderr)
+        return None
+    return make_mesh(data, model, device_type=device_type)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
@@ -128,20 +149,11 @@ def main(argv=None):
 
     from repro_torch.common.device import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_mesh
 
-    device_type = resolve_device(args.device).type
-    _init_process_group(device_type)
-    world = dist.get_world_size()
-    data, model = ((world, 1) if args.mesh is None
-                   else tuple(int(n) for n in args.mesh.split(",")))
-    if data * model != world:
-        print(f"multihost launcher: mesh ({data}, {model}) needs "
-              f"{data * model} ranks, found {world}; launch "
-              f"torchrun --nproc-per-node {data * model}", file=sys.stderr)
+    mesh = mesh_from_args(args.mesh, resolve_device(args.device).type)
+    if mesh is None:
         return 2
     cfg = get_config(args.arch)
-    mesh = make_mesh(data, model, device_type=device_type)
     k = args.microbatches or TRAIN_MICROBATCHES.get(cfg.name, 8)
     _, _, losses = run(cfg, mesh, global_batch=args.global_batch,
                        seq_len=args.seq_len, steps=args.steps,

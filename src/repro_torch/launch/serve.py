@@ -24,6 +24,16 @@ tokens a page, ``--kv-num-pages`` pages; 0 = the dense-equivalent count);
 ``--num-layers`` serves fewer layers at the published widths (a model
 whose weights do not fit the card: qwen3-moe-235b-a22b at 8 of its 94
 layers, llama-3.2-vision-90b at 10 of its 100).
+
+On a mesh of cards, one process a card under ``torchrun``: the weights
+tensor-parallel over "model" (made already sharded), the slot cache over
+the batch axes and over the kv heads or, where they do not divide "model",
+over its length; every rank runs the engine in lockstep and rank 0 prints:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch llama3.2-1b --mesh 2,2
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch tiny --device cpu --mesh 1,4        # gloo, 4 CPU ranks
 """
 from __future__ import annotations
 
@@ -75,7 +85,8 @@ class ServeEngine:
     """
 
     def __init__(self, model_cfg: ModelConfig, ro_cfg: RolloutConfig, *,
-                 eos_id: int, params, key, media=None, device=None):
+                 eos_id: int, params, key, media=None, device=None,
+                 mesh=None):
         if ro_cfg.group_size != 1:
             raise ValueError("serving: one trajectory per request "
                              "(group_size=1)")
@@ -92,7 +103,8 @@ class ServeEngine:
         self._harvested = 0            # prefix of sched.completed consumed
         self._key = key
         self.eng = RolloutEngine(model_cfg, ro_cfg, self._next_prompt,
-                                 eos_id=eos_id, media=media, device=device)
+                                 eos_id=eos_id, media=media, device=device,
+                                 mesh=mesh)
         self._params = self.eng.prepare_params(params)
         self._sched = None
 
@@ -203,14 +215,16 @@ def make_serve_engine(arch: str = "tiny", *, smoke: bool = False,
                       top_p: float = 1.0, top_k: int = -1,
                       kv_backend: str = "dense", kv_page_size: int = 16,
                       kv_num_pages: int = 0, seed: int = 0, device=None,
-                      num_layers: int = 0):
+                      num_layers: int = 0, mesh=None):
     """Build a ready ServeEngine with random weights made from ``seed``,
     and for a media model its media, as the reference makes them: a numpy
     ``default_rng(seed)`` normal of shape (M, d_media) times 0.1, the same
     for every request. Runs on the GPU unless ``device='cpu'``.
     ``num_layers`` > 0 keeps that many layers of the config at its widths
     (a model whose weights do not fit the card, served at reduced depth):
-    the prefix and whole repeats of ``block_pattern``."""
+    the prefix and whole repeats of ``block_pattern``. ``mesh`` (a
+    ("data", "model") ``DeviceMesh``; every rank calls this alike) serves
+    sharded: the same weights, made already in the serve layout."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if num_layers > 0:
@@ -235,11 +249,16 @@ def make_serve_engine(arch: str = "tiny", *, smoke: bool = False,
                        kv_page_size=kv_page_size, kv_num_pages=kv_num_pages)
     # the weights as the engine reads them, cast layer by layer: a model
     # whose float32 weights do not fit the card is served all the same
-    params = M.init_params(cfg, seed=seed, device=dev,
-                           compute_dtype=torch_dtype(cfg.dtype))
+    if mesh is None:
+        params = M.init_params(cfg, seed=seed, device=dev,
+                               compute_dtype=torch_dtype(cfg.dtype))
+    else:
+        from repro_torch.launch.sharding import init_sharded_params
+        params = init_sharded_params(cfg, mesh, seed=seed, serve=True,
+                                     compute_dtype=torch_dtype(cfg.dtype))
     return ServeEngine(cfg, ro, eos_id=cfg.vocab_size - 1, params=params,
                        key=prng.PRNGKey(seed + 1), media=media,
-                       device=dev), cfg
+                       device=dev, mesh=mesh), cfg
 
 
 def main(argv=None):
@@ -264,14 +283,26 @@ def main(argv=None):
                          "of its block pattern")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="DATA,MODEL: serve sharded over the ranks of "
+                         "torchrun (NCCL on cards, gloo with --device cpu)")
     args = ap.parse_args(argv)
 
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.launch.multihost import mesh_from_args
+        mesh = mesh_from_args(args.mesh, resolve_device(args.device).type)
+        if mesh is None:
+            return 2
     serve, cfg = make_serve_engine(
         args.arch, smoke=args.smoke, max_prompt_len=args.prompt_len,
         max_tokens=args.max_tokens, concurrency=args.concurrency,
         temperature=args.temperature, kv_backend=args.kv_backend,
         kv_page_size=args.kv_page_size, kv_num_pages=args.kv_num_pages,
-        seed=args.seed, device=args.device, num_layers=args.num_layers)
+        seed=args.seed, device=args.device, num_layers=args.num_layers,
+        mesh=mesh)
+    # on a mesh every rank serves alike; rank 0 prints
+    say = print if mesh is None or mesh.get_rank() == 0 else _quiet
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         serve.submit(GenerateRequest(
@@ -282,8 +313,8 @@ def main(argv=None):
     while serve.pending:
         for r in serve.step():
             served.append(r)
-            print(f"req {r.request_id:3d}: prompt={r.prompt_tokens[:6]}… "
-                  f"-> {len(r.tokens)} tokens ({r.finish_reason})")
+            say(f"req {r.request_id:3d}: prompt={r.prompt_tokens[:6]}… "
+                f"-> {len(r.tokens)} tokens ({r.finish_reason})")
     serve.eng.block_until_ready()
     dt = time.perf_counter() - t0
     stats = serve.close()
@@ -296,11 +327,22 @@ def main(argv=None):
                  f" preempted {stats['page_preemptions']}"
                  f" pages allocated {b.pages_allocated}"
                  f" cow copies {b.cow_copies}")
-    print(f"\nserved {len(served)} requests, {tok} tokens in {dt:.2f}s "
-          f"({tok/dt:.1f} tok/s, slot utilization "
-          f"{stats['utilization']:.2f}, pool={serve.eng.pool}, "
-          f"kv={args.kv_backend}{extra}, device={serve.eng.device})")
+    where = ("" if mesh is None else
+             f", mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    say(f"\nserved {len(served)} requests, {tok} tokens in {dt:.2f}s "
+        f"({tok/dt:.1f} tok/s, slot utilization "
+        f"{stats['utilization']:.2f}, pool={serve.eng.pool}, "
+        f"kv={args.kv_backend}{extra}, device={serve.eng.device}{where})")
+    return 0
+
+
+def _quiet(*_):
+    pass
 
 
 if __name__ == "__main__":
-    main()
+    code = main()
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    raise SystemExit(code)

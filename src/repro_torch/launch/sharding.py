@@ -27,7 +27,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.tree import tree_map
-from repro_torch.launch.mesh import mesh_shape
+from repro_torch.launch.mesh import mesh_device, mesh_shape
 
 # name -> spec for the *trailing* dims. "dp" is replaced by the FSDP axis
 # ("data"), "tp" by the tensor axis ("model"), "ep" by the expert axis
@@ -282,22 +282,72 @@ def cache_placements_tree(cache_shape, cfg: ModelConfig, mesh, *,
 # ---------------------------------------------------------------------------
 
 
-def _distribute(t, mesh, placements, requires_grad=False):
-    from torch.distributed.tensor import distribute_tensor
-    out = distribute_tensor(t.detach(), mesh, list(placements))
+def _distribute(t, mesh, placements, requires_grad=False, *, local=False):
+    """``t`` as a ``DTensor`` in ``placements``: a plain tensor (the same
+    full values on every rank) distributed, from rank 0's copy or, with
+    ``local``, each rank cutting its shard from its own copy (no
+    collective); a ``DTensor`` redistributed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    t = t.detach()
+    if isinstance(t, DTensor):
+        out = (t if tuple(t.placements) == tuple(placements)
+               else t.redistribute(mesh, list(placements)))
+    elif local:
+        out = distribute_tensor(t, mesh, list(placements),
+                                src_data_rank=None)
+    else:
+        out = distribute_tensor(t, mesh, list(placements))
     return out.requires_grad_() if requires_grad else out
 
 
 def shard_params(params, mesh, cfg: ModelConfig, *,
-                 serve_tp_only: bool = False):
+                 serve_tp_only: bool = False, serve_decode: bool = False):
     """The port's parameter dict as ``DTensor`` s on ``mesh``, placed by
-    :func:`params_placements`, the float leaves requiring a gradient.
-    Every rank passes the same full values."""
+    :func:`params_placements`: every rank passes the same full values, or
+    ``DTensor`` s in another layout (redistributed). The training layout's
+    float leaves require a gradient; ``serve_tp_only`` (with
+    ``serve_decode``, the reference's decode placements) is the serving
+    layout, with none."""
     pl = params_placements(params, mesh, serve_tp_only=serve_tp_only,
-                           cfg=cfg)
-    return tree_map(lambda t, p: _distribute(t, mesh, p,
-                                             t.is_floating_point()),
-                    params, pl)
+                           serve_decode=serve_decode, cfg=cfg)
+    grad = not serve_tp_only
+    return tree_map(lambda t, p: _distribute(
+        t, mesh, p, grad and t.is_floating_point()), params, pl)
+
+
+def init_sharded_params(cfg: ModelConfig, mesh, *, seed: int = 0,
+                        compute_dtype=None, serve: bool = False):
+    """The port's seeded init made already sharded: the counterpart of the
+    reference's ``jit(init_params, out_shardings=p_sh)``. The leaves are
+    drawn from ``models/model.init_params``' generator stream in its order,
+    on the mesh's device, and each piece (the embedding, one layer, the
+    final norm, the head) is distributed to its :func:`params_placements`
+    as soon as it is made, each rank cutting its own shards, and its full
+    copy freed: a rank never holds more than one layer of the full model.
+    Every rank's shards equal those of ``shard_params(init_params(cfg,
+    seed=seed), mesh, cfg)`` bit for bit. ``compute_dtype`` casts each
+    layer before it is distributed (``init_params``' own rule); ``serve``
+    places the leaves in the serving layout (``serve_tp_only`` with the
+    decode placements), with no gradient."""
+    from repro_torch.models import model as M
+    dev = mesh_device(mesh)
+    names = list(mesh_shape(mesh))
+
+    def placements(path, shape):
+        pl = param_placements(path, shape, mesh, cfg, serve_decode=serve)
+        if serve:
+            pl = tuple(Replicate() if a == "data" else p
+                       for a, p in zip(names, pl))
+        return pl
+
+    def place(path, piece):
+        return _with_path(lambda p, t: _distribute(
+            t, mesh, placements(p, tuple(t.shape)),
+            t.is_floating_point() and not serve, local=True), piece,
+            tuple(path))
+
+    return M.init_params(cfg, seed=seed, device=dev, place=place,
+                         compute_dtype=compute_dtype)
 
 
 def shard_batch(batch, mesh):

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.common.partitioning import over_heads, split_heads
+from repro_torch.common.partitioning import (over_heads, shard_group,
+                                             shard_start, split_heads)
 from repro_torch.hopper import decode_attn as decode_op
 from repro_torch.hopper import flash_attn as flash_op
 from repro_torch.hopper import paged_decode_attn as paged_op
@@ -171,14 +172,22 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
-                     attn_softcap: float = 0.0, scale: float = 0.0):
+                     attn_softcap: float = 0.0, scale: float = 0.0,
+                     start: int = 0, return_lse: bool = False):
     """Single-token decode attention against a cache.
 
     q: (B, 1, H, hd); k_cache/v_cache: (B, L, KV, hd); cache_len: (B,) —
     number of valid cache entries *including* the current token's K/V (the
     cache is updated before calling). Scores and softmax in float32; the
     probabilities are rounded to the cache dtype before the value product,
-    as in the reference."""
+    as in the reference.
+
+    ``start``: the caches hold global positions [start, start + L) of a
+    longer cache (a rank's slice of a length-split cache). ``return_lse``:
+    also return each head's log-sum-exp over its unmasked scores, float32
+    (B, H), and the output in float32, unrounded; a row with no unmasked
+    position then returns zeros and -inf, so slices merge by
+    :func:`merge_slices`' rule before their one rounding."""
     B, _, H, hd = q.shape
     L, KV = k_cache.shape[1], k_cache.shape[2]
     rep = H // KV
@@ -188,7 +197,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cache.float()) * scale
     if attn_softcap > 0.0:
         s = softcap(s, attn_softcap)
-    pos = torch.arange(L, device=q.device)[None, :]              # (1, L)
+    pos = start + torch.arange(L, device=q.device)[None, :]      # (1, L)
     clen = cache_len.to(torch.int64)[:, None]
     mask = pos < clen
     if window > 0:
@@ -196,7 +205,31 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype).float()
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v_cache.float())
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    out = out.reshape(B, 1, H, hd)
+    if not return_lse:
+        return out.to(q.dtype)
+    live = mask.any(-1)                                          # (B,)
+    lse = torch.where(live[:, None], torch.logsumexp(s, dim=-1).reshape(B, H),
+                      float("-inf"))
+    return torch.where(live[:, None, None, None], out, 0.0), lse
+
+
+def merge_slices(out, lse, group):
+    """The whole-cache decode output from each rank's slice of a cache
+    whose length is split over the ranks of ``group``: ``out`` (B, 1, H,
+    hd) and ``lse`` (B, H) of this rank's slice (:func:`decode_attention`
+    with ``return_lse``, float32), merged in float32 by the log-sum-exp
+    rule, m = max of lse, w = exp(lse - m), out = sum(w o) / sum(w), with
+    plain collectives over ``group``. Every rank returns the same float32
+    result."""
+    import torch.distributed as dist
+    m = lse.clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(lse - torch.where(torch.isfinite(m), m, 0.0))  # (B, H)
+    num = out.float() * w[:, None, :, None]
+    dist.all_reduce(num, group=group)
+    dist.all_reduce(w, group=group)
+    return num / w.clamp_min(1e-30)[:, None, :, None]
 
 
 # ---------------------------------------------------------------------------
@@ -279,8 +312,11 @@ def attention_block(params, cfg, x, positions, *, kind: str, kv_cache=None,
                     cache_len=None, paged=None):
     """Self-attention sub-block.
 
-    Prefill / full sequence: kv_cache is None -> returns (out, (k, v)) where
-    k/v are the full-sequence keys/values (for cache seeding).
+    Full sequence: kv_cache is None -> returns (out, (k, v)) where k/v are
+    the full-sequence keys/values.
+    Prefill: kv_cache=(k_cache, v_cache) (B, L, KV, hd) and no cache_len ->
+    the full-sequence attention, its K/V written into positions [0, S) of
+    the caches in place; returns (out, (k_cache, v_cache)).
     Decode: kv_cache=(k_cache, v_cache) (B, L, KV, hd), cache_len (B,) int32
     tokens already in cache; x is (B, 1, d). The new token's K/V is written
     at cache_len IN PLACE on the cache tensors (the reference's
@@ -289,6 +325,14 @@ def attention_block(params, cfg, x, positions, *, kind: str, kv_cache=None,
     Paged decode: ``paged=(block_table (B, max_pages) int32, page_size)``
     and kv_cache holds the physical page pools (NP, ps, KV, hd) shared by
     all slots (:func:`paged_write_kv`, then the paged decode kernel).
+
+    On a mesh the attention runs on each rank's own rows and heads
+    (``partitioning.over_heads``), with the caches' own shards: each rank
+    holds its rows and either its kv heads or, where the kv heads do not
+    divide "model", a slice of the cache's length
+    (``launch/sharding.cache_placements``), written where it holds them; a
+    decode step over a length slice merges the slices' outputs over the
+    ranks that hold the others (:func:`merge_slices`).
     """
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -300,36 +344,81 @@ def attention_block(params, cfg, x, positions, *, kind: str, kv_cache=None,
         k = rms_norm(k, params["k_norm"], eps=cfg.rms_eps)
     window = cfg.sliding_window if kind == "local" else 0
     cap = cfg.attn_softcap
+    cache = () if kv_cache is None else tuple(kv_cache)
+    # this rank's slice of the cache length: its first position, the
+    # cache's length, and the ranks holding the other slices (None: whole)
+    start = shard_start(cache[0], 1) if cache else 0
+    L = cache[0].shape[1] if cache else 0
+    group = shard_group(cache[0], 1) if cache else None
 
-    def attend(q, k, v, positions):
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        if kv_cache is None:
+    if cache_len is None:
+        def attend(q, k, v, positions, *caches):
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
             out = flash_op.flash_attention(q, k, v.contiguous(), causal=True,
                                            window=window, attn_softcap=cap)
+            for c, t in zip(caches, (k, v)):
+                write_prefix(c, t, start)
             return out.flatten(-2), k, v
-        k_cache, v_cache = kv_cache
+
+        out, k, v = over_heads(attend, q, k, v, positions, cache=cache)
+        return out @ params["wo"].to(dt), (cache or (k, v))
+
+    def attend(q, k, v, positions, clen, k_cache, v_cache):
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
         if paged is not None:
             bt, psz = paged
-            paged_write_kv(k_cache, k, bt, psz, cache_len)
-            paged_write_kv(v_cache, v, bt, psz, cache_len)
+            paged_write_kv(k_cache, k, bt, psz, clen)
+            paged_write_kv(v_cache, v, bt, psz, clen)
             out = paged_op.paged_decode_attention(
-                q, k_cache, v_cache, bt, psz, cache_len + 1, window=window,
+                q, k_cache, v_cache, bt, psz, clen + 1, window=window,
                 attn_softcap=cap)
-        else:
-            B, L = x.shape[0], k_cache.shape[1]
-            rows = torch.arange(B, device=x.device)
-            idx = cache_len.to(torch.int64).clamp(0, L - 1)
-            k_cache[rows, idx] = k[:, 0].to(k_cache.dtype)
-            v_cache[rows, idx] = v[:, 0].to(v_cache.dtype)
-            out = decode_op.decode_attention(q, k_cache, v_cache,
-                                             cache_len + 1, window=window,
-                                             attn_softcap=cap)
-        return out.flatten(-2), k_cache, v_cache
+            return out.flatten(-2), k, v
+        write_token(k_cache, k, clen, start, L)
+        write_token(v_cache, v, clen, start, L)
+        out = decode_op.decode_attention(q, k_cache, v_cache, clen + 1,
+                                         window=window, attn_softcap=cap,
+                                         start=start,
+                                         return_lse=group is not None)
+        if group is not None:
+            out = merge_slices(*out, group).to(q.dtype)
+        return out.flatten(-2), k, v
 
-    # on a mesh (training: no cache) on each rank's own rows and heads
-    out, k, v = over_heads(attend, q, k, v, positions)
-    return out @ params["wo"].to(dt), (k, v)
+    out, _, _ = over_heads(attend, q, k, v, positions, cache_len,
+                           cache=cache)
+    return out @ params["wo"].to(dt), cache
+
+
+def write_token(cache, new, cache_len, start: int, length: int):
+    """Write one decode token's K (or V) ``new`` (B, 1, KV, hd) into the
+    dense ``cache`` (B, L, KV, hd) at position ``cache_len`` (B,), in
+    place: the reference's dynamic_update_slice, whose start index is
+    clamped to ``length - 1``. ``cache`` holds global positions [start,
+    start + L) of a cache of ``length`` positions (a rank's slice of a
+    length-split cache): a row writes only where its clamped position lies
+    in the slice."""
+    B, L = cache.shape[0], cache.shape[1]
+    rows = torch.arange(B, device=cache.device)
+    idx = cache_len.to(torch.int64).clamp(0, length - 1)
+    val = new[:, 0].to(cache.dtype)
+    if L != length:
+        idx = idx - start
+        own = (idx >= 0) & (idx < L)
+        idx = idx.clamp(0, L - 1)
+        val = torch.where(own[:, None, None], val, cache[rows, idx])
+    cache[rows, idx] = val
+
+
+def write_prefix(cache, new, start: int = 0):
+    """Prefill's write of the full-sequence K (or V) ``new`` (B, S, KV, hd)
+    into positions [0, S) of the dense ``cache`` (B, L, KV, hd), in place.
+    ``cache`` holds global positions [start, start + L) (a rank's slice of
+    a length-split cache, ``new`` then every position): the part of [0, S)
+    it holds."""
+    end = min(new.shape[1], start + cache.shape[1])
+    if end > start:
+        cache[:, :end - start] = new[:, start:end].to(cache.dtype)
 
 
 def cross_attention_block(params, cfg, x, media, *, media_kv=None):
@@ -353,7 +442,7 @@ def cross_attention_block(params, cfg, x, media, *, media_kv=None):
     else:
         k, v = (t.to(dt) for t in media_kv)
 
-    def attend(q, k, v, _):
+    def attend(q, k, v):
         out = flash_op.flash_attention(q.contiguous(), k.contiguous(),
                                        v.contiguous(), causal=False)
         return out.flatten(-2), k, v

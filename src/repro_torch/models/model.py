@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device, torch_dtype
 from repro_torch.common.partitioning import (activation_placements,
-                                             is_sharded, local_call,
+                                             is_sharded, local_call, on_rows,
                                              replicated, shard_activation,
                                              vocab_slice)
 from repro_torch.hopper import fused_logprob as flp
@@ -46,7 +46,7 @@ _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "wi", "wg")
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
-                compute_dtype=None):
+                compute_dtype=None, place=None):
     """Random parameters made from ``seed`` (a torch.Generator on the target
     device), in ``cfg.param_dtype``, with the reference's structured values
     where it has them (the SSM's A_log, dt_bias and D; rwkv's mixes, decay
@@ -54,27 +54,37 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     device='cpu'. With ``compute_dtype`` the result is ``cast_params`` of
     those parameters, each layer cast as soon as it is made, so the
     ``param_dtype`` copy of the whole model never exists at once (serving a
-    model whose float32 weights do not fit the card)."""
+    model whose float32 weights do not fit the card). ``place(path,
+    piece)`` (``launch/sharding.init_sharded_params``) takes each piece as
+    soon as it is made, the embedding, a layer, the final norm, the head,
+    with its path from the root, and returns what the tree keeps of it."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
+    if place is None:
+        def place(path, piece):
+            return piece
     gen = torch.Generator(device=dev).manual_seed(seed)
-    tok = embed_init((cfg.vocab_size, cfg.d_model), dtype, dev, gen)
+    tok = place(("embed", "tok"),
+                embed_init((cfg.vocab_size, cfg.d_model), dtype, dev, gen))
     layers = []
-    for kind in transformer.layer_kinds(cfg):
+    for i, kind in enumerate(transformer.layer_kinds(cfg)):
         layer = transformer.init_block(cfg, kind, dtype, dev, gen)
-        layers.append(layer if compute_dtype is None
-                      else _cast_layer(layer, compute_dtype, dev))
+        layers.append(place(("layers", i), layer if compute_dtype is None
+                            else _cast_layer(layer, compute_dtype, dev)))
     params = {
         "embed": {"tok": tok},
         "layers": layers,
-        "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+        "final_norm": place(("final_norm",), torch.ones(
+            cfg.d_model, dtype=dtype, device=dev)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), dtype,
-                                       dev, gen)
+        params["lm_head"] = place(("lm_head",), dense_init(
+            (cfg.d_model, cfg.vocab_size), dtype, dev, gen))
     if cfg.uses_media:
-        params["embed"]["media_proj"] = dense_init(
-            (cfg.cross_attn.d_media, cfg.d_model), dtype, dev, gen)
+        params["embed"]["media_proj"] = place(
+            ("embed", "media_proj"),
+            dense_init((cfg.cross_attn.d_media, cfg.d_model), dtype, dev,
+                       gen))
     if compute_dtype is not None:
         params = _cast_outer(params, layers, compute_dtype, dev)
     return params
@@ -147,10 +157,24 @@ def _cast_layer(p, dtype, device):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device=None):
+               device=None, mesh=None):
+    """A zeroed stack cache of ``batch`` slots of ``max_len`` positions.
+    With ``mesh`` every leaf is a ``DTensor`` laid out as
+    ``launch/sharding.cache_placements_tree`` says, each rank allocating
+    only its own shard (on the mesh's device)."""
     dtype = dtype or torch_dtype(cfg.dtype)
-    return transformer.init_stack_cache(cfg, batch, max_len, dtype,
-                                        resolve_device(device))
+    if mesh is None:
+        return transformer.init_stack_cache(cfg, batch, max_len, dtype,
+                                            resolve_device(device))
+    import torch.distributed.tensor as dtensor
+
+    from repro_torch.common.tree import tree_map
+    from repro_torch.launch.sharding import cache_placements_tree
+    shapes = transformer.init_stack_cache(cfg, batch, max_len, dtype,
+                                          torch.device("meta"))
+    return tree_map(lambda t, pl: dtensor.zeros(
+        *t.shape, dtype=t.dtype, device_mesh=mesh, placements=list(pl)),
+        shapes, cache_placements_tree(shapes, cfg, mesh))
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -252,8 +276,7 @@ def backbone(params, cfg: ModelConfig, tokens, *, positions=None, media=None,
     """Embed + stack + final norm. Returns (hidden (B, S, d), new_cache,
     aux): ``aux`` the sum of the MoE layers' router losses, float32."""
     if is_sharded(tokens) and mode != "train":
-        raise ValueError("backbone: prefill and decode on a mesh are sharded "
-                         "serving, which is not ported")
+        check_mesh_serving(cfg, cache, paged)
     if positions is None:
         if mode == "decode":
             positions = cache_len[:, None]
@@ -268,6 +291,40 @@ def backbone(params, cfg: ModelConfig, tokens, *, positions=None, media=None,
         mode=mode, remat=remat, paged=paged)
     x = rms_norm(x, params["final_norm"], eps=cfg.rms_eps)
     return x, new_cache, aux
+
+
+# the block kinds whose prefill and decode run on a mesh
+MESH_SERVING_KINDS = ("attn", "local", "global")
+
+
+def check_mesh_serving(cfg: ModelConfig, cache=None, paged=None):
+    """Prefill and decode on a mesh: the attention kinds over a dense cache
+    laid out as ``launch/sharding.cache_placements_tree`` says (the
+    attention writes each rank's shard in place, so a cache in another
+    layout would be redistributed into a copy and the writes lost).
+    Raises ``NotImplementedError`` for what is not ported."""
+    kinds = set(transformer.layer_kinds(cfg)) - set(MESH_SERVING_KINDS)
+    if kinds:
+        raise NotImplementedError(
+            f"serving {cfg.name} on a mesh: its {sorted(kinds)} blocks are "
+            "not ported to the sharded serving path (ROADMAP queue 1); the "
+            f"mesh serves the {MESH_SERVING_KINDS} kinds")
+    if paged is not None:
+        raise NotImplementedError(
+            "the paged KV cache on a mesh is not ported (ROADMAP queue 1: "
+            "the reference has no sharding rule for page pools)")
+    if cache is None:
+        return
+    from repro_torch.launch.sharding import cache_placements
+    for i, layer in enumerate(cache):
+        for name, t in layer.items():
+            want = cache_placements((i, name), tuple(t.shape), cfg,
+                                    t.device_mesh)
+            if tuple(t.placements) != want:
+                raise ValueError(
+                    f"cache layer {i} {name!r} is laid out {t.placements}, "
+                    f"not as launch/sharding.cache_placements says ({want}):"
+                    " make the cache with init_cache(..., mesh=)")
 
 
 def forward_train(params, cfg: ModelConfig, tokens, *, media=None,
@@ -327,13 +384,11 @@ def prefill(params, cfg: ModelConfig, tokens, lengths, cache, *, media=None):
     token (``lengths``). A media model's ``media`` (B, M, d_media) seeds
     its xattn layers' media K/V. Returns (next_token_logits (B, V),
     cache)."""
-    S = tokens.shape[1]
-    seq_mask = torch.arange(S, device=tokens.device)[None, :] \
-        < lengths[:, None]
+    seq_mask = _positions(tokens) < lengths[:, None]
     x, new_cache, _ = backbone(params, cfg, tokens, media=media, cache=cache,
                                seq_mask=seq_mask, lengths=lengths,
                                mode="prefill")
-    last = _gather_last(x, lengths)                      # (B, d)
+    last = on_rows(_gather_last, (x, lengths))           # (B, d)
     return _logits(params, cfg, last), new_cache
 
 

@@ -25,11 +25,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import VALID_BLOCK_KINDS, ModelConfig
-from repro_torch.common.partitioning import (activation_placements,
-                                             get_activation_mesh, is_sharded,
-                                             local_call, partial_over_rows,
-                                             replicated)
-from repro_torch.common.tree import leaves, unflatten
+from repro_torch.common.partitioning import (get_activation_mesh,
+                                             is_sharded, on_rows,
+                                             shard_activation)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.moe_shardmap import apply_moe_shardmap
@@ -134,6 +132,15 @@ def _gather_last(x, lengths):
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
+def _rows(t):
+    """A sub-block's output (B, S, d) laid out as the residual stream on a
+    mesh: rows over the batch axes, whole on "model" (its row-parallel
+    product's pending sum reduced here). Left to itself DTensor would
+    reduce-scatter the sum onto the rows, splitting a row count that does
+    not divide the whole mesh unevenly, which a later view cannot undo."""
+    return shard_activation(t, "dp", None, None)
+
+
 def _store(cache, name, value):
     """Write a per-slot state leaf in place (a no-op where the scan kernel
     already updated the cache tensor itself)."""
@@ -146,18 +153,10 @@ def _attention(params, cfg, kind, h, positions, cache, cache_len, mode,
     """The attention sub-block of the attention kinds and hymba: decode
     writes the token's K/V in place, prefill writes the full-sequence K/V
     into the cache at positions [0, S)."""
-    if mode == "decode":
-        a, _ = attn_mod.attention_block(
-            params["attn"], cfg, h, positions, kind=kind,
-            kv_cache=(cache["k"], cache["v"]), cache_len=cache_len,
-            paged=paged)
-        return a
-    a, (k, v) = attn_mod.attention_block(params["attn"], cfg, h, positions,
-                                         kind=kind)
-    if mode == "prefill":
-        S = h.shape[1]
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
+    kv_cache = None if mode == "train" else (cache["k"], cache["v"])
+    a, _ = attn_mod.attention_block(
+        params["attn"], cfg, h, positions, kind=kind, kv_cache=kv_cache,
+        cache_len=cache_len if mode == "decode" else None, paged=paged)
     return a
 
 
@@ -180,45 +179,8 @@ def _moe_ffn(params, cfg, h2, mode="train"):
         fn = moe_mod.apply_moe
     else:
         fn = moe_mod.apply_moe_sparse
-    if not is_sharded(h2):
-        return fn(params["moe"], cfg, h2)
-    return _whole(fn, params["moe"], cfg, h2)
-
-
-def _per_row(fn, params, x):
-    """``fn(params, x) -> y`` (y's rows are x's) on a mesh: each rank runs
-    it on its own rows with the weights whole (their gradients a pending
-    sum over the batch axes). The recurrent branches (hymba's SSM, the rwkv
-    block) take it: their scans run per row and per channel, so a rank's
-    rows need nothing of another's."""
-    mesh = x.device_mesh
-    flat = leaves(params)
-    rows = activation_placements(mesh, x.shape, "dp")
-    grad_w = partial_over_rows(mesh, rows)
-
-    def run(x_, *ws):
-        return fn(unflatten(params, list(ws)), x_)
-
-    return local_call(run, mesh, (x, *flat),
-                      (rows,) + (replicated(mesh),) * len(flat), rows,
-                      (None,) + (grad_w,) * len(flat))
-
-
-def _whole(fn, params, cfg, x):
-    """``fn(params, cfg, x) -> (y, aux)`` on a mesh, computed whole on
-    every rank: weights and rows gathered, y's rows sharded again over the
-    batch axes."""
-    mesh = x.device_mesh
-    flat = leaves(params)
-    rep = replicated(mesh)
-
-    def run(x_, *ws):
-        return fn(unflatten(params, list(ws)), cfg, x_)
-
-    y, aux = local_call(run, mesh, (x, *flat), (rep,) * (1 + len(flat)),
-                        (rep, rep))
-    return y.redistribute(mesh, activation_placements(mesh, x.shape,
-                                                      "dp")), aux
+    return on_rows(lambda x, p: fn(p, cfg, x), (h2,), params["moe"],
+                   n_rep=1, whole=True)
 
 
 def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
@@ -249,14 +211,16 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
         if mode == "prefill" and cache is not None:
             cache["mk"].copy_(mk)
             cache["mv"].copy_(mv)
-        x = x + a
+        x = x + _rows(a)
         h2 = rms_norm(x, params["ln2"], eps=cfg.rms_eps)
         f = apply_mlp(params["mlp"], h2)
-        return x + torch.tanh(params["mlp_gate"].to(x.dtype)) * f, cache, aux
+        return (x + _rows(torch.tanh(params["mlp_gate"].to(x.dtype)) * f),
+                cache, aux)
     if kind == "rwkv" and is_sharded(x):
-        return _per_row(lambda p, x_: apply_block(p, cfg, kind, x_,
-                                                  positions=None)[0],
-                        params, x), cache, aux
+        # on a mesh (training) the block on each rank's own rows
+        return on_rows(lambda x_, p: apply_block(p, cfg, kind, x_,
+                                                 positions=None)[0],
+                       (x,), params), cache, aux
     if kind == "rwkv":
         st = cache if cache is not None else rwkv_mod.init_rwkv_state(
             cfg, x.shape[0], x.dtype, x.device)
@@ -279,15 +243,15 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
         return x + y2, cache, aux
 
     h = rms_norm(x, params["ln1"], eps=cfg.rms_eps)
-    a = _attention(params, cfg, "local" if kind == "hymba" else kind, h,
-                   positions, cache, cache_len, mode, paged)
+    a = _rows(_attention(params, cfg, "local" if kind == "hymba" else kind,
+                         h, positions, cache, cache_len, mode, paged))
     if kind == "hymba":
         if mode == "decode":
             s, ssm_st, conv_st = ssm_mod.apply_ssm(
                 params["ssm"], cfg, h, cache["ssm"], cache["conv"])
         elif is_sharded(h):
-            s = _per_row(lambda p, h_: ssm_mod.apply_ssm(p, cfg, h_)[0],
-                         params["ssm"], h)
+            s = on_rows(lambda h_, p: ssm_mod.apply_ssm(p, cfg, h_)[0],
+                        (h,), params["ssm"])
         else:
             s, ssm_st, conv_st = ssm_mod.apply_ssm(
                 params["ssm"], cfg, h, None, None, seq_mask=seq_mask,
@@ -302,8 +266,8 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
     h2 = rms_norm(x, params["ln2"], eps=cfg.rms_eps)
     if kind == "moe":
         f, aux = _moe_ffn(params, cfg, h2, mode)
-        return x + f, cache, aux
-    return x + apply_mlp(params["mlp"], h2), cache, aux
+        return x + _rows(f), cache, aux
+    return x + _rows(apply_mlp(params["mlp"], h2)), cache, aux
 
 
 def apply_stack(params, cfg: ModelConfig, x, *, positions, media=None,

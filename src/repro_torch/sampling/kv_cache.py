@@ -32,6 +32,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common.partitioning import (gather_dims, local_shard,
+                                             shard_start)
+
 
 KV_KEYS = ("k", "v")
 
@@ -78,17 +81,37 @@ def dense_insert_rows(cache, scratch, slot_ids, row_map):
     decode writes position c before any step attends it (write-before-read
     along the length axis, masked by cache_len). Per-slot state leaves are
     written whole. Slot ids outside ``[0, pool)`` — the padding rows — are
-    dropped. ``slot_ids`` / ``row_map`` are host integer arrays."""
+    dropped. ``slot_ids`` / ``row_map`` are host integer arrays.
+
+    On a mesh (``DTensor`` leaves, the scratch in the cache's layout) each
+    rank writes its own shard of the cache in place: the scratch gathered
+    to every row and position (a slot's scratch row may live on another
+    data rank, and the scratch's length slices are not the cache's; its
+    heads, where the cache shards them, stay), then the slots among the
+    rank's own rows written at the positions of its own length slice."""
     pool = next(iter(cache[0].values())).shape[0]     # every leaf's axis 0
     n_rows = next(iter(scratch[0].values())).shape[0]
-    idx = _slot_rows(slot_ids, row_map, pool, n_rows, _device(cache))
-    if idx is None:
-        return cache
-    dst, src = idx
+    slot_ids = np.asarray(slot_ids, np.int64)
+    row_map = np.clip(np.asarray(row_map, np.int64), 0, n_rows - 1)
+    keep = (slot_ids >= 0) & (slot_ids < pool)
+    dev = _device(cache)
+    pairs = {}                   # (first row, rows) -> device (dst, src)
     for big_layer, small_layer in zip(cache, scratch):
         for name, big in big_layer.items():
-            small = small_layer[name]
-            big[dst, :small.shape[1]] = small[src].to(big.dtype)
+            local = local_shard(big)
+            whole = local_shard(gather_dims(small_layer[name], (0, 1)))
+            r0, p0 = shard_start(big, 0), shard_start(big, 1)
+            end = min(small_layer[name].shape[1], p0 + local.shape[1])
+            key = (r0, local.shape[0])
+            if key not in pairs:
+                mine = keep & (slot_ids >= r0) & (slot_ids < r0 + key[1])
+                pairs[key] = None if not mine.any() else (
+                    torch.from_numpy(slot_ids[mine] - r0).to(dev),
+                    torch.from_numpy(row_map[mine]).to(dev))
+            if pairs[key] is None or end <= p0:
+                continue
+            dst, src = pairs[key]
+            local[dst, :end - p0] = whole[src, p0:end].to(local.dtype)
     return cache
 
 
@@ -240,11 +263,12 @@ class DenseCache(CacheBackend):
     """One dense ``max_len`` KV region per slot."""
 
     def __init__(self, model_cfg, pool: int, max_len: int, dtype=None,
-                 device=None):
+                 device=None, mesh=None):
         from repro_torch.models import model as M
         self.pool = pool
         self.max_len = max_len
-        self.cache = M.init_cache(model_cfg, pool, max_len, dtype, device)
+        self.cache = M.init_cache(model_cfg, pool, max_len, dtype, device,
+                                  mesh=mesh)
 
     # snapshots: a copy of the slot's cache slice
     def extract_snapshot(self, slot: int):
@@ -468,10 +492,14 @@ class PagedCache(CacheBackend):
 
 def make_backend(name: str, model_cfg, pool: int, max_len: int, *,
                  page_size: int = 16, num_pages: int = 0, dtype=None,
-                 device=None) -> CacheBackend:
+                 device=None, mesh=None) -> CacheBackend:
     if name == "dense":
-        return DenseCache(model_cfg, pool, max_len, dtype, device)
+        return DenseCache(model_cfg, pool, max_len, dtype, device, mesh=mesh)
     if name == "paged":
+        if mesh is not None:
+            raise NotImplementedError(
+                "PagedCache on a mesh is not ported (ROADMAP queue 1): the "
+                "reference has no sharding rule for page pools")
         return PagedCache(model_cfg, pool, max_len, page_size=page_size,
                           num_pages=num_pages, dtype=dtype, device=device)
     raise ValueError(f"unknown kv backend {name!r} (dense|paged)")

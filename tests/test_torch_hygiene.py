@@ -1,8 +1,8 @@
 """Package rules of the PyTorch port.
 
-* no file under src/repro_torch/, and neither chip_smoke.py nor
-  chip_overlap.py, imports jax or the
-  JAX package (`repro` / `repro.*`);
+* no file under src/repro_torch/, none of the port's examples
+  (examples/torch_*.py), and neither chip_smoke.py nor chip_overlap.py,
+  imports jax or the JAX package (`repro` / `repro.*`);
 * importing every repro_torch module loads neither jax nor repro;
 * on a machine without CUDA, entry points raise unless asked for the CPU.
 """
@@ -33,6 +33,7 @@ def _imports(path):
 
 def _port_files():
     files = sorted(PORT.rglob("*.py"))
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     for script in ("chip_smoke.py", "chip_overlap.py"):
         if (ROOT / script).exists():
             files.append(ROOT / script)
@@ -42,6 +43,7 @@ def _port_files():
 def test_port_files_import_no_jax_or_repro():
     files = _port_files()
     assert len(files) > 15
+    assert len([f for f in files if f.name.startswith("torch_")]) == 5
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []

@@ -200,3 +200,131 @@ def launcher(rank, *, mesh_shape, bad_mesh, steps):
                 data_replicated=[t.placements[0].is_replicate()
                                  for t in leaves(params)],
                 full=[np.asarray(t) for t in leaves(_np(params))])
+
+
+def _serve_cfg(case):
+    """tiny, or the reduced llama3.2-1b at vocab 8192 in float32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    if case == "tiny":
+        return get_config("tiny")
+    return dataclasses.replace(get_smoke_config(ARCH[case]),
+                               vocab_size=8192, dtype="float32")
+
+
+def serve_sharded(rank, *, model_cases, engine_cases, init_cases):
+    """The sharded serving path on each case's mesh: ``model_cases``
+    (case, mesh shape, JAX-layout params, tokens, lengths, the tokens to
+    feed (steps, B), max length) run ``prefill`` and a ``decode_step`` a
+    fed token on the serve-layout params and a sharded cache, returning
+    every step's logits and the gathered cache; ``engine_cases`` (case,
+    mesh shape, params, rollout config, task seed, key seed) run
+    ``RolloutEngine.collect``, returning each trajectory's tokens and
+    logps; ``init_cases`` (config name, mesh shape: ``tiny`` or a smoke
+    config) hold ``init_sharded_params`` against
+    ``shard_params(init_params)`` on this rank's shards, bit for bit."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.common.config import RolloutConfig
+    from repro_torch.common.partitioning import on_mesh, to_host
+    from repro_torch.common.tree import leaves
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.data.tasks import EOS, AdditionTask
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.sampling import prng
+    out = dict(model=[], engine=[], init=[])
+    for case, shape, params, toks, lens, feed, L in model_cases:
+        cfg = _serve_cfg(case)
+        mesh = make_mesh(*shape, device_type="cpu")
+        p = shd.shard_params(convert.params_from_jax(params, cfg, "cpu"),
+                             mesh, cfg, serve_tp_only=True, serve_decode=True)
+        cache = M.init_cache(cfg, toks.shape[0], L, mesh=mesh, device="cpu")
+        layout = [str(t.placements) for t in leaves(cache)[:2]]
+        logits, cache = M.prefill(p, cfg,
+                                  on_mesh(torch.from_numpy(toks), mesh),
+                                  on_mesh(torch.from_numpy(lens), mesh),
+                                  cache)
+        got = [to_host(logits).numpy()]
+        clen = torch.from_numpy(lens)
+        for tok in feed:
+            logits, cache = M.decode_step(p, cfg,
+                                          on_mesh(torch.from_numpy(tok), mesh),
+                                          cache, on_mesh(clen, mesh))
+            got.append(to_host(logits).numpy())
+            clen = clen + 1
+        out["model"].append(dict(
+            logits=got, layout=layout,
+            k=np.stack([to_host(c["k"]).numpy() for c in cache]),
+            v=np.stack([to_host(c["v"]).numpy() for c in cache])))
+    for case, shape, params, ro, task_seed, key_seed in engine_cases:
+        cfg = _serve_cfg(case)
+        mesh = make_mesh(*shape, device_type="cpu")
+        task = AdditionTask(max_value=20, seed=task_seed)
+        eng = RolloutEngine(cfg, RolloutConfig(**ro), task.sample_prompt,
+                            eos_id=EOS, mesh=mesh)
+        groups, st = eng.collect(
+            eng.prepare_params(convert.params_from_jax(params, cfg, "cpu")),
+            0, prng.PRNGKey(key_seed))
+        out["engine"].append(dict(
+            trajs={(g.group_id, t.sample_idx): (list(t.response_tokens),
+                                                list(t.behaviour_logps),
+                                                t.finish_reason)
+                   for g in groups for t in g.trajectories},
+            generated=st["generated"]))
+    for name, shape in init_cases:
+        from repro_torch.configs import get_config, get_smoke_config
+        cfg = get_config(name) if name == "tiny" else get_smoke_config(name)
+        mesh = make_mesh(*shape, device_type="cpu")
+        a = shd.init_sharded_params(cfg, mesh, seed=5)
+        b = shd.shard_params(M.init_params(cfg, seed=5, device="cpu"), mesh,
+                             cfg)
+        la, lb = leaves(a), leaves(b)
+        out["init"].append(dict(
+            leaves=len(la), dims3=sum(t.dim() == 3 for t in la),
+            placements=all(x.placements == y.placements
+                           for x, y in zip(la, lb)),
+            grads=all(x.requires_grad == y.requires_grad
+                      for x, y in zip(la, lb)),
+            equal=all(torch.equal(x.to_local(), y.to_local())
+                      for x, y in zip(la, lb))))
+    return out
+
+
+def trainer_step(rank, *, mesh_shape, case, params, ro, tc, task_seed):
+    """One sequential ``CoPRISTrainer.step()`` on ``mesh_shape`` from the
+    JAX-layout ``params``: the trajectories, the metrics and the updated
+    params, gathered."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.common.config import RolloutConfig, TrainConfig
+    from repro_torch.common.tree import leaves
+    from repro_torch.core import copris
+    from repro_torch.data.tasks import EOS, AdditionTask
+    from repro_torch.launch.mesh import make_mesh
+    cfg = _serve_cfg(case)
+    mesh = make_mesh(*mesh_shape, device_type="cpu")
+    tr = copris.CoPRISTrainer(
+        cfg, RolloutConfig(**ro), TrainConfig(**tc),
+        AdditionTask(max_value=20, seed=task_seed), eos_id=EOS,
+        params=convert.params_from_jax(params, cfg, "cpu"), train_mesh=mesh)
+    try:
+        metrics = tr.step()
+    finally:
+        tr.close()
+    return dict(
+        trajs={(g.group_id, t.sample_idx): (list(t.response_tokens),
+                                            list(t.behaviour_logps),
+                                            t.reward)
+               for g in tr.last_groups for t in g.trajectories},
+        metrics={k: v for k, v in metrics.items()
+                 if isinstance(v, (int, float))},
+        params=[np.asarray(t) for t in leaves(_np(tr.params))],
+        stage=tr.stage, sharded=all(hasattr(t, "placements")
+                                    for t in leaves(tr.params)),
+        serve_layout=[str(t.placements) for t in
+                      leaves(tr.param_store.acquire()[0])[:3]])
