@@ -1,0 +1,257 @@
+#!/usr/bin/env python3
+"""Sharded serving across the cards of one host: the collectives, splits
+and merges that a (1, 1) mesh on one card never runs (``chip_smoke.py``'s
+``serve_sharded`` and ``serve_sharded_kinds`` run there). One process a
+card under torchrun, every rank in lockstep:
+
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        chip_mesh.py                     # four H100s of one host (NCCL)
+    PYTHONPATH=src python3 -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 chip_mesh.py --device cpu --smoke   # gloo
+
+For each case, an arch at its published widths and a few layers (with
+``--smoke``, its smoke config) on a mesh of the 4 ranks:
+
+* parity, float32: ``prefill`` of 4 right-padded prompts (1 for the
+  ``shard_seq`` case) and 4 greedy ``decode_step`` s on the serve layout
+  and a sharded cache, against the same calls unsharded on the rank's own
+  card from the same seeded weights: the largest logit difference and the
+  largest difference of each cache leaf gathered, relative to that
+  leaf's largest element; the run fails above 1e-3 (1e-4 is the CPU
+  tests' bound for the same comparison in float32 against the reference);
+* time, bfloat16: 16 rows of 128 prompt tokens, then 16 decode steps,
+  each timed by a host clock to a device synchronisation, sharded against
+  unsharded on the rank's card (milliseconds a step, the median of the
+  steps).
+
+Cases: hymba-1.5b on (2, 2) (its 5 kv heads split the cache's length over
+"model", the SSM's channels over "model") and (1, 4); rwkv6-1.6b on
+(2, 2) (heads over "model"); deepseek-moe-16b on (1, 4) (16 experts a
+rank); llama-3.2-vision-90b on (1, 4) (8 kv heads: the media K/V over its
+kv heads); llama3.2-1b on (1, 4) (kv heads over "model") and on the
+(1, 2, 2) GQA serve mesh (heads over "kvg", the length over "model");
+hymba at batch 1 on (2, 2) (``shard_seq``: its length over ("data",
+"model")). Rank 0 prints one JSON line a case, the card's name and power
+limit, and last ``{"ok": true, ...}``; any failed check exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# (name, arch, layers, mesh shape, rows)
+CASES = (
+    ("hymba_2x2", "hymba-1.5b", 4, (2, 2), 4),
+    ("hymba_1x4", "hymba-1.5b", 4, (1, 4), 4),
+    ("rwkv6_2x2", "rwkv6-1.6b", 4, (2, 2), 4),
+    ("deepseek_1x4", "deepseek-moe-16b", 4, (1, 4), 4),
+    ("vision_1x4", "llama-3.2-vision-90b", 5, (1, 4), 4),
+    ("llama_1x4", "llama3.2-1b", 4, (1, 4), 4),
+    ("llama_kvg_1x2x2", "llama3.2-1b", 4, (1, 2, 2), 4),
+    ("hymba_shard_seq_2x2", "hymba-1.5b", 4, (2, 2), 1),
+)
+TOL = 1e-3
+
+
+def config(arch, layers, smoke, dtype):
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = get_smoke_config(arch) if smoke else dataclasses.replace(
+        get_config(arch), num_layers=layers)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def media_of(np, cfg, rows):
+    if not cfg.uses_media:
+        return None
+    xa = cfg.cross_attn
+    return (np.random.default_rng(2).normal(
+        size=(rows, xa.num_media_tokens, xa.d_media)) * 0.1).astype(
+            np.float32)
+
+
+def run_model(torch, M, params, cfg, toks, lens, media, *, mesh=None,
+              steps=4, L=64):
+    """Prefill and ``steps`` greedy decode steps: the logits of each step
+    and the cache, gathered whole, as float32 host tensors."""
+    from repro_torch.common.partitioning import on_mesh, to_host
+    dev = params_device(params)
+
+    def put(a):
+        return on_mesh(torch.from_numpy(a).to(dev), mesh)
+
+    cache = M.init_cache(cfg, toks.shape[0], L, mesh=mesh, device=dev)
+    logits, cache = M.prefill(
+        params, cfg, put(toks), put(lens), cache,
+        media=None if media is None else put(media))
+    out = [to_host(logits).float().cpu()]
+    clen = lens.copy()
+    for _ in range(steps):
+        tok = out[-1].argmax(-1).numpy().astype(toks.dtype)
+        logits, cache = M.decode_step(params, cfg, put(tok), cache,
+                                      put(clen))
+        out.append(to_host(logits).float().cpu())
+        clen = clen + 1
+    return out, [{n: to_host(t).float().cpu() for n, t in layer.items()}
+                 for layer in cache]
+
+
+def params_device(params):
+    from repro_torch.common.tree import leaves
+    t = leaves(params)[0]
+    return str(t.device.type if not hasattr(t, "to_local")
+               else t.to_local().device.type)
+
+
+def timed_decode(torch, M, params, cfg, rows, *, mesh=None, steps=16,
+                 P=128, L=256):
+    """Milliseconds of each of ``steps`` decode steps of ``rows`` rows after
+    a prefill of ``P`` tokens, host clock to a device synchronisation."""
+    import numpy as np
+
+    from repro_torch.common.partitioning import on_mesh
+    dev = params_device(params)
+
+    def put(a):
+        return on_mesh(torch.from_numpy(a).to(dev), mesh)
+
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (rows, P)).astype(np.int32)
+    lens = np.full(rows, P, np.int32)
+    media = media_of(np, cfg, rows)
+    cache = M.init_cache(cfg, rows, L, mesh=mesh, device=dev)
+    _, cache = M.prefill(params, cfg, put(toks), put(lens), cache,
+                         media=None if media is None else put(media))
+    tok, clen, ms = put(toks[:, -1]), lens.copy(), []
+    for i in range(steps + 2):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        _, cache = M.decode_step(params, cfg, tok, cache, put(clen))
+        sync(torch, dev)
+        if i >= 2:                                  # two warm steps
+            ms.append((time.perf_counter() - t0) * 1e3)
+        clen = clen + 1
+    return statistics.median(ms)
+
+
+def sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def rel(a, b):
+    """The largest |a - b| relative to b's largest element (at least 1)."""
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--smoke", action="store_true",
+                    help="the smoke configs (a rehearsal on the CPU)")
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.multihost import mesh_from_args
+    from repro_torch.models import model as M
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("chip_mesh: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = args.device
+    meshes = {}
+    rank0 = None
+    for name, arch, layers, shape, rows in CASES:
+        spec = ",".join(map(str, shape))
+        if spec not in meshes:
+            meshes[spec] = mesh_from_args(spec, dev)
+            if meshes[spec] is None:
+                return 2
+        mesh = meshes[spec]
+        rank0 = dist.get_rank() == 0
+        where = "cpu" if dev == "cpu" else torch.device(
+            "cuda", torch.cuda.current_device())
+        # parity, float32
+        cfg = config(arch, layers, args.smoke, "float32")
+        rng = np.random.default_rng(1)
+        toks = rng.integers(0, cfg.vocab_size, (rows, 16)).astype(np.int32)
+        lens = np.array([11] if rows == 1 else [16, 9, 3, 12][:rows],
+                        np.int32)
+        media = media_of(np, cfg, rows)
+        params = M.init_params(cfg, seed=0, device=where)
+        want, want_cache = run_model(torch, M, params, cfg, toks, lens,
+                                     media)
+        sharded = shd.shard_params(params, mesh, cfg, serve_tp_only=True,
+                                   serve_decode=True)
+        got, got_cache = run_model(torch, M, sharded, cfg, toks, lens, media,
+                                   mesh=mesh)
+        logit_err = max(rel(a, b) for a, b in zip(got, want))
+        leaf_err = {}
+        for layer_g, layer_w in zip(got_cache, want_cache):
+            for n in layer_w:
+                leaf_err[n] = max(leaf_err.get(n, 0.0),
+                                  rel(layer_g[n], layer_w[n]))
+        layout = sorted({f"{n}: {t.placements}" for layer in M.init_cache(
+            cfg, rows, 64, mesh=mesh, device=where) for n, t in
+            layer.items()})
+        del params, sharded
+        # time, bfloat16
+        cfg16 = config(arch, layers, args.smoke, "bfloat16")
+        params = M.init_params(cfg16, seed=0, device=where,
+                               compute_dtype=torch.bfloat16)
+        rows_t = 1 if rows == 1 else 16
+        plain_ms = timed_decode(torch, M, params, cfg16, rows_t)
+        sharded = shd.shard_params(params, mesh, cfg16, serve_tp_only=True,
+                                   serve_decode=True)
+        del params
+        mesh_ms = timed_decode(torch, M, sharded, cfg16, rows_t, mesh=mesh)
+        del sharded
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        errs = [None] * dist.get_world_size()
+        dist.all_gather_object(errs, max([logit_err, *leaf_err.values()]))
+        if rank0:
+            print(json.dumps({
+                "case": name, "arch": cfg.name, "layers": cfg.num_layers,
+                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                "rows": rows, "backend": dist.get_backend(),
+                "logit_rel_err": logit_err, "cache_rel_err": leaf_err,
+                "worst_rel_err_by_rank": errs, "tol": TOL,
+                "cache_layout": layout,
+                "decode_step_ms": mesh_ms, "decode_step_ms_unsharded":
+                plain_ms, "timed_rows": rows_t}), flush=True)
+        if max(errs) > TOL:
+            print(f"chip_mesh: {name}: sharded differs from unsharded by "
+                  f"{max(errs)} (> {TOL})", file=sys.stderr)
+            return 1
+    dist.barrier()
+    if rank0:
+        if dev == "cuda":
+            print(subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip(), flush=True)
+            kind, count = (torch.cuda.get_device_name(0),
+                           torch.cuda.device_count())
+        else:
+            kind, count = "cpu", dist.get_world_size()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu" if dev == "cuda" else "cpu", "kind": kind,
+            "count": count}}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

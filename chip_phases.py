@@ -4,6 +4,7 @@ then each named phase runs as in the full script and prints its JSON line.
 
     python3 chip_phases.py [moe_ep] [sharded] [disagg] [multihost]
                            [decode_split] [serve_sharded] [copris_sharded]
+                           [serve_sharded_kinds]
 
 ``moe_ep``: ``train_moe_ep``; ``sharded``: ``train_sharded``; ``disagg``:
 ``train`` (its SFT-warmed weights), ``train_overlap`` and
@@ -11,7 +12,10 @@ then each named phase runs as in the full script and prints its JSON line.
 ``decode_split``: the dense decode kernel's lse and the length split's
 checks; ``serve_sharded``: the ``serve`` phase (its profile included),
 then ``serve_sharded``; ``copris_sharded``: the trainer on a (1, 1) mesh
-against the unsharded one. With no name, the first four. The last line is
+against the unsharded one; ``serve_sharded_kinds``: sharded serving of
+hymba, rwkv6, deepseek-moe and the VLM, the one-slot ``shard_seq`` pools
+and the GQA serve mesh, each run with its steady-chunk host and device
+times beside the unsharded engine's. With no name, the first four. The last line is
 ``ALL OK`` when every phase passed; a failing phase exits non-zero, as in
 ``chip_smoke.py``.
 """
@@ -76,6 +80,14 @@ def main(names):
             serve_dense_then_sharded(kernels)
         elif name == "copris_sharded":
             cs.copris_sharded_phase(torch, np, train_kernels)
+        elif name == "serve_sharded_kinds":
+            from repro_torch.hopper import rwkv6_scan, ssm_scan
+            from repro_torch.launch import serve as serve_mod
+            cs.serve_sharded_kinds_phase(
+                torch, np, serve_mod, {**kernels,
+                                       "ssm_scan": ssm_scan.selective_scan,
+                                       "wkv6": rwkv6_scan.wkv6},
+                profile=True)
         else:
             raise SystemExit(f"chip_phases: unknown phase {name}")
         print("phase", name, time.perf_counter() - t, flush=True)

@@ -2033,14 +2033,16 @@ def device_profile(torch, run):
     return wall_ms, sum(device_us(e) for e in events) / 1e3, events
 
 
-def profile_phase(torch, np, serve, cfg, chunks=2, phase="profile"):
+def profile_phase(torch, np, serve, cfg, chunks=2, phase="profile",
+                  prompt_hi=512):
     """Where a steady decode chunk's time goes: the device profile of
-    ``chunks`` ServeEngine.step() calls after 16 requests were submitted
-    (a full pool on the dense cache) — host wall time per chunk, device
-    busy time, top device kernels."""
+    ``chunks`` ServeEngine.step() calls after 16 requests of 64 to
+    ``prompt_hi`` prompt tokens were submitted (a full pool on the dense
+    cache) — host wall time per chunk, device busy time, top device
+    kernels."""
     rng = np.random.default_rng(7)
     for _ in range(16):
-        serve.submit(serve_request(rng, cfg))
+        serve.submit(serve_request(rng, cfg, hi=prompt_hi))
     serve.step()                        # opens the stage: the prefill
     serve.step()                        # one warm decode chunk
     serve.eng.block_until_ready()
@@ -2056,7 +2058,8 @@ def profile_phase(torch, np, serve, cfg, chunks=2, phase="profile"):
                     if "decode_kernel" in e.key) / 1e3 / chunks
     top = sorted(events, key=device_us, reverse=True)[:8]
     res = dict(what=f"{chunks} decode chunks of "
-               f"{serve.eng.ro.decode_chunk} steps, pool 16, {cfg.name} "
+               f"{serve.eng.ro.decode_chunk} steps, pool {serve.eng.pool}, "
+               f"{cfg.name} "
                f"bf16, kv_backend {serve.eng.ro.kv_backend}",
                live_slots=sum(t is not None for t in serve.eng.slots),
                wall_ms_per_chunk=wall_ms, device_busy_ms_per_chunk=busy_ms,
@@ -2910,6 +2913,148 @@ def serve_sharded_phase(torch, np, serve_mod, kernels, dense):
     return launches
 
 
+# the block kinds of sharded serving beside attn: (name, arch, layers
+# served of its full depth, the kernels its path launches)
+SHARDED_KINDS = (
+    ("hymba", "hymba-1.5b", 4, ("flash_attn", "decode_attn", "ssm_scan",
+                                "fused_sample")),
+    ("rwkv6", "rwkv6-1.6b", 4, ("wkv6", "fused_sample")),
+    ("deepseek", "deepseek-moe-16b", 4, ("flash_attn", "decode_attn",
+                                         "fused_sample")),
+    ("vision", "llama-3.2-vision-90b", 5, ("flash_attn", "decode_attn",
+                                           "fused_sample")))
+KINDS_CUT = ("sharded serving is held to the unsharded engine at each block "
+             "kind's published widths; the depth changes no kernel shape, "
+             "and the run's time limit binds")
+
+
+def kind_run(torch, np, serve_mod, arch, layers, kernels, *, pool,
+             requests, mesh=None, profile=""):
+    """``requests`` requests of 64-256 prompt tokens and 32 new tokens
+    served by ``arch`` at full width and ``layers`` layers (random bf16
+    weights from seed 0, pool ``pool``, decode_chunk 8), unsharded or on
+    ``mesh``: the results, the kernels' launches, the wall time, the cache
+    leaves' layouts and, with ``profile`` (a phase name), the steady-chunk
+    profile of ``profile_phase``."""
+    from repro_torch.common import tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve, cfg = serve_mod.make_serve_engine(
+        arch, max_prompt_len=256, max_tokens=32, concurrency=pool,
+        temperature=0.8, top_k=50, top_p=0.95, seed=0, num_layers=layers,
+        mesh=mesh)
+    rng = np.random.default_rng(3)
+    for k in rng.integers(64, 257, requests):
+        serve.submit(serve_mod.GenerateRequest(
+            prompt=rng.integers(0, cfg.vocab_size - 1, int(k))))
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    results = serve.drain()
+    serve.eng.block_until_ready()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    serve.close()
+    check_results(np, results, cfg, requests)
+    out = dict(cfg=cfg, results={r.request_id: (r.tokens, r.logprobs)
+                                 for r in results},
+               tokens=sum(len(r.tokens) for r in results), seconds=wall,
+               launches=launches)
+    if mesh is not None:
+        from repro_torch.launch.sharding import cache_placements
+        cache = serve.eng.cache
+        out["layout"] = sorted({f"{n}: {t.placements}" for layer in cache
+                                for n, t in layer.items()})
+        out["layout_as_rules"] = all(
+            tuple(t.placements) == cache_placements(
+                (i, n), tuple(t.shape), cfg, mesh, shard_seq=pool == 1)
+            for i, layer in enumerate(cache) for n, t in layer.items())
+    if profile:
+        out["profile"] = profile_phase(torch, np, serve, cfg, phase=profile,
+                                       prompt_hi=256)
+    del serve
+    return out
+
+
+def serve_sharded_kinds_phase(torch, np, serve_mod, kernels, profile=False):
+    """Sharded serving of every block kind on the card, on (1, 1) NCCL
+    meshes of a process group of world size 1 (each destroyed after its
+    run): hymba-1.5b, rwkv6-1.6b, deepseek-moe-16b and
+    llama-3.2-vision-90b (its media) at full width and the depths of
+    SHARDED_KINDS, 6 requests each through RolloutEngine(mesh=) (a
+    ServeEngine on a mesh, the weights made in the serve layout), pool 4;
+    then one-slot pools (the cache in the ``shard_seq`` layout) of rwkv6
+    and hymba, 2 requests; then llama3.2-1b at 4 of its 16 layers on the
+    (1, 1, 1) ("data", "kvg", "model") GQA serve mesh. Each run's tokens
+    and logps must equal the unsharded engine's at the same pool bit for
+    bit, and every kernel of its path must have launched on the shards
+    (``ssm_scan``, ``wkv6``, ``decode_attn``, ``flash_attn`` and
+    ``fused_sample`` as the kind runs them). With ``profile``, each run's
+    steady-chunk host and device times beside the unsharded ones
+    (``chip_phases.py serve_sharded_kinds``). Emits one line a run;
+    returns {run: launches}."""
+    from repro_torch.launch.mesh import make_gqa_serve_mesh, make_single_mesh
+    cases = [(name, arch, layers, names, 4, 6, make_single_mesh)
+             for name, arch, layers, names in SHARDED_KINDS]
+    cases += [(name + "_shard_seq", arch, layers, names, 1, 2,
+               make_single_mesh)
+              for name, arch, layers, names in SHARDED_KINDS[:2]]
+    cases.append(("llama_kvg", "llama3.2-1b", 4,
+                  ("flash_attn", "decode_attn", "fused_sample"), 4, 6,
+                  lambda: make_gqa_serve_mesh(1, 1, 1)))
+    out = {}
+    for name, arch, layers, names, pool, n, make in cases:
+        mine = {k: kernels[k] for k in names}
+        prof = f"profile_kinds_{name}" if profile else ""
+        plain = kind_run(torch, np, serve_mod, arch, layers, mine, pool=pool,
+                         requests=n, profile=prof and prof + "_unsharded")
+        mesh = make()
+        try:
+            sharded = kind_run(torch, np, serve_mod, arch, layers, mine,
+                               pool=pool, requests=n, mesh=mesh,
+                               profile=prof)
+            cfg = sharded["cfg"]
+            mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        finally:
+            torch.distributed.destroy_process_group()
+        differ = [i for i, r in sharded["results"].items()
+                  if r != plain["results"][i]]
+        phase = f"serve_sharded_{name}"
+        extra = {}
+        if profile:
+            extra = {k: sharded["profile"][k] for k in (
+                "wall_ms_per_chunk", "device_busy_ms_per_chunk",
+                "device_idle_share")}
+            extra.update({f"{k}_unsharded": plain["profile"][k] for k in (
+                "wall_ms_per_chunk", "device_busy_ms_per_chunk",
+                "device_idle_share")})
+        emit(phase, arch=arch, layers=layers, d_model=cfg.d_model,
+             heads=f"{cfg.num_heads}/{cfg.num_kv_heads} x {cfg.head_dim}",
+             kinds=sorted(set(cfg.prefix_pattern + cfg.block_pattern)),
+             mesh=mesh_shape, backend="nccl", pool=pool,
+             shard_seq=pool == 1,
+             depth_cut=f"{layers} of {serve_mod.get_config(arch).num_layers}"
+             f" layers: {KINDS_CUT}",
+             requests=n, tokens=sharded["tokens"],
+             seconds=sharded["seconds"],
+             seconds_unsharded=plain["seconds"],
+             bit_equal_requests=n - len(differ), differ=differ,
+             launches=sharded["launches"],
+             launches_unsharded=plain["launches"],
+             cache_layout=sharded["layout"], **extra)
+        if differ:
+            fail(f"{phase}: requests {differ} differ from the unsharded "
+                 "engine's tokens or logps")
+        if not all(v > 0 for v in sharded["launches"].values()):
+            fail(f"{phase}: a kernel never ran on the shards: "
+                 f"{sharded['launches']}")
+        if not sharded["layout_as_rules"]:
+            fail(f"{phase}: the cache is not laid out as cache_placements "
+                 f"says (shard_seq={pool == 1}): {sharded['layout']}")
+        out[phase] = sharded["launches"]
+    return out
+
+
 def sharded_init_memory(torch, mesh, cfg):
     """The peak memory of making llama3.2-1b's training params on ``mesh``
     two ways: the whole float32 model first, then shard_params (before
@@ -2945,9 +3090,12 @@ def sharded_init_memory(torch, mesh, cfg):
                        params_bytes=params_bytes, same_shards=same)
 
 
-def copris_sharded_phase(torch, np, kernels, steps=2):
+def copris_sharded_phase(torch, np, kernels, steps=2, num_layers=8):
     """The CoPRIS trainer on one mesh on the card: llama3.2-1b at full
-    width and depth (f32 masters, bf16 compute, remat, the fused loss,
+    width and ``num_layers`` of its 16 layers (the run's time limit; the
+    sharded path's shapes do not depend on the depth, and
+    ``train_sharded`` runs the update at full depth) (f32 masters, bf16
+    compute, remat, the fused loss,
     entropy 0.01 for a gradient from random weights), ``steps`` sequential
     CoPRISTrainer steps unsharded and then with ``train_mesh`` a (1, 1)
     NCCL mesh: params made by init_sharded_params and sharded AdamW state,
@@ -2967,7 +3115,8 @@ def copris_sharded_phase(torch, np, kernels, steps=2):
     from repro_torch.models import model as M
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("llama3.2-1b")
+    full = get_config("llama3.2-1b")
+    cfg = dataclasses.replace(full, num_layers=num_layers)
     ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=4,
                        max_response_len=32, concurrency=16, mode="copris",
                        temperature=1.0)
@@ -2996,7 +3145,7 @@ def copris_sharded_phase(torch, np, kernels, steps=2):
     torch.cuda.empty_cache()
     mesh = make_single_mesh()
     try:
-        params, init_mem = sharded_init_memory(torch, mesh, cfg)
+        params, init_mem = sharded_init_memory(torch, mesh, full)
         # the trainer shards the same values itself; the init's shards
         # are checked above
         del params
@@ -3011,6 +3160,8 @@ def copris_sharded_phase(torch, np, kernels, steps=2):
             "reward_mean", "pg_loss", "grad_norm", "mean_resp_len")
     launches = sharded["launches"]
     emit("copris_sharded", arch=cfg.name, layers=cfg.num_layers,
+         depth_cut=f"{cfg.num_layers} of {full.num_layers} layers: the "
+         "run's time limit (train_sharded runs the update at full depth)",
          d_model=cfg.d_model, vocab=cfg.vocab_size,
          mesh={"data": 1, "model": 1}, backend="nccl", steps=steps,
          rollout="batch 8 x group 4, response <= 32, concurrency 16",
@@ -4230,6 +4381,10 @@ def main() -> int:
     moe_vlm["grad_vision"] = grad_vision_phase(torch, np, {
         "flash_attn": flash_attn.flash_attention,
         "flash_attn_bwd": flash_attn.flash_attention_bwd, **loss_kernels})
+    # sharded serving of every block kind, shard_seq and the GQA serve mesh
+    new_launches.update(serve_sharded_kinds_phase(torch, np, serve_mod, {
+        **kernels, "ssm_scan": ssm_scan.selective_scan,
+        "wkv6": rwkv6_scan.wkv6}))
 
     # 8. kernels line: launches from the train phase, from train_paged for
     # the paged decode and the fused log-prob, from serve_hymba and

@@ -32,13 +32,16 @@ its slot and hands the turn to the :class:`AsyncEnvWorker`; at the next
 chunk boundary the observation is appended with role 0 and the trajectory
 goes back to the scheduler, whose next dispatch re-prefills it.
 
-On a mesh (``mesh=``, a ("data", "model") ``DeviceMesh``; every rank
-runs the engine in lockstep): the weights in the serve layout
-(``launch/sharding``: tensor-parallel only, the reference's decode
-placements), the slot cache laid out as ``cache_placements`` says, the
-host's inputs replicated on the mesh, sampling on each rank's own rows of
-whole-vocabulary logits, and every host read gathered (``full_tensor``) so
-every rank's scheduler sees the same values and takes the same decisions.
+On a mesh (``mesh=``, a ("data", "model") ``DeviceMesh`` or the GQA serve
+mesh ("data", "kvg", "model"); every rank runs the engine in lockstep):
+every block kind, the weights in the serve layout (``launch/sharding``:
+tensor-parallel only, the reference's decode placements), the slot cache
+laid out as ``cache_placements`` says (``shard_seq``, the length over
+"data", for a pool of one slot, as the reference picks it for batch 1),
+the host's inputs and a VLM's media replicated on the mesh, sampling on
+each rank's own rows of whole-vocabulary logits, and every host read
+gathered (``full_tensor``) so every rank's scheduler sees the same values
+and takes the same decisions.
 
 Streams: every kernel and copy runs on the caller's current CUDA stream,
 and :meth:`RolloutEngine.block_until_ready` waits for that stream only, so
@@ -109,10 +112,9 @@ def stop_flags(tok, resp_len_after, total_len_after, *, eos_id: int,
     return eos, length
 
 
-def _check_mesh_engine(cfg, ro, env_factory, mesh):
+def _check_mesh_engine(ro, env_factory):
     """What the engine on a mesh does not run yet (ROADMAP queue 1) raises
     here, before any work."""
-    M.check_mesh_serving(cfg)
     missing = []
     if ro.kv_backend != "dense":
         missing.append("the paged KV cache (the reference has no sharding "
@@ -122,8 +124,6 @@ def _check_mesh_engine(cfg, ro, env_factory, mesh):
                        "snapshots of a sharded cache)")
     if env_factory is not None:
         missing.append("multi-turn environments")
-    if "kvg" in mesh.mesh_dim_names:
-        missing.append("the kvg serve mesh")
     if missing:
         raise NotImplementedError(
             "the rollout engine on a mesh: " + "; ".join(missing)
@@ -158,7 +158,7 @@ class RolloutEngine:
         self._env_pending = {}          # traj_id -> parked Trajectory
         self.mesh = mesh
         if mesh is not None:
-            _check_mesh_engine(model_cfg, ro_cfg, env_factory, mesh)
+            _check_mesh_engine(ro_cfg, env_factory)
             device = mesh_device(mesh)
         self.device = resolve_device(device)
         # a VLM's frontend embeddings (M, d_media), the same for every
@@ -559,7 +559,7 @@ class RolloutEngine:
         keys = prng.fold_in(_fold_slot_keys(stage_key, gid, sidx),
                             torch.as_tensor(resp_idx))
         scratch = M.init_cache(self.cfg, n, S, self.dtype, dev,
-                               mesh=self.mesh)
+                               mesh=self.mesh, shard_seq=False)
         logits, scratch = M.prefill(
             params, self.cfg, self._put(tokens), self._put(lengths), scratch,
             media=self._media_for(n))

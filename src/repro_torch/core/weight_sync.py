@@ -222,9 +222,10 @@ def make_param_resharder(cfg, params, train_side, rollout_side=None):
       ``out_layout`` is the rollout device.
     * One ``DeviceMesh`` for both sides (two meshes of one process group):
       a ``redistribute`` of each ``DTensor`` leaf from its training
-      placements to the ``serve_tp_only`` placements
-      (``launch/sharding.params_placements``), on a copy.
-      ``out_layout`` is that tree of placements.
+      placements to the serve layout the engine decodes on
+      (``launch/sharding.shard_params`` with ``serve_tp_only`` and
+      ``serve_decode``), on a copy. ``out_layout`` is that tree of
+      placements.
 
     ``rollout_side`` defaults to ``train_side``."""
     rollout_side = train_side if rollout_side is None else rollout_side
@@ -234,14 +235,14 @@ def make_param_resharder(cfg, params, train_side, rollout_side=None):
                 "make_param_resharder: train and rollout meshes of their own "
                 "ranks are multi-rank disaggregated sides, which are not "
                 "ported; give one mesh for both")
-        from repro_torch.launch.sharding import params_placements
-        out = params_placements(params, rollout_side, cfg=cfg,
-                                serve_tp_only=True)
+        from repro_torch.launch.sharding import (serve_params_placements,
+                                                 shard_params)
+        out = serve_params_placements(params, rollout_side, cfg)
 
         def redistribute(p):
-            return _timed(lambda: tree_map(
-                lambda t, pl: t.detach().clone().redistribute(
-                    rollout_side, pl), p, out), _device_of(p))
+            return _timed(lambda: shard_params(
+                p, rollout_side, cfg, serve_tp_only=True, serve_decode=True,
+                copy=True), _device_of(p))
         return redistribute, out
 
     dst = torch.device(rollout_side)

@@ -419,7 +419,7 @@ def materialize_is_grpo(hidden, w, targets, behaviour, adv, **cfg):
 def _target_logit(logits, targets):
     """logits[..., targets] of the (B, S, V) ``DTensor`` logits: each rank
     picks the targets in its own vocabulary slice, and the picks sum over
-    "model"."""
+    the axes that split it."""
     if not is_sharded(logits):
         return logits.gather(-1, targets[..., None].long())[..., 0]
     from torch.distributed.tensor import Partial
@@ -436,7 +436,7 @@ def _target_logit(logits, targets):
         got = lg.gather(-1, torch.where(hit, local, 0)[..., None])[..., 0]
         return got * hit.to(got.dtype)
 
-    out = tuple(Partial() if a == "model" and split else r
+    out = tuple(Partial() if a in split else r
                 for a, r in zip(mesh.mesh_dim_names, rows))
     return local_call(pick, mesh, (logits, targets), (lay, rows), out)
 

@@ -3,7 +3,8 @@
 JAX runs one controller over a mesh of devices; ``torch.distributed`` runs
 one process per rank, so a mesh here is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the default
-process group, with the reference's axis names ``("data", "model")``. The
+process group, with the reference's axis names ``("data", "model")`` (or
+``("data", "kvg", "model")``, its GQA serve mesh). The
 process group comes from the launcher (``launch/multihost`` under
 ``torchrun``) or, for the one-rank mesh, from :func:`make_single_mesh`
 itself. Nothing here runs at import.
@@ -18,6 +19,7 @@ import torch.distributed as dist
 from repro_torch.common.device import resolve_device
 
 AXES = ("data", "model")
+GQA_AXES = ("data", "kvg", "model")
 
 
 def _backend(device_type: str) -> str:
@@ -35,18 +37,36 @@ def init_single_process_group(device_type: str):
 def make_mesh(data: int, model: int, *, device_type: Optional[str] = None):
     """The (data, model) mesh over every rank of the default process group.
     ``device_type`` defaults to ``"cuda"``, as the entry points do."""
+    return _make((data, model), AXES, device_type)
+
+
+def make_gqa_serve_mesh(data: int, kv_groups: int, within: int, *,
+                        device_type: Optional[str] = None):
+    """The GQA serve mesh ("data", "kvg", "model") over every rank of the
+    default process group: the counterpart of ``make_gqa_serve_mesh``, the
+    same ranks seen three ways for a GQA model whose kv heads do not divide
+    a flat "model" axis. The attention's heads and the cache's kv heads go
+    over "kvg", the cache length over "model", the MLP's and the
+    vocabulary's splits over ("kvg", "model"), the batch over "data"
+    (``launch/sharding``'s rules)."""
+    return _make((data, kv_groups, within), GQA_AXES, device_type)
+
+
+def _make(shape, names, device_type):
     device_type = device_type or "cuda"
-    want = data * model
+    want = 1
+    for n in shape:
+        want *= n
     have = dist.get_world_size() if dist.is_initialized() else 1
     if want != have:
         raise ValueError(
-            f"mesh ({data}, {model}) needs {want} ranks, the process group "
+            f"mesh {tuple(shape)} needs {want} ranks, the process group "
             f"has {have}: launch {want} processes (torchrun "
             f"--nproc-per-node {want}) or pick a shape whose product is "
             f"{have}")
     init_single_process_group(device_type)
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device_type, (data, model), mesh_dim_names=AXES)
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=names)
 
 
 def make_single_mesh(device=None):

@@ -23,6 +23,7 @@ sequence 4096); ``--global-batch`` and ``--seq-len`` set another.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 
@@ -115,21 +116,23 @@ def _init_process_group(device_type: str):
 
 
 def mesh_from_args(spec, device_type: str):
-    """The (data, model) mesh a launcher's ``--mesh DATA,MODEL`` (None:
-    every rank on "data") names, over the default process group from
-    torchrun's environment; None, after saying why, when its product is not
-    the world size."""
-    from repro_torch.launch.mesh import make_mesh
+    """The mesh a launcher's ``--mesh`` names over the default process
+    group from torchrun's environment: DATA,MODEL a (data, model) mesh
+    (None: every rank on "data"), DATA,KVG,MODEL the GQA serve mesh; None,
+    after saying why, when its product is not the world size."""
+    from repro_torch.launch.mesh import make_gqa_serve_mesh, make_mesh
     _init_process_group(device_type)
     world = dist.get_world_size()
-    data, model = ((world, 1) if spec is None
-                   else tuple(int(n) for n in spec.split(",")))
-    if data * model != world:
-        print(f"launcher: mesh ({data}, {model}) needs {data * model} "
-              f"ranks, found {world}; launch torchrun --nproc-per-node "
-              f"{data * model}", file=sys.stderr)
+    shape = ((world, 1) if spec is None
+             else tuple(int(n) for n in spec.split(",")))
+    if math.prod(shape) != world:
+        print(f"launcher: mesh {shape} needs {math.prod(shape)} ranks, "
+              f"found {world}; launch torchrun --nproc-per-node "
+              f"{math.prod(shape)}", file=sys.stderr)
         return None
-    return make_mesh(data, model, device_type=device_type)
+    if len(shape) == 3:
+        return make_gqa_serve_mesh(*shape, device_type=device_type)
+    return make_mesh(*shape, device_type=device_type)
 
 
 def main(argv=None):

@@ -25,15 +25,23 @@ tokens a page, ``--kv-num-pages`` pages; 0 = the dense-equivalent count);
 whose weights do not fit the card: qwen3-moe-235b-a22b at 8 of its 94
 layers, llama-3.2-vision-90b at 10 of its 100).
 
-On a mesh of cards, one process a card under ``torchrun``: the weights
-tensor-parallel over "model" (made already sharded), the slot cache over
-the batch axes and over the kv heads or, where they do not divide "model",
-over its length; every rank runs the engine in lockstep and rank 0 prints:
+On a mesh of cards, one process a card under ``torchrun``, every arch:
+the weights tensor-parallel over "model" (made already sharded: heads,
+channels, experts), the slot cache over the batch axes and over the kv
+heads or, where they do not divide "model", over its length (with one
+slot, ``--concurrency 1``, the length over "data" too: ``shard_seq``),
+the recurrent state over its heads or channels; on the GQA serve mesh
+(``--mesh D,G,M``) the heads over "kvg" and the cache length over
+"model". Every rank runs the engine in lockstep and rank 0 prints:
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch llama3.2-1b --mesh 2,2
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch tiny --device cpu --mesh 1,4        # gloo, 4 CPU ranks
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch hymba-1.5b --smoke --device cpu --mesh 2,2
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch tiny --device cpu --mesh 1,2,2      # the GQA serve mesh
 """
 from __future__ import annotations
 
@@ -223,8 +231,9 @@ def make_serve_engine(arch: str = "tiny", *, smoke: bool = False,
     ``num_layers`` > 0 keeps that many layers of the config at its widths
     (a model whose weights do not fit the card, served at reduced depth):
     the prefix and whole repeats of ``block_pattern``. ``mesh`` (a
-    ("data", "model") ``DeviceMesh``; every rank calls this alike) serves
-    sharded: the same weights, made already in the serve layout."""
+    ("data", "model") ``DeviceMesh`` or the GQA serve mesh; every rank
+    calls this alike) serves sharded: the same weights and media, the
+    weights made already in the serve layout."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if num_layers > 0:
@@ -284,8 +293,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh", default=None,
-                    help="DATA,MODEL: serve sharded over the ranks of "
-                         "torchrun (NCCL on cards, gloo with --device cpu)")
+                    help="DATA,MODEL, or DATA,KVG,MODEL for the GQA serve "
+                         "mesh: serve sharded over the ranks of torchrun "
+                         "(NCCL on cards, gloo with --device cpu)")
     args = ap.parse_args(argv)
 
     mesh = None

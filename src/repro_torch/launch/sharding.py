@@ -111,6 +111,8 @@ def param_placements(path, shape, mesh, cfg: Optional[ModelConfig] = None,
 
     if in_moe and name in _MOE_3D and nd >= 3:
         tags = _MOE_3D[name]
+    elif name == "in_proj" and nd == 3:         # the serve form (d, 2, di)
+        tags = ("dp", None, "tp")
     elif name in _MATRIX_RULES:
         tags = _MATRIX_RULES[name]
     else:
@@ -136,6 +138,33 @@ def param_placements(path, shape, mesh, cfg: Optional[ModelConfig] = None,
     if serve_decode and kv_indivisible and name == "wq" and "attn" in names:
         tags = ("dp", None)
     return _placements(_spec(tags, nd, axes), shape, axes)
+
+
+def serve_form(path, t):
+    """The leaf at ``path`` as the serve layout holds it: hymba's SSM
+    ``in_proj`` (d, 2 di) as (d, 2, di), its x and z halves side by side,
+    so that di over "model" gives each rank the same channels of both (a
+    split of its 2 di columns would give the first half of the ranks
+    every x channel and the rest every z channel); every other leaf as it
+    is. A ``DTensor`` is gathered whole first, once, when the layout is
+    made (never per step)."""
+    names = _names(path)
+    if names[-2:] != ["ssm", "in_proj"] or t.dim() != 2:
+        return t
+    from repro_torch.common.partitioning import is_sharded, replicate
+    if is_sharded(t):
+        t = replicate(t).to_local()
+    return t.unflatten(1, (2, t.shape[1] // 2))
+
+
+def serve_params_placements(params, mesh, cfg: ModelConfig):
+    """The placements of the serve layout (:func:`shard_params` with
+    ``serve_tp_only`` and ``serve_decode``) of a tree of tensors in either
+    form, each leaf in its :func:`serve_form`."""
+    shapes = _with_path(lambda path, t: serve_form(
+        path, torch.empty(tuple(t.shape), device="meta")), params)
+    return params_placements(shapes, mesh, serve_tp_only=True,
+                             serve_decode=True, cfg=cfg)
 
 
 def _with_path(fn, tree, path=()):
@@ -301,18 +330,23 @@ def _distribute(t, mesh, placements, requires_grad=False, *, local=False):
 
 
 def shard_params(params, mesh, cfg: ModelConfig, *,
-                 serve_tp_only: bool = False, serve_decode: bool = False):
+                 serve_tp_only: bool = False, serve_decode: bool = False,
+                 copy: bool = False):
     """The port's parameter dict as ``DTensor`` s on ``mesh``, placed by
     :func:`params_placements`: every rank passes the same full values, or
     ``DTensor`` s in another layout (redistributed). The training layout's
     float leaves require a gradient; ``serve_tp_only`` (with
     ``serve_decode``, the reference's decode placements) is the serving
-    layout, with none."""
+    layout, with none, each leaf in its :func:`serve_form`. ``copy``: each
+    leaf in storage of its own, never a view of the one passed."""
+    if serve_tp_only:
+        params = _with_path(serve_form, params)
     pl = params_placements(params, mesh, serve_tp_only=serve_tp_only,
                            serve_decode=serve_decode, cfg=cfg)
     grad = not serve_tp_only
     return tree_map(lambda t, p: _distribute(
-        t, mesh, p, grad and t.is_floating_point()), params, pl)
+        t.detach().clone() if copy else t, mesh, p,
+        grad and t.is_floating_point()), params, pl)
 
 
 def init_sharded_params(cfg: ModelConfig, mesh, *, seed: int = 0,
@@ -328,7 +362,8 @@ def init_sharded_params(cfg: ModelConfig, mesh, *, seed: int = 0,
     seed=seed), mesh, cfg)`` bit for bit. ``compute_dtype`` casts each
     layer before it is distributed (``init_params``' own rule); ``serve``
     places the leaves in the serving layout (``serve_tp_only`` with the
-    decode placements), with no gradient."""
+    decode placements, each leaf in its :func:`serve_form`), with no
+    gradient."""
     from repro_torch.models import model as M
     dev = mesh_device(mesh)
     names = list(mesh_shape(mesh))
@@ -341,10 +376,13 @@ def init_sharded_params(cfg: ModelConfig, mesh, *, seed: int = 0,
         return pl
 
     def place(path, piece):
-        return _with_path(lambda p, t: _distribute(
-            t, mesh, placements(p, tuple(t.shape)),
-            t.is_floating_point() and not serve, local=True), piece,
-            tuple(path))
+        def one(p, t):
+            if serve:
+                t = serve_form(p, t)
+            return _distribute(t, mesh, placements(p, tuple(t.shape)),
+                               t.is_floating_point() and not serve,
+                               local=True)
+        return _with_path(one, piece, tuple(path))
 
     return M.init_params(cfg, seed=seed, device=dev, place=place,
                          compute_dtype=compute_dtype)

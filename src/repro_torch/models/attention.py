@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.common.partitioning import (over_heads, shard_group,
+from repro_torch.common.partitioning import (over_heads, part_of,
                                              shard_start, split_heads)
 from repro_torch.hopper import decode_attn as decode_op
 from repro_torch.hopper import flash_attn as flash_op
@@ -332,7 +332,8 @@ def attention_block(params, cfg, x, positions, *, kind: str, kv_cache=None,
     divide "model", a slice of the cache's length
     (``launch/sharding.cache_placements``), written where it holds them; a
     decode step over a length slice merges the slices' outputs over the
-    ranks that hold the others (:func:`merge_slices`).
+    ranks that hold the others (:func:`merge_slices`), over one mesh dim
+    or, in the ``shard_seq`` layout, two (("data", "model")).
     """
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -346,10 +347,12 @@ def attention_block(params, cfg, x, positions, *, kind: str, kv_cache=None,
     cap = cfg.attn_softcap
     cache = () if kv_cache is None else tuple(kv_cache)
     # this rank's slice of the cache length: its first position, the
-    # cache's length, and the ranks holding the other slices (None: whole)
+    # cache's length, and the ranks holding the other slices (None: whole,
+    # or no other rank holds a slice)
     start = shard_start(cache[0], 1) if cache else 0
     L = cache[0].shape[1] if cache else 0
-    group = shard_group(cache[0], 1) if cache else None
+    part = part_of(cache[0], 1) if cache else None
+    group = None if part is None else part.group
 
     if cache_len is None:
         def attend(q, k, v, positions, *caches):

@@ -34,9 +34,9 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import resolve_device, torch_dtype
 from repro_torch.common.partitioning import (activation_placements,
-                                             is_sharded, local_call, on_rows,
-                                             replicated, shard_activation,
-                                             vocab_slice)
+                                             is_sharded, local_call, on_mesh,
+                                             on_rows, replicated,
+                                             shard_activation, vocab_slice)
 from repro_torch.hopper import fused_logprob as flp
 from repro_torch.models import transformer
 from repro_torch.models.layers import dense_init, embed_init, rms_norm, softcap
@@ -157,11 +157,13 @@ def _cast_layer(p, dtype, device):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device=None, mesh=None):
+               device=None, mesh=None, shard_seq=None):
     """A zeroed stack cache of ``batch`` slots of ``max_len`` positions.
     With ``mesh`` every leaf is a ``DTensor`` laid out as
     ``launch/sharding.cache_placements_tree`` says, each rank allocating
-    only its own shard (on the mesh's device)."""
+    only its own shard (on the mesh's device). ``shard_seq`` (the cache
+    length over "data", for one sequence) defaults to ``batch == 1``, as
+    the reference picks it for its decode step."""
     dtype = dtype or torch_dtype(cfg.dtype)
     if mesh is None:
         return transformer.init_stack_cache(cfg, batch, max_len, dtype,
@@ -172,9 +174,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     from repro_torch.launch.sharding import cache_placements_tree
     shapes = transformer.init_stack_cache(cfg, batch, max_len, dtype,
                                           torch.device("meta"))
+    if shard_seq is None:
+        shard_seq = batch == 1
     return tree_map(lambda t, pl: dtensor.zeros(
         *t.shape, dtype=t.dtype, device_mesh=mesh, placements=list(pl)),
-        shapes, cache_placements_tree(shapes, cfg, mesh))
+        shapes, cache_placements_tree(shapes, cfg, mesh,
+                                      shard_seq=shard_seq))
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -214,9 +219,9 @@ def _lookup(tok, tokens):
         out = F.embedding(torch.where(hit, local, 0), w)
         return out * hit[..., None].to(out.dtype)
 
-    out_pl = tuple(Partial() if a == "model" and split else r
+    out_pl = tuple(Partial() if a in split else r
                    for a, r in zip(names, rows))
-    grad_pl = tuple(Shard(0) if a == "model" and split
+    grad_pl = tuple(Shard(0) if a in split
                     else Partial() if r.is_shard() else Replicate()
                     for a, r in zip(names, rows))
     return local_call(lookup, mesh, (tok, tokens), (vocab, rows), out_pl,
@@ -252,7 +257,15 @@ def _project_media(params, cfg: ModelConfig, media, *, mode="train"):
     if media is None:
         return None
     dt = torch_dtype(cfg.dtype)
-    return media.to(dt) @ params["embed"]["media_proj"].to(dt)
+    w = params["embed"]["media_proj"]
+    if is_sharded(w):
+        # on a mesh: each rank's rows of the media (the same on every rank
+        # when given plain), projected whole over the tensor axes
+        if not is_sharded(media):
+            media = on_mesh(media, w)
+        media = shard_activation(media, "dp", None, None)
+        return shard_activation(media.to(dt) @ w.to(dt), "dp", None, None)
+    return media.to(dt) @ w.to(dt)
 
 
 def unembed_weight(params, cfg: ModelConfig):
@@ -293,22 +306,13 @@ def backbone(params, cfg: ModelConfig, tokens, *, positions=None, media=None,
     return x, new_cache, aux
 
 
-# the block kinds whose prefill and decode run on a mesh
-MESH_SERVING_KINDS = ("attn", "local", "global")
-
-
 def check_mesh_serving(cfg: ModelConfig, cache=None, paged=None):
-    """Prefill and decode on a mesh: the attention kinds over a dense cache
-    laid out as ``launch/sharding.cache_placements_tree`` says (the
-    attention writes each rank's shard in place, so a cache in another
-    layout would be redistributed into a copy and the writes lost).
-    Raises ``NotImplementedError`` for what is not ported."""
-    kinds = set(transformer.layer_kinds(cfg)) - set(MESH_SERVING_KINDS)
-    if kinds:
-        raise NotImplementedError(
-            f"serving {cfg.name} on a mesh: its {sorted(kinds)} blocks are "
-            "not ported to the sharded serving path (ROADMAP queue 1); the "
-            f"mesh serves the {MESH_SERVING_KINDS} kinds")
+    """Prefill and decode on a mesh: every block kind, over a dense cache
+    laid out as ``launch/sharding.cache_placements_tree`` says, in the
+    default or the ``shard_seq`` layout (each block writes each rank's
+    shard in place, so a cache in another layout would be redistributed
+    into a copy and the writes lost). Raises ``NotImplementedError`` for
+    the paged cache, which is not ported."""
     if paged is not None:
         raise NotImplementedError(
             "the paged KV cache on a mesh is not ported (ROADMAP queue 1: "
@@ -316,15 +320,20 @@ def check_mesh_serving(cfg: ModelConfig, cache=None, paged=None):
     if cache is None:
         return
     from repro_torch.launch.sharding import cache_placements
-    for i, layer in enumerate(cache):
-        for name, t in layer.items():
-            want = cache_placements((i, name), tuple(t.shape), cfg,
-                                    t.device_mesh)
-            if tuple(t.placements) != want:
-                raise ValueError(
-                    f"cache layer {i} {name!r} is laid out {t.placements}, "
-                    f"not as launch/sharding.cache_placements says ({want}):"
-                    " make the cache with init_cache(..., mesh=)")
+    mesh = next(iter(cache[0].values())).device_mesh
+    got = [(i, name, tuple(t.placements), tuple(t.shape))
+           for i, layer in enumerate(cache) for name, t in layer.items()]
+    for shard_seq in (False, True):
+        bad = [(i, name, pl, want) for i, name, pl, shape in got
+               if pl != (want := cache_placements(
+                   (i, name), shape, cfg, mesh, shard_seq=shard_seq))]
+        if not bad:
+            return
+    i, name, pl, want = bad[0]
+    raise ValueError(
+        f"cache layer {i} {name!r} is laid out {pl}, not as "
+        f"launch/sharding.cache_placements says ({want}): make the cache "
+        "with init_cache(..., mesh=)")
 
 
 def forward_train(params, cfg: ModelConfig, tokens, *, media=None,

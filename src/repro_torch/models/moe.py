@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.partitioning import reduce_over
 from repro_torch.models.layers import dense_init
 
 
@@ -74,22 +75,44 @@ def _shared(params, xt, dt):
     return hs @ s["wo"].to(dt)
 
 
-def apply_moe(params, cfg, x):
-    """x: (B, S, d) -> (out, aux). Dense dispatch over all E experts."""
+def _combine_partials(y, params, xt, dt, part, shared_part):
+    """The routed output ``y`` plus the shared experts', each a partial sum
+    over its group on a mesh (``part`` the experts', ``shared_part`` the
+    shared experts' hidden units), summed there: one reduction where the
+    groups are one."""
+    g_r = None if part is None else part.group
+    if "shared" not in params:
+        return reduce_over(y, g_r)
+    ys = _shared(params, xt, dt)
+    g_s = None if shared_part is None else shared_part.group
+    if g_r is g_s:
+        return reduce_over(y + ys, g_r)
+    return reduce_over(y, g_r) + reduce_over(ys, g_s)
+
+
+def apply_moe(params, cfg, x, *, part=None, shared_part=None):
+    """x: (B, S, d) -> (out, aux). Dense dispatch over all E experts.
+
+    ``part`` / ``shared_part`` (serving on a mesh, ``partitioning.Part``
+    s): ``params`` holds this rank's experts [part.start, part.start +
+    E_l) and its range of the shared experts' hidden units, the router
+    whole; the (T, E) combine is sliced to those experts and the partial
+    outputs sum over the groups."""
     m = cfg.moe
     dt = x.dtype
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
+    e0 = 0 if part is None else part.start
     _, top_w, top_i, aux = route(params["router"], cfg, xt)
     onehot = F.one_hot(top_i, m.num_experts).float()              # (T,k,E)
     combine = torch.einsum("tk,tke->te", top_w, onehot)            # (T, E)
+    combine = combine[:, e0:e0 + params["wi"].shape[0]]     # own experts
     # (E, T, f): every token through every expert, one batched product each
     h = F.silu(torch.matmul(xt, params["wg"].to(dt))) \
         * torch.matmul(xt, params["wi"].to(dt))
     y_e = torch.matmul(h, params["wo"].to(dt))                      # (E,T,d)
     y = torch.einsum("etd,te->td", y_e, combine.to(dt))
-    if "shared" in params:
-        y = y + _shared(params, xt, dt)
+    y = _combine_partials(y, params, xt, dt, part, shared_part)
     return y.reshape(B, S, d), aux
 
 
@@ -120,9 +143,15 @@ def capacity(cfg, T: int, *, capacity_factor: float | None = None,
 
 
 def apply_moe_sparse(params, cfg, x, *, capacity_factor: float | None = None,
-                     dispatch_chunk: int = 65536):
+                     dispatch_chunk: int = 65536, part=None,
+                     shared_part=None):
     """x: (B, S, d) -> (out, aux). Capacity-bounded dispatch over chunks of
-    ``dispatch_chunk`` tokens; aux is the mean of the chunks'."""
+    ``dispatch_chunk`` tokens; aux is the mean of the chunks'.
+
+    ``part`` / ``shared_part`` as in :func:`apply_moe`: x is then every
+    row (the capacity is the whole batch's), each rank fills the buffers of
+    its own experts only (the slots of the others go to the sink) and the
+    partial outputs sum over the groups."""
     m = cfg.moe
     E, k = m.num_experts, m.top_k
     dt = x.dtype
@@ -132,17 +161,22 @@ def apply_moe_sparse(params, cfg, x, *, capacity_factor: float | None = None,
                           dispatch_chunk=dispatch_chunk)
     xt = x.reshape(T, d)
     wg, wi, wo = (params[n].to(dt) for n in ("wg", "wi", "wo"))
+    e0, El = 0 if part is None else part.start, wi.shape[0]
 
     def one_chunk(xc):
         _, top_w, top_i, aux = route(params["router"], cfg, xc)
         slot, keep = dispatch_slots(top_i, E, cap)
+        if El != E:             # this rank's experts; the others' pairs sink
+            keep = keep & (slot >= e0 * cap) & (slot < (e0 + El) * cap)
+            slot = torch.where(keep, slot - e0 * cap,
+                               torch.full_like(slot, El * cap))
         # each (token, k) pair's row: a view summed over k in the backward
         src = xc[:, None].expand(chunk, k, d).reshape(chunk * k, d)
-        buf = x.new_zeros(E * cap + 1, d).index_put((slot,), src)
-        xe = buf[:E * cap].reshape(E, cap, d)
+        buf = x.new_zeros(El * cap + 1, d).index_put((slot,), src)
+        xe = buf[:El * cap].reshape(El, cap, d)
         h = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wi)
-        ye = torch.bmm(h, wo).reshape(E * cap, d)
-        sel = ye[slot.clamp_max(E * cap - 1)]
+        ye = torch.bmm(h, wo).reshape(El * cap, d)
+        sel = ye[slot.clamp_max(El * cap - 1)]
         w = torch.where(keep, top_w.reshape(-1), 0.0).to(dt)
         contrib = sel * w[:, None] * keep[:, None].to(dt)
         return contrib.reshape(chunk, k, d).sum(1), aux
@@ -154,10 +188,9 @@ def apply_moe_sparse(params, cfg, x, *, capacity_factor: float | None = None,
                          for c in range(0, T, chunk)))
         y = torch.cat(ys)
         aux = torch.stack(auxs).mean()
-    if "shared" in params:
-        # a view of x of its own: x's gradient is then (routed) + (shared),
-        # two terms, summed as the expert-parallel dispatch sums them; on
-        # xt the four terms (router, dispatch, shared wg and wi) would add
-        # in another order, which rounds apart in bfloat16
-        y = y + _shared(params, x.reshape(T, d), dt)
+    # the shared experts read a view of x of its own: x's gradient is then
+    # (routed) + (shared), two terms, summed as the expert-parallel
+    # dispatch sums them; on xt the four terms (router, dispatch, shared wg
+    # and wi) would add in another order, which rounds apart in bfloat16
+    y = _combine_partials(y, params, x.reshape(T, d), dt, part, shared_part)
     return y.reshape(B, S, d), aux

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.partitioning import gather_over, reduce_over
 from repro_torch.hopper import rwkv6_scan as wkv_op
 from repro_torch.models.layers import dense_init
 
@@ -65,14 +66,24 @@ def _token_shift(x, prev):
     return shifted, x[:, -1, :]
 
 
-def apply_time_mix(tm, cfg, x, prev_x, state, *, seq_mask=None):
+def apply_time_mix(tm, cfg, x, prev_x, state, *, seq_mask=None, part=None):
     """x: (B, S, d). Returns (out, new_prev_x, new_state); on the card the
-    WKV kernel updates ``state`` in place and returns it."""
+    WKV kernel updates ``state`` in place and returns it.
+
+    ``part`` (serving on a mesh: a ``partitioning.Part``): ``tm`` holds
+    this rank's shards in the serve layout, its heads' columns
+    [part.start, part.start + d_l) of ``wr``/``wk``/``wv``/``wg`` and rows
+    of ``wo``, every other leaf whole (``w_base``, ``dec_b`` 's output,
+    ``u`` and ``ln_x`` sliced here to those heads), and ``state`` its heads
+    of the wkv state; the per-head group norm is local, and wo's partial
+    sums add over ``part.group``."""
     hd = cfg.rwkv.head_dim
-    d = cfg.d_model
-    H = d // hd
     dt = x.dtype
     B, S, _ = x.shape
+    d = tm["wr"].shape[1]                       # this rank's heads' channels
+    H = d // hd
+    c0, group = (0, None) if part is None else part
+    ch = slice(c0, c0 + d)
 
     shifted, new_prev = _token_shift(x, prev_x)
     delta = shifted - x
@@ -89,30 +100,35 @@ def apply_time_mix(tm, cfg, x, prev_x, state, *, seq_mask=None):
     g = F.silu(xg @ tm["wg"].to(dt))
     # data-dependent decay in float32, rounded to the compute dtype before
     # the scan, as in the reference
-    wd = tm["w_base"].float() + (torch.tanh(xw @ tm["dec_a"].to(dt)).float()
-                                 @ tm["dec_b"].float())
+    lora = torch.tanh(xw @ tm["dec_a"].to(dt)).float()
+    wd = tm["w_base"][ch].float() + lora @ tm["dec_b"][:, ch].float()
     w = torch.exp(-torch.exp(wd)).reshape(B, S, H, hd)
-    y, state = wkv_op.wkv6(r, k, v, w.to(dt), tm["u"], state,
-                           seq_mask=seq_mask)
+    y, state = wkv_op.wkv6(r, k, v, w.to(dt), tm["u"][c0 // hd:c0 // hd + H],
+                           state, seq_mask=seq_mask)
 
     # per-head group norm (population variance)
     y32 = y.float()
     mean = y32.mean(-1, keepdim=True)
     var = y32.var(-1, keepdim=True, correction=0)
     y = ((y32 - mean) * torch.rsqrt(var + 64e-5)).to(dt)
-    y = (y.reshape(B, S, d) * tm["ln_x"].to(dt)) * g
-    return y @ tm["wo"].to(dt), new_prev, state
+    y = (y.reshape(B, S, d) * tm["ln_x"][ch].to(dt)) * g
+    return reduce_over(y @ tm["wo"].to(dt), group), new_prev, state
 
 
-def apply_channel_mix(cm, cfg, x, prev_x):
+def apply_channel_mix(cm, cfg, x, prev_x, *, parts=(None, None)):
+    """``parts`` (serving on a mesh): the ``partitioning.Part`` s of this
+    rank's hidden units of ``wk`` and of its output channels of ``wv`` and
+    ``wr`` (the serve layout splits both weights' output dims): k is
+    gathered whole before ``wv``, and the output after it."""
     dt = x.dtype
     shifted, new_prev = _token_shift(x, prev_x)
     delta = shifted - x
     xk = x + delta * cm["mu_k"].to(dt)
     xr = x + delta * cm["mu_r"].to(dt)
-    k = torch.square(F.relu(xk @ cm["wk"].to(dt)))
-    return (torch.sigmoid(xr @ cm["wr"].to(dt)) * (k @ cm["wv"].to(dt)),
-            new_prev)
+    k_group, out_group = (None if p is None else p.group for p in parts)
+    k = gather_over(torch.square(F.relu(xk @ cm["wk"].to(dt))), k_group, -1)
+    return (gather_over(torch.sigmoid(xr @ cm["wr"].to(dt))
+                        * (k @ cm["wv"].to(dt)), out_group, -1), new_prev)
 
 
 def init_rwkv_state(cfg, batch, dtype, device):

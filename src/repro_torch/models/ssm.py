@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.partitioning import reduce_over
 from repro_torch.hopper import ssm_scan as ssm_op
 from repro_torch.models.layers import dense_init
 
@@ -77,28 +78,43 @@ def causal_conv1d(x, w, b, conv_state=None, lengths=None):
 
 
 def apply_ssm(params, cfg, x, state=None, conv_state=None, *, lengths=None,
-              seq_mask=None):
+              seq_mask=None, part=None):
     """x: (B, S, d) -> (y (B, S, d), new_state, new_conv_state).
 
     Right-padded rows: pass ``seq_mask`` (freezes the SSM state across pads)
     and ``lengths`` (the conv tail gathered at each row's last valid token).
-    On the card the scan kernel updates ``state`` in place and returns it."""
+    On the card the scan kernel updates ``state`` in place and returns it.
+
+    ``part`` (serving on a mesh: a ``partitioning.Part``): ``params`` are
+    this rank's shards in the serve layout, its channels [part.start,
+    part.start + di_l) of ``in_proj`` (the serve form (d, 2, di_l)),
+    ``conv``, ``dt_proj``, ``A_log`` and the rows of ``x_proj`` and
+    ``out_proj``, with ``conv_b``, ``dt_bias`` and ``D`` whole (sliced
+    here), and ``state`` / ``conv_state`` the rank's shards of the cache
+    leaves. x_proj's partial sums (dt_lo, B and C: dr + 2N a token) are
+    summed over ``part.group`` before the scan, out_proj's after it."""
     s = cfg.ssm
     dt_ = x.dtype
     B = x.shape[0]
-    di, dr = d_inner_of(cfg), dt_rank_of(cfg)
+    dr = dt_rank_of(cfg)
+    w_in = params["in_proj"]
+    if w_in.dim() == 3:                         # the serve form (d, 2, di)
+        w_in = w_in.flatten(1)
+    di = w_in.shape[1] // 2                     # this rank's channels
+    c0, group = (0, None) if part is None else part
+    ch = slice(c0, c0 + di)
 
-    xz = x @ params["in_proj"].to(dt_)
+    xz = x @ w_in.to(dt_)
     xi, z = xz.chunk(2, dim=-1)                               # (B, S, di)
     xi, conv_state = causal_conv1d(xi, params["conv"].to(dt_),
-                                   params["conv_b"].to(dt_), conv_state,
+                                   params["conv_b"][ch].to(dt_), conv_state,
                                    lengths=lengths)
     xi = F.silu(xi)
 
-    proj = xi @ params["x_proj"].to(dt_)                      # (B, S, dr+2N)
+    proj = reduce_over(xi @ params["x_proj"].to(dt_), group)  # (B,S,dr+2N)
     dt_lo, Bc, Cc = proj.split([dr, s.state_dim, s.state_dim], dim=-1)
     dt = F.softplus(dt_lo.float() @ params["dt_proj"].float()
-                    + params["dt_bias"].float()[None, None])  # (B, S, di)
+                    + params["dt_bias"][ch].float()[None, None])
 
     if state is None:
         state = torch.zeros(B, di, s.state_dim, dtype=torch.float32,
@@ -106,6 +122,8 @@ def apply_ssm(params, cfg, x, state=None, conv_state=None, *, lengths=None,
     # dt is rounded to the compute dtype before the scan, as in the
     # reference
     y, state = ssm_op.selective_scan(xi, dt.to(dt_), params["A_log"], Bc, Cc,
-                                     params["D"], state, seq_mask=seq_mask)
+                                     params["D"][ch], state,
+                                     seq_mask=seq_mask)
     y = y * F.silu(z)
-    return y @ params["out_proj"].to(dt_), state, conv_state
+    return (reduce_over(y @ params["out_proj"].to(dt_), group), state,
+            conv_state)

@@ -25,9 +25,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import VALID_BLOCK_KINDS, ModelConfig
-from repro_torch.common.partitioning import (get_activation_mesh,
+from repro_torch.common.partitioning import (gather_over,
+                                             get_activation_mesh,
                                              is_sharded, on_rows,
-                                             shard_activation)
+                                             over_channels, part_of,
+                                             shard_activation, store)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.moe_shardmap import apply_moe_shardmap
@@ -167,20 +169,104 @@ def _moe_ffn(params, cfg, h2, mode="train"):
     whole tokens and break decode / full-forward consistency.
     ``"shardmap"`` in training under an active mesh with a "model" axis
     takes the expert-parallel all-to-all (``models/moe_shardmap``);
-    everything else the capacity-bounded sparse dispatch. On a mesh the
-    dense and sparse dispatches run whole on every rank (their capacity is
-    the whole batch's), on all rows gathered."""
+    everything else the capacity-bounded sparse dispatch. Training on a
+    mesh runs the dense and sparse dispatches whole on every rank (their
+    capacity is the whole batch's), on all rows gathered. Serving on a
+    mesh runs them on each rank's own experts and range of the shared
+    experts (the serve layout), the dense one on the rank's own rows, the
+    sparse one on all rows; the partial outputs sum over the expert axes,
+    and the router loss, a training quantity, is not computed (None)."""
     if cfg.moe.dispatch == "shardmap" and mode == "train":
         mesh = get_activation_mesh()
         if mesh is not None and "model" in mesh.mesh_dim_names \
                 and is_sharded(h2):
             return apply_moe_shardmap(params["moe"], cfg, h2, mesh)
-    if cfg.moe.dispatch == "dense" or h2.shape[1] == 1:
-        fn = moe_mod.apply_moe
-    else:
-        fn = moe_mod.apply_moe_sparse
+    dense = cfg.moe.dispatch == "dense" or h2.shape[1] == 1
+    fn = moe_mod.apply_moe if dense else moe_mod.apply_moe_sparse
+    if mode != "train" and is_sharded(h2):
+        p = params["moe"]
+        parts = dict(part=part_of(p["wi"], 0),
+                     shared_part=(part_of(p["shared"]["wo"], 0)
+                                  if "shared" in p else None))
+        return over_channels(lambda x, p_: fn(p_, cfg, x, **parts)[0],
+                             (h2,), p, whole=not dense), None
     return on_rows(lambda x, p: fn(p, cfg, x), (h2,), params["moe"],
                    n_rep=1, whole=True)
+
+
+def _ssm_on_mesh(p, cfg, h, cache, mode, seq_mask, lengths):
+    """hymba's SSM heads serving on a mesh: each rank's rows and channels
+    (``partitioning.over_channels``), its shards of the ``ssm`` and
+    ``conv`` leaves written in place (decode advances the state; prefill
+    starts it from zeros, as the reference's does)."""
+    part = part_of(p["conv"], 1)
+    if part is not None and p["in_proj"].dim() == 2:
+        raise ValueError(
+            "hymba's SSM on a mesh reads in_proj in the serve form "
+            "(d, 2, di): make the params with launch/sharding.shard_params("
+            "..., serve_tp_only=True)")
+
+    def run(h_, sm, ln, p_, ssm_st, conv_st):
+        if mode == "decode":
+            s, st, cv = ssm_mod.apply_ssm(p_, cfg, h_, ssm_st, conv_st,
+                                          part=part)
+        else:
+            s, st, cv = ssm_mod.apply_ssm(p_, cfg, h_, ssm_st.zero_(), None,
+                                          seq_mask=sm, lengths=ln, part=part)
+        if st is not ssm_st:
+            ssm_st.copy_(st)
+        conv_st.copy_(cv)
+        return s
+
+    return over_channels(run, (h, seq_mask, lengths), p,
+                         (cache["ssm"], cache["conv"]))
+
+
+def _rwkv(params, cfg, x, st, *, seq_mask=None, lengths=None,
+          parts=(None, None, None)):
+    """The rwkv block on plain tensors from the state ``st``: (x_out, wkv,
+    tm_prev, cm_prev). ``parts`` (serving on a mesh): the
+    ``partitioning.Part`` s of this rank's heads, channel-mix hidden units
+    and channel-mix output channels."""
+    h = rms_norm(x, params["ln1"], eps=cfg.rms_eps)
+    y, tm_prev, wkv = rwkv_mod.apply_time_mix(
+        params["tm"], cfg, h, st["tm_prev"], st["wkv"], seq_mask=seq_mask,
+        part=parts[0])
+    if lengths is not None:
+        tm_prev = _gather_last(h, lengths)
+    x = x + y
+    h2 = rms_norm(x, params["ln2"], eps=cfg.rms_eps)
+    y2, cm_prev = rwkv_mod.apply_channel_mix(params["cm"], cfg, h2,
+                                             st["cm_prev"], parts=parts[1:])
+    if lengths is not None:
+        cm_prev = _gather_last(h2, lengths)
+    return x + y2, wkv, tm_prev, cm_prev
+
+
+def _rwkv_on_mesh(params, cfg, x, cache, seq_mask, lengths):
+    """The rwkv block serving on a mesh: each rank's rows and heads
+    (``partitioning.over_channels``), its shard of ``wkv`` advanced in
+    place; the token-shift carries, split over "model" in the
+    ``shard_seq`` layout, gathered whole to be read, and each rank's slice
+    written back."""
+    tm, cm = params["tm"], params["cm"]
+    parts = (part_of(tm["wr"], 1), part_of(cm["wk"], 1),
+             part_of(cm["wr"], 1))
+    c0, group = part_of(cache["tm_prev"], 1) or (0, None)
+
+    def run(x_, sm, ln, p, wkv, tm_prev, cm_prev):
+        st = {"wkv": wkv, "tm_prev": gather_over(tm_prev, group, 1),
+              "cm_prev": gather_over(cm_prev, group, 1)}
+        out, new_wkv, new_tm, new_cm = _rwkv(p, cfg, x_, st, seq_mask=sm,
+                                             lengths=ln, parts=parts)
+        if new_wkv is not wkv:
+            wkv.copy_(new_wkv)
+        tm_prev.copy_(new_tm[:, c0:c0 + tm_prev.shape[1]])
+        cm_prev.copy_(new_cm[:, c0:c0 + cm_prev.shape[1]])
+        return out
+
+    return over_channels(run, (x, seq_mask, lengths), params,
+                         (cache["wkv"], cache["tm_prev"], cache["cm_prev"]))
 
 
 def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
@@ -209,47 +295,43 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
         a, (mk, mv) = attn_mod.cross_attention_block(
             params["xattn"], cfg, h, media, media_kv=media_kv)
         if mode == "prefill" and cache is not None:
-            cache["mk"].copy_(mk)
-            cache["mv"].copy_(mv)
+            store(cache["mk"], mk)
+            store(cache["mv"], mv)
         x = x + _rows(a)
         h2 = rms_norm(x, params["ln2"], eps=cfg.rms_eps)
         f = apply_mlp(params["mlp"], h2)
         return (x + _rows(torch.tanh(params["mlp_gate"].to(x.dtype)) * f),
                 cache, aux)
     if kind == "rwkv" and is_sharded(x):
-        # on a mesh (training) the block on each rank's own rows
+        if cache is not None:           # serving on a mesh
+            return (_rwkv_on_mesh(params, cfg, x, cache, seq_mask, lengths),
+                    cache, aux)
+        # training on a mesh: the block on each rank's own rows
         return on_rows(lambda x_, p: apply_block(p, cfg, kind, x_,
                                                  positions=None)[0],
                        (x,), params), cache, aux
     if kind == "rwkv":
         st = cache if cache is not None else rwkv_mod.init_rwkv_state(
             cfg, x.shape[0], x.dtype, x.device)
-        h = rms_norm(x, params["ln1"], eps=cfg.rms_eps)
-        y, tm_prev, wkv = rwkv_mod.apply_time_mix(
-            params["tm"], cfg, h, st["tm_prev"], st["wkv"],
-            seq_mask=seq_mask)
-        if lengths is not None:
-            tm_prev = _gather_last(h, lengths)
-        x = x + y
-        h2 = rms_norm(x, params["ln2"], eps=cfg.rms_eps)
-        y2, cm_prev = rwkv_mod.apply_channel_mix(params["cm"], cfg, h2,
-                                                 st["cm_prev"])
-        if lengths is not None:
-            cm_prev = _gather_last(h2, lengths)
+        x, wkv, tm_prev, cm_prev = _rwkv(params, cfg, x, st,
+                                         seq_mask=seq_mask, lengths=lengths)
         if cache is not None:
             _store(cache, "wkv", wkv)
             _store(cache, "tm_prev", tm_prev)
             _store(cache, "cm_prev", cm_prev)
-        return x + y2, cache, aux
+        return x, cache, aux
 
     h = rms_norm(x, params["ln1"], eps=cfg.rms_eps)
     a = _rows(_attention(params, cfg, "local" if kind == "hymba" else kind,
                          h, positions, cache, cache_len, mode, paged))
-    if kind == "hymba":
+    if kind == "hymba" and cache is not None and is_sharded(h):
+        s = _ssm_on_mesh(params["ssm"], cfg, h, cache, mode, seq_mask,
+                         lengths)                   # serving on a mesh
+    elif kind == "hymba":
         if mode == "decode":
             s, ssm_st, conv_st = ssm_mod.apply_ssm(
                 params["ssm"], cfg, h, cache["ssm"], cache["conv"])
-        elif is_sharded(h):
+        elif is_sharded(h):             # training on a mesh: own rows
             s = on_rows(lambda h_, p: ssm_mod.apply_ssm(p, cfg, h_)[0],
                         (h,), params["ssm"])
         else:
@@ -259,6 +341,7 @@ def apply_block(params, cfg: ModelConfig, kind: str, x, *, positions,
         if cache is not None:
             _store(cache, "ssm", ssm_st)
             _store(cache, "conv", conv_st)
+    if kind == "hymba":
         beta = params["beta"].to(x.dtype)
         a = (beta[0] * rms_norm(a, params["fuse_norm_a"], eps=cfg.rms_eps)
              + beta[1] * rms_norm(s, params["fuse_norm_s"], eps=cfg.rms_eps))

@@ -260,7 +260,10 @@ class CacheBackend:
 
 
 class DenseCache(CacheBackend):
-    """One dense ``max_len`` KV region per slot."""
+    """One dense ``max_len`` KV region per slot. On a mesh every leaf (K/V,
+    recurrent state, media K/V) is laid out by
+    ``launch/sharding.cache_placements``, in the ``shard_seq`` layout for
+    a pool of one slot (``models/model.init_cache``)."""
 
     def __init__(self, model_cfg, pool: int, max_len: int, dtype=None,
                  device=None, mesh=None):

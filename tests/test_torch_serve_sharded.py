@@ -356,17 +356,26 @@ def test_on_rows_equals_the_function(mesh):
 
 
 def test_mesh_refuses_what_it_does_not_run(mesh):
+    """What the mesh does not run raises NotImplementedError naming ROADMAP
+    (the paged cache, kv_snapshot resume, multi-turn environments,
+    overlap=True); every block kind is served."""
     cfg = get_config("tiny")
     task = AdditionTask(max_value=20, seed=9)
     for kw, what in ((dict(kv_backend="paged"), "paged"),
-                     (dict(resume_strategy="kv_snapshot"), "kv_snapshot")):
-        with pytest.raises(NotImplementedError, match=what):
-            RolloutEngine(cfg, RolloutConfig(**dict(RO, **kw)),
-                          task.sample_prompt, eos_id=EOS, mesh=mesh)
-    hymba = get_config("hymba-1.5b").reduced(max_d_model=64)
-    with pytest.raises(NotImplementedError, match="hymba"):
-        RolloutEngine(hymba, RolloutConfig(**RO), task.sample_prompt,
-                      eos_id=EOS, mesh=mesh)
+                     (dict(resume_strategy="kv_snapshot"), "kv_snapshot"),
+                     (dict(env_factory=lambda spec: None),
+                      "multi-turn environments")):
+        ro = {k: v for k, v in kw.items() if k != "env_factory"}
+        with pytest.raises(NotImplementedError,
+                           match=f"(?s){what}.*ROADMAP"):
+            RolloutEngine(cfg, RolloutConfig(**dict(RO, **ro)),
+                          task.sample_prompt, eos_id=EOS, mesh=mesh,
+                          env_factory=kw.get("env_factory"))
+    for arch in ("hymba-1.5b", "rwkv6-1.6b", "deepseek-moe-16b",
+                 "llama-3.2-vision-90b"):
+        RolloutEngine(get_config(arch).reduced(max_d_model=64),
+                      RolloutConfig(**RO), task.sample_prompt, eos_id=EOS,
+                      mesh=mesh)
     with pytest.raises(NotImplementedError, match="collectives"):
         copris.CoPRISTrainer(cfg, RolloutConfig(**TRAIN_RO),
                              TrainConfig(overlap=True), task, eos_id=EOS,

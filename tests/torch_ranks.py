@@ -28,11 +28,18 @@ def case_config(name: str, get_config=None, get_smoke_config=None):
     """The port's config of a test case; given the JAX package's
     ``get_config`` / ``get_smoke_config``, the JAX one from the same
     fields. gemma2: its sliding window cut to 8, so it binds in a 24-token
-    row; vlm: one 5-layer period of the VLM (one xattn layer)."""
+    row; vlm: one 5-layer period of the VLM (one xattn layer);
+    ``smoke:<arch>``: the smoke config in float32; tiny-kv1: tiny with one
+    kv head."""
     if get_config is None:
         from repro_torch.configs import get_config, get_smoke_config
     if name == "tiny":
         return get_config("tiny")
+    if name == "tiny-kv1":
+        return dataclasses.replace(get_config("tiny"), num_kv_heads=1)
+    if name.startswith("smoke:"):
+        return dataclasses.replace(get_smoke_config(name[6:]),
+                                   dtype="float32")
     if name == "vlm":
         return dataclasses.replace(get_config(VLM).reduced(num_layers=5),
                                    vocab_size=8192, dtype="float32")
@@ -328,3 +335,73 @@ def trainer_step(rank, *, mesh_shape, case, params, ro, tc, task_seed):
                                     for t in leaves(tr.params)),
         serve_layout=[str(t.placements) for t in
                       leaves(tr.param_store.acquire()[0])[:3]])
+
+
+def _serve_mesh(shape):
+    """A (data, model) mesh, or the (data, kvg, model) GQA serve mesh."""
+    from repro_torch.launch.mesh import make_gqa_serve_mesh, make_mesh
+    if len(shape) == 3:
+        return make_gqa_serve_mesh(*shape, device_type="cpu")
+    return make_mesh(*shape, device_type="cpu")
+
+
+def serve_sharded_kinds(rank, *, model_cases, engine_cases):
+    """Serving every block kind on a mesh: ``model_cases`` (case, mesh
+    shape, JAX-layout params, tokens, lengths, media or None, the tokens to
+    feed (steps, B), max length) run ``prefill`` and a ``decode_step`` a
+    fed token on the serve-layout params and a sharded cache (the
+    ``shard_seq`` layout at one row), returning every step's logits, every
+    cache leaf gathered and the K/V leaves' layouts; ``engine_cases``
+    (case, mesh shape, params, rollout config, task seed, key seed) run
+    ``RolloutEngine.collect``."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.common.config import RolloutConfig
+    from repro_torch.common.partitioning import on_mesh, to_host
+    from repro_torch.core.rollout import RolloutEngine
+    from repro_torch.data.tasks import EOS, AdditionTask
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import model as M
+    from repro_torch.sampling import prng
+    out = dict(model=[], engine=[])
+    for case, shape, params, toks, lens, media, feed, L in model_cases:
+        cfg = case_config(case)
+        mesh = _serve_mesh(shape)
+        p = shd.shard_params(convert.params_from_jax(params, cfg, "cpu"),
+                             mesh, cfg, serve_tp_only=True, serve_decode=True)
+        cache = M.init_cache(cfg, toks.shape[0], L, mesh=mesh, device="cpu")
+        layout = {f"{i}.{n}": str(t.placements)
+                  for i, layer in enumerate(cache) for n, t in layer.items()}
+        logits, cache = M.prefill(
+            p, cfg, on_mesh(torch.from_numpy(toks), mesh),
+            on_mesh(torch.from_numpy(lens), mesh), cache,
+            media=None if media is None else torch.from_numpy(media))
+        got = [to_host(logits).numpy()]
+        clen = torch.from_numpy(lens)
+        for tok in feed:
+            logits, cache = M.decode_step(p, cfg,
+                                          on_mesh(torch.from_numpy(tok), mesh),
+                                          cache, on_mesh(clen, mesh))
+            got.append(to_host(logits).numpy())
+            clen = clen + 1
+        out["model"].append(dict(
+            logits=got, layout=layout,
+            cache=[{n: to_host(t).numpy() for n, t in layer.items()}
+                   for layer in cache]))
+    for case, shape, params, ro, task_seed, key_seed in engine_cases:
+        cfg = case_config(case)
+        mesh = _serve_mesh(shape)
+        task = AdditionTask(max_value=20, seed=task_seed)
+        eng = RolloutEngine(cfg, RolloutConfig(**ro), task.sample_prompt,
+                            eos_id=EOS, mesh=mesh)
+        groups, st = eng.collect(
+            eng.prepare_params(convert.params_from_jax(params, cfg, "cpu")),
+            0, prng.PRNGKey(key_seed))
+        out["engine"].append(dict(
+            trajs={(g.group_id, t.sample_idx): (list(t.response_tokens),
+                                                list(t.behaviour_logps),
+                                                t.finish_reason)
+                   for g in groups for t in g.trajectories},
+            generated=st["generated"]))
+    return out
