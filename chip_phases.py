@@ -4,7 +4,7 @@ then each named phase runs as in the full script and prints its JSON line.
 
     python3 chip_phases.py [moe_ep] [sharded] [disagg] [multihost]
                            [decode_split] [serve_sharded] [copris_sharded]
-                           [serve_sharded_kinds]
+                           [serve_sharded_kinds] [dryrun]
 
 ``moe_ep``: ``train_moe_ep``; ``sharded``: ``train_sharded``; ``disagg``:
 ``train`` (its SFT-warmed weights), ``train_overlap`` and
@@ -15,7 +15,8 @@ then ``serve_sharded``; ``copris_sharded``: the trainer on a (1, 1) mesh
 against the unsharded one; ``serve_sharded_kinds``: sharded serving of
 hymba, rwkv6, deepseek-moe and the VLM, the one-slot ``shard_seq`` pools
 and the GQA serve mesh, each run with its steady-chunk host and device
-times beside the unsharded engine's. With no name, the first four. The last line is
+times beside the unsharded engine's; ``dryrun``: ``train_sharded``, then
+the ``dryrun`` phase against it. With no name, the first four. The last line is
 ``ALL OK`` when every phase passed; a failing phase exits non-zero, as in
 ``chip_smoke.py``.
 """
@@ -61,6 +62,11 @@ def main(names):
                 **loss_kernels})
         elif name == "sharded":
             cs.train_sharded_phase(torch, np, train_kernels)
+        elif name == "dryrun":
+            keep = {}
+            launches = cs.train_sharded_phase(torch, np, train_kernels,
+                                              keep=keep)
+            cs.dryrun_phase(torch, launches, keep["peak_gb"])
         elif name == "disagg":
             sft = {}
             cs.train_phase(torch, np, train_kernels, keep=sft)

@@ -214,8 +214,16 @@ start):
    leaf's update and AdamW moments within 1e-4 of its largest element,
    loss and grad_norm, the flash and loss kernels launched in the sharded
    run, both runs' update times and peak memory; the group destroyed
-   after it), "copris_sharded" (two CoPRISTrainer steps of llama3.2-1b
-   at full width and depth, unsharded and with train_mesh a (1, 1) NCCL
+   after it), "dryrun" (the dry run, ``repro_torch.launch.dryrun``, in
+   two CPU subprocesses started after train_sharded, each with its own
+   timeout: llama3.2-1b's
+   decode_32k and weight sync on a fake 16 x 16 mesh of 256 ranks, both
+   records ok with decode_attn charged once a layer; and train_sharded's
+   update, two steps on a fake (1, 1) mesh, its kernels' charges equal to
+   train_sharded's launches and its peak within 10% of train_sharded's
+   measured peak; while they run, the constants the fake branches copy
+   held against the built libraries and the card), "copris_sharded" (two
+   CoPRISTrainer steps of llama3.2-1b at full width and depth, unsharded and with train_mesh a (1, 1) NCCL
    mesh: sharded init and AdamW state, the sharded update, versions
    resharded to the serve layout, the sharded engine; rollout tokens
    equal at both steps, each leaf's update within 1e-4 of its largest
@@ -293,6 +301,14 @@ def bound(nbytes, flops, peak_flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def cost_bound(cost, peak_flops, extra_bytes=0):
+    """:func:`bound` of a kernel's work as its wrapper's ``*_cost`` formula
+    gives it ((FLOPs, bytes): the one the dry run charges), with
+    ``extra_bytes`` more read."""
+    flops, nbytes = cost
+    return bound(nbytes + extra_bytes, flops, peak_flops)
+
+
 class Timer:
     """Median device time of a callable, one CUDA-event pair per call, with
     the L2 cache flushed (a 64 MB write) before every call, so inputs come
@@ -355,9 +371,8 @@ def check_decode(torch, F, timer, decode_attn):
     library_ms = timer(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True))
     live = int(lens.sum().item())
-    nbytes = 2 * (2 * q.numel() + 2 * live * KV * hd) + 4 * B
-    flops = 4 * H * hd * live
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    b_ms, b_by = cost_bound(decode_attn.decode_cost(q.shape, KV, live, 2),
+                            PEAK_BF16_FLOPS)
     # the log-sum-exp output of the length split (sharded serving): the
     # kernel's lse against the plain version's, its float32 output rounding
     # to the bf16 call's bits, and the kernel's time with it, in turns with
@@ -531,10 +546,10 @@ def check_paged_decode(torch, timer, paged_decode_attn, decode_attn):
         q, kp, vp, bt, ps, lens))
     dense_ms = timer(lambda: decode_attn.decode_attention(q, kc, vc, lens))
     live = int(lens.sum().item())
-    # live K/V (no window on llama), q, out, the block table and lengths
-    nbytes = 2 * (2 * q.numel() + 2 * live * KV * hd) + 4 * bt.numel() + 4 * B
-    flops = 4 * H * hd * live
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    # live K/V (no window on llama), q, out, the lengths: the dense kernel's
+    # work, and the block table
+    b_ms, b_by = cost_bound(decode_attn.decode_cost(q.shape, KV, live, 2),
+                            PEAK_BF16_FLOPS, 4 * bt.numel())
     res = dict(shape=f"q {list(q.shape)} pools {list(kp.shape)} bf16, "
                f"block table {list(bt.shape)}, sum(cache_len)={live}; and "
                f"the {len(PDA_CASES)} kernel-test cases",
@@ -715,9 +730,9 @@ def check_flash_prefill(torch, F, timer, flash_attn, H, KV, hd, win=0,
     kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v, **kw))
     plain_ms = timer(lambda: flash_attn.flash_attention_plain(q, k, v, **kw),
                      iters=3, warmup=1)
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
-    flops = 4 * B * H * hd * (S * (S + 1) // 2)
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    b_ms, b_by = cost_bound(flash_attn.flash_cost(q.shape, k.shape, 2,
+                                                  window=win),
+                            PEAK_BF16_FLOPS)
     res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal"
                + (f", window {win}" if win else "")
                + (f", softcap {cap}" if cap else ""),
@@ -780,10 +795,9 @@ def check_decode_wide(torch, F, timer, decode_attn, paged_decode_attn, H,
         lambda: paged_decode_attn.paged_decode_attention_plain(
             q, kp, vp, bt, ps, lens, **kw))
     live = int((lens.clamp(max=win) if win > 0 else lens).sum().item())
-    nbytes = 2 * (2 * q.numel() + 2 * live * KV * hd) + 4 * B
-    flops = 4 * H * hd * live
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
-    pb_ms, pb_by = bound(nbytes + 4 * bt.numel(), flops, PEAK_BF16_FLOPS)
+    cost = decode_attn.decode_cost(q.shape, KV, live, 2)
+    b_ms, b_by = cost_bound(cost, PEAK_BF16_FLOPS)
+    pb_ms, pb_by = cost_bound(cost, PEAK_BF16_FLOPS, 4 * bt.numel())
     shape = (f"q {list(q.shape)}, H/KV {H}/{KV} (REP {H // KV}) x {hd} bf16"
              + (f", window {win}" if win else "")
              + (f", softcap {cap}" if cap else "")
@@ -899,9 +913,8 @@ def check_ssm_scan(torch, timer, ssm_scan, sm_mhz):
     for label, (B, T) in (("decode", (16, 1)), ("prefill", (16, PREFILL_T))):
         g = torch.Generator(device="cuda").manual_seed(33)
         args = ssm_inputs(torch, B, T, di, N, torch.bfloat16, g, model_A=True)
-        x, dt, A_log, Bc, Cc, D, s0 = args
-        nbytes = (2 * (3 * x.numel() + Bc.numel() + Cc.numel())
-                  + 4 * (A_log.numel() + D.numel()) + 8 * s0.numel())
+        s0 = args[6]
+        flops, nbytes = ssm_scan.scan_cost("fwd", B, T, di, N, 2)
         exps = B * T * di * N + di * N
         extra = {}
         if T == 1:
@@ -921,8 +934,8 @@ def check_ssm_scan(torch, timer, ssm_scan, sm_mhz):
             torch, timer, "ssm_scan", fn, ssm_scan.selective_scan_plain,
             args[:6], s0, label,
             f"x, dt [{B}, {T}, {di}] bf16, B, C [{B}, {T}, {N}] views, "
-            f"state [{B}, {di}, {N}] f32", nbytes, 7 * B * T * di * N,
-            exps=exps, mufu_rate=mufu_rate, exp_count=exps, sms=sms,
+            f"state [{B}, {di}, {N}] f32", nbytes, flops, exps=exps,
+            mufu_rate=mufu_rate, exp_count=exps, sms=sms,
             max_sm_clock_mhz=sm_mhz, **extra)
         ran = (fn.decode_launches - n0[0], fn.prefill_launches - n0[1])
         if (ran[0] > 0) != (T == 1) or (ran[1] > 0) != (T > 1):
@@ -967,8 +980,8 @@ def check_wkv6(torch, timer, rwkv6_scan):
     for label, (B, T) in (("decode", (16, 1)), ("prefill", (16, PREFILL_T))):
         g = torch.Generator(device="cuda").manual_seed(43)
         args = inputs(B, T, H, hd, torch.bfloat16, g)
-        r, s0 = args[0], args[5]
-        nbytes = 2 * 5 * r.numel() + 4 * args[4].numel() + 8 * s0.numel()
+        s0 = args[5]
+        flops, nbytes = rwkv6_scan.wkv_cost("fwd", B, T, H, hd, 2)
         extra = {}
         if T == 1:
             # the prefill kernel at T = 1 (the decode path before the
@@ -991,7 +1004,7 @@ def check_wkv6(torch, timer, rwkv6_scan):
             torch, timer, "wkv6", fn, rwkv6_scan.wkv6_plain,
             args[:5], s0, label,
             f"r, k, v, w [{B}, {T}, {H}, {hd}] bf16, state [{B}, {H}, {hd}, "
-            f"{hd}] f32", nbytes, 6 * B * T * H * hd * hd, **extra)
+            f"{hd}] f32", nbytes, flops, **extra)
         ran = (fn.decode_launches - n0[0], fn.prefill_launches - n0[1])
         if (ran[0] > 0) != (T == 1) or (ran[1] > 0) != (T > 1):
             fail(f"wkv6 at T = {T} ran (decode, prefill) kernels {ran}")
@@ -1179,22 +1192,21 @@ def check_ssm_scan_bwd(torch, timer, ssm_scan, sm_mhz):
              for i, c in enumerate(SSM_CASES)]
     B, T, di, N = TRAIN_B, TRAIN_S, 3200, 16
     train = case(B, T, di, N, torch.bfloat16, 55, False)
-    nbytes = (2 * (5 * B * T * di + 4 * B * T * N) + 4 * 2 * (di * N + di)
-              + 4 * 2 * B * di * N)
+    flops, nbytes = ssm_scan.scan_cost("bwd", B, T, di, N, 2)
 
     def fwd_bound(extra):     # as check_ssm_scan's, with the stores' bytes
-        fwd_bytes = (2 * (3 * B * T * di + 2 * B * T * N)
-                     + 4 * (di * N + di) + 8 * B * di * N + extra)
+        fwd_flops, fwd_bytes = ssm_scan.scan_cost("fwd", B, T, di, N, 2,
+                                                  extra // 4)
         return {"bytes": fwd_bytes / PEAK_BYTES_PER_S * 1e3,
-                "fma": 7 * B * T * di * N / PEAK_F32_FLOPS * 1e3,
+                "fma": fwd_flops / PEAK_F32_FLOPS * 1e3,
                 "mufu": (B * T * di * N + di * N) / mufu_rate * 1e3}
 
     return bwd_check(
         torch, timer, "ssm_scan_bwd", ssm_scan,
         ssm_scan.selective_scan_bwd_plain, cases, train,
         f"x, dt, dy [{B}, {T}, {di}] bf16, B, C [{B}, {T}, {N}] views, "
-        f"state [{B}, {di}, {N}] f32", nbytes, 20 * B * T * di * N,
-        B * T * di * N, mufu_rate, ssm_scan.selective_scan_plain, fwd_bound)
+        f"state [{B}, {di}, {N}] f32", nbytes, flops, B * T * di * N,
+        mufu_rate, ssm_scan.selective_scan_plain, fwd_bound)
 
 
 def check_wkv6_bwd(torch, timer, rwkv6_scan, sm_mhz):
@@ -1225,19 +1237,19 @@ def check_wkv6_bwd(torch, timer, rwkv6_scan, sm_mhz):
              for i, c in enumerate(WKV_CASES + [(2, 70, 4, 64)])]
     B, T, H, hd = TRAIN_B, TRAIN_S, 32, 64
     train = case(B, T, H, hd, torch.bfloat16, 65, False)
-    nbytes = 2 * 9 * B * T * H * hd + 4 * 2 * H * hd + 4 * 2 * B * H * hd * hd
+    flops, nbytes = rwkv6_scan.wkv_cost("bwd", B, T, H, hd, 2)
 
     def fwd_bound(extra):     # as check_wkv6's, with the stores' bytes
-        fwd_bytes = (2 * 5 * B * T * H * hd + 4 * H * hd
-                     + 8 * B * H * hd * hd + extra)
+        fwd_flops, fwd_bytes = rwkv6_scan.wkv_cost("fwd", B, T, H, hd, 2,
+                                                   extra // 4)
         return {"bytes": fwd_bytes / PEAK_BYTES_PER_S * 1e3,
-                "fma": 6 * B * T * H * hd * hd / PEAK_F32_FLOPS * 1e3}
+                "fma": fwd_flops / PEAK_F32_FLOPS * 1e3}
 
     return bwd_check(
         torch, timer, "wkv6_bwd", rwkv6_scan,
         rwkv6_scan.wkv6_bwd_plain, cases, train,
         f"r, k, v, w, dy [{B}, {T}, {H}, {hd}] bf16, state [{B}, {H}, {hd}, "
-        f"{hd}] f32", nbytes, 14 * B * T * H * hd * hd, 0, mufu_rate,
+        f"{hd}] f32", nbytes, flops, 0, mufu_rate,
         rwkv6_scan.wkv6_plain, fwd_bound)
 
 
@@ -1372,9 +1384,9 @@ def check_flash_lse(torch, F, timer, flash_attn, H=32, KV=8, win=0,
         q, k, v, return_lse=True, **kw))
     plain_ms = timer(lambda: flash_attn.flash_attention_plain(
         q, k, v, return_lse=True, **kw), iters=3, warmup=1)
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * H * S
-    flops = 4 * B * H * hd * (S * (S + 1) // 2)
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    b_ms, b_by = cost_bound(flash_attn.flash_cost(q.shape, k.shape, 2,
+                                                  window=win, lse=True),
+                            PEAK_BF16_FLOPS)
     res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal"
                + (f", window {win}" if win else "")
                + (f", softcap {cap}" if cap else "")
@@ -1465,11 +1477,11 @@ def check_flash_bwd(torch, F, timer, flash_attn, H=32, KV=8, win=0,
                        lambda: F.scaled_dot_product_attention(
                            qt, kt, vt, is_causal=True, enable_gqa=True)),
                        grads_err))
-    # read q, out, dout, k, v, lse; write dq, dk, dv
-    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * B * H * S
-    # QK^T, dO V^T, dS K, P^T dO, dS^T Q: 5 causal products
-    flops = 10 * B * H * hd * (S * (S + 1) // 2)
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    # read q, out, dout, k, v, lse; write dq, dk, dv; QK^T, dO V^T, dS K,
+    # P^T dO, dS^T Q: 5 causal products
+    b_ms, b_by = cost_bound(flash_attn.flash_cost(q.shape, k.shape, 2,
+                                                  window=win, backward=True),
+                            PEAK_BF16_FLOPS)
     res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 causal"
                + (f", window {win}" if win else "")
                + (f", softcap {cap}" if cap else ""),
@@ -1526,10 +1538,8 @@ def check_flash_cross(torch, F, timer, flash_attn):
         kernel_ms = timer(lambda: flash_attn.flash_attention(q, k, v, **kw))
         plain_ms = timer(lambda: flash_attn.flash_attention_plain(
             q, k, v, **kw), iters=3, warmup=1)
-        nbytes = 2 * (2 * q.numel() + 2 * k.numel()) \
-            + (4 * B * H * S if want_lse else 0)
-        flops = 4 * B * H * hd * S * M
-        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        b_ms, b_by = cost_bound(flash_attn.flash_cost(
+            q.shape, k.shape, 2, causal=False, lse=want_lse), PEAK_BF16_FLOPS)
         res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 "
                    "non-causal" + (", with lse (B, H, S) f32" if want_lse
                                    else ""),
@@ -1584,9 +1594,8 @@ def check_flash_cross(torch, F, timer, flash_attn):
                **library_call(timer, sdpa_grads, lambda gs: max(
                    (a.transpose(1, 2).float() - b.float()).abs().max().item()
                    for a, b in zip(gs, ref))))
-    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * B * H * S
-    flops = 10 * B * H * hd * S * M
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    b_ms, b_by = cost_bound(flash_attn.flash_cost(
+        q.shape, k.shape, 2, causal=False, backward=True), PEAK_BF16_FLOPS)
     res = dict(shape=f"q {list(q.shape)} kv {list(k.shape)} bf16 non-causal",
                max_abs_err=err, atol=atol,
                tolerance="atol or one bf16 ulp of the element",
@@ -1598,13 +1607,6 @@ def check_flash_cross(torch, F, timer, flash_attn):
     emit("check_flash_attn_bwd_cross", **res)
     out_res["cross_bwd"] = res
     return out_res
-
-
-# bf16 passes of 2 R d V in the tensor-core loss kernels (split_gemm.cuh):
-# the forwards' logits h w_hi + h w_mid and dw's dl_hi^T h + dl_mid^T h take
-# 2; bwd_dh 5, the logits and dl_hi w_hi + dl_hi w_mid + dl_mid w_hi for dh
-SPLIT_TC_PASSES = 2
-BWD_DH_TC_PASSES = 5
 
 
 def check_fused_is_grpo(torch, timer, fio, d=2048, V=128256, tied=True,
@@ -1677,23 +1679,20 @@ def check_fused_is_grpo(torch, timer, fio, d=2048, V=128256, tied=True,
     # its dh GEMM, without the logits recompute
     dh_gemm_ms = timer(lambda: dl @ w.T, iters=3, warmup=1)
     dw_gemm_ms = timer(lambda: hf.T @ dl, iters=3, warmup=1)
-    rows_io = 4 * R
     op = 2 * R * d * V
     shape = (f"hidden [{R}, {d}] bf16, "
              + (f"w = embed.T of [{V}, {d}] f32, " if tied
                 else f"w = lm_head [{d}, {V}] f32, ")
              + (f"logit softcap {cap}, " if cap else "") + "tensor cores, ")
-    f_bytes = 2 * R * d + 4 * V * d + 3 * rows_io + 5 * rows_io
-    b_f = bound(f_bytes, SPLIT_TC_PASSES * op, PEAK_BF16_FLOPS)
-    b_f_f32 = bound(f_bytes, op, PEAK_F32_FLOPS)
-    # bwd_dh: recompute logits + dh = dl w^T; writes dl (R, V) and dh
-    dh_bytes = 2 * R * d + 4 * V * d + 7 * rows_io + 4 * R * V + 4 * R * d
-    b_dh = bound(dh_bytes, BWD_DH_TC_PASSES * op, PEAK_BF16_FLOPS)
-    b_dh_f32 = bound(dh_bytes, 2 * op, PEAK_F32_FLOPS)
-    # bwd_dw: dw = h^T dl; reads h and dl, writes dw (V, d)
-    dw_bytes = 2 * R * d + 4 * R * V + 4 * V * d
-    b_dw = bound(dw_bytes, SPLIT_TC_PASSES * op, PEAK_BF16_FLOPS)
-    b_dw_f32 = bound(dw_bytes, op, PEAK_F32_FLOPS)
+    # the tensor-core passes (fio.TC_PASSES) of the kernels' work
+    # (fio.loss_cost): the forward reads 3 and writes 5 float32 a row;
+    # bwd_dh recomputes the logits and writes dl (R, V) and dh; bwd_dw
+    # reads h and dl and writes dw (V, d); beside each, the f32 FMA bound
+    # of its SIMT passes (fio.SIMT_PASSES)
+    (b_f, b_f_f32), (b_dh, b_dh_f32), (b_dw, b_dw_f32) = (
+        (cost_bound(fio.loss_cost(k, R, d, V), PEAK_BF16_FLOPS),
+         bound(fio.loss_cost(k, R, d, V)[1], fio.SIMT_PASSES[k] * op,
+               PEAK_F32_FLOPS)) for k in ("fwd", "dh", "dw"))
     res = {
         "fused_is_grpo_fwd": dict(
             shape=shape + "2 bf16 passes of split f32 w",
@@ -1747,10 +1746,11 @@ def check_fused_logprob(torch, timer, flp):
     kernel_ms = timer(lambda: flp.fused_logprob_rows(h, w, t), iters=3)
     plain_ms = timer(lambda: flp.fused_logprob_plain(h, w, t), iters=3)
     gemm_ms = timer(lambda: hf @ w, iters=3)
-    nbytes = 2 * R * d + 4 * V * d + 4 * R + 8 * R
-    b_ms, b_by = bound(nbytes, SPLIT_TC_PASSES * 2 * R * d * V,
-                       PEAK_BF16_FLOPS)
-    b_f32 = bound(nbytes, 2 * R * d * V, PEAK_F32_FLOPS)
+    from repro_torch.hopper import fused_is_grpo as fio
+    cost = fio.loss_cost("logprob", R, d, V)
+    b_ms, b_by = cost_bound(cost, PEAK_BF16_FLOPS)
+    b_f32 = bound(cost[1], fio.SIMT_PASSES["fwd"] * 2 * R * d * V,
+                  PEAK_F32_FLOPS)
     res = dict(shape=f"hidden [{R}, {d}] bf16, w = embed.T of [{V}, {d}] "
                "f32, tensor cores, 2 bf16 passes of split f32 w; logp and "
                "lse",
@@ -2742,7 +2742,7 @@ def local_leaves(tree):
             for t in leaves(tree)]
 
 
-def train_sharded_phase(torch, np, kernels, steps=2):
+def train_sharded_phase(torch, np, kernels, steps=2, keep=None):
     """The sharded update on the card: llama3.2-1b at full width and
     depth (f32 masters, bf16 compute, remat, the fused loss, entropy
     0.01), ``steps`` make_train_step updates on seeded 32 x 128 batches
@@ -2756,7 +2756,8 @@ def train_sharded_phase(torch, np, kernels, steps=2):
     atol 1e-4 and grad_norm rtol 1e-5, and the flash forward and backward
     and the loss's forward, dh and dw launched in the sharded run. Reports
     both runs' update times and the peak memory above what each held
-    before its updates. Returns the sharded run's launch counts."""
+    before its updates. Returns the sharded run's launch counts; ``keep``
+    (a dict) receives its peak, ``peak_gb``."""
     from repro_torch.common.config import TrainConfig
     from repro_torch.common.partitioning import set_activation_mesh
     from repro_torch.common.tree import leaves, tree_map
@@ -2823,6 +2824,8 @@ def train_sharded_phase(torch, np, kernels, steps=2):
     gn_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
                  for a, b in zip(sharded["metrics"], plain["metrics"]))
     launches = sharded["launches"]
+    if keep is not None:
+        keep["peak_gb"] = sharded["peak_gb"]
     emit("train_sharded", arch=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, vocab=cfg.vocab_size,
          mesh={"data": 1, "model": 1}, backend="nccl", updates=steps,
@@ -2845,6 +2848,143 @@ def train_sharded_phase(torch, np, kernels, steps=2):
         fail(f"train_sharded: the sharded update disagrees with the "
              f"unsharded one: {worst}, loss {loss_err}, grad_norm {gn_err}")
     return launches
+
+
+# train_sharded_phase's update counted by the dry run: its arch, batch and
+# TrainConfig, two steps on a fake (1, 1) mesh (a fake world of one)
+DRYRUN_TRAIN_SHARDED = """
+import json
+from repro_torch.common.config import InputShape, TrainConfig
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+mesh = D.dry_mesh(1, 1)
+cfg = get_config("llama3.2-1b")
+tc = TrainConfig(lr=1e-5, entropy_coef=0.01, remat=True)
+with D.fake_mode():
+    step, args, meta = D.input_specs(
+        cfg, InputShape("train_sharded", 128, 32, "train"), mesh, tcfg=tc)
+_, cost, secs = D.count_step(step, args, mesh, repeat=2)
+print(json.dumps({"kernels": cost["kernels"], "memory": cost["memory"],
+                  "flops": cost["flops"], "bytes": cost["bytes"],
+                  "roofline": D.roofline(cost), "trace_s": secs}))
+"""
+
+
+DRYRUN_CLI = ["-m", "repro_torch.launch.dryrun", "--arch", "llama3.2-1b",
+              "--shape", "decode_32k", "--weight-sync"]
+
+
+def dryrun_constants(torch):
+    """The constants the kernel wrappers' fake branches copy from the
+    kernels' sources (the backward scans' boundary interval and channels a
+    block) and from the card (its SMs, the loss forward's grid), each
+    beside what the built library and the card report. Fails on any
+    difference."""
+    from repro_torch.hopper import build
+    from repro_torch.hopper import fused_is_grpo as fio
+    from repro_torch.hopper import rwkv6_scan, ssm_scan
+    ssm, wkv = build.library("ssm_scan"), build.library("wkv6")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pairs = {"fused_is_grpo.H100_SMS": (fio.H100_SMS, sms)}
+    for N in ssm_scan._STATE_DIMS:
+        pairs[f"ssm_scan.BWD_CHANNELS[{N}]"] = (
+            ssm_scan.BWD_CHANNELS[N], ssm.ssm_scan_bwd_channels(N))
+        for dt in ssm_scan._DTYPES.values():
+            pairs[f"ssm_scan.BWD_CHUNK N {N} dtype {dt}"] = (
+                ssm_scan.BWD_CHUNK, ssm.ssm_scan_bwd_chunk(N, dt, None))
+    for hd in rwkv6_scan._HEAD_DIMS:
+        for dt in rwkv6_scan._DTYPES.values():
+            pairs[f"rwkv6_scan.BWD_CHUNK hd {hd} dtype {dt}"] = (
+                rwkv6_scan.BWD_CHUNK, wkv.wkv6_bwd_chunk(hd, dt, None))
+    wrong = {k: v for k, v in pairs.items() if v[0] != v[1]}
+    if wrong:
+        fail(f"dryrun: the fake branches' constants differ from the "
+             f"library's and the card's (copied, reported): {wrong}")
+    return {k: v[1] for k, v in pairs.items()}
+
+
+def dryrun_phase(torch, measured_launches, measured_peak_gb):
+    """The dry run (``repro_torch.launch.dryrun``: fake process group, fake
+    tensors, the kernels charged and never launched) in two subprocesses,
+    started after ``train_sharded`` so that no timed phase runs beside
+    them, each with a timeout of 120 s: (a) its CLI on llama3.2-1b at
+    decode_32k with the weight sync on the fake 16 x 16 mesh of 256 ranks,
+    both records ok, decode_attn charged once a layer; (b)
+    ``train_sharded``'s update (two steps) on a fake (1, 1) mesh, its
+    kernels' charges equal to ``measured_launches`` (train_sharded's) and
+    its peak within 10% of ``measured_peak_gb``. While they run, the fake
+    branches' constants are held against the library and the card
+    (:func:`dryrun_constants`). Also reports the card's total_memory
+    beside the dry run's constant for it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, *argv], cwd=ROOT,
+                                    env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, argv in (("mesh256", DRYRUN_CLI),
+                                ("train_sharded",
+                                 ["-c", DRYRUN_TRAIN_SHARDED]))}
+    try:
+        constants = dryrun_constants(torch)
+        outs = {}
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(
+                    timeout=max(1.0, 120 - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                fail(f"dryrun: the {name} subprocess passed its 120 s "
+                     f"timeout")
+            outs[name] = (proc.returncode, out, err)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    rc, out, err = outs["mesh256"]
+    recs = [json.loads(line) for line in out.splitlines()
+            if line.startswith('{"arch"')]
+    rc_b, out_b, err_b = outs["train_sharded"]
+    dry = json.loads(out_b.splitlines()[-1]) if rc_b == 0 else {}
+    charged = {k: dry.get("kernels", {}).get(k, {}).get("launches", 0)
+               for k in measured_launches}
+    peak_gb = dry.get("memory", {}).get("peak_bytes", 0) / 1e9
+    from repro_torch.launch import dryrun
+    emit("dryrun", command=" ".join(DRYRUN_CLI), seconds=wall,
+         after="train_sharded", constants=constants,
+         records=[{k: r.get(k) for k in (
+             "arch", "shape", "mesh", "status", "chips", "trace_s",
+             "dominant", "roofline", "flops_per_device",
+             "collective_bytes", "memory", "kernels",
+             "sync_bytes_per_version", "error")} for r in recs],
+         train_sharded={"charged_launches": charged,
+                        "measured_launches": measured_launches,
+                        "predicted_peak_gb": peak_gb,
+                        "measured_peak_gb": measured_peak_gb,
+                        "peak_ratio": peak_gb / measured_peak_gb
+                        if measured_peak_gb else None,
+                        "memory": dry.get("memory"),
+                        "kernels": dry.get("kernels"),
+                        "roofline_s": dry.get("roofline"),
+                        "trace_s": dry.get("trace_s")},
+         card_total_memory=torch.cuda.get_device_properties(0).total_memory,
+         dryrun_card_memory=dryrun.CARD_MEMORY_BYTES,
+         stderr_tail={k: v[2][-2000:] for k, v in outs.items() if v[0]})
+    if rc != 0 or len(recs) != 2 or not all(
+            r["status"] == "ok" for r in recs):
+        fail(f"dryrun: the 256-rank dry run exited {rc} with records "
+             f"{[(r.get('shape'), r.get('status')) for r in recs]}")
+    decode = recs[0].get("kernels", {}).get("decode_attn", {})
+    if decode.get("launches") != 16:
+        fail(f"dryrun: decode_attn charged {decode} at decode_32k, not once "
+             f"for each of llama3.2-1b's 16 layers")
+    if rc_b != 0 or charged != measured_launches:
+        fail(f"dryrun: train_sharded's update on a fake (1, 1) mesh exited "
+             f"{rc_b}, charged {charged} against the measured "
+             f"{measured_launches}")
+    if not abs(peak_gb - measured_peak_gb) <= 0.1 * measured_peak_gb:
+        fail(f"dryrun: predicted peak {peak_gb} GB against train_sharded's "
+             f"{measured_peak_gb} GB, beyond 10%")
 
 
 def serve_sharded_phase(torch, np, serve_mod, kernels, dense):
@@ -4359,8 +4499,13 @@ def main() -> int:
         "parameters at ~16 bytes each, ~262 GB) does not fit the card")
     # the sharded update on a (1, 1) NCCL mesh against the unsharded one,
     # then the expert-parallel dispatch; each destroys its process group
-    new_launches["train_sharded"] = train_sharded_phase(torch, np,
-                                                        train_kernels)
+    sharded_peak = {}
+    new_launches["train_sharded"] = train_sharded_phase(
+        torch, np, train_kernels, keep=sharded_peak)
+    # the dry run (CPU subprocesses, after train_sharded): 256 fake ranks,
+    # and train_sharded's update counted
+    dryrun_phase(torch, new_launches["train_sharded"],
+                 sharded_peak["peak_gb"])
     # the CoPRIS trainer on one (1, 1) mesh against the unsharded one
     new_launches["copris_sharded"] = copris_sharded_phase(torch, np,
                                                           train_kernels)

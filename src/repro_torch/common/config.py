@@ -438,3 +438,27 @@ class TrainConfig:
                 "weight sync feeds the background rollout producer; set "
                 "TrainConfig(overlap=True, disaggregated=True) (CLI: "
                 "--overlap --disaggregated)")
+
+
+# ---------------------------------------------------------------------------
+# Input shapes of the dry run (the reference's assigned shapes)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# long_500k runs only for the sub-quadratic archs (the reference's choice)
+LONG_CTX_ARCHS = ("rwkv6-1.6b", "hymba-1.5b", "gemma2-2b")

@@ -35,6 +35,12 @@ _ARCH_MODULES = {
 }
 
 
+# the reference's assigned architectures (its dry run's): every one but the
+# paper's own setup and the two CPU-scale configs
+ASSIGNED_ARCHS = tuple(k for k in _ARCH_MODULES
+                       if k not in ("paper-qwen-7b", "tiny", "small-100m"))
+
+
 def list_archs():
     return list(_ARCH_MODULES)
 

@@ -14,6 +14,15 @@ rollout producer and its consumer), so a first build takes a lock (two
 threads building one source would write the same temporary file), and each
 wrapper counts its launches through :func:`count`, under a lock, so the
 counts stay exact.
+
+The dry run (``launch/dryrun``) runs the steps on fake tensors
+(``torch._subclasses.fake_tensor``: shapes, no data). A wrapper given a
+fake tensor launches nothing: it returns empty outputs of the kernel's
+shapes (its scratch allocated as on the card) and hands the kernel's FLOPs
+and device-memory bytes to :func:`charge`, which passes them to every
+active cost counter (:func:`cost_sink`, ``launch/op_cost.OpCost``). A
+charge is not a launch: the launch counters stay as they are. A wrapper
+with no charge refuses a fake tensor (:func:`refuse_fake`).
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from contextlib import contextmanager
+from typing import Callable, Dict, List
 
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -233,3 +243,44 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error code {err}")
 
+
+
+# the active cost counters: module state, as the launch counters are, so a
+# wrapper called deep inside a step reaches the counter around it
+_SINKS: List[Callable[[str, float, float], None]] = []
+
+
+@contextmanager
+def cost_sink(fn: Callable[[str, float, float], None]):
+    """``with cost_sink(fn):`` hands every kernel charge of the block to
+    ``fn(kernel name, flops, bytes)``."""
+    _SINKS.append(fn)
+    try:
+        yield fn
+    finally:
+        _SINKS.remove(fn)
+
+
+def charge(name: str, flops: float, nbytes: float) -> None:
+    """One launch of kernel ``name`` on fake tensors, its ``flops`` and
+    device-memory bytes ``nbytes``, handed to every active
+    :func:`cost_sink`. Counts no launch."""
+    for sink in list(_SINKS):
+        sink(name, float(flops), float(nbytes))
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (shapes, no data): the dry run's."""
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+    return _is_fake(t)
+
+
+def refuse_fake(name: str, t) -> None:
+    """Raise for a fake tensor at a wrapper that charges nothing: a kernel
+    that no dry-run step launches, whose plain version must not stand in
+    for it."""
+    if is_fake(t):
+        raise ValueError(
+            f"{name}: fake tensors are the dry run's (launch/dryrun), and "
+            f"this kernel is on none of its steps (the dense cache, steps "
+            f"that return logits)")

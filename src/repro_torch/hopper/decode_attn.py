@@ -12,6 +12,14 @@ also split over the grid into groups of query heads. :func:`split_workspace`
 holds the float32 partials and the per-(row, kv head, head group) ticket
 counters it needs, one set per device and stream, grown when a call needs
 more and never synchronised with the host. The paged kernel shares it.
+
+On fake tensors (the dry run, ``launch/dryrun``) the wrapper launches
+nothing, whatever the tensors' device: it returns empty outputs of the
+kernel's shapes, allocates the split workspace for the call (the count of
+memory sees it) and charges :func:`decode_cost` over the whole cache slice,
+or its last ``window`` positions, since a fake ``cache_len`` holds no
+value: the worst case, and what the reference's masked softmax over the
+whole cache computes.
 """
 from __future__ import annotations
 
@@ -46,6 +54,21 @@ def split_workspace(device, B, H, hd, length):
         tickets = torch.zeros(B * H, dtype=torch.int32, device=device)
     _WORKSPACES[key] = (acc, tickets)
     return acc, tickets
+
+
+def decode_cost(q_shape, kv_heads, positions, itemsize, *, lse=False):
+    """(FLOPs, device-memory bytes) of one launch for q (B, 1, H, hd)
+    reading ``positions`` cache positions in all (summed over the rows) of
+    ``kv_heads`` heads: the work of the kernel's bound in ``chip_smoke.py``,
+    2 products of 2 hd FLOPs a (head, position); bytes: q, the K and V
+    read, cache_len, the output (float32 with ``lse``, and the lse
+    (B, H))."""
+    B, _, H, hd = q_shape
+    q_n = B * H * hd
+    return (4 * H * hd * positions,
+            itemsize * (q_n + 2 * positions * kv_heads * hd)
+            + (4 if lse else itemsize) * q_n + 4 * B
+            + (4 * B * H if lse else 0))
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len, *, window=0,
@@ -96,12 +119,13 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
     range, by which the slices' outputs merge; the output is then float32,
     unrounded, so the slices merge before their one rounding."""
     _check(q, k_cache, v_cache, cache_len)
-    if q.device.type == "cpu":
+    fake = build.is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       window=window, attn_softcap=attn_softcap,
                                       scale=scale, start=start,
                                       return_lse=return_lse)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     B, _, H, hd = q.shape
     L, KV = k_cache.shape[1], k_cache.shape[2]
@@ -114,7 +138,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
                         f"{cache_len.dtype}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("cache_len", cache_len)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or (not fake and t.data_ptr() % 16):
             raise ValueError(f"decode_attention kernel needs a contiguous, "
                              f"16-byte aligned {name}")
     if scale <= 0.0:
@@ -123,6 +147,15 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
                            else q.dtype)
     lse = (torch.empty(B, H, dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if fake:
+        ws = torch.empty(B * H * -(-L // DECODE_CHUNK) * (hd + 2),
+                         dtype=torch.float32, device=q.device)
+        tickets = torch.zeros(B * H, dtype=torch.int32, device=q.device)
+        del ws, tickets
+        read = min(L, window) if window > 0 else L
+        build.charge("decode_attn", *decode_cost(
+            q.shape, KV, B * read, q.element_size(), lse=return_lse))
+        return (out, lse) if return_lse else out
     lib = build.library("decode_attn")
     with torch.cuda.device(q.device):
         ws, tickets = split_workspace(q.device, B, H, hd, L)

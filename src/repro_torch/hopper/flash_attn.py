@@ -17,6 +17,10 @@ FMA pipes (the f32 GPU-against-CPU references need atol 1e-4, which TF32
 tensor cores would not meet). Both take head_dim 32, 64, 128 or 256
 (the registry's archs) and any H / KV; anything else raises. Each wrapper counts its launches in ``launches``, and those of the
 f32 SIMT kernels also in ``simt_launches``.
+
+On fake tensors (the dry run, ``launch/dryrun``) the wrappers launch
+nothing, whatever the tensors' device: they return empty outputs of the
+kernel's shapes and charge :func:`flash_cost` (``build.charge``).
 """
 from __future__ import annotations
 
@@ -61,8 +65,43 @@ def _check(q, k, v):
         raise TypeError("flash_attention: q, k, v dtypes differ")
 
 
+def attended_pairs(Sq, Sk, causal=True, window=0) -> int:
+    """The (query, key) pairs the kernels compute: query i reads keys
+    j <= i (causal) and i - j < window (a window), every key else."""
+    if not causal:
+        return Sq * Sk
+    cap = min(Sk, window) if window > 0 else Sk
+    m = min(Sq, cap)
+    return m * (m + 1) // 2 + (Sq - m) * cap
+
+
+def flash_cost(q_shape, k_shape, itemsize, *, causal=True, window=0,
+               lse=False, backward=False):
+    """(FLOPs, device-memory bytes) of one forward (with ``lse``: and its
+    logsumexp) or one backward launch at q (B, Sq, H, hd), k/v (B, Sk, KV,
+    hd): the work of the kernels' bounds in ``chip_smoke.py``. FLOPs count
+    the pairs the kernel computes (the causal triangle, the window), 2
+    products of 2 hd FLOPs a pair forward, 5 backward (the scores again,
+    dV, dP, dQ, dK). Bytes: the forward reads q, k, v and writes out (and
+    lse, float32); the backward reads q, k, v, out, dout and lse and
+    writes dq, dk, dv."""
+    B, Sq, H, hd = q_shape
+    Sk, KV = k_shape[1], k_shape[2]
+    pairs = attended_pairs(Sq, Sk, causal, window)
+    q_n, k_n = B * Sq * H * hd, B * Sk * KV * hd
+    if backward:
+        return (10 * B * H * hd * pairs,
+                itemsize * (4 * q_n + 4 * k_n) + 4 * B * H * Sq)
+    return (4 * B * H * hd * pairs,
+            itemsize * (2 * q_n + 2 * k_n) + (4 * B * H * Sq if lse else 0))
+
+
 def _check_kernel(name, q, *tensors):
-    if q.device.type != "cuda":
+    """What the kernels take; raises on anything else. A fake tensor (the
+    dry run) is held to the same shapes, dtypes and layouts, on any
+    device, and has no address to align."""
+    fake = build.is_fake(q)
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"{name}: unsupported device {q.device}")
     hd = q.shape[-1]
     if q.dtype not in _DTYPES or hd not in _HEAD_DIMS:
@@ -70,8 +109,9 @@ def _check_kernel(name, q, *tensors):
                         f"head_dim in {_HEAD_DIMS}; got {q.dtype}, hd={hd}")
     if not all(t.is_contiguous() for t in (q,) + tensors):
         raise ValueError(f"{name} kernel needs contiguous inputs")
-    if any(t.data_ptr() % 16 for t in (q,) + tensors):
+    if not fake and any(t.data_ptr() % 16 for t in (q,) + tensors):
         raise ValueError(f"{name} kernel needs 16-byte aligned inputs")
+    return fake
 
 
 def _count(fn, dtype):
@@ -81,12 +121,12 @@ def _count(fn, dtype):
 def _forward(q, k, v, causal, window, attn_softcap, scale, want_lse):
     """(out, lse or None): the plain version on the CPU, the kernel on
     CUDA."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not build.is_fake(q):
         res = flash_attention_plain(q, k, v, causal=causal, window=window,
                                     attn_softcap=attn_softcap, scale=scale,
                                     return_lse=want_lse)
         return res if want_lse else (res, None)
-    _check_kernel("flash_attention", q, k, v)
+    fake = _check_kernel("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if scale <= 0.0:
@@ -94,6 +134,11 @@ def _forward(q, k, v, causal, window, attn_softcap, scale, want_lse):
     out = torch.empty_like(q)
     lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
            if want_lse else None)
+    if fake:
+        build.charge("flash_attn", *flash_cost(
+            q.shape, k.shape, q.element_size(), causal=causal, window=window,
+            lse=want_lse))
+        return out, lse
     lib = build.library("flash_attn")
     with torch.cuda.device(q.device):
         err = lib.flash_attn_fwd(
@@ -157,12 +202,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
                          f"{tuple(q.shape)} and lse (B, H, Sq); got "
                          f"{tuple(out.shape)}, {tuple(dout.shape)}, "
                          f"{tuple(lse.shape)}")
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not build.is_fake(q):
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, window=window,
                                          attn_softcap=attn_softcap,
                                          scale=scale)
-    _check_kernel("flash_attention_bwd", q, k, v, out, lse, dout)
+    fake = _check_kernel("flash_attention_bwd", q, k, v, out, lse, dout)
     if out.dtype != q.dtype or dout.dtype != q.dtype \
             or lse.dtype != torch.float32:
         raise TypeError("flash_attention_bwd: out/dout must be in q's dtype "
@@ -175,6 +220,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    if fake:
+        build.charge("flash_attn_bwd", *flash_cost(
+            q.shape, k.shape, q.element_size(), causal=causal, window=window,
+            backward=True))
+        return dq, dk, dv
     lib = build.library("flash_attn_bwd")
     with torch.cuda.device(q.device):
         err = lib.flash_attn_bwd(

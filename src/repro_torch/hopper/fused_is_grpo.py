@@ -24,6 +24,12 @@ CUDA tensors they launch the kernels or raise. bfloat16 hidden (the main
 path) runs every loss kernel on the tensor cores, from w and dl as two
 bf16 terms each; float32 hidden runs the f32 SIMT kernels, which each
 wrapper also counts in ``simt_launches``.
+
+On fake tensors (the dry run, ``launch/dryrun``) the row wrappers launch
+nothing, whatever the tensors' device: they return empty outputs of the
+kernels' shapes, allocate their scratch as on the card (the forward's
+partials, the backward's dl rows) and charge :func:`loss_cost`
+(``build.charge``).
 """
 from __future__ import annotations
 
@@ -42,6 +48,13 @@ _H_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DL_SCRATCH_ELEMS = 1 << 29
 _BN = 128                      # the kernel's vocabulary tile
 _BM = 128                      # the kernel's row tile
+# passes over the logits' products on the tensor cores (bf16 hidden): the
+# forward and bwd_dw read w (or dl) as two bf16 terms; bwd_dh recomputes the
+# logits (two) and forms dh from dl's two terms against w's two and the
+# cross term (three). The f32 SIMT kernels make one pass, bwd_dh two.
+TC_PASSES = {"fwd": 2, "dh": 5, "dw": 2}
+SIMT_PASSES = {"fwd": 1, "dh": 2, "dw": 1}
+H100_SMS = 132                 # SMs of an H100 SXM (the fake splits' grid)
 
 
 def _softcap(x, cap):
@@ -146,6 +159,30 @@ def bwd_dw_plain(hidden, dl):
 # -- kernel wrappers ---------------------------------------------------------
 
 
+def loss_cost(kernel, R, d, V, h_itemsize=2):
+    """(FLOPs, device-memory bytes) of one launch of ``kernel`` ("fwd", the
+    IS-GRPO forward; "logprob", the log-prob forward; "dh"; "dw") on R rows
+    of hidden (``h_itemsize`` bytes an element) against a float32 (d, V)
+    w: the work of the kernels' bounds in ``chip_smoke.py``. FLOPs: 2 R d V
+    a pass over the logits' products, times the kernel's passes
+    (:data:`TC_PASSES` for bf16 hidden, :data:`SIMT_PASSES` for float32).
+    Bytes: hidden and w read once; the forward reads 3 and writes 5
+    float32 per row (the log-prob forward 1 and 2), bwd_dh reads 7 per row
+    and writes dl (R, V) and dh (R, d) in float32, bwd_dw reads dl and
+    writes dw (d, V)."""
+    passes = (TC_PASSES if h_itemsize == 2 else SIMT_PASSES)[
+        "fwd" if kernel == "logprob" else kernel]
+    flops = passes * 2 * R * d * V
+    h, w = h_itemsize * R * d, 4 * V * d
+    if kernel == "fwd":
+        return flops, h + w + 32 * R
+    if kernel == "logprob":
+        return flops, h + w + 12 * R
+    if kernel == "dh":
+        return flops, h + w + 28 * R + 4 * R * V + 4 * R * d
+    return flops, h + 4 * R * V + 4 * V * d
+
+
 def _w_strides(w):
     """(stride_k, stride_v) of the (d, V) matrix w, in one of the two
     layouts the kernel reads."""
@@ -171,7 +208,7 @@ def _check_rows(name, hidden, w, *rows):
 
 
 def _check_kernel(name, hidden, w):
-    if hidden.device.type != "cuda":
+    if hidden.device.type != "cuda" and not build.is_fake(hidden):
         raise ValueError(f"{name}: unsupported device {hidden.device}")
     if hidden.dtype not in _H_DTYPES or w.dtype != torch.float32:
         raise TypeError(f"{name} kernel takes float32/bfloat16 hidden and "
@@ -188,7 +225,7 @@ def _check_tc(name, hidden):
     if hidden.dtype != torch.bfloat16:
         return False
     d = hidden.shape[1]
-    if d % 8 or hidden.data_ptr() % 16:
+    if d % 8 or (not build.is_fake(hidden) and hidden.data_ptr() % 16):
         raise ValueError(f"{name} tensor-core kernels take a 16-byte aligned "
                          f"bf16 hidden with d a multiple of 8; got d={d}, "
                          f"address {hidden.data_ptr():#x}")
@@ -210,7 +247,8 @@ def _fwd_splits(R: int, V: int, device) -> int:
     give every SM two blocks four times over."""
     n_tiles = -(-V // _BN)
     row_tiles = -(-R // _BM)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else H100_SMS)
     per_split = max(1, min(_FWD_TILES_PER_BLOCK,
                            n_tiles * row_tiles // (8 * sms)))
     return -(-n_tiles // per_split)
@@ -225,7 +263,8 @@ def fused_is_grpo_fwd_rows(hidden, w, targets, behaviour, adv, *,
     cfg = dict(logit_softcap=logit_softcap, clip_low=clip_low,
                clip_high=clip_high, use_is=use_is, is_ratio_cap=is_ratio_cap,
                entropy_coef=entropy_coef)
-    if hidden.device.type == "cpu":
+    fake = build.is_fake(hidden)
+    if hidden.device.type == "cpu" and not fake:
         return fwd_plain(hidden, w, targets, behaviour, adv, **cfg)
     w_sk, w_sv = _check_kernel("fused_is_grpo_fwd", hidden, w)
     tc = _check_tc("fused_is_grpo_fwd", hidden)
@@ -238,6 +277,10 @@ def fused_is_grpo_fwd_rows(hidden, w, targets, behaviour, adv, *,
             for _ in range(5)]
     partial = torch.empty(splits, R, 4, dtype=torch.float32,
                           device=hidden.device)
+    if fake:
+        build.charge("fused_is_grpo_fwd", *loss_cost(
+            "fwd", R, d, V, hidden.element_size()))
+        return tuple(outs)
     lib = build.library("fused_is_grpo")
     with torch.cuda.device(hidden.device):
         err = lib.fused_is_grpo_fwd(
@@ -272,6 +315,10 @@ def fused_is_grpo_bwd_dh_rows(hidden, w, targets, lse, ebar, a, e, *,
     lse, ebar, a, e = _rows32(lse, ebar, a, e)
     dl = torch.empty(R, V, dtype=torch.float32, device=hidden.device)
     dh = torch.empty(R, d, dtype=torch.float32, device=hidden.device)
+    if build.is_fake(hidden):
+        build.charge("fused_is_grpo_bwd_dh", *loss_cost(
+            "dh", R, d, V, hidden.element_size()))
+        return dl, dh
     lib = build.library("fused_is_grpo")
     args = [hidden.data_ptr(), w.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
             ebar.data_ptr(), a.data_ptr(), e.data_ptr(), dl.data_ptr(),
@@ -307,6 +354,10 @@ def fused_is_grpo_bwd_dw_rows(hidden, dl, dw, *, accumulate=False):
     tc = _check_tc("fused_is_grpo_bwd_dw", hidden)
     dw_sk, dw_sv = _w_strides(dw)
     dl = dl.contiguous()
+    if build.is_fake(hidden):
+        build.charge("fused_is_grpo_bwd_dw", *loss_cost(
+            "dw", R, d, V, hidden.element_size()))
+        return dw
     lib = build.library("fused_is_grpo")
     with torch.cuda.device(hidden.device):
         err = lib.fused_is_grpo_bwd_dw(
@@ -324,7 +375,7 @@ def fused_is_grpo_bwd_rows(hidden, w, targets, lse, ebar, a, e, *,
     layout, float32). CUDA: row chunks of at most DL_SCRATCH_ELEMS // V
     through the bwd_dh and bwd_dw kernels."""
     _check_rows("fused_is_grpo_bwd", hidden, w, targets, lse, ebar, a, e)
-    if hidden.device.type == "cpu":
+    if hidden.device.type == "cpu" and not build.is_fake(hidden):
         return bwd_plain(hidden, w, targets, lse, ebar, a, e,
                          logit_softcap=logit_softcap)
     R, V = hidden.shape[0], w.shape[1]

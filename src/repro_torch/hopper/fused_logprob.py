@@ -16,7 +16,8 @@ which is the fused IS-GRPO backward (``fused_is_grpo_bwd_rows``: the
 ``w`` is the logical (d, V) unembedding (``embed.T`` for tied embeddings,
 read in its own layout). On CPU tensors :func:`fused_logprob_rows` runs the
 plain version :func:`fused_logprob_plain`; on CUDA tensors it launches the
-kernel or raises.
+kernel or raises; on fake tensors (the dry run) it launches nothing and
+charges ``fused_is_grpo.loss_cost`` (``build.charge``).
 """
 from __future__ import annotations
 
@@ -60,7 +61,8 @@ def fused_logprob_rows(hidden, w, targets, *, logit_softcap=0.0):
     of 8), float32 hidden its SIMT version, counted also in
     ``simt_launches``."""
     fio._check_rows("fused_logprob", hidden, w, targets)
-    if hidden.device.type == "cpu":
+    fake = build.is_fake(hidden)
+    if hidden.device.type == "cpu" and not fake:
         with torch.no_grad():
             return fused_logprob_plain(hidden, w, targets,
                                        logit_softcap=logit_softcap)
@@ -74,6 +76,10 @@ def fused_logprob_rows(hidden, w, targets, *, logit_softcap=0.0):
     lse = torch.empty(R, dtype=torch.float32, device=hidden.device)
     partial = torch.empty(splits, R, 4, dtype=torch.float32,
                           device=hidden.device)
+    if fake:
+        build.charge("fused_logprob", *fio.loss_cost(
+            "logprob", R, d, V, hidden.element_size()))
+        return logp, lse
     lib = build.library("fused_is_grpo")
     with torch.cuda.device(hidden.device):
         err = lib.fused_logprob_fwd(

@@ -126,6 +126,7 @@ def sample_rows(keys, logits, *, temperature: float = 1.0, top_p: float = 1.0,
     float32. Returns ``(tokens (R,) int32, logps (R,) float32)``, the logp
     under the tempered, truncated distribution (0 for greedy)."""
     _check(keys, logits, top_p)
+    build.refuse_fake("sample_rows", logits)
     if logits.device.type == "cpu":
         return sample_rows_plain(keys, logits, temperature=temperature,
                                  top_p=top_p, top_k=top_k)

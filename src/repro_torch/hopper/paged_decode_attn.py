@@ -77,6 +77,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, page_size,
     fills it (the allocator never produces one). A row with cache_len <= 0
     (never produced by the engine) returns zeros."""
     _check(q, k_pool, v_pool, block_table, page_size, cache_len)
+    build.refuse_fake("paged_decode_attention", q)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, block_table, page_size, cache_len,

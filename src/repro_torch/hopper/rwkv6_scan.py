@@ -14,6 +14,12 @@ backward on the CPU; on the card its forward runs the prefill kernel that
 also stores the states the backward starts its chunks from
 (:func:`boundaries`), counted in ``save_launches`` in place of
 ``prefill_launches``.
+
+On fake tensors (the dry run, ``launch/dryrun``) the wrappers launch
+nothing, whatever the tensors' device: each kernel the card would launch
+returns empty outputs of its shapes, its scratch and boundary states
+allocated as on the card, and charges :func:`wkv_cost`
+(``build.charge``).
 """
 from __future__ import annotations
 
@@ -23,6 +29,24 @@ from repro_torch.hopper import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)       # the hd csrc/wkv6.cu dispatches
+BWD_CHUNK = 8                   # kBwdChunk of csrc/wkv6.cu
+
+
+def wkv_cost(kernel, B, T, H, hd, itemsize, boundary_elems=0):
+    """(FLOPs, device-memory bytes) of one launch of the forward
+    (``"fwd"``, storing ``boundary_elems`` float32 boundary states) or the
+    backward (``"bwd"``) at r (B, T, H, hd): the work of the kernels'
+    bounds in ``chip_smoke.py``. FLOPs: 6 float32 operations per (row,
+    step, head, i, j) forward, 14 backward. Bytes: forward r, k, v, w read
+    and y written, u, the state read and written (and the boundary
+    states); backward r, k, v, w, dy read, dr, dk, dv, dw written, u and
+    its gradient, the state and its gradient."""
+    n = B * T * H * hd
+    if kernel == "fwd":
+        return (6 * n * hd, itemsize * 5 * n + 4 * H * hd
+                + 8 * B * H * hd * hd + 4 * boundary_elems)
+    return (14 * n * hd, itemsize * 9 * n + 8 * H * hd
+            + 8 * B * H * hd * hd)
 
 
 def wkv6_plain(r, k, v, w, u, state, seq_mask=None):
@@ -141,7 +165,8 @@ def boundaries(r):
     before every chunk of ``wkv6_bwd_chunk`` steps but the first; None when
     T fits in one chunk."""
     B, T, H, hd = r.shape
-    chunk = build.library("wkv6").wkv6_bwd_chunk(hd, _DTYPES[r.dtype], None)
+    chunk = (BWD_CHUNK if build.is_fake(r) else build.library(
+        "wkv6").wkv6_bwd_chunk(hd, _DTYPES[r.dtype], None))
     nb = (T + chunk - 1) // chunk - 1
     if nb < 1:
         return None
@@ -158,7 +183,7 @@ class _WKV6(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, w, u, state):
         ckpt = None
-        if r.device.type == "cpu":
+        if r.device.type == "cpu" and not build.is_fake(r):
             y, final = wkv6_plain(r, k, v, w, u, state)
         else:
             final = state.clone()
@@ -173,7 +198,7 @@ class _WKV6(torch.autograd.Function):
         r, k, v, w, u, state, ckpt = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(r)
-        if r.device.type == "cpu":
+        if r.device.type == "cpu" and not build.is_fake(r):
             return wkv6_bwd_plain(r, k, v, w, u, state, dy, dstate)
         grads = launch_bwd(r, k, v, w, u, state, dy, dstate, ckpt=ckpt)
         build.count(wkv6, key="bwd_launches")
@@ -189,13 +214,14 @@ def wkv6(r, k, v, w, u, state, *, seq_mask=None):
     k and w outside it), ``state`` is left as it was and the final state is
     a new tensor."""
     _check(r, k, v, w, u, state, seq_mask)
-    if r.device.type not in ("cpu", "cuda"):
+    fake = build.is_fake(r)
+    if r.device.type not in ("cpu", "cuda") and not fake:
         raise ValueError(f"wkv6: unsupported device {r.device}")
-    if r.device.type == "cuda":
+    if r.device.type == "cuda" or fake:
         _check_kernel(r, k, v, w, u, state)
     inputs = (r, k, v, w, u, state)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
-    if r.device.type == "cpu" and not grad:
+    if r.device.type == "cpu" and not fake and not grad:
         return wkv6_plain(*inputs, seq_mask=seq_mask)
     if seq_mask is not None:                           # exact: mask is 0 / 1
         m = seq_mask[:, :, None, None].to(r.dtype)
@@ -213,9 +239,14 @@ def launch(r, k, v, w, u, state, *, prefill_only=False, ckpt=None):
     the backward's boundary states there. Updates ``state`` in place,
     counts nothing, returns y."""
     B, T, H, hd = r.shape
-    if state.data_ptr() % 16:
+    fake = build.is_fake(r)
+    if not fake and state.data_ptr() % 16:
         raise ValueError("wkv6 kernel: the state must be 16-byte aligned")
     y = torch.empty_like(r)
+    if fake:
+        build.charge("wkv6", *wkv_cost("fwd", B, T, H, hd, r.element_size(),
+                                       0 if ckpt is None else ckpt.numel()))
+        return y
     lib = build.library("wkv6")
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
@@ -246,21 +277,27 @@ def launch_bwd(r, k, v, w, u, state, dy, dstate=None, *, ckpt=None):
         dstate = dstate.float().contiguous()
     if not all(t.is_contiguous() for t in (r, k, v, w, u, state)):
         raise ValueError("wkv6 kernel needs contiguous r, k, v, w, u, state")
-    if state.data_ptr() % 16 or (dstate is not None
-                                 and dstate.data_ptr() % 16):
+    fake = build.is_fake(r)
+    if not fake and (state.data_ptr() % 16 or (
+            dstate is not None and dstate.data_ptr() % 16)):
         raise ValueError("wkv6 kernel: the states must be 16-byte aligned")
     f32 = dict(device=r.device, dtype=torch.float32)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     pu = torch.empty(B, H, hd, **f32)             # du summed over a row's steps
     ds0 = torch.empty(B, H, hd, hd, **f32)
-    lib = build.library("wkv6")
     if ckpt is None:
         ckpt = boundaries(r)
         if ckpt is not None:
             launch(r, k, v, w, u, state.clone(), ckpt=ckpt)
-    if ckpt is not None and (ckpt.data_ptr() % 16 or not ckpt.is_contiguous()):
+    if ckpt is not None and (not ckpt.is_contiguous()
+                             or (not fake and ckpt.data_ptr() % 16)):
         raise ValueError("wkv6 kernel: the boundary states must be "
                          "contiguous and 16-byte aligned")
+    if fake:
+        build.charge("wkv6_bwd", *wkv_cost("bwd", B, T, H, hd,
+                                           r.element_size()))
+        return dr, dk, dv, dw, pu.sum(0), ds0
+    lib = build.library("wkv6")
     with torch.cuda.device(r.device):
         err = lib.wkv6_bwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),

@@ -14,6 +14,12 @@ backward is the kernel ``ssm_scan_bwd`` on the card (counted in
 runs the prefill kernel that also stores the states the backward starts its
 chunks from (:func:`boundaries`), counted in ``save_launches`` in place of
 ``prefill_launches``.
+
+On fake tensors (the dry run, ``launch/dryrun``) the wrappers launch
+nothing, whatever the tensors' device: each kernel the card would launch
+returns empty outputs of its shapes, its scratch and boundary states
+allocated as on the card, and charges :func:`scan_cost`
+(``build.charge``).
 """
 from __future__ import annotations
 
@@ -23,6 +29,29 @@ from repro_torch.hopper import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _STATE_DIMS = (8, 16)                # the N csrc/ssm_scan.cu dispatches
+BWD_CHUNK = 8                        # kBwdChunk of csrc/ssm_scan.cu
+# channels a block of the backward covers (BwdSmem<T, N>::CB: 160 threads,
+# N / 4 lanes a channel)
+BWD_CHANNELS = {8: 80, 16: 40}
+
+
+def scan_cost(kernel, B, T, di, N, itemsize, boundary_elems=0):
+    """(FLOPs, device-memory bytes) of one launch of the forward
+    (``"fwd"``, storing ``boundary_elems`` float32 boundary states) or the
+    backward (``"bwd"``) at x (B, T, di) and state size N: the work of the
+    kernels' bounds in ``chip_smoke.py``. FLOPs: 7 float32 operations on
+    the FMA pipe per (row, step, channel, state) forward, 20 backward.
+    Bytes: forward x, dt, y and B, C, A_log and D, the state read and
+    written (and the boundary states); backward x, dt, dy, dx, ddt and B,
+    C, dB, dC, A_log, D and their gradients, the state and its
+    gradient."""
+    if kernel == "fwd":
+        return (7 * B * T * di * N,
+                itemsize * (3 * B * T * di + 2 * B * T * N)
+                + 4 * (di * N + di) + 8 * B * di * N + 4 * boundary_elems)
+    return (20 * B * T * di * N,
+            itemsize * (5 * B * T * di + 4 * B * T * N)
+            + 8 * (di * N + di) + 8 * B * di * N)
 
 
 def selective_scan_plain(x, dt, A_log, Bc, Cc, D, state, seq_mask=None):
@@ -151,8 +180,8 @@ def boundaries(x, N):
     state before every chunk of ``ssm_scan_bwd_chunk`` steps but the first;
     None when T fits in one chunk."""
     B, T, di = x.shape
-    chunk = build.library("ssm_scan").ssm_scan_bwd_chunk(N, _DTYPES[x.dtype],
-                                                          None)
+    chunk = (BWD_CHUNK if build.is_fake(x) else build.library(
+        "ssm_scan").ssm_scan_bwd_chunk(N, _DTYPES[x.dtype], None))
     nb = (T + chunk - 1) // chunk - 1
     if nb < 1:
         return None
@@ -168,7 +197,7 @@ class _SelectiveScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A_log, Bc, Cc, D, state):
         ckpt = None
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" and not build.is_fake(x):
             y, final = selective_scan_plain(x, dt, A_log, Bc, Cc, D, state)
         else:
             final = state.clone()
@@ -183,7 +212,7 @@ class _SelectiveScan(torch.autograd.Function):
         x, dt, A_log, Bc, Cc, D, state, ckpt = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" and not build.is_fake(x):
             return selective_scan_bwd_plain(x, dt, A_log, Bc, Cc, D, state,
                                             dy, dstate)
         grads = launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate,
@@ -202,13 +231,14 @@ def selective_scan(x, dt, A_log, Bc, Cc, D, state, *, seq_mask=None):
     differentiable (``seq_mask`` applied to dt outside it), ``state`` is
     left as it was and the final state is a new tensor."""
     _check(x, dt, A_log, Bc, Cc, D, state, seq_mask)
-    if x.device.type not in ("cpu", "cuda"):
+    fake = build.is_fake(x)
+    if x.device.type not in ("cpu", "cuda") and not fake:
         raise ValueError(f"selective_scan: unsupported device {x.device}")
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" or fake:
         _check_kernel(x, dt, A_log, Bc, Cc, D, state)
     inputs = (x, dt, A_log, Bc, Cc, D, state)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
-    if x.device.type == "cpu" and not grad:
+    if x.device.type == "cpu" and not fake and not grad:
         return selective_scan_plain(*inputs, seq_mask=seq_mask)
     if seq_mask is not None:
         dt = dt * seq_mask[..., None].to(dt.dtype)     # exact: mask is 0 / 1
@@ -226,10 +256,16 @@ def launch(x, dt, A_log, Bc, Cc, D, state, *, prefill_only=False,
     place, counts nothing, returns y."""
     B, T, di = x.shape
     N = A_log.shape[-1]
-    if state.data_ptr() % 16 or A_log.data_ptr() % 16:
+    fake = build.is_fake(x)
+    if not fake and (state.data_ptr() % 16 or A_log.data_ptr() % 16):
         raise ValueError("selective_scan kernel: the state and A_log must be "
                          "16-byte aligned")
     y = torch.empty_like(x)
+    if fake:
+        build.charge("ssm_scan", *scan_cost(
+            "fwd", B, T, di, N, x.element_size(),
+            0 if ckpt is None else ckpt.numel()))
+        return y
     lib = build.library("ssm_scan")
     ptrs = (x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
             Cc.data_ptr(), D.data_ptr(), state.data_ptr(), y.data_ptr())
@@ -261,11 +297,13 @@ def launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate=None, *,
     dy = dy.to(x.dtype).contiguous()
     if dstate is not None:
         dstate = dstate.float().contiguous()
-    if state.data_ptr() % 16 or A_log.data_ptr() % 16:
+    fake = build.is_fake(x)
+    if not fake and (state.data_ptr() % 16 or A_log.data_ptr() % 16):
         raise ValueError("selective_scan kernel: the state and A_log must be "
                          "16-byte aligned")
-    lib = build.library("ssm_scan")
-    cb = lib.ssm_scan_bwd_channels(N)  # channels a block
+    lib = None if fake else build.library("ssm_scan")
+    cb = (BWD_CHANNELS[N] if fake          # channels a block
+          else lib.ssm_scan_bwd_channels(N))
     nblk = (di + cb - 1) // cb
     f32 = dict(device=x.device, dtype=torch.float32)
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
@@ -279,20 +317,25 @@ def launch_bwd(x, dt, A_log, Bc, Cc, D, state, dy, dstate=None, *,
         ckpt = boundaries(x, N)
         if ckpt is not None:
             launch(x, dt, A_log, Bc, Cc, D, state.clone(), ckpt=ckpt)
-    if ckpt is not None and (ckpt.data_ptr() % 16 or not ckpt.is_contiguous()):
+    if ckpt is not None and (not ckpt.is_contiguous()
+                             or (not fake and ckpt.data_ptr() % 16)):
         raise ValueError("selective_scan kernel: the boundary states must be "
                          "contiguous and 16-byte aligned")
-    with torch.cuda.device(x.device):
-        err = lib.ssm_scan_bwd(
-            x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
-            Cc.data_ptr(), D.data_ptr(), state.data_ptr(), dy.data_ptr(),
-            0 if dstate is None else dstate.data_ptr(), dx.data_ptr(),
-            ddt.data_ptr(), pbc.data_ptr(), pA.data_ptr(), pD.data_ptr(),
-            ds0.data_ptr(), 0 if ckpt is None else ckpt.data_ptr(), B, T, di,
-            N, Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1),
-            _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "ssm_scan_bwd")
+    if fake:
+        build.charge("ssm_scan_bwd", *scan_cost("bwd", B, T, di, N,
+                                                x.element_size()))
+    else:
+        with torch.cuda.device(x.device):
+            err = lib.ssm_scan_bwd(
+                x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bc.data_ptr(),
+                Cc.data_ptr(), D.data_ptr(), state.data_ptr(), dy.data_ptr(),
+                0 if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+                ddt.data_ptr(), pbc.data_ptr(), pA.data_ptr(), pD.data_ptr(),
+                ds0.data_ptr(), 0 if ckpt is None else ckpt.data_ptr(), B, T, di,
+                N, Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1),
+                _DTYPES[x.dtype],
+                torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(err, "ssm_scan_bwd")
     bc = pbc.sum(0)                       # the blocks' partials, in order
     return (dx, ddt, pA.sum(0), bc[:, :, 0].to(Bc.dtype),
             bc[:, :, 1].to(Cc.dtype), pD.sum(0), ds0)

@@ -20,6 +20,8 @@ from repro_torch.common.device import resolve_device
 
 AXES = ("data", "model")
 GQA_AXES = ("data", "kvg", "model")
+POD_AXES = ("pod", "data", "model")
+PRODUCTION_SHAPE = (16, 16)     # the reference's production (data, model)
 
 
 def _backend(device_type: str) -> str:
@@ -67,6 +69,18 @@ def _make(shape, names, device_type):
     init_single_process_group(device_type)
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=names)
+
+
+def make_production_mesh(multi_pod: bool = False, *,
+                         device_type: Optional[str] = None):
+    """The reference's production mesh over every rank of the default
+    process group: ("data", "model") 16 x 16, or with ``multi_pod``
+    ("pod", "data", "model") 2 x 16 x 16, the pod axis pure data-parallel
+    (``launch/sharding.batch_axes``). The dry run (``launch/dryrun``)
+    builds it over a fake group of 256 or 512 ranks."""
+    if multi_pod:
+        return _make((2,) + PRODUCTION_SHAPE, POD_AXES, device_type)
+    return _make(PRODUCTION_SHAPE, AXES, device_type)
 
 
 def make_single_mesh(device=None):

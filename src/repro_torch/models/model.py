@@ -57,13 +57,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     model whose float32 weights do not fit the card). ``place(path,
     piece)`` (``launch/sharding.init_sharded_params``) takes each piece as
     soon as it is made, the embedding, a layer, the final norm, the head,
-    with its path from the root, and returns what the tree keeps of it."""
+    with its path from the root, and returns what the tree keeps of it.
+    ``device="meta"`` makes the same tree of shapes and dtypes with no
+    generator and no data (the dry run's: the counterpart of
+    ``jax.eval_shape`` of the reference's init)."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     if place is None:
         def place(path, piece):
             return piece
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     tok = place(("embed", "tok"),
                 embed_init((cfg.vocab_size, cfg.d_model), dtype, dev, gen))
     layers = []
