@@ -33,6 +33,28 @@ kv heads); llama3.2-1b on (1, 4) (kv heads over "model") and on the
 hymba at batch 1 on (2, 2) (``shard_seq``: its length over ("data",
 "model")). Rank 0 prints one JSON line a case, the card's name and power
 limit, and last ``{"ok": true, ...}``; any failed check exits non-zero.
+
+``--weight-sync`` runs instead the cases of train and rollout on meshes of
+their own, over NCCL, llama3.2-1b at full width and depth (146 leaves,
+float32 masters from the seeded sharded init):
+
+* the cross-mesh transfer (``make_param_resharder`` between two meshes)
+  from disjoint (2, 1) (ranks 0-1) to (1, 2) (ranks 2-3), and from the
+  same four ranks as (2, 2) to the (1, 2, 2) GQA serve mesh: each rollout
+  leaf gathered must have the fingerprints (``chip_smoke.fingerprints``:
+  two 64-bit sums of its bits) of the train leaf gathered; the time of a
+  version (host clock from a barrier to every rank's synchronisation, the
+  median of 3 after one warm transfer; and each rank's own span, CUDA
+  events) against one ``dist.send`` of a buffer of all the bytes the
+  transfer moves, from the first train rank to the first rollout rank
+  other than itself, on the same NCCL group;
+* two steps of the two-sided trainer (``CoPRISTrainer(train_mesh=A,
+  rollout_mesh=B)``, overlap and disaggregated, max_staleness 1) on
+  disjoint (2, 1) + (1, 2) ("model" of size 1 on the train side, where
+  the fused loss kernels run on each rank's rows): finite losses, each
+  collect's version within the gate, each version the rollout side
+  acquired with the fingerprints of the train side's params at that
+  stage, every kernel of its side launched.
 """
 from __future__ import annotations
 
@@ -152,11 +174,185 @@ def rel(a, b):
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
 
 
+def weight_sync_cases(torch, dist, dev, smoke):
+    """The ``--weight-sync`` cases (module docstring); rank 0 prints one
+    JSON line a case. Returns False where a check failed."""
+    import numpy as np
+
+    from chip_smoke import TWO_SIDED_KERNELS, fingerprints, side_kernels
+    from repro_torch.common.config import RolloutConfig, TrainConfig
+    from repro_torch.core.copris import CoPRISTrainer
+    from repro_torch.core.weight_sync import make_param_resharder
+    from repro_torch.data.tasks import EOS, AdditionTask
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import (make_disaggregated_meshes,
+                                         make_gqa_serve_mesh, make_mesh,
+                                         mesh_device, mesh_ranks)
+    from repro_torch.models import model as M
+    cfg = config("llama3.2-1b", 16, smoke, "float32")
+    rank = dist.get_rank()
+    ok = True
+
+    def everyone(x):
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, x)
+        return out
+
+    def gathered(tree):       # every leaf whole, over its own mesh
+        from repro_torch.common.tree import tree_map
+        return tree_map(lambda t: t.full_tensor(), tree)
+
+    for name, pair in (("transfer_2x1_to_1x2", "disjoint"),
+                       ("transfer_2x2_to_kvg_1x2x2", "kvg")):
+        if pair == "disjoint":
+            train, rollout = make_disaggregated_meshes((2, 1), (1, 2),
+                                                       device_type=dev)
+        else:
+            train = make_mesh(2, 2, device_type=dev)
+            rollout = make_gqa_serve_mesh(1, 2, 2, device_type=dev)
+        in_train = rank in mesh_ranks(train)
+        params = (shd.init_sharded_params(cfg, train, seed=0) if in_train
+                  else M.init_params(cfg, device="meta"))
+        reshard, _ = make_param_resharder(cfg, params, train, rollout)
+        walls, spans = [], []
+        for i in range(4):
+            dist.barrier()
+            t0 = time.perf_counter()
+            copy, elapsed = reshard(params)
+            sync(torch, dev)
+            dist.barrier()
+            if i:
+                walls.append((time.perf_counter() - t0) * 1e3)
+                spans.append(elapsed() * 1e3)
+        want = fingerprints(torch, gathered(params)) if in_train else None
+        got = (fingerprints(torch, gathered(copy)) if copy is not None
+               else None)
+        wants, gots = everyone(want), everyone(got)
+        ref = next(w for w in wants if w is not None)
+        equal = [g == ref for g in gots if g is not None]
+        moved = sum(everyone(reshard.bytes_sent))
+        # one buffer of the same bytes, first train rank to the first
+        # rollout rank other than itself, on the transfer's group
+        src = mesh_ranks(train)[0]
+        dst = next(r for r in mesh_ranks(rollout) if r != src)
+        buf = torch.empty(moved, dtype=torch.uint8,
+                          device=mesh_device(train if in_train
+                                             else rollout))
+        plain = []
+        for i in range(4):
+            dist.barrier()
+            t0 = time.perf_counter()
+            if rank == src:
+                dist.send(buf, dst, group=reshard.group)
+            elif rank == dst:
+                dist.recv(buf, src, group=reshard.group)
+            sync(torch, dev)
+            dist.barrier()
+            if i:
+                plain.append((time.perf_counter() - t0) * 1e3)
+        del buf, copy, params
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        all_spans = everyone(statistics.median(spans))
+        if rank == 0:
+            print(json.dumps({
+                "case": name, "arch": cfg.name, "layers": cfg.num_layers,
+                "leaves": len(ref), "train_mesh": dict(zip(
+                    train.mesh_dim_names, train.shape)),
+                "rollout_mesh": dict(zip(rollout.mesh_dim_names,
+                                         rollout.shape)),
+                "backend": reshard.backend, "bytes_moved": moved,
+                "leaves_equal": equal,
+                "version_ms": statistics.median(walls),
+                "version_ms_runs": walls,
+                "span_ms_by_rank": all_spans,
+                "plain_send_ms": statistics.median(plain),
+                "plain_send": f"one buffer of {moved} bytes, rank {src} to "
+                              f"rank {dst}"}), flush=True)
+        if not equal or not all(equal):
+            print(f"chip_mesh: {name}: a rollout leaf differs from the "
+                  "train leaf", file=sys.stderr)
+            ok = False
+
+    # two steps of the two-sided trainer; "model" of size 1 on the train
+    # side, where the fused loss kernels run on each rank's rows
+    train, rollout = make_disaggregated_meshes((2, 1), (1, 2),
+                                               device_type=dev)
+    ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=4,
+                       max_response_len=32, concurrency=16, mode="copris",
+                       temperature=1.0)
+    tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=3, entropy_coef=0.01,
+                     overlap=True, disaggregated=True, max_staleness=1)
+    tr = CoPRISTrainer(config("llama3.2-1b", 16, smoke, "bfloat16"), ro, tc,
+                       AdditionTask(max_value=20, seed=3), eos_id=EOS,
+                       train_mesh=train, rollout_mesh=rollout)
+    kernels = {n: fn for n, fn in side_kernels().items()
+               if n in TWO_SIDED_KERNELS[tr.role]}
+    for fn in kernels.values():
+        fn.launches = 0
+    store, acquired, stages, outs = tr.param_store, [], {}, []
+    if tr.role == "rollout":
+        acquire = store.acquire
+
+        def recorded():
+            p, v = acquire()
+            acquired.append((v, fingerprints(torch, gathered(p))))
+            return p, v
+        store.acquire = recorded
+    else:
+        stages[tr.stage] = fingerprints(torch, gathered(tr.params))
+    try:
+        for _ in range(2):
+            o = tr.step()
+            outs.append({k: v for k, v in o.items()
+                         if isinstance(v, (int, float))})
+            if tr.role == "train":
+                stages[tr.stage] = fingerprints(torch, gathered(tr.params))
+    finally:
+        tr.close()
+    sync(torch, dev)
+    recs = everyone(dict(role=tr.role, outs=outs, stages=stages,
+                         acquired=acquired,
+                         launches={n: fn.launches
+                                   for n, fn in kernels.items()}))
+    t_rec = next(r for r in recs if r["role"] == "train")
+    r_rec = next(r for r in recs if r["role"] == "rollout")
+    schedule = [o["step"] - o["param_staleness"] for o in t_rec["outs"]]
+    collected = [o["params_version"] for o in r_rec["outs"]]
+    equal = [f == t_rec["stages"].get(v) for v, f in r_rec["acquired"]]
+    launched = (dev == "cpu" or all(
+        r["launches"][n] > 0 for r in recs
+        for n in TWO_SIDED_KERNELS[r["role"]]))
+    gate = collected == schedule and all(
+        i - 1 <= v <= i for i, v in enumerate(schedule))
+    finite = all(np.isfinite(o["pg_loss"]) for o in t_rec["outs"])
+    if rank == 0:
+        keys = ("step_time", "rollout_time", "update_time", "reshard_time",
+                "rollout_reshard_time", "batch_wait_time",
+                "param_staleness", "pg_loss")
+        print(json.dumps({
+            "case": "trainer_2x1_and_1x2", "arch": cfg.name,
+            "layers": cfg.num_layers, "steps": [
+                {k: o.get(k) for k in keys} for o in t_rec["outs"]],
+            "schedule": schedule, "collected_under": collected,
+            "acquired_equal": equal,
+            "launches": {r["role"] + str(i): r["launches"]
+                         for i, r in enumerate(recs)}}), flush=True)
+    if not (gate and finite and equal and all(equal) and launched):
+        print(f"chip_mesh: trainer: gate {gate}, finite {finite}, acquired "
+              f"equal {equal}, launched {launched}", file=sys.stderr)
+        ok = False
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--smoke", action="store_true",
                     help="the smoke configs (a rehearsal on the CPU)")
+    ap.add_argument("--weight-sync", action="store_true",
+                    help="only the cases of train and rollout on meshes "
+                         "of their own")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -172,7 +368,14 @@ def main(argv=None) -> int:
     dev = args.device
     meshes = {}
     rank0 = None
-    for name, arch, layers, shape, rows in CASES:
+    if args.weight_sync:
+        if mesh_from_args("2,2", dev) is None:
+            return 2
+        rank0 = dist.get_rank() == 0
+        if not weight_sync_cases(torch, dist, dev, args.smoke):
+            return 1
+    for name, arch, layers, shape, rows in (() if args.weight_sync
+                                            else CASES):
         spec = ",".join(map(str, shape))
         if spec not in meshes:
             meshes[spec] = mesh_from_args(spec, dev)

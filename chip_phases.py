@@ -4,7 +4,7 @@ then each named phase runs as in the full script and prints its JSON line.
 
     python3 chip_phases.py [moe_ep] [sharded] [disagg] [multihost]
                            [decode_split] [serve_sharded] [copris_sharded]
-                           [serve_sharded_kinds] [dryrun]
+                           [serve_sharded_kinds] [dryrun] [disagg_mesh]
 
 ``moe_ep``: ``train_moe_ep``; ``sharded``: ``train_sharded``; ``disagg``:
 ``train`` (its SFT-warmed weights), ``train_overlap`` and
@@ -16,7 +16,10 @@ against the unsharded one; ``serve_sharded_kinds``: sharded serving of
 hymba, rwkv6, deepseek-moe and the VLM, the one-slot ``shard_seq`` pools
 and the GQA serve mesh, each run with its steady-chunk host and device
 times beside the unsharded engine's; ``dryrun``: ``train_sharded``, then
-the ``dryrun`` phase against it. With no name, the first four. The last line is
+the ``dryrun`` phase against it; ``disagg_mesh``: ``train``,
+``train_disaggregated``, then ``train_disaggregated_mesh`` (train and
+rollout in two processes on meshes of their own). With no name, the first
+four. The last line is
 ``ALL OK`` when every phase passed; a failing phase exits non-zero, as in
 ``chip_smoke.py``.
 """
@@ -72,6 +75,11 @@ def main(names):
             cs.train_phase(torch, np, train_kernels, keep=sft)
             cs.train_overlap_phase(torch, np, train_kernels, sft)
             cs.train_disaggregated_phase(torch, np, train_kernels, sft)
+        elif name == "disagg_mesh":
+            sft = {}
+            cs.train_phase(torch, np, train_kernels, keep=sft)
+            cs.train_disaggregated_phase(torch, np, train_kernels, sft)
+            cs.train_disaggregated_mesh_phase(torch, np, sft)
         elif name == "multihost":
             cs.multihost_phase(np)
         elif name == "decode_split":

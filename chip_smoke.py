@@ -10,7 +10,8 @@ granite-34b, with musicgen-medium, and the mixtures of experts
 deepseek-moe-16b and qwen3-moe-235b-a22b and the VLM llama-3.2-vision-90b
 (cross-attention to 1601 media tokens), the sharded update on
 torch.distributed (a (1, 1) mesh over NCCL, the expert-parallel MoE
-dispatch, the torchrun launcher) and the disaggregated trainer, through
+dispatch, the torchrun launcher), the disaggregated trainer in one
+process and with train and rollout on meshes of their own in two, through
 the port's hand-written kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
@@ -178,7 +179,17 @@ start):
    version the reshard's copy on a copy stream): the store's freshest
    version equal to the consumer's params bit for bit at every stage,
    reshard_time (the copies' span on their stream) a step and the step
-   times beside train_overlap's; then
+   times beside train_overlap's; then "train_disaggregated_mesh": train
+   and rollout on meshes of their own in two processes on the card
+   (``chip_smoke.py --two-sided-rank R DIR`` each; rank 0 trains on a
+   (1, 1) mesh, rank 1 collects on another, made by
+   make_disaggregated_meshes), 8 of the 16 layers of the same weights,
+   three steps a side, every version through the cross-mesh transfer on
+   a gloo group (pinned host staging): each collect within the gate, each
+   acquired version's fingerprints equal to the train side's params at
+   its stage, finite losses, each side's kernels launched; the transfer's
+   bytes and reshard_time on each side, the step, rollout and update
+   times beside train_disaggregated's; then
    "train_paged": two CoPRISTrainer.step()
    calls at full width over the paged KV cache with half the
    dense-equivalent pages and the legacy fused_loss=False loss: prefix
@@ -270,6 +281,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2691,6 +2703,8 @@ def train_disaggregated_phase(torch, np, kernels, sft, steps=3):
     torch.cuda.synchronize()
     launches = read_launches(kernels)
     keys = STEP_REPORT + ("reshard_time", "dropped_versions")
+    sft["disaggregated_steps"] = [{k: o[k] for k in STEP_REPORT + (
+        "reshard_time",)} for o in outs]
     emit("train_disaggregated", arch=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, vocab=cfg.vocab_size, max_staleness=1,
          train_device=str(tr.device), rollout_device=str(tr.rollout_device),
@@ -2706,6 +2720,246 @@ def train_disaggregated_phase(torch, np, kernels, sft, steps=3):
     if not all(o["reshard_time"] > 0.0 for o in outs):
         fail("train_disaggregated: a step without a timed reshard")
     return launches
+
+
+# the kernels each side of the two-sided trainer runs: the update's
+# attention forward (with lse) and backward and the fused loss kernels
+# (V 128256 > FUSED_VOCAB_THRESHOLD); the collect's prefill, decode and
+# sampling
+TWO_SIDED_KERNELS = {
+    "train": ("flash_attn", "flash_attn_bwd", "fused_is_grpo_fwd",
+              "fused_is_grpo_bwd_dh", "fused_is_grpo_bwd_dw"),
+    "rollout": ("flash_attn", "decode_attn", "fused_sample")}
+TWO_SIDED_TIMEOUT_S = 600
+
+
+def side_kernels():
+    """The wrappers of every kernel of TWO_SIDED_KERNELS, by name."""
+    from repro_torch.hopper import decode_attn, flash_attn, fused_sample
+    from repro_torch.hopper import fused_is_grpo as fio
+    return {"flash_attn": flash_attn.flash_attention,
+            "flash_attn_bwd": flash_attn.flash_attention_bwd,
+            "decode_attn": decode_attn.decode_attention,
+            "fused_sample": fused_sample.sample_rows,
+            "fused_is_grpo_fwd": fio.fused_is_grpo_fwd_rows,
+            "fused_is_grpo_bwd_dh": fio.fused_is_grpo_bwd_dh_rows,
+            "fused_is_grpo_bwd_dw": fio.fused_is_grpo_bwd_dw_rows}
+
+
+def fingerprints(torch, tree):
+    """Two 64-bit sums of each leaf's bits (a DTensor's local shard: the
+    whole leaf on a (1, 1) mesh), computed on the card: its 32-bit words,
+    and the words times odd position weights, both wrapping. A change of
+    any one word always changes the second; two trees with equal pairs are
+    equal but for a 2^-64 coincidence."""
+    from repro_torch.common.tree import leaves
+    out = []
+    for t in leaves(tree):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        w = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        pos = torch.arange(1, 2 * w.numel(), 2, device=w.device)
+        out.append([int(w.sum()), int((w * pos).sum())])
+    return out
+
+
+def two_sided_rank(rank, folder):
+    """One process of ``train_disaggregated_mesh``: rank 0 trains on a
+    (1, 1) mesh, rank 1 collects on another, both on cuda:0, in a process
+    group of two (NCCL for the meshes' own one-rank groups, gloo for the
+    weights' transfer and the batches: NCCL refuses two ranks of one
+    communicator on one card). Writes its record to ``folder``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common.config import RolloutConfig, TrainConfig
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core.copris import CoPRISTrainer
+    from repro_torch.data.tasks import EOS, AdditionTask
+    from repro_torch.launch.mesh import make_disaggregated_meshes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    folder = Path(folder)
+    spec = json.loads((folder / "spec.json").read_text())
+    dist.init_process_group("nccl", init_method=f"file://{folder}/store",
+                            rank=rank, world_size=2)
+    try:
+        train, rollout = make_disaggregated_meshes((1, 1), (1, 1))
+        group = dist.new_group([0, 1], backend="gloo")
+        params = (tree_map(lambda t: t.cuda(), torch.load(
+            folder / "weights.pt")) if rank == 0 else None)
+        cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                                  num_layers=spec["num_layers"])
+        tr = CoPRISTrainer(cfg,
+                           RolloutConfig(**spec["ro"]),
+                           TrainConfig(**spec["tc"]),
+                           AdditionTask(max_value=20, seed=0), eos_id=EOS,
+                           params=params, train_mesh=train,
+                           rollout_mesh=rollout, transfer_group=group)
+        del params
+        kernels = {name: fn for name, fn in side_kernels().items()
+                   if name in TWO_SIDED_KERNELS[tr.role]}
+        rec = dict(role=tr.role, arch=cfg.name, layers=cfg.num_layers,
+                   stages={}, acquired=[], outs=[])
+        store = tr.param_store
+        if tr.role == "rollout":
+            acquire = store.acquire
+
+            def recorded():
+                p, v = acquire()
+                rec["acquired"].append([v, fingerprints(torch, p)])
+                return p, v
+            store.acquire = recorded
+        else:
+            rec["stages"][tr.stage] = fingerprints(torch, tr.params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        try:
+            for _ in range(spec["steps"]):
+                out = tr.step()
+                rec["outs"].append({k: v for k, v in out.items()
+                                    if isinstance(v, (int, float))})
+                if tr.role == "train":
+                    rec["stages"][tr.stage] = fingerprints(torch, tr.params)
+        finally:
+            tr.close()
+        torch.cuda.synchronize()
+        rec.update(wall_s=time.perf_counter() - t0,
+                   launches=read_launches(kernels),
+                   stats=store.stats_snapshot(),
+                   transport=dist.get_backend(group),
+                   bytes_per_version=store._reshard.bytes_sent,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        dist.destroy_process_group()
+    (folder / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def train_disaggregated_mesh_phase(torch, np, sft, steps=3, num_layers=8):
+    """Train and rollout on meshes of their own, in two processes on the
+    one card: llama3.2-1b at full width and ``num_layers`` of its 16 layers
+    (the run's time limit: the rollout side's engine on a mesh is
+    host-bound, ~20 s a collect at full depth) in the train_disaggregated
+    phase's configuration from the same SFT-warmed weights' first layers
+    (written once to the checkout's build directory, read by the train
+    process), overlap and
+    disaggregated, max_staleness 1; rank 0 trains on a (1, 1) mesh, rank 1
+    collects on another (``make_disaggregated_meshes``), every version
+    crossing through the cross-mesh transfer on a gloo group (pinned host
+    staging), each batch on a gloo group of its own. ``steps`` steps on
+    each side. Checks: each collect's version obeys the gate (collect i
+    under a version in [i - 1, i], the train side's param_staleness the
+    same schedule), each version the rollout side acquired has the
+    fingerprints (two 64-bit sums of every leaf's bits) of the train
+    side's params at that stage, finite losses, every kernel of
+    TWO_SIDED_KERNELS launched on its side. Reports the transfer's bytes
+    and reshard_time per version on each side, and the step, rollout and
+    update times beside train_disaggregated's. Returns the launches
+    summed over both sides."""
+    folder = ROOT / "build" / "two_sided"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    spec = dict(steps=steps, num_layers=num_layers, ro=dict(
+        batch_size=8, group_size=4, max_prompt_len=4, max_response_len=124,
+        concurrency=16, mode="copris", temperature=1.0),
+        tc=dict(lr=1e-5, warmup_steps=1, seed=0, overlap=True,
+                max_staleness=1, disaggregated=True))
+    (folder / "spec.json").write_text(json.dumps(spec))
+    torch.save(dict(sft["params"], layers=sft["params"]["layers"][
+        :num_layers]), folder / "weights.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--two-sided-rank", str(r), str(folder)],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    t0 = time.perf_counter()
+    logs = []
+    try:
+        for p in procs:
+            left = TWO_SIDED_TIMEOUT_S - (time.perf_counter() - t0)
+            logs.append(p.communicate(timeout=max(1.0, left))[0])
+    except subprocess.TimeoutExpired:
+        logs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    (folder / "weights.pt").unlink()
+    codes = [p.returncode for p in procs]
+    if codes != [0, 0]:
+        fail(f"train_disaggregated_mesh: the ranks exited {codes} after "
+             f"{wall:.0f} s: {[log[-3000:] for log in logs]}")
+    train, roll = (json.loads((folder / f"rank{r}.json").read_text())
+                   for r in (0, 1))
+    stages = {int(v): f for v, f in train["stages"].items()}
+    outs = train["outs"]
+    schedule = [o["step"] - o["param_staleness"] for o in outs]
+    collected = [o["params_version"] for o in roll["outs"]]
+    equal = [f == stages.get(v) for v, f in roll["acquired"]]
+    keys = ("step_time", "rollout_time", "update_time", "reward_time",
+            "batch_wait_time", "reshard_time", "rollout_reshard_time",
+            "param_staleness", "dropped_versions", "param_store_versions")
+    emit("train_disaggregated_mesh", nvidia_smi=card_name_and_limit(),
+         arch=train["arch"], layers=train["layers"], processes=2,
+         depth_cut=f"{train['layers']} of 16 layers: the run's time limit "
+         "(the rollout side's engine on a mesh is host-bound: ~20 s a "
+         "collect at 16 layers; train_disaggregated runs all 16)",
+         meshes={"train": {"data": 1, "model": 1},
+                 "rollout": {"data": 1, "model": 1}},
+         transport=f"{train['transport']} (CUDA leaves staged through "
+         "pinned host memory; NCCL refuses two ranks of one communicator "
+         "on one card)",
+         bytes_per_version=train["bytes_per_version"],
+         # the train side's span of each publish (pack, host copy, send)
+         # and the rollout side's (landed bytes to placed shards), seconds
+         reshard_time_train=train["stats"]["reshard_time"],
+         reshard_time_rollout=roll["stats"]["reshard_time"],
+         versions=train["stats"]["published"],
+         steps=[{k: o.get(k) for k in TRAIN_KEYS + keys} for o in outs],
+         rollout_steps=[{k: o.get(k) for k in (
+             "collect_idx", "params_version", "wall_time", "reward_time",
+             "rollout_reshard_time", "generated")} for o in roll["outs"]],
+         schedule=schedule, acquired_equal=equal,
+         train_disaggregated_steps=sft.get("disaggregated_steps"),
+         wall_s={"train": train["wall_s"], "rollout": roll["wall_s"],
+                 "phase": wall},
+         peak_mem_gb={"train": train["peak_mem_gb"],
+                      "rollout": roll["peak_mem_gb"]},
+         launches={"train": train["launches"], "rollout": roll["launches"]})
+    for o in outs:
+        if not np.isfinite(o["pg_loss"]):
+            fail(f"train_disaggregated_mesh: step {o['step']}: loss "
+                 f"{o['pg_loss']}")
+    if collected != schedule or not all(
+            i - 1 <= v <= i for i, v in enumerate(schedule)):
+        fail(f"train_disaggregated_mesh: collects under versions "
+             f"{collected}, trained as {schedule}: outside the gate")
+    if len(equal) != steps or not all(equal):
+        fail(f"train_disaggregated_mesh: an acquired version differs from "
+             f"the train side's params at its stage: {equal}")
+    for side, names in TWO_SIDED_KERNELS.items():
+        got = (train if side == "train" else roll)["launches"]
+        if not all(got.get(n, 0) > 0 for n in names):
+            fail(f"train_disaggregated_mesh: a kernel of the {side} side "
+                 f"never launched: {got}")
+    return {n: train["launches"].get(n, 0) + roll["launches"].get(n, 0)
+            for n in set(train["launches"]) | set(roll["launches"])}
+
+
+def card_name_and_limit():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def update_batch(np, cfg, rows=32, T=128, seed=7):
@@ -4401,9 +4655,12 @@ def main() -> int:
         "train_overlap": train_overlap_phase(torch, np, train_kernels, sft),
         "train_multiturn": train_multiturn_phase(torch, np, train_kernels,
                                                  sft)}
-    # the disaggregated trainer from the same weights
+    # the disaggregated trainer from the same weights, in one process,
+    # then on two meshes of their own in two processes
     new_launches["train_disaggregated"] = train_disaggregated_phase(
         torch, np, train_kernels, sft)
+    new_launches["train_disaggregated_mesh"] = \
+        train_disaggregated_mesh_phase(torch, np, sft)
     del sft
     train_paged_launches = train_paged_phase(torch, np, train_paged_kernels)
     train_simt["fused_logprob"] = flp.fused_logprob_rows.simt_launches
@@ -5188,4 +5445,6 @@ def ab_main(parent) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         sys.exit(ab_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--two-sided-rank"] and len(sys.argv) == 4:
+        sys.exit(two_sided_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -39,8 +39,21 @@ in lockstep: the params made already sharded (or the given ones sharded)
 in the training layout with their AdamW state, the update sharded, each
 published version redistributed to the serving layout, and the rollout
 engine sharded on the same mesh (``rollout_mesh`` defaults to
-``train_mesh``; another mesh is refused, as in the reference's
-single-program form).
+``train_mesh``). A ``rollout_mesh`` of the same ranks in another shape
+(the GQA serve mesh) runs the same way, each version crossing through the
+cross-mesh transfer (``weight_sync.MeshTransfer``).
+
+Train and rollout on meshes of their own (``launch/mesh.
+make_disaggregated_meshes``, with ``overlap`` and ``disaggregated``): each
+process plays one side, and every rank calls ``step()``. A rollout rank's
+step makes the next collect under the freshest version that has landed
+(waiting only for the staleness gate's), resolves its rewards, packs it
+and sends it from the rollout side's first rank to every train rank over
+a gloo group of its own; a train rank's step receives that batch, runs
+the sharded update and publishes the version through the transfer, whose
+receive the rollout side posted ahead. The sides meet only at versioned
+weights and finished batches, so rollout decodes while the update runs,
+with no GIL between them.
 
 Parameters are float32 master tensors that the trainer owns and updates in
 place (``optim/adam.update``); every update is published to the
@@ -49,9 +62,12 @@ the rollout side acquires.
 """
 from __future__ import annotations
 
+import dataclasses
+import pickle
 import queue
 import threading
 import time
+from collections import deque
 from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -238,12 +254,76 @@ def _into(dst, src):
 
 @dataclass
 class _StageBatch:
-    """One collected rollout stage, in flight between producer and consumer."""
+    """One collected rollout stage, in flight between producer and consumer.
+    ``batch`` onwards are filled by ``_settle`` (rewards resolved, packed)
+    on the side that collected it; across two sides only those cross, the
+    groups stay."""
 
     collect_idx: int        # 0-based index of this collect within the run
     params_version: int     # trainer.stage baked into the rollout params
     groups: List = field(default_factory=list)
     roll_stats: dict = field(default_factory=dict)
+    batch: Optional[dict] = None            # pack_groups of the groups
+    reward_time: float = 0.0
+    mean_resp_len: float = 0.0
+    env_timeouts: int = 0
+    # the rollout side's ParamStore when it collected: versions held, and
+    # the drops and seconds of placing landed versions since its last batch
+    store: dict = field(default_factory=dict)
+
+
+class _SideLink:
+    """The host channel between the two sides of disjoint meshes: a gloo
+    group of both meshes' ranks kept for it alone (the weights travel on
+    the transfer's group, so a pair of ranks never has a batch and a
+    version in one ordered queue). The rollout side's first rank sends
+    each packed batch, pickled, to every train rank without waiting for
+    it; a train rank waits for it."""
+
+    BATCH, EVAL = 0, 1                      # tags
+
+    def __init__(self, train_mesh, rollout_mesh):
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import mesh_ranks
+        train, rollout = mesh_ranks(train_mesh), mesh_ranks(rollout_mesh)
+        self.group = dist.new_group(sorted(train + rollout), backend="gloo")
+        self.me = dist.get_rank()
+        self.source, self.train = rollout[0], train
+        self._sending = deque()             # (works, the tensors they read)
+
+    def send(self, obj, tag: int):
+        """``obj`` to every train rank, from the rollout side's first rank
+        (the other rollout ranks send nothing)."""
+        import torch.distributed as dist
+        if self.me != self.source:
+            return
+        data = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                dtype=torch.uint8)
+        size = torch.tensor([data.numel()], dtype=torch.int64)
+        for peer in self.train:
+            self._sending.append(([dist.isend(t, peer, group=self.group,
+                                              tag=tag)
+                                   for t in (size, data)], (size, data)))
+        while self._sending and all(w.is_completed()
+                                    for w in self._sending[0][0]):
+            self._sending.popleft()
+
+    def recv(self, tag: int):
+        """The next object the rollout side's first rank sent with
+        ``tag``."""
+        import torch.distributed as dist
+        size = torch.zeros(1, dtype=torch.int64)
+        dist.recv(size, self.source, group=self.group, tag=tag)
+        data = torch.empty(int(size), dtype=torch.uint8)
+        dist.recv(data, self.source, group=self.group, tag=tag)
+        return pickle.loads(data.numpy().tobytes())
+
+    def close(self):
+        """Wait for every send."""
+        while self._sending:
+            for w in self._sending.popleft()[0]:
+                w.wait()
 
 
 class ThreadSafeTask:
@@ -274,8 +354,13 @@ def _on(stream):
 
 
 class CoPRISTrainer:
-    """The RL loop on one device (the card unless ``device="cpu"``). The
+    """The RL loop on one device (the card unless ``device="cpu"``), or on
+    meshes (``train_mesh``, ``rollout_mesh``: the module docstring). The
     trainer takes ownership of ``params`` and updates them in place.
+    ``transfer_group``: the process group of the weights' transfer
+    between two meshes (default: one made of both meshes' ranks, NCCL on
+    the card; a gloo group stages the card's tensors through host memory,
+    for processes that share a card).
 
     With ``tcfg.disaggregated`` the rollout side runs on ``rollout_device``
     (default: ``device``, the train side) and reads only the versions the
@@ -294,7 +379,7 @@ class CoPRISTrainer:
     def __init__(self, model_cfg: ModelConfig, ro_cfg: RolloutConfig,
                  tcfg: TrainConfig, task, *, eos_id: int, key=None,
                  params=None, device=None, rollout_device=None,
-                 train_mesh=None, rollout_mesh=None):
+                 train_mesh=None, rollout_mesh=None, transfer_group=None):
         self.cfg = model_cfg
         self.ro = ro_cfg
         self.tcfg = tcfg
@@ -302,13 +387,20 @@ class CoPRISTrainer:
         self.train_mesh = train_mesh
         self.rollout_mesh = (train_mesh if rollout_mesh is None
                              else rollout_mesh)
+        # "train" / "rollout": this rank's side of disjoint meshes
+        self.role = None
         reshard = None
         if self.rollout_mesh is not None:
-            # one mesh for the whole loop: the device is the rank's own
+            # the device is the rank's own
+            self.role = self._mesh_role()
             params = self._mesh_params(params, rollout_device)
-            self.device = self.rollout_device = mesh_device(train_mesh)
+            self.device = self.rollout_device = mesh_device(
+                self.rollout_mesh if self.role == "rollout" else train_mesh)
             reshard, _ = make_param_resharder(model_cfg, params, train_mesh,
-                                              self.rollout_mesh)
+                                              self.rollout_mesh,
+                                              group=transfer_group)
+            if self.role is not None:
+                self._link = _SideLink(train_mesh, self.rollout_mesh)
         else:
             self.device = resolve_device(device)
             self.rollout_device = self.device
@@ -343,7 +435,8 @@ class CoPRISTrainer:
         # one, the consumer trains on the other (None: the caller's current
         # stream, sequentially). Both start after the work queued so far.
         self.rollout_stream = self.train_stream = None
-        if self.overlap and self.device.type == "cuda":
+        if self.overlap and self.role is None \
+                and self.device.type == "cuda":
             self.rollout_stream = torch.cuda.Stream(self.rollout_device)
             self.train_stream = torch.cuda.Stream(self.device)
             self.rollout_stream.wait_stream(
@@ -351,26 +444,28 @@ class CoPRISTrainer:
             self.train_stream.wait_stream(
                 torch.cuda.current_stream(self.device))
 
+        # the train side of disjoint meshes collects nothing: its batches
+        # come packed, rewards resolved, from the rollout side
+        self.reward_worker = self.env_worker = self.engine = None
         timeout = ro_cfg.env_step_timeout or None
-        self.reward_worker = AsyncRewardWorker(task.reward, timeout=timeout)
-        # multi-turn: a task exposing make_env(spec) routes every turn
-        # through the async env pool — the engine yields decode slots while
-        # episodes wait on their environments. make_env must be a pure
-        # function of the spec (no task RNG), so no ThreadSafeTask guard.
-        self.env_worker = None
-        env_factory = None
-        if hasattr(task, "make_env"):
-            self.env_worker = AsyncEnvWorker(timeout=timeout)
-            env_factory = task.make_env
-        with _on(self.rollout_stream):     # the KV cache: rollout's memory
-            self.engine = RolloutEngine(model_cfg, ro_cfg,
-                                        self.safe_task.sample_prompt,
-                                        eos_id=eos_id,
-                                        on_finish=self.reward_worker.submit,
-                                        env_factory=env_factory,
-                                        env_worker=self.env_worker,
-                                        device=self.rollout_device,
-                                        mesh=self.rollout_mesh)
+        if self.role != "train":
+            self.reward_worker = AsyncRewardWorker(task.reward,
+                                                   timeout=timeout)
+            # multi-turn: a task exposing make_env(spec) routes every turn
+            # through the async env pool — the engine yields decode slots
+            # while episodes wait on their environments. make_env must be
+            # a pure function of the spec (no task RNG), so no
+            # ThreadSafeTask guard.
+            env_factory = None
+            if hasattr(task, "make_env"):
+                self.env_worker = AsyncEnvWorker(timeout=timeout)
+                env_factory = task.make_env
+            with _on(self.rollout_stream):  # the KV cache: rollout's memory
+                self.engine = RolloutEngine(
+                    model_cfg, ro_cfg, self.safe_task.sample_prompt,
+                    eos_id=eos_id, on_finish=self.reward_worker.submit,
+                    env_factory=env_factory, env_worker=self.env_worker,
+                    device=self.rollout_device, mesh=self.rollout_mesh)
         self._train_step = make_train_step(model_cfg, tcfg)
         self.stage = 0
         self.history = []
@@ -385,12 +480,18 @@ class CoPRISTrainer:
         # flight — older ones are dropped at publish.
         self.param_store = ParamStore(max_versions=self.max_staleness + 1,
                                       reshard=reshard)
-        with _on(self.train_stream):
-            self.params = (params if self.train_mesh is not None else
-                           tree_map(lambda t: t.detach().to(
-                               self.device).requires_grad_(), params))
-            self.opt_state = adam.init(self.params)
-            self.param_store.publish(self.params, self.stage)
+        if self.role == "rollout":
+            # the train side's params and AdamW state are not here: the
+            # versions it publishes arrive through the store
+            self.params = self.opt_state = None
+            self.param_store.expect(self.stage)
+        else:
+            with _on(self.train_stream):
+                self.params = (params if self.train_mesh is not None else
+                               tree_map(lambda t: t.detach().to(
+                                   self.device).requires_grad_(), params))
+                self.opt_state = adam.init(self.params)
+                self.param_store.publish(self.params, self.stage)
 
         # ---- overlap-aware adaptive N' -------------------------------
         # observe() runs on the consumer thread between stages; the
@@ -407,20 +508,57 @@ class CoPRISTrainer:
         self._producer_exc: Optional[Exception] = None
         self._collect_idx = 0                 # next collect, producer-owned
         self._trained_batches = 0             # consumed collects
+        self._first_stage = None              # the stage of the first step
         # store totals already reported, so step metrics emit per-step deltas
         self._reported = self.param_store.stats_snapshot()
         self._stop = threading.Event()
         self._closed = False
 
+    def _mesh_role(self):
+        """This rank's side: None where the two meshes are one mesh or the
+        same ranks (every rank runs both sides in lockstep), "train" or
+        "rollout" where they are disjoint. Refuses meshes that share some
+        ranks but not all, and disjoint meshes without overlap and
+        disaggregation (the reference's requirement) or not covering the
+        world."""
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import mesh_ranks
+        if self.train_mesh is None:
+            raise ValueError("rollout_mesh without a train_mesh")
+        a = set(mesh_ranks(self.train_mesh))
+        b = set(mesh_ranks(self.rollout_mesh))
+        if a == b:
+            return None
+        if a & b:
+            raise ValueError(
+                f"train mesh ranks {sorted(a)} and rollout mesh ranks "
+                f"{sorted(b)} share some ranks but not all: one process "
+                "would play both sides (make_disaggregated_meshes makes "
+                "disjoint ones)")
+        if not (self.tcfg.overlap and self.tcfg.disaggregated):
+            raise ValueError(
+                "train and rollout meshes of their own ranks need "
+                "TrainConfig(overlap=True, disaggregated=True)")
+        if len(a | b) != dist.get_world_size():
+            raise ValueError(
+                f"the two meshes hold {len(a | b)} of the "
+                f"{dist.get_world_size()} ranks: every rank plays a side")
+        if self.ro.adaptive_concurrency:
+            raise NotImplementedError(
+                "adaptive_concurrency across two sides: the controller "
+                "observes the update on one rank and sets the collect's "
+                "target on another")
+        return "train" if dist.get_rank() in a else "rollout"
+
     def _mesh_params(self, params, rollout_device):
         """The train-layout ``DTensor`` params of the trainer on a mesh:
         made already sharded from ``tcfg.seed``, or the given ones (the
-        same full values on every rank) sharded. Refuses what one mesh
-        does not run."""
+        same full values on every rank) sharded; on the rollout side of
+        disjoint meshes only their shapes (the given tree, or a ``meta``
+        one). Refuses what the meshes do not run."""
         from repro_torch.launch import sharding as shd
-        if self.train_mesh is None:
-            raise ValueError("rollout_mesh without a train_mesh")
-        if self.tcfg.overlap:
+        if self.tcfg.overlap and self.role is None:
             raise NotImplementedError(
                 "overlap=True on a mesh: the producer thread and the "
                 "consumer would issue collectives on one process group from "
@@ -429,6 +567,9 @@ class CoPRISTrainer:
         if rollout_device is not None:
             raise ValueError("rollout_device with a mesh: the rollout side "
                              "is rollout_mesh")
+        if self.role == "rollout":
+            return (params if params is not None
+                    else M.init_params(self.cfg, device="meta"))
         if params is None:
             return shd.init_sharded_params(self.cfg, self.train_mesh,
                                            seed=self.tcfg.seed)
@@ -518,8 +659,14 @@ class CoPRISTrainer:
         to ``max_staleness`` updates behind the ones being trained)."""
         if self._closed:
             raise RuntimeError("trainer is closed")
+        if self._first_stage is None:
+            self._first_stage = self.stage
+        if self.role == "rollout":
+            return self._rollout_step()
         t0 = time.perf_counter()
-        if self.overlap:
+        if self.role == "train":
+            item = self._link.recv(_SideLink.BATCH)
+        elif self.overlap:
             self._ensure_producer()
             item = self._next_batch()
         else:
@@ -551,17 +698,68 @@ class CoPRISTrainer:
         from repro_torch.launch.sharding import shard_batch
         return shard_batch(tb, self.train_mesh)
 
-    def _train_on(self, item: _StageBatch, t0: float,
-                  t_collected: float) -> dict:
-        groups, roll_stats = item.groups, item.roll_stats
+    def _rollout_step(self) -> dict:
+        """The rollout side's ``step``: the next collect, under the
+        freshest version that has landed once the staleness gate's
+        version has (collect ``idx`` trains as the ``idx``-th batch, so
+        it waits for the version published after ``idx - max_staleness``
+        updates), sent to the train side with its rewards resolved; then
+        the receive of the version the train side publishes after
+        training on it is posted. Returns the collect's stats."""
+        with self._progress:
+            idx = self._collect_idx
+        self.param_store.wait_for(self._first_stage + idx
+                                  - self.max_staleness)
+        params, version = self.param_store.acquire()
+        item = self._collect_stage(params, version, idx)
+        del params
+        self._settle(item)
+        ps = self.param_store.stats_snapshot()
+        item.store = dict(
+            versions=self.param_store.num_versions,
+            dropped=ps["dropped"] - self._reported["dropped"],
+            reshard_time=ps["reshard_time"] - self._reported["reshard_time"])
+        self._reported = ps
+        self._link.send(dataclasses.replace(item, groups=[]),
+                        _SideLink.BATCH)
+        self.stage += 1
+        self.param_store.expect(self.stage)
+        with self._progress:
+            self._collect_idx = idx + 1
+        self.last_groups, self.last_batch = item.groups, item.batch
+        out = dict(collect_idx=idx, params_version=version,
+                   reward_time=item.reward_time,
+                   mean_resp_len=item.mean_resp_len,
+                   param_store_versions=item.store["versions"],
+                   rollout_reshard_time=item.store["reshard_time"],
+                   **{k: v for k, v in item.roll_stats.items()
+                      if isinstance(v, (int, float))})
+        self.history.append(out)
+        return out
+
+    def _settle(self, item: _StageBatch):
+        """Resolve the rewards of a collected stage and pack it."""
         # rewards were computed asynchronously during rollout; gather
         # resolves any stragglers and runs on the CONSUMER thread, so the
         # producer keeps submitting stage k+1 rewards while stage k gathers
-        self.reward_worker.gather(groups)
+        self.reward_worker.gather(item.groups)
+        item.reward_time = self.reward_worker.last_gather_time
+        item.batch = pack_groups(item.groups, max_len=self.engine.max_len)
+        item.mean_resp_len = float(np.mean([
+            len(t.response_tokens) for g in item.groups
+            for t in g.trajectories]))
+        item.env_timeouts = (self.env_worker.stats_snapshot()["env_timeouts"]
+                             if self.env_worker is not None else 0)
+
+    def _train_on(self, item: _StageBatch, t0: float,
+                  t_collected: float) -> dict:
+        groups, roll_stats = item.groups, item.roll_stats
+        if item.batch is None:
+            self._settle(item)
         t_reward = time.perf_counter()
 
         train_stage = self.stage
-        batch = pack_groups(groups, max_len=self.engine.max_len)
+        batch = item.batch
         lr = schedule.warmup_constant(train_stage, lr=self.tcfg.lr,
                                       warmup_steps=self.tcfg.warmup_steps)
         with activation_mesh(self.train_mesh):
@@ -598,8 +796,13 @@ class CoPRISTrainer:
         ps_stats = self.param_store.stats_snapshot()
         rollout_time = roll_stats["wall_time"]
         update_time = t_end - t_reward
-        reward_time = self.reward_worker.last_gather_time
+        reward_time = item.reward_time
         step_time = t_end - t0
+        # the versions held are the rollout side's, where that is another
+        # process
+        store = item.store or dict(
+            versions=self.param_store.num_versions,
+            dropped=ps_stats["dropped"] - self._reported["dropped"])
         if self._concurrency_ctrl is not None:
             self._concurrency_target = self._concurrency_ctrl.observe(
                 rollout_time=rollout_time,
@@ -631,21 +834,21 @@ class CoPRISTrainer:
             utilization=roll_stats["utilization"],
             buffer_unfinished=roll_stats["buffer_unfinished"],
             concurrency_target=roll_stats["concurrency_target"],
-            param_store_versions=self.param_store.num_versions,
-            dropped_versions=ps_stats["dropped"] - self._reported["dropped"],
+            param_store_versions=store["versions"],
+            dropped_versions=store["dropped"],
             reshard_time=(ps_stats["reshard_time"]
                           - self._reported["reshard_time"]),
-            mean_resp_len=float(np.mean([len(t.response_tokens)
-                                         for g in groups
-                                         for t in g.trajectories])),
+            mean_resp_len=item.mean_resp_len,
             # multi-turn environment accounting (all 0 for single-turn)
             env_steps=roll_stats["env_steps"],
             env_turns=roll_stats["env_turns"],
             env_failures=roll_stats["env_failures"],
             env_wait_time=roll_stats["env_wait_time"],
-            env_timeouts=(self.env_worker.stats_snapshot()["env_timeouts"]
-                          if self.env_worker is not None else 0),
+            env_timeouts=item.env_timeouts,
         )
+        if item.store:
+            # the seconds the rollout side spent placing landed versions
+            out["rollout_reshard_time"] = item.store["reshard_time"]
         self._reported = ps_stats
         self.last_groups = groups
         self.last_batch = batch
@@ -656,10 +859,19 @@ class CoPRISTrainer:
         """Resume from checkpoint state: copy the given values into the
         trainer's tensors and republish through the ParamStore, so the
         rollout side acquires the restored weights. Must be called before
-        the first ``step()``."""
-        if self._producer is not None:
-            raise RuntimeError("restore() after the producer started — "
-                               "restore before the first step()")
+        the first ``step()``. Across two sides every rank calls it: the
+        train side republishes, the rollout side receives that version
+        (its ``params`` and ``opt_state`` are not used there)."""
+        if self._producer is not None or (self.role is not None
+                                          and self._first_stage is not None):
+            raise RuntimeError("restore() after the first step() — "
+                               "restore before it")
+        if self.role == "rollout":
+            if stage is not None:
+                self._check_restore_stage(stage)
+                self.stage = stage
+            self.param_store.expect(self.stage, replace=True)
+            return
         with _on(self.train_stream), torch.no_grad():
             if params is not None:
                 for dst, src in zip(leaves(self.params), leaves(params)):
@@ -670,21 +882,30 @@ class CoPRISTrainer:
                                         leaves(opt_state[name])):
                         dst.copy_(_into(dst, src))
             if stage is not None:
-                if stage < self.stage:
-                    raise ValueError(
-                        f"restore to stage {stage} < current {self.stage}: "
-                        "ParamStore versions are strictly monotonic — build "
-                        "a fresh trainer to rewind")
+                self._check_restore_stage(stage)
                 self.stage = stage
             self.param_store.publish(self.params, self.stage, replace=True)
+
+    def _check_restore_stage(self, stage):
+        if stage < self.stage:
+            raise ValueError(
+                f"restore to stage {stage} < current {self.stage}: "
+                "ParamStore versions are strictly monotonic — build "
+                "a fresh trainer to rewind")
 
     # ------------------------------------------------------------------
     def close(self):
         """Stop the producer thread, the reward pool and the env pool, and
-        wait for both streams' queued work. Idempotent."""
+        wait for both streams' queued work. Across two sides the rollout
+        side first waits for its batches' sends and for every version it
+        posted a receive for (the train side publishes one a step, so the
+        sides end matched). Idempotent."""
         if self._closed:
             return
         self._closed = True
+        if self.role == "rollout":
+            self._link.close()
+            self.param_store.drain()
         self._stop.set()
         with self._progress:
             self._progress.notify_all()
@@ -701,7 +922,8 @@ class CoPRISTrainer:
                 self._batches.get_nowait()
             except queue.Empty:
                 break
-        self.reward_worker.shutdown()
+        if self.reward_worker is not None:
+            self.reward_worker.shutdown()
         if self.env_worker is not None:
             self.env_worker.shutdown()
         for stream in (self.rollout_stream, self.train_stream):
@@ -720,7 +942,17 @@ class CoPRISTrainer:
     def evaluate(self, n_prompts: int = 32) -> float:
         """Greedy accuracy on fresh task prompts (exact reward), on the
         caller's stream, through ``safe_task`` (the producer may be
-        sampling prompts meanwhile)."""
+        sampling prompts meanwhile). Across two sides every rank calls it:
+        the rollout side evaluates the freshest version that has landed,
+        and its first rank sends the value to the train side."""
+        if self.role == "train":
+            return self._link.recv(_SideLink.EVAL)
+        value = self._evaluate(n_prompts)
+        if self.role == "rollout":
+            self._link.send(value, _SideLink.EVAL)
+        return value
+
+    def _evaluate(self, n_prompts):
         eos_id = self.engine.eos_id
         # evaluate is a rollout-side consumer: freshest published version
         params, _ = self.param_store.acquire()

@@ -4,13 +4,15 @@ JAX runs one controller over a mesh of devices; ``torch.distributed`` runs
 one process per rank, so a mesh here is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the default
 process group, with the reference's axis names ``("data", "model")`` (or
-``("data", "kvg", "model")``, its GQA serve mesh). The
+``("data", "kvg", "model")``, its GQA serve mesh), or over the first ranks
+and the next ones for the disaggregated sides. The
 process group comes from the launcher (``launch/multihost`` under
 ``torchrun``) or, for the one-rank mesh, from :func:`make_single_mesh`
 itself. Nothing here runs at import.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -90,10 +92,40 @@ def make_single_mesh(device=None):
     return make_mesh(1, 1, device_type=resolve_device(device).type)
 
 
+def make_disaggregated_meshes(train_shape=(2, 2), rollout_shape=(2, 2), *,
+                              device_type: Optional[str] = None):
+    """Disjoint train and rollout meshes over the ranks of the default
+    process group: the counterpart of ``make_disaggregated_meshes``. The
+    first ``prod(train_shape)`` ranks train, the next
+    ``prod(rollout_shape)`` serve rollout, each a ("data", "model") mesh.
+    Every rank calls it (making a mesh's groups is collective); a rank
+    outside a mesh gets the mesh with no coordinate
+    (``get_coordinate()`` is None). Raises when the world is too small."""
+    nt, nr = math.prod(train_shape), math.prod(rollout_shape)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if nt + nr > have:
+        raise ValueError(
+            f"disaggregated meshes need {nt}+{nr} devices, have {have} — "
+            "shrink the shapes or launch more processes (torchrun "
+            f"--nproc-per-node {nt + nr})")
+    from torch.distributed.device_mesh import DeviceMesh
+    device_type = device_type or "cuda"
+    return tuple(DeviceMesh(device_type, torch.arange(lo, lo + n).reshape(
+                     tuple(shape)), mesh_dim_names=AXES)
+                 for lo, n, shape in ((0, nt, train_shape),
+                                      (nt, nr, rollout_shape)))
+
+
+def mesh_ranks(mesh) -> list:
+    """The global ranks of ``mesh``, in its row-major order."""
+    return mesh.mesh.flatten().tolist()
+
+
 def make_disaggregated_devices(train=None, rollout=None
                                ) -> Tuple[torch.device, torch.device]:
     """The train and rollout devices of the one-process disaggregated
-    trainer: the counterpart of ``make_disaggregated_meshes``. ``rollout``
+    trainer: the one-process form of :func:`make_disaggregated_meshes`.
+    ``rollout``
     defaults to ``train``, and ``train`` to the card; a card is named with
     its index. Raises when a device is not there."""
     train_dev = _indexed(resolve_device(train))

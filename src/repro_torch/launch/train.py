@@ -32,6 +32,21 @@ reference; its loss takes ``mb["media"]`` (``core/copris.make_loss_fn``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
         --steps 2 --sft-warmup 4 --max-response 124 --eval-every 0
+
+On meshes, one process a rank under ``torchrun`` (NCCL on the cards, gloo
+with ``--device cpu``): ``--train-mesh D,M`` alone runs the whole loop on
+one (data, model) mesh of every rank, sequentially; with ``--rollout-mesh``
+the train and rollout sides run on meshes of their own. The two meshes of
+``prod(train) + prod(rollout)`` processes are disjoint
+(``make_disaggregated_meshes``: the first ranks train, the next collect;
+``--overlap --disaggregated``); of ``prod(train) == prod(rollout)``
+processes they are the same ranks in two shapes (D,KVG,M: the GQA serve
+mesh), run sequentially. Rank 0 (the first train rank) prints and writes
+the metrics and checkpoints; pass@k is not run on a mesh:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch tiny \\
+        --device cpu --train-mesh 1,2 --rollout-mesh 1,2 --overlap \\
+        --disaggregated --steps 2 --sft-warmup 3 --eval-every 0
 """
 from __future__ import annotations
 
@@ -100,6 +115,13 @@ def main(argv=None):
     ap.add_argument("--rollout-device", default=None,
                     help="the rollout side's device with --disaggregated "
                          "(default: the train device)")
+    ap.add_argument("--train-mesh", default=None,
+                    help="DATA,MODEL: train on a mesh (under torchrun)")
+    ap.add_argument("--rollout-mesh", default=None,
+                    help="DATA,MODEL or DATA,KVG,MODEL: with --train-mesh, "
+                         "collect on a mesh of its own: disjoint ranks "
+                         "(with --overlap --disaggregated) or the same "
+                         "ranks in another shape")
     ap.add_argument("--adaptive-concurrency", action="store_true")
     ap.add_argument("--concurrency-min", type=int, default=0)
     ap.add_argument("--concurrency-max", type=int, default=0)
@@ -112,6 +134,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    # on meshes the process group (and the rank's card) comes first
+    meshes = (dict(zip(("train_mesh", "rollout_mesh"),
+                       _meshes(args, dev.type)))
+              if args.train_mesh is not None else
+              dict(device=dev, rollout_device=args.rollout_device))
+    main_rank = _rank() == 0
+    say = print if main_rank else _quiet
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     task = make_task(args.task, args.seed)
     os.makedirs(args.out, exist_ok=True)
@@ -132,22 +161,23 @@ def main(argv=None):
     if args.resume:
         state = ckpt.load(args.resume)
         params = convert.params_from_jax(state["params"], cfg, dev)
-        print(f"resumed from {args.resume}")
+        say(f"resumed from {args.resume}")
     else:
         params = M.init_params(cfg, seed=args.seed, device=dev)
         if args.sft_warmup > 0:
-            print(f"SFT warmup {args.sft_warmup} steps…")
+            say(f"SFT warmup {args.sft_warmup} steps…")
             # multi-turn tasks have no supervised demos; warm up on the
             # single-turn surrogate (digits + EOS — the per-turn answer
             # format every env here shares)
             demo_task = (task if hasattr(task, "demo")
                          else AdditionTask(max_value=20, seed=args.seed))
             params, loss = sft_warmup(params, cfg, demo_task,
-                                      steps=args.sft_warmup, log_every=50)
-            print(f"  warmup done (loss {loss:.3f})")
+                                      steps=args.sft_warmup,
+                                      log_every=50 if main_rank else 0)
+            say(f"  warmup done (loss {loss:.3f})")
 
     tr = CoPRISTrainer(cfg, ro, tc, task, eos_id=EOS, params=params,
-                       device=dev, rollout_device=args.rollout_device)
+                       **meshes)
     if state is not None:
         tr.restore(opt_state=convert.opt_state_from_jax(
             state["opt_state"], cfg, dev), stage=state["stage"])
@@ -157,9 +187,10 @@ def main(argv=None):
         with open(mpath, "a") as mf:
             for i in range(args.steps):
                 out = tr.step()
-                mf.write(json.dumps(out) + "\n")
-                mf.flush()
-                if i % 5 == 0:
+                if main_rank:
+                    mf.write(json.dumps(out) + "\n")
+                    mf.flush()
+                if i % 5 == 0 and main_rank:
                     extra = (f" stale={out['param_staleness']}"
                              f" saved={out['overlap_saved_time']:.1f}s"
                              if args.overlap else "")
@@ -179,28 +210,85 @@ def main(argv=None):
                 if args.eval_every and (i + 1) % args.eval_every == 0:
                     from repro_torch.eval.passk import evaluate as eval_passk
                     acc = tr.evaluate(n_prompts=16)
-                    params_now, _ = tr.param_store.acquire()
-                    # safe_task serialises prompt sampling against the
-                    # overlapped trainer's background rollout thread
-                    pk = eval_passk(params_now, cfg, tr.safe_task,
-                                    eos_id=EOS, n_prompts=8,
-                                    samples_per_prompt=8,
-                                    max_response=args.max_response,
-                                    ks=(1, 8), device=dev)
-                    print(f"  eval@{out['step']}: greedy {acc:.3f} "
-                          f"pass@1 {pk['pass@1']:.3f} "
-                          f"pass@8 {pk['pass@8']:.3f}")
-                if (i + 1) % args.ckpt_every == 0:
-                    p = os.path.join(args.out, f"ckpt_{tr.stage}.zpkl")
-                    ckpt.save(p, {
-                        "params": convert.params_to_jax(tr.params, cfg),
-                        "opt_state": convert.opt_state_to_jax(tr.opt_state,
-                                                              cfg),
-                        "stage": tr.stage})
-                    print(f"  saved {p}")
-        print("final eval:", tr.evaluate(n_prompts=32))
+                    if args.train_mesh is not None:
+                        say(f"  eval@{i}: greedy {acc:.3f}")
+                    else:
+                        params_now, _ = tr.param_store.acquire()
+                        # safe_task serialises prompt sampling against the
+                        # overlapped trainer's background rollout thread
+                        pk = eval_passk(params_now, cfg, tr.safe_task,
+                                        eos_id=EOS, n_prompts=8,
+                                        samples_per_prompt=8,
+                                        max_response=args.max_response,
+                                        ks=(1, 8), device=dev)
+                        print(f"  eval@{out['step']}: greedy {acc:.3f} "
+                              f"pass@1 {pk['pass@1']:.3f} "
+                              f"pass@8 {pk['pass@8']:.3f}")
+                if (i + 1) % args.ckpt_every == 0 and tr.role != "rollout":
+                    # on a mesh the train ranks gather, rank 0 writes
+                    p_full, opt_full = _whole(tr.params), _whole(tr.opt_state)
+                    if main_rank:
+                        p = os.path.join(args.out, f"ckpt_{tr.stage}.zpkl")
+                        ckpt.save(p, {
+                            "params": convert.params_to_jax(p_full, cfg),
+                            "opt_state": convert.opt_state_to_jax(opt_full,
+                                                                  cfg),
+                            "stage": tr.stage})
+                        print(f"  saved {p}")
+        say("final eval:", tr.evaluate(n_prompts=32))
     finally:
         tr.close()
+        if args.train_mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _quiet(*args, **kwargs):
+    pass
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _whole(tree):
+    """``tree`` with every ``DTensor`` leaf gathered whole (a collective
+    over its mesh)."""
+    from repro_torch.common.tree import tree_map
+    return tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
+                    else t, tree)
+
+
+def _meshes(args, device_type):
+    """The train and rollout meshes of ``--train-mesh`` /
+    ``--rollout-mesh`` over the default process group from torchrun's
+    environment: one mesh of every rank; two disjoint ones
+    (``make_disaggregated_meshes``) where the world holds both; the same
+    ranks in two shapes where each holds the world."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (make_disaggregated_meshes,
+                                         make_gqa_serve_mesh, make_mesh)
+    from repro_torch.launch.multihost import _init_process_group
+    _init_process_group(device_type)
+    world = dist.get_world_size()
+    train = tuple(int(n) for n in args.train_mesh.split(","))
+    if args.rollout_mesh is None:
+        return make_mesh(*train, device_type=device_type), None
+    rollout = tuple(int(n) for n in args.rollout_mesh.split(","))
+    if math.prod(train) + math.prod(rollout) == world:
+        return make_disaggregated_meshes(train, rollout,
+                                         device_type=device_type)
+    if math.prod(train) == math.prod(rollout) == world:
+        make = make_gqa_serve_mesh if len(rollout) == 3 else make_mesh
+        return (make_mesh(*train, device_type=device_type),
+                make(*rollout, device_type=device_type))
+    raise SystemExit(
+        f"--train-mesh {train} and --rollout-mesh {rollout} fit neither "
+        f"{world} ranks split between them nor the same {world} ranks")
 
 
 if __name__ == "__main__":

@@ -405,3 +405,178 @@ def serve_sharded_kinds(rank, *, model_cases, engine_cases):
                    for g in groups for t in g.trajectories},
             generated=st["generated"]))
     return out
+
+
+# -- train and rollout on meshes of their own ----------------------------------
+
+
+def _digests(tree):
+    """One sha256 a leaf of a tree of tensors (DTensors gathered whole, in
+    their ``serve_form`` where the tree is in the serve layout): equal
+    digests are equal bits."""
+    import hashlib
+
+    from repro_torch.common.tree import leaves
+    return [hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+            for a in leaves(_np(tree))]
+
+
+def disaggregated_reshard(rank, *, cases, too_big):
+    """``make_param_resharder`` between two meshes of the 8 ranks, one
+    transfer a case (config name, train shape, rollout shape or "kvg": the
+    (1, 2, 2) GQA serve mesh over the train mesh's 4 ranks): on each
+    rollout rank every leaf's local box (global offset and shape, from
+    DTensor's own rule) and values, the placements, and that the copy is
+    None elsewhere; then the error of ``make_disaggregated_meshes`` on a
+    world too small for ``too_big``."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.common.tree import leaves
+    from repro_torch.core.weight_sync import make_param_resharder
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import (GQA_AXES, make_disaggregated_meshes,
+                                         mesh_ranks)
+    from repro_torch.models import model as M
+    out = dict(cases=[])
+    for name, train_shape, rollout_shape in cases:
+        cfg = case_config(name)
+        if rollout_shape == "kvg":
+            train, _ = make_disaggregated_meshes(train_shape, train_shape,
+                                                 device_type="cpu")
+            rollout = DeviceMesh("cpu", torch.tensor(
+                mesh_ranks(train)).reshape(1, 2, 2), mesh_dim_names=GQA_AXES)
+        else:
+            train, rollout = make_disaggregated_meshes(
+                train_shape, rollout_shape, device_type="cpu")
+        full = M.init_params(cfg, seed=0, device="cpu")
+        params = (shd.shard_params(full, train, cfg)
+                  if rank in mesh_ranks(train)
+                  else M.init_params(cfg, device="meta"))
+        reshard, layout = make_param_resharder(cfg, params, train, rollout)
+        copy, elapsed = reshard(params)
+        got = None
+        if copy is not None:
+            got = []
+            for t in leaves(copy):
+                shape, offset = compute_local_shape_and_global_offset(
+                    t.shape, t.device_mesh, t.placements)
+                local = t.to_local()
+                assert tuple(local.shape) == tuple(shape)
+                got.append((tuple(offset), tuple(shape),
+                            local.numpy().copy(), str(t.placements)))
+        out["cases"].append(dict(got=got, seconds=elapsed(),
+                                 bytes_sent=reshard.bytes_sent))
+    try:
+        make_disaggregated_meshes(*too_big, device_type="cpu")
+        out["error"] = None
+    except ValueError as e:
+        out["error"] = str(e)
+    return out
+
+
+def disaggregated_trainer(rank, *, params, start, ro, tc, task_seed, steps,
+                          eval_prompts):
+    """The two-sided CoPRIS trainer on disjoint (1, 2) + (1, 2) meshes of
+    the 4 ranks, the reduced llama at vocab 8192: first the refusals
+    (meshes sharing some ranks, disjoint meshes without overlap), then a
+    trainer made from ``start`` (JAX layout) and ``restore`` d to
+    ``params`` before its first step, ``steps`` steps, ``evaluate``. A
+    train rank returns each step's metrics, the digests of its params at
+    every stage and (the first) the final params; a rollout rank each
+    collect's stats and trajectories and the digests of every version it
+    acquired."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import convert
+    from repro_torch.common.config import RolloutConfig, TrainConfig
+    from repro_torch.common.tree import leaves
+    from repro_torch.core.copris import CoPRISTrainer
+    from repro_torch.data.tasks import EOS, AdditionTask
+    from repro_torch.launch.mesh import AXES, make_disaggregated_meshes
+    cfg = case_config("llama")
+    tcfg = TrainConfig(**tc, overlap=True, disaggregated=True)
+
+    def trainer(train, rollout, t=tcfg):
+        return CoPRISTrainer(cfg, RolloutConfig(**ro), t,
+                             AdditionTask(max_value=20, seed=task_seed),
+                             eos_id=EOS, params=convert.params_from_jax(
+                                 start, cfg, "cpu"),
+                             train_mesh=train, rollout_mesh=rollout)
+
+    train, rollout = make_disaggregated_meshes((1, 2), (1, 2),
+                                               device_type="cpu")
+    refused = []
+    shared = DeviceMesh("cpu", torch.tensor([[1, 2]]), mesh_dim_names=AXES)
+    for pair, t in (((train, shared), tcfg),
+                    ((train, rollout), dataclasses.replace(
+                        tcfg, overlap=False, disaggregated=False))):
+        try:
+            trainer(*pair, t)
+            refused.append(None)
+        except ValueError as e:
+            refused.append(str(e))
+    tr = trainer(train, rollout)
+    out = dict(role=tr.role, refused=refused, outs=[], trajs=[],
+               acquired=[], stages={})
+    store = tr.param_store
+    if tr.role == "rollout":
+        acquire = store.acquire
+
+        def recorded():
+            p, v = acquire()
+            out["acquired"].append((v, _digests(p)))
+            return p, v
+        store.acquire = recorded
+    try:
+        tr.restore(params=convert.params_from_jax(params, cfg, "cpu"))
+        if tr.role == "train":
+            out["stages"][tr.stage] = _digests(tr.params)
+        for _ in range(steps):
+            o = tr.step()
+            out["outs"].append({k: v for k, v in o.items()
+                                if isinstance(v, (int, float))})
+            if tr.role == "train":
+                out["stages"][tr.stage] = _digests(tr.params)
+            else:
+                out["trajs"].append([
+                    (g.group_id, t.sample_idx, tuple(t.response_tokens),
+                     tuple(t.behaviour_logps), tuple(t.stage_ids))
+                    for g in tr.last_groups for t in g.trajectories])
+        out["eval"] = tr.evaluate(n_prompts=eval_prompts)
+    finally:
+        tr.close()
+    out["stats"] = store.stats_snapshot()
+    if tr.role == "train":              # a gather: every train rank
+        final = [np.asarray(t) for t in leaves(_np(tr.params))]
+        if rank == 0:
+            out["final"] = final
+    # the same four ranks in two shapes: (2, 2) trains, the (1, 2, 2) GQA
+    # serve mesh collects, one sequential step
+    from repro_torch.launch.mesh import make_gqa_serve_mesh, make_mesh
+    tr = CoPRISTrainer(cfg, RolloutConfig(**ro), TrainConfig(**tc),
+                       AdditionTask(max_value=20, seed=task_seed),
+                       eos_id=EOS,
+                       params=convert.params_from_jax(params, cfg, "cpu"),
+                       train_mesh=make_mesh(2, 2, device_type="cpu"),
+                       rollout_mesh=make_gqa_serve_mesh(1, 2, 2,
+                                                        device_type="cpu"))
+    try:
+        o = tr.step()
+    finally:
+        tr.close()
+    out["reshaped"] = dict(
+        role=tr.role, metrics={k: v for k, v in o.items()
+                               if isinstance(v, (int, float))},
+        trajs=[(g.group_id, t.sample_idx, tuple(t.response_tokens),
+                tuple(t.behaviour_logps), tuple(t.stage_ids))
+               for g in tr.last_groups for t in g.trajectories],
+        params=[np.asarray(t) for t in leaves(_np(tr.params))],
+        serve_layout=[str(t.placements) for t in
+                      leaves(tr.param_store.acquire()[0])[:4]])
+    return out
