@@ -48,13 +48,18 @@ float32 masters from the seeded sharded init):
   events) against one ``dist.send`` of a buffer of all the bytes the
   transfer moves, from the first train rank to the first rollout rank
   other than itself, on the same NCCL group;
-* two steps of the two-sided trainer (``CoPRISTrainer(train_mesh=A,
-  rollout_mesh=B)``, overlap and disaggregated, max_staleness 1) on
-  disjoint (2, 1) + (1, 2) ("model" of size 1 on the train side, where
-  the fused loss kernels run on each rank's rows): finite losses, each
-  collect's version within the gate, each version the rollout side
-  acquired with the fingerprints of the train side's params at that
-  stage, every kernel of its side launched.
+* three steps of the two-sided trainer (``CoPRISTrainer(train_mesh=A,
+  rollout_mesh=B)``, overlap and disaggregated, max_staleness 1,
+  adaptive N' with targets in [8, 24]) on disjoint (2, 1) + (1, 2)
+  ("model" of size 1 on the train side, where the fused loss kernels run
+  on each rank's rows): finite losses, each collect's version within the
+  gate, each version the rollout side acquired with the fingerprints of
+  the train side's params at that stage, every kernel of its side
+  launched; the train side's first rank alone owns the controller, its
+  trace equals one fed the observations it recorded, both rollout ranks
+  collect under one target (broadcast over the rollout mesh: NCCL across
+  two cards), set after an update the gate allows, and the train side
+  reports it as ``concurrency_target``.
 """
 from __future__ import annotations
 
@@ -82,6 +87,9 @@ CASES = (
     ("hymba_shard_seq_2x2", "hymba-1.5b", 4, (2, 2), 1),
 )
 TOL = 1e-3
+# the two-sided trainer's steps: collect 2 waits for the first target the
+# train side's adaptive N' controller sends (max_staleness 1)
+TRAINER_STEPS = 3
 
 
 def config(arch, layers, smoke, dtype):
@@ -280,7 +288,8 @@ def weight_sync_cases(torch, dist, dev, smoke):
                                                device_type=dev)
     ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=4,
                        max_response_len=32, concurrency=16, mode="copris",
-                       temperature=1.0)
+                       temperature=1.0, adaptive_concurrency=True,
+                       concurrency_min=8, concurrency_max=24)
     tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=3, entropy_coef=0.01,
                      overlap=True, disaggregated=True, max_staleness=1)
     tr = CoPRISTrainer(config("llama3.2-1b", 16, smoke, "bfloat16"), ro, tc,
@@ -291,6 +300,15 @@ def weight_sync_cases(torch, dist, dev, smoke):
     for fn in kernels.values():
         fn.launches = 0
     store, acquired, stages, outs = tr.param_store, [], {}, []
+    # adaptive N': the train side's first rank owns the controller
+    ctrl, observed = tr._concurrency_ctrl, []
+    if ctrl is not None:
+        observe = ctrl.observe
+
+        def recorded_observe(**kw):
+            observed.append(kw)
+            return observe(**kw)
+        ctrl.observe = recorded_observe
     if tr.role == "rollout":
         acquire = store.acquire
 
@@ -302,7 +320,7 @@ def weight_sync_cases(torch, dist, dev, smoke):
     else:
         stages[tr.stage] = fingerprints(torch, gathered(tr.params))
     try:
-        for _ in range(2):
+        for _ in range(TRAINER_STEPS):
             o = tr.step()
             outs.append({k: v for k, v in o.items()
                          if isinstance(v, (int, float))})
@@ -312,7 +330,8 @@ def weight_sync_cases(torch, dist, dev, smoke):
         tr.close()
     sync(torch, dev)
     recs = everyone(dict(role=tr.role, outs=outs, stages=stages,
-                         acquired=acquired,
+                         acquired=acquired, observed=observed,
+                         trace=list(ctrl.trace) if ctrl else None,
                          launches={n: fn.launches
                                    for n, fn in kernels.items()}))
     t_rec = next(r for r in recs if r["role"] == "train")
@@ -326,6 +345,27 @@ def weight_sync_cases(torch, dist, dev, smoke):
     gate = collected == schedule and all(
         i - 1 <= v <= i for i, v in enumerate(schedule))
     finite = all(np.isfinite(o["pg_loss"]) for o in t_rec["outs"])
+    # adaptive N': one owner, its trace replayed from its observations,
+    # every rollout rank under one target a collect (broadcast over the
+    # rollout mesh: NCCL across two cards), each set after an update the
+    # gate allows, the train side reporting it
+    from repro_torch.core.scheduler import AdaptiveConcurrencyController
+    owners = [r for r in recs if r["trace"] is not None]
+    replay = AdaptiveConcurrencyController(ro)
+    for kw in owners[0]["observed"] if owners else ():
+        replay.observe(**kw)
+    trace = owners[0]["trace"] if owners else []
+    targets = [[o["concurrency_target"] for o in r["outs"]]
+               for r in recs if r["role"] == "rollout"]
+    allowed = [{trace[j + 1] for j in range(max(0, i - 2),
+                                            min(i + 1, len(trace) - 1))}
+               | ({trace[0]} if i < 2 and trace else set())
+               for i in range(TRAINER_STEPS)]
+    adaptive = (len(owners) == 1 and trace == replay.trace
+                and all(t == targets[0] for t in targets)
+                and all(t in a for t, a in zip(targets[0], allowed))
+                and all([o["concurrency_target"] for o in r["outs"]]
+                        == targets[0] for r in recs if r["role"] == "train"))
     if rank == 0:
         keys = ("step_time", "rollout_time", "update_time", "reshard_time",
                 "rollout_reshard_time", "batch_wait_time",
@@ -335,12 +375,17 @@ def weight_sync_cases(torch, dist, dev, smoke):
             "layers": cfg.num_layers, "steps": [
                 {k: o.get(k) for k in keys} for o in t_rec["outs"]],
             "schedule": schedule, "collected_under": collected,
-            "acquired_equal": equal,
+            "acquired_equal": equal, "adaptive_trace": trace,
+            "adaptive_replayed": replay.trace,
+            "collect_targets_by_rollout_rank": targets,
             "launches": {r["role"] + str(i): r["launches"]
                          for i, r in enumerate(recs)}}), flush=True)
-    if not (gate and finite and equal and all(equal) and launched):
+    if not (gate and finite and equal and all(equal) and launched
+            and adaptive):
         print(f"chip_mesh: trainer: gate {gate}, finite {finite}, acquired "
-              f"equal {equal}, launched {launched}", file=sys.stderr)
+              f"equal {equal}, launched {launched}, adaptive {adaptive} "
+              f"(trace {trace}, replayed {replay.trace}, targets "
+              f"{targets})", file=sys.stderr)
         ok = False
     return ok
 

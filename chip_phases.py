@@ -5,13 +5,15 @@ then each named phase runs as in the full script and prints its JSON line.
     python3 chip_phases.py [moe_ep] [sharded] [disagg] [multihost]
                            [decode_split] [serve_sharded] [copris_sharded]
                            [serve_sharded_kinds] [dryrun] [disagg_mesh]
+                           [pal205]
 
 ``moe_ep``: ``train_moe_ep``; ``sharded``: ``train_sharded``; ``disagg``:
 ``train`` (its SFT-warmed weights), ``train_overlap`` and
 ``train_disaggregated``; ``multihost``: the torchrun launcher;
 ``decode_split``: the dense decode kernel's lse and the length split's
-checks; ``serve_sharded``: the ``serve`` phase (its profile included),
-then ``serve_sharded``; ``copris_sharded``: the trainer on a (1, 1) mesh
+checks; ``serve_sharded``: the ``serve`` phase (its profile included,
+with IR403's guarded decode chunk), then ``serve_sharded``; ``pal205``:
+each built library's kernels against the card's limits; ``copris_sharded``: the trainer on a (1, 1) mesh
 against the unsharded one; ``serve_sharded_kinds``: sharded serving of
 hymba, rwkv6, deepseek-moe and the VLM, the one-slot ``shard_seq`` pools
 and the GQA serve mesh, each run with its steady-chunk host and device
@@ -82,6 +84,8 @@ def main(names):
             cs.train_disaggregated_mesh_phase(torch, np, sft)
         elif name == "multihost":
             cs.multihost_phase(np)
+        elif name == "pal205":
+            cs.pal205_phase()
         elif name == "decode_split":
             import torch.nn.functional as F
             timer = cs.Timer(torch)
@@ -109,8 +113,8 @@ def main(names):
 
 
 def serve_dense_then_sharded(kernels):
-    """The ``serve`` phase's 24 requests unsharded (and its steady-chunk
-    profile), then ``serve_sharded`` against them."""
+    """The ``serve`` phase's 24 requests (and its steady-chunk profile,
+    with IR403's guarded chunk), then ``serve_sharded``."""
     from repro_torch.launch import serve as serve_mod
     serve, cfg = serve_mod.make_serve_engine(
         "llama3.2-1b", max_prompt_len=512, max_tokens=128, concurrency=16,
@@ -122,10 +126,10 @@ def serve_dense_then_sharded(kernels):
     serve.eng.block_until_ready()
     wall = time.perf_counter() - t0
     ntok = cs.check_results(np, results, cfg, len(results))
-    dense = dict(results=results, tokens_per_s=ntok / wall,
-                 profile=cs.profile_phase(torch, np, serve, cfg))
+    cs.profile_phase(torch, np, serve, cfg, sync_free=True)
+    print("serve", ntok / wall, "tokens/s", flush=True)
     del serve
-    cs.serve_sharded_phase(torch, np, serve_mod, kernels, dense)
+    cs.serve_sharded_phase(torch, np, serve_mod, kernels)
 
 
 if __name__ == "__main__":

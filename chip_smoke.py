@@ -28,12 +28,14 @@ start):
 
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds every kernel source from csrc/, in parallel;
-   then "multihost": ``python -m torch.distributed.run --standalone
-   --nproc-per-node 1 -m repro_torch.launch.multihost --arch llama3.2-1b
-   --steps 2`` (global batch 8 x 512, a (1, 1) mesh over NCCL, its
-   params made by sharding.init_sharded_params) as a subprocess, which
-   must exit 0 with two finite losses and rank 0's init peak memory;
-   cuobjdump counts the HGMMA (wgmma) instructions of the two flash
+   then "pal205": PAL205 of ``repro_torch.analysis.irlint`` on the card,
+   each built library's kernels (ptxas's static shared memory,
+   registers, spill bytes from the build log) against this card's limits
+   (``torch.cuda.get_device_properties``), failing over them; then
+   "warm_flex": a subprocess started beside the build, on the cores it
+   leaves idle, has compiled the flex_attention library calls of
+   gemma2-2b's checks (their kernels cached under build/ for the checks
+   below) and is waited for; cuobjdump counts the HGMMA (wgmma) instructions of the two flash
    libraries and of the loss library (its bf16 forward, dl, dh and dw
    kernels), which must have some; ptxas's registers and spills of the
    tensor-core kernels (every kernel named ``*_tc``) and of the scan
@@ -96,7 +98,14 @@ start):
    forwards and dw 2 bf16 passes of 2 R d V, bwd_dh 5), each with the f32
    FMA bound of the same product kept beside it; every decode-shaped check
    prints the timer's floor, a near-empty launch timed the same way;
-4. reference — the GPU engine (kernels, float32) against the same engine on
+4. reference — beside these phases (which time nothing) run "multihost"
+   (``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+   repro_torch.launch.multihost --arch llama3.2-1b --steps 2``: global
+   batch 8 x 512, a (1, 1) mesh over NCCL, its params made by
+   sharding.init_sharded_params, a subprocess that must exit 0 with two
+   finite losses and rank 0's init peak memory, its line printed after
+   them) and the dry run's two subprocesses ("dryrun" below); then
+   the GPU engine (kernels, float32) against the same engine on
    the CPU (plain versions) on the reduced config, dense and paged, and the
    CPU paged engine against the CPU dense one: equal tokens; the same as
    "reference_hybrid" on a reduced hymba (5 heads of 64) and the reduced
@@ -130,33 +139,38 @@ start):
    roles and turn starts on common keys, logps within 1e-5;
 5. serve   — make_serve_engine("llama3.2-1b") with random bf16 weights made
    from a seed serves 24 requests; every kernel's launch count must be > 0;
-   then "profile": torch.profiler over two steady decode chunks (host time,
-   device busy time, the decode attention kernels' time, top device
-   kernels);
+   then "profile": first one more steady step whose decode chunk
+   (``model.decode_scan``) runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (IR403 on the card: any
+   operation inside it that makes the host wait for the card raises),
+   then torch.profiler over two steady decode chunks (host time, device
+   busy time, the decode attention kernels' time, top device kernels);
    then "serve_paged": the same 24 requests over the paged KV cache with
    40% of the dense-equivalent pages: page pressure (blocked admissions or
    preemptions) and every request returned; then "profile_paged": the
    profile phase's two chunks over the paged cache; then "serve_sharded":
-   the same 24 requests on a (1, 1) NCCL mesh (weights in the serve
-   layout, the cache by cache_placements, prefill, decode and sampling on
-   the local shards), bit-equal to "serve", every kernel launched, its
-   steady-chunk host and device time beside the unsharded (its group
+   the same 24 requests at 4 of the 16 layers, unsharded and on a (1, 1)
+   NCCL mesh (weights in the serve layout, the cache by cache_placements,
+   prefill, decode and sampling on the local shards), bit-equal, every
+   kernel launched, its steady-chunk host and device time beside the
+   unsharded (its group
    destroyed);
 6. copris  — two RolloutEngine.collect stages: the first buffers partials
    (early termination), the second resumes them;
-   then "serve_hymba" (16 of its 32 layers), "serve_hymba_paged" (8 of
+   then "serve_hymba" (8 of its 32 layers), "serve_hymba_paged" (4 of
    its 32 layers, 40% of the pages) and
-   "serve_rwkv6" (12 of its 24): 24 requests each at full width, each
+   "serve_rwkv6" (6 of its 24): 24 requests each at full width, each
    with its profile; then "copris_hybrid": two stages on each family at
-   those 16 and 12 layers (hymba resuming from kv_snapshot, rwkv6 by
+   those 8 and 6 layers (hymba resuming from kv_snapshot, rwkv6 by
    re-prefill), evicting and resuming;
 7. train   — sft_warmup, then three CoPRISTrainer.step() calls on
    llama3.2-1b at full width (bf16 compute, f32 masters): finite reward,
    loss, grad norm, ratio and off-policy share; rollout, reward and update
    times, resumed partials, peak memory; every kernel launched; then
    "train_profile": torch.profiler over one more update (device busy
-   time, top device kernels); then "train_overlap": from the train
-   phase's SFT-warmed weights (kept on the host), four overlapped steps
+   time, top device kernels); then "train_overlap": from the first 8 of
+   the 16 layers of the train phase's SFT-warmed weights (kept on the
+   host), four overlapped steps
    (overlap=True, max_staleness=1; the producer collects on its own CUDA
    stream, the consumer trains on another): finite metrics,
    param_staleness <= 1 and == 1 at least once, at most 2 ParamStore
@@ -174,7 +188,7 @@ start):
    with EOS), max_response_len 64: environment steps and second turns,
    observation positions with loss mask 0, behaviour log-prob 0 and stage
    -1, every kernel launched, env_wait_time and step times; then
-   "train_disaggregated": three steps from the same weights with
+   "train_disaggregated": three steps from the same 8 layers with
    overlap=True, disaggregated=True, train and rollout on cuda:0 (every
    version the reshard's copy on a copy stream): the store's freshest
    version equal to the consumer's params bit for bit at every stage,
@@ -183,15 +197,19 @@ start):
    and rollout on meshes of their own in two processes on the card
    (``chip_smoke.py --two-sided-rank R DIR`` each; rank 0 trains on a
    (1, 1) mesh, rank 1 collects on another, made by
-   make_disaggregated_meshes), 8 of the 16 layers of the same weights,
+   make_disaggregated_meshes), 4 of the 16 layers of the same weights,
    three steps a side, every version through the cross-mesh transfer on
-   a gloo group (pinned host staging): each collect within the gate, each
-   acquired version's fingerprints equal to the train side's params at
-   its stage, finite losses, each side's kernels launched; the transfer's
+   a gloo group (pinned host staging), adaptive N' across the two sides:
+   each collect within the gate, each acquired version's fingerprints
+   equal to the train side's params at its stage, finite losses, each
+   side's kernels launched, the controller's trace equal to one fed its
+   recorded observations, each collect's target set after an update the
+   gate allows, reported as the train side's concurrency_target; the
+   transfer's
    bytes and reshard_time on each side, the step, rollout and update
    times beside train_disaggregated's; then
    "train_paged": two CoPRISTrainer.step()
-   calls at full width over the paged KV cache with half the
+   calls at full width and 8 of the 16 layers over the paged KV cache with half the
    dense-equivalent pages and the legacy fused_loss=False loss: prefix
    sharing, copy-on-write, finite metrics, every kernel of that path
    launched; then "train_hymba" and "train_rwkv6": sft_warmup, then two
@@ -202,20 +220,20 @@ start):
    and, for hymba, the flash backward among them), each with the profile
    of one more update;
    then the wide-head archs through the same entry points, one at a time,
-   each freed before the next: "serve_qwen7b" (paper-qwen-7b at 14 of
-   its 28 layers) and "serve_qwen7b_paged" (7 of its 28 layers, 40% of
-   the pages), "copris_qwen7b" (two stages at 14), "train_qwen7b" (4 of
+   each freed before the next: "serve_qwen7b" (paper-qwen-7b at 7 of
+   its 28 layers) and "serve_qwen7b_paged" (4 of its 28 layers, 40% of
+   the pages), "copris_qwen7b" (two stages at 7), "train_qwen7b" (4 of
    its 28 layers at full width: SFT, then two steps with the fused loss
-   at d 3584 / V 152064), "serve_gemma2" and "train_gemma2" (14 of its 26
+   at d 3584 / V 152064), "serve_gemma2" and "train_gemma2" (6 of its 26
    layers: head_dim 256, the softcaps, the local window),
-   "serve_qwen3_14b" (20 of its 40 layers, qk_norm),
-   "serve_granite" (24 of its 88 layers: the full depth's bf16 weights do
-   not fit the card), "serve_musicgen" and "train_musicgen" (24 of its 48
-   layers, V 2048: the full-logits loss; one step; the three half depths
-   keep the run near 600 s); then the MoE and VLM archs: "serve_deepseek"
-   (deepseek-moe-16b at 14 of its 28 layers) and "serve_deepseek_paged"
-   (7 of its 28 layers, 40% of the pages), "copris_deepseek" (two stages
-   at 14, evicting and re-prefilling), "train_deepseek" (its dense first layer and two MoE
+   "serve_qwen3_14b" (10 of its 40 layers, qk_norm),
+   "serve_granite" (12 of its 88 layers: the full depth's bf16 weights do
+   not fit the card), "serve_musicgen" and "train_musicgen" (12 of its 48
+   layers, V 2048: the full-logits loss; one step; these depths keep the
+   run under 770 s); then the MoE and VLM archs: "serve_deepseek"
+   (deepseek-moe-16b at 7 of its 28 layers) and "serve_deepseek_paged"
+   (4 of its 28 layers, 40% of the pages), "copris_deepseek" (two stages
+   at 7, evicting and re-prefilling), "train_deepseek" (its dense first layer and two MoE
    layers at full width: SFT, then two steps; ``router_aux`` finite and >
    0 in each), "train_sharded" (two make_train_step updates of
    llama3.2-1b at full width and depth on seeded 32 x 128 batches,
@@ -226,15 +244,17 @@ start):
    loss and grad_norm, the flash and loss kernels launched in the sharded
    run, both runs' update times and peak memory; the group destroyed
    after it), "dryrun" (the dry run, ``repro_torch.launch.dryrun``, in
-   two CPU subprocesses started after train_sharded, each with its own
-   timeout: llama3.2-1b's
+   two CPU subprocesses started beside the reference phases (which time
+   nothing) and done before the serve phases, each with its own
+   timeout, their records read here: llama3.2-1b's
    decode_32k and weight sync on a fake 16 x 16 mesh of 256 ranks, both
    records ok with decode_attn charged once a layer; and train_sharded's
    update, two steps on a fake (1, 1) mesh, its kernels' charges equal to
    train_sharded's launches and its peak within 10% of train_sharded's
    measured peak; while they run, the constants the fake branches copy
    held against the built libraries and the card), "copris_sharded" (two
-   CoPRISTrainer steps of llama3.2-1b at full width and depth, unsharded and with train_mesh a (1, 1) NCCL
+   CoPRISTrainer steps of llama3.2-1b at full width and 4 of its 16
+   layers, unsharded and with train_mesh a (1, 1) NCCL
    mesh: sharded init and AdamW state, the sharded update, versions
    resharded to the serve layout, the sharded engine; rollout tokens
    equal at both steps, each leaf's update within 1e-4 of its largest
@@ -252,6 +272,11 @@ start):
    flash backward on the path); the train phases with an entropy bonus of
    0.01, so every step has a gradient; each serve phase with its profile,
    each train phase with an update's profile;
+then "attribution": the whole run's seconds (the process's start before
+   the first stamp, then each line's span since the line before it,
+   split into the phase's own timed ``seconds`` and the rest where it
+   reports them, and the tail), summing to ``total_s``, with the spans
+   added up by kind of phase;
 8. kernels — one {"kernels": [...]} line, one row per kernel entry point,
    each with the launches of the path it runs on (train; the rows that
    train_overlap and train_multiturn launch carry their counts under
@@ -285,6 +310,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -295,16 +321,104 @@ PEAK_F32_FLOPS = 67e12              # H100 SXM float32 outside tensor cores
 
 
 T0 = time.perf_counter()
+# (phase, t_s, the seconds of its own timed section or None), a line each
+STAMPS = []
 
 
 def emit(phase, **kw):
     """One phase's JSON line, with the seconds since the script started."""
-    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T0, **kw}),
-          flush=True)
+    t = time.perf_counter() - T0
+    own = kw.get("seconds")
+    STAMPS.append((phase, t, own if isinstance(own, float) else None))
+    print(json.dumps({"phase": phase, "t_s": t, **kw}), flush=True)
+
+
+def process_start_s() -> float:
+    """Seconds from this process's start to T0 (interpreter start and the
+    imports above), from /proc: its start in clock ticks after boot."""
+    try:
+        ticks = os.sysconf("SC_CLK_TCK")
+        start = int(Path("/proc/self/stat").read_text().rsplit(")", 1)[1]
+                    .split()[19]) / ticks
+        uptime = float(Path("/proc/uptime").read_text().split()[0])
+        return max(0.0, uptime - start - (time.perf_counter() - T0))
+    except (OSError, ValueError, IndexError):
+        return 0.0
+
+
+def attribution():
+    """The whole run's seconds, attributed from the stamps: the process's
+    start before T0; then each line's span since the line before it
+    (every phase's own setup included), split where the phase reports its
+    own timed ``seconds`` into that and the rest (``gap_s``: making and
+    freeing models, references, profiles); the tail after the last line.
+    The parts sum to ``total_s`` by construction; ``groups`` add the spans
+    up by kind of phase ("serve": the serve phases, their profiles and the
+    CoPRIS stages)."""
+    end = time.perf_counter() - T0
+    start = process_start_s()
+    parts, prev = [], 0.0
+    for phase, t, own in STAMPS:
+        span = t - prev
+        part = {"phase": phase, "span_s": span}
+        if own is not None and own <= span:
+            part.update(own_s=own, gap_s=span - own)
+        parts.append(part)
+        prev = t
+    groups = {}
+    for p in parts:
+        name = p["phase"]
+        kind = ("build" if name in ("device", "build", "pal205",
+                                    "warm_flex") else
+                "kernel_checks" if name.startswith("check_") else
+                "references" if "reference" in name else
+                "sharded" if ("sharded" in name or name in (
+                    "multihost", "dryrun", "train_moe_ep",
+                    "train_disaggregated_mesh")) else
+                "train" if name.startswith(("train", "grad")) else
+                "serve")
+        groups[kind] = groups.get(kind, 0.0) + p["span_s"]
+    tail = end - prev
+    total = start + end
+    return dict(total_s=total, process_start_s=start, tail_s=tail,
+                groups=groups, parts=parts,
+                sum_s=start + sum(p["span_s"] for p in parts) + tail)
 
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: {msg}")
+
+
+class Background:
+    """A subprocess of this checkout started now, its output read by a
+    thread, so that it runs beside the phases that follow; ``finish()``
+    waits for it until ``timeout`` seconds after its start (then kills it)
+    and returns ``(returncode, stdout, stderr)``, or None if it timed
+    out; ``seconds`` is its run time."""
+
+    def __init__(self, argv, timeout):
+        self.t0, self.timeout = time.perf_counter(), timeout
+        self.proc = subprocess.Popen(
+            [sys.executable, *argv], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.out, self.seconds = None, None
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        out, err = self.proc.communicate()
+        self.seconds = time.perf_counter() - self.t0
+        self.out = (self.proc.returncode, out, err)
+
+    def finish(self):
+        self.thread.join(max(0.0, self.timeout
+                             - (time.perf_counter() - self.t0)))
+        if self.thread.is_alive():
+            self.proc.kill()
+            self.thread.join()
+            return None
+        return self.out
 
 
 def bound(nbytes, flops, peak_flops):
@@ -2046,18 +2160,20 @@ def device_profile(torch, run):
 
 
 def profile_phase(torch, np, serve, cfg, chunks=2, phase="profile",
-                  prompt_hi=512):
+                  prompt_hi=512, sync_free=False):
     """Where a steady decode chunk's time goes: the device profile of
     ``chunks`` ServeEngine.step() calls after 16 requests of 64 to
     ``prompt_hi`` prompt tokens were submitted (a full pool on the dense
     cache) — host wall time per chunk, device busy time, top device
-    kernels."""
+    kernels. ``sync_free``: first one more steady step whose decode chunk
+    runs under :func:`sync_free_chunk` (IR403 on the card)."""
     rng = np.random.default_rng(7)
     for _ in range(16):
         serve.submit(serve_request(rng, cfg, hi=prompt_hi))
     serve.step()                        # opens the stage: the prefill
     serve.step()                        # one warm decode chunk
     serve.eng.block_until_ready()
+    guarded = sync_free_chunk(torch, serve) if sync_free else None
 
     def run():
         for _ in range(chunks):
@@ -2080,9 +2196,40 @@ def profile_phase(torch, np, serve, cfg, chunks=2, phase="profile",
                top_device_ops=[{"name": e.key[:80], "count": e.count,
                                 "ms_per_chunk": device_us(e) / 1e3 / chunks}
                                for e in top])
+    if guarded is not None:
+        res["ir403_sync_free_decode_chunks"] = guarded
     emit(phase, **res)
     serve.close()                       # in-flight requests stay buffered
     return res
+
+
+def sync_free_chunk(torch, serve) -> int:
+    """IR403 on the card: one steady ServeEngine.step() whose decode chunk
+    (``models/model.decode_scan``, the engine's decode and sampling
+    kernels) runs under ``torch.cuda.set_sync_debug_mode("error")``, so
+    any operation that makes the host wait for the card inside the chunk
+    raises (the transfer of its tokens after it is outside). Returns the
+    chunks that ran guarded (the step must have run one)."""
+    from repro_torch.models import model
+    real, ran = model.decode_scan, []
+
+    def guarded(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ran.append(1)
+        return out
+
+    model.decode_scan = guarded
+    try:
+        serve.step()
+    finally:
+        model.decode_scan = real
+    if not ran:
+        fail("IR403: the steady step ran no decode chunk")
+    return len(ran)
 
 
 def serve_request(rng, cfg, lo=64, hi=512):
@@ -2362,9 +2509,11 @@ def serve_paged_phase(torch, np, serve_mod, kernels, dense):
     profile_phase(torch, np, serve, cfg, phase="profile_paged")
 
 
-def train_paged_phase(torch, np, kernels, steps=2):
-    """This slice's main path: ``steps`` CoPRISTrainer.step() calls on
-    llama3.2-1b at full width over the paged KV cache (page size 16, half
+def train_paged_phase(torch, np, kernels, steps=2, num_layers=8):
+    """The paged slice's main path: ``steps`` CoPRISTrainer.step() calls on
+    llama3.2-1b at full width and ``num_layers`` of its 16 layers (the
+    run's time; no kernel's shape depends on the depth) over the paged KV
+    cache (page size 16, half
     the dense-equivalent pages: 64 for 16 slots of max_len 128) with the
     legacy fused_loss=False loss, after the train phase's short SFT warmup
     from random weights made from a seed. GRPO groups of 4 share their
@@ -2379,7 +2528,8 @@ def train_paged_phase(torch, np, kernels, steps=2):
     from repro_torch.models import model as M
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("llama3.2-1b")
+    cfg = dataclasses.replace(get_config("llama3.2-1b"),
+                              num_layers=num_layers)
     task = AdditionTask(max_value=20, seed=1)
     params, _ = sft_warmup(M.init_params(cfg, seed=1, device="cuda"), cfg,
                            task, steps=4, batch_size=32, max_len=24, lr=1e-4)
@@ -2410,6 +2560,8 @@ def train_paged_phase(torch, np, kernels, steps=2):
     keys = ("reward_mean", "pg_loss", "grad_norm", "ratio_mean",
             "off_policy_frac")
     emit("train_paged", arch=cfg.name, layers=cfg.num_layers,
+         depth_cut=f"{num_layers} of 16 layers: the run's time (no "
+         "kernel's shape depends on the depth)",
          d_model=cfg.d_model, vocab=cfg.vocab_size, fused_loss=False,
          kv_page_size=backend.page_size, kv_num_pages=backend.num_pages,
          dense_equivalent_pages=backend.pool * backend.max_pages,
@@ -2596,11 +2748,22 @@ STEP_REPORT = ("rollout_time", "reward_time", "update_time", "step_time",
                "multi_stage_trajs", "mean_resp_len")
 
 
-def train_overlap_phase(torch, np, kernels, sft, steps=4):
+def first_layers(cfg, params, num_layers):
+    """``cfg`` and the host ``params`` cut to their first ``num_layers``
+    layers, on the card."""
+    from repro_torch.common.tree import tree_map
+    return (dataclasses.replace(cfg, num_layers=num_layers),
+            tree_map(lambda t: t.cuda(),
+                     dict(params, layers=params["layers"][:num_layers])))
+
+
+def train_overlap_phase(torch, np, kernels, sft, steps=4, num_layers=8):
     """The overlapped pipeline at full width: llama3.2-1b in the train
     phase's configuration (B 8 x G 4, N' 16, max_len 128, bf16 compute, f32
-    masters, the fused loss) from the train phase's SFT-warmed weights
-    (kept on the host, no second SFT), with overlap=True and
+    masters, the fused loss) at ``num_layers`` of its 16 layers (the run's
+    time; no kernel's shape depends on the depth) from the first layers of
+    the train phase's SFT-warmed weights (kept on the host, no second
+    SFT), with overlap=True and
     max_staleness=1: ``steps`` CoPRISTrainer.step() calls, the producer
     collecting on its CUDA stream while the consumer trains on another, then
     the profile of one more step. Checks: finite metrics, param_staleness
@@ -2618,20 +2781,24 @@ def train_overlap_phase(torch, np, kernels, sft, steps=4):
     from repro_torch.data.tasks import EOS, AdditionTask
     gc.collect()                        # the previous phase's trainer
     torch.cuda.empty_cache()
-    cfg = get_config("llama3.2-1b")
+    cfg, params = first_layers(get_config("llama3.2-1b"), sft["params"],
+                               num_layers)
     ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=4,
                        max_response_len=124, concurrency=16, mode="copris",
                        temperature=1.0)
     tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=0, overlap=True,
                      max_staleness=1)
     tr = CoPRISTrainer(cfg, ro, tc, AdditionTask(max_value=20, seed=0),
-                       eos_id=EOS,
-                       params=tree_map(lambda t: t.cuda(), sft["params"]))
+                       eos_id=EOS, params=params)
+    del params
     tr.batch_timeout = 600.0
     outs, launches, prof = overlapped_run(torch, tr, kernels, steps,
                                           profile=True)
     peak = torch.cuda.max_memory_allocated() / 1e9
     emit("train_overlap", arch=cfg.name, layers=cfg.num_layers,
+         depth_cut=f"{num_layers} of 16 layers: the run's time (no "
+         "kernel's shape depends on the depth; sequential_step_time is the "
+         "train phase's, at 16)",
          d_model=cfg.d_model, vocab=cfg.vocab_size, max_staleness=1,
          steps=[{k: o[k] for k in TRAIN_KEYS + STEP_REPORT} for o in outs],
          sequential_step_time=sft["step_time"], peak_mem_gb=peak,
@@ -2648,9 +2815,11 @@ def train_overlap_phase(torch, np, kernels, sft, steps=4):
     return launches
 
 
-def train_disaggregated_phase(torch, np, kernels, sft, steps=3):
+def train_disaggregated_phase(torch, np, kernels, sft, steps=3,
+                              num_layers=8):
     """The disaggregated trainer at full width: llama3.2-1b in the
-    train_overlap phase's configuration from the same SFT-warmed weights,
+    train_overlap phase's configuration, at ``num_layers`` of its 16
+    layers (the run's time), from the same SFT-warmed weights,
     with overlap=True, disaggregated=True, train and rollout on cuda:0:
     every published version is the reshard's copy onto the rollout device
     (a copy stream, fenced by the store's event). Checks: at every stage
@@ -2667,16 +2836,16 @@ def train_disaggregated_phase(torch, np, kernels, sft, steps=3):
     from repro_torch.data.tasks import EOS, AdditionTask
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("llama3.2-1b")
+    cfg, params = first_layers(get_config("llama3.2-1b"), sft["params"],
+                               num_layers)
     ro = RolloutConfig(batch_size=8, group_size=4, max_prompt_len=4,
                        max_response_len=124, concurrency=16, mode="copris",
                        temperature=1.0)
     tc = TrainConfig(lr=1e-5, warmup_steps=1, seed=0, overlap=True,
                      max_staleness=1, disaggregated=True)
     tr = CoPRISTrainer(cfg, ro, tc, AdditionTask(max_value=20, seed=0),
-                       eos_id=EOS,
-                       params=tree_map(lambda t: t.cuda(), sft["params"]),
-                       rollout_device="cuda:0")
+                       eos_id=EOS, params=params, rollout_device="cuda:0")
+    del params
     tr.batch_timeout = 600.0
 
     def store_is_consumer():
@@ -2706,6 +2875,8 @@ def train_disaggregated_phase(torch, np, kernels, sft, steps=3):
     sft["disaggregated_steps"] = [{k: o[k] for k in STEP_REPORT + (
         "reshard_time",)} for o in outs]
     emit("train_disaggregated", arch=cfg.name, layers=cfg.num_layers,
+         depth_cut=f"{num_layers} of 16 layers: the run's time (no "
+         "kernel's shape depends on the depth)",
          d_model=cfg.d_model, vocab=cfg.vocab_size, max_staleness=1,
          train_device=str(tr.device), rollout_device=str(tr.rollout_device),
          steps=[{k: o[k] for k in TRAIN_KEYS + keys} for o in outs],
@@ -2801,7 +2972,17 @@ def two_sided_rank(rank, folder):
         kernels = {name: fn for name, fn in side_kernels().items()
                    if name in TWO_SIDED_KERNELS[tr.role]}
         rec = dict(role=tr.role, arch=cfg.name, layers=cfg.num_layers,
-                   stages={}, acquired=[], outs=[])
+                   stages={}, acquired=[], outs=[], observed=[], trace=None)
+        # adaptive N': the train side owns the controller; record what it
+        # observes
+        ctrl = tr._concurrency_ctrl
+        if ctrl is not None:
+            observe = ctrl.observe
+
+            def recorded_observe(**kw):
+                rec["observed"].append(kw)
+                return observe(**kw)
+            ctrl.observe = recorded_observe
         store = tr.param_store
         if tr.role == "rollout":
             acquire = store.acquire
@@ -2827,6 +3008,8 @@ def two_sided_rank(rank, folder):
         finally:
             tr.close()
         torch.cuda.synchronize()
+        if ctrl is not None:
+            rec["trace"] = list(ctrl.trace)
         rec.update(wall_s=time.perf_counter() - t0,
                    launches=read_launches(kernels),
                    stats=store.stats_snapshot(),
@@ -2839,7 +3022,7 @@ def two_sided_rank(rank, folder):
     return 0
 
 
-def train_disaggregated_mesh_phase(torch, np, sft, steps=3, num_layers=8):
+def train_disaggregated_mesh_phase(torch, np, sft, steps=3, num_layers=4):
     """Train and rollout on meshes of their own, in two processes on the
     one card: llama3.2-1b at full width and ``num_layers`` of its 16 layers
     (the run's time limit: the rollout side's engine on a mesh is
@@ -2847,7 +3030,10 @@ def train_disaggregated_mesh_phase(torch, np, sft, steps=3, num_layers=8):
     phase's configuration from the same SFT-warmed weights' first layers
     (written once to the checkout's build directory, read by the train
     process), overlap and
-    disaggregated, max_staleness 1; rank 0 trains on a (1, 1) mesh, rank 1
+    disaggregated, max_staleness 1, adaptive N' (the train side's
+    controller observes each update and sends the next target to the
+    rollout side, a slot pool of 24, targets in [8, 24] from 16); rank 0
+    trains on a (1, 1) mesh, rank 1
     collects on another (``make_disaggregated_meshes``), every version
     crossing through the cross-mesh transfer on a gloo group (pinned host
     staging), each batch on a gloo group of its own. ``steps`` steps on
@@ -2856,7 +3042,11 @@ def train_disaggregated_mesh_phase(torch, np, sft, steps=3, num_layers=8):
     same schedule), each version the rollout side acquired has the
     fingerprints (two 64-bit sums of every leaf's bits) of the train
     side's params at that stage, finite losses, every kernel of
-    TWO_SIDED_KERNELS launched on its side. Reports the transfer's bytes
+    TWO_SIDED_KERNELS launched on its side; adaptive N': the controller's
+    trace equals a controller fed the observations it recorded, each
+    collect ran under the target set after update j, i - 2 <= j <= i (the
+    initial target before any), and the train side reports each collect's
+    target as ``concurrency_target``. Reports the transfer's bytes
     and reshard_time per version on each side, and the step, rollout and
     update times beside train_disaggregated's. Returns the launches
     summed over both sides."""
@@ -2865,7 +3055,8 @@ def train_disaggregated_mesh_phase(torch, np, sft, steps=3, num_layers=8):
     folder.mkdir(parents=True)
     spec = dict(steps=steps, num_layers=num_layers, ro=dict(
         batch_size=8, group_size=4, max_prompt_len=4, max_response_len=124,
-        concurrency=16, mode="copris", temperature=1.0),
+        concurrency=16, mode="copris", temperature=1.0,
+        adaptive_concurrency=True, concurrency_min=8, concurrency_max=24),
         tc=dict(lr=1e-5, warmup_steps=1, seed=0, overlap=True,
                 max_staleness=1, disaggregated=True))
     (folder / "spec.json").write_text(json.dumps(spec))
@@ -2907,12 +3098,29 @@ def train_disaggregated_mesh_phase(torch, np, sft, steps=3, num_layers=8):
     equal = [f == stages.get(v) for v, f in roll["acquired"]]
     keys = ("step_time", "rollout_time", "update_time", "reward_time",
             "batch_wait_time", "reshard_time", "rollout_reshard_time",
-            "param_staleness", "dropped_versions", "param_store_versions")
+            "param_staleness", "dropped_versions", "param_store_versions",
+            "concurrency_target")
+    # adaptive N': the trace replayed, each collect's target and its bound
+    from repro_torch.common.config import RolloutConfig
+    from repro_torch.core.scheduler import AdaptiveConcurrencyController
+    replay = AdaptiveConcurrencyController(RolloutConfig(**spec["ro"]))
+    for kw in train["observed"]:
+        replay.observe(**kw)
+    trace = train["trace"] or []
+    targets = [o["concurrency_target"] for o in roll["outs"]]
+    stale = spec["tc"]["max_staleness"]
+    within = [t in {trace[j + 1] for j in range(max(0, i - stale - 1),
+                                                 min(i + 1, len(trace) - 1))}
+              | ({trace[0]} if i - stale - 1 < 0 and trace else set())
+              for i, t in enumerate(targets)]
     emit("train_disaggregated_mesh", nvidia_smi=card_name_and_limit(),
          arch=train["arch"], layers=train["layers"], processes=2,
          depth_cut=f"{train['layers']} of 16 layers: the run's time limit "
          "(the rollout side's engine on a mesh is host-bound: ~20 s a "
          "collect at 16 layers; train_disaggregated runs all 16)",
+         adaptive={"trace": trace, "replayed_trace": replay.trace,
+                   "collect_targets": targets, "within_gate": within,
+                   "observed": train["observed"]},
          meshes={"train": {"data": 1, "model": 1},
                  "rollout": {"data": 1, "model": 1}},
          transport=f"{train['transport']} (CUDA leaves staged through "
@@ -2951,8 +3159,81 @@ def train_disaggregated_mesh_phase(torch, np, sft, steps=3, num_layers=8):
         if not all(got.get(n, 0) > 0 for n in names):
             fail(f"train_disaggregated_mesh: a kernel of the {side} side "
                  f"never launched: {got}")
+    if len(train["observed"]) != steps or trace != replay.trace \
+            or not all(within) \
+            or targets != [o["concurrency_target"] for o in outs]:
+        fail(f"train_disaggregated_mesh: adaptive N': trace {trace} "
+             f"(replayed {replay.trace}), collects under {targets} "
+             f"(within the gate {within}), reported "
+             f"{[o['concurrency_target'] for o in outs]}")
     return {n: train["launches"].get(n, 0) + roll["launches"].get(n, 0)
             for n in set(train["launches"]) | set(roll["launches"])}
+
+
+WARM_FLEX_TIMEOUT_S = 400
+# gemma2-2b's heads, window and softcap, at which the library call is a
+# compiled flex_attention
+GEMMA2_SHAPE = dict(H=8, KV=4, hd=256, win=4096, cap=50.0)
+
+
+def warm_flex():
+    """The compiled flex_attention calls of gemma2-2b's kernel checks (its
+    softcap: the library call is flex_attention), run once in a process of
+    its own while the parent builds the kernels, with the kernels' plain
+    versions in their place (nothing here needs a built library): the
+    generated kernels land in the inductor and Triton caches under build/
+    (the parent's TORCHINDUCTOR_CACHE_DIR and TRITON_CACHE_DIR), where the
+    parent's checks of the same shapes find them. Nothing it measures is
+    kept."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import types
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.hopper import decode_attn, flash_attn, paged_decode_attn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa = types.SimpleNamespace(**vars(flash_attn))
+    fa.flash_attention = flash_attn.flash_attention_plain
+    fa.flash_attention_bwd = flash_attn.flash_attention_bwd_plain
+    da = types.SimpleNamespace(**vars(decode_attn))
+    da.decode_attention = decode_attn.decode_attention_plain
+    pa = types.SimpleNamespace(**vars(paged_decode_attn))
+    pa.paged_decode_attention = paged_decode_attn.paged_decode_attention_plain
+    timer = Timer(torch)
+    g = dict(GEMMA2_SHAPE)
+    H, KV, hd = g.pop("H"), g.pop("KV"), g.pop("hd")
+    check_flash_lse(torch, F, timer, fa, H=H, KV=KV, hd=hd, phase="warm",
+                    **g)
+    check_flash_bwd(torch, F, timer, fa, H=H, KV=KV, hd=hd, phase="warm",
+                    **g)
+    check_flash_prefill(torch, F, timer, fa, H, KV, hd, phase="warm", **g)
+    check_decode_wide(torch, F, timer, da, pa, H, KV, hd, tag="warm", **g)
+    return 0
+
+
+def warm_flex_phase(warm):
+    """Waits for :func:`warm_flex` (started beside the build) and reports
+    it; the checks compile for themselves where it failed."""
+    r = warm.finish()
+    emit("warm_flex", returncode=None if r is None else r[0],
+         subprocess_seconds=warm.seconds,
+         stderr_tail="timed out" if r is None else r[2][-2000:] if r[0]
+         else "")
+
+
+def pal205_phase():
+    """PAL205 on the card: each built library's kernels (ptxas's static
+    shared memory, registers, spills, from the build log) against this
+    card's limits (``repro_torch.analysis.irlint.kernel_budgets``); fails
+    on an error finding or a library without a build log."""
+    from repro_torch.analysis import irlint
+    found, budgets = irlint.kernel_budgets()
+    emit("pal205", limits=irlint.card_limits(), libraries=budgets,
+         findings=[f"{f.severity}: {f.message}" for f in found])
+    if any(f.severity == "error" for f in found) \
+            or None in budgets.values():
+        fail(f"PAL205: {[f.message for f in found]}")
 
 
 def card_name_and_limit():
@@ -3157,44 +3438,35 @@ def dryrun_constants(torch):
     return {k: v[1] for k, v in pairs.items()}
 
 
-def dryrun_phase(torch, measured_launches, measured_peak_gb):
+def dryrun_start():
+    """The dry run's two subprocesses (see :func:`dryrun_phase`), started
+    now, each with a timeout of 120 s."""
+    return {"mesh256": Background(DRYRUN_CLI, 120),
+            "train_sharded": Background(["-c", DRYRUN_TRAIN_SHARDED], 120)}
+
+
+def dryrun_phase(torch, measured_launches, measured_peak_gb, started=None):
     """The dry run (``repro_torch.launch.dryrun``: fake process group, fake
-    tensors, the kernels charged and never launched) in two subprocesses,
-    started after ``train_sharded`` so that no timed phase runs beside
-    them, each with a timeout of 120 s: (a) its CLI on llama3.2-1b at
-    decode_32k with the weight sync on the fake 16 x 16 mesh of 256 ranks,
-    both records ok, decode_attn charged once a layer; (b)
-    ``train_sharded``'s update (two steps) on a fake (1, 1) mesh, its
+    tensors, the kernels charged and never launched) in two CPU
+    subprocesses (``started`` by :func:`dryrun_start` earlier: the full run
+    starts them beside the reference phases, which time nothing; None:
+    started now), each with a timeout of 120 s: (a) its CLI on
+    llama3.2-1b at decode_32k with the weight sync on the fake 16 x 16
+    mesh of 256 ranks, both records ok, decode_attn charged once a layer;
+    (b) ``train_sharded``'s update (two steps) on a fake (1, 1) mesh, its
     kernels' charges equal to ``measured_launches`` (train_sharded's) and
-    its peak within 10% of ``measured_peak_gb``. While they run, the fake
-    branches' constants are held against the library and the card
+    its peak within 10% of ``measured_peak_gb``. The fake branches'
+    constants are held against the library and the card
     (:func:`dryrun_constants`). Also reports the card's total_memory
     beside the dry run's constant for it."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    procs = {name: subprocess.Popen([sys.executable, *argv], cwd=ROOT,
-                                    env=env, stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
-             for name, argv in (("mesh256", DRYRUN_CLI),
-                                ("train_sharded",
-                                 ["-c", DRYRUN_TRAIN_SHARDED]))}
-    try:
-        constants = dryrun_constants(torch)
-        outs = {}
-        for name, proc in procs.items():
-            try:
-                out, err = proc.communicate(
-                    timeout=max(1.0, 120 - (time.perf_counter() - t0)))
-            except subprocess.TimeoutExpired:
-                fail(f"dryrun: the {name} subprocess passed its 120 s "
-                     f"timeout")
-            outs[name] = (proc.returncode, out, err)
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    wall = time.perf_counter() - t0
+    started = started or dryrun_start()
+    constants = dryrun_constants(torch)
+    outs = {}
+    for name, bg in started.items():
+        outs[name] = bg.finish()
+        if outs[name] is None:
+            fail(f"dryrun: the {name} subprocess passed its 120 s timeout")
+    wall = max(bg.seconds for bg in started.values())
     rc, out, err = outs["mesh256"]
     recs = [json.loads(line) for line in out.splitlines()
             if line.startswith('{"arch"')]
@@ -3204,8 +3476,8 @@ def dryrun_phase(torch, measured_launches, measured_peak_gb):
                for k in measured_launches}
     peak_gb = dry.get("memory", {}).get("peak_bytes", 0) / 1e9
     from repro_torch.launch import dryrun
-    emit("dryrun", command=" ".join(DRYRUN_CLI), seconds=wall,
-         after="train_sharded", constants=constants,
+    emit("dryrun", command=" ".join(DRYRUN_CLI), subprocess_seconds=wall,
+         constants=constants,
          records=[{k: r.get(k) for k in (
              "arch", "shape", "mesh", "status", "chips", "trace_s",
              "dominant", "roofline", "flops_per_device",
@@ -3241,28 +3513,30 @@ def dryrun_phase(torch, measured_launches, measured_peak_gb):
              f"{measured_peak_gb} GB, beyond 10%")
 
 
-def serve_sharded_phase(torch, np, serve_mod, kernels, dense):
-    """Sharded serving on the card: llama3.2-1b at full width and depth,
-    the ``serve`` phase's engine settings and 24 requests, on a (1, 1)
-    ("data", "model") mesh in a NCCL process group of world size 1: the
-    weights made already in the serve layout (DTensors), the slot cache
-    laid out by cache_placements, prefill, decode and sampling on the local
-    shards through local_map, every host read gathered. Its tokens and
-    logps must equal the unsharded ``serve`` phase's bit for bit
-    (``dense["results"]``), and the flash, decode and sampling kernels
-    must have launched. Then the steady-chunk profile of ``profile_phase``
-    beside the unsharded one's (``dense["profile"]``). Destroys its
+def serve_sharded_phase(torch, np, serve_mod, kernels, num_layers=4):
+    """Sharded serving on the card: llama3.2-1b at full width and
+    ``num_layers`` of its 16 layers (the run's time: the engine on a mesh
+    is host-bound, ~1 s a steady chunk at 16 layers; no kernel's shape
+    depends on the depth), the ``serve`` phase's engine settings and 24
+    requests, served unsharded and then on a (1, 1) ("data", "model") mesh
+    in a NCCL process group of world size 1: the weights made already in
+    the serve layout (DTensors), the slot cache laid out by
+    cache_placements, prefill, decode and sampling on the local shards
+    through local_map, every host read gathered. The sharded run's tokens
+    and logps must equal the unsharded run's bit for bit, and the flash,
+    decode and sampling kernels must have launched on the shards. Then
+    each engine's steady-chunk profile (``profile_phase``). Destroys its
     process group."""
     from repro_torch.common import tree
     from repro_torch.launch.mesh import make_single_mesh
-    gc.collect()
-    torch.cuda.empty_cache()
-    mesh = make_single_mesh()
-    try:
+
+    def run(mesh, phase):
+        gc.collect()
+        torch.cuda.empty_cache()
         serve, cfg = serve_mod.make_serve_engine(
             "llama3.2-1b", max_prompt_len=512, max_tokens=128,
             concurrency=16, temperature=0.8, top_k=50, top_p=0.95, seed=0,
-            mesh=mesh)
+            num_layers=num_layers, mesh=mesh)
         for p in serve_prompts(np, cfg):
             serve.submit(serve_mod.GenerateRequest(prompt=p))
         torch.cuda.synchronize()
@@ -3273,38 +3547,50 @@ def serve_sharded_phase(torch, np, serve_mod, kernels, dense):
         wall = time.perf_counter() - t0
         launches = read_launches(kernels)
         stats = serve.close()
-        ntok = check_results(np, results, cfg, len(dense["results"]))
-        want = {r.request_id: r for r in dense["results"]}
-        differ = [r.request_id for r in results
-                  if (r.tokens, r.logprobs) != (want[r.request_id].tokens,
-                                                want[r.request_id].logprobs)]
-        prof = profile_phase(torch, np, serve, cfg,
-                             phase="serve_sharded_profile")
+        ntok = check_results(np, results, cfg, len(results))
+        prof = profile_phase(torch, np, serve, cfg, phase=phase)
         layout = [str(t.placements) for t in tree.leaves(
-            serve.eng.cache)[:2]]
+            serve.eng.cache)[:2]] if mesh is not None else None
+        return dict(cfg=cfg, results=results, wall=wall, ntok=ntok,
+                    launches=launches, stats=stats, profile=prof,
+                    layout=layout)
+
+    plain = run(None, "serve_sharded_profile_unsharded")
+    mesh = make_single_mesh()
+    try:
+        got = run(mesh, "serve_sharded_profile")
     finally:
         torch.distributed.destroy_process_group()
+    cfg, results = got["cfg"], got["results"]
+    want = {r.request_id: r for r in plain["results"]}
+    differ = [r.request_id for r in results
+              if (r.tokens, r.logprobs) != (want[r.request_id].tokens,
+                                            want[r.request_id].logprobs)]
     emit("serve_sharded", arch=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, vocab=cfg.vocab_size,
+         depth_cut=f"{cfg.num_layers} of 16 layers: the run's time (the "
+         "engine on a mesh is host-bound; no kernel's shape depends on the "
+         "depth)",
          mesh={"data": 1, "model": 1}, backend="nccl",
-         requests=len(results), tokens=ntok, seconds=wall,
-         tokens_per_s=ntok / wall,
-         tokens_per_s_unsharded=dense["tokens_per_s"],
-         decode_chunks=stats["decode_chunks"], launches=launches,
+         requests=len(results), tokens=got["ntok"], seconds=got["wall"],
+         tokens_per_s=got["ntok"] / got["wall"],
+         tokens_per_s_unsharded=plain["ntok"] / plain["wall"],
+         decode_chunks=got["stats"]["decode_chunks"],
+         launches=got["launches"],
          bit_equal_requests=len(results) - len(differ), differ=differ,
-         cache_layout=layout,
-         wall_ms_per_chunk=prof["wall_ms_per_chunk"],
-         device_busy_ms_per_chunk=prof["device_busy_ms_per_chunk"],
-         wall_ms_per_chunk_unsharded=dense["profile"]["wall_ms_per_chunk"],
-         device_busy_ms_per_chunk_unsharded=dense["profile"][
+         cache_layout=got["layout"],
+         wall_ms_per_chunk=got["profile"]["wall_ms_per_chunk"],
+         device_busy_ms_per_chunk=got["profile"]["device_busy_ms_per_chunk"],
+         wall_ms_per_chunk_unsharded=plain["profile"]["wall_ms_per_chunk"],
+         device_busy_ms_per_chunk_unsharded=plain["profile"][
              "device_busy_ms_per_chunk"])
     if differ:
         fail(f"serve_sharded: requests {differ} differ from the unsharded "
-             "serve phase's tokens or logps")
-    if not all(n > 0 for n in launches.values()):
+             "engine's tokens or logps")
+    if not all(n > 0 for n in got["launches"].values()):
         fail(f"serve_sharded: a kernel never ran on the local shards: "
-             f"{launches}")
-    return launches
+             f"{got['launches']}")
+    return got["launches"]
 
 
 # the block kinds of sharded serving beside attn: (name, arch, layers
@@ -3484,7 +3770,7 @@ def sharded_init_memory(torch, mesh, cfg):
                        params_bytes=params_bytes, same_shards=same)
 
 
-def copris_sharded_phase(torch, np, kernels, steps=2, num_layers=8):
+def copris_sharded_phase(torch, np, kernels, steps=2, num_layers=4):
     """The CoPRIS trainer on one mesh on the card: llama3.2-1b at full
     width and ``num_layers`` of its 16 layers (the run's time limit; the
     sharded path's shapes do not depend on the depth, and
@@ -3710,35 +3996,40 @@ def train_moe_ep_phase(torch, np, kernels, num_layers=3):
     return launches
 
 
-def multihost_phase(np):
+MULTIHOST = ["-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "repro_torch.launch.multihost",
+             "--arch", "llama3.2-1b", "--steps", "2", "--global-batch", "8",
+             "--seq-len", "512", "--microbatches", "1"]
+
+
+def multihost_phase(np, started=None):
     """The sharded launcher as a user starts it: torchrun with one process
     (--standalone: its rendezvous on a free local port) running
     repro_torch.launch.multihost on llama3.2-1b at full width, 2 updates of
     a global batch of 8 x 512 on a (1, 1) mesh over NCCL. It must exit 0
-    with two finite losses."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "1", "-m", "repro_torch.launch.multihost",
-           "--arch", "llama3.2-1b", "--steps", "2", "--global-batch", "8",
-           "--seq-len", "512", "--microbatches", "1"]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                       text=True, timeout=600)
-    wall = time.perf_counter() - t0
+    with two finite losses. ``started``: the :class:`Background` run of
+    MULTIHOST started earlier (the full run starts it beside the reference
+    phases, which time nothing; its rank 0 reports its own peak memory);
+    None: run it now."""
+    started = started or Background(MULTIHOST, 600)
+    r = started.finish()
+    if r is None:
+        fail("multihost: past its 600 s timeout")
+    rc, out, err = r
     losses = [float(m.group(1))
-              for m in re.finditer(r"step \d+: loss (\S+)", r.stdout)]
+              for m in re.finditer(r"step \d+: loss (\S+)", out)]
     mem = re.search(r"init peak memory (\d+) bytes, params and AdamW "
-                    r"state (\d+) bytes", r.stdout)
-    emit("multihost", command=" ".join(cmd[1:]), returncode=r.returncode,
-         losses=losses, seconds=wall,
+                    r"state (\d+) bytes", out)
+    emit("multihost", command=" ".join(MULTIHOST), returncode=rc,
+         losses=losses, subprocess_seconds=started.seconds,
          init_peak_bytes_rank0=int(mem.group(1)) if mem else None,
          params_and_adamw_bytes_rank0=int(mem.group(2)) if mem else None,
          init="sharding.init_sharded_params",
-         stderr_tail=r.stderr[-3000:] if r.returncode else "")
-    if r.returncode != 0 or len(losses) != 2 \
+         stderr_tail=err[-3000:] if rc else "")
+    if rc != 0 or len(losses) != 2 \
             or not all(np.isfinite(losses)) or mem is None:
-        fail(f"multihost: exit {r.returncode}, losses {losses}, init "
-             f"memory line {mem}")
+        fail(f"multihost: exit {rc}, losses {losses}, init memory line "
+             f"{mem}")
 
 
 def train_multiturn_phase(torch, np, kernels, sft, steps=2, extra_sft=8):
@@ -4261,7 +4552,11 @@ def main() -> int:
          cuda=torch.version.cuda, max_sm_clock_mhz=sm_mhz)
 
     # 2. build; the flash libraries' bf16 kernels and the loss library's
-    # bf16 bwd_dh kernels issue wgmma (HGMMA)
+    # bf16 bwd_dh kernels issue wgmma (HGMMA). Beside it, on the cores the
+    # build leaves idle, gemma2-2b's compiled flex_attention library calls
+    # (warm_flex: their generated kernels cached under build/)
+    warm = Background([str(ROOT / "chip_smoke.py"), "--warm-flex"],
+                      WARM_FLEX_TIMEOUT_S)
     t0 = time.perf_counter()
     secs = build.build_all()
     hgmma = {name: sum("HGMMA" in x for x in build.sass(name).splitlines())
@@ -4273,8 +4568,10 @@ def main() -> int:
     if not all(hgmma.values()):
         fail(f"a tensor-core library has no HGMMA (wgmma) instruction: "
              f"{hgmma}")
-    # the sharded launcher under torchrun, while the card is still empty
-    multihost_phase(np)
+    pal205_phase()
+    # the flex_attention library calls compiled beside the build: done
+    # before any kernel is timed
+    warm_flex_phase(warm)
 
     # 3. kernel checks at the main path's shapes
     timer = Timer(torch)
@@ -4448,6 +4745,12 @@ def main() -> int:
         "flash_attn_bwd": flash_attn.flash_attention_bwd}
     rwkv_train_kernels = {**rwkv_kernels, **loss_kernels}
 
+    # the sharded launcher under torchrun and the dry run's two CPU
+    # subprocesses, beside the reference phases, which time nothing: all
+    # three are done before the serve phases time anything
+    multihost = Background(MULTIHOST, 600)
+    dry = dryrun_start()
+
     # 4. GPU engine vs CPU engine on the reduced config, serving and training
     reference_phase(torch, np, serve_mod, model,
                     get_smoke_config("llama3.2-1b"))
@@ -4526,6 +4829,10 @@ def main() -> int:
         TrainConfig(lr=1e-3, entropy_coef=0.01, remat=True),
         "train_reference_vlm")
 
+    multihost_phase(np, multihost)
+    for bg in dry.values():             # their results are read later
+        bg.finish()
+
     # 5. serve at full width (the main path)
     serve, cfg = serve_mod.make_serve_engine(
         "llama3.2-1b", max_prompt_len=512, max_tokens=128, concurrency=16,
@@ -4555,12 +4862,13 @@ def main() -> int:
     if not all(n > 0 for n in serve_launches.values()):
         fail(f"a kernel of the serving path never launched: {serve_launches}")
 
-    dense_serve["profile"] = profile_phase(torch, np, serve, cfg)
+    dense_serve["profile"] = profile_phase(torch, np, serve, cfg,
+                                           sync_free=True)
     serve_paged_phase(torch, np, serve_mod, serve_paged_kernels, dense_serve)
-    # the same requests served on a (1, 1) mesh: bit-equal to the above
-    dense_serve["results"] = results
+    # the same requests at 4 layers, unsharded and on a (1, 1) mesh:
+    # bit-equal
     new_serve_launches = {"serve_sharded": serve_sharded_phase(
-        torch, np, serve_mod, kernels, dense_serve)}
+        torch, np, serve_mod, kernels)}
 
     # 6. CoPRIS collect: early termination buffers partials, then resumes
     params = serve.params
@@ -4617,21 +4925,26 @@ def main() -> int:
     # half depth, and paper-qwen-7b, gemma2-2b and deepseek-moe-16b are
     # served, and run their CoPRIS stages, at half depth too, gemma2-2b
     # trained at 14 of 26)
+    # PR 30's sharded and two-sided phases took the run to 853-905 s on an
+    # H100 80GB HBM3 at 700 W (its aim ~600 s): its phase stamps put ~270 s
+    # in the serve, CoPRIS and train phases of the hybrid, wide-head and
+    # MoE archs and ~84 s in the two mesh phases, so every depth below
+    # (and copris_sharded's, train_disaggregated_mesh's) was halved again
     time_cut = "the run's time (no kernel's shape depends on the depth)"
     hymba_launches, hymba_by_length = serve_arch_phase(
         torch, np, serve_mod, "hymba-1.5b", hymba_kernels, "serve_hymba",
-        num_layers=16, cut=time_cut)
+        num_layers=8, cut=time_cut)
     # 40% of the dense-equivalent 16 x 640 / 16 = 640 pages
     serve_arch_phase(torch, np, serve_mod, "hymba-1.5b",
                      hymba_paged_kernels, "serve_hymba_paged",
-                     kv_backend="paged", kv_num_pages=256, num_layers=8,
+                     kv_backend="paged", kv_num_pages=256, num_layers=4,
                      cut=time_cut)
     rwkv_launches, rwkv_by_length = serve_arch_phase(
         torch, np, serve_mod, "rwkv6-1.6b", rwkv_kernels, "serve_rwkv6",
-        num_layers=12, cut=time_cut)
+        num_layers=6, cut=time_cut)
     copris_arch_phase(torch, np, model, (
-        ("hymba-1.5b", "kv_snapshot", hymba_kernels, "copris_hybrid", 16),
-        ("rwkv6-1.6b", "reprefill", rwkv_kernels, "copris_hybrid", 12)),
+        ("hymba-1.5b", "kv_snapshot", hymba_kernels, "copris_hybrid", 8),
+        ("rwkv6-1.6b", "reprefill", rwkv_kernels, "copris_hybrid", 6)),
         cut=time_cut)
 
     # a serve engine and its RolloutEngine form a reference cycle (the
@@ -4677,15 +4990,15 @@ def main() -> int:
                              num_layers=12, cut=time_cut)
 
     # 7c. the wide-head archs through the same entry points: paper-qwen-7b
-    # (the paper's model: 28/4 heads of 128) served at 14 of its 28
-    # layers over the dense cache and at 7 over the paged one, two CoPRIS
-    # stages at 14, trained at 4 of its 28 layers; gemma2-2b (8/4 of 256,
-    # softcaps, local window) served over the dense cache and trained at 14
+    # (the paper's model: 28/4 heads of 128) served at 7 of its 28
+    # layers over the dense cache and at 4 over the paged one, two CoPRIS
+    # stages at 7, trained at 4 of its 28 layers; gemma2-2b (8/4 of 256,
+    # softcaps, local window) served over the dense cache and trained at 6
     # of its 26 layers (its paged decode is held
     # to the dense kernel bit for bit in the kernel checks); qwen3-14b
-    # (40/8 of 128, qk_norm) served at 20 of its 40 layers; granite-34b
-    # (48/1 of 128) at 24 of its 88; musicgen-medium (24/24 of 64, V 2048:
-    # the full-logits loss) served and trained at 24 of its 48
+    # (40/8 of 128, qk_norm) served at 10 of its 40 layers; granite-34b
+    # (48/1 of 128) at 12 of its 88; musicgen-medium (24/24 of 64, V 2048:
+    # the full-logits loss) served and trained at 12 of its 48
     musicgen_train_kernels = {
         **kernels, "flash_attn_bwd": flash_attn.flash_attention_bwd}
     # the paged paper-qwen-7b, qwen3-14b and musicgen-medium at half depth:
@@ -4695,13 +5008,13 @@ def main() -> int:
     wide = {}
     wide["serve_qwen7b"] = serve_arch_phase(
         torch, np, serve_mod, "paper-qwen-7b", kernels, "serve_qwen7b",
-        num_layers=14, cut=time_cut)[0]
+        num_layers=7, cut=time_cut)[0]
     wide["serve_qwen7b_paged"] = serve_arch_phase(
         torch, np, serve_mod, "paper-qwen-7b", serve_paged_kernels,
         "serve_qwen7b_paged", kv_backend="paged", kv_num_pages=256,
-        num_layers=7, cut=time_cut)[0]
+        num_layers=4, cut=time_cut)[0]
     copris_arch_phase(torch, np, model, (
-        ("paper-qwen-7b", "reprefill", kernels, "copris_qwen7b", 14),),
+        ("paper-qwen-7b", "reprefill", kernels, "copris_qwen7b", 7),),
         cut=time_cut)
     wide["train_qwen7b"] = train_phase(
         torch, np, train_kernels, arch="paper-qwen-7b", phase="train_qwen7b",
@@ -4709,30 +5022,30 @@ def main() -> int:
         cut="the full depth's training state (~122 GB) does not fit the card")
     wide["serve_gemma2"] = serve_arch_phase(
         torch, np, serve_mod, "gemma2-2b", kernels, "serve_gemma2",
-        num_layers=14, cut=time_cut)[0]
+        num_layers=6, cut=time_cut)[0]
     wide["train_gemma2"] = train_phase(
         torch, np, train_kernels, arch="gemma2-2b", phase="train_gemma2",
-        steps=2, seed=2, entropy_coef=0.01, num_layers=14, cut=time_cut)
+        steps=2, seed=2, entropy_coef=0.01, num_layers=6, cut=time_cut)
     wide["serve_qwen3_14b"] = serve_arch_phase(
         torch, np, serve_mod, "qwen3-14b", kernels, "serve_qwen3_14b",
-        num_layers=20, cut=time_cut)[0]
+        num_layers=10, cut=time_cut)[0]
     wide["serve_granite"] = serve_arch_phase(
         torch, np, serve_mod, "granite-34b", kernels, "serve_granite",
-        num_layers=24,
+        num_layers=12,
         cut="the full depth's bf16 weights (93.9 GB) do not fit the card")[0]
     wide["serve_musicgen"] = serve_arch_phase(
         torch, np, serve_mod, "musicgen-medium", kernels, "serve_musicgen",
-        num_layers=24, cut=time_cut)[0]
+        num_layers=12, cut=time_cut)[0]
     # one step: a rollout of 48 layers at 124 tokens took ~22 s
     wide["train_musicgen"] = train_phase(
         torch, np, musicgen_train_kernels, arch="musicgen-medium",
         phase="train_musicgen", steps=1, seed=2, entropy_coef=0.01,
-        num_layers=24, cut=time_cut)
+        num_layers=12, cut=time_cut)
     new_launches.update(wide)
 
     # 7d. the MoE and VLM archs through the same entry points, each freed
-    # before the next: deepseek-moe-16b served at 14 of its 28 layers over
-    # the dense cache and at 7 over the paged one, two CoPRIS stages at 14,
+    # before the next: deepseek-moe-16b served at 7 of its 28 layers over
+    # the dense cache and at 4 over the paged one, two CoPRIS stages at 7,
     # trained at 1 + 2 of its layers (the dense first
     # layer and two MoE layers, full width); qwen3-moe-235b-a22b served at
     # 8 of its 94 layers; llama-3.2-vision-90b served at 10 of its 100
@@ -4741,13 +5054,13 @@ def main() -> int:
     moe_vlm = {}
     moe_vlm["serve_deepseek"] = serve_arch_phase(
         torch, np, serve_mod, "deepseek-moe-16b", kernels,
-        "serve_deepseek", num_layers=14, cut=time_cut)[0]
+        "serve_deepseek", num_layers=7, cut=time_cut)[0]
     moe_vlm["serve_deepseek_paged"] = serve_arch_phase(
         torch, np, serve_mod, "deepseek-moe-16b", serve_paged_kernels,
         "serve_deepseek_paged", kv_backend="paged", kv_num_pages=256,
-        num_layers=7, cut=time_cut)[0]
+        num_layers=4, cut=time_cut)[0]
     copris_arch_phase(torch, np, model, (
-        ("deepseek-moe-16b", "reprefill", kernels, "copris_deepseek", 14),),
+        ("deepseek-moe-16b", "reprefill", kernels, "copris_deepseek", 7),),
         cut=time_cut)
     moe_vlm["train_deepseek"] = train_phase(
         torch, np, train_kernels, arch="deepseek-moe-16b",
@@ -4759,10 +5072,10 @@ def main() -> int:
     sharded_peak = {}
     new_launches["train_sharded"] = train_sharded_phase(
         torch, np, train_kernels, keep=sharded_peak)
-    # the dry run (CPU subprocesses, after train_sharded): 256 fake ranks,
-    # and train_sharded's update counted
+    # the dry run (its CPU subprocesses ran beside the reference phases):
+    # 256 fake ranks, and train_sharded's update counted
     dryrun_phase(torch, new_launches["train_sharded"],
-                 sharded_peak["peak_gb"])
+                 sharded_peak["peak_gb"], started=dry)
     # the CoPRIS trainer on one (1, 1) mesh against the unsharded one
     new_launches["copris_sharded"] = copris_sharded_phase(torch, np,
                                                           train_kernels)
@@ -4914,6 +5227,8 @@ def main() -> int:
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "bound_pipe", "bounds_ms")}
         rows.append(row)
+    # the whole run's seconds, phase by phase (what follows is printing)
+    emit("attribution", nvidia_smi=smi, **attribution())
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5447,4 +5762,6 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:2] == ["--two-sided-rank"] and len(sys.argv) == 4:
         sys.exit(two_sided_rank(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:] == ["--warm-flex"]:
+        sys.exit(warm_flex())
     sys.exit(main())

@@ -53,7 +53,15 @@ a gloo group of its own; a train rank's step receives that batch, runs
 the sharded update and publishes the version through the transfer, whose
 receive the rollout side posted ahead. The sides meet only at versioned
 weights and finished batches, so rollout decodes while the update runs,
-with no GIL between them.
+with no GIL between them. With adaptive N' the train side's first rank
+owns the controller: after each update it observes the batch's rollout
+time and evictions against the update's time and sends the next target
+to the rollout side's first rank before it publishes the version, over a
+gloo group of the two kept for it; the rollout side's first rank takes
+the freshest target that has arrived before each collect (waiting, once
+the staleness gate's version has landed, for the target of the update
+before it) and broadcasts it over the rollout mesh, so every rollout rank
+collects under one target.
 
 Parameters are float32 master tensors that the trainer owns and updates in
 place (``optim/adam.update``); every update is published to the
@@ -326,6 +334,76 @@ class _SideLink:
                 w.wait()
 
 
+class _TargetLink:
+    """Adaptive N' across two sides: the concurrency targets, the other
+    way from :class:`_SideLink`. The train side's first rank, which owns
+    the controller, sends the target it sets after each update to the
+    rollout side's first rank over a gloo group of those two ranks kept
+    for it alone; the rollout side's first rank posts the receive of each
+    update's target ahead, and before each collect takes the freshest one
+    that has arrived and broadcasts it over a group of the rollout mesh's
+    ranks (on the mesh's device: NCCL on the card), so every rollout rank
+    collects under one target."""
+
+    def __init__(self, train_mesh, rollout_mesh):
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import mesh_ranks
+        train, rollout = mesh_ranks(train_mesh), mesh_ranks(rollout_mesh)
+        self.owner, self.source = train[0], rollout[0]
+        self.me = dist.get_rank()
+        self.group = dist.new_group(sorted((self.owner, self.source)),
+                                    backend="gloo")
+        self.rollout = dist.new_group(
+            rollout, backend="nccl" if rollout_mesh.device_type == "cuda"
+            else "gloo")
+        self.device = mesh_device(rollout_mesh)
+        self._sending = deque()       # (work, the tensor it reads)
+        self._posted = deque()        # (update index, work, its buffer)
+
+    def send(self, target: int):
+        """The owner's target after its latest update, without waiting."""
+        import torch.distributed as dist
+        t = torch.tensor([target], dtype=torch.int64)
+        self._sending.append((dist.isend(t, self.source, group=self.group),
+                              t))
+        while self._sending and self._sending[0][0].is_completed():
+            self._sending.popleft()
+
+    def post(self, update: int):
+        """Post the receive of update ``update`` 's target (the rollout
+        side's first rank; the other ranks post nothing)."""
+        import torch.distributed as dist
+        if self.me != self.source:
+            return
+        t = torch.zeros(1, dtype=torch.int64)
+        self._posted.append((update, dist.irecv(t, self.owner,
+                                                group=self.group), t))
+
+    def take(self, need: int, current: int) -> int:
+        """The target of the next collect, the same on every rollout rank:
+        the freshest that has arrived, once the targets of the updates up
+        to ``need`` have (``current`` where none has since the last
+        call)."""
+        import torch.distributed as dist
+        if self.me == self.source:
+            while self._posted and (self._posted[0][0] <= need
+                                    or self._posted[0][1].is_completed()):
+                _, work, t = self._posted.popleft()
+                work.wait()
+                current = int(t)
+        t = torch.tensor([current], dtype=torch.int64, device=self.device)
+        dist.broadcast(t, self.source, group=self.rollout)
+        return int(t)
+
+    def close(self):
+        """Wait for every send and every posted receive."""
+        while self._sending:
+            self._sending.popleft()[0].wait()
+        while self._posted:
+            self._posted.popleft()[1].wait()
+
+
 class ThreadSafeTask:
     """Serialises ``sample_prompt`` against the rollout producer thread.
 
@@ -495,11 +573,20 @@ class CoPRISTrainer:
 
         # ---- overlap-aware adaptive N' -------------------------------
         # observe() runs on the consumer thread between stages; the
-        # producer reads the plain-int target at collect start (GIL-atomic)
-        self._concurrency_ctrl = (AdaptiveConcurrencyController(ro_cfg)
-                                  if ro_cfg.adaptive_concurrency else None)
-        self._concurrency_target: Optional[int] = (
-            self._concurrency_ctrl.target if self._concurrency_ctrl else None)
+        # producer reads the plain-int target at collect start (GIL-atomic).
+        # Across two sides the train side's first rank alone observes (one
+        # clock, one trace) and sends each target to the rollout side
+        # (_TargetLink)
+        self._concurrency_ctrl = self._concurrency_target = None
+        self._targets = None
+        if ro_cfg.adaptive_concurrency:
+            ctrl = AdaptiveConcurrencyController(ro_cfg)
+            self._concurrency_target = ctrl.target
+            if self.role is not None:
+                self._targets = _TargetLink(train_mesh, self.rollout_mesh)
+            if self._targets is None or \
+                    self._targets.me == self._targets.owner:
+                self._concurrency_ctrl = ctrl
 
         self._progress = threading.Condition()
         self._batches: "queue.Queue[_StageBatch]" = queue.Queue(
@@ -544,11 +631,6 @@ class CoPRISTrainer:
             raise ValueError(
                 f"the two meshes hold {len(a | b)} of the "
                 f"{dist.get_world_size()} ranks: every rank plays a side")
-        if self.ro.adaptive_concurrency:
-            raise NotImplementedError(
-                "adaptive_concurrency across two sides: the controller "
-                "observes the update on one rank and sets the collect's "
-                "target on another")
         return "train" if dist.get_rank() in a else "rollout"
 
     def _mesh_params(self, params, rollout_device):
@@ -708,8 +790,17 @@ class CoPRISTrainer:
         training on it is posted. Returns the collect's stats."""
         with self._progress:
             idx = self._collect_idx
+        if self._targets is not None:
+            # the target the train side sets after training this collect
+            self._targets.post(idx)
         self.param_store.wait_for(self._first_stage + idx
                                   - self.max_staleness)
+        if self._targets is not None:
+            # the gate's version was published after the target of update
+            # idx - max_staleness - 1 was sent: waiting for that target
+            # costs nothing and bounds its age as the reference's gate does
+            self._concurrency_target = self._targets.take(
+                idx - self.max_staleness - 1, self._concurrency_target)
         params, version = self.param_store.acquire()
         item = self._collect_stage(params, version, idx)
         del params
@@ -770,6 +861,11 @@ class CoPRISTrainer:
         # params/opt_state/stage; the producer reads exclusively through
         # the store (fenced copies), so no lock is needed around them.
         self.stage = train_stage + 1
+        if self._targets is not None:
+            # across two sides the update's target leaves before its
+            # version (the rollout side's gate bounds the target's age by
+            # it), so train_time ends with the update, before the publish
+            self._observe(roll_stats, self._synced() - t_collected)
         self.param_store.publish(self.params, self.stage)
         with self._progress:
             self._trained_batches += 1
@@ -777,9 +873,7 @@ class CoPRISTrainer:
         # kernels run asynchronously: wait for the update (this stream only,
         # never the rollout's) before stamping t_end, so update_time covers
         # the update's device work and nothing of the rollout's
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        t_end = time.perf_counter()
+        t_end = self._synced()
 
         # staleness relative to the CONSUMING training stage
         stages_arr = batch["stage_ids"]
@@ -803,11 +897,8 @@ class CoPRISTrainer:
         store = item.store or dict(
             versions=self.param_store.num_versions,
             dropped=ps_stats["dropped"] - self._reported["dropped"])
-        if self._concurrency_ctrl is not None:
-            self._concurrency_target = self._concurrency_ctrl.observe(
-                rollout_time=rollout_time,
-                train_time=t_end - t_collected,
-                evicted=roll_stats["evicted"])
+        if self._targets is None:
+            self._observe(roll_stats, t_end - t_collected)
         out.update(
             step=train_stage,
             reward_mean=float(batch["rewards"].mean()),
@@ -854,6 +945,26 @@ class CoPRISTrainer:
         self.last_batch = batch
         return out
 
+    def _synced(self) -> float:
+        """The host clock once this stream's queued work is done."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return time.perf_counter()
+
+    def _observe(self, roll_stats, train_time: float):
+        """Feed one trained stage to the adaptive N' controller (where this
+        rank owns one): the collect's wall time and evictions against the
+        consumer work it overlapped. The producer picks the new target up
+        at its NEXT collect start (across two sides: it is sent there), so
+        concurrency adjusts between stages, never inside one."""
+        if self._concurrency_ctrl is None:
+            return
+        self._concurrency_target = self._concurrency_ctrl.observe(
+            rollout_time=roll_stats["wall_time"], train_time=train_time,
+            evicted=roll_stats["evicted"])
+        if self._targets is not None:
+            self._targets.send(self._concurrency_target)
+
     # ------------------------------------------------------------------
     def restore(self, *, params=None, opt_state=None, stage=None):
         """Resume from checkpoint state: copy the given values into the
@@ -899,13 +1010,17 @@ class CoPRISTrainer:
         wait for both streams' queued work. Across two sides the rollout
         side first waits for its batches' sends and for every version it
         posted a receive for (the train side publishes one a step, so the
-        sides end matched). Idempotent."""
+        sides end matched); with adaptive N' the train side waits for its
+        targets' sends and the rollout side for the target of every update
+        it posted a receive for (one a step). Idempotent."""
         if self._closed:
             return
         self._closed = True
         if self.role == "rollout":
             self._link.close()
             self.param_store.drain()
+        if self._targets is not None:
+            self._targets.close()
         self._stop.set()
         with self._progress:
             self._progress.notify_all()

@@ -506,3 +506,56 @@ def make_backend(name: str, model_cfg, pool: int, max_len: int, *,
         return PagedCache(model_cfg, pool, max_len, page_size=page_size,
                           num_pages=num_pages, dtype=dtype, device=device)
     raise ValueError(f"unknown kv backend {name!r} (dense|paged)")
+
+
+# ---------------------------------------------------------------------------
+# deprecated free-function API (thin shims over the dense layout)
+# ---------------------------------------------------------------------------
+
+
+def _deprecated(name: str):
+    import warnings
+    warnings.warn(
+        f"repro_torch.sampling.kv_cache.{name} is deprecated: use the "
+        "CacheBackend API (DenseCache / PagedCache methods) instead — the "
+        "free functions only understand the dense slot layout",
+        DeprecationWarning, stacklevel=3)
+
+
+def insert_slots(cache, new_cache, slot_ids):
+    """DEPRECATED — scatter full-length per-slot state ``new_cache``
+    (batch = len(slot_ids)) into ``cache`` in place at ``slot_ids``;
+    out-of-range ids are dropped. Returns ``cache``."""
+    _deprecated("insert_slots")
+    return dense_insert_rows(cache, new_cache, slot_ids,
+                             np.arange(len(slot_ids)))
+
+
+def insert_slots_prefix(cache, new_cache, slot_ids):
+    """DEPRECATED — dense prefill insert: the first S positions of each
+    slot, S the length of ``new_cache``."""
+    _deprecated("insert_slots_prefix")
+    return dense_insert_rows(cache, new_cache, slot_ids,
+                             np.arange(len(slot_ids)))
+
+
+def extract_slots(cache, slot_ids):
+    """DEPRECATED — dense per-slot snapshot gather (a copy)."""
+    _deprecated("extract_slots")
+    ids = torch.as_tensor(np.asarray(slot_ids, np.int64),
+                          device=_device(cache))
+    return [{name: t.index_select(0, ids) for name, t in layer.items()}
+            for layer in cache]
+
+
+def zero_slots(cache, slot_ids):
+    """DEPRECATED — dense slot reset, in place; out-of-range ids are
+    dropped. Returns ``cache``."""
+    _deprecated("zero_slots")
+    pool = next(iter(cache[0].values())).shape[0]
+    ids = np.asarray(slot_ids, np.int64)
+    ids = torch.from_numpy(ids[(ids >= 0) & (ids < pool)]).to(_device(cache))
+    for layer in cache:
+        for t in layer.values():
+            t[ids] = 0
+    return cache

@@ -238,6 +238,10 @@ RO = dict(batch_size=3, group_size=2, max_prompt_len=16, max_response_len=16,
           concurrency=4, mode="copris")
 TC = dict(lr=1e-3, seed=3, entropy_coef=0.01, max_staleness=1)
 STEPS = 4
+# adaptive N' across the sides: the slot pool sized to 6, the controller's
+# owner handing out targets that differ from the initial 4 and each other
+ADAPTIVE = dict(ro=dict(RO, adaptive_concurrency=True, concurrency_min=1,
+                        concurrency_max=6), steps=3, scripted=[6, 2, 5])
 
 
 def test_disaggregated_needs_overlap():
@@ -262,8 +266,11 @@ def two_sided(tmp_path_factory):
     res = torch_ranks.spawn("disaggregated_trainer",
                             tmp_path_factory.mktemp("two_sided"), 4,
                             params=params, start=start, ro=RO, tc=TC,
-                            task_seed=9, steps=STEPS, eval_prompts=2)
-    print(f"4-rank spawn: {time.perf_counter() - t0:.1f} s")
+                            task_seed=9, steps=STEPS, eval_prompts=2,
+                            adaptive=ADAPTIVE)
+    print(f"4-rank spawn: {time.perf_counter() - t0:.1f} s, of which the "
+          f"adaptive trainer {max(r['adaptive']['seconds'] for r in res):.1f}"
+          " s")
     return params, res
 
 
@@ -390,3 +397,42 @@ def test_same_ranks_in_another_shape_matches_the_jax_trainer(two_sided):
     assert len(want_p) == len(got["params"])
     for a, b in zip(got["params"], want_p):
         np.testing.assert_allclose(a, b.numpy(), atol=1e-5)
+
+
+def test_two_sided_adaptive_concurrency(two_sided):
+    """Adaptive N' across the two sides (the third trainer of the spawn):
+    the train side's first rank alone owns the controller; its trace
+    equals the reference's ``AdaptiveConcurrencyController`` fed the same
+    observations; both rollout ranks collect under one target; collect
+    ``idx`` runs under the target set after update ``j``, ``idx -
+    max_staleness - 1 <= j <= idx`` (the initial target before any such
+    update), and the train ranks report it as ``concurrency_target``."""
+    from repro.core.scheduler import AdaptiveConcurrencyController as JCtrl
+    _, res = two_sided
+    got = [r["adaptive"] for r in res]
+    assert [g["owner"] for g in got] == [True, False, False, False]
+    owner = got[0]
+    n = ADAPTIVE["steps"]
+    assert len(owner["observed"]) == n
+    for obs in owner["observed"]:
+        assert set(obs) == {"rollout_time", "train_time", "evicted"}
+        assert obs["rollout_time"] > 0 and obs["train_time"] > 0
+    ref = JCtrl(JRolloutConfig(**ADAPTIVE["ro"]))
+    for obs in owner["observed"]:
+        ref.observe(**obs)
+    assert owner["trace"] == ref.trace
+    initial = ref.trace[0]
+    assert initial not in ADAPTIVE["scripted"]
+    rollout = [o["concurrency_target"] for o in got[2]["outs"]]
+    assert rollout == [o["concurrency_target"] for o in got[3]["outs"]]
+    assert [o["collect_idx"] for o in got[2]["outs"]] == list(range(n))
+    k = TC["max_staleness"]
+    for idx, target in enumerate(rollout):
+        allowed = {ADAPTIVE["scripted"][j]
+                   for j in range(max(0, idx - k - 1), idx + 1)}
+        if idx - k - 1 < 0:
+            allowed.add(initial)
+        assert target in allowed, (idx, target, rollout)
+    assert rollout[0] == initial
+    for g in got[:2]:
+        assert [o["concurrency_target"] for o in g["outs"]] == rollout

@@ -675,3 +675,80 @@ def test_vlm_paged_preemption_snapshot_equals_dense():
                       kv_num_pages=8, resume_strategy="kv_snapshot")
     assert st["page_preemptions"] > 0 and st["snapshot_resumes"] > 0
     _assert_same_content(_tmap(gd), _tmap(gp), logp_atol=1e-5)
+
+
+# -- the deprecated free functions against the reference's -------------------
+
+
+def test_deprecated_shims_match_the_reference():
+    """``insert_slots`` / ``insert_slots_prefix`` / ``extract_slots`` /
+    ``zero_slots`` on the same dense cache (tiny: 4 attention layers, a
+    pool of 4 slots of 16 positions, random values) give the reference's
+    shims' values leaf for leaf, each warning with the reference's text
+    naming ``repro_torch``; out-of-range slot ids (the padding rows) are
+    dropped by the inserts and by the reset."""
+    import warnings
+
+    from repro.sampling import kv_cache as jkvc
+
+    rng = np.random.default_rng(5)
+    pool, L, KV, hd = 4, 16, CFG.num_kv_heads, CFG.head_dim
+
+    def rand(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def body(layers):              # the port's per-layer dicts -> JAX's
+        return {"body": ({n: jnp.stack([jnp.asarray(lay[n].numpy())
+                                        for lay in layers])
+                          for n in ("k", "v")},), "prefix": []}
+
+    def port(j):
+        return [{n: torch.from_numpy(np.array(j["body"][0][n][i]))
+                 for n in ("k", "v")} for i in range(CFG.num_layers)]
+
+    def same(mine, theirs):
+        for i, lay in enumerate(mine):
+            for n in ("k", "v"):
+                np.testing.assert_array_equal(
+                    lay[n].numpy(), np.asarray(theirs["body"][0][n][i]))
+
+    base = [{n: torch.from_numpy(rand(pool, L, KV, hd)) for n in ("k", "v")}
+            for _ in range(CFG.num_layers)]
+    new = [{n: torch.from_numpy(rand(2, L, KV, hd)) for n in ("k", "v")}
+           for _ in range(CFG.num_layers)]
+    prefix = [{n: torch.from_numpy(rand(2, 6, KV, hd)) for n in ("k", "v")}
+              for _ in range(CFG.num_layers)]
+    ids = np.array([2, pool], np.int32)       # the second: a padding row
+    cases = [
+        ("insert_slots", (new, ids), (body(new), jnp.asarray(ids))),
+        ("insert_slots_prefix", (prefix, ids),
+         (body(prefix), jnp.asarray(ids))),
+        ("zero_slots", (np.array([0, 3, pool]),),
+         (jnp.asarray([0, 3, pool]),)),
+        ("extract_slots", (np.array([3, 1]),), (jnp.asarray([3, 1]),)),
+    ]
+    for name, mine, theirs in cases:
+        cache = [{n: t.clone() for n, t in lay.items()} for lay in base]
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            got = getattr(kvc, name)(cache, *mine)
+            want = getattr(jkvc, name)(body(base), *theirs)
+        msgs = [str(x.message) for x in w
+                if issubclass(x.category, DeprecationWarning)]
+        assert len(msgs) == 2, msgs
+        assert msgs[0].startswith(f"repro_torch.sampling.kv_cache.{name} ")
+        assert msgs[0].split(" is deprecated")[1] == \
+            msgs[1].split(" is deprecated")[1]
+        same(got, want)
+        if name != "extract_slots":          # in place
+            assert got is cache
+    # what extract took, insert puts back: a snapshot moved to another slot
+    cache = [{n: t.clone() for n, t in lay.items()} for lay in base]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        snap = kvc.extract_slots(cache, [1])
+        kvc.insert_slots(cache, snap, [2])
+        jc = jkvc.insert_slots(body(base), jkvc.extract_slots(
+            body(base), jnp.asarray([1])), jnp.asarray([2]))
+    same(cache, jc)
+    assert torch.equal(port(jc)[0]["k"][2], base[0]["k"][1])

@@ -62,16 +62,24 @@ def case_config(name: str, get_config=None, get_smoke_config=None):
 
 def spawn(fn: str, tmp_path, world: int, **inputs):
     """Run ``fn(rank, mesh_shape=..., **inputs)`` on ``world`` gloo ranks;
-    returns the ranks' results in rank order."""
+    returns the ranks' results in rank order. The pickles of the inputs
+    and of the results are deleted once read (a run of the tests would
+    otherwise leave gigabytes of them under the temporary directory)."""
     import torch.multiprocessing as mp
-    with open(os.path.join(tmp_path, "inputs.pkl"), "wb") as f:
+    inputs_path = os.path.join(tmp_path, "inputs.pkl")
+    with open(inputs_path, "wb") as f:
         pickle.dump(inputs, f)
-    mp.spawn(_entry, args=(world, str(tmp_path), fn), nprocs=world,
-             join=True)
+    try:
+        mp.spawn(_entry, args=(world, str(tmp_path), fn), nprocs=world,
+                 join=True)
+    finally:
+        os.remove(inputs_path)
     out = []
     for r in range(world):
-        with open(os.path.join(tmp_path, f"rank{r}.pkl"), "rb") as f:
+        path = os.path.join(tmp_path, f"rank{r}.pkl")
+        with open(path, "rb") as f:
             out.append(pickle.load(f))
+        os.remove(path)
     return out
 
 
@@ -478,7 +486,7 @@ def disaggregated_reshard(rank, *, cases, too_big):
 
 
 def disaggregated_trainer(rank, *, params, start, ro, tc, task_seed, steps,
-                          eval_prompts):
+                          eval_prompts, adaptive=None):
     """The two-sided CoPRIS trainer on disjoint (1, 2) + (1, 2) meshes of
     the 4 ranks, the reduced llama at vocab 8192: first the refusals
     (meshes sharing some ranks, disjoint meshes without overlap), then a
@@ -487,7 +495,11 @@ def disaggregated_trainer(rank, *, params, start, ro, tc, task_seed, steps,
     train rank returns each step's metrics, the digests of its params at
     every stage and (the first) the final params; a rollout rank each
     collect's stats and trajectories and the digests of every version it
-    acquired."""
+    acquired. ``adaptive`` (``ro``, ``steps``, ``scripted``): then a
+    trainer with adaptive N' on the same meshes from ``params``, whose
+    controller hands out the ``scripted`` targets (``out["adaptive"]``:
+    the observations and real trace of the controller's owner, each
+    step's target)."""
     import dataclasses
 
     import torch
@@ -556,6 +568,39 @@ def disaggregated_trainer(rank, *, params, start, ro, tc, task_seed, steps,
         final = [np.asarray(t) for t in leaves(_np(tr.params))]
         if rank == 0:
             out["final"] = final
+    # adaptive N' across the two sides: the train side's first rank owns
+    # the controller; its observe is wrapped to record the real
+    # observations and trace and to hand out the scripted targets
+    if adaptive is not None:
+        import time
+        t0 = time.perf_counter()
+        tr = CoPRISTrainer(cfg, RolloutConfig(**adaptive["ro"]), tcfg,
+                           AdditionTask(max_value=20, seed=task_seed),
+                           eos_id=EOS, params=convert.params_from_jax(
+                               params, cfg, "cpu"),
+                           train_mesh=train, rollout_mesh=rollout)
+        ctrl = tr._concurrency_ctrl
+        got = dict(owner=ctrl is not None, observed=[], trace=None, outs=[])
+        if ctrl is not None:
+            real, scripted = ctrl.observe, iter(adaptive["scripted"])
+
+            def observe(**kw):
+                got["observed"].append(kw)
+                real(**kw)
+                return next(scripted)
+            ctrl.observe = observe
+        try:
+            for _ in range(adaptive["steps"]):
+                o = tr.step()
+                got["outs"].append({k: o[k] for k in (
+                    "concurrency_target", "collect_idx", "params_version",
+                    "step", "param_staleness") if k in o})
+        finally:
+            tr.close()
+        if ctrl is not None:
+            got["trace"] = list(ctrl.trace)
+        got["seconds"] = time.perf_counter() - t0
+        out["adaptive"] = got
     # the same four ranks in two shapes: (2, 2) trains, the (1, 2, 2) GQA
     # serve mesh collects, one sequential step
     from repro_torch.launch.mesh import make_gqa_serve_mesh, make_mesh
