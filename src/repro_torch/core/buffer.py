@@ -44,11 +44,6 @@ class TrajectoryBuffer:
         return sum(1 for g in self._groups.values()
                    for t in g.trajectories if not t.done)
 
-    @property
-    def num_finished_waiting(self) -> int:
-        return sum(1 for g in self._groups.values()
-                   for t in g.trajectories if t.done)
-
     # ------------------------------------------------------------------
     def pop_resumable(self, exclude=()) -> Optional[Trajectory]:
         """Longest unfinished partial trajectory (prioritized resumption).
@@ -82,14 +77,3 @@ class TrajectoryBuffer:
             for t in g.trajectories:
                 t.check_invariants()
         return out
-
-    def off_policy_token_fraction(self, stage: int) -> float:
-        """Fraction of buffered MODEL tokens older than ``stage`` (the stage
-        that would consume them next). Env observation tokens are excluded
-        from both sides — the IS correction never sees them."""
-        tok = off = 0
-        for g in self._groups.values():
-            for t in g.trajectories:
-                tok += t.model_token_count
-                off += t.off_policy_tokens(stage)
-        return off / tok if tok else 0.0

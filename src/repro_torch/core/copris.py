@@ -90,6 +90,7 @@ from repro_torch.common.partitioning import (activation_mesh,
                                              activation_placements,
                                              is_sharded, on_mesh, replicated,
                                              to_host)
+from repro_torch.common.tracing import span
 from repro_torch.common.tree import leaves, tree_map, unflatten
 from repro_torch.core import grpo
 from repro_torch.core.importance import pack_groups
@@ -195,10 +196,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
 
     def grad_fn(params, mb):
         flat = leaves(params)
-        loss, metrics = loss_fn(params, mb)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        return metrics, [torch.zeros_like(p) if g is None
-                         else _like(g, p) for p, g in zip(flat, grads)]
+        with span("update.forward"):
+            loss, metrics = loss_fn(params, mb)
+        with span("update.backward"):
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            return metrics, [torch.zeros_like(p) if g is None
+                             else _like(g, p) for p, g in zip(flat, grads)]
 
     def train_step(params, opt_state, batch, lr):
         n = next(iter(batch.values())).shape[0] // k
@@ -210,16 +213,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             if gsum is None:
                 gsum, msum = g, metrics
             else:
-                gsum = [a + b for a, b in zip(gsum, g)]
-                msum = {key: msum[key] + metrics[key] for key in msum}
+                with span("update.backward"):
+                    gsum = [a + b for a, b in zip(gsum, g)]
+                    msum = {key: msum[key] + metrics[key] for key in msum}
             del g
         if k > 1:
-            gsum = [g / k for g in gsum]
-            msum = {key: v / k for key, v in msum.items()}
-        params, opt_state, om = adam.update(
-            unflatten(params, gsum), opt_state, params, lr=lr,
-            betas=tcfg.betas, eps=tcfg.eps, weight_decay=tcfg.weight_decay,
-            grad_clip=tcfg.grad_clip)
+            with span("update.backward"):
+                gsum = [g / k for g in gsum]
+                msum = {key: v / k for key, v in msum.items()}
+        with span("update.optimizer"):
+            params, opt_state, om = adam.update(
+                unflatten(params, gsum), opt_state, params, lr=lr,
+                betas=tcfg.betas, eps=tcfg.eps,
+                weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip)
         msum.update(om)
         return params, opt_state, {key: to_host(v) for key, v in msum.items()}
 
@@ -670,9 +676,10 @@ class CoPRISTrainer:
 
     def _collect_stage(self, params, version: int, idx: int) -> _StageBatch:
         k_roll = self._next_rollout_key()
-        groups, roll_stats = self.engine.collect(
-            params, version, k_roll,
-            target_concurrency=self._concurrency_target)
+        with span("trainer.collect"):
+            groups, roll_stats = self.engine.collect(
+                params, version, k_roll,
+                target_concurrency=self._concurrency_target)
         return _StageBatch(collect_idx=idx, params_version=version,
                            groups=groups, roll_stats=roll_stats)
 
@@ -741,31 +748,32 @@ class CoPRISTrainer:
         to ``max_staleness`` updates behind the ones being trained)."""
         if self._closed:
             raise RuntimeError("trainer is closed")
-        if self._first_stage is None:
-            self._first_stage = self.stage
-        if self.role == "rollout":
-            return self._rollout_step()
-        t0 = time.perf_counter()
-        if self.role == "train":
-            item = self._link.recv(_SideLink.BATCH)
-        elif self.overlap:
-            self._ensure_producer()
-            item = self._next_batch()
-        else:
-            # same handoff as the producer thread: freshest published
-            # version — identical to (self.params, self.stage) here, since
-            # the sequential consumer is the only publisher
-            params, version = self.param_store.acquire()
-            with self._progress:
-                idx = self._collect_idx
-            item = self._collect_stage(params, version, idx)
-            with self._progress:
-                self._collect_idx += 1
-        t_collected = time.perf_counter()
-        with _on(self.train_stream):
-            out = self._train_on(item, t0, t_collected)
-        self.history.append(out)
-        return out
+        with span("trainer.step"):
+            if self._first_stage is None:
+                self._first_stage = self.stage
+            if self.role == "rollout":
+                return self._rollout_step()
+            t0 = time.perf_counter()
+            if self.role == "train":
+                item = self._link.recv(_SideLink.BATCH)
+            elif self.overlap:
+                self._ensure_producer()
+                item = self._next_batch()
+            else:
+                # same handoff as the producer thread: freshest published
+                # version — identical to (self.params, self.stage) here, since
+                # the sequential consumer is the only publisher
+                params, version = self.param_store.acquire()
+                with self._progress:
+                    idx = self._collect_idx
+                item = self._collect_stage(params, version, idx)
+                with self._progress:
+                    self._collect_idx += 1
+            t_collected = time.perf_counter()
+            with _on(self.train_stream):
+                out = self._train_on(item, t0, t_collected)
+            self.history.append(out)
+            return out
 
     def _batch_tensors(self, batch):
         """The packed batch on the train device (on a mesh, its rows over
@@ -833,14 +841,16 @@ class CoPRISTrainer:
         # rewards were computed asynchronously during rollout; gather
         # resolves any stragglers and runs on the CONSUMER thread, so the
         # producer keeps submitting stage k+1 rewards while stage k gathers
-        self.reward_worker.gather(item.groups)
-        item.reward_time = self.reward_worker.last_gather_time
-        item.batch = pack_groups(item.groups, max_len=self.engine.max_len)
-        item.mean_resp_len = float(np.mean([
-            len(t.response_tokens) for g in item.groups
-            for t in g.trajectories]))
-        item.env_timeouts = (self.env_worker.stats_snapshot()["env_timeouts"]
-                             if self.env_worker is not None else 0)
+        with span("trainer.settle"):
+            self.reward_worker.gather(item.groups)
+            item.reward_time = self.reward_worker.last_gather_time
+            item.batch = pack_groups(item.groups, max_len=self.engine.max_len)
+            item.mean_resp_len = float(np.mean([
+                len(t.response_tokens) for g in item.groups
+                for t in g.trajectories]))
+            item.env_timeouts = (
+                self.env_worker.stats_snapshot()["env_timeouts"]
+                if self.env_worker is not None else 0)
 
     def _train_on(self, item: _StageBatch, t0: float,
                   t_collected: float) -> dict:
@@ -853,7 +863,7 @@ class CoPRISTrainer:
         batch = item.batch
         lr = schedule.warmup_constant(train_stage, lr=self.tcfg.lr,
                                       warmup_steps=self.tcfg.warmup_steps)
-        with activation_mesh(self.train_mesh):
+        with activation_mesh(self.train_mesh), span("trainer.update"):
             self.params, self.opt_state, metrics = self._train_step(
                 self.params, self.opt_state, self._batch_tensors(batch), lr)
         # publish the update as a new version for the producer, then wake
@@ -866,7 +876,8 @@ class CoPRISTrainer:
             # version (the rollout side's gate bounds the target's age by
             # it), so train_time ends with the update, before the publish
             self._observe(roll_stats, self._synced() - t_collected)
-        self.param_store.publish(self.params, self.stage)
+        with span("trainer.publish"):
+            self.param_store.publish(self.params, self.stage)
         with self._progress:
             self._trained_batches += 1
             self._progress.notify_all()
@@ -907,7 +918,6 @@ class CoPRISTrainer:
             reward_time=reward_time,
             update_time=update_time,
             host_syncs=roll_stats["host_syncs"],
-            tokens_per_sync=roll_stats["tokens_per_sync"],
             step_time=step_time,
             off_policy_frac=off_tokens / max(1, n_resp),
             staleness_hist=staleness_hist,

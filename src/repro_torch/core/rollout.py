@@ -61,6 +61,7 @@ from repro_torch.common.config import ModelConfig, RolloutConfig
 from repro_torch.common.device import resolve_device, torch_dtype
 from repro_torch.common.partitioning import (on_mesh, on_rows, replicate,
                                              to_host)
+from repro_torch.common.tracing import span
 from repro_torch.core.buffer import TrajectoryBuffer
 from repro_torch.core.reward_worker import AsyncEnvWorker
 from repro_torch.core.scheduler import ConcurrencyScheduler
@@ -486,6 +487,8 @@ class RolloutEngine:
         row_map, primary = [], []
         for (i, traj), f, L in zip(pending, fulls, lens):
             fresh = traj.response_len == 0
+            if not fresh:              # resumed: recomputed from its start
+                self._stats["reprefill_tokens"] += L
             if share and fresh and traj.group_id in row_of_gid:
                 row_map.append(row_of_gid[traj.group_id])
                 primary.append(False)
@@ -497,6 +500,7 @@ class RolloutEngine:
                 row_map.append(r)
                 primary.append(True)
         S, nr, ns = prefill_pad_dims(lens, len(rows), len(pending))
+        self._stats["prefill_positions"] += nr * S
         tokens = np.zeros((nr, S), np.int32)
         lengths = np.ones(nr, np.int32)
         flat_pos = None
@@ -582,7 +586,8 @@ class RolloutEngine:
         """Batched prefill, iterated: a prefill's very first sampled token
         may already be EOS, freeing the slot again."""
         while pending:
-            finished = self._prefill_pending(pending, params, stage_key)
+            with span("engine.prefill"):
+                finished = self._prefill_pending(pending, params, stage_key)
             freed = []
             for i, traj, reason in finished:
                 self._stop_slot(traj, reason, sched)
@@ -666,32 +671,39 @@ class RolloutEngine:
         an inactive slot the draw is discarded by the host replay, so keys
         for the whole chunk are derived up front on the host."""
         D, dev = self._chunk, self.device
-        slot_keys = _fold_slot_keys(stage_key, self.slot_gid, self.slot_sidx)
-        idx = torch.from_numpy(resp_len).to(torch.int64)[None] \
-            + torch.arange(D)[:, None]                            # (D, pool)
-        keys = prng.fold_in(slot_keys[None].expand(D, self.pool, 2),
-                            idx).to(dev)
-        eos_id, max_resp, max_len = (self.eos_id, self.ro.max_response_len,
-                                     self.max_len)
+        with span("engine.decode"):
+            with span("decode.keys"):
+                slot_keys = _fold_slot_keys(stage_key, self.slot_gid,
+                                            self.slot_sidx)
+                idx = torch.from_numpy(resp_len).to(torch.int64)[None] \
+                    + torch.arange(D)[:, None]                    # (D, pool)
+                keys = prng.fold_in(slot_keys[None].expand(D, self.pool, 2),
+                                    idx).to(dev)
+            eos_id, max_resp, max_len = (self.eos_id,
+                                         self.ro.max_response_len,
+                                         self.max_len)
 
-        def step_fn(logits, clen, act, aux):
-            resp, d = aux
-            tok, logp = self._sample(keys[d], logits)
-            resp_new = resp + act.to(resp.dtype)
-            eos, length = stop_flags(tok, resp_new, clen + 2, eos_id=eos_id,
-                                     max_response_len=max_resp,
-                                     max_len=max_len)
-            return tok, logp, eos | length, (resp_new, d + 1)
+            def step_fn(logits, clen, act, aux):
+                resp, d = aux
+                tok, logp = self._sample(keys[d], logits)
+                resp_new = resp + act.to(resp.dtype)
+                eos, length = stop_flags(tok, resp_new, clen + 2,
+                                         eos_id=eos_id,
+                                         max_response_len=max_resp,
+                                         max_len=max_len)
+                return tok, logp, eos | length, (resp_new, d + 1)
 
-        # a fresh device block table for every chunk (None for dense)
-        bt = self.backend.block_table_device()
-        _, (toks, logps, acts) = M.decode_scan(
-            params, self.cfg, self.cache, self._put(self.last_token),
-            self._put(self.cache_len), self._put(live),
-            (self._put(resp_len), 0), steps=D, step_fn=step_fn,
-            paged=None if bt is None else (bt, self.backend.page_size))
-        out = to_host(torch.stack([toks.float(), logps, acts.float()])
-                      ).cpu().numpy()
+            # a fresh device block table for every chunk (None for dense)
+            bt = self.backend.block_table_device()
+            with span("decode.scan"):
+                _, (toks, logps, acts) = M.decode_scan(
+                    params, self.cfg, self.cache, self._put(self.last_token),
+                    self._put(self.cache_len), self._put(live),
+                    (self._put(resp_len), 0), steps=D, step_fn=step_fn,
+                    paged=None if bt is None else (bt, self.backend.page_size))
+            with span("decode.readback"):
+                out = to_host(torch.stack([toks.float(), logps, acts.float()])
+                              ).cpu().numpy()
         return out[0].astype(np.int32), out[1], out[2].astype(bool)
 
     # ------------------------------------------------------------------
@@ -737,11 +749,14 @@ class RolloutEngine:
                 f"target_concurrency {target_concurrency} outside "
                 f"[1, pool={self.pool}]")
         try:
-            self._params = self.prepare_params(params)
+            with span("engine.prepare_params"):
+                self._params = self.prepare_params(params)
             self._stage = stage_id
             self._stats = dict(prefill_count=0, prefill_tokens=0,
                                prefill_calls=0, prefill_rows=0,
-                               shared_prefill_rows=0, decode_steps=0,
+                               shared_prefill_rows=0, reprefill_tokens=0,
+                               prefill_positions=0, decode_kv_positions=0,
+                               decode_steps=0,
                                decode_chunks=0, host_syncs=0,
                                active_slot_steps=0, slot_steps=0, generated=0,
                                overgen_tokens=0, resumed=0, evicted=0,
@@ -815,36 +830,42 @@ class RolloutEngine:
         self._stats["host_syncs"] += 1
         self._stats["decode_steps"] += D
         self._stats["slot_steps"] += D * self.pool
+        # the cached positions each active row read at each step of the chunk
+        step = np.arange(1, D + 1)[:, None]
+        self._stats["decode_kv_positions"] += int(
+            ((self.cache_len.astype(np.int64) + step) * was_active).sum())
 
         # host replay of the chunk, in (step, slot) order
         pending = []
-        for d in range(D):
-            if sched.done or not live.any():
-                self._stats["overgen_tokens"] += int(was_active[d:].sum())
-                break
-            if not np.array_equal(was_active[d], live):
-                raise RuntimeError("device/host stop detection desynchronised")
-            step_live = np.nonzero(live)[0]
-            self._stats["active_slot_steps"] += len(step_live)
-            freed = []
-            for i in step_live:
-                i = int(i)
-                traj = self.slots[i]
-                self.cache_len[i] += 1
-                tok = int(toks[d, i])
-                traj.append(tok, float(logps[d, i]), stage_id)
-                self.last_token[i] = tok
-                self._stats["generated"] += 1
-                reason = self._maybe_done(traj)
-                if reason:
-                    self._stop_slot(traj, reason, sched)
-                    self.slots[i] = None
-                    self.backend.free_slot(i)
-                    live[i] = False
-                    freed.append(i)
-            if freed:
-                sched.harvest()
-                pending.extend(self._dispatch_refills(freed, sched))
+        with span("engine.replay"):
+            for d in range(D):
+                if sched.done or not live.any():
+                    self._stats["overgen_tokens"] += int(was_active[d:].sum())
+                    break
+                if not np.array_equal(was_active[d], live):
+                    raise RuntimeError(
+                        "device/host stop detection desynchronised")
+                step_live = np.nonzero(live)[0]
+                self._stats["active_slot_steps"] += len(step_live)
+                freed = []
+                for i in step_live:
+                    i = int(i)
+                    traj = self.slots[i]
+                    self.cache_len[i] += 1
+                    tok = int(toks[d, i])
+                    traj.append(tok, float(logps[d, i]), stage_id)
+                    self.last_token[i] = tok
+                    self._stats["generated"] += 1
+                    reason = self._maybe_done(traj)
+                    if reason:
+                        self._stop_slot(traj, reason, sched)
+                        self.slots[i] = None
+                        self.backend.free_slot(i)
+                        live[i] = False
+                        freed.append(i)
+                if freed:
+                    sched.harvest()
+                    pending.extend(self._dispatch_refills(freed, sched))
         self._prefill_rounds(pending, sched, params, key)
         return True
 
@@ -858,7 +879,6 @@ class RolloutEngine:
 
     def _end_stage(self) -> Tuple[List[Group], dict]:
         sched = self._sched
-        stage_id = self._stage
         t0 = self._t0
         # early termination: evict in-flight work back to the buffer
         for i, traj in enumerate(self.slots):
@@ -885,25 +905,11 @@ class RolloutEngine:
         st["wall_time"] = time.perf_counter() - t0
         st["concurrency_target"] = sched.target_concurrency
         st["buffer_unfinished"] = self.buffer.num_unfinished
-        st["buffer_waiting"] = self.buffer.num_finished_waiting
-        st["buffer_off_policy_frac"] = \
-            self.buffer.off_policy_token_fraction(stage_id + 1)
         st["utilization"] = (st["active_slot_steps"] / st["slot_steps"]
                              if st["slot_steps"] else 1.0)
-        st["tokens_per_sync"] = st["generated"] / max(1, st["host_syncs"])
-        n_traj = sum(len(g.trajectories) for g in groups)
-        all_stages = [np.asarray(t.stage_ids, np.int32)
-                      for g in groups for t in g.trajectories]
-        gaps, counts = np.unique(
-            stage_id - np.concatenate(all_stages) if all_stages
-            else np.empty(0, np.int32), return_counts=True)
-        st["stage_gap_hist"] = {int(g_): int(c) for g_, c in zip(gaps, counts)}
-        st["off_policy_tokens"] = int(counts[gaps > 0].sum())
         st["multi_stage_trajs"] = sum(1 for g in groups for t in g.trajectories
                                       if t.num_stages > 1)
-        st["batch_trajs"] = n_traj
         with self._stats_lock:
             for k_, v in st.items():
-                if isinstance(v, (int, float)):
-                    self.stats_total[k_] = self.stats_total.get(k_, 0) + v
+                self.stats_total[k_] = self.stats_total.get(k_, 0) + v
         return groups, st

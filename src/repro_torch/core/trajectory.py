@@ -66,22 +66,6 @@ class Trajectory:
     def num_stages(self) -> int:
         return len(set(self.stage_ids))
 
-    def off_policy_tokens(self, stage: int) -> int:
-        """MODEL tokens sampled under a policy version older than ``stage`` —
-        the stage consuming this trajectory (the collect stage for rollout
-        stats, the training stage for the train batch). Counting against the
-        consumer, not the trajectory's own latest stage, means a partial that
-        finished entirely under stage k-1 but trains at stage k reports ALL
-        its tokens as off-policy — exactly what the IS correction sees. Env
-        tokens are excluded: the loss mask removes them from the IS ratio,
-        so they carry no staleness."""
-        return sum(1 for s, r in zip(self.stage_ids, self.roles)
-                   if r == 1 and s < stage)
-
-    @property
-    def model_token_count(self) -> int:
-        return sum(self.roles)
-
     @property
     def num_turns(self) -> int:
         """Model turns started so far (>= 1 once anything was generated)."""
